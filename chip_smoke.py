@@ -1,0 +1,358 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printed on its own line; any failure raises and exits non-zero:
+  1. the card's name and power limit (nvidia-smi); CUDA must be available;
+  2. build every CUDA kernel from the sources in the checkout (nvcc);
+  3. each kernel against its plain PyTorch version on the card, on random
+     group-free plans (~512 pods x ~1000 nodes, both providers, scalar axes,
+     infeasible pods): choices, counts, advanced, final carry and rr must be
+     bit-equal (tolerance 0: all values are integers);
+  4. the main path at full size, config 3 (100k Zipf pods on 5k
+     heterogeneous nodes), through TorchBackend on the card: the placement
+     golden, the scheduled count, and launches > 0 of every kernel;
+  5. config 4's CPU shape (100k pods on 2k nodes, half the pods zone-pinned)
+     the same way;
+  6. on the first chunk of each of those two workloads (the main path's
+     shapes), the kernel against its plain version again, bit-equal, and
+     the kernel's time (CUDA events) beside its bound, its plain version's
+     time and the library yardstick.
+Then a JSON line of the kernels and, last, the device line.
+"""
+
+import hashlib
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# placement goldens: sha256 of the int32 choice vector, first 16 hex digits,
+# and the scheduled count (the JAX package's XLA scan on the same workloads)
+GOLDENS = {
+    "config3": (dict(num_pods=100_000, num_nodes=5_000),
+                "920ace51731ade22", 98_474),
+    "config4_cpu_shape": (dict(num_pods=100_000, num_nodes=2_000,
+                               affinity=True),
+                          "91acfe80f43b3b5a", 44_535),
+}
+# H100 SXM peaks from the published datasheet: device memory rate, and the
+# float32 rate outside the tensor cores. The datasheet gives no int32 rate;
+# Hopper has half as many int32 lanes as float32 lanes per SM, so 67e12 is
+# an upper bound on the int32 rate and the bound below a lower bound on time.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
+# int32 operations in fastscan.cu, counted from its source (the bit ORs and
+# loads are left out, so these are lower counts). The filter, per pod and
+# real node: the condition test, the pod-count add and compare, four
+# capacity adds and compares, hostname, selector and taint lookups and two
+# pressure tests (16), plus an add and a compare per scalar axis. A pad
+# node fails at its condition test (1). The score runs only on feasible
+# nodes: two ratios with their guards, the balanced products and divide,
+# two normalizations, the avoid product, the sums, the max and tie tests
+# (30).
+FILTER_OPS, FILTER_OPS_PER_SCALAR, PAD_OPS, SCORE_OPS = 16, 2, 1, 30
+
+
+def card_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def choices_golden(choices):
+    return hashlib.sha256(np.asarray(choices).astype(np.int32).tobytes()
+                          ).hexdigest()[:16]
+
+
+def make_plan(snapshot, pods, most_requested):
+    from tpusim_torch.config import config_for
+    from tpusim_torch.fastplan import plan_fast
+    from tpusim_torch.state import compile_cluster
+
+    compiled, cols = compile_cluster(snapshot, pods)
+    config = config_for(compiled, most_requested)
+    plan, why = plan_fast(config, compiled, cols)
+    if plan is None:
+        raise RuntimeError(f"plan ineligible: {why}")
+    return plan
+
+
+def chunk_inputs(plan, k, device):
+    """The first chunk of `plan` at its initial state, on `device`."""
+    import torch
+
+    from tpusim_torch.fastplan import init_carry
+    from tpusim_torch.fastscan import DevicePlan, carry_tensors, pod_matrix
+
+    dp = DevicePlan(plan, device)
+    carry, misc = carry_tensors(init_carry(plan), device)
+    span = min(k, plan.num_pods)
+    pods = torch.from_numpy(pod_matrix(plan, 0, span, k)).to(device)
+    return dp, carry, misc, pods
+
+
+def run_chunk(fn, plan, dp, carry, misc, pods):
+    from tpusim_torch.state import NUM_FIXED_BITS
+
+    return fn(pods, dp.statics, dp.tables, carry, misc, dp.alloc_scalar,
+              plan.num_scalars, NUM_FIXED_BITS + plan.num_scalars,
+              plan.most_requested)
+
+
+def compare_kernel_with_plain(cuda):
+    """Phase 3: returns the largest absolute difference seen (must be 0)."""
+    from tpusim_torch.kernels.fastscan import fastscan_chunk, fastscan_chunk_plain
+    from tpusim_torch.workloads import random_workload
+
+    cases = [dict(seed=0, most_requested=False, num_scalars=0, infeasible=True),
+             dict(seed=1, most_requested=True, num_scalars=2, infeasible=False),
+             dict(seed=2, most_requested=False, num_scalars=2, infeasible=True),
+             dict(seed=3, most_requested=True, num_scalars=1, infeasible=True)]
+    worst = 0
+    for case in cases:
+        snapshot, pods = random_workload(case["seed"], 512, 1000,
+                                         num_scalars=case["num_scalars"],
+                                         infeasible=case["infeasible"])
+        plan = make_plan(snapshot, pods, case["most_requested"])
+        results = []
+        for fn in (fastscan_chunk, fastscan_chunk_plain):
+            dp, carry, misc, pods_t = chunk_inputs(plan, plan.num_pods, cuda)
+            out = run_chunk(fn, plan, dp, carry, misc, pods_t)
+            results.append([t.cpu().numpy().astype(np.int64)
+                            for t in (*out, carry, misc)])
+        diff = max(int(np.abs(a - b).max(initial=0))
+                   for a, b in zip(*results))
+        placed = int((results[0][0] >= 0).sum())
+        print(f"phase 3: kernel vs plain {case}: {placed}/512 placed, "
+              f"max |diff| {diff}")
+        if diff != 0:
+            raise AssertionError(f"kernel disagrees with its plain version "
+                                 f"on {case}: max |diff| {diff}")
+        if not 0 < placed < 512:
+            raise AssertionError(f"case {case} does not exercise both outcomes")
+        worst = max(worst, diff)
+    return worst
+
+
+def drive_main_path(name, card, cuda):
+    """Phases 4-5: one workload through TorchBackend, checked against its
+    golden; returns the kernel launches of the first run and the plan."""
+    from tpusim_torch.backend import TorchBackend
+    from tpusim_torch.fastscan import CHUNK
+    from tpusim_torch.kernels.fastscan import fastscan_chunk
+    from tpusim_torch.workloads import build_workload
+
+    params, golden, want_scheduled = GOLDENS[name]
+    t0 = time.perf_counter()
+    snapshot, pods = build_workload(**params)
+    build_s = time.perf_counter() - t0
+    backend = TorchBackend(device="cuda")
+    fastscan_chunk.launches = 0
+    t0 = time.perf_counter()
+    placements = backend.schedule(pods, snapshot)
+    cold_s = time.perf_counter() - t0
+    launches = fastscan_chunk.launches
+    got = choices_golden(backend.last_choices)
+    scheduled = sum(1 for p in placements if p.scheduled)
+    t0 = time.perf_counter()
+    backend.schedule(pods, snapshot)
+    warm_s = time.perf_counter() - t0
+    if choices_golden(backend.last_choices) != got:
+        raise AssertionError(f"{name}: warm run placed differently")
+    n = params["num_pods"]
+    print(f"phase {4 if name == 'config3' else 5}: {name} "
+          f"({n} pods, {params['num_nodes']} nodes): golden {got} "
+          f"(want {golden}), {scheduled} scheduled (want {want_scheduled}), "
+          f"{launches} kernel launches; workload build {build_s:.2f}s, "
+          f"cold {cold_s:.3f}s, warm {warm_s:.3f}s = {n / warm_s:.0f} pods/s "
+          f"end to end on {card}")
+    if got != golden or scheduled != want_scheduled:
+        raise AssertionError(f"{name}: placement golden {got}/{scheduled} != "
+                             f"{golden}/{want_scheduled}")
+    if launches <= 0:
+        raise AssertionError(f"{name}: the CUDA kernel was never launched")
+    # the scan alone, device time of every chunk launch in sequence
+    plan = make_plan(snapshot, pods, False)
+    scan_ms = time_full_scan(plan, cuda)
+    print(f"phase {4 if name == 'config3' else 5}: {name} kernel time over "
+          f"the whole scan {scan_ms:.3f} ms ({-(-n // CHUNK)} launches of "
+          f"{CHUNK} pods, CUDA events) on {card}")
+    return launches, plan
+
+
+def time_full_scan(plan, cuda):
+    import torch
+
+    from tpusim_torch.fastplan import init_carry
+    from tpusim_torch.fastscan import CHUNK, DevicePlan, carry_tensors, pod_matrix
+    from tpusim_torch.kernels.fastscan import fastscan_chunk
+    from tpusim_torch.state import NUM_FIXED_BITS
+
+    k = CHUNK
+    chunks = -(-plan.num_pods // k)
+    dp = DevicePlan(plan, cuda)
+    carry, misc = carry_tensors(init_carry(plan), cuda)
+    pods = torch.from_numpy(pod_matrix(plan, 0, plan.num_pods, chunks * k)
+                            ).to(cuda)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for ci in range(chunks):
+        fastscan_chunk(pods[ci * k:(ci + 1) * k], dp.statics, dp.tables, carry,
+                       misc, dp.alloc_scalar, plan.num_scalars,
+                       NUM_FIXED_BITS + plan.num_scalars, plan.most_requested)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def chunk_run(fn, plan, cuda, repeats):
+    """Mean device time of `fn` on the main path's first chunk, each call
+    from a fresh copy of the initial state, and the last call's outputs,
+    final carry and rr as int64 arrays."""
+    import torch
+
+    from tpusim_torch.fastscan import CHUNK
+
+    total = 0.0
+    for _ in range(repeats):
+        dp, carry, misc, pods = chunk_inputs(plan, CHUNK, cuda)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = run_chunk(fn, plan, dp, carry, misc, pods)
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / repeats, [t.cpu().numpy().astype(np.int64)
+                             for t in (*out, carry, misc)]
+
+
+def feasible_pairs(plan, cuda):
+    """The (pod, node) pairs of the main path's first chunk that pass the
+    filter, replaying the chunk pod by pod through the plain version."""
+    from tpusim_torch.fastscan import CHUNK
+    from tpusim_torch.kernels.fastscan import fastscan_chunk_plain, filter_pod
+    from tpusim_torch.state import NUM_FIXED_BITS
+
+    dp, carry, misc, pods = chunk_inputs(plan, CHUNK, cuda)
+    total = 0
+    for j in range(min(CHUNK, plan.num_pods)):
+        feasible, _ = filter_pod(pods[j].tolist(), dp.statics, dp.tables,
+                                 carry, dp.alloc_scalar, plan.num_scalars)
+        total += int(feasible.sum())
+        fastscan_chunk_plain(pods[j:j + 1], dp.statics, dp.tables, carry,
+                             misc, dp.alloc_scalar, plan.num_scalars,
+                             NUM_FIXED_BITS + plan.num_scalars,
+                             plan.most_requested)
+    return total
+
+
+def chunk_bound_ms(plan, pairs_feasible):
+    """The least time for the main path's first chunk: inputs read once,
+    outputs written once, over the memory rate; the operations this chunk's
+    data needs over the 32-bit peak."""
+    from tpusim_torch.fastscan import CHUNK
+
+    k = CHUNK
+    real = min(k, plan.num_pods)
+    npad = plan.alloc_cpu.shape[1]
+    nb = 24 + plan.num_scalars
+    srows = plan.alloc_scalar.shape[0] if plan.num_scalars else 0
+    tables = sum(getattr(plan, t).size for t in (
+        "selector_ok", "taint_ok", "intolerable", "aff_count", "avoid_score",
+        "host_ok"))
+    carry = (7 + srows) * npad + 128
+    inputs = k * (13 + plan.num_scalars) + (8 + srows) * npad + tables + carry
+    outputs = carry + k * (2 + nb)
+    bytes_ = 4 * (inputs + outputs)
+    ops = (real * plan.num_nodes
+           * (FILTER_OPS + FILTER_OPS_PER_SCALAR * plan.num_scalars)
+           + real * (npad - plan.num_nodes) * PAD_OPS
+           + pairs_feasible * SCORE_OPS)
+    t_bytes, t_ops = bytes_ / PEAK_BYTES_PER_S, ops / PEAK_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script needs an "
+              "NVIDIA GPU", file=sys.stderr)
+        return 1
+    sys.path.insert(0, HERE)
+    from tpusim_torch.fastscan import CHUNK
+    from tpusim_torch.kernels import build
+    from tpusim_torch.kernels.fastscan import fastscan_chunk, fastscan_chunk_plain
+
+    card = card_line()
+    print(f"phase 1: card {card}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+    cuda = torch.device("cuda")
+
+    t0 = time.perf_counter()
+    build.build_all(verbose=True)
+    build.load("fastscan.cu")
+    print(f"phase 2: built {len(build.SOURCES)} CUDA source(s) in "
+          f"{time.perf_counter() - t0:.1f}s")
+
+    max_err = compare_kernel_with_plain(cuda)
+
+    launches, plan3 = drive_main_path("config3", card, cuda)
+    _, plan4 = drive_main_path("config4_cpu_shape", card, cuda)
+
+    # phase 6: the kernel against its plain version at the main path's
+    # shapes (several nodes a thread), then its time on config 3's chunk
+    timed = {}
+    for name, plan in (("config3", plan3), ("config4_cpu_shape", plan4)):
+        ms, got = chunk_run(fastscan_chunk, plan, cuda, repeats=20)
+        plain_ms, want = chunk_run(fastscan_chunk_plain, plan, cuda,
+                                   repeats=2)
+        diff = max(int(np.abs(a - b).max(initial=0))
+                   for a, b in zip(got, want))
+        pairs = feasible_pairs(plan, cuda)
+        bound_ms, bound_by = chunk_bound_ms(plan, pairs)
+        placed = int((got[0] >= 0).sum())
+        print(f"phase 6: {name} first chunk ({CHUNK} pods x "
+              f"{plan.num_nodes} nodes, Npad {plan.alloc_cpu.shape[1]}): "
+              f"kernel vs plain max |diff| {diff} ({placed} placed, "
+              f"{pairs} feasible pairs); kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.1f} ms, bound {bound_ms:.5f} ms ({bound_by}) "
+              f"on {card}")
+        if diff != 0:
+            raise AssertionError(f"{name}: kernel disagrees with its plain "
+                                 f"version on the first chunk: max |diff| "
+                                 f"{diff}")
+        max_err = max(max_err, diff)
+        timed[name] = (ms, plain_ms, bound_ms, bound_by)
+    ms, plain_ms, bound_ms, bound_by = timed["config3"]
+    kernels = [{
+        "name": "fastscan_chunk", "route": "cuda",
+        "source": "tpusim_torch/csrc/fastscan.cu",
+        "replaces": "tpusim/jaxe/fastscan.py:1164",
+        "launches": launches, "max_abs_err": max_err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None,
+    }]
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,20 @@
+"""tpusim_torch — the Kubernetes scheduling simulator on PyTorch and CUDA.
+
+The port of `tpusim` (JAX on a TPU) to an NVIDIA H100. It keeps tpusim's
+module names so each counterpart is easy to find, and imports nothing of
+tpusim or of JAX:
+
+  api/        domain model, snapshots, podspec parsing
+  engine/     the host-side predicate/priority helpers the compile step uses
+  state       the numpy cluster compile (signature tables, pod columns)
+  config      provider configuration and score weights
+  fastplan    the int32 FastPlan of the fused scan
+  kernels/    the hand-written CUDA kernels, their wrappers and plain versions
+  csrc/       the CUDA sources, built with nvcc at first use
+  fastscan    the chunked driver of the fused scan
+  backend     TorchBackend: compile -> plan -> scan -> placements
+  simulator   run_simulation, the entry point of a simulation
+  cli         python -m tpusim_torch.cli
+"""
+
+__version__ = "0.1.0"

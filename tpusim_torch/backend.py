@@ -1,0 +1,134 @@
+"""TorchBackend: Schedule(pod_batch, cluster_state) -> placements, on the
+fused fast scan.
+
+The host compiles the cluster (numpy), `plan_fast` builds the int32 plan,
+`fast_scan` runs the pods through the chunk kernel (CUDA on the card, its
+plain version on the CPU), and `decode_placements` turns choices and reason
+counts into Placements and FitError text byte-identical to kube-scheduler's.
+A workload the group-free kernel does not carry raises NotImplementedError
+with the reason; there is no host fallback.
+"""
+
+from __future__ import annotations
+
+import hashlib
+from dataclasses import dataclass
+from typing import List
+
+import numpy as np
+
+from tpusim_torch.api.snapshot import ClusterSnapshot
+from tpusim_torch.api.types import Pod, PodCondition
+from tpusim_torch.config import config_for
+from tpusim_torch.device import resolve_device
+from tpusim_torch.fastplan import plan_fast
+from tpusim_torch.fastscan import fast_scan
+from tpusim_torch.state import compile_cluster, reason_strings
+
+DEFAULT_PROVIDER = "DefaultProvider"
+CLUSTER_AUTOSCALER_PROVIDER = "ClusterAutoscalerProvider"
+TD_PROVIDER = "TalkintDataProvider"
+_MOST_REQUESTED_PROVIDERS = {CLUSTER_AUTOSCALER_PROVIDER, TD_PROVIDER}
+_KNOWN_PROVIDERS = {DEFAULT_PROVIDER} | _MOST_REQUESTED_PROVIDERS
+
+# generic_scheduler.go:48 (FitError.Error's header)
+NO_NODE_AVAILABLE_MSG = "0/{} nodes are available"
+
+
+@dataclass
+class Placement:
+    """One scheduling decision. For parity hashing: (pod name, node|'', reason)."""
+
+    pod: Pod
+    node_name: str = ""
+    reason: str = ""   # "" on success, "Unschedulable" on predicate failure
+    message: str = ""  # FitError reason histogram text
+
+    @property
+    def scheduled(self) -> bool:
+        return bool(self.node_name)
+
+
+def bind_pod(pod: Pod, node_name: str) -> Pod:
+    """The Bind intercept's state mutation (reference: simulator.go:108-128):
+    set nodeName, mark Running."""
+    bound = pod.copy()
+    bound.spec.node_name = node_name
+    bound.status.phase = "Running"
+    return bound
+
+
+def mark_unschedulable(pod: Pod, message: str) -> Pod:
+    """The Update intercept (reference: simulator.go:163-185 + scheduler.go
+    error path): Pending phase, PodScheduled=False condition,
+    Reason=Unschedulable."""
+    failed = pod.copy()
+    failed.status.phase = "Pending"
+    failed.status.conditions.append(PodCondition(
+        type="PodScheduled", status="False", reason="Unschedulable", message=message))
+    failed.status.reason = "Unschedulable"
+    return failed
+
+
+def placement_hash(placements: List[Placement]) -> str:
+    """Stable digest of the ordered decision list for parity checking."""
+    h = hashlib.sha256()
+    for p in placements:
+        h.update(f"{p.pod.name}\x00{p.node_name}\x00{p.reason}\n".encode())
+    return h.hexdigest()
+
+
+def format_fit_error(num_nodes: int, counts: np.ndarray, strings: List[str]) -> str:
+    """Byte-identical FitError.Error() (generic_scheduler.go:71-90)."""
+    reason_strs = sorted(f"{int(c)} {strings[i]}"
+                         for i, c in enumerate(counts) if c > 0)
+    return (NO_NODE_AVAILABLE_MSG.format(num_nodes)
+            + ": " + ", ".join(reason_strs) + ".")
+
+
+def decode_placements(pods: List[Pod], choices: np.ndarray, counts: np.ndarray,
+                      names: List[str], strings: List[str]) -> List[Placement]:
+    """Device results -> Placements, in pod order."""
+    placements: List[Placement] = []
+    for j, pod in enumerate(pods):
+        c = int(choices[j])
+        if c >= 0:
+            placements.append(Placement(pod=bind_pod(pod, names[c]),
+                                        node_name=names[c]))
+        else:
+            msg = format_fit_error(len(names), counts[j], strings)
+            placements.append(Placement(pod=mark_unschedulable(pod, msg),
+                                        reason="Unschedulable", message=msg))
+    return placements
+
+
+class TorchBackend:
+    def __init__(self, provider: str = DEFAULT_PROVIDER, device="cuda"):
+        if provider not in _KNOWN_PROVIDERS:
+            raise KeyError(f"plugin {provider!r} has not been registered")
+        self.provider = provider
+        self.device = resolve_device(device)
+        # the last batch's raw device results, in pod order
+        self.last_choices = np.zeros(0, np.int32)
+
+    def schedule(self, pods: List[Pod],
+                 snapshot: ClusterSnapshot) -> List[Placement]:
+        self.last_choices = np.zeros(0, np.int32)
+        if not pods:
+            return []
+        if not snapshot.nodes:
+            msg = "no nodes available to schedule pods"
+            self.last_choices = np.full(len(pods), -1, np.int32)
+            return [Placement(pod=mark_unschedulable(p, msg),
+                              reason="Unschedulable", message=msg)
+                    for p in pods]
+        compiled, cols = compile_cluster(snapshot, pods)
+        config = config_for(
+            compiled, most_requested=self.provider in _MOST_REQUESTED_PROVIDERS)
+        plan, why = plan_fast(config, compiled, cols)
+        if plan is None:
+            raise NotImplementedError(f"torch backend: {why}")
+        choices, counts, _adv = fast_scan(plan, device=self.device)
+        self.last_choices = choices
+        return decode_placements(pods, choices, counts, compiled.statics.names,
+                                 reason_strings(compiled.scalar_names))

@@ -1,0 +1,96 @@
+"""Command-line entry of the PyTorch port.
+
+    python -m tpusim_torch.cli --podspec pods.yaml --synthetic-nodes 4 [--device cpu]
+
+prints the Successful/Failed pods report of the reference simulator
+(cmd/app/server.go), scheduled by TorchBackend: the CUDA kernels by default,
+their plain PyTorch versions with --device cpu.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+from tpusim_torch.api.podspec import expand_simulation_pods, load_simulation_pods
+from tpusim_torch.api.snapshot import synthetic_cluster
+from tpusim_torch.framework.report import (
+    cluster_capacity_review_print,
+    get_report,
+    spec_print,
+)
+from tpusim_torch.simulator import run_simulation
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="tpusim_torch",
+        description="Cluster-capacity schedule simulation on the PyTorch/CUDA engine")
+    parser.add_argument("--podspec", default="",
+                        help="YAML/JSON file with [{name, pod, num}] entries")
+    parser.add_argument("--algorithmprovider", default="DefaultProvider",
+                        help="DefaultProvider | ClusterAutoscalerProvider | "
+                             "TalkintDataProvider")
+    parser.add_argument("--namespace", default="default",
+                        help="Namespace stamped onto simulated pods")
+    parser.add_argument("--synthetic-nodes", type=int, default=0,
+                        help="Generate N homogeneous synthetic nodes")
+    parser.add_argument("--synthetic-milli-cpu", type=int, default=4000)
+    parser.add_argument("--synthetic-memory", type=int, default=16 * 1024**3)
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (default: the CUDA kernels) or cpu (their "
+                             "plain PyTorch versions)")
+    parser.add_argument("--print-requirements", action="store_true",
+                        help="Also print per-pod requirement spec")
+    parser.add_argument("--quiet", action="store_true",
+                        help="Only print the summary counts and timing")
+    return parser
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(sys.argv[1:] if argv is None else argv)
+    if not args.podspec:
+        print("error: --podspec is required", file=sys.stderr)
+        return 2
+    if args.synthetic_nodes <= 0:
+        print("error: no cluster nodes; pass --synthetic-nodes", file=sys.stderr)
+        return 2
+    snapshot = synthetic_cluster(args.synthetic_nodes,
+                                 milli_cpu=args.synthetic_milli_cpu,
+                                 memory=args.synthetic_memory)
+    try:
+        sim_pods = load_simulation_pods(args.podspec)
+    except (OSError, ValueError) as exc:
+        print(f"error: failed to parse podspec: {exc}", file=sys.stderr)
+        return 2
+    pods = expand_simulation_pods(sim_pods, namespace=args.namespace)
+
+    start = time.perf_counter()
+    try:
+        status = run_simulation(pods, snapshot,
+                                provider=args.algorithmprovider,
+                                device=args.device)
+    except (ValueError, KeyError, RuntimeError, NotImplementedError) as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 2
+    elapsed = time.perf_counter() - start
+
+    report = get_report(status)
+    if args.print_requirements and not args.quiet:
+        spec_print(report.review["success"].spec)
+        spec_print(report.review["failed"].spec)
+    if not args.quiet:
+        cluster_capacity_review_print(report)
+    n_ok = len(status.successful_pods)
+    n_fail = len(status.failed_pods)
+    rate = (n_ok + n_fail) / elapsed if elapsed > 0 else 0.0
+    print(f"\n{n_ok} pod(s) scheduled, {n_fail} unschedulable, "
+          f"{len(status.scheduled_pods)} pre-scheduled "
+          f"[torch backend on {args.device}, {elapsed:.3f}s, {rate:.0f} pods/s]")
+    print(f"StopReason: {status.stop_reason.strip()}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,50 @@
+"""The priority map functions the cluster compile step tabulates per
+(signature, node) cell. MaxPriority = 10 (api/types.go:36).
+
+Reference: node_affinity.go:34-79, node_prefer_avoid_pods.go.
+"""
+
+from __future__ import annotations
+
+import json
+
+from tpusim_torch.api.types import Node, Pod
+
+MAX_PRIORITY = 10
+
+
+def calculate_node_affinity_priority_map(pod: Pod, node: Node) -> int:
+    """Sum of the weights of the preferred node-affinity terms the node
+    matches (normalized on the device over the feasible nodes)."""
+    affinity = pod.spec.affinity
+    count = 0
+    if affinity is not None and affinity.node_affinity is not None:
+        for term in affinity.node_affinity.preferred:
+            if term.weight == 0:
+                continue
+            if term.preference.matches(node.metadata.labels):
+                count += term.weight
+    return count
+
+
+def calculate_node_prefer_avoid_pods_priority_map(pod: Pod, node: Node) -> int:
+    """0 when the node's preferAvoidPods annotation names the pod's
+    ReplicationController/ReplicaSet, else MAX_PRIORITY."""
+    controller_ref = pod.metadata.controller_ref()
+    if controller_ref is not None and controller_ref.kind not in (
+            "ReplicationController", "ReplicaSet"):
+        controller_ref = None
+    if controller_ref is None:
+        return MAX_PRIORITY
+    ann = node.metadata.annotations.get("scheduler.alpha.kubernetes.io/preferAvoidPods")
+    if not ann:
+        return MAX_PRIORITY
+    try:
+        avoids = json.loads(ann)
+    except ValueError:
+        return MAX_PRIORITY
+    for avoid in avoids.get("preferAvoidPods", []):
+        ctrl = (avoid.get("podSignature") or {}).get("podController") or {}
+        if ctrl.get("kind") == controller_ref.kind and ctrl.get("uid") == controller_ref.uid:
+            return 0
+    return MAX_PRIORITY
