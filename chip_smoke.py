@@ -18,7 +18,17 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
   6. on the first chunk of each of those two workloads (the main path's
      shapes), the kernel against its plain version again, bit-equal, and
      the kernel's time (CUDA events) beside its bound, its plain version's
-     time and the library yardstick.
+     time and the library yardstick;
+  7. the kernel's pod-group variant (Variants 2 and 4: host ports,
+     NoDiskConflict, NoVolumeZoneConflict, MaxPD, SelectorSpread) against its
+     plain version on random group plans (~512 pods x ~1000 nodes, both
+     providers, one case with a MaxPD limit of 1), bit-equal;
+  8. the groups workload at full size (config 3 with 8 Services, host-port
+     pods and disk pods: 100k pods on 5k nodes) through TorchBackend on the
+     card: the placement golden, the scheduled count, launches > 0 of the
+     group variant, cold and warm wall, the kernel time over the whole scan;
+     then its first chunk kernel against plain, bit-equal, with the
+     kernel's time beside its bound and its plain version's time.
 Then a JSON line of the kernels and, last, the device line.
 """
 
@@ -34,14 +44,23 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # placement goldens: sha256 of the int32 choice vector, first 16 hex digits,
-# and the scheduled count (the JAX package's XLA scan on the same workloads)
+# and the scheduled count (the JAX package's XLA scan on the same workloads;
+# tools/port_golden.py records them)
 GOLDENS = {
-    "config3": (dict(num_pods=100_000, num_nodes=5_000),
+    "config3": ("build_workload", dict(num_pods=100_000, num_nodes=5_000),
                 "920ace51731ade22", 98_474),
-    "config4_cpu_shape": (dict(num_pods=100_000, num_nodes=2_000,
+    "config4_cpu_shape": ("build_workload",
+                          dict(num_pods=100_000, num_nodes=2_000,
                                affinity=True),
                           "91acfe80f43b3b5a", 44_535),
+    "groups": ("groups_workload", dict(num_pods=100_000, num_nodes=5_000),
+               "49516d158991e079", 98_296),
 }
+# the phase that drives each main-path workload, and the kernel variant it
+# must launch
+PHASE = {"config3": 4, "config4_cpu_shape": 5, "groups": 8}
+VARIANT = {"config3": "group_free", "config4_cpu_shape": "group_free",
+           "groups": "groups"}
 # H100 SXM peaks from the published datasheet: device memory rate, and the
 # float32 rate outside the tensor cores. The datasheet gives no int32 rate;
 # Hopper has half as many int32 lanes as float32 lanes per SM, so 67e12 is
@@ -58,6 +77,14 @@ PEAK_OPS_PER_S = 67e12
 # two normalizations, the avoid product, the sums, the max and tie tests
 # (30).
 FILTER_OPS, FILTER_OPS_PER_SCALAR, PAD_OPS, SCORE_OPS = 16, 2, 1, 30
+# The group variant, per (pod, real node): a presence load and test for each
+# group in the pod's port and disk sets (2 each), the vol-zone row test
+# (1), and for a pod that mounts counted volumes a load, select and three
+# typed adds per volume id (5 each). Per feasible pair: a presence load and
+# add per group of the spread set (2 each), the zone-sum accumulation and
+# the blend's products, divide and selects (24).
+PRESENCE_OPS, VOL_ZONE_OPS, MAXPD_OPS_PER_VOL = 2, 1, 5
+SPREAD_OPS_PER_GROUP, SPREAD_BLEND_OPS = 2, 24
 
 
 def card_line():
@@ -104,7 +131,7 @@ def run_chunk(fn, plan, dp, carry, misc, pods):
 
     return fn(pods, dp.statics, dp.tables, carry, misc, dp.alloc_scalar,
               plan.num_scalars, NUM_FIXED_BITS + plan.num_scalars,
-              plan.most_requested)
+              plan.most_requested, dp.groups)
 
 
 def compare_kernel_with_plain(cuda):
@@ -142,24 +169,92 @@ def compare_kernel_with_plain(cuda):
     return worst
 
 
+def compare_group_kernel_with_plain(cuda):
+    """Phase 7: the group variant on random group plans; returns the largest
+    absolute difference seen (must be 0)."""
+    from tpusim_torch.kernels.fastscan import fastscan_chunk, fastscan_chunk_plain
+    from tpusim_torch.state import (
+        BIT_DISK_CONFLICT,
+        BIT_HOST_PORTS,
+        BIT_MAX_VOLUME_COUNT,
+        BIT_VOLUME_ZONE_CONFLICT,
+    )
+    from tpusim_torch.workloads import random_group_workload
+
+    every = dict(ports=True, services=True, disk=True, vol_zone=True,
+                 maxpd=True)
+    cases = [dict(seed=20, most_requested=False, features=every),
+             dict(seed=21, most_requested=True, features=every),
+             dict(seed=22, most_requested=False, maxpd_limit="1",
+                  features=dict(maxpd=True, disk=True)),
+             dict(seed=23, most_requested=True,
+                  features=dict(vol_zone=True, ports=True)),
+             dict(seed=24, most_requested=True,
+                  features=dict(services=True, maxpd=True))]
+    bits = {"ports": BIT_HOST_PORTS, "disk": BIT_DISK_CONFLICT,
+            "maxpd": BIT_MAX_VOLUME_COUNT, "vol_zone": BIT_VOLUME_ZONE_CONFLICT}
+    worst = 0
+    for case in cases:
+        limit = case.get("maxpd_limit")
+        if limit:
+            os.environ["KUBE_MAX_PD_VOLS"] = limit
+        try:
+            snapshot, pods = random_group_workload(
+                case["seed"], 512, 1000, **case["features"])
+            plan = make_plan(snapshot, pods, case["most_requested"])
+        finally:
+            os.environ.pop("KUBE_MAX_PD_VOLS", None)
+        results = []
+        for fn in (fastscan_chunk, fastscan_chunk_plain):
+            dp, carry, misc, pods_t = chunk_inputs(plan, plan.num_pods, cuda)
+            out = run_chunk(fn, plan, dp, carry, misc, pods_t)
+            results.append([t.cpu().numpy().astype(np.int64)
+                            for t in (*out, carry, misc)])
+        diff = max(int(np.abs(a - b).max(initial=0))
+                   for a, b in zip(*results))
+        placed = int((results[0][0] >= 0).sum())
+        counts = results[0][1]
+        reasons = {k: int(counts[:, b].sum()) for k, b in bits.items()}
+        shown = {k: v for k, v in case.items() if k != "features"}
+        print(f"phase 7: group kernel vs plain {shown} "
+              f"{sorted(case['features'])}: Gpad {plan.num_groups}, "
+              f"{plan.n_vols} volume ids, limits {plan.maxpd_limits}; "
+              f"{placed}/512 placed, failed-node reasons {reasons}, "
+              f"max |diff| {diff}")
+        if diff != 0:
+            raise AssertionError(f"group kernel disagrees with its plain "
+                                 f"version on {shown}: max |diff| {diff}")
+        if not 0 < placed < 512:
+            raise AssertionError(f"case {shown} does not exercise both "
+                                 "outcomes")
+        if limit and reasons["maxpd"] == 0:
+            raise AssertionError(f"case {shown} never fails MaxPD")
+        worst = max(worst, diff)
+    return worst
+
+
 def drive_main_path(name, card, cuda):
-    """Phases 4-5: one workload through TorchBackend, checked against its
-    golden; returns the kernel launches of the first run and the plan."""
+    """Phases 4, 5 and 8: one workload through TorchBackend, checked against
+    its golden; returns the kernel launches of the first run and the plan."""
+    from tpusim_torch import workloads
     from tpusim_torch.backend import TorchBackend
     from tpusim_torch.fastscan import CHUNK
     from tpusim_torch.kernels.fastscan import fastscan_chunk
-    from tpusim_torch.workloads import build_workload
 
-    params, golden, want_scheduled = GOLDENS[name]
+    workload, params, golden, want_scheduled = GOLDENS[name]
+    phase, variant = PHASE[name], VARIANT[name]
     t0 = time.perf_counter()
-    snapshot, pods = build_workload(**params)
+    snapshot, pods = getattr(workloads, workload)(**params)
     build_s = time.perf_counter() - t0
     backend = TorchBackend(device="cuda")
     fastscan_chunk.launches = 0
+    for key in fastscan_chunk.launches_by_variant:
+        fastscan_chunk.launches_by_variant[key] = 0
     t0 = time.perf_counter()
     placements = backend.schedule(pods, snapshot)
     cold_s = time.perf_counter() - t0
-    launches = fastscan_chunk.launches
+    launches = fastscan_chunk.launches_by_variant[variant]
+    all_launches = fastscan_chunk.launches
     got = choices_golden(backend.last_choices)
     scheduled = sum(1 for p in placements if p.scheduled)
     t0 = time.perf_counter()
@@ -168,21 +263,22 @@ def drive_main_path(name, card, cuda):
     if choices_golden(backend.last_choices) != got:
         raise AssertionError(f"{name}: warm run placed differently")
     n = params["num_pods"]
-    print(f"phase {4 if name == 'config3' else 5}: {name} "
+    print(f"phase {phase}: {name} "
           f"({n} pods, {params['num_nodes']} nodes): golden {got} "
           f"(want {golden}), {scheduled} scheduled (want {want_scheduled}), "
-          f"{launches} kernel launches; workload build {build_s:.2f}s, "
-          f"cold {cold_s:.3f}s, warm {warm_s:.3f}s = {n / warm_s:.0f} pods/s "
-          f"end to end on {card}")
+          f"{launches} kernel launches ({variant} variant); workload build "
+          f"{build_s:.2f}s, cold {cold_s:.3f}s, warm {warm_s:.3f}s = "
+          f"{n / warm_s:.0f} pods/s end to end on {card}")
     if got != golden or scheduled != want_scheduled:
         raise AssertionError(f"{name}: placement golden {got}/{scheduled} != "
                              f"{golden}/{want_scheduled}")
-    if launches <= 0:
-        raise AssertionError(f"{name}: the CUDA kernel was never launched")
+    if launches <= 0 or launches != all_launches:
+        raise AssertionError(f"{name}: the {variant} kernel variant was "
+                             f"launched {launches} of {all_launches} times")
     # the scan alone, device time of every chunk launch in sequence
     plan = make_plan(snapshot, pods, False)
     scan_ms = time_full_scan(plan, cuda)
-    print(f"phase {4 if name == 'config3' else 5}: {name} kernel time over "
+    print(f"phase {phase}: {name} kernel time over "
           f"the whole scan {scan_ms:.3f} ms ({-(-n // CHUNK)} launches of "
           f"{CHUNK} pods, CUDA events) on {card}")
     return launches, plan
@@ -209,7 +305,8 @@ def time_full_scan(plan, cuda):
     for ci in range(chunks):
         fastscan_chunk(pods[ci * k:(ci + 1) * k], dp.statics, dp.tables, carry,
                        misc, dp.alloc_scalar, plan.num_scalars,
-                       NUM_FIXED_BITS + plan.num_scalars, plan.most_requested)
+                       NUM_FIXED_BITS + plan.num_scalars, plan.most_requested,
+                       dp.groups)
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end)
@@ -240,49 +337,100 @@ def chunk_run(fn, plan, cuda, repeats):
 
 def feasible_pairs(plan, cuda):
     """The (pod, node) pairs of the main path's first chunk that pass the
-    filter, replaying the chunk pod by pod through the plain version."""
+    filter, replaying the chunk pod by pod through the plain version, and
+    the spread-group reads over those pairs."""
     from tpusim_torch.fastscan import CHUNK
     from tpusim_torch.kernels.fastscan import fastscan_chunk_plain, filter_pod
     from tpusim_torch.state import NUM_FIXED_BITS
 
     dp, carry, misc, pods = chunk_inputs(plan, CHUNK, cuda)
-    total = 0
+    total = spread_reads = 0
     for j in range(min(CHUNK, plan.num_pods)):
         feasible, _ = filter_pod(pods[j].tolist(), dp.statics, dp.tables,
-                                 carry, dp.alloc_scalar, plan.num_scalars)
-        total += int(feasible.sum())
+                                 carry, dp.alloc_scalar, plan.num_scalars,
+                                 dp.groups)
+        nf = int(feasible.sum())
+        total += nf
+        if plan.has_spread:
+            spread_reads += nf * int(plan.ss_row[j].sum())
         fastscan_chunk_plain(pods[j:j + 1], dp.statics, dp.tables, carry,
                              misc, dp.alloc_scalar, plan.num_scalars,
                              NUM_FIXED_BITS + plan.num_scalars,
-                             plan.most_requested)
-    return total
+                             plan.most_requested, dp.groups)
+    return total, spread_reads
 
 
-def chunk_bound_ms(plan, pairs_feasible):
+def chunk_bound_ms(plan, pairs_feasible, spread_reads=0):
     """The least time for the main path's first chunk: inputs read once,
     outputs written once, over the memory rate; the operations this chunk's
     data needs over the 32-bit peak."""
-    from tpusim_torch.fastscan import CHUNK
+    from tpusim_torch.fastscan import CHUNK, pod_matrix
 
     k = CHUNK
     real = min(k, plan.num_pods)
     npad = plan.alloc_cpu.shape[1]
+    n = plan.num_nodes
     nb = 24 + plan.num_scalars
     srows = plan.alloc_scalar.shape[0] if plan.num_scalars else 0
+    vrows = plan.used_vols.shape[0] if plan.has_maxpd else 0
     tables = sum(getattr(plan, t).size for t in (
         "selector_ok", "taint_ok", "intolerable", "aff_count", "avoid_score",
         "host_ok"))
-    carry = (7 + srows) * npad + 128
-    inputs = k * (13 + plan.num_scalars) + (8 + srows) * npad + tables + carry
+    # the group operands: the zone-id row, the vol-zone and volume tables
+    groups = ((npad if plan.has_spread else 0)
+              + (plan.zone_ok_tbl.size if plan.has_vol_zone else 0)
+              + (plan.vol_tbl.size + 3 * plan.n_vols if plan.has_maxpd
+                 else 0))
+    carry = (7 + srows + plan.num_groups + vrows) * npad + 128
+    pod_w = pod_matrix(plan, 0, 0, 1).shape[1]
+    inputs = k * pod_w + (8 + srows) * npad + tables + groups + carry
     outputs = carry + k * (2 + nb)
     bytes_ = 4 * (inputs + outputs)
-    ops = (real * plan.num_nodes
-           * (FILTER_OPS + FILTER_OPS_PER_SCALAR * plan.num_scalars)
-           + real * (npad - plan.num_nodes) * PAD_OPS
+    ops = (real * n * (FILTER_OPS + FILTER_OPS_PER_SCALAR * plan.num_scalars)
+           + real * (npad - n) * PAD_OPS
            + pairs_feasible * SCORE_OPS)
+    if plan.num_groups:
+        sets = sum(int(getattr(plan, name)[:real].sum())
+                   for name in ("port_row", "disk_row")
+                   if getattr(plan, name) is not None)
+        ops += sets * n * PRESENCE_OPS
+    if plan.has_vol_zone:
+        ops += real * n * VOL_ZONE_OPS
+    if plan.has_maxpd:
+        counted = plan.vol_tbl[plan.gid[:real], :plan.n_vols].any(axis=1)
+        ops += int(counted.sum()) * n * plan.n_vols * MAXPD_OPS_PER_VOL
+    if plan.has_spread:
+        ops += (spread_reads * SPREAD_OPS_PER_GROUP
+                + pairs_feasible * SPREAD_BLEND_OPS)
     t_bytes, t_ops = bytes_ / PEAK_BYTES_PER_S, ops / PEAK_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def time_first_chunk(name, plan, card, cuda, phase):
+    """The kernel against its plain version on the main path's first chunk,
+    bit-equal, with the kernel's time beside its bound and its plain
+    version's time; returns (max |diff|, ms, plain_ms, bound_ms, bound_by)."""
+    from tpusim_torch.fastscan import CHUNK
+    from tpusim_torch.kernels.fastscan import fastscan_chunk, fastscan_chunk_plain
+
+    ms, got = chunk_run(fastscan_chunk, plan, cuda, repeats=20)
+    plain_ms, want = chunk_run(fastscan_chunk_plain, plan, cuda, repeats=2)
+    diff = max(int(np.abs(a - b).max(initial=0)) for a, b in zip(got, want))
+    pairs, spread_reads = feasible_pairs(plan, cuda)
+    bound_ms, bound_by = chunk_bound_ms(plan, pairs, spread_reads)
+    placed = int((got[0] >= 0).sum())
+    print(f"phase {phase}: {name} first chunk ({CHUNK} pods x "
+          f"{plan.num_nodes} nodes, Npad {plan.alloc_cpu.shape[1]}): "
+          f"kernel vs plain max |diff| {diff} ({placed} placed, "
+          f"{pairs} feasible pairs); kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.1f} ms, bound {bound_ms:.5f} ms ({bound_by}) "
+          f"on {card}")
+    if diff != 0:
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             f"version on the first chunk: max |diff| "
+                             f"{diff}")
+    return diff, ms, plain_ms, bound_ms, bound_by
 
 
 def main():
@@ -293,9 +441,7 @@ def main():
               "NVIDIA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
-    from tpusim_torch.fastscan import CHUNK
     from tpusim_torch.kernels import build
-    from tpusim_torch.kernels.fastscan import fastscan_chunk, fastscan_chunk_plain
 
     card = card_line()
     print(f"phase 1: card {card}; torch {torch.__version__}, CUDA "
@@ -317,35 +463,29 @@ def main():
     # shapes (several nodes a thread), then its time on config 3's chunk
     timed = {}
     for name, plan in (("config3", plan3), ("config4_cpu_shape", plan4)):
-        ms, got = chunk_run(fastscan_chunk, plan, cuda, repeats=20)
-        plain_ms, want = chunk_run(fastscan_chunk_plain, plan, cuda,
-                                   repeats=2)
-        diff = max(int(np.abs(a - b).max(initial=0))
-                   for a, b in zip(got, want))
-        pairs = feasible_pairs(plan, cuda)
-        bound_ms, bound_by = chunk_bound_ms(plan, pairs)
-        placed = int((got[0] >= 0).sum())
-        print(f"phase 6: {name} first chunk ({CHUNK} pods x "
-              f"{plan.num_nodes} nodes, Npad {plan.alloc_cpu.shape[1]}): "
-              f"kernel vs plain max |diff| {diff} ({placed} placed, "
-              f"{pairs} feasible pairs); kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.1f} ms, bound {bound_ms:.5f} ms ({bound_by}) "
-              f"on {card}")
-        if diff != 0:
-            raise AssertionError(f"{name}: kernel disagrees with its plain "
-                                 f"version on the first chunk: max |diff| "
-                                 f"{diff}")
+        diff, *timed[name] = time_first_chunk(name, plan, card, cuda, 6)
         max_err = max(max_err, diff)
-        timed[name] = (ms, plain_ms, bound_ms, bound_by)
-    ms, plain_ms, bound_ms, bound_by = timed["config3"]
-    kernels = [{
-        "name": "fastscan_chunk", "route": "cuda",
-        "source": "tpusim_torch/csrc/fastscan.cu",
-        "replaces": "tpusim/jaxe/fastscan.py:1164",
-        "launches": launches, "max_abs_err": max_err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None,
-    }]
+
+    # phases 7-8: the pod-group variant (Variants 2 and 4)
+    group_err = compare_group_kernel_with_plain(cuda)
+    group_launches, plan_g = drive_main_path("groups", card, cuda)
+    diff, *timed["groups"] = time_first_chunk("groups", plan_g, card, cuda, 8)
+    group_err = max(group_err, diff)
+
+    kernels = []
+    for name, variant, replaces, n_launch, err in (
+            ("config3", "group_free", "tpusim/jaxe/fastscan.py:1164",
+             launches, max_err),
+            ("groups", "groups", "tpusim/jaxe/fastscan.py:1386",
+             group_launches, group_err)):
+        ms, plain_ms, bound_ms, bound_by = timed[name]
+        kernels.append({
+            "name": f"fastscan_chunk[{variant}]", "route": "cuda",
+            "source": "tpusim_torch/csrc/fastscan.cu", "replaces": replaces,
+            "launches": n_launch, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None,
+        })
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -127,6 +127,18 @@ def _with_volumes(api):
     return snapshot, pods
 
 
+def assert_plans_equal(got, want):
+    """Every field of the port's plan equals the same field of `want`."""
+    for f in dataclasses.fields(got):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+            assert a is not None and b is not None, f.name
+            assert a.dtype == np.int32, f.name
+            assert np.array_equal(a, b), f.name
+        else:
+            assert a == b, f.name
+
+
 @pytest.mark.parametrize("build,feature", [
     (_with_ports, "host ports"),
     (_with_interpod, "inter-pod"),
@@ -134,15 +146,22 @@ def _with_volumes(api):
     (_with_volumes, "pod volumes"),
 ])
 def test_group_workloads_are_refused(build, feature):
+    """Host ports, services and volumes run on the group variants the port
+    carries: its plan equals the JAX package's, field for field, and so
+    does the plan handed over in dict form. Inter-pod (anti)affinity is
+    still refused, and so is the JAX plan for it."""
     (_, _, (jplan, jwhy)), (_, _, (pplan, pwhy)) = both_plans(build)
-    assert pplan is None and feature in pwhy
-    # the JAX package runs these on a kernel variant beyond the group-free
-    # one, so its plan cannot be handed to the port either
     assert jplan is not None, jwhy
-    assert (jplan.num_groups > 0 or jplan.has_interpod or jplan.has_maxpd
-            or jplan.has_vol_zone)
-    with pytest.raises(ValueError):
-        pfp.plan_from_numpy(dataclasses.asdict(jplan))
+    if feature == "inter-pod":
+        assert pplan is None and feature in pwhy
+        assert jplan.has_interpod
+        with pytest.raises(ValueError):
+            pfp.plan_from_numpy(dataclasses.asdict(jplan))
+        return
+    assert pplan is not None, pwhy
+    assert (pplan.num_groups > 0 or pplan.has_maxpd or pplan.has_vol_zone)
+    assert_plans_equal(pplan, jplan)
+    assert_plans_equal(pfp.plan_from_numpy(dataclasses.asdict(jplan)), pplan)
 
 
 def test_scalar_budget_refusal_matches():

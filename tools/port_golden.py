@@ -1,0 +1,44 @@
+#!/usr/bin/env python3
+"""Record a placement golden of the PyTorch port's workloads with the JAX
+package: the workload is built through tpusim.api.snapshot and scheduled by
+JaxBackend(fallback="error") (its XLA scan on a CPU), and the golden is
+sha256(choices as int32)[:16] with the scheduled count, the form
+chip_smoke.py's GOLDENS hold.
+
+    JAX_PLATFORMS=cpu python tools/port_golden.py groups 100000 5000
+"""
+
+import hashlib
+import os
+import sys
+import time
+
+import numpy as np
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import tpusim.api.snapshot as jax_api  # noqa: E402
+from tpusim.jaxe.backend import JaxBackend  # noqa: E402
+from tpusim_torch import workloads  # noqa: E402
+
+WORKLOADS = {"groups": workloads.groups_workload,
+             "config3": workloads.build_workload}
+
+
+def main(argv):
+    name, num_pods, num_nodes = argv[0], int(argv[1]), int(argv[2])
+    t0 = time.perf_counter()
+    snapshot, pods = WORKLOADS[name](num_pods, num_nodes, api=jax_api)
+    placements = JaxBackend(fallback="error").schedule(pods, snapshot)
+    index = {n.name: i for i, n in enumerate(snapshot.nodes)}
+    choices = np.array([index[p.node_name] if p.node_name else -1
+                        for p in placements], dtype=np.int32)
+    golden = hashlib.sha256(choices.tobytes()).hexdigest()[:16]
+    print(f"{name}({num_pods}, {num_nodes}): golden {golden}, "
+          f"{int((choices >= 0).sum())} scheduled, "
+          f"{time.perf_counter() - t0:.1f} s")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

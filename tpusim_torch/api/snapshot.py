@@ -2,7 +2,8 @@
 
 Reference: pkg/main.go:189-231 (createSamplePods / newSampleNode). A snapshot
 is the frozen cluster state a simulation schedules against: nodes, the pods
-already running on them, and the services.
+already running on them, the services, and the persistent volumes and claims
+that pod volumes resolve through.
 """
 
 from __future__ import annotations
@@ -10,7 +11,14 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import List, Optional
 
-from tpusim_torch.api.types import LABEL_HOSTNAME, Node, Pod, Service
+from tpusim_torch.api.types import (
+    LABEL_HOSTNAME,
+    Node,
+    PersistentVolume,
+    PersistentVolumeClaim,
+    Pod,
+    Service,
+)
 
 
 @dataclass
@@ -20,6 +28,8 @@ class ClusterSnapshot:
     nodes: List[Node] = field(default_factory=list)
     pods: List[Pod] = field(default_factory=list)  # already-scheduled (Running) pods
     services: List[Service] = field(default_factory=list)
+    pvs: List[PersistentVolume] = field(default_factory=list)
+    pvcs: List[PersistentVolumeClaim] = field(default_factory=list)
 
 
 def make_node(
@@ -102,6 +112,38 @@ def make_pod(
     if volumes:
         obj["spec"]["volumes"] = volumes
     return Pod.from_obj(obj)
+
+
+def make_pod_volume(name: str, source: Optional[dict] = None,
+                    pvc: str = "") -> dict:
+    """A pod .spec.volumes entry: either a direct source dict (e.g.
+    {"gcePersistentDisk": {...}}) or a PVC reference."""
+    obj: dict = {"name": name}
+    if pvc:
+        obj["persistentVolumeClaim"] = {"claimName": pvc}
+    if source:
+        obj.update(source)
+    return obj
+
+
+def make_pv(name: str, storage: str = "1Gi", labels: Optional[dict] = None,
+            source: Optional[dict] = None) -> PersistentVolume:
+    """Build a PersistentVolume fixture."""
+    spec: dict = {"capacity": {"storage": storage}}
+    if source:
+        spec.update(source)
+    return PersistentVolume.from_obj(
+        {"metadata": {"name": name, "labels": labels or {}}, "spec": spec})
+
+
+def make_pvc(name: str, namespace: str = "default", volume_name: str = "",
+             storage: str = "1Gi") -> PersistentVolumeClaim:
+    """Build a PersistentVolumeClaim fixture; volume_name='' = unbound."""
+    spec: dict = {"resources": {"requests": {"storage": storage}}}
+    if volume_name:
+        spec["volumeName"] = volume_name
+    return PersistentVolumeClaim.from_obj(
+        {"metadata": {"name": name, "namespace": namespace}, "spec": spec})
 
 
 def synthetic_cluster(

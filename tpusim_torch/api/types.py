@@ -609,8 +609,10 @@ class Container:
 
 @dataclass
 class Volume:
-    """A pod volume, kept raw. The port does not schedule volume workloads
-    yet: a volume only marks the batch as outside the group-free kernel."""
+    """A pod volume. Only the sources the scheduler reads are typed
+    (NoDiskConflict: GCE PD / AWS EBS / RBD / ISCSI, predicates.go:220-276;
+    MaxPDVolumeCount filters + PVC references, predicates.go:361-460); the
+    raw object is kept for round-trip."""
 
     name: str = ""
     raw: dict = field(default_factory=dict)
@@ -621,6 +623,34 @@ class Volume:
 
     def to_obj(self) -> dict:
         return dict(self.raw)
+
+    @property
+    def gce_persistent_disk(self) -> Optional[dict]:
+        return self.raw.get("gcePersistentDisk")
+
+    @property
+    def aws_elastic_block_store(self) -> Optional[dict]:
+        return self.raw.get("awsElasticBlockStore")
+
+    @property
+    def rbd(self) -> Optional[dict]:
+        return self.raw.get("rbd")
+
+    @property
+    def iscsi(self) -> Optional[dict]:
+        return self.raw.get("iscsi")
+
+    @property
+    def azure_disk(self) -> Optional[dict]:
+        return self.raw.get("azureDisk")
+
+    @property
+    def pvc_name(self) -> Optional[str]:
+        """persistentVolumeClaim.claimName; None when not a PVC volume."""
+        pvc = self.raw.get("persistentVolumeClaim")
+        if pvc is None:
+            return None
+        return pvc.get("claimName", "")
 
 
 @dataclass
@@ -906,6 +936,78 @@ class Service:
 
     def key(self) -> str:
         return f"{self.namespace}/{self.metadata.name}"
+
+
+@dataclass
+class PersistentVolume:
+    """A PersistentVolume: its zone labels (NoVolumeZoneConflict) and its
+    disk source (MaxPDVolumeCount) are what the scheduler reads."""
+
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    raw: dict = field(default_factory=dict)
+
+    kind = "PersistentVolume"
+
+    @classmethod
+    def from_obj(cls, o: dict) -> "PersistentVolume":
+        return cls(metadata=ObjectMeta.from_obj(o.get("metadata")), raw=dict(o))
+
+    @property
+    def name(self) -> str:
+        return self.metadata.name
+
+    def key(self) -> str:
+        return self.metadata.name
+
+    @property
+    def spec_raw(self) -> dict:
+        return self.raw.get("spec") or {}
+
+    @property
+    def gce_persistent_disk(self) -> Optional[dict]:
+        return self.spec_raw.get("gcePersistentDisk")
+
+    @property
+    def aws_elastic_block_store(self) -> Optional[dict]:
+        return self.spec_raw.get("awsElasticBlockStore")
+
+    @property
+    def azure_disk(self) -> Optional[dict]:
+        return self.spec_raw.get("azureDisk")
+
+
+@dataclass
+class PersistentVolumeClaim:
+    """A PersistentVolumeClaim: the scheduler reads the volume it is bound
+    to."""
+
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    raw: dict = field(default_factory=dict)
+
+    kind = "PersistentVolumeClaim"
+
+    @classmethod
+    def from_obj(cls, o: dict) -> "PersistentVolumeClaim":
+        return cls(metadata=ObjectMeta.from_obj(o.get("metadata")), raw=dict(o))
+
+    @property
+    def name(self) -> str:
+        return self.metadata.name
+
+    @property
+    def namespace(self) -> str:
+        return self.metadata.namespace or DEFAULT_NAMESPACE
+
+    def key(self) -> str:
+        return f"{self.namespace}/{self.metadata.name}"
+
+    @property
+    def spec_raw(self) -> dict:
+        return self.raw.get("spec") or {}
+
+    @property
+    def volume_name(self) -> str:
+        return self.spec_raw.get("volumeName") or ""
 
 
 # ---------------------------------------------------------------------------

@@ -5,8 +5,10 @@ The host compiles the cluster (numpy), `plan_fast` builds the int32 plan,
 `fast_scan` runs the pods through the chunk kernel (CUDA on the card, its
 plain version on the CPU), and `decode_placements` turns choices and reason
 counts into Placements and FitError text byte-identical to kube-scheduler's.
-A workload the group-free kernel does not carry raises NotImplementedError
-with the reason; there is no host fallback.
+Services, host ports and pod volumes run on the kernel's group variants. A
+workload the kernel does not carry (inter-pod (anti)affinity, a group budget
+the compile exceeds, a volume the reference resolves host-side) raises
+NotImplementedError with the reason; there is no host fallback.
 """
 
 from __future__ import annotations
@@ -123,6 +125,10 @@ class TorchBackend:
                               reason="Unschedulable", message=msg)
                     for p in pods]
         compiled, cols = compile_cluster(snapshot, pods)
+        if compiled.unsupported:
+            detail = "; ".join(sorted(set(compiled.unsupported))[:5])
+            raise NotImplementedError(
+                f"torch backend does not yet carry state for: {detail}")
         config = config_for(
             compiled, most_requested=self.provider in _MOST_REQUESTED_PROVIDERS)
         plan, why = plan_fast(config, compiled, cols)

@@ -1,39 +1,62 @@
-// Fused fast scan, group-free variant, for Hopper (sm_90a).
+// Fused fast scan for Hopper (sm_90a): the group-free variant and the
+// pod-group variant.
 //
 // Replaces the TPU kernel tpusim/jaxe/fastscan.py::_make_kernel (the
-// Pallas kernel behind fast_scan), Variant 1: no pod groups, no inter-pod
-// terms, no MaxPD volumes, no policy residue; up to 6 scalar resource axes
-// and Least- or MostRequested.
+// Pallas kernel behind fast_scan):
+//   Variant 1, group-free: no pod groups, no inter-pod terms, no MaxPD
+//     volumes, no policy residue; up to 6 scalar resource axes and Least-
+//     or MostRequested;
+//   Variants 2 and 4, pod groups: Variant 1 plus the [Gpad, Npad] presence
+//     carry (PodFitsHostPorts inside GeneralPredicates, NoDiskConflict,
+//     NoVolumeZoneConflict, SelectorSpreadPriority with its node/zone blend,
+//     presence[gid][choice] += 1 on bind) and the MaxPD used-volume carry
+//     (Max{EBS,GCEPD,AzureDisk}VolumeCount, used_vols[v][choice] = 1 on
+//     bind). Inter-pod terms (Variant 3) and policies (Variant 5) are not
+//     carried.
 //
 // What it computes, for each pod of a chunk in order (kube-scheduler's
 // scheduleOne): the filter stages in predicatesOrdering, where the first
 // failing stage's bits are the node's reason word (node conditions ->
-// GeneralPredicates -> taints -> memory pressure -> disk pressure); the
-// int32 weighted score (Least/MostRequested, exact BalancedAllocation,
+// GeneralPredicates with host ports -> NoDiskConflict -> taints -> MaxPD ->
+// NoVolumeZoneConflict -> memory pressure -> disk pressure); the int32
+// weighted score (Least/MostRequested, exact BalancedAllocation,
 // NodeAffinity and TaintToleration normalized over the feasible nodes,
-// PreferAvoidPods x 10000); selectHost (max score, round-robin pick of the
-// (rr % ties)-th tie in node order when more than one node is feasible); the
-// reason histogram when no node is feasible; the bind into the carry rows;
-// rr += (feasible > 1).
+// PreferAvoidPods x 10000, SelectorSpread); selectHost (max score,
+// round-robin pick of the (rr % ties)-th tie in node order when more than
+// one node is feasible); the reason histogram when no node is feasible; the
+// bind into the carry rows; rr += (feasible > 1).
 //
 // Design: one CTA of up to 1024 threads runs the whole chunk. Thread t owns
 // a contiguous slice of the node axis, so the k-th tie in node order is
 // found with a block exclusive scan of per-thread tie counts and a walk by
 // the one thread whose slice holds it, and that thread also does the bind:
-// every carry cell is read and written by its owner only. Per pod the block
-// meets at about eight barriers (the feasible count / affinity max /
-// intolerable max reduction, the score max, the tie scan, the end of the
-// pod), plus two for the histogram when nothing fits. Signature rows are
-// read straight from the [S, Npad] tables by the pod's ids.
+// every carry cell, presence and used-volume cells included, is read and
+// written by its owner only, so binds need no atomics. Per pod the block
+// meets at about eight barriers (the feasible count / normalizer maxima
+// reduction, the score max, the tie scan, the end of the pod), plus two for
+// the histogram when nothing fits. Signature rows, the vol-zone row and the
+// MaxPD volume row are read straight from their tables by the pod's ids.
+//
+// The pod-group operands are shaped for a CTA, not for the TPU's (8, 128)
+// tiles: a pod's port, disk and spread group sets arrive as bit words in its
+// pod row, and a thread loops over the set bits only, reading
+// presence[g][i] for its nodes. Zones are one zone-id row; the per-zone sums
+// of feasible spread counts accumulate per thread in registers during pass
+// 1 and meet in shared memory with one atomic per zone per warp, and the
+// node maximum and "any feasible zoned node" ride the pass-1 block
+// reduction, so spreading adds no barrier. MaxPD's volume types and limits
+// are arguments; a node's count is a loop over the volume ids (at most 32 by
+// the plan's budget), taken only for pods that mount a counted volume.
 //
 // Bound: per pod the kernel reads 8 static, 7 carry and 6 table rows of
-// Npad int32 values: at Npad 5120 about 430 KB a pod, 43 GB for 100k pods,
-// about 13 ms at 3.35 TB/s. The whole state is about 0.4 MB and stays
-// resident in the 50 MB L2, so neither device memory nor arithmetic is the
-// limit: the chain of block barriers per pod, a strictly sequential
-// dependency from one pod's bind to the next pod's filter, is. A cluster of
-// CTAs splitting the node axis with the carry in shared memory is the next
-// design; this one is the simple, exact first version.
+// Npad int32 values, plus the presence rows of the pod's groups: at Npad
+// 5120 about 430 KB a pod, 43 GB for 100k pods, about 13 ms at 3.35 TB/s.
+// The whole state is under 1 MB and stays resident in the 50 MB L2, so
+// neither device memory nor arithmetic is the limit: the chain of block
+// barriers per pod, a strictly sequential dependency from one pod's bind to
+// the next pod's filter, is. A cluster of CTAs splitting the node axis with
+// the carry in shared memory is the next design; this one is the simple,
+// exact first version.
 //
 // Arithmetic is int32 like the reference kernel: products wrap as two's
 // complement and every division floors (JAX's //), so values that the plan's
@@ -47,19 +70,24 @@ namespace {
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxPriority = 10;
 constexpr int kAvoidWeight = 10000;
+constexpr int kMaxZones = 16;   // tpusim_torch/kernels/fastscan.py MAX_ZONES
 
 // pod column layout (tpusim_torch/kernels/fastscan.py POD_FIELDS); scalar
-// requests follow at P_SCALAR
+// requests follow at P_SCALAR, then the group id and the group-set words
 enum { P_RC, P_RM, P_RG, P_RE, P_NZC, P_NZM, P_ZERO, P_BE,
        P_SEL, P_TOL, P_AFF, P_AVOID, P_HOST, P_SCALAR };
 // static rows
 enum { S_CPU, S_MEM, S_GPU, S_EPH, S_ALLOWED, S_COND, S_MPR, S_DPR };
 // carry rows; scalar rows follow at C_SCALAR
 enum { C_CPU, C_MEM, C_GPU, C_EPH, C_NZC, C_NZM, C_PODS, C_SCALAR };
+// group feature flags (kernels/fastscan.py F_*)
+enum { F_PORTS = 1, F_DISK = 2, F_SPREAD = 4, F_VOL_ZONE = 8 };
 // reason bits (tpusim_torch/state.py)
 constexpr int kBitPods = 4, kBitCpu = 5, kBitMem = 6, kBitGpu = 7,
               kBitEph = 8, kBitHost = 9, kBitSel = 10, kBitTaint = 11,
-              kBitMemPressure = 12, kBitDiskPressure = 13, kFixedBits = 24;
+              kBitMemPressure = 12, kBitDiskPressure = 13, kBitPorts = 14,
+              kBitDisk = 19, kBitMaxVols = 20, kBitVolZone = 21,
+              kFixedBits = 24;
 
 struct Args {
   const int* pods;        // [k, pod_w]
@@ -70,24 +98,49 @@ struct Args {
   const int* aff;         // [Saff, npad] aff_count
   const int* avoid;       // [Savoid, npad] avoid_score
   const int* host;        // [Shost, npad] host_ok
-  int* carry;             // [7 + srows, npad], updated in place
+  int* carry;             // [7 + srows + gpad + vpad, npad], updated in place
   int* misc;              // [128]; rr at 0
   const int* alloc_scalar;  // [srows, npad]
   int* choices;           // [k]
   int* counts;            // [k, num_bits]
   int* adv;               // [k]
-  int* scratch;           // [2, npad]: reason words, scores
+  int* scratch;           // [3, npad]: reason words, scores, spread counts
   int k, pod_w, num_scalars, num_bits, npad, most_requested;
+  // pod groups (the group variant only)
+  int gpad;               // presence rows; words = ceil(gpad / 32)
+  int words;
+  int pres_row;           // first presence row of the carry
+  int flags;              // F_*
+  const int* zone_id;     // [npad] zone domain, 0 = none (spread)
+  int n_zones;
+  const int* zone_ok;     // [G, npad] NoVolumeZoneConflict pass, by gid
+  const int* vol_tbl;     // [G, vol_w] MaxPD volume mask, by gid
+  int vol_w;
+  const int* vol_type;    // [n_vols, 3] (EBS, GCE PD, AzureDisk)
+  int n_vols;
+  int uv_row;             // first used-volume row of the carry
+  int limit[3];
 };
 
 struct PodView {
   int rc, rm, rg, re, nzc, nzm;
   bool check_res, best_effort;
   const int *sel, *tol, *intol, *aff, *avoid, *host, *rs;
+  // group variant
+  int gid;
+  const int *port_w, *disk_w, *ss_w;   // group-set bit words
+  const int* zone_ok;                  // my vol-zone row
+  const int* vols;                     // my MaxPD volume mask row
+  int my_typed[3];                     // my volumes of each MaxPD type
+  bool maxpd;                          // I mount a counted volume
 };
 
 __device__ __forceinline__ int add32(int a, int b) {
   return (int)((unsigned)a + (unsigned)b);
+}
+
+__device__ __forceinline__ int sub32(int a, int b) {
+  return (int)((unsigned)a - (unsigned)b);
 }
 
 __device__ __forceinline__ int mul32(int a, int b) {
@@ -99,7 +152,55 @@ __device__ __forceinline__ int floordiv(int a, int b) {
   return ((a % b) != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
 }
 
+// any pod of the groups set in `words` on node i
+__device__ __forceinline__ bool any_present(const Args& a, const int* words,
+                                            int i) {
+  for (int w = 0; w < a.words; ++w) {
+    unsigned bits = (unsigned)words[w];
+    while (bits) {
+      const int g = w * 32 + __ffs(bits) - 1;
+      bits &= bits - 1;
+      if (a.carry[(size_t)(a.pres_row + g) * a.npad + i] > 0) return true;
+    }
+  }
+  return false;
+}
+
+// pods on node i of the groups my services select
+__device__ __forceinline__ int spread_count(const Args& a, const PodView& p,
+                                            int i) {
+  int c = 0;
+  for (int w = 0; w < a.words; ++w) {
+    unsigned bits = (unsigned)p.ss_w[w];
+    while (bits) {
+      const int g = w * 32 + __ffs(bits) - 1;
+      bits &= bits - 1;
+      c = add32(c, a.carry[(size_t)(a.pres_row + g) * a.npad + i]);
+    }
+  }
+  return c;
+}
+
+// Max{EBS,GCEPD,AzureDisk}VolumeCount on node i: the unique counted volume
+// ids there, mine included, over a type's limit, for a type I mount
+__device__ __forceinline__ bool maxpd_fails(const Args& a, const PodView& p,
+                                            int i) {
+  int cnt[3] = {0, 0, 0};
+  for (int v = 0; v < a.n_vols; ++v) {
+    const int used = p.vols[v] != 0
+                         ? 1 : a.carry[(size_t)(a.uv_row + v) * a.npad + i];
+    const int* ty = a.vol_type + 3 * v;
+    cnt[0] += ty[0] ? used : 0;
+    cnt[1] += ty[1] ? used : 0;
+    cnt[2] += ty[2] ? used : 0;
+  }
+  for (int t = 0; t < 3; ++t)
+    if (p.my_typed[t] > 0 && cnt[t] > a.limit[t]) return true;
+  return false;
+}
+
 // the first failing stage's reason bits; 0 = feasible
+template <bool kGroups>
 __device__ __forceinline__ int node_reason(const Args& a, const PodView& p,
                                            int i) {
   const int n = a.npad;
@@ -121,8 +222,15 @@ __device__ __forceinline__ int node_reason(const Args& a, const PodView& p,
   }
   if (p.host[i] == 0) bits |= 1 << kBitHost;
   if (p.sel[i] == 0) bits |= 1 << kBitSel;
+  if (kGroups && (a.flags & F_PORTS) && any_present(a, p.port_w, i))
+    bits |= 1 << kBitPorts;
   if (bits != 0) return bits;
+  if (kGroups && (a.flags & F_DISK) && any_present(a, p.disk_w, i))
+    return 1 << kBitDisk;
   if (p.tol[i] == 0) return 1 << kBitTaint;
+  if (kGroups && p.maxpd && maxpd_fails(a, p, i)) return 1 << kBitMaxVols;
+  if (kGroups && (a.flags & F_VOL_ZONE) && p.zone_ok[i] == 0)
+    return 1 << kBitVolZone;
   if (p.best_effort && st[S_MPR * n + i] != 0) return 1 << kBitMemPressure;
   if (st[S_DPR * n + i] != 0) return 1 << kBitDiskPressure;
   return 0;
@@ -133,9 +241,34 @@ __device__ __forceinline__ int ratio(int req, int cap, bool most) {
   return floordiv(mul32(most ? req : cap - req, kMaxPriority), cap);
 }
 
+// the pass-1 reduction results every thread sees
+struct Norms {
+  int aff_max, intol_max;
+  // SelectorSpreadPriority: node max of the feasible counts, zone max of the
+  // per-zone sums, whether any feasible node has a zone
+  int max_node, max_zone, have_zones;
+};
+
+// SelectorSpreadPriority (selector_spreading.go:66-175) of a feasible node
+// with spread count c in zone z: the exact node/zone blend
+__device__ __forceinline__ int spread_score(const Norms& m, int c, int z,
+                                            int zsum_z) {
+  const int node_num = m.max_node > 0 ? sub32(m.max_node, c) : 1;
+  const int node_den = max(m.max_node, 1);
+  if (m.have_zones && z != 0) {
+    const int zone_num = m.max_zone > 0 ? sub32(m.max_zone, zsum_z) : 1;
+    const int zone_den = max(m.max_zone, 1);
+    return floordiv(
+        mul32(kMaxPriority, add32(mul32(node_num, zone_den),
+                                  mul32(mul32(2, zone_num), node_den))),
+        mul32(mul32(3, node_den), zone_den));
+  }
+  return floordiv(mul32(kMaxPriority, node_num), node_den);
+}
+
 // weighted score of a feasible node
 __device__ __forceinline__ int node_score(const Args& a, const PodView& p,
-                                          int i, int aff_max, int intol_max) {
+                                          int i, const Norms& m) {
   const int n = a.npad;
   const int ac = a.statics[S_CPU * n + i];
   const int am = a.statics[S_MEM * n + i];
@@ -149,45 +282,44 @@ __device__ __forceinline__ int node_score(const Args& a, const PodView& p,
     const int den = mul32(ac, am);
     s += floordiv(mul32(kMaxPriority, den - num), den);
   }
-  if (aff_max > 0) s += floordiv(mul32(kMaxPriority, p.aff[i]), aff_max);
-  s += intol_max > 0
-           ? kMaxPriority - floordiv(mul32(kMaxPriority, p.intol[i]), intol_max)
+  if (m.aff_max > 0) s += floordiv(mul32(kMaxPriority, p.aff[i]), m.aff_max);
+  s += m.intol_max > 0
+           ? kMaxPriority - floordiv(mul32(kMaxPriority, p.intol[i]), m.intol_max)
            : kMaxPriority;
   s += mul32(p.avoid[i], kAvoidWeight);
   return s;
 }
 
-// block-wide (sum, max, max); every thread gets the results
-__device__ __forceinline__ void block_reduce3(int& s, int& m1, int& m2,
-                                              int (*red)[3], int* bc) {
+// block-wide reduction of kN values: v[0] summed, the rest maxed; every
+// thread gets the results
+template <int kN>
+__device__ __forceinline__ void block_reduce(int (&v)[kN], int (*red)[5],
+                                             int* bc) {
+  static_assert(kN <= 5, "red holds five values a warp");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
-  s = __reduce_add_sync(kFull, s);
-  m1 = __reduce_max_sync(kFull, m1);
-  m2 = __reduce_max_sync(kFull, m2);
+  v[0] = __reduce_add_sync(kFull, v[0]);
+#pragma unroll
+  for (int j = 1; j < kN; ++j) v[j] = __reduce_max_sync(kFull, v[j]);
   if (lane == 0) {
-    red[warp][0] = s;
-    red[warp][1] = m1;
-    red[warp][2] = m2;
+#pragma unroll
+    for (int j = 0; j < kN; ++j) red[warp][j] = v[j];
   }
   __syncthreads();
   if (warp == 0) {
-    int v0 = lane < nwarps ? red[lane][0] : 0;
-    int v1 = lane < nwarps ? red[lane][1] : INT_MIN;
-    int v2 = lane < nwarps ? red[lane][2] : INT_MIN;
-    v0 = __reduce_add_sync(kFull, v0);
-    v1 = __reduce_max_sync(kFull, v1);
-    v2 = __reduce_max_sync(kFull, v2);
-    if (lane == 0) {
-      bc[0] = v0;
-      bc[1] = v1;
-      bc[2] = v2;
+    int w0 = lane < nwarps ? red[lane][0] : 0;
+    w0 = __reduce_add_sync(kFull, w0);
+    if (lane == 0) bc[0] = w0;
+#pragma unroll
+    for (int j = 1; j < kN; ++j) {
+      int wj = lane < nwarps ? red[lane][j] : INT_MIN;
+      wj = __reduce_max_sync(kFull, wj);
+      if (lane == 0) bc[j] = wj;
     }
   }
   __syncthreads();
-  s = bc[0];
-  m1 = bc[1];
-  m2 = bc[2];
+#pragma unroll
+  for (int j = 0; j < kN; ++j) v[j] = bc[j];
 }
 
 // block-wide exclusive prefix sum of v (thread order); *total gets the sum
@@ -217,18 +349,26 @@ __device__ __forceinline__ int block_excl_scan(int v, int* total, int* wscan,
   return wscan[warp] + x - v;
 }
 
+template <bool kGroups>
 __global__ void __launch_bounds__(1024) fastscan_kernel(Args a) {
-  __shared__ int red[32][3];
-  __shared__ int bc[3];
+  __shared__ int red[32][5];
+  __shared__ int bc[5];
   __shared__ int wscan[32];
   __shared__ int hist[32];
+  __shared__ int zsum[kMaxZones];   // per-zone sums of feasible spread counts
   const int tid = threadIdx.x, lane = tid & 31;
   const int n = a.npad;
   const int per = (n + blockDim.x - 1) / blockDim.x;
   const int lo = min(tid * per, n), hi = min(lo + per, n);
   int* reason_s = a.scratch;
   int* score_s = a.scratch + n;
+  int* spread_s = a.scratch + 2 * n;
+  const bool spread = kGroups && (a.flags & F_SPREAD) != 0;
   int rr = a.misc[0];
+  if (kGroups) {
+    if (tid < kMaxZones) zsum[tid] = 0;
+    __syncthreads();
+  }
 
   for (int j = 0; j < a.k; ++j) {
     const int* pj = a.pods + (size_t)j * a.pod_w;
@@ -248,26 +388,75 @@ __global__ void __launch_bounds__(1024) fastscan_kernel(Args a) {
     p.avoid = a.avoid + (size_t)pj[P_AVOID] * n;
     p.host = a.host + (size_t)pj[P_HOST] * n;
     p.rs = pj + P_SCALAR;
+    if (kGroups) {
+      const int* g = pj + P_SCALAR + a.num_scalars;
+      p.gid = g[0];
+      p.port_w = g + 1;
+      p.disk_w = g + 1 + a.words;
+      p.ss_w = g + 1 + 2 * a.words;
+      p.zone_ok = (a.flags & F_VOL_ZONE) ? a.zone_ok + (size_t)p.gid * n
+                                         : nullptr;
+      p.vols = a.n_vols ? a.vol_tbl + (size_t)p.gid * a.vol_w : nullptr;
+      p.my_typed[0] = p.my_typed[1] = p.my_typed[2] = 0;
+      for (int v = 0; v < a.n_vols; ++v) {
+        if (p.vols[v] == 0) continue;
+        for (int t = 0; t < 3; ++t) p.my_typed[t] += a.vol_type[3 * v + t];
+      }
+      p.maxpd = p.my_typed[0] + p.my_typed[1] + p.my_typed[2] > 0;
+    }
 
-    // pass 1: reason words, feasible count, normalizer maxima
-    int nf = 0, aff_max = 0, intol_max = 0;
+    // pass 1: reason words, feasible count, normalizer maxima, and for
+    // spreading the node max, the zone sums and whether a zone is feasible
+    int red_v[5] = {0, 0, 0, 0, 0};   // nf, aff max, intol max, node max, zoned
+    int zacc[kMaxZones];
+#pragma unroll
+    for (int z = 0; z < kMaxZones; ++z) zacc[z] = 0;
     for (int i = lo; i < hi; ++i) {
-      const int r = node_reason(a, p, i);
+      const int r = node_reason<kGroups>(a, p, i);
       reason_s[i] = r;
-      if (r == 0) {
-        ++nf;
-        aff_max = max(aff_max, p.aff[i]);
-        intol_max = max(intol_max, p.intol[i]);
+      if (r != 0) continue;
+      ++red_v[0];
+      red_v[1] = max(red_v[1], p.aff[i]);
+      red_v[2] = max(red_v[2], p.intol[i]);
+      if (spread) {
+        const int c = spread_count(a, p, i);
+        const int z = a.zone_id[i];
+        spread_s[i] = c;
+        red_v[3] = max(red_v[3], c);
+        red_v[4] |= z != 0;
+#pragma unroll
+        for (int zz = 1; zz < kMaxZones; ++zz) zacc[zz] += zz == z ? c : 0;
       }
     }
-    block_reduce3(nf, aff_max, intol_max, red, bc);
+    if (spread) {
+#pragma unroll
+      for (int zz = 1; zz < kMaxZones; ++zz) {
+        const int s = __reduce_add_sync(kFull, zacc[zz]);
+        if (lane == 0 && s != 0) atomicAdd(&zsum[zz], s);
+      }
+    }
+    block_reduce<5>(red_v, red, bc);
+    const int nf = red_v[0];
+    Norms m;
+    m.aff_max = red_v[1];
+    m.intol_max = red_v[2];
+    m.max_node = red_v[3];
+    m.have_zones = red_v[4];
+    m.max_zone = 0;
+    if (spread) {
+      for (int zz = 1; zz < a.n_zones; ++zz) m.max_zone = max(m.max_zone, zsum[zz]);
+    }
 
     if (nf > 0) {
       // pass 2: scores, and each thread's max with its multiplicity
       int lmax = -1, lcnt = 0;
       for (int i = lo; i < hi; ++i) {
         if (reason_s[i] != 0) continue;
-        const int s = node_score(a, p, i, aff_max, intol_max);
+        int s = node_score(a, p, i, m);
+        if (spread) {
+          const int z = a.zone_id[i];
+          s += spread_score(m, spread_s[i], z, z != 0 ? zsum[z] : 0);
+        }
         score_s[i] = s;
         if (s > lmax) {
           lmax = s;
@@ -276,8 +465,9 @@ __global__ void __launch_bounds__(1024) fastscan_kernel(Args a) {
           ++lcnt;
         }
       }
-      int dummy0 = 0, dummy1 = 0, gmax = lmax;
-      block_reduce3(dummy0, gmax, dummy1, red, bc);
+      int gm[2] = {0, lmax};
+      block_reduce<2>(gm, red, bc);
+      const int gmax = gm[1];
       const int tcnt = (lmax == gmax) ? lcnt : 0;
       int ties = 0;
       const int before = block_excl_scan(tcnt, &ties, wscan, bc);
@@ -305,6 +495,11 @@ __global__ void __launch_bounds__(1024) fastscan_kernel(Args a) {
         c[C_PODS * n + choice] += 1;
         for (int s = 0; s < a.num_scalars; ++s)
           c[(C_SCALAR + s) * n + choice] += p.rs[s];
+        if (kGroups) {
+          if (a.gpad > 0) c[(size_t)(a.pres_row + p.gid) * n + choice] += 1;
+          for (int v = 0; v < a.n_vols; ++v)
+            if (p.vols[v] != 0) c[(size_t)(a.uv_row + v) * n + choice] = 1;
+        }
         a.choices[j] = choice;
       }
       if (tid < a.num_bits) a.counts[(size_t)j * a.num_bits + tid] = 0;
@@ -324,6 +519,10 @@ __global__ void __launch_bounds__(1024) fastscan_kernel(Args a) {
     }
     if (tid == 0) a.adv[j] = nf > 1 ? 1 : 0;
     rr += nf > 1 ? 1 : 0;
+    // every read of this pod's zone sums is behind a barrier by now (the
+    // score max or the histogram's); the end-of-pod barrier orders the
+    // reset before the next pod's atomics
+    if (spread && tid < kMaxZones) zsum[tid] = 0;
     __syncthreads();
   }
   if (tid == 0) a.misc[0] = rr;
@@ -336,9 +535,19 @@ extern "C" int tpusim_fastscan_chunk(
     const int* tol, const int* intol, const int* aff, const int* avoid,
     const int* host, int* carry, int* misc, const int* alloc_scalar,
     int num_scalars, int* choices, int* counts, int* adv, int* scratch,
-    int num_bits, int npad, int most_requested, void* stream) {
+    int num_bits, int npad, int most_requested, int gpad, int pres_row,
+    int flags, const int* zone_id, int n_zones, const int* zone_ok,
+    const int* vol_tbl, int vol_w, const int* vol_type, int n_vols,
+    int uv_row, int limit_ebs, int limit_gce, int limit_azure, void* stream) {
   if (k <= 0) return 0;
   if (num_bits > 32 || npad <= 0 || npad % 32 != 0) return (int)cudaErrorInvalidValue;
+  if ((flags & F_SPREAD) && (n_zones <= 0 || n_zones > kMaxZones || !zone_id))
+    return (int)cudaErrorInvalidValue;
+  if ((flags & (F_PORTS | F_DISK | F_SPREAD)) && gpad <= 0)
+    return (int)cudaErrorInvalidValue;
+  if ((flags & F_VOL_ZONE) && !zone_ok) return (int)cudaErrorInvalidValue;
+  if (n_vols < 0 || (n_vols > 0 && (!vol_tbl || !vol_type || vol_w < n_vols)))
+    return (int)cudaErrorInvalidValue;
   Args a;
   a.pods = pods;
   a.statics = statics;
@@ -361,7 +570,26 @@ extern "C" int tpusim_fastscan_chunk(
   a.num_bits = num_bits;
   a.npad = npad;
   a.most_requested = most_requested;
+  a.gpad = gpad;
+  a.words = (gpad + 31) / 32;
+  a.pres_row = pres_row;
+  a.flags = flags;
+  a.zone_id = zone_id;
+  a.n_zones = n_zones;
+  a.zone_ok = zone_ok;
+  a.vol_tbl = vol_tbl;
+  a.vol_w = vol_w;
+  a.vol_type = vol_type;
+  a.n_vols = n_vols;
+  a.uv_row = uv_row;
+  a.limit[0] = limit_ebs;
+  a.limit[1] = limit_gce;
+  a.limit[2] = limit_azure;
   const int threads = npad < 1024 ? npad : 1024;
-  fastscan_kernel<<<1, threads, 0, (cudaStream_t)stream>>>(a);
+  const bool groups = gpad > 0 || flags != 0 || n_vols > 0;
+  if (groups)
+    fastscan_kernel<true><<<1, threads, 0, (cudaStream_t)stream>>>(a);
+  else
+    fastscan_kernel<false><<<1, threads, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -2,12 +2,20 @@
 node) cell.
 
 Reference: predicates.go:778-846 (podMatchesNodeLabels +
-nodeMatchesNodeSelectorTerms).
+nodeMatchesNodeSelectorTerms) and the volume predicates' helpers
+(predicates.go:220-533).
 """
 
 from __future__ import annotations
 
-from tpusim_torch.api.types import Node, Pod
+import os
+
+from tpusim_torch.api.types import (
+    LABEL_ZONE_FAILURE_DOMAIN,
+    LABEL_ZONE_REGION,
+    Node,
+    Pod,
+)
 
 
 def pod_matches_node_labels(pod: Pod, node: Node) -> bool:
@@ -32,3 +40,108 @@ def pod_matches_node_labels(pod: Pod, node: Node) -> bool:
             else:
                 return False
     return True
+
+
+# ---------------------------------------------------------------------------
+# volume predicates (predicates.go:220-276, 288-460, 510-533): the helpers
+# the group compile step evaluates per volume set
+# ---------------------------------------------------------------------------
+
+
+def _have_overlap(a: list, b: list) -> bool:
+    """predicates.go haveOverlap — any shared element."""
+    if len(a) > len(b):
+        a, b = b, a
+    s = set(a)
+    return any(x in s for x in b)
+
+
+def is_volume_conflict(volume, pod: Pod) -> bool:
+    """predicates.go isVolumeConflict:220-264 — GCE PD (read-only OK),
+    AWS EBS (any sharing conflicts), ISCSI (same IQN, not both read-only),
+    RBD (overlapping monitors + same pool/image, not both read-only)."""
+    gce, ebs = volume.gce_persistent_disk, volume.aws_elastic_block_store
+    rbd, iscsi = volume.rbd, volume.iscsi
+    if gce is None and ebs is None and rbd is None and iscsi is None:
+        return False
+    for existing in pod.spec.volumes:
+        egce = existing.gce_persistent_disk
+        if gce is not None and egce is not None:
+            if gce.get("pdName") == egce.get("pdName") and not (
+                    gce.get("readOnly") and egce.get("readOnly")):
+                return True
+        eebs = existing.aws_elastic_block_store
+        if ebs is not None and eebs is not None:
+            if ebs.get("volumeID") == eebs.get("volumeID"):
+                return True
+        eiscsi = existing.iscsi
+        if iscsi is not None and eiscsi is not None:
+            if iscsi.get("iqn") == eiscsi.get("iqn") and not (
+                    iscsi.get("readOnly") and eiscsi.get("readOnly")):
+                return True
+        erbd = existing.rbd
+        if rbd is not None and erbd is not None:
+            if (_have_overlap(rbd.get("monitors") or [], erbd.get("monitors") or [])
+                    and rbd.get("pool") == erbd.get("pool")
+                    and rbd.get("image") == erbd.get("image")
+                    and not (rbd.get("readOnly") and erbd.get("readOnly"))):
+                return True
+    return False
+
+
+# MaxPDVolumeCount (predicates.go:288-460)
+
+DEFAULT_MAX_EBS_VOLUMES = 39
+DEFAULT_MAX_GCE_PD_VOLUMES = 16
+DEFAULT_MAX_AZURE_DISK_VOLUMES = 16
+# (EBS, GCE PD, AzureDisk): the order of the kernel's per-type limits
+DEFAULT_MAXPD_LIMITS = (DEFAULT_MAX_EBS_VOLUMES, DEFAULT_MAX_GCE_PD_VOLUMES,
+                        DEFAULT_MAX_AZURE_DISK_VOLUMES)
+KUBE_MAX_PD_VOLS_ENV = "KUBE_MAX_PD_VOLS"
+
+_VOLUME_FILTERS = {
+    # (volume source accessor, PV source accessor, id field, default limit)
+    "EBS": (lambda v: v.aws_elastic_block_store,
+            lambda pv: pv.aws_elastic_block_store, "volumeID",
+            DEFAULT_MAX_EBS_VOLUMES),
+    "GCE": (lambda v: v.gce_persistent_disk,
+            lambda pv: pv.gce_persistent_disk, "pdName",
+            DEFAULT_MAX_GCE_PD_VOLUMES),
+    "AzureDisk": (lambda v: v.azure_disk, lambda pv: pv.azure_disk,
+                  "diskName", DEFAULT_MAX_AZURE_DISK_VOLUMES),
+}
+
+
+def get_max_vols(default: int) -> int:
+    """predicates.go getMaxVols: KUBE_MAX_PD_VOLS env override when valid."""
+    raw = os.environ.get(KUBE_MAX_PD_VOLS_ENV, "")
+    if raw:
+        try:
+            parsed = int(raw)
+        except ValueError:
+            return default
+        if parsed > 0:
+            return parsed
+    return default
+
+
+def effective_maxpd_limits() -> tuple:
+    """The three per-type limits with the env override applied."""
+    return tuple(get_max_vols(d) for d in DEFAULT_MAXPD_LIMITS)
+
+
+# NoVolumeZoneConflict (predicates.go:510-533)
+
+_ZONE_LABELS = (LABEL_ZONE_FAILURE_DOMAIN, LABEL_ZONE_REGION)
+
+
+def label_zones_to_set(value: str) -> set:
+    """volumeutil.LabelZonesToSet: '__'-separated zone list; raises on an
+    empty element (ZonesToSet errors)."""
+    zones = set()
+    for zone in value.split("__"):
+        if zone == "":
+            raise ValueError(
+                f"{value} content is not valid, content should not be empty")
+        zones.add(zone)
+    return zones

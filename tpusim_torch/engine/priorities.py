@@ -1,14 +1,21 @@
 """The priority map functions the cluster compile step tabulates per
 (signature, node) cell. MaxPriority = 10 (api/types.go:36).
 
-Reference: node_affinity.go:34-79, node_prefer_avoid_pods.go.
+Reference: node_affinity.go:34-79, node_prefer_avoid_pods.go, and
+utilnode.GetZoneKey (the zone domain of SelectorSpreadPriority).
 """
 
 from __future__ import annotations
 
 import json
+from typing import Optional
 
-from tpusim_torch.api.types import Node, Pod
+from tpusim_torch.api.types import (
+    LABEL_ZONE_FAILURE_DOMAIN,
+    LABEL_ZONE_REGION,
+    Node,
+    Pod,
+)
 
 MAX_PRIORITY = 10
 
@@ -48,3 +55,15 @@ def calculate_node_prefer_avoid_pods_priority_map(pod: Pod, node: Node) -> int:
         if ctrl.get("kind") == controller_ref.kind and ctrl.get("uid") == controller_ref.uid:
             return 0
     return MAX_PRIORITY
+
+
+def get_zone_key(node: Optional[Node]) -> str:
+    """utilnode.GetZoneKey: region + ":\\x00:" + zone; "" when both absent."""
+    if node is None:
+        return ""
+    labels = node.metadata.labels
+    region = labels.get(LABEL_ZONE_REGION, "")
+    zone = labels.get(LABEL_ZONE_FAILURE_DOMAIN, "")
+    if not region and not zone:
+        return ""
+    return f"{region}:\x00:{zone}"

@@ -1,17 +1,17 @@
 """The fused fast scan: pods of a FastPlan through the chunk kernel.
 
 The plan is uploaded once per call; pods run in chunks of CHUNK (512) pods
-with the carry chained device to device (the kernel updates it
-in place, so consecutive launches on one stream see each other's binds with
-no host round trip). Per-chunk outputs stay on the device until more than
-TPUSIM_FAST_SYNC_EVERY chunks (default 64) are in flight; then the oldest is
-copied to the host, so device memory for outputs stays O(sync_every * chunk)
-while the host keeps launching ahead of the device.
+with the carry (resource rows, presence and used-volume rows) chained device
+to device (the kernel updates it in place, so consecutive launches on one
+stream see each other's binds with no host round trip). Per-chunk outputs
+stay on the device until more than TPUSIM_FAST_SYNC_EVERY chunks (default
+64) are in flight; then the oldest is copied to the host, so device memory
+for outputs stays O(sync_every * chunk) while the host keeps launching ahead
+of the device.
 """
 
 from __future__ import annotations
 
-import os
 from typing import Optional
 
 import numpy as np
@@ -22,34 +22,49 @@ from tpusim_torch.fastplan import GHOST_REQ, FastCarry, FastPlan, init_carry
 from tpusim_torch.kernels.fastscan import (
     CARRY_ROWS,
     MISC_WIDTH,
+    NO_GROUPS,
     POD_FIELDS,
     STATIC_ROWS,
     TABLES,
+    GroupArgs,
     fastscan_chunk,
+    group_words,
 )
-from tpusim_torch.state import NUM_FIXED_BITS
+from tpusim_torch.state import NUM_FIXED_BITS, env_int
 
 # pods per kernel launch
 CHUNK = 512
 
-def _env_int(name: str, default: int) -> int:
-    try:
-        return int(os.environ.get(name, default))
-    except ValueError:
-        return default
+def pack_groups(rows01: np.ndarray, words: int) -> np.ndarray:
+    """[P, Gpad] 0/1 group rows -> [P, words] int32 bit words (bit g of word
+    w = group 32w + g)."""
+    bits = np.zeros((rows01.shape[0], words * 32), dtype=np.uint64)
+    bits[:, :rows01.shape[1]] = rows01 != 0
+    shifted = bits.reshape(-1, words, 32) << np.arange(32, dtype=np.uint64)
+    return shifted.sum(axis=2).astype(np.uint32).view(np.int32)
 
 
 def pod_matrix(plan: FastPlan, start: int, stop: int, rows: int) -> np.ndarray:
-    """Pods [start, stop) as the kernel's [rows, 13 + S] int32 columns; rows
-    past the span are ghost pods (req_cpu = GHOST_REQ: infeasible on every
-    node, so they leave the carry and rr untouched)."""
-    out = np.zeros((rows, len(POD_FIELDS) + plan.num_scalars), dtype=np.int32)
+    """Pods [start, stop) as the kernel's [rows, 13 + S + 1 + 3W] int32
+    columns; rows past the span are ghost pods (req_cpu = GHOST_REQ:
+    infeasible on every node, so they bind nothing and leave rr untouched;
+    their group id 0 and empty group sets are never read for a bind)."""
+    w = group_words(plan.num_groups)
+    at = len(POD_FIELDS) + plan.num_scalars
+    out = np.zeros((rows, at + 1 + 3 * w), dtype=np.int32)
     out[:, 0] = GHOST_REQ
     span = stop - start
     for c, name in enumerate(POD_FIELDS):
         out[:span, c] = getattr(plan, name)[start:stop]
     if plan.num_scalars:
-        out[:span, len(POD_FIELDS):] = plan.req_scalar[start:stop]
+        out[:span, len(POD_FIELDS):at] = plan.req_scalar[start:stop]
+    if plan.gid is not None:
+        out[:span, at] = plan.gid[start:stop]
+    for i, name in enumerate(("port_row", "disk_row", "ss_row")):
+        sets = getattr(plan, name)
+        if sets is not None:
+            c0 = at + 1 + i * w
+            out[:span, c0:c0 + w] = pack_groups(sets[start:stop], w)
     return out
 
 
@@ -68,18 +83,48 @@ class DevicePlan:
         self.alloc_scalar = (put(plan.alloc_scalar) if plan.num_scalars
                              else torch.zeros((0, npad), dtype=torch.int32,
                                               device=device))
+        self.groups = group_args(plan, device)
+
+
+def group_args(plan: FastPlan, device: torch.device) -> GroupArgs:
+    """The plan's pod-group operands on `device`: the zone one-hot rows
+    become one zone-id row, the per-group tables stay indexed by group id."""
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)
+                                ).to(device)
+
+    if not (plan.num_groups or plan.has_vol_zone or plan.has_maxpd):
+        return NO_GROUPS
+    kw = {}
+    if plan.has_spread:
+        zpad = plan.zone_onehot.shape[0]
+        kw.update(zone_id=put((np.arange(zpad)[:, None]
+                               * plan.zone_onehot).sum(axis=0)),
+                  n_zones=plan.n_zone_doms)
+    if plan.has_vol_zone:
+        kw["zone_ok"] = put(plan.zone_ok_tbl)
+    if plan.has_maxpd:
+        kw.update(n_vols=plan.n_vols, vpad=plan.used_vols.shape[0],
+                  vol_tbl=put(plan.vol_tbl),
+                  vol_type=put(np.asarray(plan.vol_type3).reshape(-1, 3)),
+                  limits=tuple(plan.maxpd_limits))
+    return GroupArgs(gpad=plan.num_groups, has_ports=plan.has_ports,
+                     has_disk=plan.has_disk, has_spread=plan.has_spread,
+                     has_vol_zone=plan.has_vol_zone, **kw)
 
 
 def carry_tensors(carry: FastCarry, device: torch.device):
-    """A fresh [7 + Srows, Npad] carry tensor and [128] misc row on
-    `device` (copies: the caller's carry is never updated in place)."""
+    """A fresh [7 + Srows + Gpad + Vpad, Npad] carry tensor and [128] misc
+    row on `device` (copies: the caller's carry is never updated in
+    place)."""
     def host(a):
         return a.cpu() if isinstance(a, torch.Tensor) else torch.from_numpy(
             np.ascontiguousarray(a, dtype=np.int32))
 
     parts = [host(r).reshape(1, -1) for r in carry.rows]
-    if carry.scal is not None:
-        parts.append(host(carry.scal))
+    for extra in (carry.scal, carry.pres, carry.uv):
+        if extra is not None:
+            parts.append(host(extra))
     rows = torch.cat(parts, dim=0).to(torch.int32)
     misc = host(carry.misc).reshape(-1)[:MISC_WIDTH].to(torch.int32)
     return rows.to(device).contiguous(), misc.to(device).clone()
@@ -109,7 +154,7 @@ def fast_scan(plan: FastPlan, chunk: int = CHUNK, start: int = 0,
     pods = torch.from_numpy(pod_matrix(plan, start, stop, num_chunks * k)
                             ).to(device)
     # clamp to >= 1: 0 would keep every chunk's outputs on the device
-    sync_every = max(1, _env_int("TPUSIM_FAST_SYNC_EVERY", 64))
+    sync_every = max(1, env_int("TPUSIM_FAST_SYNC_EVERY", 64))
     results = []   # host triples (choices[n], counts[n, B], adv[n])
     pending = []   # FIFO of (choices_dev, counts_dev, adv_dev, n_real)
 
@@ -122,7 +167,7 @@ def fast_scan(plan: FastPlan, chunk: int = CHUNK, start: int = 0,
     for ci in range(num_chunks):
         out = fastscan_chunk(pods[ci * k:(ci + 1) * k], dp.statics, dp.tables,
                              carry, misc, dp.alloc_scalar, plan.num_scalars,
-                             num_bits, plan.most_requested)
+                             num_bits, plan.most_requested, dp.groups)
         pending.append(out + (min(k, span - ci * k),))
         if len(pending) > sync_every:
             drain_one()
@@ -136,8 +181,13 @@ def fast_scan(plan: FastPlan, chunk: int = CHUNK, start: int = 0,
                      for i in range(3))
     if not return_carry:
         return out3
+    srows = dp.alloc_scalar.shape[0]
+    g0 = CARRY_ROWS + srows
+    v0 = g0 + plan.num_groups
     carry_out = FastCarry(
         rows=[carry[i:i + 1] for i in range(CARRY_ROWS)],
         misc=misc.reshape(1, MISC_WIDTH),
-        scal=carry[CARRY_ROWS:] if plan.num_scalars else None)
+        scal=carry[CARRY_ROWS:g0] if plan.num_scalars else None,
+        pres=carry[g0:v0] if plan.num_groups else None,
+        uv=carry[v0:] if plan.has_maxpd else None)
     return out3 + (carry_out,)

@@ -29,7 +29,11 @@ SOURCES: Dict[str, Dict[str, list]] = {
     "fastscan.cu": {
         "tpusim_fastscan_chunk": [
             _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-            _P, _P, _P, _P, _I, _I, _I, _P],
+            _P, _P, _P, _P, _I, _I, _I,
+            # pod groups: gpad, pres_row, flags, zone_id, n_zones, zone_ok,
+            # vol_tbl, vol_w, vol_type, n_vols, uv_row, three limits
+            _I, _I, _I, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I,
+            _P],
     },
 }
 

@@ -6,12 +6,18 @@ updates the carry in place (the carry tensor is the running cluster state;
 updating it in place keeps one copy on the device). Tensor layout, all int32
 and contiguous, node axis padded to Npad:
 
-  pods     [k, 13 + S]  POD_FIELDS, then the S scalar requests
+  pods     [k, 13 + S + 1 + 3W]  POD_FIELDS, the S scalar requests, the
+                        merged group id, then the pod's port-conflict, disk-
+                        conflict and spread group sets as W = ceil(Gpad/32)
+                        bit words each (bit g of word w = group 32w + g)
   statics  [8, Npad]    STATIC_ROWS
   tables   six [S_x, Npad] signature tables, TABLES order
-  carry    [7 + Srows, Npad]  CARRY_ROWS, then the scalar rows
+  carry    [7 + Srows + Gpad + Vpad, Npad]  CARRY_ROWS, the scalar rows, the
+                        presence rows (pods per merged group and node), the
+                        MaxPD used-volume rows (0/1)
   misc     [128]        rr at [0]
-  alloc_scalar [Srows, Npad] (or an empty tensor when S == 0)
+  alloc_scalar [Srows, Npad] (an empty [0, Npad] tensor when S == 0)
+  groups   GroupArgs: the static pod-group operands (Variants 2 and 4)
 
 Returns (choices [k], counts [k, num_bits], advanced [k]). A CPU tensor runs
 the plain version; a CUDA tensor launches the kernel of csrc/fastscan.cu.
@@ -19,22 +25,29 @@ the plain version; a CUDA tensor launches the kernel of csrc/fastscan.cu.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
 import torch
 
 from tpusim_torch.config import policy_weights
 from tpusim_torch.engine.priorities import MAX_PRIORITY
 from tpusim_torch.fastplan import PAD_SENTINEL_BIT
 from tpusim_torch.state import (
+    BIT_DISK_CONFLICT,
     BIT_DISK_PRESSURE,
+    BIT_HOST_PORTS,
     BIT_HOSTNAME_MISMATCH,
     BIT_INSUFFICIENT_CPU,
     BIT_INSUFFICIENT_EPHEMERAL,
     BIT_INSUFFICIENT_GPU,
     BIT_INSUFFICIENT_MEMORY,
     BIT_INSUFFICIENT_PODS,
+    BIT_MAX_VOLUME_COUNT,
     BIT_MEMORY_PRESSURE,
     BIT_NODE_SELECTOR_MISMATCH,
     BIT_TAINTS_NOT_TOLERATED,
+    BIT_VOLUME_ZONE_CONFLICT,
     NUM_FIXED_BITS,
 )
 
@@ -47,13 +60,113 @@ TABLES = ("selector_ok", "taint_ok", "intolerable", "aff_count",
           "avoid_score", "host_ok")
 CARRY_ROWS = 7
 MISC_WIDTH = 128
+MAX_ZONES = 16       # zone domains the kernel's shared zone sums hold
+# flag bits of the kernel's group features
+F_PORTS, F_DISK, F_SPREAD, F_VOL_ZONE = 1, 2, 4, 8
+
+
+def group_words(gpad: int) -> int:
+    """Bit words a pod's group set takes in its pod row."""
+    return -(-gpad // 32)
+
+
+@dataclass(frozen=True)
+class GroupArgs:
+    """The static pod-group operands of one plan on one device. The default
+    is the group-free plan (Variant 1)."""
+
+    gpad: int = 0                 # presence carry rows (0: none)
+    has_ports: bool = False
+    has_disk: bool = False
+    has_spread: bool = False
+    has_vol_zone: bool = False
+    zone_id: Optional[torch.Tensor] = None   # [Npad] zone domain, 0 = none
+    n_zones: int = 0                          # zone ids are < n_zones
+    zone_ok: Optional[torch.Tensor] = None   # [G, Npad] 0/1 by gid
+    n_vols: int = 0                           # MaxPD volume ids (0: off)
+    vpad: int = 0                             # used-volume carry rows
+    vol_tbl: Optional[torch.Tensor] = None   # [G, Vw] 0/1 by gid
+    vol_type: Optional[torch.Tensor] = None  # [V, 3] (EBS, GCE, AzureDisk)
+    limits: Tuple[int, int, int] = (0, 0, 0)
+
+    @property
+    def words(self) -> int:
+        return group_words(self.gpad)
+
+    @property
+    def flags(self) -> int:
+        return (F_PORTS * self.has_ports | F_DISK * self.has_disk
+                | F_SPREAD * self.has_spread | F_VOL_ZONE * self.has_vol_zone)
+
+    @property
+    def variant(self) -> str:
+        """The kernel variant a plan with these operands runs."""
+        return "groups" if (self.gpad or self.flags or self.n_vols) \
+            else "group_free"
+
+
+NO_GROUPS = GroupArgs()
+
+
+def pod_width(num_scalars: int, groups: GroupArgs) -> int:
+    return len(POD_FIELDS) + num_scalars + 1 + 3 * groups.words
 
 
 def _bit(mask, b):
     return mask.to(torch.int32) << b
 
 
-def filter_pod(row, statics, tables, carry, alloc_scalar, num_scalars: int):
+def _set_groups(words) -> list:
+    """The group ids whose bits are set in a pod's bit words."""
+    return [32 * w + b for w, word in enumerate(words) for b in range(32)
+            if (word >> b) & 1]
+
+
+class _PodGroups:
+    """One pod's group operands, read from its pod row."""
+
+    def __init__(self, row, num_scalars: int, groups: GroupArgs):
+        at = len(POD_FIELDS) + num_scalars
+        w = groups.words
+        self.gid = row[at]
+        self.ports = _set_groups(row[at + 1:at + 1 + w])
+        self.disk = _set_groups(row[at + 1 + w:at + 1 + 2 * w])
+        self.spread = _set_groups(row[at + 1 + 2 * w:at + 1 + 3 * w])
+        self.vols = []
+        if groups.n_vols:
+            mask = groups.vol_tbl[self.gid, :groups.n_vols].tolist()
+            self.vols = [v for v, m in enumerate(mask) if m]
+
+
+def _present(pres, gs, like):
+    """Nodes where any pod of the groups `gs` sits."""
+    if not gs:
+        return torch.zeros_like(like, dtype=torch.bool)
+    return (pres[gs] > 0).any(dim=0)
+
+
+def _maxpd_fail(pg: _PodGroups, groups: GroupArgs, uv, like):
+    """Max{EBS,GCEPD,AzureDisk}VolumeCount (predicates.go:422-460): the
+    unique relevant volume ids on the node, mine included, against each
+    type's limit; a pod adding no volume of a type passes that type."""
+    fail = torch.zeros_like(like, dtype=torch.bool)
+    if not pg.vols:
+        return fail
+    types = groups.vol_type[:groups.n_vols].tolist()
+    mine = set(pg.vols)
+    for t in range(3):
+        typed = [v for v in range(groups.n_vols) if types[v][t]]
+        if not any(v in mine for v in typed):
+            continue
+        cnt = torch.zeros_like(like)
+        for v in typed:
+            cnt = cnt + (1 if v in mine else uv[v])
+        fail = fail | (cnt > groups.limits[t])
+    return fail
+
+
+def filter_pod(row, statics, tables, carry, alloc_scalar, num_scalars: int,
+               groups: GroupArgs = NO_GROUPS):
     """The filter stages in predicatesOrdering for one pod (`row`, a list of
     its pod columns) against the current carry: (feasible mask, reason word
     of the first failing stage) over the node axis."""
@@ -62,6 +175,10 @@ def filter_pod(row, statics, tables, carry, alloc_scalar, num_scalars: int):
     acpu, amem, agpu, aeph, allowed, cond, mpr, dpr = statics
     sel_t, tol_t, _, _, _, host_t = tables
     used_c, used_m, used_g, used_e, _, _, pc = carry[:CARRY_ROWS]
+    pres0 = CARRY_ROWS + alloc_scalar.shape[0]
+    pres = carry[pres0:pres0 + groups.gpad]
+    uv = carry[pres0 + groups.gpad:pres0 + groups.gpad + groups.vpad]
+    pg = _PodGroups(row, num_scalars, groups)
     insuff_pods = (pc + 1) > allowed
     bits_res = _bit(insuff_pods, BIT_INSUFFICIENT_PODS)
     fail_res = insuff_pods
@@ -80,12 +197,22 @@ def filter_pod(row, statics, tables, carry, alloc_scalar, num_scalars: int):
             bits_res = bits_res | _bit(ins, NUM_FIXED_BITS + si)
     host_bad = host_t[host] == 0
     sel_bad = sel_t[sel] == 0
+    # PodFitsHostPorts, inside GeneralPredicates (predicates.go:1019-1039)
+    port_bad = _present(pres, pg.ports, cond)
     stages = [
         (cond != 0, cond),
-        (fail_res | host_bad | sel_bad,
+        (fail_res | host_bad | sel_bad | port_bad,
          bits_res | _bit(host_bad, BIT_HOSTNAME_MISMATCH)
-         | _bit(sel_bad, BIT_NODE_SELECTOR_MISMATCH)),
+         | _bit(sel_bad, BIT_NODE_SELECTOR_MISMATCH)
+         | _bit(port_bad, BIT_HOST_PORTS)),
+        # NoDiskConflict (predicates.go:266-276)
+        (_present(pres, pg.disk, cond), 1 << BIT_DISK_CONFLICT),
         (tol_t[tol] == 0, 1 << BIT_TAINTS_NOT_TOLERATED),
+        (_maxpd_fail(pg, groups, uv, cond), 1 << BIT_MAX_VOLUME_COUNT),
+        # NoVolumeZoneConflict (predicates.go:510-533)
+        ((groups.zone_ok[pg.gid] == 0) if groups.has_vol_zone
+         else torch.zeros_like(cond, dtype=torch.bool),
+         1 << BIT_VOLUME_ZONE_CONFLICT),
         ((mpr != 0) & (best_effort != 0), 1 << BIT_MEMORY_PRESSURE),
         (dpr != 0, 1 << BIT_DISK_PRESSURE),
     ]
@@ -97,9 +224,39 @@ def filter_pod(row, statics, tables, carry, alloc_scalar, num_scalars: int):
     return feasible, reason
 
 
+def spread_score(pres, pg: _PodGroups, groups: GroupArgs, feasible):
+    """SelectorSpreadPriority (selector_spreading.go:66-175): per node the
+    count of pods my services select, normalized over the feasible nodes and
+    blended 1:2 with the count of the node's zone when any feasible node has
+    a zone. int32 like the kernel; the plan bounds the blend's products."""
+    i32 = torch.int32
+    cnt = torch.zeros_like(feasible, dtype=i32)
+    for g in pg.spread:
+        cnt = cnt + pres[g]
+    fcnt = torch.where(feasible, cnt, 0)
+    max_node = int(fcnt.max())
+    zid = groups.zone_id
+    zvalid = zid != 0
+    zsum = torch.zeros(groups.n_zones, dtype=i32, device=cnt.device)
+    zsum.index_add_(0, zid.long(), fcnt)
+    zsum[0] = 0
+    max_zone = int(zsum.max())
+    zper = torch.where(zvalid, zsum[zid.long()], 0)
+    have_zones = bool((feasible & zvalid).any())
+    node_num = max_node - cnt if max_node > 0 else torch.ones_like(cnt)
+    node_den = max(max_node, 1)
+    zone_num = max_zone - zper if max_zone > 0 else torch.ones_like(cnt)
+    zone_den = max(max_zone, 1)
+    plain = (MAX_PRIORITY * node_num) // node_den
+    blend = (MAX_PRIORITY * (node_num * zone_den + 2 * zone_num * node_den)
+             ) // (3 * node_den * zone_den)
+    return torch.where(zvalid & have_zones, blend, plain)
+
+
 def fastscan_chunk_plain(pods, statics, tables, carry, misc, alloc_scalar,
                          num_scalars: int, num_bits: int,
-                         most_requested: bool):
+                         most_requested: bool,
+                         groups: GroupArgs = NO_GROUPS):
     """The chunk as int32 tensor ops and a Python loop over pods, on the
     inputs' device. The same arithmetic as the kernel: int32 products wrap,
     integer division floors."""
@@ -111,9 +268,11 @@ def fastscan_chunk_plain(pods, statics, tables, carry, misc, alloc_scalar,
     adv = torch.zeros((k,), dtype=i32, device=dev)
     acpu, amem = statics[0], statics[1]
     _, tol_t, intol_t, aff_t, avoid_t, _ = tables
-    w_least, w_most, w_balanced, w_aff, w_taint, w_avoid = \
+    w_least, w_most, w_balanced, w_aff, w_taint, w_avoid, w_spread = \
         policy_weights(most_requested)
     shifts = torch.arange(num_bits, dtype=i32, device=dev)[:, None]
+    pres0 = CARRY_ROWS + alloc_scalar.shape[0]
+    uv0 = pres0 + groups.gpad
     rr = int(misc[0])
     rows = pods.cpu().tolist()
 
@@ -128,7 +287,7 @@ def fastscan_chunk_plain(pods, statics, tables, carry, misc, alloc_scalar,
         rs = row[13:13 + num_scalars]
         nz_c, nz_m = carry[4], carry[5]
         feasible, reason = filter_pod(row, statics, tables, carry,
-                                      alloc_scalar, num_scalars)
+                                      alloc_scalar, num_scalars, groups)
         n_feasible = int(feasible.sum())
 
         if n_feasible == 0:
@@ -163,6 +322,10 @@ def fastscan_chunk_plain(pods, statics, tables, carry, misc, alloc_scalar,
         else:
             score = score + w_taint * MAX_PRIORITY
         score = score + avoid_t[avoid] * w_avoid
+        pg = _PodGroups(row, num_scalars, groups)
+        if groups.has_spread:
+            score = score + w_spread * spread_score(
+                carry[pres0:uv0], pg, groups, feasible)
 
         # ---- selectHost: max score, round-robin pick among the ties ----
         masked = torch.where(feasible, score, -1)
@@ -174,10 +337,14 @@ def fastscan_chunk_plain(pods, statics, tables, carry, misc, alloc_scalar,
         adv[j] = int(n_feasible > 1)
         rr += int(n_feasible > 1)
 
-        # ---- bind ----
+        # ---- bind: resources, my group's presence, my volume ids ----
         add = torch.tensor([rc, rm, rg, re_, nzc, nzm, 1] + rs, dtype=i32,
                            device=dev)
         carry[:CARRY_ROWS + num_scalars, choice] += add
+        if groups.gpad:
+            carry[pres0 + pg.gid, choice] += 1
+        for v in pg.vols:
+            carry[uv0 + v, choice] = 1
     misc[0] = rr
     return choices, counts, adv
 
@@ -192,32 +359,68 @@ def _check(name, t, device, rows=None, cols=None):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, need [*, {cols}]")
 
 
+def _check_groups(groups: GroupArgs, device, npad: int):
+    """The group operands the kernel reads; returns their pointers."""
+    if groups.has_spread:
+        _check("zone_id", groups.zone_id, device)
+        if groups.zone_id.numel() != npad:
+            raise ValueError(f"zone_id: {groups.zone_id.numel()} values, "
+                             f"need {npad}")
+        if not 0 < groups.n_zones <= MAX_ZONES:
+            raise ValueError(f"{groups.n_zones} zone domains: the kernel "
+                             f"holds 1 to {MAX_ZONES}")
+    if groups.has_vol_zone:
+        _check("zone_ok", groups.zone_ok, device, cols=npad)
+    if groups.n_vols:
+        _check("vol_tbl", groups.vol_tbl, device)
+        _check("vol_type", groups.vol_type, device, rows=groups.n_vols,
+               cols=3)
+        if groups.vol_tbl.dim() != 2 \
+                or groups.vol_tbl.shape[1] < groups.n_vols:
+            raise ValueError(f"vol_tbl: shape {tuple(groups.vol_tbl.shape)}, "
+                             f"need [*, >= {groups.n_vols}]")
+    if groups.vpad < groups.n_vols:
+        raise ValueError(f"{groups.vpad} used-volume rows for "
+                         f"{groups.n_vols} volume ids")
+
+    def ptr(t, on):
+        return t.data_ptr() if on else None
+
+    return (ptr(groups.zone_id, groups.has_spread),
+            ptr(groups.zone_ok, groups.has_vol_zone),
+            ptr(groups.vol_tbl, groups.n_vols),
+            ptr(groups.vol_type, groups.n_vols))
+
+
 def fastscan_chunk(pods, statics, tables, carry, misc, alloc_scalar,
-                   num_scalars: int, num_bits: int, most_requested: bool):
+                   num_scalars: int, num_bits: int, most_requested: bool,
+                   groups: GroupArgs = NO_GROUPS):
     """Schedule one chunk of pods: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors."""
     device = pods.device
     if device.type == "cpu":
         return fastscan_chunk_plain(pods, statics, tables, carry, misc,
                                     alloc_scalar, num_scalars, num_bits,
-                                    most_requested)
+                                    most_requested, groups)
     if device.type != "cuda":
         raise ValueError(f"fastscan_chunk runs on cuda or cpu, not {device}")
     npad = statics.shape[1]
     k = pods.shape[0]
-    _check("pods", pods, device, cols=len(POD_FIELDS) + num_scalars)
+    srows = alloc_scalar.shape[0]
+    pres_row = CARRY_ROWS + srows
+    uv_row = pres_row + groups.gpad
+    _check("pods", pods, device, cols=pod_width(num_scalars, groups))
     _check("statics", statics, device, rows=len(STATIC_ROWS), cols=npad)
     for name, t in zip(TABLES, tables):
         _check(name, t, device, cols=npad)
-    _check("carry", carry, device, rows=CARRY_ROWS + num_scalars, cols=npad)
+    _check("carry", carry, device, rows=uv_row + groups.vpad, cols=npad)
     _check("misc", misc, device)
-    if num_scalars:
-        _check("alloc_scalar", alloc_scalar, device, rows=num_scalars,
-               cols=npad)
+    _check("alloc_scalar", alloc_scalar, device, rows=num_scalars, cols=npad)
     if NUM_FIXED_BITS + num_scalars > PAD_SENTINEL_BIT \
             or num_bits > PAD_SENTINEL_BIT:
         raise ValueError(f"{num_scalars} scalar axes / {num_bits} reason "
                          "bits exceed the kernel's int32 reason word")
+    zone_id, zone_ok, vol_tbl, vol_type = _check_groups(groups, device, npad)
     from tpusim_torch.kernels import build
 
     lib = build.load("fastscan.cu")
@@ -225,7 +428,7 @@ def fastscan_chunk(pods, statics, tables, carry, misc, alloc_scalar,
     choices = torch.empty((k,), dtype=i32, device=device)
     counts = torch.empty((k, num_bits), dtype=i32, device=device)
     adv = torch.empty((k,), dtype=i32, device=device)
-    scratch = torch.empty((2, npad), dtype=i32, device=device)
+    scratch = torch.empty((3, npad), dtype=i32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = lib.tpusim_fastscan_chunk(
         pods.data_ptr(), k, pods.shape[1], statics.data_ptr(),
@@ -233,12 +436,18 @@ def fastscan_chunk(pods, statics, tables, carry, misc, alloc_scalar,
         alloc_scalar.data_ptr() if num_scalars else None, num_scalars,
         choices.data_ptr(), counts.data_ptr(), adv.data_ptr(),
         scratch.data_ptr(), num_bits, npad, int(bool(most_requested)),
-        stream)
+        groups.gpad, pres_row, groups.flags, zone_id, groups.n_zones,
+        zone_ok, vol_tbl,
+        groups.vol_tbl.shape[1] if groups.n_vols else 0, vol_type,
+        groups.n_vols, uv_row, *groups.limits, stream)
     if rc != 0:
         raise RuntimeError(f"fastscan kernel launch failed: CUDA error {rc}")
     fastscan_chunk.launches += 1
+    fastscan_chunk.launches_by_variant[groups.variant] += 1
     return choices, counts, adv
 
 
-# launches of the CUDA kernel (the plain version does not count)
+# launches of the CUDA kernel, in all and per variant (the plain version
+# does not count)
 fastscan_chunk.launches = 0
+fastscan_chunk.launches_by_variant = {"group_free": 0, "groups": 0}

@@ -5,15 +5,20 @@ The host compile step of the port (numpy only). NodeInfo's cached aggregates
 symbolic pod features become interned signature ids with precompiled
 [signature, node] tables, so the device scan carries only numeric state.
 
-Pod-group features (host ports, services, inter-pod affinity, volumes) are
-detected but not compiled: the group-free kernel does not carry them, and
-`fastplan.plan_fast` refuses such a workload with the feature's name.
+Pod-group features — host ports, services (SelectorSpreadPriority) and pod
+volumes (NoDiskConflict, MaxPDVolumeCount, NoVolumeZoneConflict) — compile
+into GroupTables: pods are interned by group signature and merged by match
+profile, and the device carries a [G, N] presence count per merged group.
+Inter-pod (anti)affinity is detected but not compiled: its kernel variant is
+not ported, and `fastplan.plan_fast` refuses such a workload.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Dict, List, Tuple
+import json
+import os
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -25,10 +30,19 @@ from tpusim_torch.api.types import (
     find_matching_untolerated_taint,
     tolerations_tolerate_taint,
 )
-from tpusim_torch.engine.predicates import pod_matches_node_labels
+from tpusim_torch.engine.predicates import (
+    _VOLUME_FILTERS,
+    _ZONE_LABELS,
+    DEFAULT_MAXPD_LIMITS,
+    effective_maxpd_limits,
+    is_volume_conflict,
+    label_zones_to_set,
+    pod_matches_node_labels,
+)
 from tpusim_torch.engine.priorities import (
     calculate_node_affinity_priority_map,
     calculate_node_prefer_avoid_pods_priority_map,
+    get_zone_key,
 )
 from tpusim_torch.engine.resources import (
     NodeInfo,
@@ -94,6 +108,34 @@ REASON_STRINGS = [
     "node(s) didn't have the requested labels",
     "node(s) didn't match service affinity",
 ]
+
+# Pod-group budgets (env-overridable). Groups are merged by match profile, so
+# the limits bound device memory and host precompute, not workload diversity:
+#   MAX_GROUPS          — merged groups (presence rows)
+#   MAX_RAW_GROUPS      — distinct raw signatures before merging
+#   MAX_MATCH_WORK      — host matcher evaluations
+#   MAX_PRESENCE_BYTES  — presence[G, N] carry size
+MAX_GROUPS = 8192
+MAX_RAW_GROUPS = 262_144
+MAX_MATCH_WORK = 8_000_000
+MAX_PRESENCE_BYTES = 1 << 30
+MAX_VOLUME_IDS = 4096
+
+
+def env_int(name: str, default: int) -> int:
+    """An integer setting from the environment; `default` when unset or
+    not an integer."""
+    try:
+        return int(os.environ.get(name, default))
+    except ValueError:
+        return default
+
+
+def _group_budgets():
+    return (env_int("TPUSIM_MAX_GROUPS", MAX_GROUPS),
+            env_int("TPUSIM_MAX_RAW_GROUPS", MAX_RAW_GROUPS),
+            env_int("TPUSIM_MAX_MATCH_WORK", MAX_MATCH_WORK),
+            env_int("TPUSIM_MAX_PRESENCE_BYTES", MAX_PRESENCE_BYTES))
 
 
 _DICT_TAG = object()  # can never equal any JSON value
@@ -194,6 +236,7 @@ class PodColumns:
     aff_id: np.ndarray           # [P] int32
     avoid_id: np.ndarray         # [P] int32
     host_id: np.ndarray          # [P] int32
+    group_id: np.ndarray         # [P] int32 — merged pod-group id (GroupTables)
 
 
 @dataclass
@@ -212,9 +255,41 @@ class DynamicInit:
 
 
 @dataclass
+class GroupTables:
+    """Pod-group tables for the features whose state depends on which pods
+    sit where: host ports (predicates.go:1019-1039), the volume predicates
+    (predicates.go:266-276, 288-460, 510-533) and SelectorSpreadPriority
+    (selector_spreading.go:66-175).
+
+    A "group" is an interned (namespace, labels, host ports, volumes) pod
+    signature over new + placed-existing pods, MERGED by match profile: raw
+    signatures every compiled matcher treats identically (same service
+    -selector matches, same port set, same volume set) collapse into one
+    group. The pairwise tables are factored through interned spaces so
+    nothing is O(G^2): port_conflict over port sets, disk_conflict over
+    volume sets, ss_rows over spread signatures; per-group ids index them.
+    zone_dom interns utilnode.GetZoneKey per node with 0 = no zone."""
+
+    group_of_pod: np.ndarray     # [P] int32 — new pods' group ids
+    presence: np.ndarray         # [G, N] int32 — placed existing pods per group
+    port_conflict: np.ndarray    # [Pp, Pp] bool — wanted ports of a hit ports of b
+    port_sig: np.ndarray         # [G] int32 — group -> port-set id (0 = none)
+    disk_conflict: np.ndarray    # [Dv, Dv] bool — volume-set a conflicts with b
+    disk_sig: np.ndarray         # [G] int32 — group -> volume-set id (0 = none)
+    vol_mask: np.ndarray         # [G, V] bool — MaxPD-relevant volume ids used
+    vol_type: np.ndarray         # [V, 3] bool — id counts toward (EBS,GCE,Azure)
+    zone_ok: np.ndarray          # [G, N] bool — NoVolumeZoneConflict passes
+    used_vols_init: np.ndarray   # [N, V] bool — placed pods' volume ids per node
+    ss_rows: np.ndarray          # [Sd, G] bool — b counts toward spread sig s
+    ss_sig: np.ndarray           # [G] int32 — group -> its spread sig (0 = none)
+    zone_dom: np.ndarray         # [N] int32
+
+
+@dataclass
 class CompiledCluster:
     statics: NodeStatics
     tables: SignatureTables
+    groups: GroupTables
     dynamic: DynamicInit
     scalar_names: List[str]
     node_index: Dict[str, int]
@@ -222,7 +297,14 @@ class CompiledCluster:
     has_ports: bool = False
     has_services: bool = False
     has_interpod: bool = False
-    has_volumes: bool = False
+    has_disk_conflict: bool = False
+    has_maxpd: bool = False
+    has_vol_zone: bool = False
+    maxpd_limits: tuple = DEFAULT_MAXPD_LIMITS   # (EBS, GCE PD, AzureDisk)
+    n_zone_doms: int = 1
+    # group budgets exceeded or volume semantics that need the host engine;
+    # the port has none, so the backend raises with these reasons
+    unsupported: List[str] = field(default_factory=list)
 
 
 def _selector_signature(pod: Pod):
@@ -253,14 +335,431 @@ def _host_signature(pod: Pod):
     return pod.spec.node_name or None
 
 
-def _has_host_ports(pod: Pod) -> bool:
-    return any(p.host_port > 0 for c in pod.spec.containers for p in c.ports)
+# ---------------------------------------------------------------------------
+# pod-group compilation (host ports / volumes / selector spreading)
+# ---------------------------------------------------------------------------
+
+_ANY_IP = "0.0.0.0"
+
+
+def _sanitized_ports(pod: Pod) -> list:
+    """Wanted (ip, protocol, port) triples, HostPortInfo-sanitized
+    (util/utils.go:51-137: ip defaults 0.0.0.0, protocol TCP, port>0 only)."""
+    out = set()
+    for c in pod.spec.containers:
+        for p in c.ports:
+            if p.host_port > 0:
+                out.add((p.host_ip or _ANY_IP, p.protocol or "TCP", p.host_port))
+    return sorted(out)
+
+
+def _ports_conflict(wants: list, occupied: list) -> bool:
+    """check_conflict over a full pod pair: 0.0.0.0 wildcards either side."""
+    for wip, wproto, wport in wants:
+        for oip, oproto, oport in occupied:
+            if (wport == oport and wproto == oproto
+                    and (wip == _ANY_IP or oip == _ANY_IP or wip == oip)):
+                return True
+    return False
+
+
+def _group_signature(pod: Pod):
+    aff = pod.spec.affinity
+    return {
+        "ns": pod.namespace,
+        "labels": pod.metadata.labels,
+        "aff": aff.pod_affinity.to_obj() if (aff and aff.pod_affinity) else None,
+        "anti": (aff.pod_anti_affinity.to_obj()
+                 if (aff and aff.pod_anti_affinity) else None),
+        "ports": _sanitized_ports(pod),
+        # volumes drive NoDiskConflict/MaxPDVolumeCount/NoVolumeZoneConflict;
+        # [] keeps volume-less pods in one signature class
+        "vols": sorted(json.dumps(v.to_obj(), sort_keys=True)
+                       for v in pod.spec.volumes),
+    }
 
 
 def _has_interpod_terms(pod: Pod) -> bool:
     a = pod.spec.affinity
     return a is not None and (a.pod_affinity is not None
                               or a.pod_anti_affinity is not None)
+
+
+class _VolumeFallback(Exception):
+    """Raised during volume compilation when the workload needs host-side
+    semantics (resolution errors the reference reports per pod) or exceeds a
+    budget."""
+
+
+_MAXPD_TYPES = ("EBS", "GCE", "AzureDisk")
+
+
+def _compile_volumes(raw_reps: List[Pod], nodes: List[Node],
+                     snapshot: ClusterSnapshot, max_work: int):
+    """Device tables for NoDiskConflict / MaxPDVolumeCount /
+    NoVolumeZoneConflict (predicates.go:266-276, 288-460, 510-533).
+
+    Volume sets are interned per (namespace, volumes) signature; PVC->PV
+    resolution happens here against the snapshot, so the device only carries
+    a per-node used-volume-id matrix and static conflict/zone tables.
+    Returns (vsig_raw[Graw], disk_conflict[Dv,Dv], vol_mask[Dv,V],
+    vol_type[V,3], zone_rows[Dv,N], limits, has_disk, has_maxpd,
+    has_zone)."""
+    graw = len(raw_reps)
+    n = len(nodes)
+    pvcs = {pvc.key(): pvc for pvc in snapshot.pvcs}
+    pvs = {pv.name: pv for pv in snapshot.pvs}
+    node_constraints = [
+        {k: v for k, v in node.metadata.labels.items() if k in _ZONE_LABELS}
+        for node in nodes]
+    any_zone_nodes = any(node_constraints)
+
+    # --- volume-set signature interning over raw groups ---
+    vsig_ids: Dict[str, int] = {"": 0}
+    vsig_reps: List[Optional[Pod]] = [None]
+    vsig_raw = np.zeros(graw, np.int32)
+    for b, rep in enumerate(raw_reps):
+        if not rep.spec.volumes:
+            continue
+        key = json.dumps([rep.namespace,
+                          sorted(json.dumps(v.to_obj(), sort_keys=True)
+                                 for v in rep.spec.volumes)])
+        vid = vsig_ids.get(key)
+        if vid is None:
+            vid = len(vsig_reps)
+            vsig_ids[key] = vid
+            vsig_reps.append(rep)
+        vsig_raw[b] = vid
+    dv = len(vsig_reps)
+    if dv * dv + dv * n > max_work:
+        raise _VolumeFallback(
+            f"volume-set precompute ({dv} sets, {n} nodes) exceeds the jax "
+            f"backend work budget ({max_work})")
+
+    # --- NoDiskConflict: pairwise conflicts between volume sets ---
+    disk_conflict = np.zeros((dv, dv), dtype=bool)
+    for a in range(1, dv):
+        for b in range(1, dv):
+            disk_conflict[a, b] = any(
+                is_volume_conflict(v, vsig_reps[b])
+                for v in vsig_reps[a].spec.volumes)
+    has_disk = bool(disk_conflict.any())
+
+    # --- MaxPDVolumeCount: per-set relevant volume ids (resolved via PVC->PV;
+    # unresolvable claims count conservatively toward every filter type) ---
+    vol_ids: Dict[tuple, int] = {}
+    set_ids: List[List[int]] = [[] for _ in range(dv)]
+    id_types: List[set] = []
+
+    def intern_vol(key: tuple, types: set) -> int:
+        vid = vol_ids.get(key)
+        if vid is None:
+            vid = len(id_types)
+            vol_ids[key] = vid
+            id_types.append(set())
+        id_types[vid] |= types
+        return vid
+
+    for s in range(1, dv):
+        rep = vsig_reps[s]
+        for vol in rep.spec.volumes:
+            direct = False
+            for t, name in enumerate(_MAXPD_TYPES):
+                vol_src, _, id_field, _ = _VOLUME_FILTERS[name]
+                src = vol_src(vol)
+                if src is not None:
+                    set_ids[s].append(intern_vol(
+                        (name, src.get(id_field, "")), {t}))
+                    direct = True
+                    break
+            if direct:
+                continue
+            pvc_name = vol.pvc_name
+            if pvc_name is None:
+                continue
+            if pvc_name == "":
+                raise _VolumeFallback(
+                    "a pod volume has a PersistentVolumeClaim with no name")
+            pvc = pvcs.get(f"{rep.namespace}/{pvc_name}")
+            pv = pvs.get(pvc.volume_name) if (pvc and pvc.volume_name) else None
+            if pv is None:
+                # missing PVC / unbound PVC / missing PV: conservative id
+                # counted toward every type (predicates.go:379-410); the zone
+                # predicate would error on these when zone constraints exist
+                if any_zone_nodes:
+                    raise _VolumeFallback(
+                        f'unresolvable PersistentVolumeClaim "{pvc_name}" with '
+                        "zone-constrained nodes (NoVolumeZoneConflict errors "
+                        "host-side)")
+                set_ids[s].append(intern_vol(
+                    ("pvc", f"{rep.namespace}/{pvc_name}"), {0, 1, 2}))
+                continue
+            for t, name in enumerate(_MAXPD_TYPES):
+                _, pv_src, id_field, _ = _VOLUME_FILTERS[name]
+                src = pv_src(pv)
+                if src is not None:
+                    set_ids[s].append(intern_vol(
+                        (name, src.get(id_field, "")), {t}))
+                    break
+    v_count = len(id_types)
+    max_vol_ids = env_int("TPUSIM_MAX_VOLUME_IDS", MAX_VOLUME_IDS)
+    if v_count > max_vol_ids:
+        raise _VolumeFallback(
+            f"{v_count} distinct MaxPD volume ids exceed the jax backend "
+            f"limit ({max_vol_ids})")
+    v_dim = max(v_count, 1)
+    vol_mask = np.zeros((dv, v_dim), dtype=bool)
+    for s in range(dv):
+        for vid in set_ids[s]:
+            vol_mask[s, vid] = True
+    vol_type = np.zeros((v_dim, 3), dtype=bool)
+    for vid, types in enumerate(id_types):
+        for t in types:
+            vol_type[vid, t] = True
+    has_maxpd = v_count > 0
+    limits = effective_maxpd_limits()
+
+    # --- NoVolumeZoneConflict: static (volume set, node) pass/fail ---
+    zone_rows = np.ones((dv, n), dtype=bool)
+    has_zone = False
+    if any_zone_nodes:
+        for s in range(1, dv):
+            rep = vsig_reps[s]
+            for vol in rep.spec.volumes:
+                pvc_name = vol.pvc_name
+                if not pvc_name:
+                    continue
+                pvc = pvcs[f"{rep.namespace}/{pvc_name}"]  # resolved above
+                pv = pvs[pvc.volume_name]
+                for k, v in pv.metadata.labels.items():
+                    if k not in _ZONE_LABELS:
+                        continue
+                    try:
+                        allowed = label_zones_to_set(v)
+                    except ValueError:
+                        continue  # unparsable label ignored
+                    for i, constraints in enumerate(node_constraints):
+                        if not constraints:
+                            continue  # zone-label-less node passes trivially
+                        # a constrained node missing the PV's label fails too
+                        # (nodeConstraints[k] yields "" in the reference)
+                        if constraints.get(k) not in allowed:
+                            zone_rows[s, i] = False
+                            has_zone = True
+    return (vsig_raw, disk_conflict, vol_mask, vol_type, zone_rows, limits,
+            has_disk, has_maxpd, has_zone)
+
+
+def _trivial_groups(num_pods: int, n: int) -> GroupTables:
+    z = np.zeros
+    return GroupTables(
+        group_of_pod=z(num_pods, np.int32), presence=z((1, n), np.int32),
+        port_conflict=z((1, 1), bool), port_sig=z(1, np.int32),
+        disk_conflict=z((1, 1), bool), disk_sig=z(1, np.int32),
+        vol_mask=z((1, 1), bool), vol_type=z((1, 3), bool),
+        zone_ok=np.ones((1, n), bool), used_vols_init=z((n, 1), bool),
+        ss_rows=z((1, 1), bool), ss_sig=z(1, np.int32),
+        zone_dom=z(n, np.int32))
+
+
+@dataclass
+class _GroupCompile:
+    """What `_compile_groups` hands compile_cluster."""
+
+    tables: GroupTables
+    has_ports: bool = False
+    has_services: bool = False
+    has_interpod: bool = False
+    has_disk_conflict: bool = False
+    has_maxpd: bool = False
+    has_vol_zone: bool = False
+    maxpd_limits: tuple = DEFAULT_MAXPD_LIMITS
+    n_zone_doms: int = 1
+    unsupported: List[str] = field(default_factory=list)
+
+
+def _compile_groups(snapshot: ClusterSnapshot, pods: List[Pod],
+                    nodes: List[Node], node_index: Dict[str, int]
+                    ) -> _GroupCompile:
+    """Build GroupTables and the feature flags. A workload with inter-pod
+    (anti)affinity gets trivial tables and its flag only: its kernel
+    variant is not ported, so nothing reads its groups."""
+    n = len(nodes)
+    placed = [p for p in snapshot.pods if p.spec.node_name in node_index]
+    both = list(pods) + placed
+
+    has_ports = any(_sanitized_ports(p) for p in both)
+    has_interpod = any(_has_interpod_terms(p) for p in both)
+    has_services = bool(snapshot.services)
+    has_volumes = any(p.spec.volumes for p in both)
+    trivial = _trivial_groups(len(pods), n)
+    if has_interpod:
+        return _GroupCompile(tables=trivial, has_interpod=True)
+    if not (has_ports or has_services or has_volumes):
+        return _GroupCompile(tables=trivial)
+
+    max_groups, max_raw, max_work, max_presence = _group_budgets()
+
+    def fallback(reason: str) -> _GroupCompile:
+        return _GroupCompile(tables=trivial, unsupported=[reason])
+
+    # --- 1. raw signature interning ---
+    gi = Interner()
+    raw_of_pod = [gi.intern(_group_signature(p), p) for p in pods]
+    placed_raw = [gi.intern(_group_signature(p), p) for p in placed]
+    graw = len(gi)
+    if graw > max_raw:
+        return fallback(f"{graw} distinct raw pod groups exceed the jax "
+                        f"backend limit ({max_raw})")
+    raw_reps = gi.representatives
+
+    # --- volume tables (NoDiskConflict / MaxPDVolumeCount / NoVolumeZone) ---
+    if has_volumes:
+        try:
+            (vsig_raw, disk_conflict, vsig_mask, vol_type, zone_rows,
+             maxpd_limits, has_disk, has_maxpd, has_zone) = _compile_volumes(
+                 raw_reps, nodes, snapshot, max_work)
+        except _VolumeFallback as exc:
+            return fallback(str(exc))
+    else:
+        vsig_raw = np.zeros(graw, np.int32)
+        disk_conflict = np.zeros((1, 1), bool)
+        vsig_mask = np.zeros((1, 1), bool)
+        vol_type = np.zeros((1, 3), bool)
+        zone_rows = np.ones((1, n), bool)
+        maxpd_limits = DEFAULT_MAXPD_LIMITS
+        has_disk = has_maxpd = has_zone = False
+
+    # --- 2. intern matcher spaces: spread signatures, port sets ---
+    # spread signature = (namespace, selected service selectors); 0 = none
+    spread_defs: List[tuple] = [None]
+    spread_ids: Dict[str, int] = {}
+    ss_sig_raw = np.zeros(graw, np.int32)
+    if has_services and len(snapshot.services) * graw > max_work:
+        # the service->group scan below is O(services * graw); budget it like
+        # the matcher rows so a huge snapshot can't hang host compile
+        return fallback(
+            f"pod-group service scan ({len(snapshot.services)} services x "
+            f"{graw} raw groups) exceeds the jax backend work budget "
+            f"({max_work})")
+    if has_services:
+        for b, rep in enumerate(raw_reps):
+            sels = [dict(svc.selector) for svc in snapshot.services
+                    if (svc.namespace == rep.namespace and svc.selector
+                        and all(rep.metadata.labels.get(k) == v
+                                for k, v in svc.selector.items()))]
+            if not sels:
+                continue
+            key = json.dumps([rep.namespace,
+                              sorted(json.dumps(s, sort_keys=True) for s in sels)])
+            sid = spread_ids.get(key)
+            if sid is None:
+                sid = len(spread_defs)
+                spread_ids[key] = sid
+                spread_defs.append((rep.namespace, sels))
+            ss_sig_raw[b] = sid
+    sd = len(spread_defs)
+    # the matcher budget counts the one reserved (all-False) inter-pod term
+    # row of the reference's compile, so the same workloads pass it
+    if (1 + sd) * graw > max_work:
+        return fallback(
+            f"pod-group matcher precompute (1 terms + {sd} spread sigs + "
+            f"0 service-anti-affinity sigs x {graw} raw groups) "
+            f"exceeds the jax backend work budget ({max_work})")
+
+    # port-set interning; 0 = no ports
+    port_defs: List[list] = [[]]
+    port_ids: Dict[tuple, int] = {(): 0}
+    port_sig_raw = np.zeros(graw, np.int32)
+    if has_ports:
+        for b, rep in enumerate(raw_reps):
+            ports = tuple(_sanitized_ports(rep))
+            pid = port_ids.get(ports)
+            if pid is None:
+                pid = len(port_defs)
+                port_ids[ports] = pid
+                port_defs.append(list(ports))
+            port_sig_raw[b] = pid
+    pp = len(port_defs)
+    port_conflict = np.zeros((pp, pp), dtype=bool)
+    for a in range(1, pp):
+        for b in range(1, pp):
+            port_conflict[a, b] = _ports_conflict(port_defs[a], port_defs[b])
+
+    # --- 3. spread matcher rows over raw groups ---
+    ss_rows_raw = np.zeros((sd, graw), dtype=bool)
+    for sid in range(1, sd):
+        ns, sels = spread_defs[sid]
+        for b, rep in enumerate(raw_reps):
+            ss_rows_raw[sid, b] = rep.namespace == ns and any(
+                all(rep.metadata.labels.get(k) == v for k, v in sel.items())
+                for sel in sels)
+
+    # --- 4. merge raw groups by match profile ---
+    # two raw groups are indistinguishable when every matcher treats them the
+    # same (same spread column, same port set, same volume set) and they act
+    # identically (same spread sig). The reference's profile also holds the
+    # inter-pod term columns and actor terms and the service-anti-affinity
+    # columns; without inter-pod terms or a policy those are the same for
+    # every raw group, so this profile merges into the same group ids.
+    merged: Dict[tuple, int] = {}
+    gid_of_raw = np.zeros(graw, np.int32)
+    rep_raw_idx: List[int] = []
+    for b in range(graw):
+        profile = (ss_rows_raw[:, b].tobytes(), int(port_sig_raw[b]),
+                   int(ss_sig_raw[b]), int(vsig_raw[b]))
+        gid = merged.get(profile)
+        if gid is None:
+            gid = len(rep_raw_idx)
+            merged[profile] = gid
+            rep_raw_idx.append(b)
+        gid_of_raw[b] = gid
+    g = len(rep_raw_idx)
+    if g > max_groups:
+        return fallback(f"{g} distinct pod groups exceed the jax backend "
+                        f"limit ({max_groups})")
+    if g * n * 4 > max_presence:
+        return fallback(
+            f"pod-group presence state ({g} groups x {n} nodes) exceeds the "
+            f"jax backend memory budget ({max_presence} bytes)")
+
+    group_of_pod = (gid_of_raw[np.array(raw_of_pod, dtype=np.int64)]
+                    if raw_of_pod else np.zeros(0, np.int32)).astype(np.int32)
+    sel_cols = np.array(rep_raw_idx, dtype=np.int64)
+    ss_rows = ss_rows_raw[:, sel_cols] if graw else ss_rows_raw
+    presence = np.zeros((g, n), dtype=np.int32)
+    used_vols_init = np.zeros((n, vsig_mask.shape[1]), dtype=bool)
+    for raw_id, p in zip(placed_raw, placed):
+        i = node_index[p.spec.node_name]
+        presence[gid_of_raw[raw_id], i] += 1
+        if has_maxpd:
+            used_vols_init[i] |= vsig_mask[vsig_raw[raw_id]]
+
+    zone_dom = np.zeros(n, dtype=np.int32)
+    n_zone_doms = 1
+    if has_services:
+        zvals: Dict[str, int] = {}
+        for i, node in enumerate(nodes):
+            z = get_zone_key(node)
+            if z:
+                zone_dom[i] = zvals.setdefault(z, len(zvals) + 1)
+        n_zone_doms = len(zvals) + 1
+
+    tables = GroupTables(
+        group_of_pod=group_of_pod, presence=presence,
+        port_conflict=port_conflict,
+        port_sig=port_sig_raw[sel_cols].astype(np.int32),
+        disk_conflict=disk_conflict,
+        disk_sig=vsig_raw[sel_cols].astype(np.int32),
+        vol_mask=vsig_mask[vsig_raw[sel_cols]], vol_type=vol_type,
+        zone_ok=zone_rows[vsig_raw[sel_cols]], used_vols_init=used_vols_init,
+        ss_rows=ss_rows, ss_sig=ss_sig_raw[sel_cols].astype(np.int32),
+        zone_dom=zone_dom)
+    return _GroupCompile(
+        tables=tables, has_ports=has_ports, has_services=has_services,
+        has_disk_conflict=has_disk, has_maxpd=has_maxpd,
+        has_vol_zone=has_zone, maxpd_limits=maxpd_limits,
+        n_zone_doms=n_zone_doms)
 
 
 def node_static_row(node: Node, ni: NodeInfo, scalar_idx: Dict[str, int],
@@ -406,7 +905,7 @@ def compile_cluster(snapshot: ClusterSnapshot, pods: List[Pod]
         zero_request=np.zeros(p, dtype=bool), best_effort=np.zeros(p, dtype=bool),
         sel_id=np.zeros(p, dtype=np.int32), tol_id=np.zeros(p, dtype=np.int32),
         aff_id=np.zeros(p, dtype=np.int32), avoid_id=np.zeros(p, dtype=np.int32),
-        host_id=np.zeros(p, dtype=np.int32))
+        host_id=np.zeros(p, dtype=np.int32), group_id=np.zeros(p, dtype=np.int32))
 
     sel_i, tol_i, aff_i, avoid_i, host_i = (Interner() for _ in range(5))
     for j, pod in enumerate(pods):
@@ -418,6 +917,8 @@ def compile_cluster(snapshot: ClusterSnapshot, pods: List[Pod]
         cols.host_id[j] = host_i.intern(_host_signature(pod), pod)
 
     node_index = {nd.name: i for i, nd in enumerate(nodes)}
+    grp = _compile_groups(snapshot, pods, nodes, node_index)
+    cols.group_id = grp.tables.group_of_pod
 
     # --- static [signature, node] tables ---
     row_fns = signature_row_fns(nodes, node_infos)
@@ -462,17 +963,14 @@ def compile_cluster(snapshot: ClusterSnapshot, pods: List[Pod]
         dyn.nonzero_mem[i] += nz.memory
         dyn.pod_count[i] += 1
 
-    # the group features are judged over the batch and the placed pods, as
-    # the reference's group compile does
-    placed = [p for p in snapshot.pods if p.spec.node_name in node_index]
-    both = list(pods) + placed
     compiled = CompiledCluster(
-        statics=statics, tables=tables, dynamic=dyn, scalar_names=scalar_names,
-        node_index=node_index,
-        has_ports=any(_has_host_ports(p) for p in both),
-        has_services=bool(snapshot.services),
-        has_interpod=any(_has_interpod_terms(p) for p in both),
-        has_volumes=any(p.spec.volumes for p in both))
+        statics=statics, tables=tables, groups=grp.tables, dynamic=dyn,
+        scalar_names=scalar_names, node_index=node_index,
+        has_ports=grp.has_ports, has_services=grp.has_services,
+        has_interpod=grp.has_interpod,
+        has_disk_conflict=grp.has_disk_conflict, has_maxpd=grp.has_maxpd,
+        has_vol_zone=grp.has_vol_zone, maxpd_limits=grp.maxpd_limits,
+        n_zone_doms=grp.n_zone_doms, unsupported=grp.unsupported)
     return compiled, cols
 
 

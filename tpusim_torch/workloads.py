@@ -1,6 +1,7 @@
 """Benchmark-shaped workloads, seed for seed the ones the reference benchmark
-builds (the placement goldens depend on it), plus random group-free
-workloads for kernel checks.
+builds (the placement goldens depend on it), the groups workload (config 3
+with Services, host ports and pod volumes), plus random workloads for kernel
+checks.
 
 `api` is the module whose make_node / make_pod / ClusterSnapshot build the
 objects: the port's own snapshot module by default; a caller may pass another
@@ -63,6 +64,93 @@ def build_workload(num_pods: int, num_nodes: int, affinity: bool = False,
         pods.append(api.make_pod(f"p-{i}", milli_cpu=int(cpu_buckets[cpu_idx[i]]),
                                  memory=int(mem_buckets[mem_idx[i]]), **kwargs))
     return api.ClusterSnapshot(nodes=nodes), pods
+
+
+ZONE_LABEL = "failure-domain.beta.kubernetes.io/zone"
+NUM_APPS = 10        # app=a0..a9: a0..a7 have Services, a8 host ports, a9 disks
+
+
+def _with_host_port(api, pod, port: int):
+    """`pod` with its container asking for hostPort `port`."""
+    obj = pod.to_obj()
+    obj["spec"]["containers"][0]["ports"] = [
+        {"containerPort": port, "hostPort": port}]
+    return api.Pod.from_obj(obj)
+
+
+def groups_workload(num_pods: int, num_nodes: int, seed: int = 12345,
+                    api=None):
+    """Config 3 with pod groups: config 3's nodes (three shapes, a 10% taint
+    slice) labelled over 4 failure-domain zones, 8 Services selecting
+    app=a0..a7, and config 3's Zipf pods labelled app=a0..a9. About 5% of
+    the pods (app=a8) ask for hostPort 8080 or 9090; about 3% (app=a9) mount
+    a disk: most one of 4 AWS EBS volumes (NoDiskConflict, MaxPD), the rest
+    a claim bound to an EBS volume in zone z1 (NoVolumeZoneConflict). About
+    num_pods/50 running pods seed the presence, some of them with host
+    ports."""
+    api = _api(api)
+    rng = np.random.RandomState(seed)
+    nodes = []
+    for i in range(num_nodes):
+        shape = i % 3
+        taints = None
+        if i % 10 == 0:
+            taints = [{"key": "dedicated", "value": "batch", "effect": "NoSchedule"}]
+        nodes.append(api.make_node(
+            f"node-{i}", milli_cpu=[4000, 8000, 16000][shape],
+            memory=[8, 16, 32][shape] * 1024**3, pods=110,
+            labels={"zone": f"z{i % 4}", ZONE_LABEL: f"z{i % 4}"},
+            taints=taints))
+    services = [api.Service.from_obj({"metadata": {"name": f"svc-a{a}"},
+                                      "spec": {"selector": {"app": f"a{a}"}}})
+                for a in range(8)]
+    pv = api.make_pv("pv-z1", labels={ZONE_LABEL: "z1"}, source={
+        "awsElasticBlockStore": {"volumeID": "vol-z1"}})
+    pvc = api.make_pvc("data-z1", volume_name="pv-z1")
+
+    cpu_buckets = np.array([50, 100, 250, 500, 1000, 2000, 4000])
+    mem_buckets = np.array([64, 128, 256, 512, 1024, 2048, 4096]) * 2**20
+    weights = 1.0 / np.arange(1, len(cpu_buckets) + 1) ** 1.1
+    weights /= weights.sum()
+    cpu_idx = rng.choice(len(cpu_buckets), size=num_pods, p=weights)
+    mem_idx = rng.choice(len(mem_buckets), size=num_pods, p=weights)
+    tolerate = rng.rand(num_pods) < 0.1
+    kind = rng.rand(num_pods)        # < 0.05 host port, < 0.08 disk
+    app = rng.randint(0, 8, size=num_pods)
+    pick = rng.randint(0, 5, size=num_pods)  # port or disk choice
+
+    def make(name, i, app_id, **kw):
+        if tolerate[i]:
+            kw["tolerations"] = [{"key": "dedicated", "operator": "Equal",
+                                  "value": "batch", "effect": "NoSchedule"}]
+        return api.make_pod(name, milli_cpu=int(cpu_buckets[cpu_idx[i]]),
+                            memory=int(mem_buckets[mem_idx[i]]),
+                            labels={"app": f"a{app_id}"}, **kw)
+
+    pods = []
+    for i in range(num_pods):
+        if kind[i] < 0.05:
+            pods.append(_with_host_port(api, make(f"p-{i}", i, 8),
+                                        (8080, 9090)[pick[i] % 2]))
+        elif kind[i] < 0.08:
+            vol = (api.make_pod_volume("data", pvc="data-z1") if pick[i] == 4
+                   else api.make_pod_volume("data", source={
+                       "awsElasticBlockStore": {"volumeID": f"vol-{pick[i]}"}}))
+            pods.append(make(f"p-{i}", i, 9, volumes=[vol]))
+        else:
+            pods.append(make(f"p-{i}", i, int(app[i])))
+
+    running = []
+    for r in range(max(num_pods // 50, 1)):
+        i = int(rng.randint(num_pods))     # borrow a pod's request shape
+        node = f"node-{int(rng.randint(num_nodes))}"
+        app_id = int(rng.randint(0, 9))
+        pod = make(f"r-{r}", i, app_id, node_name=node, phase="Running")
+        if app_id == 8:
+            pod = _with_host_port(api, pod, (8080, 9090)[r % 2])
+        running.append(pod)
+    return api.ClusterSnapshot(nodes=nodes, pods=running, services=services,
+                               pvs=[pv], pvcs=[pvc]), pods
 
 
 def uniform_workload(num_pods: int, num_nodes: int, api=None):
@@ -158,3 +246,80 @@ def random_workload(seed: int, num_pods: int, num_nodes: int,
             memory=int(rng.randint(1, 24)) * 2**27,
             gpus=int(rng.choice([0, 0, 0, 1])), **kw))
     return api.ClusterSnapshot(nodes=nodes, pods=running), pods
+
+
+def random_group_workload(seed: int, num_pods: int, num_nodes: int,
+                          ports: bool = False, services: bool = False,
+                          disk: bool = False, vol_zone: bool = False,
+                          maxpd: bool = False, api=None):
+    """random_workload (with infeasible pods) plus the pod-group features
+    asked for, on new and running pods alike. A pod takes at most one
+    feature, so the merged groups stay within the kernel's budget:
+      ports     hostPort 8080, 8080 on a host IP, or 8081/UDP (15%);
+      services  zone labels on most nodes and three Services, two of which
+                can select the same pod;
+      disk      AWS EBS, GCE PD (one read-only) or RBD volumes (20%;
+                NoDiskConflict; EBS and GCE PD also count for MaxPD);
+      vol_zone  claims bound to volumes labelled z1 or z1__z2 (15%), with
+                zone labels on most nodes (NoVolumeZoneConflict);
+      maxpd     one or two of three Azure disks (25%; MaxPD only: Azure
+                disks never conflict).
+    Pods with a feature are labelled app=a0; the rest app=a0..a4, some
+    tier=web."""
+    api = _api(api)
+    snapshot, pods = random_workload(seed, num_pods, num_nodes,
+                                     infeasible=True, api=api)
+    rng = np.random.RandomState(seed + 1000)
+    if services or vol_zone:
+        for i, node in enumerate(snapshot.nodes):
+            if i % 5 != 0:   # every fifth node has no zone
+                node.metadata.labels[ZONE_LABEL] = f"z{i % 3}"
+    if services:
+        snapshot.services = [api.Service.from_obj(
+            {"metadata": {"name": name}, "spec": {"selector": sel}})
+            for name, sel in (("svc-a0", {"app": "a0"}),
+                              ("svc-a1", {"app": "a1"}),
+                              ("svc-web", {"tier": "web"}))]
+    if vol_zone:
+        snapshot.pvs = [api.make_pv("pv-z1", labels={ZONE_LABEL: "z1"}),
+                        api.make_pv("pv-z12", labels={ZONE_LABEL: "z1__z2"})]
+        snapshot.pvcs = [api.make_pvc("c-z1", volume_name="pv-z1"),
+                         api.make_pvc("c-z12", volume_name="pv-z12")]
+    disks = [{"awsElasticBlockStore": {"volumeID": "vol-0"}},
+             {"awsElasticBlockStore": {"volumeID": "vol-1"}},
+             {"gcePersistentDisk": {"pdName": "pd-0"}},
+             {"gcePersistentDisk": {"pdName": "pd-0", "readOnly": True}},
+             {"gcePersistentDisk": {"pdName": "pd-1"}},
+             {"rbd": {"monitors": ["m1"], "pool": "p", "image": "i0"}}]
+    host_ports = [{"hostPort": 8080},
+                  {"hostPort": 8080, "hostIP": "10.0.0.1"},
+                  {"hostPort": 8081, "protocol": "UDP"}]
+
+    def decorate(pod):
+        obj = pod.to_obj()
+        labels = obj["metadata"].setdefault("labels", {})
+        labels["app"] = f"a{rng.randint(5)}"
+        if rng.rand() < 0.3:
+            labels["tier"] = "web"
+        r, pick = rng.rand(), int(rng.randint(6))
+        vols = []
+        if ports and r < 0.15:
+            obj["spec"]["containers"][0]["ports"] = [
+                {"containerPort": 80, **host_ports[pick % 3]}]
+        elif disk and 0.15 <= r < 0.35:
+            vols = [api.make_pod_volume("d", source=disks[pick])]
+        elif vol_zone and 0.35 <= r < 0.5:
+            vols = [api.make_pod_volume("z", pvc=("c-z1", "c-z12")[pick % 2])]
+        elif maxpd and 0.5 <= r < 0.75:
+            ids = [pick % 3] + ([(pick + 1) % 3] if pick >= 3 else [])
+            vols = [api.make_pod_volume(f"a{v}", source={"azureDisk": {
+                "diskName": f"az-{v}", "diskURI": f"u{v}"}}) for v in ids]
+        else:
+            return api.Pod.from_obj(obj)
+        obj["metadata"]["labels"] = {"app": "a0"}
+        if vols:
+            obj["spec"]["volumes"] = vols
+        return api.Pod.from_obj(obj)
+
+    snapshot.pods = [decorate(p) for p in snapshot.pods]
+    return snapshot, [decorate(p) for p in pods]
