@@ -28,7 +28,19 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
      card: the placement golden, the scheduled count, launches > 0 of the
      group variant, cold and warm wall, the kernel time over the whole scan;
      then its first chunk kernel against plain, bit-equal, with the
-     kernel's time beside its bound and its plain version's time.
+     kernel's time beside its bound and its plain version's time;
+  9. the kernel's inter-pod variant (Variant 3: MatchInterPodAffinity,
+     InterPodAffinityPriority, the presence_dom carry) against its plain
+     version on random inter-pod plans (~512 pods x ~60 nodes, so that
+     hostname terms fit the 64-domain budget; both providers, hard weight 1,
+     10 and 100, Services and host ports in the same launch), bit-equal;
+ 10. the inter-pod workload at full size (config 3 with Deployment, stateful
+     store, web tier and worker terms on zone and rack keys: 100k pods on 5k
+     nodes) through TorchBackend on the card: the placement golden, the
+     scheduled count, launches > 0 of the inter-pod variant, cold and warm
+     wall, the kernel time over the whole scan; then its first chunk kernel
+     against plain, bit-equal, with the kernel's time beside its bound and
+     its plain version's time.
 Then a JSON line of the kernels and, last, the device line.
 """
 
@@ -55,12 +67,14 @@ GOLDENS = {
                           "91acfe80f43b3b5a", 44_535),
     "groups": ("groups_workload", dict(num_pods=100_000, num_nodes=5_000),
                "49516d158991e079", 98_296),
+    "interpod": ("interpod_workload", dict(num_pods=100_000, num_nodes=5_000),
+                 "2d26e7d7c37f001d", 97_931),
 }
 # the phase that drives each main-path workload, and the kernel variant it
 # must launch
-PHASE = {"config3": 4, "config4_cpu_shape": 5, "groups": 8}
+PHASE = {"config3": 4, "config4_cpu_shape": 5, "groups": 8, "interpod": 10}
 VARIANT = {"config3": "group_free", "config4_cpu_shape": "group_free",
-           "groups": "groups"}
+           "groups": "groups", "interpod": "interpod"}
 # H100 SXM peaks from the published datasheet: device memory rate, and the
 # float32 rate outside the tensor cores. The datasheet gives no int32 rate;
 # Hopper has half as many int32 lanes as float32 lanes per SM, so 67e12 is
@@ -85,6 +99,16 @@ FILTER_OPS, FILTER_OPS_PER_SCALAR, PAD_OPS, SCORE_OPS = 16, 2, 1, 30
 # the blend's products, divide and selects (24).
 PRESENCE_OPS, VOL_ZONE_OPS, MAXPD_OPS_PER_VOL = 2, 1, 5
 SPREAD_OPS_PER_GROUP, SPREAD_BLEND_OPS = 2, 24
+# The inter-pod variant. Per pod, its phase: a load and an add per (matched
+# group, domain) of each own term's domain sums, and of each other group's
+# term that matches the pod (a multiply more when weighted) (2 each). Per
+# (pod, real node) that reaches the stage: a domain load, a test, a sum
+# lookup and a test per valid own required term, and per topology key for
+# the existing pods' anti-affinity sums (4 each). Per feasible pair: a
+# domain load, a test, a multiply and an add per weighted own preferred
+# term, a domain load, a test and an add per key (4 and 3), and the
+# normalization's subtract, multiply, divide and the min and max (5).
+IP_SUM_OPS, IP_NODE_OPS, IP_PREF_OPS, IP_KEY_OPS, IP_NORM_OPS = 2, 4, 4, 3, 5
 
 
 def card_line():
@@ -112,31 +136,61 @@ def make_plan(snapshot, pods, most_requested):
     return plan
 
 
-def chunk_inputs(plan, k, device):
-    """The first chunk of `plan` at its initial state, on `device`."""
-    import torch
+class ChunkInputs:
+    """The first chunk of `plan` at its initial state, on `device`: the
+    device plan, the carry, misc and presence_dom tensors and the pods."""
 
-    from tpusim_torch.fastplan import init_carry
-    from tpusim_torch.fastscan import DevicePlan, carry_tensors, pod_matrix
+    def __init__(self, plan, k, device):
+        import torch
 
-    dp = DevicePlan(plan, device)
-    carry, misc = carry_tensors(init_carry(plan), device)
-    span = min(k, plan.num_pods)
-    pods = torch.from_numpy(pod_matrix(plan, 0, span, k)).to(device)
-    return dp, carry, misc, pods
+        from tpusim_torch.fastplan import init_carry
+        from tpusim_torch.fastscan import (
+            DevicePlan,
+            carry_tensors,
+            pd_tensor,
+            pod_matrix,
+        )
+
+        self.dp = DevicePlan(plan, device)
+        init = init_carry(plan)
+        self.carry, self.misc = carry_tensors(init, device)
+        self.pd = pd_tensor(init, device)
+        span = min(k, plan.num_pods)
+        self.pods = torch.from_numpy(pod_matrix(plan, 0, span, k)).to(device)
+
+    def state(self):
+        """The carry tensors the chunk updates in place."""
+        return (self.carry, self.misc) + (
+            (self.pd,) if self.pd is not None else ())
 
 
-def run_chunk(fn, plan, dp, carry, misc, pods):
+def run_chunk(fn, plan, ci, pods=None):
     from tpusim_torch.state import NUM_FIXED_BITS
 
-    return fn(pods, dp.statics, dp.tables, carry, misc, dp.alloc_scalar,
-              plan.num_scalars, NUM_FIXED_BITS + plan.num_scalars,
-              plan.most_requested, dp.groups)
+    dp = ci.dp
+    return fn(ci.pods if pods is None else pods, dp.statics, dp.tables,
+              ci.carry, ci.misc, dp.alloc_scalar, plan.num_scalars,
+              NUM_FIXED_BITS + plan.num_scalars, plan.most_requested,
+              dp.groups, dp.ip, ci.pd)
+
+
+def kernel_and_plain(plan, cuda):
+    """The whole plan as one chunk through the kernel and through its plain
+    version, each from a fresh initial state on the card: [outputs, final
+    carry, misc and presence_dom as int64 arrays] for each."""
+    from tpusim_torch.kernels.fastscan import fastscan_chunk, fastscan_chunk_plain
+
+    results = []
+    for fn in (fastscan_chunk, fastscan_chunk_plain):
+        ci = ChunkInputs(plan, plan.num_pods, cuda)
+        out = run_chunk(fn, plan, ci)
+        results.append([t.cpu().numpy().astype(np.int64)
+                        for t in (*out, *ci.state())])
+    return results
 
 
 def compare_kernel_with_plain(cuda):
     """Phase 3: returns the largest absolute difference seen (must be 0)."""
-    from tpusim_torch.kernels.fastscan import fastscan_chunk, fastscan_chunk_plain
     from tpusim_torch.workloads import random_workload
 
     cases = [dict(seed=0, most_requested=False, num_scalars=0, infeasible=True),
@@ -149,12 +203,7 @@ def compare_kernel_with_plain(cuda):
                                          num_scalars=case["num_scalars"],
                                          infeasible=case["infeasible"])
         plan = make_plan(snapshot, pods, case["most_requested"])
-        results = []
-        for fn in (fastscan_chunk, fastscan_chunk_plain):
-            dp, carry, misc, pods_t = chunk_inputs(plan, plan.num_pods, cuda)
-            out = run_chunk(fn, plan, dp, carry, misc, pods_t)
-            results.append([t.cpu().numpy().astype(np.int64)
-                            for t in (*out, carry, misc)])
+        results = kernel_and_plain(plan, cuda)
         diff = max(int(np.abs(a - b).max(initial=0))
                    for a, b in zip(*results))
         placed = int((results[0][0] >= 0).sum())
@@ -172,7 +221,6 @@ def compare_kernel_with_plain(cuda):
 def compare_group_kernel_with_plain(cuda):
     """Phase 7: the group variant on random group plans; returns the largest
     absolute difference seen (must be 0)."""
-    from tpusim_torch.kernels.fastscan import fastscan_chunk, fastscan_chunk_plain
     from tpusim_torch.state import (
         BIT_DISK_CONFLICT,
         BIT_HOST_PORTS,
@@ -204,12 +252,7 @@ def compare_group_kernel_with_plain(cuda):
             plan = make_plan(snapshot, pods, case["most_requested"])
         finally:
             os.environ.pop("KUBE_MAX_PD_VOLS", None)
-        results = []
-        for fn in (fastscan_chunk, fastscan_chunk_plain):
-            dp, carry, misc, pods_t = chunk_inputs(plan, plan.num_pods, cuda)
-            out = run_chunk(fn, plan, dp, carry, misc, pods_t)
-            results.append([t.cpu().numpy().astype(np.int64)
-                            for t in (*out, carry, misc)])
+        results = kernel_and_plain(plan, cuda)
         diff = max(int(np.abs(a - b).max(initial=0))
                    for a, b in zip(*results))
         placed = int((results[0][0] >= 0).sum())
@@ -234,8 +277,9 @@ def compare_group_kernel_with_plain(cuda):
 
 
 def drive_main_path(name, card, cuda):
-    """Phases 4, 5 and 8: one workload through TorchBackend, checked against
-    its golden; returns the kernel launches of the first run and the plan."""
+    """Phases 4, 5, 8 and 10: one workload through TorchBackend, checked
+    against its golden; returns the kernel launches of the first run and
+    the plan."""
     from tpusim_torch import workloads
     from tpusim_torch.backend import TorchBackend
     from tpusim_torch.fastscan import CHUNK
@@ -277,6 +321,10 @@ def drive_main_path(name, card, cuda):
                              f"launched {launches} of {all_launches} times")
     # the scan alone, device time of every chunk launch in sequence
     plan = make_plan(snapshot, pods, False)
+    if plan.has_interpod:
+        print(f"phase {phase}: {name} plan: Gpad {plan.num_groups}, K "
+              f"{plan.n_topo_keys}, D {plan.n_topo_doms_ip}, terms "
+              f"{plan.ta}/{plan.tb}/{plan.tp}")
     scan_ms = time_full_scan(plan, cuda)
     print(f"phase {phase}: {name} kernel time over "
           f"the whole scan {scan_ms:.3f} ms ({-(-n // CHUNK)} launches of "
@@ -287,26 +335,18 @@ def drive_main_path(name, card, cuda):
 def time_full_scan(plan, cuda):
     import torch
 
-    from tpusim_torch.fastplan import init_carry
-    from tpusim_torch.fastscan import CHUNK, DevicePlan, carry_tensors, pod_matrix
+    from tpusim_torch.fastscan import CHUNK
     from tpusim_torch.kernels.fastscan import fastscan_chunk
-    from tpusim_torch.state import NUM_FIXED_BITS
 
     k = CHUNK
     chunks = -(-plan.num_pods // k)
-    dp = DevicePlan(plan, cuda)
-    carry, misc = carry_tensors(init_carry(plan), cuda)
-    pods = torch.from_numpy(pod_matrix(plan, 0, plan.num_pods, chunks * k)
-                            ).to(cuda)
+    ci = ChunkInputs(plan, chunks * k, cuda)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for ci in range(chunks):
-        fastscan_chunk(pods[ci * k:(ci + 1) * k], dp.statics, dp.tables, carry,
-                       misc, dp.alloc_scalar, plan.num_scalars,
-                       NUM_FIXED_BITS + plan.num_scalars, plan.most_requested,
-                       dp.groups)
+    for c in range(chunks):
+        run_chunk(fastscan_chunk, plan, ci, ci.pods[c * k:(c + 1) * k])
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end)
@@ -315,52 +355,93 @@ def time_full_scan(plan, cuda):
 def chunk_run(fn, plan, cuda, repeats):
     """Mean device time of `fn` on the main path's first chunk, each call
     from a fresh copy of the initial state, and the last call's outputs,
-    final carry and rr as int64 arrays."""
+    final carry, rr and presence_dom as int64 arrays."""
     import torch
 
     from tpusim_torch.fastscan import CHUNK
 
     total = 0.0
     for _ in range(repeats):
-        dp, carry, misc, pods = chunk_inputs(plan, CHUNK, cuda)
+        ci = ChunkInputs(plan, CHUNK, cuda)
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        out = run_chunk(fn, plan, dp, carry, misc, pods)
+        out = run_chunk(fn, plan, ci)
         end.record()
         torch.cuda.synchronize()
         total += start.elapsed_time(end)
     return total / repeats, [t.cpu().numpy().astype(np.int64)
-                             for t in (*out, carry, misc)]
+                             for t in (*out, *ci.state())]
 
 
 def feasible_pairs(plan, cuda):
-    """The (pod, node) pairs of the main path's first chunk that pass the
-    filter, replaying the chunk pod by pod through the plain version, and
-    the spread-group reads over those pairs."""
+    """Per pod of the main path's first chunk, replayed pod by pod through
+    the plain version: the nodes that pass the filter, the nodes that reach
+    the inter-pod stage (pass every earlier stage), and the spread-group
+    reads over the feasible nodes."""
     from tpusim_torch.fastscan import CHUNK
-    from tpusim_torch.kernels.fastscan import fastscan_chunk_plain, filter_pod
-    from tpusim_torch.state import NUM_FIXED_BITS
+    from tpusim_torch.kernels.fastscan import (
+        fastscan_chunk_plain,
+        filter_pod,
+        pod_interpod,
+    )
 
-    dp, carry, misc, pods = chunk_inputs(plan, CHUNK, cuda)
-    total = spread_reads = 0
+    ci = ChunkInputs(plan, CHUNK, cuda)
+    dp = ci.dp
+    feasible, reach, spread_reads = [], [], 0
     for j in range(min(CHUNK, plan.num_pods)):
-        feasible, _ = filter_pod(pods[j].tolist(), dp.statics, dp.tables,
-                                 carry, dp.alloc_scalar, plan.num_scalars,
-                                 dp.groups)
-        nf = int(feasible.sum())
-        total += nf
+        row = ci.pods[j].tolist()
+        before, _ = filter_pod(row, dp.statics, dp.tables, ci.carry,
+                               dp.alloc_scalar, plan.num_scalars, dp.groups)
+        ipp = pod_interpod(row, plan.num_scalars, dp.groups, dp.ip, ci.carry,
+                           dp.alloc_scalar, ci.pd)
+        passed = before
+        if ipp is not None:
+            passed, _ = filter_pod(row, dp.statics, dp.tables, ci.carry,
+                                   dp.alloc_scalar, plan.num_scalars,
+                                   dp.groups, ipp)
+        nf = int(passed.sum())
+        feasible.append(nf)
+        reach.append(int(before.sum()))
         if plan.has_spread:
             spread_reads += nf * int(plan.ss_row[j].sum())
-        fastscan_chunk_plain(pods[j:j + 1], dp.statics, dp.tables, carry,
-                             misc, dp.alloc_scalar, plan.num_scalars,
-                             NUM_FIXED_BITS + plan.num_scalars,
-                             plan.most_requested, dp.groups)
-    return total, spread_reads
+        run_chunk(fastscan_chunk_plain, plan, ci, ci.pods[j:j + 1])
+    return feasible, reach, spread_reads
 
 
-def chunk_bound_ms(plan, pairs_feasible, spread_reads=0):
+def interpod_ops(plan, feasible, reach):
+    """The inter-pod operations of the main path's first chunk, counted from
+    the kernel's source per pod (its group's terms) as IP_* above."""
+    from tpusim_torch.fastplan import IpLayout
+    from tpusim_torch.kernels.fastscan import EXIST_TABLES
+
+    gpad, ta, tb, tp = plan.num_groups, plan.ta, plan.tb, plan.tp
+    k_keys, d_doms = plan.n_topo_keys, plan.n_topo_doms_ip
+    lay = IpLayout(ta, tb, tp, gpad)
+    exist = {name: np.asarray(getattr(plan, name)) for name, _ in EXIST_TABLES}
+    ops = 0
+    for j, (nf, nr) in enumerate(zip(feasible, reach)):
+        r = plan.ipod[plan.gid[j]]
+        matched = int(r[lay.aff_match:lay.aff_key].sum()
+                      + r[lay.anti_match:lay.anti_key].sum()
+                      + r[lay.pref_match:lay.pref_key].sum())
+        exist_pairs = int(
+            (r[lay.ex_anti:lay.ex_pref] * exist["exist_anti_mask"]).sum()
+            + (r[lay.ex_pref:lay.ex_aff] * (exist["exist_pref_w"] != 0)).sum()
+            + (r[lay.ex_aff:lay.ex_aff + gpad * ta]
+               * exist["exist_aff_mask"]).sum())
+        own_required = int(r[lay.aff_valid:lay.aff_valid + ta].sum()
+                           + r[lay.anti_valid:lay.anti_valid + tb].sum())
+        weighted = int((r[lay.pref_w:lay.pref_w + tp] != 0).sum())
+        ops += ((matched + exist_pairs) * d_doms * IP_SUM_OPS
+                + nr * (own_required + k_keys) * IP_NODE_OPS
+                + nf * (weighted * IP_PREF_OPS + k_keys * IP_KEY_OPS
+                        + IP_NORM_OPS))
+    return ops
+
+
+def chunk_bound_ms(plan, feasible, reach, spread_reads=0):
     """The least time for the main path's first chunk: inputs read once,
     outputs written once, over the memory rate; the operations this chunk's
     data needs over the 32-bit peak."""
@@ -371,17 +452,23 @@ def chunk_bound_ms(plan, pairs_feasible, spread_reads=0):
     npad = plan.alloc_cpu.shape[1]
     n = plan.num_nodes
     nb = 24 + plan.num_scalars
+    pairs_feasible = sum(feasible)
     srows = plan.alloc_scalar.shape[0] if plan.num_scalars else 0
     vrows = plan.used_vols.shape[0] if plan.has_maxpd else 0
     tables = sum(getattr(plan, t).size for t in (
         "selector_ok", "taint_ok", "intolerable", "aff_count", "avoid_score",
         "host_ok"))
-    # the group operands: the zone-id row, the vol-zone and volume tables
+    # the group operands: the zone-id row, the vol-zone and volume tables,
+    # the inter-pod domain rows, packed rows and exist-side tables
     groups = ((npad if plan.has_spread else 0)
               + (plan.zone_ok_tbl.size if plan.has_vol_zone else 0)
               + (plan.vol_tbl.size + 3 * plan.n_vols if plan.has_maxpd
                  else 0))
     carry = (7 + srows + plan.num_groups + vrows) * npad + 128
+    if plan.has_interpod:
+        groups += (plan.topo_rows.size + plan.ipod.size
+                   + 3 * plan.num_groups * (plan.ta + plan.tb + plan.tp))
+        carry += plan.presence_dom.size
     pod_w = pod_matrix(plan, 0, 0, 1).shape[1]
     inputs = k * pod_w + (8 + srows) * npad + tables + groups + carry
     outputs = carry + k * (2 + nb)
@@ -402,6 +489,8 @@ def chunk_bound_ms(plan, pairs_feasible, spread_reads=0):
     if plan.has_spread:
         ops += (spread_reads * SPREAD_OPS_PER_GROUP
                 + pairs_feasible * SPREAD_BLEND_OPS)
+    if plan.has_interpod:
+        ops += interpod_ops(plan, feasible, reach)
     t_bytes, t_ops = bytes_ / PEAK_BYTES_PER_S, ops / PEAK_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -417,13 +506,13 @@ def time_first_chunk(name, plan, card, cuda, phase):
     ms, got = chunk_run(fastscan_chunk, plan, cuda, repeats=20)
     plain_ms, want = chunk_run(fastscan_chunk_plain, plan, cuda, repeats=2)
     diff = max(int(np.abs(a - b).max(initial=0)) for a, b in zip(got, want))
-    pairs, spread_reads = feasible_pairs(plan, cuda)
-    bound_ms, bound_by = chunk_bound_ms(plan, pairs, spread_reads)
+    feasible, reach, spread_reads = feasible_pairs(plan, cuda)
+    bound_ms, bound_by = chunk_bound_ms(plan, feasible, reach, spread_reads)
     placed = int((got[0] >= 0).sum())
     print(f"phase {phase}: {name} first chunk ({CHUNK} pods x "
           f"{plan.num_nodes} nodes, Npad {plan.alloc_cpu.shape[1]}): "
           f"kernel vs plain max |diff| {diff} ({placed} placed, "
-          f"{pairs} feasible pairs); kernel {ms:.4f} ms, plain "
+          f"{sum(feasible)} feasible pairs); kernel {ms:.4f} ms, plain "
           f"{plain_ms:.1f} ms, bound {bound_ms:.5f} ms ({bound_by}) "
           f"on {card}")
     if diff != 0:
@@ -431,6 +520,68 @@ def time_first_chunk(name, plan, card, cuda, phase):
                              f"version on the first chunk: max |diff| "
                              f"{diff}")
     return diff, ms, plain_ms, bound_ms, bound_by
+
+
+def compare_interpod_kernel_with_plain(cuda):
+    """Phase 9: the inter-pod variant on random inter-pod plans; returns the
+    largest absolute difference seen (must be 0)."""
+    from tpusim_torch.config import config_for
+    from tpusim_torch.fastplan import plan_fast
+    from tpusim_torch.state import (
+        BIT_AFFINITY_NOT_MATCH,
+        BIT_AFFINITY_RULES,
+        BIT_ANTI_AFFINITY_RULES,
+        BIT_EXISTING_ANTI_AFFINITY,
+        compile_cluster,
+    )
+    from tpusim_torch.workloads import random_interpod_workload
+
+    cases = [dict(seed=30, most_requested=False, hard_weight=10),
+             dict(seed=31, most_requested=True, hard_weight=1, services=True),
+             dict(seed=32, most_requested=False, hard_weight=100,
+                  services=True, ports=True),
+             dict(seed=33, most_requested=True, hard_weight=100, ports=True),
+             dict(seed=34, most_requested=False, hard_weight=1,
+                  services=True, ports=True)]
+    bits = {"any": BIT_AFFINITY_NOT_MATCH,
+            "existing_anti": BIT_EXISTING_ANTI_AFFINITY,
+            "affinity": BIT_AFFINITY_RULES,
+            "anti_affinity": BIT_ANTI_AFFINITY_RULES}
+    worst = 0
+    seen = dict.fromkeys(bits, 0)
+    for case in cases:
+        snapshot, pods = random_interpod_workload(
+            case["seed"], 512, 60, services=case.get("services", False),
+            ports=case.get("ports", False))
+        compiled, cols = compile_cluster(snapshot, pods)
+        plan, why = plan_fast(config_for(compiled, case["most_requested"],
+                                         case["hard_weight"]), compiled, cols)
+        if plan is None:
+            raise RuntimeError(f"plan ineligible: {why}")
+        results = kernel_and_plain(plan, cuda)
+        diff = max(int(np.abs(a - b).max(initial=0))
+                   for a, b in zip(*results))
+        placed = int((results[0][0] >= 0).sum())
+        counts = results[0][1]
+        reasons = {k: int(counts[:, b].sum()) for k, b in bits.items()}
+        for key, v in reasons.items():
+            seen[key] += v
+        print(f"phase 9: inter-pod kernel vs plain {case}: Gpad "
+              f"{plan.num_groups}, K {plan.n_topo_keys}, D "
+              f"{plan.n_topo_doms_ip}, terms {plan.ta}/{plan.tb}/{plan.tp}; "
+              f"{placed}/512 placed, failed-node reasons {reasons}, "
+              f"max |diff| {diff}")
+        if diff != 0:
+            raise AssertionError(f"inter-pod kernel disagrees with its plain "
+                                 f"version on {case}: max |diff| {diff}")
+        if not 0 < placed < 512:
+            raise AssertionError(f"case {case} does not exercise both "
+                                 "outcomes")
+        worst = max(worst, diff)
+    if not all(seen.values()):
+        raise AssertionError(f"phase 9 never reached every inter-pod reason: "
+                             f"{seen}")
+    return worst
 
 
 def main():
@@ -472,12 +623,21 @@ def main():
     diff, *timed["groups"] = time_first_chunk("groups", plan_g, card, cuda, 8)
     group_err = max(group_err, diff)
 
+    # phases 9-10: the inter-pod variant (Variant 3)
+    ip_err = compare_interpod_kernel_with_plain(cuda)
+    ip_launches, plan_ip = drive_main_path("interpod", card, cuda)
+    diff, *timed["interpod"] = time_first_chunk("interpod", plan_ip, card,
+                                                cuda, 10)
+    ip_err = max(ip_err, diff)
+
     kernels = []
     for name, variant, replaces, n_launch, err in (
             ("config3", "group_free", "tpusim/jaxe/fastscan.py:1164",
              launches, max_err),
             ("groups", "groups", "tpusim/jaxe/fastscan.py:1386",
-             group_launches, group_err)):
+             group_launches, group_err),
+            ("interpod", "interpod", "tpusim/jaxe/fastscan.py:1389",
+             ip_launches, ip_err)):
         ms, plain_ms, bound_ms, bound_by = timed[name]
         kernels.append({
             "name": f"fastscan_chunk[{variant}]", "route": "cuda",

@@ -267,14 +267,31 @@ def test_plan_ineligible_workload_raises():
 
 
 def test_group_workload_raises_not_implemented():
-    snap = port_api.synthetic_cluster(3)
-    pod = port_api.make_pod("p", milli_cpu=100, labels={"app": "web"},
-                            affinity={"podAntiAffinity": {
-                                "requiredDuringSchedulingIgnoredDuringExecution": [
-                                    {"labelSelector": {"matchLabels": {"app": "web"}},
-                                     "topologyKey": "kubernetes.io/hostname"}]}})
-    with pytest.raises(NotImplementedError, match="inter-pod"):
-        TorchBackend(device="cpu").schedule([pod], snap)
+    """A hostname-keyed inter-pod workload on 70 nodes has 71 topology
+    domains, past the kernel's 64: the port raises with the reason the JAX
+    package's plan_fast gives (JAX sends it to its XLA scan, which the port
+    does not have)."""
+    from tpusim.jaxe.fastscan import plan_fast as jax_plan_fast
+    from tpusim.jaxe.kernels import config_for as jax_config_for
+    from tpusim.jaxe.state import compile_cluster as jax_compile
+
+    def build(api):
+        return api.synthetic_cluster(70), [api.make_pod(
+            "p", milli_cpu=100, labels={"app": "web"},
+            affinity={"podAntiAffinity": {
+                "requiredDuringSchedulingIgnoredDuringExecution": [
+                    {"labelSelector": {"matchLabels": {"app": "web"}},
+                     "topologyKey": "kubernetes.io/hostname"}]}})]
+
+    jsnap, jpods = build(jax_api)
+    compiled, cols = jax_compile(jsnap, jpods)
+    plan, why = jax_plan_fast(jax_config_for([compiled], False, 24),
+                              compiled, cols)
+    assert plan is None and "71 topology domains exceed" in why
+    snap, pods = build(port_api)
+    with pytest.raises(NotImplementedError) as err:
+        TorchBackend(device="cpu").schedule(pods, snap)
+    assert str(err.value) == f"torch backend: {why}"
 
 
 def test_default_device_needs_cuda(monkeypatch):

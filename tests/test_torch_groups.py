@@ -319,15 +319,28 @@ def test_groups_workload_end_to_end():
 
 
 def test_interpod_workload_still_raises():
-    build = random_build("combined")
-    snapshot, pods = build(port_api)
-    pods.append(port_api.make_pod("anti", milli_cpu=100, labels={"app": "a0"},
-                                  affinity={"podAntiAffinity": {
-                                      "requiredDuringSchedulingIgnoredDuringExecution": [
-                                          {"labelSelector": {"matchLabels": {"app": "a0"}},
-                                           "topologyKey": "kubernetes.io/hostname"}]}}))
-    with pytest.raises(NotImplementedError, match="inter-pod"):
-        TorchBackend(device="cpu").schedule(pods, snapshot)
+    """A group workload with one inter-pod pod (required hostname
+    anti-affinity) runs through the port's inter-pod variant: the same
+    placements and FitError text as JaxBackend. The cluster keeps its
+    hostname domains within the kernel's budget (63 nodes or fewer)."""
+    def build(api):
+        snapshot, pods = random_group_workload(3, 120, 40, api=api, **ALL)
+        pods.append(api.make_pod(
+            "anti", milli_cpu=100, labels={"app": "a0"},
+            affinity={"podAntiAffinity": {
+                "requiredDuringSchedulingIgnoredDuringExecution": [
+                    {"labelSelector": {"matchLabels": {"app": "a0"}},
+                     "topologyKey": "kubernetes.io/hostname"}]}}))
+        return snapshot, pods
+
+    jsnap, jpods = build(jax_api)
+    psnap, ppods = build(port_api)
+    jx = JaxBackend(fallback="error").schedule(jpods, jsnap)
+    port = TorchBackend(device="cpu").schedule(ppods, psnap)
+    assert placement_hash(port) == jax_hash(jx)
+    assert [p.message for p in port] == [p.message for p in jx]
+    assert any(p.scheduled for p in port) and not all(
+        p.scheduled for p in port)
 
 
 # ---------------------------------------------------------------------------

@@ -146,20 +146,16 @@ def assert_plans_equal(got, want):
     (_with_volumes, "pod volumes"),
 ])
 def test_group_workloads_are_refused(build, feature):
-    """Host ports, services and volumes run on the group variants the port
-    carries: its plan equals the JAX package's, field for field, and so
-    does the plan handed over in dict form. Inter-pod (anti)affinity is
-    still refused, and so is the JAX plan for it."""
+    """No group workload is refused any more (the name is historical): host
+    ports, services, volumes and inter-pod (anti)affinity run on the group
+    and inter-pod variants the port carries. Its plan equals the JAX
+    package's, field for field, and so does the plan handed over in dict
+    form."""
     (_, _, (jplan, jwhy)), (_, _, (pplan, pwhy)) = both_plans(build)
     assert jplan is not None, jwhy
-    if feature == "inter-pod":
-        assert pplan is None and feature in pwhy
-        assert jplan.has_interpod
-        with pytest.raises(ValueError):
-            pfp.plan_from_numpy(dataclasses.asdict(jplan))
-        return
     assert pplan is not None, pwhy
     assert (pplan.num_groups > 0 or pplan.has_maxpd or pplan.has_vol_zone)
+    assert pplan.has_interpod == (feature == "inter-pod")
     assert_plans_equal(pplan, jplan)
     assert_plans_equal(pfp.plan_from_numpy(dataclasses.asdict(jplan)), pplan)
 

@@ -22,6 +22,7 @@ from tpusim.jaxe.backend import JaxBackend  # noqa: E402
 from tpusim_torch import workloads  # noqa: E402
 
 WORKLOADS = {"groups": workloads.groups_workload,
+             "interpod": workloads.interpod_workload,
              "config3": workloads.build_workload}
 
 

@@ -5,10 +5,11 @@ The host compiles the cluster (numpy), `plan_fast` builds the int32 plan,
 `fast_scan` runs the pods through the chunk kernel (CUDA on the card, its
 plain version on the CPU), and `decode_placements` turns choices and reason
 counts into Placements and FitError text byte-identical to kube-scheduler's.
-Services, host ports and pod volumes run on the kernel's group variants. A
-workload the kernel does not carry (inter-pod (anti)affinity, a group budget
-the compile exceeds, a volume the reference resolves host-side) raises
-NotImplementedError with the reason; there is no host fallback.
+Services, host ports, pod volumes and inter-pod (anti)affinity run on the
+kernel's group and inter-pod variants. A workload the kernel does not carry
+(a group or topology-domain budget the plan exceeds, a volume the reference
+resolves host-side) raises NotImplementedError with the reason; there is no
+host fallback.
 """
 
 from __future__ import annotations
@@ -105,10 +106,18 @@ def decode_placements(pods: List[Pod], choices: np.ndarray, counts: np.ndarray,
 
 
 class TorchBackend:
-    def __init__(self, provider: str = DEFAULT_PROVIDER, device="cuda"):
+    def __init__(self, provider: str = DEFAULT_PROVIDER, device="cuda",
+                 hard_pod_affinity_symmetric_weight: int = 10):
         if provider not in _KNOWN_PROVIDERS:
             raise KeyError(f"plugin {provider!r} has not been registered")
+        if not 1 <= hard_pod_affinity_symmetric_weight <= 100:
+            # factory.go:1024-1026
+            raise ValueError("invalid hardPodAffinitySymmetricWeight: "
+                             f"{hard_pod_affinity_symmetric_weight}, must be "
+                             "in the range 1-100")
         self.provider = provider
+        self.hard_pod_affinity_symmetric_weight = \
+            hard_pod_affinity_symmetric_weight
         self.device = resolve_device(device)
         # the last batch's raw device results, in pod order
         self.last_choices = np.zeros(0, np.int32)
@@ -130,7 +139,8 @@ class TorchBackend:
             raise NotImplementedError(
                 f"torch backend does not yet carry state for: {detail}")
         config = config_for(
-            compiled, most_requested=self.provider in _MOST_REQUESTED_PROVIDERS)
+            compiled, most_requested=self.provider in _MOST_REQUESTED_PROVIDERS,
+            hard_weight=self.hard_pod_affinity_symmetric_weight)
         plan, why = plan_fast(config, compiled, cols)
         if plan is None:
             raise NotImplementedError(f"torch backend: {why}")

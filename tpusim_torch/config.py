@@ -19,15 +19,18 @@ class EngineConfig:
     # pod-group features, compiled in only when the workload needs them
     has_ports: bool = False
     has_services: bool = False
-    has_interpod: bool = False    # the port's kernel does not carry it yet
+    has_interpod: bool = False
     has_disk_conflict: bool = False
     has_maxpd: bool = False
     has_vol_zone: bool = False
     maxpd_limits: tuple = DEFAULT_MAXPD_LIMITS  # (EBS, GCE PD, AzureDisk)
+    hard_weight: int = 10         # HardPodAffinitySymmetricWeight
+    n_topo_doms: int = 1          # topology domains incl. the invalid 0 bucket
     n_zone_doms: int = 1          # zone domains incl. the no-zone 0 bucket
 
 
-def config_for(compiled: CompiledCluster, most_requested: bool) -> EngineConfig:
+def config_for(compiled: CompiledCluster, most_requested: bool,
+               hard_weight: int = 10) -> EngineConfig:
     return EngineConfig(
         most_requested=most_requested,
         has_ports=compiled.has_ports,
@@ -38,11 +41,13 @@ def config_for(compiled: CompiledCluster, most_requested: bool) -> EngineConfig:
         has_vol_zone=compiled.has_vol_zone,
         maxpd_limits=(compiled.maxpd_limits if compiled.has_maxpd
                       else DEFAULT_MAXPD_LIMITS),
+        hard_weight=hard_weight,
+        n_topo_doms=compiled.n_topo_doms,
         n_zone_doms=compiled.n_zone_doms)
 
 
 def policy_weights(most_requested: bool) -> tuple:
     """The provider's score-component weights (generic_scheduler.go:631-639):
-    (least, most, balanced, node_aff, taint, avoid, spread)."""
+    (least, most, balanced, node_aff, taint, avoid, spread, interpod)."""
     w_least, w_most = (0, 1) if most_requested else (1, 0)
-    return (w_least, w_most, 1, 1, 1, AVOID_PODS_WEIGHT, 1)
+    return (w_least, w_most, 1, 1, 1, AVOID_PODS_WEIGHT, 1, 1)

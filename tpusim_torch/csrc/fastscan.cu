@@ -1,5 +1,5 @@
-// Fused fast scan for Hopper (sm_90a): the group-free variant and the
-// pod-group variant.
+// Fused fast scan for Hopper (sm_90a): the group-free variant, the
+// pod-group variant and the inter-pod variant.
 //
 // Replaces the TPU kernel tpusim/jaxe/fastscan.py::_make_kernel (the
 // Pallas kernel behind fast_scan):
@@ -11,17 +11,25 @@
 //     NoVolumeZoneConflict, SelectorSpreadPriority with its node/zone blend,
 //     presence[gid][choice] += 1 on bind) and the MaxPD used-volume carry
 //     (Max{EBS,GCEPD,AzureDisk}VolumeCount, used_vols[v][choice] = 1 on
-//     bind). Inter-pod terms (Variant 3) and policies (Variant 5) are not
-//     carried.
+//     bind);
+//   Variant 3, inter-pod (anti)affinity: Variants 2 and 4 plus
+//     MatchInterPodAffinity (the last filter stage), InterPodAffinityPriority
+//     and the [Gpad*K, Dpad] presence_dom carry (pods of group g per domain
+//     of topology key k, row g*K + k; presence_dom[gid*K + k][dom_k(choice)]
+//     += 1 on bind). K <= 4 keys, D <= 64 domains, at most 4 terms of each
+//     kind are compile-time maxima; the plan's own values, its per-group
+//     packed rows and its exist-side tables are runtime arguments, so one
+//     build serves every plan. Policies (Variant 5) are not carried.
 //
 // What it computes, for each pod of a chunk in order (kube-scheduler's
 // scheduleOne): the filter stages in predicatesOrdering, where the first
 // failing stage's bits are the node's reason word (node conditions ->
 // GeneralPredicates with host ports -> NoDiskConflict -> taints -> MaxPD ->
-// NoVolumeZoneConflict -> memory pressure -> disk pressure); the int32
-// weighted score (Least/MostRequested, exact BalancedAllocation,
-// NodeAffinity and TaintToleration normalized over the feasible nodes,
-// PreferAvoidPods x 10000, SelectorSpread); selectHost (max score,
+// NoVolumeZoneConflict -> memory pressure -> disk pressure ->
+// MatchInterPodAffinity); the int32 weighted score (Least/MostRequested,
+// exact BalancedAllocation, NodeAffinity and TaintToleration normalized
+// over the feasible nodes, PreferAvoidPods x 10000, SelectorSpread,
+// InterPodAffinity normalized by the feasible min and max); selectHost (max score,
 // round-robin pick of the (rr % ties)-th tie in node order when more than
 // one node is feasible); the reason histogram when no node is feasible; the
 // bind into the carry rows; rr += (feasible > 1).
@@ -47,6 +55,29 @@
 // reduction, so spreading adds no barrier. MaxPD's volume types and limits
 // are arguments; a node's count is a loop over the volume ids (at most 32 by
 // the plan's budget), taken only for pods that mount a counted volume.
+//
+// The inter-pod variant needs, before any node's filter, per-domain sums
+// over the whole node axis. It takes them from the presence_dom carry
+// instead of a node pass per term: the domain-d sum of the pods matching an
+// own term is the sum of presence_dom[g*K + key][d] over the groups g the
+// term matches. So one phase per pod, block-parallel over cells, fills
+// shared memory (about 5 KB): seg[term][d] for the pod's own required
+// affinity, anti-affinity and preferred terms (one cell per (term, domain),
+// at most 12 x 64), the existing pods' anti-affinity sums Bk[k][d] and
+// weighted sums Wk[k][d] (one cell per (key, domain), at most 4 x 64, each
+// looping over the other groups' terms that match this pod), each affinity
+// term's total (a matching pod exists anywhere: the sum over all domains,
+// domain 0 included, by a shared atomic per cell), the "fail everywhere"
+// flag of empty-key anti-affinity terms of groups with any pod, the term
+// keys and flags, and the groups each own term matches as bit words (for
+// hostname terms, which look at the node's own matched pods). One barrier
+// ends the phase, so the inter-pod variant meets once more per pod than the
+// about eight barriers above. The stage and the counts row then ride pass 1
+// per node: shared lookups at the node's domain per key, and the counts'
+// min and max over the feasible nodes ride the pass-1 block reduction. The
+// owning thread binds presence_dom next to presence, with no atomics. Pad
+// nodes lie in domain 0 with zero presence and never add to a real domain's
+// sum.
 //
 // Bound: per pod the kernel reads 8 static, 7 carry and 6 table rows of
 // Npad int32 values, plus the presence rows of the pod's groups: at Npad
@@ -88,6 +119,61 @@ constexpr int kBitPods = 4, kBitCpu = 5, kBitMem = 6, kBitGpu = 7,
               kBitMemPressure = 12, kBitDiskPressure = 13, kBitPorts = 14,
               kBitDisk = 19, kBitMaxVols = 20, kBitVolZone = 21,
               kFixedBits = 24;
+constexpr int kBitIpUmbrella = 15, kBitExistAnti = 16, kBitAffRules = 17,
+              kBitAntiRules = 18;
+// inter-pod maxima (kernels/fastscan.py MAX_TOPO_KEYS, MAX_TOPO_DOMS,
+// MAX_TERMS, MAX_IP_GROUPS)
+constexpr int kMaxKeys = 4, kMaxDoms = 64, kMaxTerms = 4,
+              kMaxOwn = 3 * kMaxTerms, kMaxIpWords = 4;
+// InterPodAffinityPriority's weight without a policy
+constexpr int kInterpodWeight = 1;
+// own-term flags
+enum { T_VALID = 1, T_HOST = 2, T_SELF = 4, T_UNPL = 8 };
+
+// offsets into a group's packed inter-pod row (fastplan.IpLayout) and into
+// the exist-side tables (kernels/fastscan.py EXIST_TABLES)
+struct IpLayout {
+  int aff_match, aff_key, aff_valid, aff_empty, aff_host, aff_self, aff_unpl,
+      aff_err, anti_match, anti_key, anti_valid, anti_host, anti_err,
+      pref_match, pref_key, pref_w, ex_anti, ex_pref, ex_aff, width;
+  int e_anti_key, e_anti_mask, e_anti_empty, e_pref_key, e_pref_w, e_aff_key,
+      e_aff_mask;
+};
+
+IpLayout ip_layout(int ta, int tb, int tp, int gpad) {
+  IpLayout l;
+  int off = 0;
+  auto take = [&off](int n) { const int at = off; off += n; return at; };
+  l.aff_match = take(ta * gpad);
+  l.aff_key = take(ta);
+  l.aff_valid = take(ta);
+  l.aff_empty = take(ta);
+  l.aff_host = take(ta);
+  l.aff_self = take(ta);
+  l.aff_unpl = take(ta);
+  l.aff_err = take(1);
+  l.anti_match = take(tb * gpad);
+  l.anti_key = take(tb);
+  l.anti_valid = take(tb);
+  l.anti_host = take(tb);
+  l.anti_err = take(1);
+  l.pref_match = take(tp * gpad);
+  l.pref_key = take(tp);
+  l.pref_w = take(tp);
+  l.ex_anti = take(gpad * tb);
+  l.ex_pref = take(gpad * tp);
+  l.ex_aff = take(gpad * ta);
+  l.width = off;
+  off = 0;
+  l.e_anti_key = take(gpad * tb);
+  l.e_anti_mask = take(gpad * tb);
+  l.e_anti_empty = take(gpad * tb);
+  l.e_pref_key = take(gpad * tp);
+  l.e_pref_w = take(gpad * tp);
+  l.e_aff_key = take(gpad * ta);
+  l.e_aff_mask = take(gpad * ta);
+  return l;
+}
 
 struct Args {
   const int* pods;        // [k, pod_w]
@@ -104,7 +190,8 @@ struct Args {
   int* choices;           // [k]
   int* counts;            // [k, num_bits]
   int* adv;               // [k]
-  int* scratch;           // [3, npad]: reason words, scores, spread counts
+  int* scratch;           // [4, npad]: reason words, scores, spread and
+                          // inter-pod counts
   int k, pod_w, num_scalars, num_bits, npad, most_requested;
   // pod groups (the group variant only)
   int gpad;               // presence rows; words = ceil(gpad / 32)
@@ -120,7 +207,36 @@ struct Args {
   int n_vols;
   int uv_row;             // first used-volume row of the carry
   int limit[3];
+  // inter-pod (the inter-pod variant only)
+  int k_keys, d_doms, ta, tb, tp, hard_weight;
+  const int* topo;        // [>= k_keys, npad] domain id per key and node
+  const int* ipod;        // [gpad, wip] packed rows, by gid
+  int wip;
+  const int* exist;       // the exist-side tables
+  int* pd;                // [gpad * k_keys, dpad] presence_dom, in place
+  int dpad;
+  IpLayout lay;
 };
+
+// what the inter-pod phase leaves in shared memory for one pod
+struct IpShared {
+  int seg[kMaxOwn][kMaxDoms];  // own term t: per-domain sums of matched pods
+  int bk[kMaxKeys][kMaxDoms];  // existing pods' anti-affinity sums
+  int wk[kMaxKeys][kMaxDoms];  // existing pods' weighted preference sums
+  int tot[kMaxTerms];          // affinity term t: matched pods anywhere
+  unsigned mw[kMaxOwn][kMaxIpWords];  // groups own term t matches
+  int key[kMaxOwn];            // own term t's topology key
+  int flag[kMaxOwn];           // T_* flags (affinity and anti-affinity)
+  int w[kMaxTerms];            // preferred term weights
+  int aff_err, anti_err, fail_all;
+};
+
+template <bool kInterpod>
+struct IpSlot {
+  IpShared s;
+};
+template <>
+struct IpSlot<false> {};
 
 struct PodView {
   int rc, rm, rg, re, nzc, nzm;
@@ -199,10 +315,198 @@ __device__ __forceinline__ bool maxpd_fails(const Args& a, const PodView& p,
   return false;
 }
 
+// where own term t's match lanes and topology key sit in a packed row
+// (terms 0..ta-1 affinity, then anti-affinity, then preferred)
+__device__ __forceinline__ void own_term_at(const Args& a, int t,
+                                            int* match_off, int* key_off) {
+  const IpLayout& l = a.lay;
+  if (t < a.ta) {
+    *match_off = l.aff_match + t * a.gpad;
+    *key_off = l.aff_key + t;
+  } else if (t < a.ta + a.tb) {
+    *match_off = l.anti_match + (t - a.ta) * a.gpad;
+    *key_off = l.anti_key + (t - a.ta);
+  } else {
+    *match_off = l.pref_match + (t - a.ta - a.tb) * a.gpad;
+    *key_off = l.pref_key + (t - a.ta - a.tb);
+  }
+}
+
+// The inter-pod phase of one pod (group gid): fills `s`, block-parallel
+// over cells. tot and fail_all must be 0 on entry; a barrier must follow.
+__device__ void interpod_phase(const Args& a, int gid, IpShared& s) {
+  const IpLayout& l = a.lay;
+  const int* r = a.ipod + (size_t)gid * a.wip;
+  const int* ex = a.exist;
+  const int gpad = a.gpad, nk = a.k_keys, nd = a.d_doms;
+  const int ta = a.ta, tb = a.tb, tp = a.tp, nown = ta + tb + tp;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  for (int t = tid; t < nown; t += nt) {
+    int match_off, key_off, flag = 0;
+    own_term_at(a, t, &match_off, &key_off);
+    if (t < ta) {
+      flag = (r[l.aff_valid + t] ? T_VALID : 0) |
+             (r[l.aff_host + t] ? T_HOST : 0) |
+             (r[l.aff_self + t] ? T_SELF : 0) |
+             (r[l.aff_unpl + t] ? T_UNPL : 0);
+    } else if (t < ta + tb) {
+      flag = (r[l.anti_valid + t - ta] ? T_VALID : 0) |
+             (r[l.anti_host + t - ta] ? T_HOST : 0);
+    } else {
+      s.w[t - ta - tb] = r[l.pref_w + t - ta - tb];
+    }
+    s.key[t] = r[key_off];
+    s.flag[t] = flag;
+  }
+  if (tid == 0) {
+    s.aff_err = r[l.aff_err];
+    s.anti_err = r[l.anti_err];
+  }
+  // the groups each own term matches, as bit words
+  for (int c = tid; c < nown * a.words; c += nt) {
+    const int t = c / a.words, w = c % a.words;
+    int match_off, key_off;
+    own_term_at(a, t, &match_off, &key_off);
+    unsigned bits = 0;
+    for (int b = 0; b < 32; ++b) {
+      const int g = w * 32 + b;
+      if (g < gpad && r[match_off + g] != 0) bits |= 1u << b;
+    }
+    s.mw[t][w] = bits;
+  }
+  // own terms: per-domain sums of the matched pods, from presence_dom
+  for (int c = tid; c < nown * nd; c += nt) {
+    const int t = c / nd, d = c % nd;
+    int match_off, key_off;
+    own_term_at(a, t, &match_off, &key_off);
+    const int key = r[key_off];
+    int sum = 0;
+    for (int g = 0; g < gpad; ++g)
+      if (r[match_off + g] != 0)
+        sum = add32(sum, a.pd[(size_t)(g * nk + key) * a.dpad + d]);
+    s.seg[t][d] = sum;
+    if (t < ta && sum != 0) atomicAdd(&s.tot[t], sum);
+  }
+  // the existing pods' terms that match me, per key and domain
+  for (int c = tid; c < nk * nd; c += nt) {
+    const int k = c / nd, d = c % nd;
+    int b = 0, wsum = 0;
+    for (int g = 0; g < gpad; ++g) {
+      const int v = a.pd[(size_t)(g * nk + k) * a.dpad + d];
+      for (int t = 0; t < tb; ++t) {
+        const int idx = g * tb + t;
+        if (r[l.ex_anti + idx] && ex[l.e_anti_mask + idx] &&
+            ex[l.e_anti_key + idx] == k)
+          b = add32(b, v);
+      }
+      for (int t = 0; t < tp; ++t) {
+        const int idx = g * tp + t;
+        const int ws = ex[l.e_pref_w + idx];
+        if (ws != 0 && r[l.ex_pref + idx] && ex[l.e_pref_key + idx] == k)
+          wsum = add32(wsum, mul32(v, ws));
+      }
+      for (int t = 0; t < ta; ++t) {
+        const int idx = g * ta + t;
+        if (r[l.ex_aff + idx] && ex[l.e_aff_mask + idx] &&
+            ex[l.e_aff_key + idx] == k)
+          wsum = add32(wsum, mul32(v, a.hard_weight));
+      }
+    }
+    s.bk[k][d] = b;
+    s.wk[k][d] = wsum;
+  }
+  // an existing empty-key anti-affinity term that matches me fails me on
+  // every node once its group has a pod anywhere
+  for (int c = tid; c < gpad * tb; c += nt) {
+    if (!ex[l.e_anti_empty + c] || !r[l.ex_anti + c]) continue;
+    const int g = c / tb;
+    int pods = 0;
+    for (int d = 0; d < nd; ++d)
+      pods = add32(pods, a.pd[(size_t)(g * nk) * a.dpad + d]);
+    if (pods > 0) atomicOr(&s.fail_all, 1);
+  }
+}
+
+// pods of the groups own term t matches, on node i
+__device__ __forceinline__ int term_on_node(const Args& a, const IpShared& s,
+                                            int t, int i) {
+  int c = 0;
+  for (int w = 0; w < a.words; ++w) {
+    unsigned bits = s.mw[t][w];
+    while (bits) {
+      const int g = w * 32 + __ffs(bits) - 1;
+      bits &= bits - 1;
+      c = add32(c, a.carry[(size_t)(a.pres_row + g) * a.npad + i]);
+    }
+  }
+  return c;
+}
+
+// MatchInterPodAffinity (predicates.go:1125-1450) on node i: 0, or the
+// umbrella bit plus existing-anti, affinity or anti-affinity, in that order
+__device__ __forceinline__ int interpod_reason(const Args& a,
+                                               const IpShared& s, int i) {
+  const int n = a.npad;
+  bool aff_fail = s.aff_err != 0, anti_fail = s.anti_err != 0;
+  for (int t = 0; t < a.ta; ++t) {
+    const int f = s.flag[t];
+    if (!(f & T_VALID)) continue;
+    const int dom = a.topo[(size_t)s.key[t] * n + i];
+    bool matches, exists;
+    if (f & T_HOST) {
+      // hostname terms look at this node's pods only
+      const bool on = term_on_node(a, s, t, i) > 0;
+      matches = dom > 0 && on;
+      exists = on;
+    } else {
+      matches = dom > 0 && s.seg[t][dom] > 0;
+      exists = s.tot[t] > 0 || (f & T_UNPL);
+    }
+    if (!(matches || (!exists && (f & T_SELF)))) aff_fail = true;
+  }
+  for (int t = a.ta; t < a.ta + a.tb; ++t) {
+    const int f = s.flag[t];
+    if (!(f & T_VALID)) continue;
+    const int dom = a.topo[(size_t)s.key[t] * n + i];
+    const bool hit = (f & T_HOST) ? term_on_node(a, s, t, i) > 0
+                                  : s.seg[t][dom] > 0;
+    if (dom > 0 && hit) anti_fail = true;
+  }
+  bool exist_fail = s.fail_all != 0;
+  for (int k = 0; k < a.k_keys; ++k) {
+    const int dom = a.topo[(size_t)k * n + i];
+    if (dom >= 1 && s.bk[k][dom] > 0) exist_fail = true;
+  }
+  if (!(exist_fail || aff_fail || anti_fail)) return 0;
+  return (1 << kBitIpUmbrella) |
+         (exist_fail ? 1 << kBitExistAnti
+                     : aff_fail ? 1 << kBitAffRules : 1 << kBitAntiRules);
+}
+
+// InterPodAffinityPriority's count on node i (interpod_affinity.go): my
+// preferred terms over the pods present, the existing pods' preferred and
+// required affinity terms (x the hard weight) over me
+__device__ __forceinline__ int interpod_count(const Args& a,
+                                              const IpShared& s, int i) {
+  const int n = a.npad;
+  int c = 0;
+  for (int t = 0; t < a.tp; ++t) {
+    const int tt = a.ta + a.tb + t;
+    if (s.w[t] == 0) continue;
+    const int dom = a.topo[(size_t)s.key[tt] * n + i];
+    if (dom > 0) c = add32(c, mul32(s.seg[tt][dom], s.w[t]));
+  }
+  for (int k = 0; k < a.k_keys; ++k) {
+    const int dom = a.topo[(size_t)k * n + i];
+    if (dom >= 1) c = add32(c, s.wk[k][dom]);
+  }
+  return c;
+}
+
 // the first failing stage's reason bits; 0 = feasible
-template <bool kGroups>
+template <bool kGroups, bool kInterpod>
 __device__ __forceinline__ int node_reason(const Args& a, const PodView& p,
-                                           int i) {
+                                           int i, const IpShared* ips) {
   const int n = a.npad;
   const int* st = a.statics;
   const int* c = a.carry;
@@ -233,6 +537,7 @@ __device__ __forceinline__ int node_reason(const Args& a, const PodView& p,
     return 1 << kBitVolZone;
   if (p.best_effort && st[S_MPR * n + i] != 0) return 1 << kBitMemPressure;
   if (st[S_DPR * n + i] != 0) return 1 << kBitDiskPressure;
+  if constexpr (kInterpod) return interpod_reason(a, *ips, i);
   return 0;
 }
 
@@ -247,6 +552,8 @@ struct Norms {
   // SelectorSpreadPriority: node max of the feasible counts, zone max of the
   // per-zone sums, whether any feasible node has a zone
   int max_node, max_zone, have_zones;
+  // InterPodAffinityPriority: max(feasible counts, 0), min(feasible counts, 0)
+  int ip_max, ip_min;
 };
 
 // SelectorSpreadPriority (selector_spreading.go:66-175) of a feasible node
@@ -264,6 +571,13 @@ __device__ __forceinline__ int spread_score(const Norms& m, int c, int z,
         mul32(mul32(3, node_den), zone_den));
   }
   return floordiv(mul32(kMaxPriority, node_num), node_den);
+}
+
+// the normalized InterPodAffinityPriority of a node with count c
+__device__ __forceinline__ int interpod_score(const Norms& m, int c) {
+  const int rng = sub32(m.ip_max, m.ip_min);
+  if (rng <= 0) return 0;
+  return floordiv(mul32(kMaxPriority, sub32(c, m.ip_min)), rng);
 }
 
 // weighted score of a feasible node
@@ -293,9 +607,9 @@ __device__ __forceinline__ int node_score(const Args& a, const PodView& p,
 // block-wide reduction of kN values: v[0] summed, the rest maxed; every
 // thread gets the results
 template <int kN>
-__device__ __forceinline__ void block_reduce(int (&v)[kN], int (*red)[5],
+__device__ __forceinline__ void block_reduce(int (&v)[kN], int (*red)[8],
                                              int* bc) {
-  static_assert(kN <= 5, "red holds five values a warp");
+  static_assert(kN <= 8, "red holds eight values a warp");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
   v[0] = __reduce_add_sync(kFull, v[0]);
@@ -349,10 +663,16 @@ __device__ __forceinline__ int block_excl_scan(int v, int* total, int* wscan,
   return wscan[warp] + x - v;
 }
 
-template <bool kGroups>
-__global__ void __launch_bounds__(1024) fastscan_kernel(Args a) {
-  __shared__ int red[32][5];
-  __shared__ int bc[5];
+// One CTA a launch: the minimum of 1 block per SM lets ptxas use all 64
+// registers. With the thread bound alone it gives the inter-pod
+// instantiation 32 registers (room for two blocks) and spills 412 bytes.
+template <bool kGroups, bool kInterpod>
+__global__ void __launch_bounds__(1024, 1) fastscan_kernel(Args a) {
+  static_assert(kGroups || !kInterpod, "inter-pod terms need pod groups");
+  constexpr int kRed = kInterpod ? 7 : 5;   // values the pass-1 reduction holds
+  __shared__ int red[32][8];
+  __shared__ int bc[8];
+  __shared__ IpSlot<kInterpod> ip_slot;
   __shared__ int wscan[32];
   __shared__ int hist[32];
   __shared__ int zsum[kMaxZones];   // per-zone sums of feasible spread counts
@@ -363,8 +683,15 @@ __global__ void __launch_bounds__(1024) fastscan_kernel(Args a) {
   int* reason_s = a.scratch;
   int* score_s = a.scratch + n;
   int* spread_s = a.scratch + 2 * n;
+  int* ipcount_s = a.scratch + 3 * n;
   const bool spread = kGroups && (a.flags & F_SPREAD) != 0;
+  const IpShared* ips = nullptr;
   int rr = a.misc[0];
+  if constexpr (kInterpod) {
+    ips = &ip_slot.s;
+    if (tid < kMaxTerms) ip_slot.s.tot[tid] = 0;
+    if (tid == 0) ip_slot.s.fail_all = 0;
+  }
   if (kGroups) {
     if (tid < kMaxZones) zsum[tid] = 0;
     __syncthreads();
@@ -404,20 +731,31 @@ __global__ void __launch_bounds__(1024) fastscan_kernel(Args a) {
       }
       p.maxpd = p.my_typed[0] + p.my_typed[1] + p.my_typed[2] > 0;
     }
+    if constexpr (kInterpod) {
+      interpod_phase(a, p.gid, ip_slot.s);
+      __syncthreads();
+    }
 
-    // pass 1: reason words, feasible count, normalizer maxima, and for
-    // spreading the node max, the zone sums and whether a zone is feasible
-    int red_v[5] = {0, 0, 0, 0, 0};   // nf, aff max, intol max, node max, zoned
+    // pass 1: reason words, feasible count, normalizer maxima, for
+    // spreading the node max, the zone sums and whether a zone is feasible,
+    // and for inter-pod terms the counts' max and negated min
+    int red_v[kRed] = {};   // nf, aff max, intol max, node max, zoned[, ip]
     int zacc[kMaxZones];
 #pragma unroll
     for (int z = 0; z < kMaxZones; ++z) zacc[z] = 0;
     for (int i = lo; i < hi; ++i) {
-      const int r = node_reason<kGroups>(a, p, i);
+      const int r = node_reason<kGroups, kInterpod>(a, p, i, ips);
       reason_s[i] = r;
       if (r != 0) continue;
       ++red_v[0];
       red_v[1] = max(red_v[1], p.aff[i]);
       red_v[2] = max(red_v[2], p.intol[i]);
+      if constexpr (kInterpod) {
+        const int c = interpod_count(a, *ips, i);
+        ipcount_s[i] = c;
+        red_v[5] = max(red_v[5], c);
+        red_v[6] = max(red_v[6], -c);
+      }
       if (spread) {
         const int c = spread_count(a, p, i);
         const int z = a.zone_id[i];
@@ -435,7 +773,7 @@ __global__ void __launch_bounds__(1024) fastscan_kernel(Args a) {
         if (lane == 0 && s != 0) atomicAdd(&zsum[zz], s);
       }
     }
-    block_reduce<5>(red_v, red, bc);
+    block_reduce<kRed>(red_v, red, bc);
     const int nf = red_v[0];
     Norms m;
     m.aff_max = red_v[1];
@@ -443,6 +781,11 @@ __global__ void __launch_bounds__(1024) fastscan_kernel(Args a) {
     m.max_node = red_v[3];
     m.have_zones = red_v[4];
     m.max_zone = 0;
+    m.ip_max = m.ip_min = 0;
+    if constexpr (kInterpod) {
+      m.ip_max = red_v[5];
+      m.ip_min = -red_v[6];
+    }
     if (spread) {
       for (int zz = 1; zz < a.n_zones; ++zz) m.max_zone = max(m.max_zone, zsum[zz]);
     }
@@ -457,6 +800,8 @@ __global__ void __launch_bounds__(1024) fastscan_kernel(Args a) {
           const int z = a.zone_id[i];
           s += spread_score(m, spread_s[i], z, z != 0 ? zsum[z] : 0);
         }
+        if constexpr (kInterpod)
+          s += kInterpodWeight * interpod_score(m, ipcount_s[i]);
         score_s[i] = s;
         if (s > lmax) {
           lmax = s;
@@ -500,6 +845,11 @@ __global__ void __launch_bounds__(1024) fastscan_kernel(Args a) {
           for (int v = 0; v < a.n_vols; ++v)
             if (p.vols[v] != 0) c[(size_t)(a.uv_row + v) * n + choice] = 1;
         }
+        if constexpr (kInterpod) {
+          for (int k = 0; k < a.k_keys; ++k)
+            a.pd[(size_t)(p.gid * a.k_keys + k) * a.dpad +
+                 a.topo[(size_t)k * n + choice]] += 1;
+        }
         a.choices[j] = choice;
       }
       if (tid < a.num_bits) a.counts[(size_t)j * a.num_bits + tid] = 0;
@@ -523,6 +873,10 @@ __global__ void __launch_bounds__(1024) fastscan_kernel(Args a) {
     // score max or the histogram's); the end-of-pod barrier orders the
     // reset before the next pod's atomics
     if (spread && tid < kMaxZones) zsum[tid] = 0;
+    if constexpr (kInterpod) {
+      if (tid < kMaxTerms) ip_slot.s.tot[tid] = 0;
+      if (tid == 0) ip_slot.s.fail_all = 0;
+    }
     __syncthreads();
   }
   if (tid == 0) a.misc[0] = rr;
@@ -538,7 +892,10 @@ extern "C" int tpusim_fastscan_chunk(
     int num_bits, int npad, int most_requested, int gpad, int pres_row,
     int flags, const int* zone_id, int n_zones, const int* zone_ok,
     const int* vol_tbl, int vol_w, const int* vol_type, int n_vols,
-    int uv_row, int limit_ebs, int limit_gce, int limit_azure, void* stream) {
+    int uv_row, int limit_ebs, int limit_gce, int limit_azure, int k_keys,
+    int d_doms, int ta, int tb, int tp, int hard_weight, const int* topo,
+    const int* ipod, int wip, const int* exist, int* pd, int dpad,
+    void* stream) {
   if (k <= 0) return 0;
   if (num_bits > 32 || npad <= 0 || npad % 32 != 0) return (int)cudaErrorInvalidValue;
   if ((flags & F_SPREAD) && (n_zones <= 0 || n_zones > kMaxZones || !zone_id))
@@ -548,6 +905,17 @@ extern "C" int tpusim_fastscan_chunk(
   if ((flags & F_VOL_ZONE) && !zone_ok) return (int)cudaErrorInvalidValue;
   if (n_vols < 0 || (n_vols > 0 && (!vol_tbl || !vol_type || vol_w < n_vols)))
     return (int)cudaErrorInvalidValue;
+  const bool interpod = k_keys > 0;
+  IpLayout lay = {};
+  if (interpod) {
+    if (k_keys > kMaxKeys || d_doms < 1 || d_doms > kMaxDoms || ta < 1 ||
+        ta > kMaxTerms || tb < 1 || tb > kMaxTerms || tp < 1 ||
+        tp > kMaxTerms || gpad < 1 || gpad > 32 * kMaxIpWords || !topo ||
+        !ipod || !exist || !pd || dpad < d_doms)
+      return (int)cudaErrorInvalidValue;
+    lay = ip_layout(ta, tb, tp, gpad);
+    if (wip < lay.width) return (int)cudaErrorInvalidValue;
+  }
   Args a;
   a.pods = pods;
   a.statics = statics;
@@ -585,11 +953,26 @@ extern "C" int tpusim_fastscan_chunk(
   a.limit[0] = limit_ebs;
   a.limit[1] = limit_gce;
   a.limit[2] = limit_azure;
+  a.k_keys = k_keys;
+  a.d_doms = d_doms;
+  a.ta = ta;
+  a.tb = tb;
+  a.tp = tp;
+  a.hard_weight = hard_weight;
+  a.topo = topo;
+  a.ipod = ipod;
+  a.wip = wip;
+  a.exist = exist;
+  a.pd = pd;
+  a.dpad = dpad;
+  a.lay = lay;
   const int threads = npad < 1024 ? npad : 1024;
   const bool groups = gpad > 0 || flags != 0 || n_vols > 0;
-  if (groups)
-    fastscan_kernel<true><<<1, threads, 0, (cudaStream_t)stream>>>(a);
+  if (interpod)
+    fastscan_kernel<true, true><<<1, threads, 0, (cudaStream_t)stream>>>(a);
+  else if (groups)
+    fastscan_kernel<true, false><<<1, threads, 0, (cudaStream_t)stream>>>(a);
   else
-    fastscan_kernel<false><<<1, threads, 0, (cudaStream_t)stream>>>(a);
+    fastscan_kernel<false, false><<<1, threads, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

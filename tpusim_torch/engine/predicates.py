@@ -2,8 +2,9 @@
 node) cell.
 
 Reference: predicates.go:778-846 (podMatchesNodeLabels +
-nodeMatchesNodeSelectorTerms) and the volume predicates' helpers
-(predicates.go:220-533).
+nodeMatchesNodeSelectorTerms), the volume predicates' helpers
+(predicates.go:220-533) and the inter-pod term helpers
+(priorityutil/topologies.go, predicates.go GetPodAffinityTerms).
 """
 
 from __future__ import annotations
@@ -40,6 +41,41 @@ def pod_matches_node_labels(pod: Pod, node: Node) -> bool:
             else:
                 return False
     return True
+
+
+# ---------------------------------------------------------------------------
+# inter-pod (anti)affinity terms: the helpers the group compile step uses to
+# intern terms and match them against pod groups
+# ---------------------------------------------------------------------------
+
+
+def get_namespaces_from_pod_affinity_term(pod: Pod, term) -> set:
+    """priorityutil.GetNamespacesFromPodAffinityTerm: empty namespaces default
+    to the term-owning pod's namespace."""
+    if term.namespaces:
+        return set(term.namespaces)
+    return {pod.namespace}
+
+
+def pod_matches_term_namespace_and_selector(target_pod: Pod, namespaces: set,
+                                            selector) -> bool:
+    """priorityutil.PodMatchesTermsNamespaceAndSelector; a nil selector matches
+    nothing (LabelSelectorAsSelector(nil) == labels.Nothing())."""
+    if target_pod.namespace not in namespaces:
+        return False
+    if selector is None:
+        return False
+    return selector.matches(target_pod.metadata.labels)
+
+
+def get_pod_affinity_terms(pod_affinity) -> list:
+    """GetPodAffinityTerms: required terms only."""
+    return list(pod_affinity.required) if pod_affinity is not None else []
+
+
+def get_pod_anti_affinity_terms(pod_anti_affinity) -> list:
+    return (list(pod_anti_affinity.required)
+            if pod_anti_affinity is not None else [])
 
 
 # ---------------------------------------------------------------------------

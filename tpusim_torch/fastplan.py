@@ -8,7 +8,12 @@ Eligibility (checked by `plan_fast`, reasons returned):
     merged groups, TPUSIM_FAST_MAX_ZONES (16) zone domains and the blend's
     int32 product bound; MaxPD volume counts run through a [Vpad, Npad]
     used-volume carry within TPUSIM_FAST_MAX_VOLS (32) volume ids;
-  * inter-pod (anti)affinity is refused: its kernel variant is not ported;
+  * inter-pod (anti)affinity runs through the presence carry and a
+    [Gpad*K, Dpad] presence_dom carry (pods per group, topology key and
+    domain) within TPUSIM_FAST_MAX_TOPO_KEYS (4) keys,
+    TPUSIM_FAST_MAX_TOPO_DOMS (64) domains, TPUSIM_FAST_MAX_TERMS (4)
+    terms of a kind, integral preferred weights and the int32 bound on the
+    InterPodAffinityPriority counts;
   * at most 6 scalar resource kinds (their failure bits ride the int32
     reason word at NUM_FIXED_BITS + s);
   * every quantity divides by its per-axis gcd to a value under 2^29 with
@@ -26,7 +31,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from tpusim_torch.config import AVOID_PODS_WEIGHT, EngineConfig
+from tpusim_torch.config import AVOID_PODS_WEIGHT, EngineConfig, policy_weights
 from tpusim_torch.engine.priorities import MAX_PRIORITY
 from tpusim_torch.state import NUM_FIXED_BITS, CompiledCluster, PodColumns
 
@@ -115,19 +120,44 @@ class FastPlan:
     vol_tbl: Optional[np.ndarray] = None     # [G, Vw] mask by gid (Vw = 128k)
     vol_type3: Tuple[int, ...] = ()          # [V*3] type flags (EBS,GCE,AZ)
     maxpd_limits: Tuple[int, int, int] = (0, 0, 0)
+    # inter-pod (anti)affinity: own terms are per-domain sums of matched
+    # presence; the existing pods' terms against a pod read the
+    # [Gpad*K, Dpad] presence_dom carry (row g*K + k: pods of group g per
+    # domain of topology key k). Every per-pod operand is a function of the
+    # pod's group, so it rides the [Gpad, Wip] ipod table (IpLayout) by
+    # group id; the exist_* tuples are the other groups' term keys, masks
+    # and weights, [Gpad*T] each.
+    has_interpod: bool = False
+    n_topo_keys: int = 0           # K
+    n_topo_doms_ip: int = 0        # D, real domains incl. the invalid 0
+    ta: int = 0                    # own required-affinity term slots
+    tb: int = 0                    # own required-anti-affinity term slots
+    tp: int = 0                    # own preferred term slots
+    hard_weight: int = 10
+    topo_rows: Optional[np.ndarray] = None       # [Kpad, Npad] domain ids
+    presence_dom: Optional[np.ndarray] = None    # [Gpad*K, Dpad] init carry
+    ipod: Optional[np.ndarray] = None            # [Gpad, Wip] by group id
+    exist_anti_key: Tuple[int, ...] = ()     # [G*Tb] topology key per term
+    exist_anti_mask: Tuple[int, ...] = ()    # [G*Tb] valid & ~empty
+    exist_anti_empty: Tuple[int, ...] = ()   # [G*Tb] valid & empty
+    exist_pref_key: Tuple[int, ...] = ()     # [G*Tp]
+    exist_pref_w: Tuple[int, ...] = ()       # [G*Tp] signed int weights
+    exist_aff_key: Tuple[int, ...] = ()      # [G*Ta]
+    exist_aff_mask: Tuple[int, ...] = ()     # [G*Ta] valid & ~empty
 
 
 @dataclass
 class FastCarry:
     """The carry threaded through fast_scan calls: the seven [1, Npad] node
-    rows, the rr misc row and the optional scalar, presence and used-volume
-    rows. Arrays may be numpy (the plan's initial state) or torch tensors (a
+    rows, the rr misc row and the optional scalar, presence, presence_dom
+    and used-volume rows. Arrays may be numpy (the plan's initial state) or torch tensors (a
     previous call's carry)."""
 
     rows: list               # [used_c, used_m, used_g, used_e, nz_c, nz_m, pc]
     misc: object             # [1, LANES] int32; rr at [0, 0]
     scal: Optional[object] = None    # [Srows, Npad] int32
     pres: Optional[object] = None    # [Gpad, Npad] int32
+    pd: Optional[object] = None      # [Gpad*K, Dpad] int32 (inter-pod)
     uv: Optional[object] = None      # [Vpad, Npad] 0/1 int32
 
 
@@ -141,7 +171,70 @@ def init_carry(plan: FastPlan, rr: int = 0) -> FastCarry:
         misc=misc,
         scal=plan.used_scalar if plan.num_scalars else None,
         pres=plan.presence if plan.num_groups else None,
+        pd=plan.presence_dom if plan.has_interpod else None,
         uv=plan.used_vols if plan.has_maxpd else None)
+
+
+class IpLayout:
+    """Offsets into a group's packed inter-pod row (int32 lanes).
+
+    Own-term data (the group's required affinity, anti-affinity and
+    preferred terms): 0/1 match lanes against every group, topology-key ids
+    and flags. Exist-side data (the other groups' terms evaluated against
+    this group): 0/1 match lanes only; their keys, weights and masks are the
+    plan's exist_* tuples."""
+
+    def __init__(self, ta: int, tb: int, tp: int, gpad: int):
+        off = 0
+
+        def take(n):
+            nonlocal off
+            at = off
+            off += n
+            return at
+
+        self.aff_match = take(ta * gpad)    # [t*gpad+g]
+        self.aff_key = take(ta)
+        self.aff_valid = take(ta)
+        self.aff_empty = take(ta)
+        self.aff_host = take(ta)
+        self.aff_self = take(ta)
+        self.aff_unpl = take(ta)
+        self.aff_err = take(1)
+        self.anti_match = take(tb * gpad)
+        self.anti_key = take(tb)
+        self.anti_valid = take(tb)
+        self.anti_host = take(tb)
+        self.anti_err = take(1)
+        self.pref_match = take(tp * gpad)
+        self.pref_key = take(tp)
+        self.pref_w = take(tp)              # signed int weights
+        self.ex_anti = take(gpad * tb)      # [g*tb+t] term matches ME
+        self.ex_pref = take(gpad * tp)
+        self.ex_aff = take(gpad * ta)
+        self.width = max(-(-off // LANES) * LANES, LANES)
+
+
+def presence_dom_init(presence: np.ndarray, topo_dom: np.ndarray,
+                      n_doms: int) -> np.ndarray:
+    """presence_dom[g, k, d] = sum of presence[g, n] over nodes in domain d."""
+    g, _ = presence.shape
+    k = topo_dom.shape[0]
+    pd = np.zeros((g, k, n_doms), dtype=np.int32)
+    for ki in range(k):
+        np.add.at(pd[:, ki, :], (slice(None), topo_dom[ki]), presence)
+    return pd
+
+
+def embed_presence_dom(presence, topo_dom, d_doms: int, gpad: int,
+                       dpad: int) -> np.ndarray:
+    """[G, K, D] presence_dom -> the kernel's [Gpad*K, Dpad] carry layout
+    (row g*K + k)."""
+    pd3 = presence_dom_init(presence, topo_dom, d_doms)
+    g, k_keys, _ = pd3.shape
+    out = np.zeros((gpad * k_keys, dpad), dtype=np.int32)
+    out[:g * k_keys, :d_doms] = pd3.reshape(g * k_keys, d_doms)
+    return out
 
 
 def _gcd_reduce(arrays) -> Tuple[int, list]:
@@ -163,9 +256,6 @@ def plan_fast(config: EngineConfig, compiled: CompiledCluster,
               cols: PodColumns) -> Tuple[Optional[FastPlan], str]:
     """Build the int32 plan, or (None, reason) when ineligible. The budget
     refusals are word for word the JAX package's."""
-    if config.has_interpod:
-        return None, ("pod-group feature inter-pod (anti)affinity needs a "
-                      "kernel variant the port does not carry yet")
     gt = compiled.groups
     if config.has_maxpd:
         n_vols_real = int(gt.vol_mask.shape[1])
@@ -176,11 +266,12 @@ def plan_fast(config: EngineConfig, compiled: CompiledCluster,
                           "TPUSIM_FAST_MAX_VOLS)")
     group_bound = (config.has_ports or config.has_services
                    or config.has_disk_conflict or config.has_vol_zone
-                   or config.has_maxpd)
-    # presence is read by ports, disk conflicts and spreading only; a
-    # vol-zone- or MaxPD-only plan still has group ids but no presence carry
+                   or config.has_interpod or config.has_maxpd)
+    # presence is read by ports, disk conflicts, spreading and inter-pod
+    # terms only; a vol-zone- or MaxPD-only plan still has group ids but no
+    # presence carry
     needs_presence = (config.has_ports or config.has_services
-                      or config.has_disk_conflict)
+                      or config.has_disk_conflict or config.has_interpod)
     num_g = int(gt.presence.shape[0]) if group_bound else 0
     if needs_presence:
         max_g = _budget("TPUSIM_FAST_MAX_GROUPS", 32)
@@ -193,6 +284,41 @@ def plan_fast(config: EngineConfig, compiled: CompiledCluster,
             if config.n_zone_doms > max_z:
                 return None, (f"{config.n_zone_doms} zone domains exceed "
                               f"the fast-path budget ({max_z})")
+    ip_dims = None
+    if config.has_interpod:
+        k_keys = int(gt.topo_dom.shape[0])
+        d_doms = int(config.n_topo_doms)
+        ta = int(gt.aff_valid.shape[1])
+        tb = int(gt.anti_valid.shape[1])
+        tp = int(gt.pref_w.shape[1])
+        max_k = _budget("TPUSIM_FAST_MAX_TOPO_KEYS", 4)
+        max_d = _budget("TPUSIM_FAST_MAX_TOPO_DOMS", 64)
+        max_t = _budget("TPUSIM_FAST_MAX_TERMS", 4)
+        if k_keys > max_k:
+            return None, (f"{k_keys} topology keys exceed the fast-path "
+                          f"budget ({max_k}; TPUSIM_FAST_MAX_TOPO_KEYS)")
+        if d_doms > max_d:
+            return None, (f"{d_doms} topology domains exceed the fast-path "
+                          f"budget ({max_d}; TPUSIM_FAST_MAX_TOPO_DOMS)")
+        if max(ta, tb, tp) > max_t:
+            return None, (f"{max(ta, tb, tp)} inter-pod terms exceed the "
+                          f"fast-path budget ({max_t}; "
+                          "TPUSIM_FAST_MAX_TERMS)")
+        if not np.all(gt.pref_w == np.round(gt.pref_w)):
+            return None, "non-integral preferred inter-pod weights"
+        # InterPodAffinityPriority counts stay int32: bound |counts| by the
+        # total weight mass times the largest possible pod population
+        total_pods = int(gt.presence.sum()) + len(np.asarray(cols.req_cpu))
+        w_own = int(np.abs(gt.pref_w).sum(axis=1).max(initial=0))
+        w_exist = int(np.abs(gt.pref_w).sum()) + config.hard_weight * int(
+            (gt.aff_valid & ~gt.aff_empty).sum())
+        bound_counts = (w_own + w_exist) * max(total_pods, 1)
+        w_interpod = policy_weights(config.most_requested)[7]
+        if MAX_PRIORITY * 2 * w_interpod * bound_counts >= (1 << 31):
+            return None, ("inter-pod priority counts exceed int32 "
+                          f"(weight mass {w_own + w_exist} x "
+                          f"{total_pods} pods)")
+        ip_dims = (k_keys, d_doms, ta, tb, tp)
     n_scal = len(compiled.scalar_names)
     if NUM_FIXED_BITS + n_scal > PAD_SENTINEL_BIT:
         return None, (f"{n_scal} scalar resource kinds exceed the int32 "
@@ -335,6 +461,34 @@ def plan_fast(config: EngineConfig, compiled: CompiledCluster,
     if config.has_vol_zone:
         zone_ok_tbl = table_rows(gt.zone_ok)
 
+    topo_rows = presence_dom = ip_tbl = None
+    ip_exist = {}
+    k_keys = d_doms = ta = tb = tp = 0
+    if config.has_interpod:
+        k_keys, d_doms, ta, tb, tp = ip_dims
+        topo_rows = np.zeros((-(-k_keys // ROW_PAD) * ROW_PAD, npad),
+                             dtype=np.int32)
+        topo_rows[:k_keys, :n] = gt.topo_dom.astype(np.int32)
+        # pad rows and pad nodes keep domain 0 (label missing: never matches)
+        presence_dom = embed_presence_dom(
+            gt.presence, gt.topo_dom, d_doms, gpad,
+            max(-(-d_doms // LANES) * LANES, LANES))
+        ip_tbl = ipod_table(gt, IpLayout(ta, tb, tp, gpad), num_g, gpad)
+
+        def exist(a, t_):
+            out = np.zeros((gpad, t_), dtype=np.int64)
+            out[:num_g] = a
+            return tuple(int(v) for v in out.flatten())
+
+        ip_exist = dict(
+            exist_anti_key=exist(gt.anti_key, tb),
+            exist_anti_mask=exist(gt.anti_valid & ~gt.anti_empty, tb),
+            exist_anti_empty=exist(gt.anti_valid & gt.anti_empty, tb),
+            exist_pref_key=exist(gt.pref_key, tp),
+            exist_pref_w=exist(np.round(gt.pref_w).astype(np.int64), tp),
+            exist_aff_key=exist(gt.aff_key, ta),
+            exist_aff_mask=exist(gt.aff_valid & ~gt.aff_empty, ta))
+
     used_vols = vol_tbl = None
     n_vols = 0
     vol_type3 = ()
@@ -387,21 +541,68 @@ def plan_fast(config: EngineConfig, compiled: CompiledCluster,
         n_zone_doms=zpad if config.has_services else 0,
         has_maxpd=config.has_maxpd, n_vols=n_vols, used_vols=used_vols,
         vol_tbl=vol_tbl, vol_type3=vol_type3, maxpd_limits=mp_limits,
+        has_interpod=config.has_interpod, n_topo_keys=k_keys,
+        n_topo_doms_ip=d_doms, ta=ta, tb=tb, tp=tp,
+        hard_weight=config.hard_weight, topo_rows=topo_rows,
+        presence_dom=presence_dom, ipod=ip_tbl, **ip_exist,
     )
     return plan, ""
 
 
+def ipod_table(gt, lay: IpLayout, num_g: int, gpad: int) -> np.ndarray:
+    """The [Gpad, Wip] packed inter-pod rows of the merged groups."""
+    tbl = np.zeros((gpad, lay.width), dtype=np.int32)
+    gi = np.arange(num_g)
+    tm = gt.term_match.astype(np.int32)            # [Td, G]
+
+    def put(offset, arr):
+        a = np.asarray(arr).reshape(num_g, -1).astype(np.int32)
+        tbl[:num_g, offset:offset + a.shape[1]] = a
+
+    def pad_groups(a3):
+        # [G, T, G] match lanes -> [G, T, Gpad]
+        out = np.zeros((num_g, a3.shape[1], gpad), np.int32)
+        out[:, :, :num_g] = a3
+        return out
+
+    def exist_bits(term_ids, t_):
+        # [G_me, Gpad, T]: lane (g2, t) = term t of group g2 matches me
+        out = np.zeros((num_g, gpad, t_), np.int32)
+        out[:, :num_g] = tm[term_ids][:, :, gi].transpose(2, 0, 1)
+        return out
+
+    put(lay.aff_match, pad_groups(tm[gt.aff_term]))
+    put(lay.aff_key, gt.aff_key)
+    put(lay.aff_valid, gt.aff_valid)
+    put(lay.aff_empty, gt.aff_empty)
+    put(lay.aff_host, gt.aff_hostname)
+    put(lay.aff_self, gt.aff_self)
+    put(lay.aff_unpl, gt.aff_unplaced)
+    put(lay.aff_err, gt.aff_err)
+    put(lay.anti_match, pad_groups(tm[gt.anti_term]))
+    put(lay.anti_key, gt.anti_key)
+    put(lay.anti_valid, gt.anti_valid)
+    put(lay.anti_host, gt.anti_hostname)
+    put(lay.anti_err, gt.anti_err)
+    put(lay.pref_match, pad_groups(tm[gt.pref_term]))
+    put(lay.pref_key, gt.pref_key)
+    put(lay.pref_w, np.round(gt.pref_w).astype(np.int64))
+    put(lay.ex_anti, exist_bits(gt.anti_term, gt.anti_term.shape[1]))
+    put(lay.ex_pref, exist_bits(gt.pref_term, gt.pref_term.shape[1]))
+    put(lay.ex_aff, exist_bits(gt.aff_term, gt.aff_term.shape[1]))
+    return tbl
+
+
 # fields of a plan dict that must hold these values for the plan to fit
 # the kernel variants the port carries
-_PORTED = {"has_interpod": False, "policy": None,
-           "maxpd_enabled": (True, True, True)}
+_PORTED = {"policy": None, "maxpd_enabled": (True, True, True)}
 
 
 def plan_from_numpy(fields_: dict) -> FastPlan:
     """A FastPlan from a dict of numpy arrays and scalars holding at least
     this plan's fields (for instance another implementation's plan in dict
     form). Extra keys are ignored when they hold the value above; a plan
-    that needs the inter-pod or policy variant raises."""
+    that needs the policy variant raises."""
     for key, want in _PORTED.items():
         if key in fields_ and fields_[key] != want:
             raise ValueError(f"plan field {key}={fields_[key]!r}: the port "

@@ -1,9 +1,10 @@
 """The fused fast scan: pods of a FastPlan through the chunk kernel.
 
 The plan is uploaded once per call; pods run in chunks of CHUNK (512) pods
-with the carry (resource rows, presence and used-volume rows) chained device
-to device (the kernel updates it in place, so consecutive launches on one
-stream see each other's binds with no host round trip). Per-chunk outputs
+with the carry (resource rows, presence and used-volume rows, and the
+presence_dom rows of an inter-pod plan) chained device to device (the kernel
+updates it in place, so consecutive launches on one stream see each other's
+binds with no host round trip). Per-chunk outputs
 stay on the device until more than TPUSIM_FAST_SYNC_EVERY chunks (default
 64) are in flight; then the oldest is copied to the host, so device memory
 for outputs stays O(sync_every * chunk) while the host keeps launching ahead
@@ -21,12 +22,14 @@ from tpusim_torch.device import resolve_device
 from tpusim_torch.fastplan import GHOST_REQ, FastCarry, FastPlan, init_carry
 from tpusim_torch.kernels.fastscan import (
     CARRY_ROWS,
+    EXIST_TABLES,
     MISC_WIDTH,
     NO_GROUPS,
     POD_FIELDS,
     STATIC_ROWS,
     TABLES,
     GroupArgs,
+    IpArgs,
     fastscan_chunk,
     group_words,
 )
@@ -84,6 +87,38 @@ class DevicePlan:
                              else torch.zeros((0, npad), dtype=torch.int32,
                                               device=device))
         self.groups = group_args(plan, device)
+        self.ip = interpod_args(plan, device)
+
+
+def interpod_args(plan: FastPlan, device: torch.device) -> Optional[IpArgs]:
+    """The plan's inter-pod operands on `device`, uploaded once: the domain
+    rows, the per-group packed rows (the kernel reads a pod's row by its
+    group id, so nothing per pod is built on the host) and the exist-side
+    tables."""
+    if not plan.has_interpod:
+        return None
+    exist = tuple(v for name, _ in EXIST_TABLES for v in getattr(plan, name))
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)
+                                ).to(device)
+
+    return IpArgs(k_keys=plan.n_topo_keys, d_doms=plan.n_topo_doms_ip,
+                  ta=plan.ta, tb=plan.tb, tp=plan.tp,
+                  hard_weight=plan.hard_weight, topo=put(plan.topo_rows),
+                  ipod=put(plan.ipod), exist=put(np.asarray(exist)),
+                  exist_host=exist)
+
+
+def pd_tensor(carry: FastCarry, device: torch.device):
+    """A fresh copy of the carry's presence_dom rows on `device`, or None
+    for a plan without inter-pod terms."""
+    if carry.pd is None:
+        return None
+    pd = carry.pd
+    if not isinstance(pd, torch.Tensor):
+        pd = torch.from_numpy(np.ascontiguousarray(pd, dtype=np.int32))
+    return pd.to(device=device, dtype=torch.int32).clone().contiguous()
 
 
 def group_args(plan: FastPlan, device: torch.device) -> GroupArgs:
@@ -150,7 +185,9 @@ def fast_scan(plan: FastPlan, chunk: int = CHUNK, start: int = 0,
     num_chunks = -(-span // k) if span > 0 else 0
 
     dp = DevicePlan(plan, device)
-    carry, misc = carry_tensors(carry_in or init_carry(plan), device)
+    carry_in = carry_in or init_carry(plan)
+    carry, misc = carry_tensors(carry_in, device)
+    pd = pd_tensor(carry_in, device)
     pods = torch.from_numpy(pod_matrix(plan, start, stop, num_chunks * k)
                             ).to(device)
     # clamp to >= 1: 0 would keep every chunk's outputs on the device
@@ -167,7 +204,8 @@ def fast_scan(plan: FastPlan, chunk: int = CHUNK, start: int = 0,
     for ci in range(num_chunks):
         out = fastscan_chunk(pods[ci * k:(ci + 1) * k], dp.statics, dp.tables,
                              carry, misc, dp.alloc_scalar, plan.num_scalars,
-                             num_bits, plan.most_requested, dp.groups)
+                             num_bits, plan.most_requested, dp.groups, dp.ip,
+                             pd)
         pending.append(out + (min(k, span - ci * k),))
         if len(pending) > sync_every:
             drain_one()
@@ -189,5 +227,5 @@ def fast_scan(plan: FastPlan, chunk: int = CHUNK, start: int = 0,
         misc=misc.reshape(1, MISC_WIDTH),
         scal=carry[CARRY_ROWS:g0] if plan.num_scalars else None,
         pres=carry[g0:v0] if plan.num_groups else None,
-        uv=carry[v0:] if plan.has_maxpd else None)
+        pd=pd, uv=carry[v0:] if plan.has_maxpd else None)
     return out3 + (carry_out,)

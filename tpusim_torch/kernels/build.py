@@ -33,6 +33,9 @@ SOURCES: Dict[str, Dict[str, list]] = {
             # pod groups: gpad, pres_row, flags, zone_id, n_zones, zone_ok,
             # vol_tbl, vol_w, vol_type, n_vols, uv_row, three limits
             _I, _I, _I, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I,
+            # inter-pod: k_keys, d_doms, ta, tb, tp, hard_weight, topo,
+            # ipod, wip, exist, pd, dpad
+            _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I,
             _P],
     },
 }

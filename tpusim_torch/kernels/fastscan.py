@@ -18,6 +18,10 @@ and contiguous, node axis padded to Npad:
   misc     [128]        rr at [0]
   alloc_scalar [Srows, Npad] (an empty [0, Npad] tensor when S == 0)
   groups   GroupArgs: the static pod-group operands (Variants 2 and 4)
+  ip       IpArgs: the static inter-pod operands (Variant 3), or None
+  pd       [Gpad*K, Dpad]  the presence_dom carry (inter-pod only): row
+                        g*K + k counts the pods of group g per domain of
+                        topology key k; updated in place like the carry
 
 Returns (choices [k], counts [k, num_bits], advanced [k]). A CPU tensor runs
 the plain version; a CUDA tensor launches the kernel of csrc/fastscan.cu.
@@ -32,10 +36,14 @@ import torch
 
 from tpusim_torch.config import policy_weights
 from tpusim_torch.engine.priorities import MAX_PRIORITY
-from tpusim_torch.fastplan import PAD_SENTINEL_BIT
+from tpusim_torch.fastplan import PAD_SENTINEL_BIT, IpLayout
 from tpusim_torch.state import (
+    BIT_AFFINITY_NOT_MATCH,
+    BIT_AFFINITY_RULES,
+    BIT_ANTI_AFFINITY_RULES,
     BIT_DISK_CONFLICT,
     BIT_DISK_PRESSURE,
+    BIT_EXISTING_ANTI_AFFINITY,
     BIT_HOST_PORTS,
     BIT_HOSTNAME_MISMATCH,
     BIT_INSUFFICIENT_CPU,
@@ -107,6 +115,45 @@ class GroupArgs:
 
 NO_GROUPS = GroupArgs()
 
+# the kernel's compile-time maxima for Variant 3 (the plan's default budgets)
+MAX_TOPO_KEYS, MAX_TOPO_DOMS, MAX_TERMS, MAX_IP_GROUPS = 4, 64, 4, 128
+# the exist-side tables of a plan, concatenated in this order into
+# IpArgs.exist: (name, term kind) with lengths Gpad * T of that kind
+EXIST_TABLES = (("exist_anti_key", "tb"), ("exist_anti_mask", "tb"),
+                ("exist_anti_empty", "tb"), ("exist_pref_key", "tp"),
+                ("exist_pref_w", "tp"), ("exist_aff_key", "ta"),
+                ("exist_aff_mask", "ta"))
+
+
+@dataclass(frozen=True)
+class IpArgs:
+    """The static inter-pod operands of one plan on one device (Variant 3):
+    the dimensions, the hard weight, the [Kpad, Npad] domain rows, the
+    [Gpad, Wip] packed rows by group id (fastplan.IpLayout), and the
+    exist-side tables (the other groups' term keys, masks and weights) as
+    one int32 vector in EXIST_TABLES order, on the device (`exist`) and on
+    the host (`exist_host`)."""
+
+    k_keys: int
+    d_doms: int
+    ta: int
+    tb: int
+    tp: int
+    hard_weight: int
+    topo: torch.Tensor
+    ipod: torch.Tensor
+    exist: torch.Tensor
+    exist_host: Tuple[int, ...]
+
+    def exist_table(self, name: str, gpad: int) -> Tuple[int, ...]:
+        at = 0
+        for table, kind in EXIST_TABLES:
+            size = gpad * getattr(self, kind)
+            if table == name:
+                return self.exist_host[at:at + size]
+            at += size
+        raise KeyError(name)
+
 
 def pod_width(num_scalars: int, groups: GroupArgs) -> int:
     return len(POD_FIELDS) + num_scalars + 1 + 3 * groups.words
@@ -165,11 +212,154 @@ def _maxpd_fail(pg: _PodGroups, groups: GroupArgs, uv, like):
     return fail
 
 
+class PodInterpod:
+    """One pod's inter-pod operands (its group's packed row) and the sums
+    its stage and score read, from the presence and presence_dom carries."""
+
+    def __init__(self, gid: int, ip: IpArgs, gpad: int, pres, pd):
+        self.ip, self.gpad, self.pres, self.pd = ip, gpad, pres, pd
+        self.lay = IpLayout(ip.ta, ip.tb, ip.tp, gpad)
+        self.row = ip.ipod[gid].tolist()
+        self.topo = ip.topo[:ip.k_keys].long()      # [K, Npad] domain ids
+
+    def own_term(self, match_off: int, key_off: int, t: int):
+        """One own term: (matched presence per node, the per-domain sum of
+        it at each node's domain, each node's domain). Pad nodes lie in
+        domain 0 with no presence, so they add to no real domain."""
+        gs = [g for g in range(self.gpad)
+              if self.row[match_off + t * self.gpad + g]]
+        like = self.topo[0]
+        mcount = (self.pres[gs].sum(dim=0, dtype=torch.int32) if gs
+                  else torch.zeros_like(like, dtype=torch.int32))
+        domsel = self.topo[self.row[key_off + t]]
+        seg = torch.zeros(self.ip.d_doms, dtype=torch.int32,
+                          device=like.device)
+        seg.index_add_(0, domsel, mcount)
+        return mcount, seg[domsel], domsel
+
+    def _exist_rows(self, name: str, kind: str):
+        """(group, topology key, table value) of every other-group term of
+        this exist table whose term matches me and whose value is set."""
+        t_n = getattr(self.ip, kind)
+        values = self.ip.exist_table(name, self.gpad)
+        keys = self.ip.exist_table(name.rsplit("_", 1)[0] + "_key", self.gpad)
+        bits_at = {"tb": self.lay.ex_anti, "tp": self.lay.ex_pref,
+                   "ta": self.lay.ex_aff}[kind]
+        return [(idx // t_n, keys[idx], v) for idx, v in enumerate(values)
+                if v and self.row[bits_at + idx]]
+
+    def _dom_lookup(self, per_key):
+        """Per node the sum over keys k of per_key[k] at the node's domain
+        of key k, domains >= 1 only."""
+        out = torch.zeros_like(self.topo[0], dtype=torch.int32)
+        for k, vals in per_key.items():
+            dom = self.topo[k]
+            out = out + torch.where(dom >= 1, vals[dom], 0)
+        return out
+
+    def stage(self, like):
+        """MatchInterPodAffinity (predicates.go:1125-1450): (fail mask,
+        reason bits): the umbrella bit plus existing-anti, affinity or
+        anti-affinity, in that order."""
+        ip, lay, row = self.ip, self.lay, self.row
+        no = torch.zeros_like(like, dtype=torch.bool)
+        aff_fail = no | bool(row[lay.aff_err])
+        for t in range(ip.ta):
+            if not row[lay.aff_valid + t]:
+                continue
+            mcount, dc_at, domsel = self.own_term(lay.aff_match, lay.aff_key, t)
+            on_node = mcount > 0
+            if row[lay.aff_host + t]:
+                matches, exists = (domsel > 0) & on_node, on_node
+            else:
+                # "a matching pod exists" is global, unplaced pods included
+                matches = (domsel > 0) & (dc_at > 0)
+                exists = no | (int(mcount.sum()) > 0 or bool(
+                    row[lay.aff_unpl + t]))
+            ok = matches | (~exists & bool(row[lay.aff_self + t]))
+            aff_fail = aff_fail | ~ok
+        anti_fail = no | bool(row[lay.anti_err])
+        for t in range(ip.tb):
+            if not row[lay.anti_valid + t]:
+                continue
+            mcount, dc_at, domsel = self.own_term(lay.anti_match, lay.anti_key,
+                                                  t)
+            hit = mcount > 0 if row[lay.anti_host + t] else dc_at > 0
+            anti_fail = anti_fail | ((domsel > 0) & hit)
+        # existing pods' required anti-affinity against me
+        d, k_n = ip.d_doms, ip.k_keys
+        bk = {}
+        for g, k, _ in self._exist_rows("exist_anti_mask", "tb"):
+            bk[k] = bk.get(k, 0) + self.pd[g * k_n + k, :d]
+        exist_fail = self._dom_lookup(bk) > 0
+        for g, _, _ in self._exist_rows("exist_anti_empty", "tb"):
+            if int(self.pres[g].sum()) > 0:
+                exist_fail = exist_fail | True
+        fail = exist_fail | aff_fail | anti_fail
+        bits = (1 << BIT_AFFINITY_NOT_MATCH) | torch.where(
+            exist_fail, 1 << BIT_EXISTING_ANTI_AFFINITY,
+            torch.where(aff_fail, 1 << BIT_AFFINITY_RULES,
+                        1 << BIT_ANTI_AFFINITY_RULES))
+        return fail, bits.to(torch.int32)
+
+    def counts(self):
+        """InterPodAffinityPriority's counts per node
+        (interpod_affinity.go): my preferred terms over the pods present,
+        the existing pods' preferred terms and required affinity terms (x
+        the hard weight) over me; int32, products wrap."""
+        ip, lay, row = self.ip, self.lay, self.row
+        out = torch.zeros_like(self.topo[0], dtype=torch.int32)
+        for t in range(ip.tp):
+            w_t = row[lay.pref_w + t]
+            if not w_t:
+                continue
+            _, dc_at, domsel = self.own_term(lay.pref_match, lay.pref_key, t)
+            out = out + torch.where(domsel > 0, dc_at, 0) * w_t
+        d, k_n = ip.d_doms, ip.k_keys
+        wk = {}
+        for g, k, w in self._exist_rows("exist_pref_w", "tp"):
+            wk[k] = wk.get(k, 0) + self.pd[g * k_n + k, :d] * w
+        for g, k, _ in self._exist_rows("exist_aff_mask", "ta"):
+            wk[k] = wk.get(k, 0) + self.pd[g * k_n + k, :d] * ip.hard_weight
+        return out + self._dom_lookup(wk)
+
+    def bind(self, gid: int, choice: int):
+        for k in range(self.ip.k_keys):
+            self.pd[gid * self.ip.k_keys + k, int(self.topo[k, choice])] += 1
+
+
+def pod_interpod(row, num_scalars: int, groups: GroupArgs,
+                 ip: Optional[IpArgs], carry, alloc_scalar, pd):
+    """The inter-pod operands of one pod (`row`, a list of its pod
+    columns) against the current carries, or None for a plan without
+    inter-pod terms."""
+    if ip is None:
+        return None
+    pres0 = CARRY_ROWS + alloc_scalar.shape[0]
+    gid = row[len(POD_FIELDS) + num_scalars]
+    return PodInterpod(gid, ip, groups.gpad,
+                       carry[pres0:pres0 + groups.gpad], pd)
+
+
+def interpod_score(counts, feasible):
+    """The normalized InterPodAffinityPriority: min and max over the
+    feasible nodes, both clamped at 0, and a floored ratio."""
+    fc = counts[feasible]
+    maxc = max(int(fc.max()), 0)
+    minc = min(int(fc.min()), 0)
+    rng = maxc - minc
+    if rng <= 0:
+        return torch.zeros_like(counts)
+    return (MAX_PRIORITY * (counts - minc)) // rng
+
+
 def filter_pod(row, statics, tables, carry, alloc_scalar, num_scalars: int,
-               groups: GroupArgs = NO_GROUPS):
+               groups: GroupArgs = NO_GROUPS,
+               ipp: Optional[PodInterpod] = None):
     """The filter stages in predicatesOrdering for one pod (`row`, a list of
     its pod columns) against the current carry: (feasible mask, reason word
-    of the first failing stage) over the node axis."""
+    of the first failing stage) over the node axis. `ipp`: the pod's
+    inter-pod operands, for the MatchInterPodAffinity stage."""
     rc, rm, rg, re_, _, _, zero, best_effort, sel, tol, _, _, host = row[:13]
     rs = row[13:13 + num_scalars]
     acpu, amem, agpu, aeph, allowed, cond, mpr, dpr = statics
@@ -216,6 +406,9 @@ def filter_pod(row, statics, tables, carry, alloc_scalar, num_scalars: int,
         ((mpr != 0) & (best_effort != 0), 1 << BIT_MEMORY_PRESSURE),
         (dpr != 0, 1 << BIT_DISK_PRESSURE),
     ]
+    if ipp is not None:
+        # MatchInterPodAffinity, last in predicatesOrdering
+        stages.append(ipp.stage(cond))
     feasible = torch.ones_like(cond, dtype=torch.bool)
     reason = torch.zeros_like(cond)
     for fail, bits in reversed(stages):
@@ -256,7 +449,8 @@ def spread_score(pres, pg: _PodGroups, groups: GroupArgs, feasible):
 def fastscan_chunk_plain(pods, statics, tables, carry, misc, alloc_scalar,
                          num_scalars: int, num_bits: int,
                          most_requested: bool,
-                         groups: GroupArgs = NO_GROUPS):
+                         groups: GroupArgs = NO_GROUPS,
+                         ip: Optional[IpArgs] = None, pd=None):
     """The chunk as int32 tensor ops and a Python loop over pods, on the
     inputs' device. The same arithmetic as the kernel: int32 products wrap,
     integer division floors."""
@@ -268,8 +462,8 @@ def fastscan_chunk_plain(pods, statics, tables, carry, misc, alloc_scalar,
     adv = torch.zeros((k,), dtype=i32, device=dev)
     acpu, amem = statics[0], statics[1]
     _, tol_t, intol_t, aff_t, avoid_t, _ = tables
-    w_least, w_most, w_balanced, w_aff, w_taint, w_avoid, w_spread = \
-        policy_weights(most_requested)
+    (w_least, w_most, w_balanced, w_aff, w_taint, w_avoid, w_spread,
+     w_interpod) = policy_weights(most_requested)
     shifts = torch.arange(num_bits, dtype=i32, device=dev)[:, None]
     pres0 = CARRY_ROWS + alloc_scalar.shape[0]
     uv0 = pres0 + groups.gpad
@@ -286,8 +480,11 @@ def fastscan_chunk_plain(pods, statics, tables, carry, misc, alloc_scalar,
         rc, rm, rg, re_, nzc, nzm, _, _, _, tol, aff, avoid, _ = row[:13]
         rs = row[13:13 + num_scalars]
         nz_c, nz_m = carry[4], carry[5]
+        pg = _PodGroups(row, num_scalars, groups)
+        ipp = pod_interpod(row, num_scalars, groups, ip, carry, alloc_scalar,
+                           pd)
         feasible, reason = filter_pod(row, statics, tables, carry,
-                                      alloc_scalar, num_scalars, groups)
+                                      alloc_scalar, num_scalars, groups, ipp)
         n_feasible = int(feasible.sum())
 
         if n_feasible == 0:
@@ -322,10 +519,11 @@ def fastscan_chunk_plain(pods, statics, tables, carry, misc, alloc_scalar,
         else:
             score = score + w_taint * MAX_PRIORITY
         score = score + avoid_t[avoid] * w_avoid
-        pg = _PodGroups(row, num_scalars, groups)
         if groups.has_spread:
             score = score + w_spread * spread_score(
                 carry[pres0:uv0], pg, groups, feasible)
+        if ipp is not None and w_interpod:
+            score = score + w_interpod * interpod_score(ipp.counts(), feasible)
 
         # ---- selectHost: max score, round-robin pick among the ties ----
         masked = torch.where(feasible, score, -1)
@@ -345,6 +543,8 @@ def fastscan_chunk_plain(pods, statics, tables, carry, misc, alloc_scalar,
             carry[pres0 + pg.gid, choice] += 1
         for v in pg.vols:
             carry[uv0 + v, choice] = 1
+        if ipp is not None:
+            ipp.bind(pg.gid, choice)
     misc[0] = rr
     return choices, counts, adv
 
@@ -392,16 +592,43 @@ def _check_groups(groups: GroupArgs, device, npad: int):
             ptr(groups.vol_type, groups.n_vols))
 
 
+def _check_interpod(ip: IpArgs, pd, groups: GroupArgs, device, npad: int):
+    """The inter-pod operands the kernel reads, against its compile-time
+    maxima."""
+    if not 1 <= groups.gpad <= MAX_IP_GROUPS:
+        raise ValueError(f"{groups.gpad} presence rows: the inter-pod kernel "
+                         f"holds 1 to {MAX_IP_GROUPS}")
+    for name, n, most in (("topology keys", ip.k_keys, MAX_TOPO_KEYS),
+                          ("topology domains", ip.d_doms, MAX_TOPO_DOMS),
+                          ("affinity terms", ip.ta, MAX_TERMS),
+                          ("anti-affinity terms", ip.tb, MAX_TERMS),
+                          ("preferred terms", ip.tp, MAX_TERMS)):
+        if not 1 <= n <= most:
+            raise ValueError(f"{n} {name}: the kernel holds 1 to {most}")
+    _check("topo", ip.topo, device, rows=ip.k_keys, cols=npad)
+    width = IpLayout(ip.ta, ip.tb, ip.tp, groups.gpad).width
+    _check("ipod", ip.ipod, device, rows=groups.gpad, cols=width)
+    _check("exist", ip.exist, device)
+    want = sum(groups.gpad * getattr(ip, kind) for _, kind in EXIST_TABLES)
+    if ip.exist.numel() != want:
+        raise ValueError(f"exist: {ip.exist.numel()} values, need {want}")
+    _check("pd", pd, device, rows=groups.gpad * ip.k_keys)
+    if pd.dim() != 2 or pd.shape[1] < ip.d_doms:
+        raise ValueError(f"pd: shape {tuple(pd.shape)}, need "
+                         f"[{groups.gpad * ip.k_keys}, >= {ip.d_doms}]")
+
+
 def fastscan_chunk(pods, statics, tables, carry, misc, alloc_scalar,
                    num_scalars: int, num_bits: int, most_requested: bool,
-                   groups: GroupArgs = NO_GROUPS):
+                   groups: GroupArgs = NO_GROUPS, ip: Optional[IpArgs] = None,
+                   pd=None):
     """Schedule one chunk of pods: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors."""
     device = pods.device
     if device.type == "cpu":
         return fastscan_chunk_plain(pods, statics, tables, carry, misc,
                                     alloc_scalar, num_scalars, num_bits,
-                                    most_requested, groups)
+                                    most_requested, groups, ip, pd)
     if device.type != "cuda":
         raise ValueError(f"fastscan_chunk runs on cuda or cpu, not {device}")
     npad = statics.shape[1]
@@ -421,6 +648,13 @@ def fastscan_chunk(pods, statics, tables, carry, misc, alloc_scalar,
         raise ValueError(f"{num_scalars} scalar axes / {num_bits} reason "
                          "bits exceed the kernel's int32 reason word")
     zone_id, zone_ok, vol_tbl, vol_type = _check_groups(groups, device, npad)
+    if ip is not None:
+        _check_interpod(ip, pd, groups, device, npad)
+        ip_args = (ip.k_keys, ip.d_doms, ip.ta, ip.tb, ip.tp, ip.hard_weight,
+                   ip.topo.data_ptr(), ip.ipod.data_ptr(), ip.ipod.shape[1],
+                   ip.exist.data_ptr(), pd.data_ptr(), pd.shape[1])
+    else:
+        ip_args = (0, 0, 0, 0, 0, 0, None, None, 0, None, None, 0)
     from tpusim_torch.kernels import build
 
     lib = build.load("fastscan.cu")
@@ -428,7 +662,7 @@ def fastscan_chunk(pods, statics, tables, carry, misc, alloc_scalar,
     choices = torch.empty((k,), dtype=i32, device=device)
     counts = torch.empty((k, num_bits), dtype=i32, device=device)
     adv = torch.empty((k,), dtype=i32, device=device)
-    scratch = torch.empty((3, npad), dtype=i32, device=device)
+    scratch = torch.empty((4, npad), dtype=i32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = lib.tpusim_fastscan_chunk(
         pods.data_ptr(), k, pods.shape[1], statics.data_ptr(),
@@ -439,15 +673,17 @@ def fastscan_chunk(pods, statics, tables, carry, misc, alloc_scalar,
         groups.gpad, pres_row, groups.flags, zone_id, groups.n_zones,
         zone_ok, vol_tbl,
         groups.vol_tbl.shape[1] if groups.n_vols else 0, vol_type,
-        groups.n_vols, uv_row, *groups.limits, stream)
+        groups.n_vols, uv_row, *groups.limits, *ip_args, stream)
     if rc != 0:
         raise RuntimeError(f"fastscan kernel launch failed: CUDA error {rc}")
     fastscan_chunk.launches += 1
-    fastscan_chunk.launches_by_variant[groups.variant] += 1
+    fastscan_chunk.launches_by_variant[
+        "interpod" if ip is not None else groups.variant] += 1
     return choices, counts, adv
 
 
 # launches of the CUDA kernel, in all and per variant (the plain version
 # does not count)
 fastscan_chunk.launches = 0
-fastscan_chunk.launches_by_variant = {"group_free": 0, "groups": 0}
+fastscan_chunk.launches_by_variant = {"group_free": 0, "groups": 0,
+                                      "interpod": 0}

@@ -16,8 +16,11 @@ from tpusim_torch.framework.report import Status
 
 
 def run_simulation(pods: List[Pod], snapshot: ClusterSnapshot,
-                   provider: str = DEFAULT_PROVIDER, device="cuda") -> Status:
-    backend = TorchBackend(provider=provider, device=device)
+                   provider: str = DEFAULT_PROVIDER, device="cuda",
+                   hard_pod_affinity_symmetric_weight: int = 10) -> Status:
+    backend = TorchBackend(
+        provider=provider, device=device,
+        hard_pod_affinity_symmetric_weight=hard_pod_affinity_symmetric_weight)
     feed = list(reversed(pods))  # the LIFO queue pops the last element first
     placements = backend.schedule(feed, snapshot)
     status = Status(scheduled_pods=list(snapshot.pods))

@@ -5,12 +5,12 @@ The host compile step of the port (numpy only). NodeInfo's cached aggregates
 symbolic pod features become interned signature ids with precompiled
 [signature, node] tables, so the device scan carries only numeric state.
 
-Pod-group features — host ports, services (SelectorSpreadPriority) and pod
-volumes (NoDiskConflict, MaxPDVolumeCount, NoVolumeZoneConflict) — compile
-into GroupTables: pods are interned by group signature and merged by match
-profile, and the device carries a [G, N] presence count per merged group.
-Inter-pod (anti)affinity is detected but not compiled: its kernel variant is
-not ported, and `fastplan.plan_fast` refuses such a workload.
+Pod-group features — host ports, services (SelectorSpreadPriority), pod
+volumes (NoDiskConflict, MaxPDVolumeCount, NoVolumeZoneConflict) and
+inter-pod (anti)affinity (MatchInterPodAffinity, InterPodAffinityPriority) —
+compile into GroupTables: pods are interned by group signature and merged by
+match profile, and the device carries a [G, N] presence count per merged
+group (and, for inter-pod terms, its per-topology-domain sums).
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import numpy as np
 
 from tpusim_torch.api.snapshot import ClusterSnapshot
 from tpusim_torch.api.types import (
+    LABEL_HOSTNAME,
     TAINT_PREFER_NO_SCHEDULE,
     Node,
     Pod,
@@ -35,9 +36,13 @@ from tpusim_torch.engine.predicates import (
     _ZONE_LABELS,
     DEFAULT_MAXPD_LIMITS,
     effective_maxpd_limits,
+    get_namespaces_from_pod_affinity_term,
+    get_pod_affinity_terms,
+    get_pod_anti_affinity_terms,
     is_volume_conflict,
     label_zones_to_set,
     pod_matches_node_labels,
+    pod_matches_term_namespace_and_selector,
 )
 from tpusim_torch.engine.priorities import (
     calculate_node_affinity_priority_map,
@@ -258,17 +263,25 @@ class DynamicInit:
 class GroupTables:
     """Pod-group tables for the features whose state depends on which pods
     sit where: host ports (predicates.go:1019-1039), the volume predicates
-    (predicates.go:266-276, 288-460, 510-533) and SelectorSpreadPriority
-    (selector_spreading.go:66-175).
+    (predicates.go:266-276, 288-460, 510-533), SelectorSpreadPriority
+    (selector_spreading.go:66-175) and inter-pod (anti)affinity
+    (predicates.go:1125-1450, interpod_affinity.go).
 
-    A "group" is an interned (namespace, labels, host ports, volumes) pod
-    signature over new + placed-existing pods, MERGED by match profile: raw
-    signatures every compiled matcher treats identically (same service
-    -selector matches, same port set, same volume set) collapse into one
+    A "group" is an interned (namespace, labels, pod-(anti)affinity, host
+    ports, volumes) pod signature over new + placed-existing pods, MERGED by
+    match profile: raw signatures every compiled matcher treats identically
+    (same term matches, same service-selector matches, same port set, same
+    volume set) and that act identically (same own terms) collapse into one
     group. The pairwise tables are factored through interned spaces so
-    nothing is O(G^2): port_conflict over port sets, disk_conflict over
-    volume sets, ss_rows over spread signatures; per-group ids index them.
-    zone_dom interns utilnode.GetZoneKey per node with 0 = no zone."""
+    nothing is O(G^2): term_match over (namespaces, selector) term
+    signatures (row 0 reserved all-False), port_conflict over port sets,
+    disk_conflict over volume sets, ss_rows over spread signatures;
+    per-group ids index them.
+
+    Topology domains: for each used topologyKey k, topo_dom[k, n] interns
+    the node's label value with 0 = label missing (never matches); zone_dom
+    likewise interns utilnode.GetZoneKey with 0 = no zone. Term tensors are
+    padded on the term axis with valid=False rows."""
 
     group_of_pod: np.ndarray     # [P] int32 — new pods' group ids
     presence: np.ndarray         # [G, N] int32 — placed existing pods per group
@@ -282,7 +295,26 @@ class GroupTables:
     used_vols_init: np.ndarray   # [N, V] bool — placed pods' volume ids per node
     ss_rows: np.ndarray          # [Sd, G] bool — b counts toward spread sig s
     ss_sig: np.ndarray           # [G] int32 — group -> its spread sig (0 = none)
+    term_match: np.ndarray       # [Td, G] bool — term t matches a pod of group b
     zone_dom: np.ndarray         # [N] int32
+    topo_dom: np.ndarray         # [K, N] int32
+    aff_valid: np.ndarray        # [G, Ta] bool — required pod-affinity terms
+    aff_err: np.ndarray          # [G] bool — any term with empty topologyKey
+    aff_empty: np.ndarray        # [G, Ta] bool — per-term empty topologyKey
+    aff_term: np.ndarray         # [G, Ta] int32 (into Td)
+    aff_key: np.ndarray          # [G, Ta] int32 (into K)
+    aff_hostname: np.ndarray     # [G, Ta] bool — topologyKey == kubernetes.io/hostname
+    aff_self: np.ndarray         # [G, Ta] bool — the pod matches its own term
+    aff_unplaced: np.ndarray     # [G, Ta] bool — an unplaced snapshot pod matches
+    anti_valid: np.ndarray       # [G, Tb] bool — required pod-anti-affinity terms
+    anti_err: np.ndarray         # [G] bool
+    anti_empty: np.ndarray       # [G, Tb] bool
+    anti_term: np.ndarray        # [G, Tb] int32 (into Td)
+    anti_key: np.ndarray         # [G, Tb] int32
+    anti_hostname: np.ndarray    # [G, Tb] bool
+    pref_w: np.ndarray           # [G, Tp] float64 — preferred terms, signed weight
+    pref_term: np.ndarray        # [G, Tp] int32 (into Td)
+    pref_key: np.ndarray         # [G, Tp] int32
 
 
 @dataclass
@@ -301,6 +333,7 @@ class CompiledCluster:
     has_maxpd: bool = False
     has_vol_zone: bool = False
     maxpd_limits: tuple = DEFAULT_MAXPD_LIMITS   # (EBS, GCE PD, AzureDisk)
+    n_topo_doms: int = 1         # segment count for topo_dom (incl. invalid 0)
     n_zone_doms: int = 1
     # group budgets exceeded or volume semantics that need the host engine;
     # the port has none, so the backend raises with these reasons
@@ -383,6 +416,30 @@ def _has_interpod_terms(pod: Pod) -> bool:
     a = pod.spec.affinity
     return a is not None and (a.pod_affinity is not None
                               or a.pod_anti_affinity is not None)
+
+
+def _req_aff_terms(pod: Pod) -> list:
+    a = pod.spec.affinity
+    return get_pod_affinity_terms(a.pod_affinity) if a else []
+
+
+def _req_anti_terms(pod: Pod) -> list:
+    a = pod.spec.affinity
+    return get_pod_anti_affinity_terms(a.pod_anti_affinity) if a else []
+
+
+def _pref_terms(pod: Pod) -> list:
+    """Signed (weight, term): preferred affinity positive, anti negative
+    (interpod_affinity.go processWeightedTerms multipliers)."""
+    a = pod.spec.affinity
+    out = []
+    if a and a.pod_affinity:
+        out += [(wt.weight, wt.pod_affinity_term)
+                for wt in a.pod_affinity.preferred]
+    if a and a.pod_anti_affinity:
+        out += [(-wt.weight, wt.pod_affinity_term)
+                for wt in a.pod_anti_affinity.preferred]
+    return out
 
 
 class _VolumeFallback(Exception):
@@ -559,7 +616,17 @@ def _trivial_groups(num_pods: int, n: int) -> GroupTables:
         vol_mask=z((1, 1), bool), vol_type=z((1, 3), bool),
         zone_ok=np.ones((1, n), bool), used_vols_init=z((n, 1), bool),
         ss_rows=z((1, 1), bool), ss_sig=z(1, np.int32),
-        zone_dom=z(n, np.int32))
+        term_match=z((1, 1), bool),
+        zone_dom=z(n, np.int32), topo_dom=z((1, n), np.int32),
+        aff_valid=z((1, 1), bool), aff_err=z(1, bool), aff_empty=z((1, 1), bool),
+        aff_term=z((1, 1), np.int32), aff_key=z((1, 1), np.int32),
+        aff_hostname=z((1, 1), bool), aff_self=z((1, 1), bool),
+        aff_unplaced=z((1, 1), bool),
+        anti_valid=z((1, 1), bool), anti_err=z(1, bool), anti_empty=z((1, 1), bool),
+        anti_term=z((1, 1), np.int32), anti_key=z((1, 1), np.int32),
+        anti_hostname=z((1, 1), bool),
+        pref_w=z((1, 1), np.float64), pref_term=z((1, 1), np.int32),
+        pref_key=z((1, 1), np.int32))
 
 
 @dataclass
@@ -574,6 +641,7 @@ class _GroupCompile:
     has_maxpd: bool = False
     has_vol_zone: bool = False
     maxpd_limits: tuple = DEFAULT_MAXPD_LIMITS
+    n_topo_doms: int = 1
     n_zone_doms: int = 1
     unsupported: List[str] = field(default_factory=list)
 
@@ -581,11 +649,14 @@ class _GroupCompile:
 def _compile_groups(snapshot: ClusterSnapshot, pods: List[Pod],
                     nodes: List[Node], node_index: Dict[str, int]
                     ) -> _GroupCompile:
-    """Build GroupTables and the feature flags. A workload with inter-pod
-    (anti)affinity gets trivial tables and its flag only: its kernel
-    variant is not ported, so nothing reads its groups."""
+    """Build GroupTables and the feature flags."""
     n = len(nodes)
     placed = [p for p in snapshot.pods if p.spec.node_name in node_index]
+    # pods with an unknown-but-set nodeName still count for "a matching pod
+    # exists"; nodeName-less (pending) pods are not scheduled pods and never
+    # count
+    unplaced = [p for p in snapshot.pods
+                if p.spec.node_name and p.spec.node_name not in node_index]
     both = list(pods) + placed
 
     has_ports = any(_sanitized_ports(p) for p in both)
@@ -593,9 +664,7 @@ def _compile_groups(snapshot: ClusterSnapshot, pods: List[Pod],
     has_services = bool(snapshot.services)
     has_volumes = any(p.spec.volumes for p in both)
     trivial = _trivial_groups(len(pods), n)
-    if has_interpod:
-        return _GroupCompile(tables=trivial, has_interpod=True)
-    if not (has_ports or has_services or has_volumes):
+    if not (has_ports or has_interpod or has_services or has_volumes):
         return _GroupCompile(tables=trivial)
 
     max_groups, max_raw, max_work, max_presence = _group_budgets()
@@ -630,7 +699,43 @@ def _compile_groups(snapshot: ClusterSnapshot, pods: List[Pod],
         maxpd_limits = DEFAULT_MAXPD_LIMITS
         has_disk = has_maxpd = has_zone = False
 
-    # --- 2. intern matcher spaces: spread signatures, port sets ---
+    # --- 2. intern matcher spaces: terms, spread signatures, port sets ---
+    # term signature = (resolved namespaces, selector): that pair fully
+    # determines which pods a term matches (predicates.go
+    # podMatchesTermNamespaceAndSelector)
+    term_defs: List[Optional[tuple]] = [None]  # index 0 reserved: matches nothing
+    term_ids: Dict[str, int] = {}
+
+    def intern_term(rep: Pod, term) -> int:
+        namespaces = get_namespaces_from_pod_affinity_term(rep, term)
+        sel = term.label_selector
+        key = json.dumps([sorted(namespaces),
+                          sel.to_obj() if sel is not None else None],
+                         sort_keys=True)
+        tid = term_ids.get(key)
+        if tid is None:
+            tid = len(term_defs)
+            term_ids[key] = tid
+            term_defs.append((namespaces, sel))
+        return tid
+
+    # raw per-group actor term lists: [(tid, topology_key[, weight])] per
+    # kind, interned rep by rep (the term ids follow that order)
+    aff_of: List[list] = []
+    anti_of: List[list] = []
+    pref_of: List[list] = []
+    if has_interpod:
+        for rep in raw_reps:
+            aff_of.append([(intern_term(rep, t), t.topology_key)
+                           for t in _req_aff_terms(rep)])
+            anti_of.append([(intern_term(rep, t), t.topology_key)
+                            for t in _req_anti_terms(rep)])
+            pref_of.append([(intern_term(rep, t), t.topology_key, w)
+                            for w, t in _pref_terms(rep)])
+    else:
+        aff_of = anti_of = pref_of = [[] for _ in raw_reps]
+    td = len(term_defs)
+
     # spread signature = (namespace, selected service selectors); 0 = none
     spread_defs: List[tuple] = [None]
     spread_ids: Dict[str, int] = {}
@@ -659,11 +764,11 @@ def _compile_groups(snapshot: ClusterSnapshot, pods: List[Pod],
                 spread_defs.append((rep.namespace, sels))
             ss_sig_raw[b] = sid
     sd = len(spread_defs)
-    # the matcher budget counts the one reserved (all-False) inter-pod term
-    # row of the reference's compile, so the same workloads pass it
-    if (1 + sd) * graw > max_work:
+    # the reference's budget also counts ServiceAntiAffinity signatures,
+    # which only a policy adds: 0 here
+    if (td + sd) * graw > max_work:
         return fallback(
-            f"pod-group matcher precompute (1 terms + {sd} spread sigs + "
+            f"pod-group matcher precompute ({td} terms + {sd} spread sigs + "
             f"0 service-anti-affinity sigs x {graw} raw groups) "
             f"exceeds the jax backend work budget ({max_work})")
 
@@ -686,7 +791,18 @@ def _compile_groups(snapshot: ClusterSnapshot, pods: List[Pod],
         for b in range(1, pp):
             port_conflict[a, b] = _ports_conflict(port_defs[a], port_defs[b])
 
-    # --- 3. spread matcher rows over raw groups ---
+    # --- 3. matcher rows over raw groups ---
+    term_match_raw = np.zeros((td, graw), dtype=bool)
+    unplaced_match = np.zeros(td, dtype=bool)
+    for tid in range(1, td):
+        namespaces, sel = term_defs[tid]
+        for b, rep in enumerate(raw_reps):
+            term_match_raw[tid, b] = pod_matches_term_namespace_and_selector(
+                rep, namespaces, sel)
+        unplaced_match[tid] = any(
+            pod_matches_term_namespace_and_selector(u, namespaces, sel)
+            for u in unplaced)
+
     ss_rows_raw = np.zeros((sd, graw), dtype=bool)
     for sid in range(1, sd):
         ns, sels = spread_defs[sid]
@@ -697,17 +813,18 @@ def _compile_groups(snapshot: ClusterSnapshot, pods: List[Pod],
 
     # --- 4. merge raw groups by match profile ---
     # two raw groups are indistinguishable when every matcher treats them the
-    # same (same spread column, same port set, same volume set) and they act
-    # identically (same spread sig). The reference's profile also holds the
-    # inter-pod term columns and actor terms and the service-anti-affinity
-    # columns; without inter-pod terms or a policy those are the same for
-    # every raw group, so this profile merges into the same group ids.
+    # same (same term/spread columns, same port set, same volume set) and
+    # they act identically (same own terms with the same topology keys and
+    # weights, same spread sig). The reference's profile also holds the
+    # ServiceAntiAffinity columns, which are the same for every raw group
+    # without a policy.
     merged: Dict[tuple, int] = {}
     gid_of_raw = np.zeros(graw, np.int32)
     rep_raw_idx: List[int] = []
     for b in range(graw):
-        profile = (ss_rows_raw[:, b].tobytes(), int(port_sig_raw[b]),
-                   int(ss_sig_raw[b]), int(vsig_raw[b]))
+        profile = (term_match_raw[:, b].tobytes(), ss_rows_raw[:, b].tobytes(),
+                   int(port_sig_raw[b]), int(ss_sig_raw[b]), int(vsig_raw[b]),
+                   tuple(aff_of[b]), tuple(anti_of[b]), tuple(pref_of[b]))
         gid = merged.get(profile)
         if gid is None:
             gid = len(rep_raw_idx)
@@ -726,6 +843,7 @@ def _compile_groups(snapshot: ClusterSnapshot, pods: List[Pod],
     group_of_pod = (gid_of_raw[np.array(raw_of_pod, dtype=np.int64)]
                     if raw_of_pod else np.zeros(0, np.int32)).astype(np.int32)
     sel_cols = np.array(rep_raw_idx, dtype=np.int64)
+    term_match = term_match_raw[:, sel_cols] if graw else term_match_raw
     ss_rows = ss_rows_raw[:, sel_cols] if graw else ss_rows_raw
     presence = np.zeros((g, n), dtype=np.int32)
     used_vols_init = np.zeros((n, vsig_mask.shape[1]), dtype=bool)
@@ -745,6 +863,73 @@ def _compile_groups(snapshot: ClusterSnapshot, pods: List[Pod],
                 zone_dom[i] = zvals.setdefault(z, len(zvals) + 1)
         n_zone_doms = len(zvals) + 1
 
+    # --- 5. topology keys + per-group actor tensors over merged groups ---
+    topo_keys: List[str] = []
+    if has_interpod:
+        seen_keys = set()
+        for b in rep_raw_idx:
+            keys = ([key for _, key in aff_of[b] + anti_of[b]]
+                    + [key for _, key, _ in pref_of[b]])
+            for key in keys:
+                if key and key not in seen_keys:
+                    seen_keys.add(key)
+                    topo_keys.append(key)
+    key_idx = {key: i for i, key in enumerate(topo_keys)}
+    topo_dom = np.zeros((max(len(topo_keys), 1), n), dtype=np.int32)
+    n_topo_doms = 1
+    for k, key in enumerate(topo_keys):
+        vals: Dict[str, int] = {}
+        for i, node in enumerate(nodes):
+            v = node.metadata.labels.get(key)
+            if v is not None:
+                topo_dom[k, i] = vals.setdefault(v, len(vals) + 1)
+        n_topo_doms = max(n_topo_doms, len(vals) + 1)
+
+    ta = max([1] + [len(aff_of[b]) for b in rep_raw_idx])
+    tb = max([1] + [len(anti_of[b]) for b in rep_raw_idx])
+    tp = max([1] + [len(pref_of[b]) for b in rep_raw_idx])
+    ip = {name: np.zeros((g, t), dtype)
+          for name, t, dtype in (
+              ("aff_valid", ta, bool), ("aff_empty", ta, bool),
+              ("aff_term", ta, np.int32), ("aff_key", ta, np.int32),
+              ("aff_hostname", ta, bool), ("aff_self", ta, bool),
+              ("aff_unplaced", ta, bool),
+              ("anti_valid", tb, bool), ("anti_empty", tb, bool),
+              ("anti_term", tb, np.int32), ("anti_key", tb, np.int32),
+              ("anti_hostname", tb, bool),
+              ("pref_w", tp, np.float64), ("pref_term", tp, np.int32),
+              ("pref_key", tp, np.int32))}
+    ip["aff_err"] = np.zeros(g, bool)
+    ip["anti_err"] = np.zeros(g, bool)
+    for a, b in enumerate(rep_raw_idx):
+        for t, (tid, key) in enumerate(aff_of[b]):
+            ip["aff_valid"][a, t] = True
+            ip["aff_term"][a, t] = tid
+            if not key:
+                # an empty topologyKey errors the whole predicate
+                ip["aff_empty"][a, t] = True
+                ip["aff_err"][a] = True
+            else:
+                ip["aff_key"][a, t] = key_idx[key]
+                ip["aff_hostname"][a, t] = key == LABEL_HOSTNAME
+            ip["aff_self"][a, t] = term_match[tid, a]
+            ip["aff_unplaced"][a, t] = unplaced_match[tid]
+        for t, (tid, key) in enumerate(anti_of[b]):
+            ip["anti_valid"][a, t] = True
+            ip["anti_term"][a, t] = tid
+            if not key:
+                ip["anti_empty"][a, t] = True
+                ip["anti_err"][a] = True
+            else:
+                ip["anti_key"][a, t] = key_idx[key]
+                ip["anti_hostname"][a, t] = key == LABEL_HOSTNAME
+        for t, (tid, key, w) in enumerate(pref_of[b]):
+            if not key:
+                continue  # NodesHaveSameTopologyKey("") is always False
+            ip["pref_w"][a, t] = float(w)
+            ip["pref_term"][a, t] = tid
+            ip["pref_key"][a, t] = key_idx[key]
+
     tables = GroupTables(
         group_of_pod=group_of_pod, presence=presence,
         port_conflict=port_conflict,
@@ -754,12 +939,12 @@ def _compile_groups(snapshot: ClusterSnapshot, pods: List[Pod],
         vol_mask=vsig_mask[vsig_raw[sel_cols]], vol_type=vol_type,
         zone_ok=zone_rows[vsig_raw[sel_cols]], used_vols_init=used_vols_init,
         ss_rows=ss_rows, ss_sig=ss_sig_raw[sel_cols].astype(np.int32),
-        zone_dom=zone_dom)
+        term_match=term_match, zone_dom=zone_dom, topo_dom=topo_dom, **ip)
     return _GroupCompile(
         tables=tables, has_ports=has_ports, has_services=has_services,
-        has_disk_conflict=has_disk, has_maxpd=has_maxpd,
-        has_vol_zone=has_zone, maxpd_limits=maxpd_limits,
-        n_zone_doms=n_zone_doms)
+        has_interpod=has_interpod, has_disk_conflict=has_disk,
+        has_maxpd=has_maxpd, has_vol_zone=has_zone, maxpd_limits=maxpd_limits,
+        n_topo_doms=n_topo_doms, n_zone_doms=n_zone_doms)
 
 
 def node_static_row(node: Node, ni: NodeInfo, scalar_idx: Dict[str, int],
@@ -970,7 +1155,8 @@ def compile_cluster(snapshot: ClusterSnapshot, pods: List[Pod]
         has_interpod=grp.has_interpod,
         has_disk_conflict=grp.has_disk_conflict, has_maxpd=grp.has_maxpd,
         has_vol_zone=grp.has_vol_zone, maxpd_limits=grp.maxpd_limits,
-        n_zone_doms=grp.n_zone_doms, unsupported=grp.unsupported)
+        n_topo_doms=grp.n_topo_doms, n_zone_doms=grp.n_zone_doms,
+        unsupported=grp.unsupported)
     return compiled, cols
 
 

@@ -1,7 +1,8 @@
 """Benchmark-shaped workloads, seed for seed the ones the reference benchmark
 builds (the placement goldens depend on it), the groups workload (config 3
-with Services, host ports and pod volumes), plus random workloads for kernel
-checks.
+with Services, host ports and pod volumes), the inter-pod workload (config 3
+with pod (anti)affinity on zone and rack keys), plus random workloads for
+kernel checks.
 
 `api` is the module whose make_node / make_pod / ClusterSnapshot build the
 objects: the port's own snapshot module by default; a caller may pass another
@@ -21,24 +22,30 @@ def _api(api):
     return api
 
 
-def build_workload(num_pods: int, num_nodes: int, affinity: bool = False,
-                   seed: int = 12345, api=None):
-    """Config-3 shape: heterogeneous nodes (taint slice, zone labels) + Zipf
-    pods; affinity=True adds the config-4 node-affinity slice."""
-    api = _api(api)
-    rng = np.random.RandomState(seed)
+TOLERATION = {"key": "dedicated", "operator": "Equal", "value": "batch",
+              "effect": "NoSchedule"}
+
+
+def _config3_nodes(api, num_nodes: int, labels) -> list:
+    """Config 3's nodes: three shapes and a 10% taint slice; `labels(i)` is
+    node i's labels."""
     nodes = []
     for i in range(num_nodes):
         shape = i % 3
-        milli_cpu = [4000, 8000, 16000][shape]
-        memory = [8, 16, 32][shape] * 1024**3
         taints = None
         if i % 10 == 0:
             taints = [{"key": "dedicated", "value": "batch", "effect": "NoSchedule"}]
-        nodes.append(api.make_node(f"node-{i}", milli_cpu=milli_cpu, memory=memory,
-                                   pods=110, labels={"zone": f"z{i % 4}"},
-                                   taints=taints))
+        nodes.append(api.make_node(
+            f"node-{i}", milli_cpu=[4000, 8000, 16000][shape],
+            memory=[8, 16, 32][shape] * 1024**3, pods=110, labels=labels(i),
+            taints=taints))
+    return nodes
 
+
+def _config3_requests(rng, num_pods: int):
+    """Config 3's pod draws from `rng`: Zipf cpu and memory requests and the
+    10% of pods that tolerate the taint slice, as (milli_cpu, memory,
+    tolerate) arrays."""
     cpu_buckets = np.array([50, 100, 250, 500, 1000, 2000, 4000])
     mem_buckets = np.array([64, 128, 256, 512, 1024, 2048, 4096]) * 2**20
     weights = 1.0 / np.arange(1, len(cpu_buckets) + 1) ** 1.1
@@ -46,14 +53,24 @@ def build_workload(num_pods: int, num_nodes: int, affinity: bool = False,
     cpu_idx = rng.choice(len(cpu_buckets), size=num_pods, p=weights)
     mem_idx = rng.choice(len(mem_buckets), size=num_pods, p=weights)
     tolerate = rng.rand(num_pods) < 0.1
+    return cpu_buckets[cpu_idx], mem_buckets[mem_idx], tolerate
+
+
+def build_workload(num_pods: int, num_nodes: int, affinity: bool = False,
+                   seed: int = 12345, api=None):
+    """Config-3 shape: heterogeneous nodes (taint slice, zone labels) + Zipf
+    pods; affinity=True adds the config-4 node-affinity slice."""
+    api = _api(api)
+    rng = np.random.RandomState(seed)
+    nodes = _config3_nodes(api, num_nodes, lambda i: {"zone": f"z{i % 4}"})
+    milli_cpu, memory, tolerate = _config3_requests(rng, num_pods)
     want_zone = rng.randint(0, 8, size=num_pods) if affinity else None
 
     pods = []
     for i in range(num_pods):
         kwargs = {}
         if tolerate[i]:
-            kwargs["tolerations"] = [{"key": "dedicated", "operator": "Equal",
-                                      "value": "batch", "effect": "NoSchedule"}]
+            kwargs["tolerations"] = [TOLERATION]
         if affinity and want_zone[i] < 4:
             # config 4: half the pods pin a zone via required node affinity
             kwargs["affinity"] = {"nodeAffinity": {
@@ -61,8 +78,8 @@ def build_workload(num_pods: int, num_nodes: int, affinity: bool = False,
                     "nodeSelectorTerms": [{"matchExpressions": [
                         {"key": "zone", "operator": "In",
                          "values": [f"z{want_zone[i]}"]}]}]}}}
-        pods.append(api.make_pod(f"p-{i}", milli_cpu=int(cpu_buckets[cpu_idx[i]]),
-                                 memory=int(mem_buckets[mem_idx[i]]), **kwargs))
+        pods.append(api.make_pod(f"p-{i}", milli_cpu=int(milli_cpu[i]),
+                                 memory=int(memory[i]), **kwargs))
     return api.ClusterSnapshot(nodes=nodes), pods
 
 
@@ -90,17 +107,8 @@ def groups_workload(num_pods: int, num_nodes: int, seed: int = 12345,
     ports."""
     api = _api(api)
     rng = np.random.RandomState(seed)
-    nodes = []
-    for i in range(num_nodes):
-        shape = i % 3
-        taints = None
-        if i % 10 == 0:
-            taints = [{"key": "dedicated", "value": "batch", "effect": "NoSchedule"}]
-        nodes.append(api.make_node(
-            f"node-{i}", milli_cpu=[4000, 8000, 16000][shape],
-            memory=[8, 16, 32][shape] * 1024**3, pods=110,
-            labels={"zone": f"z{i % 4}", ZONE_LABEL: f"z{i % 4}"},
-            taints=taints))
+    nodes = _config3_nodes(api, num_nodes, lambda i: {
+        "zone": f"z{i % 4}", ZONE_LABEL: f"z{i % 4}"})
     services = [api.Service.from_obj({"metadata": {"name": f"svc-a{a}"},
                                       "spec": {"selector": {"app": f"a{a}"}}})
                 for a in range(8)]
@@ -108,23 +116,16 @@ def groups_workload(num_pods: int, num_nodes: int, seed: int = 12345,
         "awsElasticBlockStore": {"volumeID": "vol-z1"}})
     pvc = api.make_pvc("data-z1", volume_name="pv-z1")
 
-    cpu_buckets = np.array([50, 100, 250, 500, 1000, 2000, 4000])
-    mem_buckets = np.array([64, 128, 256, 512, 1024, 2048, 4096]) * 2**20
-    weights = 1.0 / np.arange(1, len(cpu_buckets) + 1) ** 1.1
-    weights /= weights.sum()
-    cpu_idx = rng.choice(len(cpu_buckets), size=num_pods, p=weights)
-    mem_idx = rng.choice(len(mem_buckets), size=num_pods, p=weights)
-    tolerate = rng.rand(num_pods) < 0.1
+    milli_cpu, memory, tolerate = _config3_requests(rng, num_pods)
     kind = rng.rand(num_pods)        # < 0.05 host port, < 0.08 disk
     app = rng.randint(0, 8, size=num_pods)
     pick = rng.randint(0, 5, size=num_pods)  # port or disk choice
 
     def make(name, i, app_id, **kw):
         if tolerate[i]:
-            kw["tolerations"] = [{"key": "dedicated", "operator": "Equal",
-                                  "value": "batch", "effect": "NoSchedule"}]
-        return api.make_pod(name, milli_cpu=int(cpu_buckets[cpu_idx[i]]),
-                            memory=int(mem_buckets[mem_idx[i]]),
+            kw["tolerations"] = [TOLERATION]
+        return api.make_pod(name, milli_cpu=int(milli_cpu[i]),
+                            memory=int(memory[i]),
                             labels={"app": f"a{app_id}"}, **kw)
 
     pods = []
@@ -151,6 +152,100 @@ def groups_workload(num_pods: int, num_nodes: int, seed: int = 12345,
         running.append(pod)
     return api.ClusterSnapshot(nodes=nodes, pods=running, services=services,
                                pvs=[pv], pvcs=[pvc]), pods
+
+
+RACK_LABEL = "rack"
+NUM_RACKS = 50
+
+
+def _term(app: str, key: str) -> dict:
+    return {"labelSelector": {"matchLabels": {"app": app}}, "topologyKey": key}
+
+
+def _preferred(weight: int, app: str, key: str) -> dict:
+    return {"weight": weight, "podAffinityTerm": _term(app, key)}
+
+
+def _interpod_affinity(app_id: int):
+    """The inter-pod terms of interpod_workload's app a<app_id>."""
+    app = f"a{app_id}"
+    if app_id <= 3:   # Deployment replicas spread over zones
+        return {"podAntiAffinity": {
+            "preferredDuringSchedulingIgnoredDuringExecution": [
+                _preferred(50, app, ZONE_LABEL)]}}
+    if app_id == 4:   # a stateful store: one replica per rack
+        return {"podAntiAffinity": {
+            "requiredDuringSchedulingIgnoredDuringExecution": [
+                _term(app, RACK_LABEL)]}}
+    if app_id == 5:   # a web tier beside the store, spread over racks
+        return {"podAffinity": {
+                    "requiredDuringSchedulingIgnoredDuringExecution": [
+                        _term("a4", ZONE_LABEL)]},
+                "podAntiAffinity": {
+                    "preferredDuringSchedulingIgnoredDuringExecution": [
+                        _preferred(10, app, RACK_LABEL)]}}
+    if app_id == 6:   # workers near the web tier
+        return {"podAffinity": {
+            "preferredDuringSchedulingIgnoredDuringExecution": [
+                _preferred(10, "a5", ZONE_LABEL)]}}
+    return None
+
+
+def _interpod_apps(u: np.ndarray) -> np.ndarray:
+    """App ids from uniform draws: a0-a3 60%, a4 0.5%, a5 10%, a6 10%,
+    a7-a9 the rest."""
+    return np.select(
+        [u < 0.6, u < 0.605, u < 0.705, u < 0.805],
+        [(u / 0.15).astype(np.int64), 4, 5, 6],
+        7 + np.minimum(((u - 0.805) / 0.065).astype(np.int64), 2))
+
+
+def interpod_workload(num_pods: int, num_nodes: int, seed: int = 12345,
+                      api=None):
+    """Config 3 with inter-pod (anti)affinity: config 3's nodes (three
+    shapes, a 10% taint slice) labelled over 4 zones (`zone` and the
+    failure-domain label) and 50 racks of contiguous nodes, and config 3's
+    Zipf pods labelled app=a0..a9:
+      a0-a3 (~60%) Deployment replicas, preferred anti-affinity to their own
+                   app on the zone key, weight 50;
+      a4 (~0.5%)   a stateful store, required anti-affinity to a4 on the
+                   rack key (one a4 pod a rack);
+      a5 (~10%)    a web tier, required affinity to a4 on the zone key and
+                   preferred anti-affinity to a5 on the rack key, weight 10;
+      a6 (~10%)    workers, preferred affinity to a5 on the zone key,
+                   weight 10;
+      a7-a9        no terms.
+    About num_pods/50 running pods with the same labels and terms, every
+    hundredth of them an a4 pod, seed the presence. The terms key on zone
+    and rack, never on the hostname: a hostname key has a domain per node,
+    past the kernel's 64-domain budget on a real cluster."""
+    api = _api(api)
+    rng = np.random.RandomState(seed)
+    nodes = _config3_nodes(api, num_nodes, lambda i: {
+        "zone": f"z{i % 4}", ZONE_LABEL: f"z{i % 4}",
+        RACK_LABEL: f"r{i * NUM_RACKS // num_nodes}"})
+    milli_cpu, memory, tolerate = _config3_requests(rng, num_pods)
+    apps = _interpod_apps(rng.rand(num_pods))
+
+    def make(name, i, app_id, **kw):
+        if tolerate[i]:
+            kw["tolerations"] = [TOLERATION]
+        affinity = _interpod_affinity(app_id)
+        if affinity:
+            kw["affinity"] = affinity
+        return api.make_pod(name, milli_cpu=int(milli_cpu[i]),
+                            memory=int(memory[i]),
+                            labels={"app": f"a{app_id}"}, **kw)
+
+    pods = [make(f"p-{i}", i, int(apps[i])) for i in range(num_pods)]
+    running = []
+    for r in range(max(num_pods // 50, 1)):
+        i = int(rng.randint(num_pods))     # borrow a pod's request shape
+        node = f"node-{int(rng.randint(num_nodes))}"
+        app_id = 4 if r % 100 == 0 else int(_interpod_apps(rng.rand(1))[0])
+        running.append(make(f"r-{r}", i, app_id, node_name=node,
+                            phase="Running"))
+    return api.ClusterSnapshot(nodes=nodes, pods=running), pods
 
 
 def uniform_workload(num_pods: int, num_nodes: int, api=None):
@@ -323,3 +418,106 @@ def random_group_workload(seed: int, num_pods: int, num_nodes: int,
 
     snapshot.pods = [decorate(p) for p in snapshot.pods]
     return snapshot, [decorate(p) for p in pods]
+
+
+INTERPOD_KEYS = ("zone", RACK_LABEL, "kubernetes.io/hostname")
+_REQUIRED = "requiredDuringSchedulingIgnoredDuringExecution"
+_PREFERRED = "preferredDuringSchedulingIgnoredDuringExecution"
+
+
+def random_interpod_workload(seed: int, num_pods: int, num_nodes: int,
+                             services: bool = False, ports: bool = False,
+                             api=None):
+    """random_workload (with infeasible pods) plus inter-pod (anti)affinity.
+    Nodes get a rack label (missing on every seventh node). New and running
+    pods are labelled app=a0..a2 and take one of five term sets drawn per
+    seed, or none: required affinity or anti-affinity with one or two terms,
+    some with preferred terms beside them, or preferred terms alone, with
+    raw weights -50, -1, 1, 10 or 100, selecting app a0 or a1 on the zone,
+    rack or hostname key. Besides:
+      app=solo pods need a pod of their own app in their rack (the first one
+        matches its own term and may go anywhere);
+      one pod has a required affinity term with an empty topologyKey, which
+        fails it everywhere;
+      a running pod's required anti-affinity term with an empty topologyKey
+        selects app=lone, so app=lone pods fit nowhere;
+      a snapshot pod (app=cache) names a node the cluster does not have: it
+        counts as a matching pod that exists but lies in no domain, so the
+        app=web pods, which need a cache pod in their zone, fit nowhere.
+    services adds zone labels and Services selecting a0 and a1; ports gives
+    15% of the new pods (app=a0, no terms) a host port. The merged groups
+    stay under 32 and, up to 63 nodes, the domains under 64."""
+    api = _api(api)
+    snapshot, pods = random_workload(seed, num_pods, num_nodes,
+                                     infeasible=True, api=api)
+    rng = np.random.RandomState(seed + 2000)
+    for i, node in enumerate(snapshot.nodes):
+        if i % 7 != 6:
+            node.metadata.labels[RACK_LABEL] = f"r{i % 4}"
+        if services and i % 5 != 0:
+            node.metadata.labels[ZONE_LABEL] = f"z{i % 3}"
+    if services:
+        snapshot.services = [api.Service.from_obj(
+            {"metadata": {"name": f"svc-{a}"}, "spec": {"selector": {"app": a}}})
+            for a in ("a0", "a1")]
+
+    def term(app=None, key=None):
+        return {"labelSelector": {"matchLabels": {
+                    "app": app or ("a0", "a1")[rng.randint(2)]}},
+                "topologyKey": (INTERPOD_KEYS[rng.randint(3)] if key is None
+                                else key)}
+
+    def preferred():
+        return [{"weight": int(rng.choice([-50, -1, 1, 10, 100])),
+                 "podAffinityTerm": term()}
+                for _ in range(rng.randint(1, 3))]
+
+    def term_set():
+        r = rng.rand()
+        kind = "podAffinity" if r < 0.3 or r >= 0.8 else "podAntiAffinity"
+        if r >= 0.55:
+            return {kind: {_PREFERRED: preferred()}}
+        aff = {kind: {_REQUIRED: [term() for _ in range(rng.randint(1, 3))]}}
+        if rng.rand() < 0.4:
+            aff[kind][_PREFERRED] = preferred()
+        return aff
+
+    menu = [term_set() for _ in range(5)]
+
+    def decorate(pod, app=None, affinity=None, host_port=False):
+        obj = pod.to_obj()
+        obj["metadata"]["labels"] = {"app": app or f"a{rng.randint(3)}"}
+        if host_port:
+            obj["spec"]["containers"][0]["ports"] = [
+                {"containerPort": 80, "hostPort": 8080 + rng.randint(2)}]
+        elif affinity is None:
+            pick = rng.randint(len(menu) + 2)
+            affinity = menu[pick] if pick < len(menu) else None
+        if affinity:
+            obj["spec"]["affinity"] = affinity
+        return api.Pod.from_obj(obj)
+
+    snapshot.pods = [decorate(p) for p in snapshot.pods]
+    snapshot.pods[0] = decorate(snapshot.pods[0], app="a2", affinity={
+        "podAntiAffinity": {_REQUIRED: [term("lone", "")]}})
+    snapshot.pods.append(api.make_pod("unplaced", milli_cpu=100,
+                                      labels={"app": "cache"},
+                                      node_name="gone-node", phase="Running"))
+    out = []
+    for i, pod in enumerate(pods):
+        if i % 31 == 5:
+            out.append(decorate(pod, app="solo", affinity={"podAffinity": {
+                _REQUIRED: [term("solo", RACK_LABEL)]}}))
+        elif i % 37 == 11:
+            out.append(decorate(pod, app="web", affinity={"podAffinity": {
+                _REQUIRED: [term("cache", "zone")]}}))
+        elif i % 53 == 8:
+            out.append(decorate(pod, app="lone", affinity={}))
+        elif i == 2:
+            out.append(decorate(pod, affinity={"podAffinity": {
+                _REQUIRED: [term(key="")]}}))
+        elif ports and rng.rand() < 0.15:
+            out.append(decorate(pod, app="a0", host_port=True))
+        else:
+            out.append(decorate(pod))
+    return snapshot, out
