@@ -40,7 +40,22 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
      scheduled count, launches > 0 of the inter-pod variant, cold and warm
      wall, the kernel time over the whole scan; then its first chunk kernel
      against plain, bit-equal, with the kernel's time beside its bound and
-     its plain version's time.
+     its plain version's time;
+ 11. the kernel's policy variant (Variant 5: a scheduler Policy's stage
+     program and weights, label rows, NoExecute taints, NodeLabel,
+     ImageLocality and ServiceAntiAffinity scores, ServiceAffinity and its
+     locks, count mode) against its plain version on random policy plans
+     (~512 pods x ~1000 nodes with every pod-group feature, and an inter-pod
+     plan under the upstream 1.9 policy on 60 nodes), bit-equal; between
+     them the plans must run every opcode of the stage program, count mode,
+     the PodFitsPorts alias, NoExecute, a disabled MaxPD type and two
+     ServiceAffinity entries;
+ 12. the policy workload at full size (the groups workload under the
+     upstream 1.2 policy: 100k pods on 5k nodes) through TorchBackend on the
+     card: the placement golden, the scheduled count, launches of the policy
+     variant only, cold and warm wall, the kernel time over the whole scan;
+     then its first chunk kernel against plain, bit-equal, with the kernel's
+     time beside its bound and its plain version's time.
 Then a JSON line of the kernels and, last, the device line.
 """
 
@@ -69,12 +84,16 @@ GOLDENS = {
                "49516d158991e079", 98_296),
     "interpod": ("interpod_workload", dict(num_pods=100_000, num_nodes=5_000),
                  "2d26e7d7c37f001d", 97_931),
+    "policy": ("policy_workload", dict(num_pods=100_000, num_nodes=5_000),
+               "e06b439fd663eb85", 44_216),
 }
-# the phase that drives each main-path workload, and the kernel variant it
-# must launch
-PHASE = {"config3": 4, "config4_cpu_shape": 5, "groups": 8, "interpod": 10}
+# the phase that drives each main-path workload, the kernel variant it must
+# launch, and the scheduler policy it runs under (workloads.COMPAT_POLICIES)
+PHASE = {"config3": 4, "config4_cpu_shape": 5, "groups": 8, "interpod": 10,
+         "policy": 12}
 VARIANT = {"config3": "group_free", "config4_cpu_shape": "group_free",
-           "groups": "groups", "interpod": "interpod"}
+           "groups": "groups", "interpod": "interpod", "policy": "policy"}
+POLICY = {"policy": "1.2"}
 # H100 SXM peaks from the published datasheet: device memory rate, and the
 # float32 rate outside the tensor cores. The datasheet gives no int32 rate;
 # Hopper has half as many int32 lanes as float32 lanes per SM, so 67e12 is
@@ -83,21 +102,36 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 # int32 operations in fastscan.cu, counted from its source (the bit ORs and
 # loads are left out, so these are lower counts). The filter, per pod and
-# real node: the condition test, the pod-count add and compare, four
-# capacity adds and compares, hostname, selector and taint lookups and two
-# pressure tests (16), plus an add and a compare per scalar axis. A pad
-# node fails at its condition test (1). The score runs only on feasible
-# nodes: two ratios with their guards, the balanced products and divide,
-# two normalizations, the avoid product, the sums, the max and tie tests
-# (30).
-FILTER_OPS, FILTER_OPS_PER_SCALAR, PAD_OPS, SCORE_OPS = 16, 2, 1, 30
+# real node, by stage of the plan's stage program (kernels/fastscan.py
+# stage_program; the provider's program for a plan without a policy): the
+# condition test (1); the pod-count add and compare, four capacity adds and
+# compares, the hostname and selector lookups (12, General) or their parts
+# alone (10, 1, 1); the taint, NoExecute and label-row lookups (1 each); the
+# vol-zone row test and the two pressure tests (1 each); an add and a
+# compare per scalar axis where the resources are checked; two compares per
+# ServiceAffinity label. The port, disk, MaxPD and inter-pod stages are
+# counted per group, volume and term below. The provider's program makes
+# this 16. A pad node fails at its condition test (1).
+STAGE_OPS = {"OP_COND": 1, "OP_UNSCHED": 1, "OP_GENERAL": 12, "OP_HOST": 1,
+             "OP_SEL": 1, "OP_RES": 10, "OP_TAINT": 1, "OP_NOEXEC": 1,
+             "OP_VOL_ZONE": 1, "OP_MEM_PRESSURE": 1, "OP_DISK_PRESSURE": 1,
+             "OP_LABEL": 1}
+STAGE_OPS_PER_SCALAR, SA_OPS_PER_LABEL, PAD_OPS = 2, 2, 1
+# The score, per feasible pair, by component in config.policy_weights order
+# (least, most, balanced, node affinity, taint, avoid): the ratios with
+# their guards and mean (9 each), the balanced products and divide (7), the
+# two normalizations (3 each), avoid (0: its work is its weight's
+# multiply). Only a component whose weight is nonzero runs: it adds an add,
+# and a multiply where its weight is not 1. Then the max and tie tests (2).
+# The provider's weights make this 30.
+SCORE_COMPONENT_OPS, SCORE_SELECT_OPS = (9, 9, 7, 3, 3, 0), 2
 # The group variant, per (pod, real node): a presence load and test for each
-# group in the pod's port and disk sets (2 each), the vol-zone row test
-# (1), and for a pod that mounts counted volumes a load, select and three
-# typed adds per volume id (5 each). Per feasible pair: a presence load and
-# add per group of the spread set (2 each), the zone-sum accumulation and
-# the blend's products, divide and selects (24).
-PRESENCE_OPS, VOL_ZONE_OPS, MAXPD_OPS_PER_VOL = 2, 1, 5
+# group in the pod's port and disk sets (2 each), and for a pod that mounts
+# counted volumes a load, select and three typed adds per volume id (5
+# each). Per feasible pair: a presence load and add per group of the spread
+# set (2 each), the zone-sum accumulation and the blend's products, divide
+# and selects (24).
+PRESENCE_OPS, MAXPD_OPS_PER_VOL = 2, 5
 SPREAD_OPS_PER_GROUP, SPREAD_BLEND_OPS = 2, 24
 # The inter-pod variant. Per pod, its phase: a load and an add per (matched
 # group, domain) of each own term's domain sums, and of each other group's
@@ -109,6 +143,13 @@ SPREAD_OPS_PER_GROUP, SPREAD_BLEND_OPS = 2, 24
 # term, a domain load, a test and an add per key (4 and 3), and the
 # normalization's subtract, multiply, divide and the min and max (5).
 IP_SUM_OPS, IP_NODE_OPS, IP_PREF_OPS, IP_KEY_OPS, IP_NORM_OPS = 2, 4, 4, 3, 5
+# The policy's score terms, per feasible pair: the NodeLabel priority row's
+# add (1); per ServiceAntiAffinity group a presence load and add (2); per
+# entry the per-domain accumulation, the domain test, subtract, multiply,
+# divide, weight multiply and add (7). ImageLocality, spread and inter-pod
+# scores count as a score component (an add, and a multiply where the
+# weight is not 1) on top of their own work.
+LABEL_PRIO_OPS, SAA_OPS_PER_GROUP, SAA_OPS_PER_ENTRY = 1, 2, 7
 
 
 def card_line():
@@ -123,17 +164,15 @@ def choices_golden(choices):
                           ).hexdigest()[:16]
 
 
-def make_plan(snapshot, pods, most_requested):
-    from tpusim_torch.config import config_for
-    from tpusim_torch.fastplan import plan_fast
-    from tpusim_torch.state import compile_cluster
+def make_plan(snapshot, pods, most_requested, policy=None, hard_weight=10):
+    """The plan TorchBackend builds, under `policy` (a Policy dict) if
+    given."""
+    from tpusim_torch.backend import build_plan
+    from tpusim_torch.engine.policy import decode_policy
+    from tpusim_torch.policyc import compile_policy
 
-    compiled, cols = compile_cluster(snapshot, pods)
-    config = config_for(compiled, most_requested)
-    plan, why = plan_fast(config, compiled, cols)
-    if plan is None:
-        raise RuntimeError(f"plan ineligible: {why}")
-    return plan
+    cp = compile_policy(decode_policy(policy)) if policy is not None else None
+    return build_plan(snapshot, pods, most_requested, hard_weight, cp)[0]
 
 
 class ChunkInputs:
@@ -171,7 +210,7 @@ def run_chunk(fn, plan, ci, pods=None):
     return fn(ci.pods if pods is None else pods, dp.statics, dp.tables,
               ci.carry, ci.misc, dp.alloc_scalar, plan.num_scalars,
               NUM_FIXED_BITS + plan.num_scalars, plan.most_requested,
-              dp.groups, dp.ip, ci.pd)
+              dp.groups, dp.ip, ci.pd, dp.pol)
 
 
 def kernel_and_plain(plan, cuda):
@@ -282,15 +321,19 @@ def drive_main_path(name, card, cuda):
     the plan."""
     from tpusim_torch import workloads
     from tpusim_torch.backend import TorchBackend
+    from tpusim_torch.engine.policy import decode_policy
     from tpusim_torch.fastscan import CHUNK
     from tpusim_torch.kernels.fastscan import fastscan_chunk
 
     workload, params, golden, want_scheduled = GOLDENS[name]
     phase, variant = PHASE[name], VARIANT[name]
+    policy = (workloads.COMPAT_POLICIES[POLICY[name]] if name in POLICY
+              else None)
     t0 = time.perf_counter()
     snapshot, pods = getattr(workloads, workload)(**params)
     build_s = time.perf_counter() - t0
-    backend = TorchBackend(device="cuda")
+    backend = TorchBackend(device="cuda", policy=policy and decode_policy(
+        policy))
     fastscan_chunk.launches = 0
     for key in fastscan_chunk.launches_by_variant:
         fastscan_chunk.launches_by_variant[key] = 0
@@ -320,7 +363,7 @@ def drive_main_path(name, card, cuda):
         raise AssertionError(f"{name}: the {variant} kernel variant was "
                              f"launched {launches} of {all_launches} times")
     # the scan alone, device time of every chunk launch in sequence
-    plan = make_plan(snapshot, pods, False)
+    plan = make_plan(snapshot, pods, False, policy)
     if plan.has_interpod:
         print(f"phase {phase}: {name} plan: Gpad {plan.num_groups}, K "
               f"{plan.n_topo_keys}, D {plan.n_topo_doms_ip}, terms "
@@ -382,6 +425,7 @@ def feasible_pairs(plan, cuda):
     reads over the feasible nodes."""
     from tpusim_torch.fastscan import CHUNK
     from tpusim_torch.kernels.fastscan import (
+        PodPolicy,
         fastscan_chunk_plain,
         filter_pod,
         pod_interpod,
@@ -392,10 +436,19 @@ def feasible_pairs(plan, cuda):
     feasible, reach, spread_reads = [], [], 0
     for j in range(min(CHUNK, plan.num_pods)):
         row = ci.pods[j].tolist()
-        before, _ = filter_pod(row, dp.statics, dp.tables, ci.carry,
-                               dp.alloc_scalar, plan.num_scalars, dp.groups)
         ipp = pod_interpod(row, plan.num_scalars, dp.groups, dp.ip, ci.carry,
                            dp.alloc_scalar, ci.pd)
+        if dp.pol is not None:
+            # a policy plan's program holds its own inter-pod stage
+            pp = PodPolicy(row, plan.num_scalars, dp.groups, dp.pol, ci.misc)
+            before, _ = filter_pod(row, dp.statics, dp.tables, ci.carry,
+                                   dp.alloc_scalar, plan.num_scalars,
+                                   dp.groups, ipp, dp.pol, pp)
+            ipp = None
+        else:
+            before, _ = filter_pod(row, dp.statics, dp.tables, ci.carry,
+                                   dp.alloc_scalar, plan.num_scalars,
+                                   dp.groups)
         passed = before
         if ipp is not None:
             passed, _ = filter_pod(row, dp.statics, dp.tables, ci.carry,
@@ -410,9 +463,11 @@ def feasible_pairs(plan, cuda):
     return feasible, reach, spread_reads
 
 
-def interpod_ops(plan, feasible, reach):
+def interpod_ops(plan, feasible, reach, filter_on, weight):
     """The inter-pod operations of the main path's first chunk, counted from
-    the kernel's source per pod (its group's terms) as IP_* above."""
+    the kernel's source per pod (its group's terms) as IP_* above: the
+    filter's only when the stage runs (`filter_on`), the score's only when
+    the priority's `weight` is nonzero."""
     from tpusim_torch.fastplan import IpLayout
     from tpusim_torch.kernels.fastscan import EXIST_TABLES
 
@@ -420,6 +475,7 @@ def interpod_ops(plan, feasible, reach):
     k_keys, d_doms = plan.n_topo_keys, plan.n_topo_doms_ip
     lay = IpLayout(ta, tb, tp, gpad)
     exist = {name: np.asarray(getattr(plan, name)) for name, _ in EXIST_TABLES}
+    score = (IP_NORM_OPS + (weight != 1)) if weight else 0
     ops = 0
     for j, (nf, nr) in enumerate(zip(feasible, reach)):
         r = plan.ipod[plan.gid[j]]
@@ -434,18 +490,22 @@ def interpod_ops(plan, feasible, reach):
         own_required = int(r[lay.aff_valid:lay.aff_valid + ta].sum()
                            + r[lay.anti_valid:lay.anti_valid + tb].sum())
         weighted = int((r[lay.pref_w:lay.pref_w + tp] != 0).sum())
-        ops += ((matched + exist_pairs) * d_doms * IP_SUM_OPS
-                + nr * (own_required + k_keys) * IP_NODE_OPS
-                + nf * (weighted * IP_PREF_OPS + k_keys * IP_KEY_OPS
-                        + IP_NORM_OPS))
+        ops += (matched + exist_pairs) * d_doms * IP_SUM_OPS
+        if filter_on:
+            ops += nr * (own_required + k_keys) * IP_NODE_OPS
+        if score:
+            ops += nf * (weighted * IP_PREF_OPS + k_keys * IP_KEY_OPS + score)
     return ops
 
 
 def chunk_bound_ms(plan, feasible, reach, spread_reads=0):
     """The least time for the main path's first chunk: inputs read once,
     outputs written once, over the memory rate; the operations this chunk's
-    data needs over the 32-bit peak."""
-    from tpusim_torch.fastscan import CHUNK, pod_matrix
+    data needs over the 32-bit peak: the stages of the plan's stage program
+    and the score components its weights turn on."""
+    from tpusim_torch.config import policy_weights
+    from tpusim_torch.fastscan import CHUNK, DevicePlan, pod_matrix
+    from tpusim_torch.kernels import fastscan as kfs
 
     k = CHUNK
     real = min(k, plan.num_pods)
@@ -459,7 +519,8 @@ def chunk_bound_ms(plan, feasible, reach, spread_reads=0):
         "selector_ok", "taint_ok", "intolerable", "aff_count", "avoid_score",
         "host_ok"))
     # the group operands: the zone-id row, the vol-zone and volume tables,
-    # the inter-pod domain rows, packed rows and exist-side tables
+    # the inter-pod domain rows, packed rows and exist-side tables, the
+    # policy's residue tables
     groups = ((npad if plan.has_spread else 0)
               + (plan.zone_ok_tbl.size if plan.has_vol_zone else 0)
               + (plan.vol_tbl.size + 3 * plan.n_vols if plan.has_maxpd
@@ -469,28 +530,60 @@ def chunk_bound_ms(plan, feasible, reach, spread_reads=0):
         groups += (plan.topo_rows.size + plan.ipod.size
                    + 3 * plan.num_groups * (plan.ta + plan.tb + plan.tp))
         carry += plan.presence_dom.size
+    ps = plan.policy
+    if ps is not None:
+        groups += sum(getattr(plan, name).size for name in (
+            "label_tbl", "label_prio_row", "image_tbl", "noexec_tbl",
+            "saa_dom_tbl", "sa_val_tbl") if getattr(plan, name) is not None)
     pod_w = pod_matrix(plan, 0, 0, 1).shape[1]
     inputs = k * pod_w + (8 + srows) * npad + tables + groups + carry
     outputs = carry + k * (2 + nb)
     bytes_ = 4 * (inputs + outputs)
-    ops = (real * n * (FILTER_OPS + FILTER_OPS_PER_SCALAR * plan.num_scalars)
-           + real * (npad - n) * PAD_OPS
-           + pairs_feasible * SCORE_OPS)
+
+    dp = DevicePlan(plan, "cpu")
+    program = (dp.pol.program if dp.pol is not None
+               else kfs.stage_program(None, dp.groups, plan.has_interpod))
+    ops_run = {op for op, _ in program}
+    costs = {getattr(kfs, name): c for name, c in STAGE_OPS.items()}
+    per_node = 0
+    for op, operand in program:
+        per_node += costs.get(op, 0)
+        if op in (kfs.OP_GENERAL, kfs.OP_RES):
+            per_node += STAGE_OPS_PER_SCALAR * plan.num_scalars
+        if op == kfs.OP_SA:
+            per_node += SA_OPS_PER_LABEL * (operand >> 16)
+    w = policy_weights(ps, plan.most_requested)
+    per_pair = SCORE_SELECT_OPS + sum(
+        c + 1 + (wc != 1) for c, wc in zip(SCORE_COMPONENT_OPS, w) if wc)
+    ops = (real * n * per_node + real * (npad - n) * PAD_OPS
+           + pairs_feasible * per_pair)
     if plan.num_groups:
+        stages = (("port_row", {kfs.OP_GENERAL, kfs.OP_PORTS}),
+                  ("disk_row", {kfs.OP_DISK}))
         sets = sum(int(getattr(plan, name)[:real].sum())
-                   for name in ("port_row", "disk_row")
-                   if getattr(plan, name) is not None)
+                   for name, ops_of in stages
+                   if getattr(plan, name) is not None and ops_of & ops_run)
         ops += sets * n * PRESENCE_OPS
-    if plan.has_vol_zone:
-        ops += real * n * VOL_ZONE_OPS
-    if plan.has_maxpd:
+    if plan.has_maxpd and kfs.OP_MAXPD in ops_run:
         counted = plan.vol_tbl[plan.gid[:real], :plan.n_vols].any(axis=1)
         ops += int(counted.sum()) * n * plan.n_vols * MAXPD_OPS_PER_VOL
-    if plan.has_spread:
+    w_spread, w_interpod = w[6], w[7]
+    if plan.has_spread and w_spread:
         ops += (spread_reads * SPREAD_OPS_PER_GROUP
-                + pairs_feasible * SPREAD_BLEND_OPS)
+                + pairs_feasible * (SPREAD_BLEND_OPS + (w_spread != 1)))
     if plan.has_interpod:
-        ops += interpod_ops(plan, feasible, reach)
+        ops += interpod_ops(plan, feasible, reach,
+                            kfs.OP_INTERPOD in ops_run, w_interpod)
+    if ps is not None:
+        if plan.label_prio_row is not None:
+            ops += pairs_feasible * LABEL_PRIO_OPS
+        if ps.w_image and plan.image_tbl is not None:
+            ops += pairs_feasible * (1 + (ps.w_image != 1))
+        if plan.saa_row is not None:
+            for j, nf in enumerate(feasible):
+                ops += nf * (int(plan.saa_row[j].sum()) * SAA_OPS_PER_GROUP
+                             + sum(map(bool, ps.saa_weights))
+                             * SAA_OPS_PER_ENTRY)
     t_bytes, t_ops = bytes_ / PEAK_BYTES_PER_S, ops / PEAK_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -525,14 +618,11 @@ def time_first_chunk(name, plan, card, cuda, phase):
 def compare_interpod_kernel_with_plain(cuda):
     """Phase 9: the inter-pod variant on random inter-pod plans; returns the
     largest absolute difference seen (must be 0)."""
-    from tpusim_torch.config import config_for
-    from tpusim_torch.fastplan import plan_fast
     from tpusim_torch.state import (
         BIT_AFFINITY_NOT_MATCH,
         BIT_AFFINITY_RULES,
         BIT_ANTI_AFFINITY_RULES,
         BIT_EXISTING_ANTI_AFFINITY,
-        compile_cluster,
     )
     from tpusim_torch.workloads import random_interpod_workload
 
@@ -553,11 +643,8 @@ def compare_interpod_kernel_with_plain(cuda):
         snapshot, pods = random_interpod_workload(
             case["seed"], 512, 60, services=case.get("services", False),
             ports=case.get("ports", False))
-        compiled, cols = compile_cluster(snapshot, pods)
-        plan, why = plan_fast(config_for(compiled, case["most_requested"],
-                                         case["hard_weight"]), compiled, cols)
-        if plan is None:
-            raise RuntimeError(f"plan ineligible: {why}")
+        plan = make_plan(snapshot, pods, case["most_requested"],
+                         hard_weight=case["hard_weight"])
         results = kernel_and_plain(plan, cuda)
         diff = max(int(np.abs(a - b).max(initial=0))
                    for a, b in zip(*results))
@@ -581,6 +668,78 @@ def compare_interpod_kernel_with_plain(cuda):
     if not all(seen.values()):
         raise AssertionError(f"phase 9 never reached every inter-pod reason: "
                              f"{seen}")
+    return worst
+
+
+def compare_policy_kernel_with_plain(cuda):
+    """Phase 11: the policy variant on random policy plans; returns the
+    largest absolute difference seen (must be 0)."""
+    from tpusim_torch.fastscan import DevicePlan
+    from tpusim_torch.kernels.fastscan import NUM_OPS
+    from tpusim_torch.state import (
+        BIT_NODE_LABEL_PRESENCE,
+        BIT_SERVICE_AFFINITY,
+        BIT_TAINTS_NOT_TOLERATED,
+    )
+    from tpusim_torch.workloads import (
+        COMPAT_POLICIES,
+        random_policy,
+        random_policy_workload,
+    )
+
+    cases = [dict(seed=40, count_mode=True, noexec=True, ports_alias=True),
+             dict(seed=41, sa_entries=2, maxpd_off=(0,)),
+             dict(seed=42, general=False, count_mode=True),
+             dict(seed=43, sa_entries=2, noexec=True, general=False),
+             dict(seed=44, ports_alias=True, maxpd_off=(1, 2)),
+             dict(seed=45, policy="1.9", interpod=True)]
+    bits = {"label": BIT_NODE_LABEL_PRESENCE, "sa": BIT_SERVICE_AFFINITY,
+            "taint": BIT_TAINTS_NOT_TOLERATED}
+    worst = 0
+    ops, seen = set(), set()
+    for case in cases:
+        knobs = {k: v for k, v in case.items()
+                 if k not in ("policy", "interpod")}
+        policy = (COMPAT_POLICIES[case["policy"]] if "policy" in case
+                  else random_policy(**knobs))
+        interpod = case.get("interpod", False)
+        snapshot, pods = random_policy_workload(
+            case["seed"], 512, 60 if interpod else 1000, interpod=interpod)
+        plan = make_plan(snapshot, pods, False, policy)
+        results = kernel_and_plain(plan, cuda)
+        diff = max(int(np.abs(a - b).max(initial=0))
+                   for a, b in zip(*results))
+        placed = int((results[0][0] >= 0).sum())
+        counts = results[0][1]
+        reasons = {k: int(counts[:, b].sum()) for k, b in bits.items()}
+        ps = plan.policy
+        program = DevicePlan(plan, "cpu").pol.program
+        ops |= {op for op, _ in program}
+        seen |= {name for name, on in (
+            ("count_mode", ps.always_check_all),
+            ("ports_alias", bool(ps.ports_slots)),
+            ("noexec", plan.noexec_tbl is not None),
+            ("maxpd_off", not all(plan.maxpd_enabled)),
+            ("two_sa", len(ps.sa_slots) >= 2),
+            ("interpod_1.9", plan.has_interpod)) if on}
+        print(f"phase 11: policy kernel vs plain {case}: Gpad "
+              f"{plan.num_groups}, {len(program)} stages, "
+              f"{len(ps.label_rows)} label rows, {len(ps.sa_slots)} SA "
+              f"entries over {plan.sa_la} labels, {len(ps.saa_weights)} SAA "
+              f"entries, count mode {ps.always_check_all}; {placed}/512 "
+              f"placed, failed-node reasons {reasons}, max |diff| {diff}")
+        if diff != 0:
+            raise AssertionError(f"policy kernel disagrees with its plain "
+                                 f"version on {case}: max |diff| {diff}")
+        if placed == 0:
+            raise AssertionError(f"case {case} places no pod")
+        worst = max(worst, diff)
+    want = {"count_mode", "ports_alias", "noexec", "maxpd_off", "two_sa",
+            "interpod_1.9"}
+    if ops != set(range(NUM_OPS)) or seen != want:
+        raise AssertionError(f"phase 11 missed stage opcodes "
+                             f"{sorted(set(range(NUM_OPS)) - ops)} or "
+                             f"features {sorted(want - seen)}")
     return worst
 
 
@@ -630,6 +789,13 @@ def main():
                                                 cuda, 10)
     ip_err = max(ip_err, diff)
 
+    # phases 11-12: the policy variant (Variant 5)
+    pol_err = compare_policy_kernel_with_plain(cuda)
+    pol_launches, plan_pol = drive_main_path("policy", card, cuda)
+    diff, *timed["policy"] = time_first_chunk("policy", plan_pol, card, cuda,
+                                              12)
+    pol_err = max(pol_err, diff)
+
     kernels = []
     for name, variant, replaces, n_launch, err in (
             ("config3", "group_free", "tpusim/jaxe/fastscan.py:1164",
@@ -637,7 +803,9 @@ def main():
             ("groups", "groups", "tpusim/jaxe/fastscan.py:1386",
              group_launches, group_err),
             ("interpod", "interpod", "tpusim/jaxe/fastscan.py:1389",
-             ip_launches, ip_err)):
+             ip_launches, ip_err),
+            ("policy", "policy", "tpusim/jaxe/fastscan.py:1436",
+             pol_launches, pol_err)):
         ms, plain_ms, bound_ms, bound_by = timed[name]
         kernels.append({
             "name": f"fastscan_chunk[{variant}]", "route": "cuda",

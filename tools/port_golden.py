@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Record a placement golden of the PyTorch port's workloads with the JAX
 package: the workload is built through tpusim.api.snapshot and scheduled by
-JaxBackend(fallback="error") (its XLA scan on a CPU), and the golden is
-sha256(choices as int32)[:16] with the scheduled count, the form
-chip_smoke.py's GOLDENS hold.
+JaxBackend(fallback="error") (its XLA scan on a CPU), under the scheduler
+policy chip_smoke.py's POLICY names for it (the policy workload runs under
+the upstream 1.2 policy), and the golden is sha256(choices as int32)[:16]
+with the scheduled count, the form chip_smoke.py's GOLDENS hold.
 
     JAX_PLATFORMS=cpu python tools/port_golden.py groups 100000 5000
 """
@@ -18,19 +19,25 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import tpusim.api.snapshot as jax_api  # noqa: E402
+from tpusim.engine.policy import decode_policy  # noqa: E402
 from tpusim.jaxe.backend import JaxBackend  # noqa: E402
 from tpusim_torch import workloads  # noqa: E402
 
 WORKLOADS = {"groups": workloads.groups_workload,
              "interpod": workloads.interpod_workload,
-             "config3": workloads.build_workload}
+             "config3": workloads.build_workload,
+             "policy": workloads.policy_workload}
+POLICIES = {"policy": workloads.COMPAT_POLICIES["1.2"]}
 
 
 def main(argv):
     name, num_pods, num_nodes = argv[0], int(argv[1]), int(argv[2])
     t0 = time.perf_counter()
     snapshot, pods = WORKLOADS[name](num_pods, num_nodes, api=jax_api)
-    placements = JaxBackend(fallback="error").schedule(pods, snapshot)
+    policy = POLICIES.get(name)
+    placements = JaxBackend(
+        fallback="error", policy=policy and decode_policy(policy)
+    ).schedule(pods, snapshot)
     index = {n.name: i for i, n in enumerate(snapshot.nodes)}
     choices = np.array([index[p.node_name] if p.node_name else -1
                         for p in placements], dtype=np.int32)

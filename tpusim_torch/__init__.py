@@ -5,9 +5,11 @@ module names so each counterpart is easy to find, and imports nothing of
 tpusim or of JAX:
 
   api/        domain model, snapshots, podspec parsing
-  engine/     the host-side predicate/priority helpers the compile step uses
+  engine/     scheduler policies, and the host-side predicate/priority
+              helpers the compile step uses
   state       the numpy cluster compile (signature tables, pod columns)
-  config      provider configuration and score weights
+  config      provider configuration, a policy's compiled image, weights
+  policyc     a scheduler Policy compiled to stage gating, weights and tables
   fastplan    the int32 FastPlan of the fused scan
   kernels/    the hand-written CUDA kernels, their wrappers and plain versions
   csrc/       the CUDA sources, built with nvcc at first use

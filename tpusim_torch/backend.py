@@ -6,16 +6,17 @@ The host compiles the cluster (numpy), `plan_fast` builds the int32 plan,
 plain version on the CPU), and `decode_placements` turns choices and reason
 counts into Placements and FitError text byte-identical to kube-scheduler's.
 Services, host ports, pod volumes and inter-pod (anti)affinity run on the
-kernel's group and inter-pod variants. A workload the kernel does not carry
-(a group or topology-domain budget the plan exceeds, a volume the reference
-resolves host-side) raises NotImplementedError with the reason; there is no
+kernel's group and inter-pod variants, a scheduler Policy on its policy
+variant. A workload the kernel does not carry (a group or topology-domain
+budget the plan exceeds, a volume the reference resolves host-side, a
+policy's extenders) raises NotImplementedError with the reason; there is no
 host fallback.
 """
 
 from __future__ import annotations
 
 import hashlib
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import List
 
 import numpy as np
@@ -105,9 +106,53 @@ def decode_placements(pods: List[Pod], choices: np.ndarray, counts: np.ndarray,
     return placements
 
 
+def build_plan(snapshot: ClusterSnapshot, pods: List[Pod],
+               most_requested: bool = False, hard_weight: int = 10,
+               compiled_policy=None):
+    """The fast-scan plan of `pods` on `snapshot` and the compiled cluster:
+    (plan, compiled). compiled_policy (policyc.compile_policy) replaces the
+    provider's predicates and priorities, and its
+    hardPodAffinitySymmetricWeight, if set, `hard_weight`. Raises
+    NotImplementedError with the reason for a workload the kernel does not
+    carry."""
+    cp = compiled_policy
+    ps = cp.spec if cp is not None else None
+    compiled, cols = compile_cluster(
+        snapshot, pods, need_noexec=ps is not None and ps.has_noexec,
+        need_saa=ps is not None and ps.has_services)
+    unsupported = list(compiled.unsupported)
+    if cp is not None:
+        unsupported.extend(cp.unsupported)
+    if unsupported:
+        detail = "; ".join(sorted(set(unsupported))[:5])
+        raise NotImplementedError(
+            f"torch backend does not yet carry state for: {detail}")
+    if cp is not None and cp.hard_weight is not None:
+        hard_weight = cp.hard_weight
+    config = config_for(compiled, most_requested=most_requested,
+                        hard_weight=hard_weight)
+    ptabs = None
+    if cp is not None:
+        from tpusim_torch.policyc import build_policy_tables
+
+        # fills cols.img_id and cols.sa_self_id in place
+        ptabs = build_policy_tables(cp, snapshot, pods, compiled, cols)
+        config = replace(config, policy=ps)
+        if cp.saa_entries:
+            config = replace(config, n_saa_doms=ptabs.n_saa_doms)
+    plan, why = plan_fast(config, compiled, cols, ptabs)
+    if plan is None:
+        raise NotImplementedError(f"torch backend: {why}")
+    return plan, compiled
+
+
 class TorchBackend:
     def __init__(self, provider: str = DEFAULT_PROVIDER, device="cuda",
-                 hard_pod_affinity_symmetric_weight: int = 10):
+                 hard_pod_affinity_symmetric_weight: int = 10, policy=None):
+        """policy: an engine.policy.Policy, compiled (and validated) here to
+        the kernel's stage gating, weights and residue tables; it replaces
+        the provider's predicate and priority sets like factory.go
+        CreateFromConfig."""
         if provider not in _KNOWN_PROVIDERS:
             raise KeyError(f"plugin {provider!r} has not been registered")
         if not 1 <= hard_pod_affinity_symmetric_weight <= 100:
@@ -119,6 +164,12 @@ class TorchBackend:
         self.hard_pod_affinity_symmetric_weight = \
             hard_pod_affinity_symmetric_weight
         self.device = resolve_device(device)
+        self.policy = policy
+        self._compiled_policy = None
+        if policy is not None:
+            from tpusim_torch.policyc import compile_policy
+
+            self._compiled_policy = compile_policy(policy)
         # the last batch's raw device results, in pod order
         self.last_choices = np.zeros(0, np.int32)
 
@@ -133,17 +184,11 @@ class TorchBackend:
             return [Placement(pod=mark_unschedulable(p, msg),
                               reason="Unschedulable", message=msg)
                     for p in pods]
-        compiled, cols = compile_cluster(snapshot, pods)
-        if compiled.unsupported:
-            detail = "; ".join(sorted(set(compiled.unsupported))[:5])
-            raise NotImplementedError(
-                f"torch backend does not yet carry state for: {detail}")
-        config = config_for(
-            compiled, most_requested=self.provider in _MOST_REQUESTED_PROVIDERS,
-            hard_weight=self.hard_pod_affinity_symmetric_weight)
-        plan, why = plan_fast(config, compiled, cols)
-        if plan is None:
-            raise NotImplementedError(f"torch backend: {why}")
+        plan, compiled = build_plan(
+            snapshot, pods,
+            most_requested=self.provider in _MOST_REQUESTED_PROVIDERS,
+            hard_weight=self.hard_pod_affinity_symmetric_weight,
+            compiled_policy=self._compiled_policy)
         choices, counts, _adv = fast_scan(plan, device=self.device)
         self.last_choices = choices
         return decode_placements(pods, choices, counts, compiled.statics.names,

@@ -1,10 +1,13 @@
 """Command-line entry of the PyTorch port.
 
-    python -m tpusim_torch.cli --podspec pods.yaml --synthetic-nodes 4 [--device cpu]
+    python -m tpusim_torch.cli --podspec pods.yaml --synthetic-nodes 4 \
+        [--scheduler-policy-file policy.json] [--device cpu]
 
 prints the Successful/Failed pods report of the reference simulator
 (cmd/app/server.go), scheduled by TorchBackend: the CUDA kernels by default,
-their plain PyTorch versions with --device cpu.
+their plain PyTorch versions with --device cpu. A scheduler Policy from a
+file (--scheduler-policy-file) or from a ConfigMap object saved to a file
+(--scheduler-policy-configmap-file) replaces the algorithm provider.
 """
 
 from __future__ import annotations
@@ -15,6 +18,11 @@ import time
 
 from tpusim_torch.api.podspec import expand_simulation_pods, load_simulation_pods
 from tpusim_torch.api.snapshot import synthetic_cluster
+from tpusim_torch.engine.policy import (
+    PolicyError,
+    load_policy_configmap_file,
+    load_policy_file,
+)
 from tpusim_torch.framework.report import (
     cluster_capacity_review_print,
     get_report,
@@ -32,6 +40,14 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--algorithmprovider", default="DefaultProvider",
                         help="DefaultProvider | ClusterAutoscalerProvider | "
                              "TalkintDataProvider")
+    # AlgorithmSource.Policy (simulator.go:383-424): a policy from a
+    # serialized file, or from a ConfigMap object saved as JSON/YAML
+    parser.add_argument("--scheduler-policy-file", default="",
+                        help="schedulerapi/v1 Policy file (kind: Policy) "
+                             "overriding the algorithm provider")
+    parser.add_argument("--scheduler-policy-configmap-file", default="",
+                        help="ConfigMap object (JSON/YAML) carrying the policy "
+                             "under data['policy.cfg']")
     parser.add_argument("--namespace", default="default",
                         help="Namespace stamped onto simulated pods")
     parser.add_argument("--synthetic-nodes", type=int, default=0,
@@ -46,6 +62,19 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--quiet", action="store_true",
                         help="Only print the summary counts and timing")
     return parser
+
+
+def load_policy_from_args(args):
+    """(policy or None, error text or None) from the policy flags."""
+    try:
+        if args.scheduler_policy_file:
+            return load_policy_file(args.scheduler_policy_file), None
+        if args.scheduler_policy_configmap_file:
+            return load_policy_configmap_file(
+                args.scheduler_policy_configmap_file), None
+    except (OSError, PolicyError) as exc:
+        return None, f"invalid scheduler policy: {exc}"
+    return None, None
 
 
 def main(argv=None) -> int:
@@ -65,12 +94,16 @@ def main(argv=None) -> int:
         print(f"error: failed to parse podspec: {exc}", file=sys.stderr)
         return 2
     pods = expand_simulation_pods(sim_pods, namespace=args.namespace)
+    policy, policy_err = load_policy_from_args(args)
+    if policy_err:
+        print(f"error: {policy_err}", file=sys.stderr)
+        return 2
 
     start = time.perf_counter()
     try:
         status = run_simulation(pods, snapshot,
                                 provider=args.algorithmprovider,
-                                device=args.device)
+                                device=args.device, policy=policy)
     except (ValueError, KeyError, RuntimeError, NotImplementedError) as exc:
         print(f"error: {exc}", file=sys.stderr)
         return 2

@@ -1,14 +1,76 @@
-"""Static engine configuration: the provider's score weights and the
-pod-group feature flags of a compiled cluster."""
+"""Static engine configuration: the provider's score weights, a scheduler
+policy's compiled image, and the pod-group feature flags of a compiled
+cluster."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
-from tpusim_torch.engine.predicates import DEFAULT_MAXPD_LIMITS
+from tpusim_torch.engine.predicates import (
+    DEFAULT_MAXPD_LIMITS,
+    POD_TOLERATES_NODE_NO_EXECUTE_TAINTS_PRED,
+)
 from tpusim_torch.state import CompiledCluster
 
 AVOID_PODS_WEIGHT = 10000    # NodePreferAvoidPodsPriority weight (defaults.go)
+
+
+@dataclass(frozen=True)
+class PolicySpec:
+    """The compiled image of a scheduler Policy (api/types.go:52-77): which
+    standard predicates run and each score component's weight. Built by
+    tpusim_torch.policyc.compile_policy; None on the provider paths (the
+    provider's defaults).
+
+    pred_keys: frozenset of the PREDICATES_ORDERING names the policy enables
+    (custom predicates ride label_rows, sa_slots and ports_slots), or None
+    for the provider's set. CheckNodeCondition runs regardless: it is
+    mandatory."""
+
+    pred_keys: Optional[frozenset]
+    w_least: int = 0
+    w_most: int = 0
+    w_balanced: int = 0
+    w_node_aff: int = 0
+    w_taint: int = 0
+    w_avoid: int = 0           # NodePreferAvoidPodsPriority policy weight
+    w_spread: int = 0
+    w_interpod: int = 0
+    w_image: int = 0           # ImageLocalityPriority (table-driven)
+    # ServiceAntiAffinity priorities: one weight per entry, parallel to the
+    # plan's ServiceAntiAffinity domain rows (selector_spreading.go:176-280)
+    saa_weights: tuple = ()
+    # ServiceAffinity predicates: one slot per entry, a PREDICATES_ORDERING
+    # name or "tail:<k>" (the k-th custom in alphabetical name order, after
+    # the fixed ordering); sa_segs holds each entry's label count over the
+    # concatenated label rows. sa_enabled gates the lock updates at bind.
+    sa_enabled: bool = False
+    sa_slots: tuple = ()
+    sa_segs: tuple = ()
+    # the 1.0 PodFitsPorts alias: tail slots where the port-conflict stage
+    # runs again
+    ports_slots: tuple = ()
+    # alwaysCheckAllPredicates: every failing predicate reports, not only
+    # the first (generic_scheduler.go)
+    always_check_all: bool = False
+    # one slot per label-presence row: a PREDICATES_ORDERING name or
+    # "tail:<k>"
+    label_rows: tuple = ()
+    has_label_prio: bool = False
+
+    @property
+    def has_noexec(self) -> bool:
+        """Whether PodToleratesNodeNoExecuteTaints runs: the cluster
+        compiles its NoExecute taint table (compile_cluster need_noexec)."""
+        return (self.pred_keys is not None
+                and POD_TOLERATES_NODE_NO_EXECUTE_TAINTS_PRED in self.pred_keys)
+
+    @property
+    def has_services(self) -> bool:
+        """Whether ServiceAntiAffinity or ServiceAffinity runs: the cluster
+        interns first-service signatures (compile_cluster need_saa)."""
+        return bool(self.saa_weights) or self.sa_enabled
 
 
 @dataclass(frozen=True)
@@ -27,6 +89,10 @@ class EngineConfig:
     hard_weight: int = 10         # HardPodAffinitySymmetricWeight
     n_topo_doms: int = 1          # topology domains incl. the invalid 0 bucket
     n_zone_doms: int = 1          # zone domains incl. the no-zone 0 bucket
+    # a policy's predicate gating and weights (None: the provider's)
+    policy: Optional[PolicySpec] = None
+    # ServiceAntiAffinity label domains incl. the label-missing 0 bucket
+    n_saa_doms: int = 1
 
 
 def config_for(compiled: CompiledCluster, most_requested: bool,
@@ -46,8 +112,12 @@ def config_for(compiled: CompiledCluster, most_requested: bool,
         n_zone_doms=compiled.n_zone_doms)
 
 
-def policy_weights(most_requested: bool) -> tuple:
-    """The provider's score-component weights (generic_scheduler.go:631-639):
-    (least, most, balanced, node_aff, taint, avoid, spread, interpod)."""
-    w_least, w_most = (0, 1) if most_requested else (1, 0)
-    return (w_least, w_most, 1, 1, 1, AVOID_PODS_WEIGHT, 1, 1)
+def policy_weights(ps: Optional[PolicySpec], most_requested: bool) -> tuple:
+    """The score-component weights (generic_scheduler.go:631-639): the
+    provider's without a policy, the policy's with one: (least, most,
+    balanced, node_aff, taint, avoid, spread, interpod)."""
+    if ps is None:
+        w_least, w_most = (0, 1) if most_requested else (1, 0)
+        return (w_least, w_most, 1, 1, 1, AVOID_PODS_WEIGHT, 1, 1)
+    return (ps.w_least, ps.w_most, ps.w_balanced, ps.w_node_aff,
+            ps.w_taint, ps.w_avoid, ps.w_spread, ps.w_interpod)

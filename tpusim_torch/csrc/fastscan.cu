@@ -1,5 +1,5 @@
 // Fused fast scan for Hopper (sm_90a): the group-free variant, the
-// pod-group variant and the inter-pod variant.
+// pod-group variant, the inter-pod variant and the policy variant.
 //
 // Replaces the TPU kernel tpusim/jaxe/fastscan.py::_make_kernel (the
 // Pallas kernel behind fast_scan):
@@ -19,7 +19,19 @@
 //     += 1 on bind). K <= 4 keys, D <= 64 domains, at most 4 terms of each
 //     kind are compile-time maxima; the plan's own values, its per-group
 //     packed rows and its exist-side tables are runtime arguments, so one
-//     build serves every plan. Policies (Variant 5) are not carried.
+//     build serves every plan;
+//   Variant 5, the policy residue: a scheduler Policy on top of Variants 2-4
+//     (and 3 when the plan has inter-pod terms). The policy's predicate
+//     gating is a stage program, a short list of (opcode, operand) pairs in
+//     the order kube-scheduler evaluates them, which node_reason interprets
+//     per node from shared memory: the Pallas kernel's stages plus label-
+//     presence rows, ServiceAffinity entries and the PodFitsPorts alias at
+//     the ordering or tail slot they were registered under, and the
+//     NoExecute-only taint table. Every score weight (the eight components,
+//     ImageLocality, each ServiceAntiAffinity entry) is a runtime argument
+//     too, beside the NodeLabel priority row and the image-score table, so
+//     one build serves every policy. alwaysCheckAllPredicates (count mode)
+//     makes the histogram add every failing stage's reasons.
 //
 // What it computes, for each pod of a chunk in order (kube-scheduler's
 // scheduleOne): the filter stages in predicatesOrdering, where the first
@@ -79,6 +91,22 @@
 // nodes lie in domain 0 with zero presence and never add to a real domain's
 // sum.
 //
+// The policy variant keeps the same passes. Pass 1 runs the stage program;
+// a node's reason word is its first failing stage's bits, nonzero exactly
+// when some stage fails, so it decides feasibility in count mode too, and
+// when no node fits in count mode the histogram pass runs the program again
+// over the thread's nodes and adds every failing stage's bits (per-thread
+// counters, a warp reduction, one shared atomic per bit). ServiceAntiAffinity
+// needs, per entry and label domain, the feasible nodes' sum of the pods in
+// the pod's first service: pass 1 stores each feasible node's count and
+// adds the total, then walks its slice once per entry into per-domain
+// registers that meet in shared memory with one atomic per domain per warp,
+// so the entries add no barrier; pass 2 normalizes. ServiceAffinity reads the
+// pod's lock (the first matching pod's node) from misc lane 1 + its
+// first-service signature, and the locked node's label values by direct
+// loads; the thread that binds writes the lock lanes, and the end-of-pod
+// barrier orders that write before the next pod reads it.
+//
 // Bound: per pod the kernel reads 8 static, 7 carry and 6 table rows of
 // Npad int32 values, plus the presence rows of the pod's groups: at Npad
 // 5120 about 430 KB a pod, 43 GB for 100k pods, about 13 ms at 3.35 TB/s.
@@ -121,6 +149,20 @@ constexpr int kBitPods = 4, kBitCpu = 5, kBitMem = 6, kBitGpu = 7,
               kFixedBits = 24;
 constexpr int kBitIpUmbrella = 15, kBitExistAnti = 16, kBitAffRules = 17,
               kBitAntiRules = 18;
+constexpr int kBitUnsched = 3, kBitLabel = 22, kBitSa = 23, kBitPad = 30;
+// stage opcodes (kernels/fastscan.py OP_*)
+enum { OP_COND, OP_UNSCHED, OP_GENERAL, OP_HOST, OP_PORTS, OP_SEL, OP_RES,
+       OP_DISK, OP_TAINT, OP_NOEXEC, OP_MAXPD, OP_VOL_ZONE, OP_MEM_PRESSURE,
+       OP_DISK_PRESSURE, OP_INTERPOD, OP_LABEL, OP_SA };
+// the policy header (kernels/fastscan.py H_*, MAX_STAGES, MAX_SAA)
+constexpr int kMaxStages = 64, kMaxSaa = 8;
+enum { H_STAGES = 0, H_WEIGHTS = 1, H_W_IMAGE = 9, H_N_SAA = 10,
+       H_SAA_DOMS = 11, H_COUNT_MODE = 12, H_SA_LOCKS = 13, H_FD = 14,
+       H_LA = 15, H_SAA_W = 16, H_PROGRAM = H_SAA_W + kMaxSaa,
+       kPolWords = H_PROGRAM + 2 * kMaxStages };
+// the eight component weights (config.policy_weights order)
+enum { W_LEAST, W_MOST, W_BALANCED, W_AFF, W_TAINT, W_AVOID, W_SPREAD,
+       W_INTERPOD };
 // inter-pod maxima (kernels/fastscan.py MAX_TOPO_KEYS, MAX_TOPO_DOMS,
 // MAX_TERMS, MAX_IP_GROUPS)
 constexpr int kMaxKeys = 4, kMaxDoms = 64, kMaxTerms = 4,
@@ -216,7 +258,30 @@ struct Args {
   int* pd;                // [gpad * k_keys, dpad] presence_dom, in place
   int dpad;
   IpLayout lay;
+  // policy (the policy variant only)
+  const int* pol;         // [kPolWords] the header and stage program
+  const int* label_tbl;   // [Lpad, npad] label-presence pass rows
+  const int* label_prio;  // [npad] NodeLabel priorities, pre-weighted
+  const int* image_tbl;   // [Si, npad] ImageLocality scores, by image set
+  const int* noexec_tbl;  // [Ctol, npad] NoExecute tolerance, by tol_id
+  const int* saa_dom;     // [E, npad] ServiceAntiAffinity label domains
+  const int* sa_val;      // [La, npad] ServiceAffinity label values
+  int pol_col;            // first policy column of a pod row
 };
+
+// what the policy variant keeps in shared memory
+struct PolShared {
+  int h[kPolWords];                 // the header and stage program
+  int saa_seg[kMaxSaa][kMaxZones];  // entry e: my-service pods per domain
+  int saa_total;                    // my-service pods on feasible nodes
+};
+
+template <bool kPolicy>
+struct PolSlot {
+  PolShared s;
+};
+template <>
+struct PolSlot<false> {};
 
 // what the inter-pod phase leaves in shared memory for one pod
 struct IpShared {
@@ -249,6 +314,13 @@ struct PodView {
   const int* vols;                     // my MaxPD volume mask row
   int my_typed[3];                     // my volumes of each MaxPD type
   bool maxpd;                          // I mount a counted volume
+  // policy variant
+  const int* saa_w;    // my first service's group set, bit words
+  const int* img;      // my ImageLocality row, or null
+  const int* noexec;   // my NoExecute tolerance row, or null
+  const int* pins;     // my ServiceAffinity pins [la]
+  const int* match;    // my lock match flags [fd]
+  int lock;            // my first-service signature's lock (< 0: none)
 };
 
 __device__ __forceinline__ int add32(int a, int b) {
@@ -298,9 +370,10 @@ __device__ __forceinline__ int spread_count(const Args& a, const PodView& p,
 }
 
 // Max{EBS,GCEPD,AzureDisk}VolumeCount on node i: the unique counted volume
-// ids there, mine included, over a type's limit, for a type I mount
+// ids there, mine included, over a type's limit, for a counted type
+// (bit t of `types`) I mount
 __device__ __forceinline__ bool maxpd_fails(const Args& a, const PodView& p,
-                                            int i) {
+                                            int i, int types) {
   int cnt[3] = {0, 0, 0};
   for (int v = 0; v < a.n_vols; ++v) {
     const int used = p.vols[v] != 0
@@ -311,7 +384,8 @@ __device__ __forceinline__ bool maxpd_fails(const Args& a, const PodView& p,
     cnt[2] += ty[2] ? used : 0;
   }
   for (int t = 0; t < 3; ++t)
-    if (p.my_typed[t] > 0 && cnt[t] > a.limit[t]) return true;
+    if (((types >> t) & 1) && p.my_typed[t] > 0 && cnt[t] > a.limit[t])
+      return true;
   return false;
 }
 
@@ -503,15 +577,13 @@ __device__ __forceinline__ int interpod_count(const Args& a,
   return c;
 }
 
-// the first failing stage's reason bits; 0 = feasible
-template <bool kGroups, bool kInterpod>
-__device__ __forceinline__ int node_reason(const Args& a, const PodView& p,
-                                           int i, const IpShared* ips) {
+// PodFitsResources on node i: the pod count, and unless the pod requests
+// nothing, each resource axis
+__device__ __forceinline__ int res_bits(const Args& a, const PodView& p,
+                                        int i) {
   const int n = a.npad;
   const int* st = a.statics;
   const int* c = a.carry;
-  const int cond = st[S_COND * n + i];
-  if (cond != 0) return cond;
   int bits = (add32(c[C_PODS * n + i], 1) > st[S_ALLOWED * n + i])
                  ? 1 << kBitPods : 0;
   if (p.check_res) {
@@ -524,6 +596,103 @@ __device__ __forceinline__ int node_reason(const Args& a, const PodView& p,
         bits |= 1 << (kFixedBits + s);
     }
   }
+  return bits;
+}
+
+// CheckServiceAffinity for one entry (first label | labels << 16) on node i:
+// my own nodeSelector pins, else the locked node's values (a label the
+// locked node lacks pins nothing)
+__device__ __forceinline__ bool sa_fails(const Args& a, const PodView& p,
+                                         int i, int entry) {
+  const int first = entry & 0xffff, last = first + (entry >> 16);
+  bool ok_own = true, ok_lock = true;
+  for (int l = first; l < last; ++l) {
+    const int* val = a.sa_val + (size_t)l * a.npad;
+    const int v = val[i];
+    if (p.pins[l] != 0) {
+      if (v != p.pins[l]) ok_own = false;
+    } else if (p.lock >= 0) {
+      const int locked = val[p.lock];
+      if (locked > 0 && v != locked) ok_lock = false;
+    }
+  }
+  return !(ok_own && (ok_lock || p.lock < 0));
+}
+
+// one stage of a stage program on node i: its reason bits, 0 = passes
+template <bool kInterpod>
+__device__ __forceinline__ int stage_bits(const Args& a, const PodView& p,
+                                          int i, int op, int operand,
+                                          const IpShared* ips) {
+  const int n = a.npad;
+  const int* st = a.statics;
+  switch (op) {
+    case OP_COND:
+      return st[S_COND * n + i];
+    case OP_UNSCHED:
+      return st[S_COND * n + i] & (1 << kBitUnsched);
+    case OP_GENERAL: {
+      int bits = res_bits(a, p, i);
+      if (p.host[i] == 0) bits |= 1 << kBitHost;
+      if (p.sel[i] == 0) bits |= 1 << kBitSel;
+      if ((a.flags & F_PORTS) && any_present(a, p.port_w, i))
+        bits |= 1 << kBitPorts;
+      return bits;
+    }
+    case OP_HOST:
+      return p.host[i] == 0 ? 1 << kBitHost : 0;
+    case OP_PORTS:
+      return any_present(a, p.port_w, i) ? 1 << kBitPorts : 0;
+    case OP_SEL:
+      return p.sel[i] == 0 ? 1 << kBitSel : 0;
+    case OP_RES:
+      return res_bits(a, p, i);
+    case OP_DISK:
+      return any_present(a, p.disk_w, i) ? 1 << kBitDisk : 0;
+    case OP_TAINT:
+      return p.tol[i] == 0 ? 1 << kBitTaint : 0;
+    case OP_NOEXEC:
+      return p.noexec[i] == 0 ? 1 << kBitTaint : 0;
+    case OP_MAXPD:
+      return p.maxpd && maxpd_fails(a, p, i, operand) ? 1 << kBitMaxVols : 0;
+    case OP_VOL_ZONE:
+      return p.zone_ok[i] == 0 ? 1 << kBitVolZone : 0;
+    case OP_MEM_PRESSURE:
+      return p.best_effort && st[S_MPR * n + i] != 0 ? 1 << kBitMemPressure
+                                                     : 0;
+    case OP_DISK_PRESSURE:
+      return st[S_DPR * n + i] != 0 ? 1 << kBitDiskPressure : 0;
+    case OP_INTERPOD:
+      if constexpr (kInterpod) return interpod_reason(a, *ips, i);
+      return 0;
+    case OP_LABEL:
+      return a.label_tbl[(size_t)operand * n + i] == 0 ? 1 << kBitLabel : 0;
+    case OP_SA:
+      return sa_fails(a, p, i, operand) ? 1 << kBitSa : 0;
+  }
+  return 0;
+}
+
+// the first failing stage's reason bits; 0 = feasible. The policy variant
+// interprets the program in `pol`; the others run the provider's stages
+template <bool kGroups, bool kInterpod, bool kPolicy>
+__device__ __forceinline__ int node_reason(const Args& a, const PodView& p,
+                                           int i, const IpShared* ips,
+                                           const PolShared* pol) {
+  if constexpr (kPolicy) {
+    const int* prog = pol->h + H_PROGRAM;
+    for (int t = 0; t < pol->h[H_STAGES]; ++t) {
+      const int bits =
+          stage_bits<kInterpod>(a, p, i, prog[2 * t], prog[2 * t + 1], ips);
+      if (bits != 0) return bits;
+    }
+    return 0;
+  }
+  const int n = a.npad;
+  const int* st = a.statics;
+  const int cond = st[S_COND * n + i];
+  if (cond != 0) return cond;
+  int bits = res_bits(a, p, i);
   if (p.host[i] == 0) bits |= 1 << kBitHost;
   if (p.sel[i] == 0) bits |= 1 << kBitSel;
   if (kGroups && (a.flags & F_PORTS) && any_present(a, p.port_w, i))
@@ -532,13 +701,39 @@ __device__ __forceinline__ int node_reason(const Args& a, const PodView& p,
   if (kGroups && (a.flags & F_DISK) && any_present(a, p.disk_w, i))
     return 1 << kBitDisk;
   if (p.tol[i] == 0) return 1 << kBitTaint;
-  if (kGroups && p.maxpd && maxpd_fails(a, p, i)) return 1 << kBitMaxVols;
+  if (kGroups && p.maxpd && maxpd_fails(a, p, i, 7)) return 1 << kBitMaxVols;
   if (kGroups && (a.flags & F_VOL_ZONE) && p.zone_ok[i] == 0)
     return 1 << kBitVolZone;
   if (p.best_effort && st[S_MPR * n + i] != 0) return 1 << kBitMemPressure;
   if (st[S_DPR * n + i] != 0) return 1 << kBitDiskPressure;
   if constexpr (kInterpod) return interpod_reason(a, *ips, i);
   return 0;
+}
+
+// alwaysCheckAllPredicates' histogram over this thread's nodes: every
+// failing stage adds its reasons (pad nodes add nothing), summed per bit
+// into `hist` by a warp reduction and one shared atomic per bit
+template <bool kInterpod>
+__device__ void count_mode_hist(const Args& a, const PodView& p, int lo,
+                                int hi, const IpShared* ips,
+                                const PolShared& pol, int* hist) {
+  int cnt[32] = {};
+  const int* prog = pol.h + H_PROGRAM;
+  for (int i = lo; i < hi; ++i) {
+    if ((a.statics[S_COND * a.npad + i] >> kBitPad) & 1) continue;
+    for (int t = 0; t < pol.h[H_STAGES]; ++t) {
+      unsigned bits = (unsigned)stage_bits<kInterpod>(a, p, i, prog[2 * t],
+                                                      prog[2 * t + 1], ips);
+      while (bits) {
+        ++cnt[__ffs(bits) - 1];
+        bits &= bits - 1;
+      }
+    }
+  }
+  for (int b = 0; b < a.num_bits; ++b) {
+    const int c = __reduce_add_sync(kFull, cnt[b]);
+    if ((threadIdx.x & 31) == 0 && c != 0) atomicAdd(&hist[b], c);
+  }
 }
 
 __device__ __forceinline__ int ratio(int req, int cap, bool most) {
@@ -604,6 +799,57 @@ __device__ __forceinline__ int node_score(const Args& a, const PodView& p,
   return s;
 }
 
+// weighted score of a feasible node under a policy, before the spread and
+// inter-pod terms: the eight components with the policy's weights, the
+// NodeLabel priority row, ImageLocality and ServiceAntiAffinity
+__device__ __forceinline__ int node_score_policy(const Args& a,
+                                                 const PodView& p, int i,
+                                                 const Norms& m,
+                                                 const PolShared& pol) {
+  const int n = a.npad;
+  const int* w = pol.h + H_WEIGHTS;
+  const int ac = a.statics[S_CPU * n + i];
+  const int am = a.statics[S_MEM * n + i];
+  const int tc = add32(a.carry[C_NZC * n + i], p.nzc);
+  const int tm = add32(a.carry[C_NZM * n + i], p.nzm);
+  int s = mul32(w[W_LEAST],
+                floordiv(ratio(tc, ac, false) + ratio(tm, am, false), 2));
+  s = add32(s, mul32(w[W_MOST],
+                     floordiv(ratio(tc, ac, true) + ratio(tm, am, true), 2)));
+  if (!(ac == 0 || tc >= ac || am == 0 || tm >= am)) {
+    const int num = abs(mul32(tc, am) - mul32(tm, ac));
+    const int den = mul32(ac, am);
+    s = add32(s, mul32(w[W_BALANCED],
+                       floordiv(mul32(kMaxPriority, den - num), den)));
+  }
+  if (m.aff_max > 0)
+    s = add32(s, mul32(w[W_AFF],
+                       floordiv(mul32(kMaxPriority, p.aff[i]), m.aff_max)));
+  s = add32(s, mul32(w[W_TAINT],
+                     m.intol_max > 0
+                         ? kMaxPriority - floordiv(mul32(kMaxPriority,
+                                                         p.intol[i]),
+                                                   m.intol_max)
+                         : kMaxPriority));
+  s = add32(s, mul32(p.avoid[i], w[W_AVOID]));
+  if (a.label_prio) s = add32(s, a.label_prio[i]);
+  if (p.img) s = add32(s, mul32(p.img[i], pol.h[H_W_IMAGE]));
+  // ServiceAntiAffinity (selector_spreading.go:176-280): my first service's
+  // pods per label domain, normalized by their feasible total
+  const int total = pol.saa_total;
+  for (int e = 0; e < pol.h[H_N_SAA]; ++e) {
+    const int d = a.saa_dom[(size_t)e * n + i];
+    if (d <= 0) continue;
+    const int f = total > 0
+                      ? floordiv(mul32(kMaxPriority,
+                                       sub32(total, pol.saa_seg[e][d])),
+                                 total)
+                      : kMaxPriority;
+    s = add32(s, mul32(f, pol.h[H_SAA_W + e]));
+  }
+  return s;
+}
+
 // block-wide reduction of kN values: v[0] summed, the rest maxed; every
 // thread gets the results
 template <int kN>
@@ -666,13 +912,15 @@ __device__ __forceinline__ int block_excl_scan(int v, int* total, int* wscan,
 // One CTA a launch: the minimum of 1 block per SM lets ptxas use all 64
 // registers. With the thread bound alone it gives the inter-pod
 // instantiation 32 registers (room for two blocks) and spills 412 bytes.
-template <bool kGroups, bool kInterpod>
+template <bool kGroups, bool kInterpod, bool kPolicy>
 __global__ void __launch_bounds__(1024, 1) fastscan_kernel(Args a) {
   static_assert(kGroups || !kInterpod, "inter-pod terms need pod groups");
+  static_assert(kGroups || !kPolicy, "the policy variant has pod groups");
   constexpr int kRed = kInterpod ? 7 : 5;   // values the pass-1 reduction holds
   __shared__ int red[32][8];
   __shared__ int bc[8];
   __shared__ IpSlot<kInterpod> ip_slot;
+  __shared__ PolSlot<kPolicy> pol_slot;
   __shared__ int wscan[32];
   __shared__ int hist[32];
   __shared__ int zsum[kMaxZones];   // per-zone sums of feasible spread counts
@@ -684,13 +932,26 @@ __global__ void __launch_bounds__(1024, 1) fastscan_kernel(Args a) {
   int* score_s = a.scratch + n;
   int* spread_s = a.scratch + 2 * n;
   int* ipcount_s = a.scratch + 3 * n;
+  int* saa_s = a.scratch + 4 * n;
   const bool spread = kGroups && (a.flags & F_SPREAD) != 0;
+  // the bind updates presence only where a stage reads what it binds
+  const bool pres_update =
+      kGroups && a.gpad > 0 &&
+      (kInterpod || (a.flags & (F_PORTS | F_DISK | F_SPREAD)) != 0);
   const IpShared* ips = nullptr;
+  const PolShared* pols = nullptr;
   int rr = a.misc[0];
   if constexpr (kInterpod) {
     ips = &ip_slot.s;
     if (tid < kMaxTerms) ip_slot.s.tot[tid] = 0;
     if (tid == 0) ip_slot.s.fail_all = 0;
+  }
+  if constexpr (kPolicy) {
+    pols = &pol_slot.s;
+    for (int t = tid; t < kPolWords; t += blockDim.x) pol_slot.s.h[t] = a.pol[t];
+    for (int t = tid; t < kMaxSaa * kMaxZones; t += blockDim.x)
+      pol_slot.s.saa_seg[t / kMaxZones][t % kMaxZones] = 0;
+    if (tid == 0) pol_slot.s.saa_total = 0;
   }
   if (kGroups) {
     if (tid < kMaxZones) zsum[tid] = 0;
@@ -731,6 +992,18 @@ __global__ void __launch_bounds__(1024, 1) fastscan_kernel(Args a) {
       }
       p.maxpd = p.my_typed[0] + p.my_typed[1] + p.my_typed[2] > 0;
     }
+    if constexpr (kPolicy) {
+      // the policy columns (kernels/fastscan.py PodPolicy)
+      const int* q = pj + a.pol_col;
+      const int* h = pol_slot.s.h;
+      p.saa_w = q;
+      p.img = a.image_tbl ? a.image_tbl + (size_t)q[a.words] * n : nullptr;
+      p.noexec = a.noexec_tbl ? a.noexec_tbl + (size_t)pj[P_TOL] * n
+                              : nullptr;
+      p.pins = q + a.words + 2;
+      p.match = p.pins + h[H_LA];
+      p.lock = h[H_FD] > 0 ? a.misc[1 + q[a.words + 1]] : -1;
+    }
     if constexpr (kInterpod) {
       interpod_phase(a, p.gid, ip_slot.s);
       __syncthreads();
@@ -743,13 +1016,30 @@ __global__ void __launch_bounds__(1024, 1) fastscan_kernel(Args a) {
     int zacc[kMaxZones];
 #pragma unroll
     for (int z = 0; z < kMaxZones; ++z) zacc[z] = 0;
+    int saa_acc = 0;
+    bool saa = false;   // ServiceAntiAffinity entries to sum
+    if constexpr (kPolicy) saa = pol_slot.s.h[H_N_SAA] > 0;
     for (int i = lo; i < hi; ++i) {
-      const int r = node_reason<kGroups, kInterpod>(a, p, i, ips);
+      const int r = node_reason<kGroups, kInterpod, kPolicy>(a, p, i, ips,
+                                                             pols);
       reason_s[i] = r;
       if (r != 0) continue;
       ++red_v[0];
       red_v[1] = max(red_v[1], p.aff[i]);
       red_v[2] = max(red_v[2], p.intol[i]);
+      if (saa) {
+        int c = 0;
+        for (int w = 0; w < a.words; ++w) {
+          unsigned bits = (unsigned)p.saa_w[w];
+          while (bits) {
+            const int g = w * 32 + __ffs(bits) - 1;
+            bits &= bits - 1;
+            c = add32(c, a.carry[(size_t)(a.pres_row + g) * n + i]);
+          }
+        }
+        saa_s[i] = c;
+        saa_acc = add32(saa_acc, c);
+      }
       if constexpr (kInterpod) {
         const int c = interpod_count(a, *ips, i);
         ipcount_s[i] = c;
@@ -771,6 +1061,31 @@ __global__ void __launch_bounds__(1024, 1) fastscan_kernel(Args a) {
       for (int zz = 1; zz < kMaxZones; ++zz) {
         const int s = __reduce_add_sync(kFull, zacc[zz]);
         if (lane == 0 && s != 0) atomicAdd(&zsum[zz], s);
+      }
+    }
+    if constexpr (kPolicy) {
+      if (saa) {
+        // ServiceAntiAffinity: the feasible total, then per entry the
+        // per-domain sums, in registers and one atomic a domain a warp
+        const int t = __reduce_add_sync(kFull, saa_acc);
+        if (lane == 0 && t != 0) atomicAdd(&pol_slot.s.saa_total, t);
+        for (int e = 0; e < pol_slot.s.h[H_N_SAA]; ++e) {
+          const int* dom = a.saa_dom + (size_t)e * n;
+#pragma unroll
+          for (int z = 0; z < kMaxZones; ++z) zacc[z] = 0;
+          for (int i = lo; i < hi; ++i) {
+            if (reason_s[i] != 0) continue;
+            const int d = dom[i], c = saa_s[i];
+#pragma unroll
+            for (int zz = 1; zz < kMaxZones; ++zz) zacc[zz] += zz == d ? c : 0;
+          }
+#pragma unroll
+          for (int zz = 1; zz < kMaxZones; ++zz) {
+            const int sum = __reduce_add_sync(kFull, zacc[zz]);
+            if (lane == 0 && sum != 0)
+              atomicAdd(&pol_slot.s.saa_seg[e][zz], sum);
+          }
+        }
       }
     }
     block_reduce<kRed>(red_v, red, bc);
@@ -795,13 +1110,28 @@ __global__ void __launch_bounds__(1024, 1) fastscan_kernel(Args a) {
       int lmax = -1, lcnt = 0;
       for (int i = lo; i < hi; ++i) {
         if (reason_s[i] != 0) continue;
-        int s = node_score(a, p, i, m);
-        if (spread) {
-          const int z = a.zone_id[i];
-          s += spread_score(m, spread_s[i], z, z != 0 ? zsum[z] : 0);
+        int s;
+        if constexpr (kPolicy) {
+          const int* w = pol_slot.s.h + H_WEIGHTS;
+          s = node_score_policy(a, p, i, m, pol_slot.s);
+          if (spread) {
+            const int z = a.zone_id[i];
+            s = add32(s, mul32(w[W_SPREAD],
+                               spread_score(m, spread_s[i], z,
+                                            z != 0 ? zsum[z] : 0)));
+          }
+          if constexpr (kInterpod)
+            s = add32(s, mul32(w[W_INTERPOD],
+                               interpod_score(m, ipcount_s[i])));
+        } else {
+          s = node_score(a, p, i, m);
+          if (spread) {
+            const int z = a.zone_id[i];
+            s += spread_score(m, spread_s[i], z, z != 0 ? zsum[z] : 0);
+          }
+          if constexpr (kInterpod)
+            s += kInterpodWeight * interpod_score(m, ipcount_s[i]);
         }
-        if constexpr (kInterpod)
-          s += kInterpodWeight * interpod_score(m, ipcount_s[i]);
         score_s[i] = s;
         if (s > lmax) {
           lmax = s;
@@ -841,7 +1171,7 @@ __global__ void __launch_bounds__(1024, 1) fastscan_kernel(Args a) {
         for (int s = 0; s < a.num_scalars; ++s)
           c[(C_SCALAR + s) * n + choice] += p.rs[s];
         if (kGroups) {
-          if (a.gpad > 0) c[(size_t)(a.pres_row + p.gid) * n + choice] += 1;
+          if (pres_update) c[(size_t)(a.pres_row + p.gid) * n + choice] += 1;
           for (int v = 0; v < a.n_vols; ++v)
             if (p.vols[v] != 0) c[(size_t)(a.uv_row + v) * n + choice] = 1;
         }
@@ -850,6 +1180,13 @@ __global__ void __launch_bounds__(1024, 1) fastscan_kernel(Args a) {
             a.pd[(size_t)(p.gid * a.k_keys + k) * a.dpad +
                  a.topo[(size_t)k * n + choice]] += 1;
         }
+        if constexpr (kPolicy) {
+          // the first matching bind locks each unlocked signature
+          if (pol_slot.s.h[H_SA_LOCKS]) {
+            for (int f = 0; f < pol_slot.s.h[H_FD]; ++f)
+              if (a.misc[1 + f] == -1 && p.match[f] != 0) a.misc[1 + f] = choice;
+          }
+        }
         a.choices[j] = choice;
       }
       if (tid < a.num_bits) a.counts[(size_t)j * a.num_bits + tid] = 0;
@@ -857,11 +1194,18 @@ __global__ void __launch_bounds__(1024, 1) fastscan_kernel(Args a) {
       // reason histogram over the real bits (pad nodes carry bit 30 only)
       if (tid < 32) hist[tid] = 0;
       __syncthreads();
-      for (int b = 0; b < a.num_bits; ++b) {
-        int cnt = 0;
-        for (int i = lo; i < hi; ++i) cnt += (reason_s[i] >> b) & 1;
-        cnt = __reduce_add_sync(kFull, cnt);
-        if (lane == 0 && cnt != 0) atomicAdd(&hist[b], cnt);
+      bool count_mode = false;
+      if constexpr (kPolicy) count_mode = pol_slot.s.h[H_COUNT_MODE] != 0;
+      if (count_mode) {
+        if constexpr (kPolicy)
+          count_mode_hist<kInterpod>(a, p, lo, hi, ips, pol_slot.s, hist);
+      } else {
+        for (int b = 0; b < a.num_bits; ++b) {
+          int cnt = 0;
+          for (int i = lo; i < hi; ++i) cnt += (reason_s[i] >> b) & 1;
+          cnt = __reduce_add_sync(kFull, cnt);
+          if (lane == 0 && cnt != 0) atomicAdd(&hist[b], cnt);
+        }
       }
       __syncthreads();
       if (tid < a.num_bits) a.counts[(size_t)j * a.num_bits + tid] = hist[tid];
@@ -876,6 +1220,13 @@ __global__ void __launch_bounds__(1024, 1) fastscan_kernel(Args a) {
     if constexpr (kInterpod) {
       if (tid < kMaxTerms) ip_slot.s.tot[tid] = 0;
       if (tid == 0) ip_slot.s.fail_all = 0;
+    }
+    if constexpr (kPolicy) {
+      if (saa) {
+        for (int t = tid; t < kMaxSaa * kMaxZones; t += blockDim.x)
+          pol_slot.s.saa_seg[t / kMaxZones][t % kMaxZones] = 0;
+        if (tid == 0) pol_slot.s.saa_total = 0;
+      }
     }
     __syncthreads();
   }
@@ -895,6 +1246,9 @@ extern "C" int tpusim_fastscan_chunk(
     int uv_row, int limit_ebs, int limit_gce, int limit_azure, int k_keys,
     int d_doms, int ta, int tb, int tp, int hard_weight, const int* topo,
     const int* ipod, int wip, const int* exist, int* pd, int dpad,
+    const int* pol,
+    const int* label_tbl, const int* label_prio, const int* image_tbl,
+    const int* noexec_tbl, const int* saa_dom, const int* sa_val,
     void* stream) {
   if (k <= 0) return 0;
   if (num_bits > 32 || npad <= 0 || npad % 32 != 0) return (int)cudaErrorInvalidValue;
@@ -916,6 +1270,8 @@ extern "C" int tpusim_fastscan_chunk(
     lay = ip_layout(ta, tb, tp, gpad);
     if (wip < lay.width) return (int)cudaErrorInvalidValue;
   }
+  const bool policy = pol != nullptr;
+  if (policy && saa_dom && gpad <= 0) return (int)cudaErrorInvalidValue;
   Args a;
   a.pods = pods;
   a.statics = statics;
@@ -966,13 +1322,26 @@ extern "C" int tpusim_fastscan_chunk(
   a.pd = pd;
   a.dpad = dpad;
   a.lay = lay;
+  a.pol = pol;
+  a.label_tbl = label_tbl;
+  a.label_prio = label_prio;
+  a.image_tbl = image_tbl;
+  a.noexec_tbl = noexec_tbl;
+  a.saa_dom = saa_dom;
+  a.sa_val = sa_val;
+  a.pol_col = P_SCALAR + num_scalars + 1 + 3 * a.words;
   const int threads = npad < 1024 ? npad : 1024;
   const bool groups = gpad > 0 || flags != 0 || n_vols > 0;
-  if (interpod)
-    fastscan_kernel<true, true><<<1, threads, 0, (cudaStream_t)stream>>>(a);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (policy && interpod)
+    fastscan_kernel<true, true, true><<<1, threads, 0, st>>>(a);
+  else if (policy)
+    fastscan_kernel<true, false, true><<<1, threads, 0, st>>>(a);
+  else if (interpod)
+    fastscan_kernel<true, true, false><<<1, threads, 0, st>>>(a);
   else if (groups)
-    fastscan_kernel<true, false><<<1, threads, 0, (cudaStream_t)stream>>>(a);
+    fastscan_kernel<true, false, false><<<1, threads, 0, st>>>(a);
   else
-    fastscan_kernel<false, false><<<1, threads, 0, (cudaStream_t)stream>>>(a);
+    fastscan_kernel<false, false, false><<<1, threads, 0, st>>>(a);
   return (int)cudaGetLastError();
 }

@@ -1,9 +1,9 @@
-"""The predicate helpers the cluster compile step evaluates per (signature,
-node) cell.
+"""The predicate names and their evaluation order, and the predicate helpers
+the cluster compile step evaluates per (signature, node) cell.
 
-Reference: predicates.go:778-846 (podMatchesNodeLabels +
-nodeMatchesNodeSelectorTerms), the volume predicates' helpers
-(predicates.go:220-533) and the inter-pod term helpers
+Reference: predicates.go:130-136 (the ordering), predicates.go:778-846
+(podMatchesNodeLabels + nodeMatchesNodeSelectorTerms), the volume
+predicates' helpers (predicates.go:220-533) and the inter-pod term helpers
 (priorityutil/topologies.go, predicates.go GetPodAffinityTerms).
 """
 
@@ -17,6 +17,40 @@ from tpusim_torch.api.types import (
     Node,
     Pod,
 )
+
+# predicates.go:130-136 — evaluation (and reason-reporting) order
+CHECK_NODE_CONDITION_PRED = "CheckNodeCondition"
+CHECK_NODE_UNSCHEDULABLE_PRED = "CheckNodeUnschedulable"
+GENERAL_PRED = "GeneralPredicates"
+HOSTNAME_PRED = "HostName"
+POD_FITS_HOST_PORTS_PRED = "PodFitsHostPorts"
+MATCH_NODE_SELECTOR_PRED = "MatchNodeSelector"
+POD_FITS_RESOURCES_PRED = "PodFitsResources"
+NO_DISK_CONFLICT_PRED = "NoDiskConflict"
+POD_TOLERATES_NODE_TAINTS_PRED = "PodToleratesNodeTaints"
+POD_TOLERATES_NODE_NO_EXECUTE_TAINTS_PRED = "PodToleratesNodeNoExecuteTaints"
+CHECK_NODE_LABEL_PRESENCE_PRED = "CheckNodeLabelPresence"
+CHECK_SERVICE_AFFINITY_PRED = "CheckServiceAffinity"
+MAX_EBS_VOLUME_COUNT_PRED = "MaxEBSVolumeCount"
+MAX_GCE_PD_VOLUME_COUNT_PRED = "MaxGCEPDVolumeCount"
+MAX_AZURE_DISK_VOLUME_COUNT_PRED = "MaxAzureDiskVolumeCount"
+CHECK_VOLUME_BINDING_PRED = "CheckVolumeBinding"
+NO_VOLUME_ZONE_CONFLICT_PRED = "NoVolumeZoneConflict"
+CHECK_NODE_MEMORY_PRESSURE_PRED = "CheckNodeMemoryPressure"
+CHECK_NODE_DISK_PRESSURE_PRED = "CheckNodeDiskPressure"
+MATCH_INTERPOD_AFFINITY_PRED = "MatchInterPodAffinity"
+
+PREDICATES_ORDERING = [
+    CHECK_NODE_CONDITION_PRED, CHECK_NODE_UNSCHEDULABLE_PRED,
+    GENERAL_PRED, HOSTNAME_PRED, POD_FITS_HOST_PORTS_PRED,
+    MATCH_NODE_SELECTOR_PRED, POD_FITS_RESOURCES_PRED, NO_DISK_CONFLICT_PRED,
+    POD_TOLERATES_NODE_TAINTS_PRED, POD_TOLERATES_NODE_NO_EXECUTE_TAINTS_PRED,
+    CHECK_NODE_LABEL_PRESENCE_PRED,
+    CHECK_SERVICE_AFFINITY_PRED, MAX_EBS_VOLUME_COUNT_PRED, MAX_GCE_PD_VOLUME_COUNT_PRED,
+    MAX_AZURE_DISK_VOLUME_COUNT_PRED, CHECK_VOLUME_BINDING_PRED, NO_VOLUME_ZONE_CONFLICT_PRED,
+    CHECK_NODE_MEMORY_PRESSURE_PRED, CHECK_NODE_DISK_PRESSURE_PRED,
+    MATCH_INTERPOD_AFFINITY_PRED,
+]
 
 
 def pod_matches_node_labels(pod: Pod, node: Node) -> bool:

@@ -1,8 +1,9 @@
 """The priority map functions the cluster compile step tabulates per
 (signature, node) cell. MaxPriority = 10 (api/types.go:36).
 
-Reference: node_affinity.go:34-79, node_prefer_avoid_pods.go, and
-utilnode.GetZoneKey (the zone domain of SelectorSpreadPriority).
+Reference: node_affinity.go:34-79, node_prefer_avoid_pods.go,
+image_locality.go, and utilnode.GetZoneKey (the zone domain of
+SelectorSpreadPriority).
 """
 
 from __future__ import annotations
@@ -55,6 +56,29 @@ def calculate_node_prefer_avoid_pods_priority_map(pod: Pod, node: Node) -> int:
         if ctrl.get("kind") == controller_ref.kind and ctrl.get("uid") == controller_ref.uid:
             return 0
     return MAX_PRIORITY
+
+
+_MB = 1024 * 1024
+_MIN_IMG_SIZE = 23 * _MB
+_MAX_IMG_SIZE = 1000 * _MB
+
+
+def image_locality_priority_map(pod: Pod, node: Node) -> int:
+    """ImageLocalityPriority (image_locality.go): the summed size of the
+    pod's container images already on the node, scored 0 below 23 MB,
+    MAX_PRIORITY from 1000 MB, linear (+1) between."""
+    sum_size = 0
+    for container in pod.spec.containers:
+        for image in node.status.images:
+            if container.image in image.names:
+                sum_size += image.size_bytes
+                break
+    if sum_size == 0 or sum_size < _MIN_IMG_SIZE:
+        return 0
+    if sum_size >= _MAX_IMG_SIZE:
+        return MAX_PRIORITY
+    return int(MAX_PRIORITY * (sum_size - _MIN_IMG_SIZE)
+               // (_MAX_IMG_SIZE - _MIN_IMG_SIZE) + 1)
 
 
 def get_zone_key(node: Optional[Node]) -> str:

@@ -14,6 +14,14 @@ Eligibility (checked by `plan_fast`, reasons returned):
     TPUSIM_FAST_MAX_TOPO_DOMS (64) domains, TPUSIM_FAST_MAX_TERMS (4)
     terms of a kind, integral preferred weights and the int32 bound on the
     InterPodAffinityPriority counts;
+  * a scheduler policy (EngineConfig.policy) gates the stages and weights
+    the score; its residue runs through tables built by
+    policyc.build_policy_tables: label-presence rows, the NodeLabel priority
+    row, ImageLocality scores by pod image set, the NoExecute taint table,
+    ServiceAntiAffinity label domains within TPUSIM_FAST_MAX_ZONES (16), and
+    the ServiceAffinity pins, label values and first-matching-pod locks
+    within TPUSIM_FAST_MAX_SA_SEGS (16) lock slots and entry labels, under
+    the policy's int32 score-mass bound;
   * at most 6 scalar resource kinds (their failure bits ride the int32
     reason word at NUM_FIXED_BITS + s);
   * every quantity divides by its per-axis gcd to a value under 2^29 with
@@ -31,7 +39,12 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from tpusim_torch.config import AVOID_PODS_WEIGHT, EngineConfig, policy_weights
+from tpusim_torch.config import AVOID_PODS_WEIGHT, EngineConfig, PolicySpec
+from tpusim_torch.engine.predicates import (
+    MAX_AZURE_DISK_VOLUME_COUNT_PRED,
+    MAX_EBS_VOLUME_COUNT_PRED,
+    MAX_GCE_PD_VOLUME_COUNT_PRED,
+)
 from tpusim_torch.engine.priorities import MAX_PRIORITY
 from tpusim_torch.state import NUM_FIXED_BITS, CompiledCluster, PodColumns
 
@@ -144,6 +157,25 @@ class FastPlan:
     exist_pref_w: Tuple[int, ...] = ()       # [G*Tp] signed int weights
     exist_aff_key: Tuple[int, ...] = ()      # [G*Ta]
     exist_aff_mask: Tuple[int, ...] = ()     # [G*Ta] valid & ~empty
+    # a scheduler policy's gating and weights (None: the provider's) and its
+    # residue tables, node axis padded to Npad. ServiceAffinity locks ride
+    # the misc carry lanes 1..Fd (the first matching pod's node index, -1
+    # unlocked, -2 never pinned).
+    policy: Optional[PolicySpec] = None
+    label_tbl: Optional[np.ndarray] = None      # [Lpad, Npad] 0/1 pass
+    label_prio_row: Optional[np.ndarray] = None  # [1, Npad] pre-weighted
+    image_tbl: Optional[np.ndarray] = None      # [Si, Npad] by img_id
+    img_id: Optional[np.ndarray] = None         # [P]
+    noexec_tbl: Optional[np.ndarray] = None     # [Ctol, Npad] by tol_id
+    saa_row: Optional[np.ndarray] = None        # [P, Gpad] first-service set
+    saa_dom_tbl: Optional[np.ndarray] = None    # [Epad, Npad] label domains
+    n_saa_doms: int = 0                         # domains incl. the absent 0
+    sa_sig: Optional[np.ndarray] = None         # [P] first-service sig id
+    sa_pin_row: Optional[np.ndarray] = None     # [P, La8] own selector pins
+    sa_match_row: Optional[np.ndarray] = None   # [P, Fd8] bind match bits
+    sa_val_tbl: Optional[np.ndarray] = None     # [Lapad, Npad] label values
+    sa_lock_init: Optional[np.ndarray] = None   # [Fd] lock seeds
+    sa_la: int = 0                              # concatenated SA labels
 
 
 @dataclass
@@ -165,6 +197,8 @@ def init_carry(plan: FastPlan, rr: int = 0) -> FastCarry:
     """The carry at the plan's initial cluster state."""
     misc = np.zeros((1, LANES), dtype=np.int32)
     misc[0, 0] = rr
+    if plan.sa_lock_init is not None:
+        misc[0, 1:1 + len(plan.sa_lock_init)] = plan.sa_lock_init
     return FastCarry(
         rows=[plan.used_cpu, plan.used_mem, plan.used_gpu, plan.used_eph,
               plan.nonzero_cpu, plan.nonzero_mem, plan.pod_count],
@@ -253,9 +287,50 @@ def _budget(name: str, default: int) -> int:
 
 
 def plan_fast(config: EngineConfig, compiled: CompiledCluster,
-              cols: PodColumns) -> Tuple[Optional[FastPlan], str]:
+              cols: PodColumns, ptabs=None) -> Tuple[Optional[FastPlan], str]:
     """Build the int32 plan, or (None, reason) when ineligible. The budget
-    refusals are word for word the JAX package's."""
+    refusals are word for word the JAX package's.
+
+    ptabs: the policyc.PolicyTables of config.policy, needed when the policy
+    uses any residue table (label rows, label priorities, image scores,
+    NoExecute taints, ServiceAntiAffinity, ServiceAffinity)."""
+    ps = config.policy
+    pol_label = ps is not None and bool(ps.label_rows)
+    pol_prio = ps is not None and ps.has_label_prio
+    pol_image = ps is not None and bool(ps.w_image)
+    pol_saa = ps is not None and bool(ps.saa_weights)
+    pol_sa = ps is not None and (ps.sa_enabled or bool(ps.sa_slots))
+    pol_noexec = ps is not None and ps.has_noexec
+    pol_any = (pol_label or pol_prio or pol_image or pol_saa or pol_sa
+               or pol_noexec)
+    if pol_any:
+        if ptabs is None:
+            return None, ("policy static tables unavailable (caller did "
+                          "not supply them)")
+        if pol_noexec and not compiled.has_noexec_table:
+            return None, "NoExecute taint table not compiled"
+        if (pol_sa or pol_saa) and not compiled.has_saa_table:
+            return None, "ServiceAffinity signature tables not compiled"
+        if pol_sa:
+            fd_real = int(compiled.groups.saa_rows.shape[0])
+            la_real = int(sum(ps.sa_segs))
+            max_sa = _budget("TPUSIM_FAST_MAX_SA_SEGS", 16)
+            # lock slots ride misc carry lanes 1..Fd (lane 0 is rr)
+            if fd_real > min(max_sa, LANES - 1):
+                return None, (f"{fd_real} ServiceAffinity lock segments "
+                              f"exceed the fast-path budget "
+                              f"({min(max_sa, LANES - 1)}; "
+                              "TPUSIM_FAST_MAX_SA_SEGS)")
+            if la_real > max_sa:
+                return None, (f"{la_real} ServiceAffinity entry labels "
+                              f"exceed the fast-path budget ({max_sa}; "
+                              "TPUSIM_FAST_MAX_SA_SEGS)")
+        if pol_saa:
+            max_sz = _budget("TPUSIM_FAST_MAX_ZONES", 16)
+            if config.n_saa_doms > max_sz:
+                return None, (f"{config.n_saa_doms} ServiceAntiAffinity "
+                              f"label domains exceed the fast-path budget "
+                              f"({max_sz}; TPUSIM_FAST_MAX_ZONES)")
     gt = compiled.groups
     if config.has_maxpd:
         n_vols_real = int(gt.vol_mask.shape[1])
@@ -266,12 +341,13 @@ def plan_fast(config: EngineConfig, compiled: CompiledCluster,
                           "TPUSIM_FAST_MAX_VOLS)")
     group_bound = (config.has_ports or config.has_services
                    or config.has_disk_conflict or config.has_vol_zone
-                   or config.has_interpod or config.has_maxpd)
-    # presence is read by ports, disk conflicts, spreading and inter-pod
-    # terms only; a vol-zone- or MaxPD-only plan still has group ids but no
-    # presence carry
+                   or config.has_interpod or config.has_maxpd or pol_saa)
+    # presence is read by ports, disk conflicts, spreading, inter-pod terms
+    # and ServiceAntiAffinity only; a vol-zone- or MaxPD-only plan still has
+    # group ids but no presence carry
     needs_presence = (config.has_ports or config.has_services
-                      or config.has_disk_conflict or config.has_interpod)
+                      or config.has_disk_conflict or config.has_interpod
+                      or pol_saa)
     num_g = int(gt.presence.shape[0]) if group_bound else 0
     if needs_presence:
         max_g = _budget("TPUSIM_FAST_MAX_GROUPS", 32)
@@ -313,8 +389,8 @@ def plan_fast(config: EngineConfig, compiled: CompiledCluster,
         w_exist = int(np.abs(gt.pref_w).sum()) + config.hard_weight * int(
             (gt.aff_valid & ~gt.aff_empty).sum())
         bound_counts = (w_own + w_exist) * max(total_pods, 1)
-        w_interpod = policy_weights(config.most_requested)[7]
-        if MAX_PRIORITY * 2 * w_interpod * bound_counts >= (1 << 31):
+        w_ip_eff = 1 if ps is None else max(ps.w_interpod, 1)
+        if MAX_PRIORITY * 2 * w_ip_eff * bound_counts >= (1 << 31):
             return None, ("inter-pod priority counts exceed int32 "
                           f"(weight mass {w_own + w_exist} x "
                           f"{total_pods} pods)")
@@ -364,10 +440,16 @@ def plan_fast(config: EngineConfig, compiled: CompiledCluster,
         max(nzm.max(initial=0), nzum.max(initial=0), 0))
     if 10 * bound_c * bound_m >= (1 << 31):
         return None, "balanced-allocation product exceeds int32"
+    if ps is not None:
+        why = _policy_mass_refusal(ps, ptabs, pol_prio, pol_image, pol_saa,
+                                   gt, cols, bound_c * bound_m)
+        if why:
+            return None, why
+    w_avoid = AVOID_PODS_WEIGHT if ps is None else ps.w_avoid
     for name, table in (("affinity", t.affinity_count),
                         ("intolerable", t.intolerable),
                         ("avoid", t.avoid_score)):
-        weight = AVOID_PODS_WEIGHT if name == "avoid" else 1
+        weight = max(w_avoid if name == "avoid" else 1, 1)
         if table.size and MAX_PRIORITY * int(np.max(np.abs(table))) \
                 * weight >= (1 << 31):
             return None, f"{name} table exceeds int32"
@@ -396,7 +478,9 @@ def plan_fast(config: EngineConfig, compiled: CompiledCluster,
             bound_zone = max(bound_zone,
                              int(col_tot[in_dom].sum())
                              + int(in_dom.sum()) * allowed_pods_max)
-        if 3 * MAX_PRIORITY * bound_node * bound_zone >= (1 << 31):
+        w_spread_eff = 1 if ps is None else max(ps.w_spread, 1)
+        if 3 * MAX_PRIORITY * w_spread_eff * bound_node * bound_zone \
+                >= (1 << 31):
             return None, ("spread zone-blend products exceed int32 "
                           f"(node bound {bound_node} x zone bound "
                           f"{bound_zone})")
@@ -493,7 +577,13 @@ def plan_fast(config: EngineConfig, compiled: CompiledCluster,
     n_vols = 0
     vol_type3 = ()
     mp_limits = (0, 0, 0)
-    if config.has_maxpd:
+    # a policy may leave MaxPD types out: those never fail
+    mp_enabled = (True, True, True)
+    if config.has_maxpd and ps is not None and ps.pred_keys is not None:
+        mp_enabled = (MAX_EBS_VOLUME_COUNT_PRED in ps.pred_keys,
+                      MAX_GCE_PD_VOLUME_COUNT_PRED in ps.pred_keys,
+                      MAX_AZURE_DISK_VOLUME_COUNT_PRED in ps.pred_keys)
+    if config.has_maxpd and any(mp_enabled):
         n_vols = n_vols_real
         vpad = max(-(-n_vols // ROW_PAD) * ROW_PAD, ROW_PAD)
         vpad_l = max(-(-n_vols // LANES) * LANES, LANES)
@@ -539,14 +629,114 @@ def plan_fast(config: EngineConfig, compiled: CompiledCluster,
         port_row=port_row, disk_row=disk_row, ss_row=ss_row,
         zone_ok_tbl=zone_ok_tbl, zone_onehot=zone_onehot,
         n_zone_doms=zpad if config.has_services else 0,
-        has_maxpd=config.has_maxpd, n_vols=n_vols, used_vols=used_vols,
+        has_maxpd=config.has_maxpd and any(mp_enabled),
+        maxpd_enabled=mp_enabled, n_vols=n_vols, used_vols=used_vols,
         vol_tbl=vol_tbl, vol_type3=vol_type3, maxpd_limits=mp_limits,
         has_interpod=config.has_interpod, n_topo_keys=k_keys,
         n_topo_doms_ip=d_doms, ta=ta, tb=tb, tp=tp,
         hard_weight=config.hard_weight, topo_rows=topo_rows,
-        presence_dom=presence_dom, ipod=ip_tbl, **ip_exist,
-    )
+        presence_dom=presence_dom, ipod=ip_tbl, **ip_exist, policy=ps,
+        **(policy_tables(config, compiled, cols, ptabs, gpad, npad)
+           if pol_any else {}))
     return plan, ""
+
+
+def _policy_mass_refusal(ps: PolicySpec, ptabs, pol_prio: bool,
+                         pol_image: bool, pol_saa: bool, gt, cols,
+                         bal_product: int) -> str:
+    """Why a policy's weighted score could leave int32, or "": every
+    component is 0..MAX_PRIORITY after its normalization, the label
+    priority and image rows add their own mass, and a ServiceAntiAffinity
+    entry adds one more component."""
+    w_total = (ps.w_least + ps.w_most + ps.w_balanced + ps.w_node_aff
+               + ps.w_taint + ps.w_spread + ps.w_interpod
+               + sum(ps.saa_weights))
+    pol_mass = 0
+    if pol_prio:
+        lp64 = np.asarray(ptabs.label_prio, dtype=np.int64)
+        if lp64.size and int(lp64.min(initial=0)) < 0:
+            # the argmax takes -1 as the infeasible sentinel
+            return ("negative label priority scores exceed the "
+                    "fast-path score model")
+        pol_mass += int(lp64.max(initial=0))
+    if pol_image:
+        im64 = np.asarray(ptabs.image_score, dtype=np.int64)
+        if ps.w_image < 0 or (im64.size and int(im64.min(initial=0)) < 0):
+            return ("negative image-locality scores exceed the "
+                    "fast-path score model")
+        pol_mass += ps.w_image * int(im64.max(initial=0))
+    if pol_saa and min(ps.saa_weights) < 0:
+        return ("negative ServiceAntiAffinity weights exceed "
+                "the fast-path score model")
+    if pol_saa:
+        # the normalization multiplies MAX_PRIORITY by the feasible
+        # matched-pod total before it divides
+        total_pods = int(gt.presence.sum()) + len(np.asarray(cols.req_cpu))
+        if MAX_PRIORITY * max(total_pods, 1) >= (1 << 31):
+            return ("ServiceAntiAffinity spread counts exceed "
+                    f"int32 ({total_pods} pods)")
+    if w_total * MAX_PRIORITY + pol_mass >= (1 << 30):
+        return "policy priority weights exceed the int32 budget"
+    if ps.w_balanced and 10 * ps.w_balanced * bal_product >= (1 << 31):
+        return "weighted balanced-allocation exceeds int32"
+    return ""
+
+
+def _rows8(n: int) -> int:
+    """n rows padded to a multiple of ROW_PAD, at least ROW_PAD."""
+    return max(-(-n // ROW_PAD) * ROW_PAD, ROW_PAD)
+
+
+def policy_tables(config: EngineConfig, compiled: CompiledCluster,
+                  cols: PodColumns, ptabs, gpad: int, npad: int) -> dict:
+    """The plan fields of a policy's residue tables (FastPlan.label_tbl
+    to sa_la), int32, node axis padded to Npad."""
+    ps, gt = config.policy, compiled.groups
+    n = len(compiled.node_index)
+    num_g = int(gt.presence.shape[0])
+    gid = np.asarray(cols.group_id, dtype=np.int64)
+    out = {}
+
+    def rows(a, nrows):
+        a = np.asarray(a)
+        t = np.zeros((nrows, npad), dtype=np.int32)
+        t[:a.shape[0], :n] = a.astype(np.int32)
+        return t
+
+    if ps.label_rows:
+        lr = np.asarray(ptabs.label_ok)[:len(ps.label_rows)]
+        out["label_tbl"] = rows(lr, _rows8(lr.shape[0]))
+    if ps.has_label_prio:
+        out["label_prio_row"] = rows(np.asarray(ptabs.label_prio)[None], 1)
+    if ps.w_image:
+        out["image_tbl"] = rows(ptabs.image_score,
+                                max(ptabs.image_score.shape[0], 1))
+        out["img_id"] = np.asarray(cols.img_id, dtype=np.int32)
+    if ps.has_noexec:
+        noexec = compiled.tables.taint_ok_noexec
+        out["noexec_tbl"] = rows(noexec, max(noexec.shape[0], 1))
+    if ps.saa_weights:
+        saa_row = np.zeros((len(gid), gpad), dtype=np.int32)
+        saa_row[:, :num_g] = gt.saa_rows[gt.saa_sig[gid]].astype(np.int32)
+        ne = len(ps.saa_weights)
+        out.update(saa_row=saa_row, n_saa_doms=int(config.n_saa_doms),
+                   saa_dom_tbl=rows(np.asarray(ptabs.saa_dom)[:ne],
+                                    _rows8(ne)))
+    if ps.sa_enabled or ps.sa_slots:
+        la = int(sum(ps.sa_segs))
+        fd = int(gt.saa_rows.shape[0])
+        pin = np.asarray(ptabs.sa_pin)[np.asarray(cols.sa_self_id)][:, :la]
+        sa_pin_row = np.zeros((len(gid), _rows8(max(la, 1))), dtype=np.int32)
+        sa_pin_row[:, :la] = pin.astype(np.int32)
+        sa_match_row = np.zeros((len(gid), _rows8(fd)), dtype=np.int32)
+        sa_match_row[:, :fd] = gt.saa_rows[:, gid].T.astype(np.int32)
+        out.update(
+            sa_la=la, sa_sig=gt.saa_sig[gid].astype(np.int32),
+            sa_pin_row=sa_pin_row, sa_match_row=sa_match_row,
+            sa_val_tbl=rows(np.asarray(ptabs.sa_val)[:la], _rows8(max(la, 1))),
+            sa_lock_init=np.asarray(ptabs.sa_lock_init,
+                                    dtype=np.int32)[:fd])
+    return out
 
 
 def ipod_table(gt, lay: IpLayout, num_g: int, gpad: int) -> np.ndarray:
@@ -593,24 +783,17 @@ def ipod_table(gt, lay: IpLayout, num_g: int, gpad: int) -> np.ndarray:
     return tbl
 
 
-# fields of a plan dict that must hold these values for the plan to fit
-# the kernel variants the port carries
-_PORTED = {"policy": None, "maxpd_enabled": (True, True, True)}
-
-
 def plan_from_numpy(fields_: dict) -> FastPlan:
     """A FastPlan from a dict of numpy arrays and scalars holding at least
     this plan's fields (for instance another implementation's plan in dict
-    form). Extra keys are ignored when they hold the value above; a plan
-    that needs the policy variant raises."""
-    for key, want in _PORTED.items():
-        if key in fields_ and fields_[key] != want:
-            raise ValueError(f"plan field {key}={fields_[key]!r}: the port "
-                             "does not carry that kernel variant yet")
+    form, its policy a dict of PolicySpec's fields). Extra keys are
+    ignored."""
     kw = {}
     for f in fields(FastPlan):
         v = fields_[f.name]
-        if isinstance(v, np.ndarray):
+        if f.name == "policy" and v is not None:
+            v = v if isinstance(v, PolicySpec) else PolicySpec(**v)
+        elif isinstance(v, np.ndarray):
             v = np.ascontiguousarray(v, dtype=np.int32)
         elif isinstance(v, (list, tuple)):
             v = tuple(x if isinstance(x, bool) else int(x) for x in v)

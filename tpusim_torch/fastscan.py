@@ -1,10 +1,11 @@
 """The fused fast scan: pods of a FastPlan through the chunk kernel.
 
 The plan is uploaded once per call; pods run in chunks of CHUNK (512) pods
-with the carry (resource rows, presence and used-volume rows, and the
-presence_dom rows of an inter-pod plan) chained device to device (the kernel
-updates it in place, so consecutive launches on one stream see each other's
-binds with no host round trip). Per-chunk outputs
+with the carry (resource rows, presence and used-volume rows, the
+presence_dom rows of an inter-pod plan, and rr and a policy's ServiceAffinity
+locks in the misc row) chained device to device (the kernel updates it in
+place, so consecutive launches on one stream see each other's binds with no
+host round trip). Per-chunk outputs
 stay on the device until more than TPUSIM_FAST_SYNC_EVERY chunks (default
 64) are in flight; then the oldest is copied to the host, so device memory
 for outputs stays O(sync_every * chunk) while the host keeps launching ahead
@@ -30,8 +31,11 @@ from tpusim_torch.kernels.fastscan import (
     TABLES,
     GroupArgs,
     IpArgs,
+    PolicyArgs,
     fastscan_chunk,
     group_words,
+    policy_header,
+    stage_program,
 )
 from tpusim_torch.state import NUM_FIXED_BITS, env_int
 
@@ -47,14 +51,25 @@ def pack_groups(rows01: np.ndarray, words: int) -> np.ndarray:
     return shifted.sum(axis=2).astype(np.uint32).view(np.int32)
 
 
+def policy_dims(plan: FastPlan):
+    """(La, Fd): a policy plan's ServiceAffinity labels and lock slots."""
+    fd = 0 if plan.sa_lock_init is None else len(plan.sa_lock_init)
+    return plan.sa_la, fd
+
+
 def pod_matrix(plan: FastPlan, start: int, stop: int, rows: int) -> np.ndarray:
-    """Pods [start, stop) as the kernel's [rows, 13 + S + 1 + 3W] int32
-    columns; rows past the span are ghost pods (req_cpu = GHOST_REQ:
-    infeasible on every node, so they bind nothing and leave rr untouched;
-    their group id 0 and empty group sets are never read for a bind)."""
+    """Pods [start, stop) as the kernel's [rows, 13 + S + 1 + 3W (+ W + 2 +
+    La + Fd)] int32 columns; rows past the span are ghost pods (req_cpu =
+    GHOST_REQ: infeasible on every node, so they bind nothing and leave rr
+    and the locks untouched; their group id 0 and empty group sets are
+    never read for a bind)."""
     w = group_words(plan.num_groups)
     at = len(POD_FIELDS) + plan.num_scalars
-    out = np.zeros((rows, at + 1 + 3 * w), dtype=np.int32)
+    pol_w = 0
+    if plan.policy is not None:
+        la, fd = policy_dims(plan)
+        pol_w = w + 2 + la + fd
+    out = np.zeros((rows, at + 1 + 3 * w + pol_w), dtype=np.int32)
     out[:, 0] = GHOST_REQ
     span = stop - start
     for c, name in enumerate(POD_FIELDS):
@@ -68,6 +83,19 @@ def pod_matrix(plan: FastPlan, start: int, stop: int, rows: int) -> np.ndarray:
         if sets is not None:
             c0 = at + 1 + i * w
             out[:span, c0:c0 + w] = pack_groups(sets[start:stop], w)
+    if plan.policy is not None:
+        # the policy columns (kernels/fastscan.py PodPolicy)
+        c0 = at + 1 + 3 * w
+        if plan.saa_row is not None:
+            out[:span, c0:c0 + w] = pack_groups(plan.saa_row[start:stop], w)
+        if plan.img_id is not None:
+            out[:span, c0 + w] = plan.img_id[start:stop]
+        if plan.sa_sig is not None:
+            out[:span, c0 + w + 1] = plan.sa_sig[start:stop]
+            out[:span, c0 + w + 2:c0 + w + 2 + la] = \
+                plan.sa_pin_row[start:stop, :la]
+            out[:span, c0 + w + 2 + la:c0 + w + 2 + la + fd] = \
+                plan.sa_match_row[start:stop, :fd]
     return out
 
 
@@ -88,6 +116,29 @@ class DevicePlan:
                                               device=device))
         self.groups = group_args(plan, device)
         self.ip = interpod_args(plan, device)
+        self.pol = policy_args(plan, self.groups, device)
+
+
+def policy_args(plan: FastPlan, groups: GroupArgs,
+                device: torch.device) -> Optional[PolicyArgs]:
+    """The plan's policy operands on `device`, uploaded once: the stage
+    program and weights as the kernel's header, and the residue tables."""
+    if plan.policy is None:
+        return None
+
+    def put(a):
+        return None if a is None else torch.from_numpy(
+            np.ascontiguousarray(a, dtype=np.int32)).to(device)
+
+    la, fd = policy_dims(plan)
+    program = stage_program(plan.policy, groups, plan.has_interpod)
+    header = policy_header(plan.policy, program, la, fd, plan.n_saa_doms)
+    return PolicyArgs(
+        spec=plan.policy, program=program, header=put(np.asarray(header)),
+        la=la, fd=fd, n_saa_doms=plan.n_saa_doms,
+        label_tbl=put(plan.label_tbl), label_prio=put(plan.label_prio_row),
+        image_tbl=put(plan.image_tbl), noexec_tbl=put(plan.noexec_tbl),
+        saa_dom=put(plan.saa_dom_tbl), sa_val=put(plan.sa_val_tbl))
 
 
 def interpod_args(plan: FastPlan, device: torch.device) -> Optional[IpArgs]:
@@ -142,7 +193,9 @@ def group_args(plan: FastPlan, device: torch.device) -> GroupArgs:
         kw.update(n_vols=plan.n_vols, vpad=plan.used_vols.shape[0],
                   vol_tbl=put(plan.vol_tbl),
                   vol_type=put(np.asarray(plan.vol_type3).reshape(-1, 3)),
-                  limits=tuple(plan.maxpd_limits))
+                  limits=tuple(plan.maxpd_limits),
+                  maxpd_types=sum(1 << t for t, on
+                                  in enumerate(plan.maxpd_enabled) if on))
     return GroupArgs(gpad=plan.num_groups, has_ports=plan.has_ports,
                      has_disk=plan.has_disk, has_spread=plan.has_spread,
                      has_vol_zone=plan.has_vol_zone, **kw)
@@ -169,7 +222,7 @@ def fast_scan(plan: FastPlan, chunk: int = CHUNK, start: int = 0,
               stop: Optional[int] = None, carry_in: Optional[FastCarry] = None,
               return_carry: bool = False, device="cuda"):
     """Run pods [start, stop) of the plan in launches of `chunk` pods (the
-    last one ghost-padded); returns (choices, counts, advanced) over that
+    last one shorter); returns (choices, counts, advanced) over that
     span as numpy arrays, plus the FastCarry out (torch tensors on the
     device) when return_carry.
 
@@ -188,7 +241,8 @@ def fast_scan(plan: FastPlan, chunk: int = CHUNK, start: int = 0,
     carry_in = carry_in or init_carry(plan)
     carry, misc = carry_tensors(carry_in, device)
     pd = pd_tensor(carry_in, device)
-    pods = torch.from_numpy(pod_matrix(plan, start, stop, num_chunks * k)
+    # no ghost rows: a policy without a resource predicate would place them
+    pods = torch.from_numpy(pod_matrix(plan, start, stop, max(span, 0))
                             ).to(device)
     # clamp to >= 1: 0 would keep every chunk's outputs on the device
     sync_every = max(1, env_int("TPUSIM_FAST_SYNC_EVERY", 64))
@@ -205,7 +259,7 @@ def fast_scan(plan: FastPlan, chunk: int = CHUNK, start: int = 0,
         out = fastscan_chunk(pods[ci * k:(ci + 1) * k], dp.statics, dp.tables,
                              carry, misc, dp.alloc_scalar, plan.num_scalars,
                              num_bits, plan.most_requested, dp.groups, dp.ip,
-                             pd)
+                             pd, dp.pol)
         pending.append(out + (min(k, span - ci * k),))
         if len(pending) > sync_every:
             drain_one()

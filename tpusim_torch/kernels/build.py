@@ -36,6 +36,9 @@ SOURCES: Dict[str, Dict[str, list]] = {
             # inter-pod: k_keys, d_doms, ta, tb, tp, hard_weight, topo,
             # ipod, wip, exist, pd, dpad
             _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I,
+            # policy: header, label, label priority, image, NoExecute,
+            # ServiceAntiAffinity domain and ServiceAffinity value tables
+            _P, _P, _P, _P, _P, _P, _P,
             _P],
     },
 }

@@ -22,6 +22,13 @@ and contiguous, node axis padded to Npad:
   pd       [Gpad*K, Dpad]  the presence_dom carry (inter-pod only): row
                         g*K + k counts the pods of group g per domain of
                         topology key k; updated in place like the carry
+  pol      PolicyArgs: a scheduler policy's stage program, weights and
+                        residue tables (Variant 5), or None. A policy plan's
+                        pod rows go on with POLICY_COLUMNS: the pod's
+                        ServiceAntiAffinity group set as W bit words, its
+                        image-set id, its ServiceAffinity signature, its La
+                        ServiceAffinity pins and its Fd lock match flags;
+                        misc lanes 1..Fd hold the ServiceAffinity locks
 
 Returns (choices [k], counts [k, num_bits], advanced [k]). A CPU tensor runs
 the plain version; a CUDA tensor launches the kernel of csrc/fastscan.cu.
@@ -34,7 +41,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from tpusim_torch.config import policy_weights
+from tpusim_torch.config import PolicySpec, policy_weights
+from tpusim_torch.engine import predicates as preds
 from tpusim_torch.engine.priorities import MAX_PRIORITY
 from tpusim_torch.fastplan import PAD_SENTINEL_BIT, IpLayout
 from tpusim_torch.state import (
@@ -53,7 +61,10 @@ from tpusim_torch.state import (
     BIT_INSUFFICIENT_PODS,
     BIT_MAX_VOLUME_COUNT,
     BIT_MEMORY_PRESSURE,
+    BIT_NODE_LABEL_PRESENCE,
     BIT_NODE_SELECTOR_MISMATCH,
+    BIT_NODE_UNSCHEDULABLE,
+    BIT_SERVICE_AFFINITY,
     BIT_TAINTS_NOT_TOLERATED,
     BIT_VOLUME_ZONE_CONFLICT,
     NUM_FIXED_BITS,
@@ -96,6 +107,7 @@ class GroupArgs:
     vol_tbl: Optional[torch.Tensor] = None   # [G, Vw] 0/1 by gid
     vol_type: Optional[torch.Tensor] = None  # [V, 3] (EBS, GCE, AzureDisk)
     limits: Tuple[int, int, int] = (0, 0, 0)
+    maxpd_types: int = 7                      # counted types, bit t = type t
 
     @property
     def words(self) -> int:
@@ -155,8 +167,166 @@ class IpArgs:
         raise KeyError(name)
 
 
-def pod_width(num_scalars: int, groups: GroupArgs) -> int:
-    return len(POD_FIELDS) + num_scalars + 1 + 3 * groups.words
+# stage opcodes of a stage program (csrc/fastscan.cu OP_*): each stage is an
+# (opcode, operand) pair, the operand a label row for OP_LABEL, the counted
+# MaxPD types for OP_MAXPD and (first label | labels << 16) of a
+# ServiceAffinity entry for OP_SA
+(OP_COND, OP_UNSCHED, OP_GENERAL, OP_HOST, OP_PORTS, OP_SEL, OP_RES, OP_DISK,
+ OP_TAINT, OP_NOEXEC, OP_MAXPD, OP_VOL_ZONE, OP_MEM_PRESSURE,
+ OP_DISK_PRESSURE, OP_INTERPOD, OP_LABEL, OP_SA) = range(17)
+NUM_OPS = 17
+# the kernel's compile-time maxima for Variant 5
+MAX_STAGES, MAX_SAA = 64, 8
+# the policy header (PolicyArgs.header), int32: the stage count, the eight
+# component weights (config.policy_weights order), the image weight, the
+# ServiceAntiAffinity entry and domain counts, count mode, whether binds
+# lock ServiceAffinity signatures, the lock slots Fd, the labels La, the
+# ServiceAntiAffinity weights, then the program's pairs
+(H_STAGES, H_WEIGHTS, H_W_IMAGE, H_N_SAA, H_SAA_DOMS, H_COUNT_MODE,
+ H_SA_LOCKS, H_FD, H_LA, H_SAA_W) = (0, 1, 9, 10, 11, 12, 13, 14, 15, 16)
+H_PROGRAM = H_SAA_W + MAX_SAA
+POL_WORDS = H_PROGRAM + 2 * MAX_STAGES
+
+
+def stage_program(ps: Optional[PolicySpec], groups: GroupArgs,
+                  has_interpod: bool) -> Tuple[Tuple[int, int], ...]:
+    """The filter stages of a plan as (opcode, operand) pairs, in
+    predicatesOrdering with a policy's gating (ps None: the provider's
+    pipeline): label-presence rows, ServiceAffinity entries and the 1.0
+    PodFitsPorts alias at the ordering slot they were registered under,
+    "tail:<k>" slots last in k order, and in count mode
+    CheckNodeUnschedulable once more beside the condition stage."""
+    en = None if ps is None else ps.pred_keys
+
+    def on(name):
+        return en is None or name in en
+
+    def part(name):
+        return en is not None and name in en
+
+    prog = []
+    label_at, sa_at = {}, {}
+    if ps is not None:
+        for i, slot in enumerate(ps.label_rows):
+            label_at.setdefault(slot, []).append(i)
+        first = 0
+        for slot, seg in zip(ps.sa_slots, ps.sa_segs):
+            sa_at.setdefault(slot, []).append(first | seg << 16)
+            first += seg
+
+    def stage(op, operand=0):
+        prog.append((op, operand))
+
+    def emit(slot):
+        if ps is None:
+            return
+        for row in label_at.get(slot, ()):
+            stage(OP_LABEL, row)
+        for entry in sa_at.get(slot, ()):
+            stage(OP_SA, entry)
+        if slot in ps.ports_slots and groups.has_ports:
+            stage(OP_PORTS)
+
+    stage(OP_COND)
+    if ps is not None and ps.always_check_all \
+            and part(preds.CHECK_NODE_UNSCHEDULABLE_PRED):
+        stage(OP_UNSCHED)
+    emit(preds.CHECK_NODE_UNSCHEDULABLE_PRED)
+    if on(preds.GENERAL_PRED):
+        stage(OP_GENERAL)
+    emit(preds.GENERAL_PRED)
+    for name, op in ((preds.HOSTNAME_PRED, OP_HOST),
+                     (preds.POD_FITS_HOST_PORTS_PRED, OP_PORTS),
+                     (preds.MATCH_NODE_SELECTOR_PRED, OP_SEL),
+                     (preds.POD_FITS_RESOURCES_PRED, OP_RES)):
+        if part(name) and (op != OP_PORTS or groups.has_ports):
+            stage(op)
+        emit(name)
+    if groups.has_disk and on(preds.NO_DISK_CONFLICT_PRED):
+        stage(OP_DISK)
+    emit(preds.NO_DISK_CONFLICT_PRED)
+    if on(preds.POD_TOLERATES_NODE_TAINTS_PRED):
+        stage(OP_TAINT)
+    emit(preds.POD_TOLERATES_NODE_TAINTS_PRED)
+    if ps is not None and ps.has_noexec:
+        stage(OP_NOEXEC)
+    for name in (preds.POD_TOLERATES_NODE_NO_EXECUTE_TAINTS_PRED,
+                 preds.CHECK_NODE_LABEL_PRESENCE_PRED,
+                 preds.CHECK_SERVICE_AFFINITY_PRED):
+        emit(name)
+    if groups.n_vols:
+        stage(OP_MAXPD, groups.maxpd_types)
+    for name in (preds.MAX_EBS_VOLUME_COUNT_PRED,
+                 preds.MAX_GCE_PD_VOLUME_COUNT_PRED,
+                 preds.MAX_AZURE_DISK_VOLUME_COUNT_PRED,
+                 preds.CHECK_VOLUME_BINDING_PRED):
+        emit(name)
+    for name, op, want in (
+            (preds.NO_VOLUME_ZONE_CONFLICT_PRED, OP_VOL_ZONE,
+             groups.has_vol_zone),
+            (preds.CHECK_NODE_MEMORY_PRESSURE_PRED, OP_MEM_PRESSURE, True),
+            (preds.CHECK_NODE_DISK_PRESSURE_PRED, OP_DISK_PRESSURE, True),
+            (preds.MATCH_INTERPOD_AFFINITY_PRED, OP_INTERPOD, has_interpod)):
+        if want and on(name):
+            stage(op)
+        emit(name)
+    if ps is not None:
+        tails = {slot for slot in (*ps.label_rows, *ps.sa_slots,
+                                   *ps.ports_slots) if slot.startswith("tail:")}
+        for k in sorted(int(slot.split(":", 1)[1]) for slot in tails):
+            emit(f"tail:{k}")
+    return tuple(prog)
+
+
+@dataclass(frozen=True)
+class PolicyArgs:
+    """A scheduler policy's operands on one device (Variant 5): the spec,
+    its stage program, the header the kernel reads (H_* layout) on the
+    device, the residue tables (None where the policy does not use one) and
+    their dimensions."""
+
+    spec: PolicySpec
+    program: Tuple[Tuple[int, int], ...]
+    header: torch.Tensor
+    la: int = 0                   # ServiceAffinity labels (pod pin columns)
+    fd: int = 0                   # ServiceAffinity lock slots
+    n_saa_doms: int = 0           # ServiceAntiAffinity domains incl. 0
+    label_tbl: Optional[torch.Tensor] = None    # [Lpad, Npad]
+    label_prio: Optional[torch.Tensor] = None   # [1, Npad]
+    image_tbl: Optional[torch.Tensor] = None    # [Si, Npad] by img_id
+    noexec_tbl: Optional[torch.Tensor] = None   # [Ctol, Npad] by tol_id
+    saa_dom: Optional[torch.Tensor] = None      # [Epad, Npad]
+    sa_val: Optional[torch.Tensor] = None       # [Lapad, Npad]
+
+
+def policy_header(ps: PolicySpec, program, la: int, fd: int,
+                  n_saa_doms: int) -> list:
+    """The H_* header of a policy plan as a list of POL_WORDS ints."""
+    if len(program) > MAX_STAGES or len(ps.saa_weights) > MAX_SAA:
+        raise ValueError(f"{len(program)} stages and "
+                         f"{len(ps.saa_weights)} ServiceAntiAffinity "
+                         f"entries: the kernel holds {MAX_STAGES} and "
+                         f"{MAX_SAA}")
+    h = [0] * POL_WORDS
+    h[H_STAGES] = len(program)
+    h[H_WEIGHTS:H_WEIGHTS + 8] = policy_weights(ps, False)
+    h[H_W_IMAGE] = ps.w_image
+    h[H_N_SAA] = len(ps.saa_weights)
+    h[H_SAA_DOMS] = n_saa_doms
+    h[H_COUNT_MODE] = int(ps.always_check_all)
+    h[H_SA_LOCKS] = int(ps.sa_enabled)
+    h[H_FD] = fd
+    h[H_LA] = la
+    h[H_SAA_W:H_SAA_W + len(ps.saa_weights)] = ps.saa_weights
+    for t, (op, operand) in enumerate(program):
+        h[H_PROGRAM + 2 * t:H_PROGRAM + 2 * t + 2] = (op, operand)
+    return h
+
+
+def pod_width(num_scalars: int, groups: GroupArgs,
+              pol: Optional[PolicyArgs] = None) -> int:
+    policy = 0 if pol is None else groups.words + 2 + pol.la + pol.fd
+    return len(POD_FIELDS) + num_scalars + 1 + 3 * groups.words + policy
 
 
 def _bit(mask, b):
@@ -192,16 +362,19 @@ def _present(pres, gs, like):
     return (pres[gs] > 0).any(dim=0)
 
 
-def _maxpd_fail(pg: _PodGroups, groups: GroupArgs, uv, like):
+def _maxpd_fail(pg: _PodGroups, groups: GroupArgs, uv, like, counted: int):
     """Max{EBS,GCEPD,AzureDisk}VolumeCount (predicates.go:422-460): the
     unique relevant volume ids on the node, mine included, against each
-    type's limit; a pod adding no volume of a type passes that type."""
+    counted type's limit; a pod adding no volume of a type passes that
+    type."""
     fail = torch.zeros_like(like, dtype=torch.bool)
     if not pg.vols:
         return fail
     types = groups.vol_type[:groups.n_vols].tolist()
     mine = set(pg.vols)
     for t in range(3):
+        if not (counted >> t) & 1:
+            continue
         typed = [v for v in range(groups.n_vols) if types[v][t]]
         if not any(v in mine for v in typed):
             continue
@@ -353,13 +526,49 @@ def interpod_score(counts, feasible):
     return (MAX_PRIORITY * (counts - minc)) // rng
 
 
-def filter_pod(row, statics, tables, carry, alloc_scalar, num_scalars: int,
+class PodPolicy:
+    """One pod's policy operands, read from its pod row, and its
+    ServiceAffinity lock from the misc carry."""
+
+    def __init__(self, row, num_scalars: int, groups: GroupArgs,
+                 pol: PolicyArgs, misc):
+        at = len(POD_FIELDS) + num_scalars + 1 + 3 * groups.words
+        w = groups.words
+        self.saa = _set_groups(row[at:at + w])
+        self.img_id = row[at + w]
+        sig = row[at + w + 1]
+        self.pins = row[at + w + 2:at + w + 2 + pol.la]
+        self.match = row[at + w + 2 + pol.la:at + w + 2 + pol.la + pol.fd]
+        self.lock = int(misc[1 + sig]) if pol.fd else -1
+
+    def sa_fail(self, pol: PolicyArgs, operand: int, like):
+        """CheckServiceAffinity for one entry (predicates.go:853-944): my
+        own nodeSelector pins, else the first matching pod's node's values
+        (lock >= 0; a label the locked node lacks pins nothing)."""
+        first, count = operand & 0xFFFF, operand >> 16
+        ok_own = torch.ones_like(like, dtype=torch.bool)
+        ok_lock = torch.ones_like(like, dtype=torch.bool)
+        for l_ in range(first, first + count):
+            val, pin = pol.sa_val[l_], self.pins[l_]
+            if pin != 0:
+                ok_own = ok_own & (val == pin)
+            elif self.lock >= 0:
+                locked = int(val[self.lock])
+                if locked > 0:
+                    ok_lock = ok_lock & (val == locked)
+        return ~(ok_own & (ok_lock | (self.lock < 0)))
+
+
+def pod_stages(row, statics, tables, carry, alloc_scalar, num_scalars: int,
                groups: GroupArgs = NO_GROUPS,
-               ipp: Optional[PodInterpod] = None):
-    """The filter stages in predicatesOrdering for one pod (`row`, a list of
-    its pod columns) against the current carry: (feasible mask, reason word
-    of the first failing stage) over the node axis. `ipp`: the pod's
-    inter-pod operands, for the MatchInterPodAffinity stage."""
+               ipp: Optional[PodInterpod] = None,
+               pol: Optional[PolicyArgs] = None,
+               pp: Optional[PodPolicy] = None):
+    """The filter stages of one pod (`row`, a list of its pod columns)
+    against the current carry, as [(fail mask, reason bits)] in stage
+    program order: the policy's program, or the provider's pipeline
+    (with MatchInterPodAffinity when `ipp`, the pod's inter-pod operands,
+    is given)."""
     rc, rm, rg, re_, _, _, zero, best_effort, sel, tol, _, _, host = row[:13]
     rs = row[13:13 + num_scalars]
     acpu, amem, agpu, aeph, allowed, cond, mpr, dpr = statics
@@ -389,28 +598,73 @@ def filter_pod(row, statics, tables, carry, alloc_scalar, num_scalars: int,
     sel_bad = sel_t[sel] == 0
     # PodFitsHostPorts, inside GeneralPredicates (predicates.go:1019-1039)
     port_bad = _present(pres, pg.ports, cond)
-    stages = [
-        (cond != 0, cond),
-        (fail_res | host_bad | sel_bad | port_bad,
-         bits_res | _bit(host_bad, BIT_HOSTNAME_MISMATCH)
-         | _bit(sel_bad, BIT_NODE_SELECTOR_MISMATCH)
-         | _bit(port_bad, BIT_HOST_PORTS)),
-        # NoDiskConflict (predicates.go:266-276)
-        (_present(pres, pg.disk, cond), 1 << BIT_DISK_CONFLICT),
-        (tol_t[tol] == 0, 1 << BIT_TAINTS_NOT_TOLERATED),
-        (_maxpd_fail(pg, groups, uv, cond), 1 << BIT_MAX_VOLUME_COUNT),
-        # NoVolumeZoneConflict (predicates.go:510-533)
-        ((groups.zone_ok[pg.gid] == 0) if groups.has_vol_zone
-         else torch.zeros_like(cond, dtype=torch.bool),
-         1 << BIT_VOLUME_ZONE_CONFLICT),
-        ((mpr != 0) & (best_effort != 0), 1 << BIT_MEMORY_PRESSURE),
-        (dpr != 0, 1 << BIT_DISK_PRESSURE),
-    ]
-    if ipp is not None:
-        # MatchInterPodAffinity, last in predicatesOrdering
-        stages.append(ipp.stage(cond))
-    feasible = torch.ones_like(cond, dtype=torch.bool)
-    reason = torch.zeros_like(cond)
+
+    def stage(op, operand):
+        if op == OP_COND:
+            return cond != 0, cond
+        if op == OP_UNSCHED:
+            return ((cond >> BIT_NODE_UNSCHEDULABLE) & 1) != 0, \
+                1 << BIT_NODE_UNSCHEDULABLE
+        if op == OP_GENERAL:
+            return (fail_res | host_bad | sel_bad | port_bad,
+                    bits_res | _bit(host_bad, BIT_HOSTNAME_MISMATCH)
+                    | _bit(sel_bad, BIT_NODE_SELECTOR_MISMATCH)
+                    | _bit(port_bad, BIT_HOST_PORTS))
+        if op == OP_HOST:
+            return host_bad, 1 << BIT_HOSTNAME_MISMATCH
+        if op == OP_PORTS:
+            return port_bad, 1 << BIT_HOST_PORTS
+        if op == OP_SEL:
+            return sel_bad, 1 << BIT_NODE_SELECTOR_MISMATCH
+        if op == OP_RES:
+            return fail_res, bits_res
+        if op == OP_DISK:
+            # NoDiskConflict (predicates.go:266-276)
+            return _present(pres, pg.disk, cond), 1 << BIT_DISK_CONFLICT
+        if op == OP_TAINT:
+            return tol_t[tol] == 0, 1 << BIT_TAINTS_NOT_TOLERATED
+        if op == OP_NOEXEC:
+            # PodToleratesNodeNoExecuteTaints shares the taint reason
+            return pol.noexec_tbl[tol] == 0, 1 << BIT_TAINTS_NOT_TOLERATED
+        if op == OP_MAXPD:
+            return (_maxpd_fail(pg, groups, uv, cond, operand),
+                    1 << BIT_MAX_VOLUME_COUNT)
+        if op == OP_VOL_ZONE:
+            # NoVolumeZoneConflict (predicates.go:510-533)
+            return groups.zone_ok[pg.gid] == 0, 1 << BIT_VOLUME_ZONE_CONFLICT
+        if op == OP_MEM_PRESSURE:
+            return (mpr != 0) & (best_effort != 0), 1 << BIT_MEMORY_PRESSURE
+        if op == OP_DISK_PRESSURE:
+            return dpr != 0, 1 << BIT_DISK_PRESSURE
+        if op == OP_INTERPOD:
+            return ipp.stage(cond)
+        if op == OP_LABEL:
+            return pol.label_tbl[operand] == 0, 1 << BIT_NODE_LABEL_PRESENCE
+        if op == OP_SA:
+            return pp.sa_fail(pol, operand, cond), 1 << BIT_SERVICE_AFFINITY
+        raise ValueError(f"stage opcode {op}")
+
+    program = (pol.program if pol is not None
+               else stage_program(None, groups, ipp is not None))
+    return [stage(op, operand) for op, operand in program]
+
+
+def filter_pod(row, statics, tables, carry, alloc_scalar, num_scalars: int,
+               groups: GroupArgs = NO_GROUPS,
+               ipp: Optional[PodInterpod] = None,
+               pol: Optional[PolicyArgs] = None,
+               pp: Optional[PodPolicy] = None):
+    """The filter stages for one pod (pod_stages): (feasible mask, reason
+    word of the first failing stage) over the node axis."""
+    stages = pod_stages(row, statics, tables, carry, alloc_scalar,
+                        num_scalars, groups, ipp, pol, pp)
+    return first_failure(stages, statics[5])
+
+
+def first_failure(stages, like):
+    """(feasible, the first failing stage's bits per node)."""
+    feasible = torch.ones_like(like, dtype=torch.bool)
+    reason = torch.zeros_like(like)
     for fail, bits in reversed(stages):
         feasible = feasible & ~fail
         reason = torch.where(fail, bits, reason)
@@ -446,11 +700,48 @@ def spread_score(pres, pg: _PodGroups, groups: GroupArgs, feasible):
     return torch.where(zvalid & have_zones, blend, plain)
 
 
+def saa_score(pres, pp: PodPolicy, pol: PolicyArgs, feasible):
+    """The ServiceAntiAffinity priorities (selector_spreading.go:176-280),
+    weighted and summed: per entry, the feasible nodes' count of pods in my
+    first service, normalized per label domain; a node without the label
+    scores 0."""
+    cnt = torch.zeros_like(feasible, dtype=torch.int32)
+    for g in pp.saa:
+        cnt = cnt + pres[g]
+    fcnt = torch.where(feasible, cnt, 0)
+    total = int(fcnt.sum())
+    out = torch.zeros_like(cnt)
+    for e, w in enumerate(pol.spec.saa_weights):
+        dom = pol.saa_dom[e].long()
+        seg = torch.zeros(pol.n_saa_doms, dtype=torch.int32,
+                          device=cnt.device)
+        seg.index_add_(0, dom, fcnt)
+        at = seg[dom]
+        score = ((MAX_PRIORITY * (total - at)) // max(total, 1) if total > 0
+                 else torch.full_like(cnt, MAX_PRIORITY))
+        out = out + torch.where(dom > 0, score, 0) * w
+    return out
+
+
+def count_mode_hist(stages, cond, shifts):
+    """alwaysCheckAllPredicates' histogram: every failing stage adds its
+    reasons on every real node (pad nodes carry only the sentinel bit)."""
+    live = ((cond >> PAD_SENTINEL_BIT) & 1) == 0
+    total = torch.zeros(shifts.shape[0], dtype=torch.int32,
+                        device=cond.device)
+    for fail, bits in stages:
+        word = torch.where(fail & live, bits, 0)
+        total = total + ((word[None, :] >> shifts) & 1).sum(dim=1).to(
+            torch.int32)
+    return total
+
+
 def fastscan_chunk_plain(pods, statics, tables, carry, misc, alloc_scalar,
                          num_scalars: int, num_bits: int,
                          most_requested: bool,
                          groups: GroupArgs = NO_GROUPS,
-                         ip: Optional[IpArgs] = None, pd=None):
+                         ip: Optional[IpArgs] = None, pd=None,
+                         pol: Optional[PolicyArgs] = None):
     """The chunk as int32 tensor ops and a Python loop over pods, on the
     inputs' device. The same arithmetic as the kernel: int32 products wrap,
     integer division floors."""
@@ -462,8 +753,13 @@ def fastscan_chunk_plain(pods, statics, tables, carry, misc, alloc_scalar,
     adv = torch.zeros((k,), dtype=i32, device=dev)
     acpu, amem = statics[0], statics[1]
     _, tol_t, intol_t, aff_t, avoid_t, _ = tables
+    ps = None if pol is None else pol.spec
     (w_least, w_most, w_balanced, w_aff, w_taint, w_avoid, w_spread,
-     w_interpod) = policy_weights(most_requested)
+     w_interpod) = policy_weights(ps, most_requested)
+    count_mode = ps is not None and ps.always_check_all
+    # the bind updates presence only where a stage reads what it binds
+    pres_update = groups.gpad and (groups.has_ports or groups.has_disk
+                                   or groups.has_spread or ip is not None)
     shifts = torch.arange(num_bits, dtype=i32, device=dev)[:, None]
     pres0 = CARRY_ROWS + alloc_scalar.shape[0]
     uv0 = pres0 + groups.gpad
@@ -483,12 +779,19 @@ def fastscan_chunk_plain(pods, statics, tables, carry, misc, alloc_scalar,
         pg = _PodGroups(row, num_scalars, groups)
         ipp = pod_interpod(row, num_scalars, groups, ip, carry, alloc_scalar,
                            pd)
-        feasible, reason = filter_pod(row, statics, tables, carry,
-                                      alloc_scalar, num_scalars, groups, ipp)
+        pp = (None if pol is None
+              else PodPolicy(row, num_scalars, groups, pol, misc))
+        stages = pod_stages(row, statics, tables, carry, alloc_scalar,
+                            num_scalars, groups, ipp, pol, pp)
+        feasible, reason = first_failure(stages, statics[5])
         n_feasible = int(feasible.sum())
 
         if n_feasible == 0:
-            counts[j] = ((reason[None, :] >> shifts) & 1).sum(dim=1).to(i32)
+            if count_mode:
+                counts[j] = count_mode_hist(stages, statics[5], shifts)
+            else:
+                counts[j] = ((reason[None, :] >> shifts) & 1).sum(
+                    dim=1).to(i32)
             continue
 
         # ---- weighted score (generic_scheduler.go:631-639) ----
@@ -519,6 +822,14 @@ def fastscan_chunk_plain(pods, statics, tables, carry, misc, alloc_scalar,
         else:
             score = score + w_taint * MAX_PRIORITY
         score = score + avoid_t[avoid] * w_avoid
+        if pol is not None:
+            if pol.label_prio is not None:
+                # NodeLabel priorities, weighted on the host
+                score = score + pol.label_prio[0]
+            if pol.image_tbl is not None:
+                score = score + pol.image_tbl[pp.img_id] * ps.w_image
+            if pol.saa_dom is not None:
+                score = score + saa_score(carry[pres0:uv0], pp, pol, feasible)
         if groups.has_spread:
             score = score + w_spread * spread_score(
                 carry[pres0:uv0], pg, groups, feasible)
@@ -539,12 +850,17 @@ def fastscan_chunk_plain(pods, statics, tables, carry, misc, alloc_scalar,
         add = torch.tensor([rc, rm, rg, re_, nzc, nzm, 1] + rs, dtype=i32,
                            device=dev)
         carry[:CARRY_ROWS + num_scalars, choice] += add
-        if groups.gpad:
+        if pres_update:
             carry[pres0 + pg.gid, choice] += 1
         for v in pg.vols:
             carry[uv0 + v, choice] = 1
         if ipp is not None:
             ipp.bind(pg.gid, choice)
+        if ps is not None and ps.sa_enabled:
+            # the first matching bind locks each unlocked signature
+            for f in range(pol.fd):
+                if int(misc[1 + f]) == -1 and pp.match[f]:
+                    misc[1 + f] = choice
     misc[0] = rr
     return choices, counts, adv
 
@@ -618,17 +934,41 @@ def _check_interpod(ip: IpArgs, pd, groups: GroupArgs, device, npad: int):
                          f"[{groups.gpad * ip.k_keys}, >= {ip.d_doms}]")
 
 
+def _check_policy(pol: PolicyArgs, groups: GroupArgs, device, npad: int):
+    """The policy operands the kernel reads; returns their pointers."""
+    _check("header", pol.header, device)
+    if pol.header.numel() != POL_WORDS:
+        raise ValueError(f"header: {pol.header.numel()} values, need "
+                         f"{POL_WORDS}")
+    if pol.saa_dom is not None and not (
+            groups.gpad and 0 < pol.n_saa_doms <= MAX_ZONES):
+        raise ValueError(f"{pol.n_saa_doms} ServiceAntiAffinity domains on "
+                         f"{groups.gpad} presence rows: the kernel holds 1 "
+                         f"to {MAX_ZONES} domains over presence rows")
+    if pol.fd >= MISC_WIDTH:
+        raise ValueError(f"{pol.fd} ServiceAffinity locks: the misc row "
+                         f"holds {MISC_WIDTH - 1}")
+    ptrs = []
+    for name in ("label_tbl", "label_prio", "image_tbl", "noexec_tbl",
+                 "saa_dom", "sa_val"):
+        t = getattr(pol, name)
+        if t is not None:
+            _check(name, t, device, cols=npad)
+        ptrs.append(None if t is None else t.data_ptr())
+    return ptrs
+
+
 def fastscan_chunk(pods, statics, tables, carry, misc, alloc_scalar,
                    num_scalars: int, num_bits: int, most_requested: bool,
                    groups: GroupArgs = NO_GROUPS, ip: Optional[IpArgs] = None,
-                   pd=None):
+                   pd=None, pol: Optional[PolicyArgs] = None):
     """Schedule one chunk of pods: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors."""
     device = pods.device
     if device.type == "cpu":
         return fastscan_chunk_plain(pods, statics, tables, carry, misc,
                                     alloc_scalar, num_scalars, num_bits,
-                                    most_requested, groups, ip, pd)
+                                    most_requested, groups, ip, pd, pol)
     if device.type != "cuda":
         raise ValueError(f"fastscan_chunk runs on cuda or cpu, not {device}")
     npad = statics.shape[1]
@@ -636,7 +976,7 @@ def fastscan_chunk(pods, statics, tables, carry, misc, alloc_scalar,
     srows = alloc_scalar.shape[0]
     pres_row = CARRY_ROWS + srows
     uv_row = pres_row + groups.gpad
-    _check("pods", pods, device, cols=pod_width(num_scalars, groups))
+    _check("pods", pods, device, cols=pod_width(num_scalars, groups, pol))
     _check("statics", statics, device, rows=len(STATIC_ROWS), cols=npad)
     for name, t in zip(TABLES, tables):
         _check(name, t, device, cols=npad)
@@ -655,6 +995,11 @@ def fastscan_chunk(pods, statics, tables, carry, misc, alloc_scalar,
                    ip.exist.data_ptr(), pd.data_ptr(), pd.shape[1])
     else:
         ip_args = (0, 0, 0, 0, 0, 0, None, None, 0, None, None, 0)
+    if pol is not None:
+        pol_args = (pol.header.data_ptr(),
+                    *_check_policy(pol, groups, device, npad))
+    else:
+        pol_args = (None,) * 7
     from tpusim_torch.kernels import build
 
     lib = build.load("fastscan.cu")
@@ -662,7 +1007,7 @@ def fastscan_chunk(pods, statics, tables, carry, misc, alloc_scalar,
     choices = torch.empty((k,), dtype=i32, device=device)
     counts = torch.empty((k, num_bits), dtype=i32, device=device)
     adv = torch.empty((k,), dtype=i32, device=device)
-    scratch = torch.empty((4, npad), dtype=i32, device=device)
+    scratch = torch.empty((5, npad), dtype=i32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = lib.tpusim_fastscan_chunk(
         pods.data_ptr(), k, pods.shape[1], statics.data_ptr(),
@@ -673,12 +1018,14 @@ def fastscan_chunk(pods, statics, tables, carry, misc, alloc_scalar,
         groups.gpad, pres_row, groups.flags, zone_id, groups.n_zones,
         zone_ok, vol_tbl,
         groups.vol_tbl.shape[1] if groups.n_vols else 0, vol_type,
-        groups.n_vols, uv_row, *groups.limits, *ip_args, stream)
+        groups.n_vols, uv_row, *groups.limits,
+        *ip_args, *pol_args, stream)
     if rc != 0:
         raise RuntimeError(f"fastscan kernel launch failed: CUDA error {rc}")
     fastscan_chunk.launches += 1
     fastscan_chunk.launches_by_variant[
-        "interpod" if ip is not None else groups.variant] += 1
+        "policy" if pol is not None
+        else "interpod" if ip is not None else groups.variant] += 1
     return choices, counts, adv
 
 
@@ -686,4 +1033,4 @@ def fastscan_chunk(pods, statics, tables, carry, misc, alloc_scalar,
 # does not count)
 fastscan_chunk.launches = 0
 fastscan_chunk.launches_by_variant = {"group_free": 0, "groups": 0,
-                                      "interpod": 0}
+                                      "interpod": 0, "policy": 0}

@@ -17,10 +17,14 @@ from tpusim_torch.framework.report import Status
 
 def run_simulation(pods: List[Pod], snapshot: ClusterSnapshot,
                    provider: str = DEFAULT_PROVIDER, device="cuda",
-                   hard_pod_affinity_symmetric_weight: int = 10) -> Status:
+                   hard_pod_affinity_symmetric_weight: int = 10,
+                   policy=None) -> Status:
+    """policy: an engine.policy.Policy replacing the provider's predicates
+    and priorities (AlgorithmSource.Policy, simulator.go:383-424)."""
     backend = TorchBackend(
         provider=provider, device=device,
-        hard_pod_affinity_symmetric_weight=hard_pod_affinity_symmetric_weight)
+        hard_pod_affinity_symmetric_weight=hard_pod_affinity_symmetric_weight,
+        policy=policy)
     feed = list(reversed(pods))  # the LIFO queue pops the last element first
     placements = backend.schedule(feed, snapshot)
     status = Status(scheduled_pods=list(snapshot.pods))

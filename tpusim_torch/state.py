@@ -217,6 +217,7 @@ class SignatureTables:
 
     selector_ok: np.ndarray      # [Csel, N] bool — nodeSelector + required node affinity
     taint_ok: np.ndarray         # [Ctol, N] bool — NoSchedule/NoExecute taints tolerated
+    taint_ok_noexec: np.ndarray  # [Ctol, N] bool — NoExecute-only variant (policy pred)
     intolerable: np.ndarray      # [Ctol, N] int64 — PreferNoSchedule intolerable count
     affinity_count: np.ndarray   # [Caff, N] int64 — preferred node-affinity weight sum
     avoid_score: np.ndarray      # [Cavoid, N] int64 — NodePreferAvoidPods (0 or 10)
@@ -242,6 +243,11 @@ class PodColumns:
     avoid_id: np.ndarray         # [P] int32
     host_id: np.ndarray          # [P] int32
     group_id: np.ndarray         # [P] int32 — merged pod-group id (GroupTables)
+    # pod-image-set signature id (ImageLocalityPriority table; zeros unless a
+    # policy enables the priority — policyc fills it then)
+    img_id: np.ndarray           # [P] int32
+    # ServiceAffinity predicate column (policy-only; policyc fills it)
+    sa_self_id: np.ndarray       # [P] int32 — own-nodeSelector-pin signature
 
 
 @dataclass
@@ -295,6 +301,11 @@ class GroupTables:
     used_vols_init: np.ndarray   # [N, V] bool — placed pods' volume ids per node
     ss_rows: np.ndarray          # [Sd, G] bool — b counts toward spread sig s
     ss_sig: np.ndarray           # [G] int32 — group -> its spread sig (0 = none)
+    # ServiceAntiAffinity and ServiceAffinity (policy): first-matching-
+    # service selector signatures (the lister-order-first service; services
+    # are static during a run, so "first" is a compile-time property)
+    saa_rows: np.ndarray         # [Fd, G] bool — b counts toward first-sel f
+    saa_sig: np.ndarray          # [G] int32 — group -> its first-sel sig (0 = none)
     term_match: np.ndarray       # [Td, G] bool — term t matches a pod of group b
     zone_dom: np.ndarray         # [N] int32
     topo_dom: np.ndarray         # [K, N] int32
@@ -315,6 +326,9 @@ class GroupTables:
     pref_w: np.ndarray           # [G, Tp] float64 — preferred terms, signed weight
     pref_term: np.ndarray        # [G, Tp] int32 (into Td)
     pref_key: np.ndarray         # [G, Tp] int32
+    # (namespace, selector) per first-sel sig, index 0 = None; the
+    # ServiceAffinity first-pod locks resolve against these
+    saa_defs: list = field(default_factory=list)
 
 
 @dataclass
@@ -332,6 +346,10 @@ class CompiledCluster:
     has_disk_conflict: bool = False
     has_maxpd: bool = False
     has_vol_zone: bool = False
+    # taint_ok_noexec and the saa tables hold real rows (the no-policy
+    # compile ships dummies of the right shape)
+    has_noexec_table: bool = False
+    has_saa_table: bool = False
     maxpd_limits: tuple = DEFAULT_MAXPD_LIMITS   # (EBS, GCE PD, AzureDisk)
     n_topo_doms: int = 1         # segment count for topo_dom (incl. invalid 0)
     n_zone_doms: int = 1
@@ -616,6 +634,7 @@ def _trivial_groups(num_pods: int, n: int) -> GroupTables:
         vol_mask=z((1, 1), bool), vol_type=z((1, 3), bool),
         zone_ok=np.ones((1, n), bool), used_vols_init=z((n, 1), bool),
         ss_rows=z((1, 1), bool), ss_sig=z(1, np.int32),
+        saa_rows=z((1, 1), bool), saa_sig=z(1, np.int32),
         term_match=z((1, 1), bool),
         zone_dom=z(n, np.int32), topo_dom=z((1, n), np.int32),
         aff_valid=z((1, 1), bool), aff_err=z(1, bool), aff_empty=z((1, 1), bool),
@@ -647,9 +666,11 @@ class _GroupCompile:
 
 
 def _compile_groups(snapshot: ClusterSnapshot, pods: List[Pod],
-                    nodes: List[Node], node_index: Dict[str, int]
-                    ) -> _GroupCompile:
-    """Build GroupTables and the feature flags."""
+                    nodes: List[Node], node_index: Dict[str, int],
+                    need_saa: bool = False) -> _GroupCompile:
+    """Build GroupTables and the feature flags. need_saa: intern the
+    first-matching-service signatures a policy's ServiceAntiAffinity and
+    ServiceAffinity read."""
     n = len(nodes)
     placed = [p for p in snapshot.pods if p.spec.node_name in node_index]
     # pods with an unknown-but-set nodeName still count for "a matching pod
@@ -747,6 +768,9 @@ def _compile_groups(snapshot: ClusterSnapshot, pods: List[Pod],
             f"pod-group service scan ({len(snapshot.services)} services x "
             f"{graw} raw groups) exceeds the jax backend work budget "
             f"({max_work})")
+    saa_defs: List[Optional[tuple]] = [None]
+    saa_ids: Dict[str, int] = {}
+    saa_sig_raw = np.zeros(graw, np.int32)
     if has_services:
         for b, rep in enumerate(raw_reps):
             sels = [dict(svc.selector) for svc in snapshot.services
@@ -763,13 +787,23 @@ def _compile_groups(snapshot: ClusterSnapshot, pods: List[Pod],
                 spread_ids[key] = sid
                 spread_defs.append((rep.namespace, sels))
             ss_sig_raw[b] = sid
+            if need_saa:
+                # the first matching service's selector is sels[0]
+                # (sels keeps the lister order)
+                fkey = json.dumps([rep.namespace,
+                                   json.dumps(sels[0], sort_keys=True)])
+                fid = saa_ids.get(fkey)
+                if fid is None:
+                    fid = len(saa_defs)
+                    saa_ids[fkey] = fid
+                    saa_defs.append((rep.namespace, sels[0]))
+                saa_sig_raw[b] = fid
     sd = len(spread_defs)
-    # the reference's budget also counts ServiceAntiAffinity signatures,
-    # which only a policy adds: 0 here
-    if (td + sd) * graw > max_work:
+    fd = len(saa_defs)
+    if (td + sd + (fd - 1)) * graw > max_work:
         return fallback(
             f"pod-group matcher precompute ({td} terms + {sd} spread sigs + "
-            f"0 service-anti-affinity sigs x {graw} raw groups) "
+            f"{fd - 1} service-anti-affinity sigs x {graw} raw groups) "
             f"exceeds the jax backend work budget ({max_work})")
 
     # port-set interning; 0 = no ports
@@ -811,19 +845,26 @@ def _compile_groups(snapshot: ClusterSnapshot, pods: List[Pod],
                 all(rep.metadata.labels.get(k) == v for k, v in sel.items())
                 for sel in sels)
 
+    saa_rows_raw = np.zeros((fd, graw), dtype=bool)
+    for fid in range(1, fd):
+        ns, sel = saa_defs[fid]
+        for b, rep in enumerate(raw_reps):
+            saa_rows_raw[fid, b] = rep.namespace == ns and all(
+                rep.metadata.labels.get(k) == v for k, v in sel.items())
+
     # --- 4. merge raw groups by match profile ---
     # two raw groups are indistinguishable when every matcher treats them the
-    # same (same term/spread columns, same port set, same volume set) and
-    # they act identically (same own terms with the same topology keys and
-    # weights, same spread sig). The reference's profile also holds the
-    # ServiceAntiAffinity columns, which are the same for every raw group
-    # without a policy.
+    # same (same term, spread and first-service columns, same port set, same
+    # volume set) and they act identically (same own terms with the same
+    # topology keys and weights, same spread and first-service sigs)
     merged: Dict[tuple, int] = {}
     gid_of_raw = np.zeros(graw, np.int32)
     rep_raw_idx: List[int] = []
     for b in range(graw):
         profile = (term_match_raw[:, b].tobytes(), ss_rows_raw[:, b].tobytes(),
-                   int(port_sig_raw[b]), int(ss_sig_raw[b]), int(vsig_raw[b]),
+                   saa_rows_raw[:, b].tobytes(),
+                   int(port_sig_raw[b]), int(ss_sig_raw[b]),
+                   int(saa_sig_raw[b]), int(vsig_raw[b]),
                    tuple(aff_of[b]), tuple(anti_of[b]), tuple(pref_of[b]))
         gid = merged.get(profile)
         if gid is None:
@@ -845,6 +886,7 @@ def _compile_groups(snapshot: ClusterSnapshot, pods: List[Pod],
     sel_cols = np.array(rep_raw_idx, dtype=np.int64)
     term_match = term_match_raw[:, sel_cols] if graw else term_match_raw
     ss_rows = ss_rows_raw[:, sel_cols] if graw else ss_rows_raw
+    saa_rows = saa_rows_raw[:, sel_cols] if graw else saa_rows_raw
     presence = np.zeros((g, n), dtype=np.int32)
     used_vols_init = np.zeros((n, vsig_mask.shape[1]), dtype=bool)
     for raw_id, p in zip(placed_raw, placed):
@@ -939,6 +981,8 @@ def _compile_groups(snapshot: ClusterSnapshot, pods: List[Pod],
         vol_mask=vsig_mask[vsig_raw[sel_cols]], vol_type=vol_type,
         zone_ok=zone_rows[vsig_raw[sel_cols]], used_vols_init=used_vols_init,
         ss_rows=ss_rows, ss_sig=ss_sig_raw[sel_cols].astype(np.int32),
+        saa_rows=saa_rows, saa_sig=saa_sig_raw[sel_cols].astype(np.int32),
+        saa_defs=list(saa_defs),
         term_match=term_match, zone_dom=zone_dom, topo_dom=topo_dom, **ip)
     return _GroupCompile(
         tables=tables, has_ports=has_ports, has_services=has_services,
@@ -984,6 +1028,12 @@ def signature_row_fns(nodes: List[Node], node_infos: List[NodeInfo]):
             node_infos[i].taints, rep.spec.tolerations,
             lambda t: t.effect in ("NoSchedule", "NoExecute")) is None
 
+    def taint_ok_noexec_fn(rep: Pod, i: int) -> bool:
+        # PodToleratesNodeNoExecuteTaints (policy-registered): NoExecute only
+        return find_matching_untolerated_taint(
+            node_infos[i].taints, rep.spec.tolerations,
+            lambda t: t.effect == "NoExecute") is None
+
     def intolerable_fn(rep: Pod, i: int) -> int:
         tols = [t for t in rep.spec.tolerations
                 if not t.effect or t.effect == TAINT_PREFER_NO_SCHEDULE]
@@ -1003,6 +1053,7 @@ def signature_row_fns(nodes: List[Node], node_infos: List[NodeInfo]):
     return {
         "selector_ok": (selector_fn, bool),
         "taint_ok": (taint_ok_fn, bool),
+        "taint_ok_noexec": (taint_ok_noexec_fn, bool),
         "intolerable": (intolerable_fn, np.int64),
         "affinity_count": (affinity_fn, np.int64),
         "avoid_score": (avoid_fn, np.int64),
@@ -1028,9 +1079,15 @@ def fill_pod_request_row(cols: PodColumns, j: int, pod: Pod, req,
     cols.best_effort[j] = is_pod_best_effort(pod)
 
 
-def compile_cluster(snapshot: ClusterSnapshot, pods: List[Pod]
+def compile_cluster(snapshot: ClusterSnapshot, pods: List[Pod],
+                    need_noexec: bool = False, need_saa: bool = False
                     ) -> Tuple[CompiledCluster, PodColumns]:
-    """Build columnar state for `pods` scheduled against `snapshot`."""
+    """Build columnar state for `pods` scheduled against `snapshot`.
+
+    need_noexec: compute the PodToleratesNodeNoExecuteTaints table (only a
+    policy enables that predicate; otherwise an all-pass dummy of the right
+    shape). need_saa: intern the first-matching-service signatures of a
+    policy's ServiceAntiAffinity and ServiceAffinity."""
     nodes = snapshot.nodes
     n = len(nodes)
 
@@ -1090,7 +1147,9 @@ def compile_cluster(snapshot: ClusterSnapshot, pods: List[Pod]
         zero_request=np.zeros(p, dtype=bool), best_effort=np.zeros(p, dtype=bool),
         sel_id=np.zeros(p, dtype=np.int32), tol_id=np.zeros(p, dtype=np.int32),
         aff_id=np.zeros(p, dtype=np.int32), avoid_id=np.zeros(p, dtype=np.int32),
-        host_id=np.zeros(p, dtype=np.int32), group_id=np.zeros(p, dtype=np.int32))
+        host_id=np.zeros(p, dtype=np.int32), group_id=np.zeros(p, dtype=np.int32),
+        img_id=np.zeros(p, dtype=np.int32),
+        sa_self_id=np.zeros(p, dtype=np.int32))
 
     sel_i, tol_i, aff_i, avoid_i, host_i = (Interner() for _ in range(5))
     for j, pod in enumerate(pods):
@@ -1102,7 +1161,8 @@ def compile_cluster(snapshot: ClusterSnapshot, pods: List[Pod]
         cols.host_id[j] = host_i.intern(_host_signature(pod), pod)
 
     node_index = {nd.name: i for i, nd in enumerate(nodes)}
-    grp = _compile_groups(snapshot, pods, nodes, node_index)
+    grp = _compile_groups(snapshot, pods, nodes, node_index,
+                          need_saa=need_saa)
     cols.group_id = grp.tables.group_of_pod
 
     # --- static [signature, node] tables ---
@@ -1119,6 +1179,8 @@ def compile_cluster(snapshot: ClusterSnapshot, pods: List[Pod]
     tables = SignatureTables(
         selector_ok=table(sel_i, "selector_ok"),
         taint_ok=table(tol_i, "taint_ok"),
+        taint_ok_noexec=(table(tol_i, "taint_ok_noexec") if need_noexec else
+                         np.ones((max(len(tol_i), 1), n), dtype=bool)),
         intolerable=table(tol_i, "intolerable"),
         affinity_count=table(aff_i, "affinity_count"),
         avoid_score=table(avoid_i, "avoid_score"),
@@ -1154,7 +1216,8 @@ def compile_cluster(snapshot: ClusterSnapshot, pods: List[Pod]
         has_ports=grp.has_ports, has_services=grp.has_services,
         has_interpod=grp.has_interpod,
         has_disk_conflict=grp.has_disk_conflict, has_maxpd=grp.has_maxpd,
-        has_vol_zone=grp.has_vol_zone, maxpd_limits=grp.maxpd_limits,
+        has_vol_zone=grp.has_vol_zone, has_noexec_table=need_noexec,
+        has_saa_table=need_saa, maxpd_limits=grp.maxpd_limits,
         n_topo_doms=grp.n_topo_doms, n_zone_doms=grp.n_zone_doms,
         unsupported=grp.unsupported)
     return compiled, cols

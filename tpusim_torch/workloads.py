@@ -1,8 +1,9 @@
 """Benchmark-shaped workloads, seed for seed the ones the reference benchmark
 builds (the placement goldens depend on it), the groups workload (config 3
 with Services, host ports and pod volumes), the inter-pod workload (config 3
-with pod (anti)affinity on zone and rack keys), plus random workloads for
-kernel checks.
+with pod (anti)affinity on zone and rack keys), the policy workload (the
+groups workload under the upstream 1.2 scheduler Policy), plus random
+workloads and policies for kernel checks.
 
 `api` is the module whose make_node / make_pod / ClusterSnapshot build the
 objects: the port's own snapshot module by default; a caller may pass another
@@ -521,3 +522,272 @@ def random_interpod_workload(seed: int, num_pods: int, num_nodes: int,
         else:
             out.append(decorate(pod))
     return snapshot, out
+
+
+# Two of the versioned scheduler Policies of upstream kube-scheduler's
+# compatibility test (test/integration/scheduler/compatibility_test.go,
+# TestCompatibility_v1_Scheduler, the "1.2" and "1.9" cases), as
+# engine.policy.decode_policy takes them.
+COMPAT_POLICIES = {
+    "1.2": {
+        "kind": "Policy", "apiVersion": "v1",
+        "predicates": [
+            {"name": "MatchNodeSelector"}, {"name": "PodFitsResources"},
+            {"name": "PodFitsHostPorts"}, {"name": "HostName"},
+            {"name": "NoDiskConflict"}, {"name": "NoVolumeZoneConflict"},
+            {"name": "MaxEBSVolumeCount"}, {"name": "MaxGCEPDVolumeCount"},
+            {"name": "MaxAzureDiskVolumeCount"},
+            {"name": "TestServiceAffinity", "argument": {
+                "serviceAffinity": {"labels": ["region"]}}},
+            {"name": "TestLabelsPresence", "argument": {
+                "labelsPresence": {"labels": ["foo"], "presence": True}}}],
+        "priorities": [
+            {"name": "EqualPriority", "weight": 2},
+            {"name": "NodeAffinityPriority", "weight": 2},
+            {"name": "ImageLocalityPriority", "weight": 2},
+            {"name": "LeastRequestedPriority", "weight": 2},
+            {"name": "BalancedResourceAllocation", "weight": 2},
+            {"name": "SelectorSpreadPriority", "weight": 2},
+            {"name": "TestServiceAntiAffinity", "weight": 3, "argument": {
+                "serviceAntiAffinity": {"label": "zone"}}},
+            {"name": "TestLabelPreference", "weight": 4, "argument": {
+                "labelPreference": {"label": "bar", "presence": True}}}]},
+    "1.9": {
+        "kind": "Policy", "apiVersion": "v1",
+        "predicates": [
+            {"name": "MatchNodeSelector"}, {"name": "PodFitsResources"},
+            {"name": "PodFitsHostPorts"}, {"name": "HostName"},
+            {"name": "NoDiskConflict"}, {"name": "NoVolumeZoneConflict"},
+            {"name": "PodToleratesNodeTaints"},
+            {"name": "CheckNodeMemoryPressure"},
+            {"name": "CheckNodeDiskPressure"},
+            {"name": "CheckNodeCondition"},
+            {"name": "MaxEBSVolumeCount"}, {"name": "MaxGCEPDVolumeCount"},
+            {"name": "MaxAzureDiskVolumeCount"},
+            {"name": "MatchInterPodAffinity"},
+            {"name": "GeneralPredicates"}, {"name": "CheckVolumeBinding"},
+            {"name": "TestServiceAffinity", "argument": {
+                "serviceAffinity": {"labels": ["region"]}}},
+            {"name": "TestLabelsPresence", "argument": {
+                "labelsPresence": {"labels": ["foo"], "presence": True}}}],
+        "priorities": [
+            {"name": "EqualPriority", "weight": 2},
+            {"name": "ImageLocalityPriority", "weight": 2},
+            {"name": "LeastRequestedPriority", "weight": 2},
+            {"name": "BalancedResourceAllocation", "weight": 2},
+            {"name": "SelectorSpreadPriority", "weight": 2},
+            {"name": "NodePreferAvoidPodsPriority", "weight": 2},
+            {"name": "NodeAffinityPriority", "weight": 2},
+            {"name": "TaintTolerationPriority", "weight": 2},
+            {"name": "InterPodAffinityPriority", "weight": 2},
+            {"name": "MostRequestedPriority", "weight": 2}]},
+}
+
+MB = 1024 * 1024
+# container images, sizes spread over ImageLocalityPriority's 23 MB-1 GB
+# scoring range (image_locality.go)
+IMAGES = tuple((f"registry.example.com/app-{k}:v1", size * MB) for k, size in
+               enumerate((25, 60, 120, 200, 350, 500, 750, 950)))
+
+
+def _node_with(api, node, labels: dict, images=(), taints=()):
+    """`node` with `labels` added, `images` (names) listed in its status
+    and `taints` appended."""
+    obj = node.to_obj()
+    obj["metadata"].setdefault("labels", {}).update(labels)
+    if images:
+        sizes = dict(IMAGES)
+        obj.setdefault("status", {})["images"] = [
+            {"names": [name], "sizeBytes": sizes[name]} for name in images]
+    if taints:
+        obj.setdefault("spec", {}).setdefault("taints", []).extend(taints)
+    return api.Node.from_obj(obj)
+
+
+def _pod_with(api, pod, image: str = "", selector=None, tolerations=(),
+              labels=None, node_name: str = ""):
+    """`pod` running `image`, with `selector` added to its nodeSelector,
+    `tolerations` to its tolerations and `labels` to its labels, bound to
+    `node_name` if given."""
+    obj = pod.to_obj()
+    if labels:
+        obj["metadata"].setdefault("labels", {}).update(labels)
+    spec = obj["spec"]
+    if node_name:
+        spec["nodeName"] = node_name
+    if image:
+        spec["containers"][0]["image"] = image
+    if selector:
+        spec.setdefault("nodeSelector", {}).update(selector)
+    if tolerations:
+        spec.setdefault("tolerations", []).extend(tolerations)
+    return api.Pod.from_obj(obj)
+
+
+def policy_workload(num_pods: int, num_nodes: int, seed: int = 12345,
+                    api=None):
+    """The groups workload's cluster and pods for COMPAT_POLICIES["1.2"]:
+    every node also carries `zone` (its failure-domain zone), `region` (two
+    regions over the four zones), `foo` on two nodes in three and `bar` on
+    every other node; half the nodes list two or three of the 8 IMAGES.
+    Every pod runs one of the IMAGES, and about 10% pin a region by
+    nodeSelector. Under 1.2 that is ServiceAffinity on region, label
+    presence on foo, ServiceAntiAffinity on zone, LabelPreference on bar and
+    ImageLocality beside the groups workload's Services, host ports and
+    volumes. The running pods are spread over distinct nodes: where they
+    stack, the plan's bound on BalancedResourceAllocation's products
+    weighted 2 (10 * 2 * cpu bound * memory bound < 2^31, with the nonzero
+    requests already on a node as the per-pod bound) refuses 1.2 at 5,000
+    nodes."""
+    api = _api(api)
+    snapshot, pods = groups_workload(num_pods, num_nodes, seed=seed, api=api)
+    rng = np.random.RandomState(seed + 4000)
+    nodes = []
+    for i, node in enumerate(snapshot.nodes):
+        labels = {"zone": f"z{i % 4}", "region": f"r{(i % 4) // 2}"}
+        if i % 3 != 2:
+            labels["foo"] = "x"
+        if i % 2 == 0:
+            labels["bar"] = "y"
+        images = ()
+        if i % 2 == 1:
+            picks = rng.choice(len(IMAGES), size=2 + rng.randint(2),
+                               replace=False)
+            images = [IMAGES[k][0] for k in sorted(picks)]
+        nodes.append(_node_with(api, node, labels, images))
+    snapshot.nodes = nodes
+    stride = max(num_nodes // max(len(snapshot.pods), 1), 1)
+    snapshot.pods = [
+        _pod_with(api, pod, node_name=f"node-{r * stride % num_nodes}")
+        for r, pod in enumerate(snapshot.pods)]
+    image = rng.randint(len(IMAGES), size=len(pods))
+    pin = rng.rand(len(pods)) < 0.1
+    region = rng.randint(2, size=len(pods))
+    out = [_pod_with(api, pod, IMAGES[image[j]][0],
+                     {"region": f"r{region[j]}"} if pin[j] else None)
+           for j, pod in enumerate(pods)]
+    return snapshot, out
+
+
+POLICY_PREDICATES = (
+    "CheckNodeUnschedulable", "HostName", "PodFitsHostPorts",
+    "MatchNodeSelector", "PodFitsResources", "NoDiskConflict",
+    "PodToleratesNodeTaints", "NoVolumeZoneConflict",
+    "CheckNodeMemoryPressure", "CheckNodeDiskPressure", "CheckVolumeBinding")
+POLICY_PRIORITIES = (
+    "LeastRequestedPriority", "MostRequestedPriority",
+    "BalancedResourceAllocation", "NodeAffinityPriority",
+    "TaintTolerationPriority", "NodePreferAvoidPodsPriority",
+    "SelectorSpreadPriority", "ImageLocalityPriority", "EqualPriority")
+MAXPD_PREDICATES = ("MaxEBSVolumeCount", "MaxGCEPDVolumeCount",
+                    "MaxAzureDiskVolumeCount")
+SA_LABELS = (["region"], ["zone"], ["region", "zone"])
+NO_EXECUTE = {"key": "evict", "value": "x", "effect": "NoExecute"}
+
+
+def random_policy(seed: int, count_mode: bool = False, general: bool = True,
+                  ports_alias: bool = False, noexec: bool = False,
+                  sa_entries: int = 1, maxpd_off=()) -> dict:
+    """A random scheduler Policy as decode_policy takes it: each standard
+    predicate of POLICY_PREDICATES with probability 0.7, GeneralPredicates
+    when `general`, the MaxPD types not in `maxpd_off`, the NoExecute taint
+    predicate when `noexec`, the 1.0 PodFitsPorts alias when `ports_alias`;
+    one or two label-presence predicates (under an ordering name or one that
+    sorts to the tail), `sa_entries` ServiceAffinity predicates; each
+    priority of POLICY_PRIORITIES with probability 0.7 and a weight of 1-5,
+    one or two ServiceAntiAffinity priorities and a label preference;
+    alwaysCheckAllPredicates when `count_mode`."""
+    rng = np.random.RandomState(seed + 3000)
+    preds = [{"name": n} for n in POLICY_PREDICATES if rng.rand() < 0.7]
+    if general:
+        preds.append({"name": "GeneralPredicates"})
+    preds += [{"name": n} for t, n in enumerate(MAXPD_PREDICATES)
+              if t not in maxpd_off]
+    if noexec:
+        preds.append({"name": "PodToleratesNodeNoExecuteTaints"})
+    if ports_alias:
+        preds.append({"name": "PodFitsPorts"})
+    label_names = ("CheckNodeLabelPresence", "HostName", "LabelsFoo")
+    preds.append({"name": label_names[rng.randint(3)], "argument": {
+        "labelsPresence": {"labels": ["foo"], "presence": True}}})
+    if rng.rand() < 0.5:
+        preds.append({"name": "ZzLabelsBar", "argument": {"labelsPresence": {
+            "labels": ["bar"], "presence": False}}})
+    sa_names = ("CheckServiceAffinity", "AffinityA", "ZzAffinity")
+    for e in range(sa_entries):
+        preds.append({"name": sa_names[(e + rng.randint(3)) % 3], "argument": {
+            "serviceAffinity": {"labels": SA_LABELS[(e + seed) % 3]}}})
+    prios = [{"name": n, "weight": int(rng.randint(1, 6))}
+             for n in POLICY_PRIORITIES if rng.rand() < 0.7]
+    for e, label in enumerate(("zone", "region")[:1 + rng.randint(2)]):
+        prios.append({"name": f"Spread{e}", "weight": int(rng.randint(1, 4)),
+                      "argument": {"serviceAntiAffinity": {"label": label}}})
+    prios.append({"name": "PreferBar", "weight": int(rng.randint(1, 4)),
+                  "argument": {"labelPreference": {"label": "bar",
+                                                   "presence": True}}})
+    return {"kind": "Policy", "apiVersion": "v1", "predicates": preds,
+            "priorities": prios, "alwaysCheckAllPredicates": count_mode,
+            "hardPodAffinitySymmetricWeight": int(rng.choice([0, 1, 50]))}
+
+
+def _policy_labels(api, snapshot, pods, rng, fresh: bool = False):
+    """Policy labels, images and NoExecute taints on a random workload's
+    nodes, images, region pins and NoExecute tolerations on its pods:
+    `zone` z0-z2 and `region` r0-r1 (each missing on some nodes), `foo` on
+    two nodes in three, `bar` on every other node, two of the IMAGES on
+    every other node, a NoExecute taint on every seventh node, an image on
+    every pod, a region pin on one pod in ten, the toleration on one in
+    three; with `fresh`, a Service selecting the label fresh=1 that the new
+    pods labelled just app=a2 carry and no running pod does (its
+    ServiceAffinity lock is taken at a bind)."""
+    nodes = []
+    for i, node in enumerate(snapshot.nodes):
+        labels = {}
+        if i % 6 != 5:
+            labels["zone"] = f"z{i % 3}"
+        if i % 7 != 3:
+            labels["region"] = f"r{i % 2}"
+        if i % 3 != 2:
+            labels["foo"] = "x"
+        if i % 2 == 0:
+            labels["bar"] = "y"
+        images = ([IMAGES[k][0] for k in sorted(
+            rng.choice(len(IMAGES), size=2, replace=False))]
+            if i % 2 else ())
+        nodes.append(_node_with(api, node, labels, images,
+                                [NO_EXECUTE] if i % 7 == 0 else ()))
+    snapshot.nodes = nodes
+    if fresh:
+        snapshot.services = list(snapshot.services) + [api.Service.from_obj(
+            {"metadata": {"name": "svc-fresh"},
+             "spec": {"selector": {"fresh": "1"}}})]
+    tol = {"key": "evict", "operator": "Exists", "effect": "NoExecute"}
+    out = []
+    for pod in pods:
+        r = rng.rand()
+        out.append(_pod_with(
+            api, pod, IMAGES[rng.randint(len(IMAGES))][0],
+            {"region": f"r{rng.randint(2)}"} if r < 0.1 else None,
+            [tol] if r > 0.66 else (),
+            {"fresh": "1"} if fresh and pod.metadata.labels == {"app": "a2"}
+            else None))
+    return snapshot, out
+
+
+def random_policy_workload(seed: int, num_pods: int, num_nodes: int,
+                           interpod: bool = False, api=None):
+    """A small random workload for policy plans: random_group_workload with
+    every pod-group feature and a bind-locked Service (or
+    random_interpod_workload with Services and host ports when `interpod`)
+    plus _policy_labels."""
+    api = _api(api)
+    if interpod:
+        snapshot, pods = random_interpod_workload(
+            seed, num_pods, num_nodes, services=True, ports=True, api=api)
+    else:
+        snapshot, pods = random_group_workload(
+            seed, num_pods, num_nodes, ports=True, services=True, disk=True,
+            vol_zone=True, maxpd=True, api=api)
+    return _policy_labels(api, snapshot, pods,
+                          np.random.RandomState(seed + 5000),
+                          fresh=not interpod)
