@@ -55,8 +55,20 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
      card: the placement golden, the scheduled count, launches of the policy
      variant only, cold and warm wall, the kernel time over the whole scan;
      then its first chunk kernel against plain, bit-equal, with the kernel's
-     time beside its bound and its plain version's time.
-Then a JSON line of the kernels and, last, the device line.
+     time beside its bound and its plain version's time;
+ 13. the kernel's thread-block cluster (one cluster of CTAs splitting the
+     node axis) at forced sizes of 2, 4 and 16 CTAs against the plain
+     version on workloads.cluster_hazard_cases, bit-equal, for all five
+     instantiations: ties across slabs, picks in the last CTA, slabs of pad
+     nodes only, CTAs without a feasible node beside CTAs with some, the
+     histogram in count mode too, binds read by another CTA's next
+     inter-pod phase or ServiceAffinity lock, and a plan too narrow for 16
+     CTAs refused; one CTA on 10,000 nodes, whose scratch lives in device
+     memory (a group-free and an inter-pod plan); then the first-chunk time
+     of config 3 and of the policy cell at 1, 2, 4, 8 and 16 CTAs.
+Phases 4-12 print the cluster geometry each workload launched with beside
+its times (every full-size cell must launch more than one CTA). Then a JSON
+line of the kernels and, last, the device line.
 """
 
 import hashlib
@@ -203,14 +215,23 @@ class ChunkInputs:
             (self.pd,) if self.pd is not None else ())
 
 
-def run_chunk(fn, plan, ci, pods=None):
+def run_chunk(fn, plan, ci, pods=None, cluster=None):
+    """One chunk through `fn`; `cluster` forces the kernel's CTAs."""
     from tpusim_torch.state import NUM_FIXED_BITS
 
     dp = ci.dp
+    kw = {} if cluster is None else {"cluster": cluster}
     return fn(ci.pods if pods is None else pods, dp.statics, dp.tables,
               ci.carry, ci.misc, dp.alloc_scalar, plan.num_scalars,
               NUM_FIXED_BITS + plan.num_scalars, plan.most_requested,
-              dp.groups, dp.ip, ci.pd, dp.pol)
+              dp.groups, dp.ip, ci.pd, dp.pol, **kw)
+
+
+def geometry_text(g):
+    where = "shared memory" if g.scratch_in_smem else "device memory"
+    return (f"cluster of {g.cluster} CTAs x {g.threads} threads, "
+            f"{g.nodes_per_thread} node(s) a thread, scratch in {where} "
+            f"({g.smem} B dynamic shared memory)")
 
 
 def kernel_and_plain(plan, cuda):
@@ -342,6 +363,7 @@ def drive_main_path(name, card, cuda):
     cold_s = time.perf_counter() - t0
     launches = fastscan_chunk.launches_by_variant[variant]
     all_launches = fastscan_chunk.launches
+    geom = fastscan_chunk.last_geometry
     got = choices_golden(backend.last_choices)
     scheduled = sum(1 for p in placements if p.scheduled)
     t0 = time.perf_counter()
@@ -355,7 +377,10 @@ def drive_main_path(name, card, cuda):
           f"(want {golden}), {scheduled} scheduled (want {want_scheduled}), "
           f"{launches} kernel launches ({variant} variant); workload build "
           f"{build_s:.2f}s, cold {cold_s:.3f}s, warm {warm_s:.3f}s = "
-          f"{n / warm_s:.0f} pods/s end to end on {card}")
+          f"{n / warm_s:.0f} pods/s end to end on {card}; "
+          f"{geometry_text(geom)}")
+    if geom.cluster <= 1:
+        raise AssertionError(f"{name}: the kernel launched a single CTA")
     if got != golden or scheduled != want_scheduled:
         raise AssertionError(f"{name}: placement golden {got}/{scheduled} != "
                              f"{golden}/{want_scheduled}")
@@ -395,22 +420,23 @@ def time_full_scan(plan, cuda):
     return start.elapsed_time(end)
 
 
-def chunk_run(fn, plan, cuda, repeats):
-    """Mean device time of `fn` on the main path's first chunk, each call
-    from a fresh copy of the initial state, and the last call's outputs,
-    final carry, rr and presence_dom as int64 arrays."""
+def chunk_run(fn, plan, cuda, repeats, cluster=None, k=None):
+    """Mean device time of `fn` on the main path's first chunk (of `k`
+    pods, default a full chunk), each call from a fresh copy of the initial
+    state, and the last call's outputs, final carry, rr and presence_dom as
+    int64 arrays."""
     import torch
 
     from tpusim_torch.fastscan import CHUNK
 
     total = 0.0
     for _ in range(repeats):
-        ci = ChunkInputs(plan, CHUNK, cuda)
+        ci = ChunkInputs(plan, k or CHUNK, cuda)
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        out = run_chunk(fn, plan, ci)
+        out = run_chunk(fn, plan, ci, cluster=cluster)
         end.record()
         torch.cuda.synchronize()
         total += start.elapsed_time(end)
@@ -597,6 +623,7 @@ def time_first_chunk(name, plan, card, cuda, phase):
     from tpusim_torch.kernels.fastscan import fastscan_chunk, fastscan_chunk_plain
 
     ms, got = chunk_run(fastscan_chunk, plan, cuda, repeats=20)
+    geom = fastscan_chunk.last_geometry
     plain_ms, want = chunk_run(fastscan_chunk_plain, plan, cuda, repeats=2)
     diff = max(int(np.abs(a - b).max(initial=0)) for a, b in zip(got, want))
     feasible, reach, spread_reads = feasible_pairs(plan, cuda)
@@ -607,7 +634,7 @@ def time_first_chunk(name, plan, card, cuda, phase):
           f"kernel vs plain max |diff| {diff} ({placed} placed, "
           f"{sum(feasible)} feasible pairs); kernel {ms:.4f} ms, plain "
           f"{plain_ms:.1f} ms, bound {bound_ms:.5f} ms ({bound_by}) "
-          f"on {card}")
+          f"on {card}; {geometry_text(geom)}")
     if diff != 0:
         raise AssertionError(f"{name}: kernel disagrees with its plain "
                              f"version on the first chunk: max |diff| "
@@ -743,6 +770,89 @@ def compare_policy_kernel_with_plain(cuda):
     return worst
 
 
+def compare_cluster_hazards(cuda):
+    """Phase 13: the kernel at forced cluster sizes against its plain
+    version on workloads.cluster_hazard_cases; returns the largest absolute
+    difference per kernels-line variant (must be 0)."""
+    from tpusim_torch import workloads
+    from tpusim_torch.kernels.fastscan import fastscan_chunk, fastscan_chunk_plain
+
+    worst = {}
+    for name, (build, policy, most_requested, hard_weight, variant) in \
+            workloads.cluster_hazard_cases().items():
+        snapshot, pods = build()
+        plan = make_plan(snapshot, pods, most_requested, policy, hard_weight)
+        npad = plan.alloc_cpu.shape[1]
+        k = min(plan.num_pods, 512)
+        _, want = chunk_run(fastscan_chunk_plain, plan, cuda, 1, k=k)
+        placed = int((want[0] >= 0).sum())
+        count_mode = plan.policy is not None and plan.policy.always_check_all
+        key = "policy" if variant.startswith("policy") else variant
+        for cluster in (2, 4, 16):
+            if cluster > npad // 32:
+                try:
+                    chunk_run(fastscan_chunk, plan, cuda, 1, cluster, k)
+                except ValueError as e:
+                    print(f"phase 13: {name} ({variant}, Npad {npad}) "
+                          f"{cluster} CTAs refused: {e}")
+                    continue
+                raise AssertionError(f"{name}: {cluster} CTAs on Npad {npad} "
+                                     "were not refused")
+            _, got = chunk_run(fastscan_chunk, plan, cuda, 1, cluster, k)
+            g = fastscan_chunk.last_geometry
+            diff = max(int(np.abs(a - b).max(initial=0))
+                       for a, b in zip(got, want))
+            last = max(lo for lo, _ in g.slabs if lo < plan.num_nodes)
+            in_last = int((got[0] >= last).sum())
+            pad_only = sum(lo >= plan.num_nodes for lo, _ in g.slabs)
+            print(f"phase 13: {name} ({variant}, {plan.num_nodes} nodes, "
+                  f"Npad {npad}) {g.cluster} CTAs of {g.threads} threads: "
+                  f"{placed}/{k} placed ({k - placed} through the histogram"
+                  f"{', count mode' if count_mode else ''}), {in_last} in "
+                  f"the last CTA with real nodes, {pad_only} CTA(s) of pad "
+                  f"nodes only; max |diff| {diff}")
+            if g.cluster != cluster or diff != 0 or in_last == 0 \
+                    or placed == 0:
+                raise AssertionError(f"{name} at {cluster} CTAs: geometry "
+                                     f"{g.cluster}, max |diff| {diff}, "
+                                     f"{in_last} picks in the last CTA")
+            worst[key] = max(worst.get(key, 0), diff)
+    # one CTA on a slab too wide for its scratch in shared memory
+    for key, (workload, args) in (
+            ("group_free", ("random_workload", (11, 64, 10_000))),
+            ("interpod", ("interpod_workload", (64, 10_000)))):
+        snapshot, pods = getattr(workloads, workload)(*args)
+        plan = make_plan(snapshot, pods, False)
+        _, want = chunk_run(fastscan_chunk_plain, plan, cuda, 1, k=64)
+        _, got = chunk_run(fastscan_chunk, plan, cuda, 1, 1, 64)
+        g = fastscan_chunk.last_geometry
+        diff = max(int(np.abs(a - b).max(initial=0)) for a, b in zip(got, want))
+        print(f"phase 13: {workload}{args} ({key}, Npad "
+              f"{plan.alloc_cpu.shape[1]}) at 1 CTA: {geometry_text(g)}; "
+              f"{int((got[0] >= 0).sum())}/64 placed, max |diff| {diff}")
+        if g.scratch_in_smem or diff != 0:
+            raise AssertionError(f"{workload}{args} at 1 CTA: max |diff| "
+                                 f"{diff}, scratch in shared memory "
+                                 f"{g.scratch_in_smem}")
+        worst[key] = max(worst[key], diff)
+    return worst
+
+
+def cluster_sweep(name, plan, card, cuda):
+    """Phase 13: the kernel's time on the main path's first chunk at every
+    cluster size."""
+    from tpusim_torch.kernels.fastscan import CLUSTER_SIZES, fastscan_chunk
+
+    times = {}
+    for cluster in sorted(CLUSTER_SIZES):
+        times[cluster], _ = chunk_run(fastscan_chunk, plan, cuda, 5, cluster)
+        g = fastscan_chunk.last_geometry
+        print(f"phase 13: {name} first chunk at {cluster} CTA(s) "
+              f"({g.threads} threads, {g.nodes_per_thread} node(s) a "
+              f"thread): kernel {times[cluster]:.4f} ms on {card}")
+    return times
+
+
 def main():
     import torch
 
@@ -795,6 +905,16 @@ def main():
     diff, *timed["policy"] = time_first_chunk("policy", plan_pol, card, cuda,
                                               12)
     pol_err = max(pol_err, diff)
+
+    # phase 13: the cluster at forced sizes on the hazard plans, folded into
+    # each variant's error, then the cluster-size sweep
+    hazard = compare_cluster_hazards(cuda)
+    max_err = max(max_err, hazard["group_free"])
+    group_err = max(group_err, hazard["groups"])
+    ip_err = max(ip_err, hazard["interpod"])
+    pol_err = max(pol_err, hazard["policy"])
+    for name, plan in (("config3", plan3), ("policy", plan_pol)):
+        cluster_sweep(name, plan, card, cuda)
 
     kernels = []
     for name, variant, replaces, n_launch, err in (

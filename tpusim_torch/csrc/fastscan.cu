@@ -46,25 +46,42 @@
 // one node is feasible); the reason histogram when no node is feasible; the
 // bind into the carry rows; rr += (feasible > 1).
 //
-// Design: one CTA of up to 1024 threads runs the whole chunk. Thread t owns
-// a contiguous slice of the node axis, so the k-th tie in node order is
-// found with a block exclusive scan of per-thread tie counts and a walk by
-// the one thread whose slice holds it, and that thread also does the bind:
-// every carry cell, presence and used-volume cells included, is read and
-// written by its owner only, so binds need no atomics. Per pod the block
-// meets at about eight barriers (the feasible count / normalizer maxima
-// reduction, the score max, the tie scan, the end of the pod), plus two for
-// the histogram when nothing fits. Signature rows, the vol-zone row and the
-// MaxPD volume row are read straight from their tables by the pod's ids.
+// Design: one thread-block cluster of up to 16 CTAs runs the whole chunk,
+// one CTA an SM (launched with cudaLaunchKernelEx and a cluster dimension;
+// 16 is a non-portable size). CTA r owns a contiguous slab of the node axis
+// and its threads own contiguous runs of the slab (one node a thread at
+// Npad 5120), so node order is (rank, thread) order. Every carry cell,
+// presence and used-volume cells included, is read and written only by the
+// thread that owns its node, so node state needs no cross-SM coherence and
+// binds need no atomics; the per-node scratch (reason words, scores, spread,
+// inter-pod and ServiceAntiAffinity counts) lives in the CTA's shared memory.
+// Per pod the CTAs meet at two cluster barriers, and every exchange is a
+// push: before a barrier each CTA reduces its values in shared memory and
+// writes them into its rank's slot in every CTA (distributed shared memory),
+// so after it every read is local. Before the first, the feasible count,
+// normalizer maxima, zone sums and ServiceAntiAffinity sums; each CTA then
+// reduces the slots in rank order, so all hold the same totals. Before the
+// second, each CTA's (score max, count at max); every warp then finds the
+// max, the ties and the ties in the CTAs and warps before it, and the one
+// thread whose run holds the (rr % ties)-th tie walks to it and binds. When
+// nothing fits, the CTAs push their histograms to rank 0 instead. A slot is
+// written again only behind the next barrier, after every read of it. A
+// third barrier follows only a bind that another CTA reads: presence_dom or
+// a new ServiceAffinity lock, of which every CTA keeps a copy in shared
+// memory that the binding thread updates in every CTA (L1 is not coherent
+// across SMs, so no CTA reads a global cell another writes). rr is a
+// register every thread updates alike. Signature rows, the vol-zone row and
+// the MaxPD volume row are read straight from their tables by the pod's
+// ids.
 //
 // The pod-group operands are shaped for a CTA, not for the TPU's (8, 128)
 // tiles: a pod's port, disk and spread group sets arrive as bit words in its
 // pod row, and a thread loops over the set bits only, reading
 // presence[g][i] for its nodes. Zones are one zone-id row; the per-zone sums
 // of feasible spread counts accumulate per thread in registers during pass
-// 1 and meet in shared memory with one atomic per zone per warp, and the
-// node maximum and "any feasible zoned node" ride the pass-1 block
-// reduction, so spreading adds no barrier. MaxPD's volume types and limits
+// 1 and meet in the CTA's values in shared memory with one atomic per zone per
+// warp, and the node maximum and "any feasible zoned node" ride the pass-1
+// exchange, so spreading adds no barrier. MaxPD's volume types and limits
 // are arguments; a node's count is a loop over the volume ids (at most 32 by
 // the plan's budget), taken only for pods that mount a counted volume.
 //
@@ -72,8 +89,8 @@
 // over the whole node axis. It takes them from the presence_dom carry
 // instead of a node pass per term: the domain-d sum of the pods matching an
 // own term is the sum of presence_dom[g*K + key][d] over the groups g the
-// term matches. So one phase per pod, block-parallel over cells, fills
-// shared memory (about 5 KB): seg[term][d] for the pod's own required
+// term matches. So one phase per pod, block-parallel over cells and run
+// again in every CTA of the cluster, fills shared memory (about 5 KB): seg[term][d] for the pod's own required
 // affinity, anti-affinity and preferred terms (one cell per (term, domain),
 // at most 12 x 64), the existing pods' anti-affinity sums Bk[k][d] and
 // weighted sums Wk[k][d] (one cell per (key, domain), at most 4 x 64, each
@@ -82,12 +99,12 @@
 // domain 0 included, by a shared atomic per cell), the "fail everywhere"
 // flag of empty-key anti-affinity terms of groups with any pod, the term
 // keys and flags, and the groups each own term matches as bit words (for
-// hostname terms, which look at the node's own matched pods). One barrier
-// ends the phase, so the inter-pod variant meets once more per pod than the
-// about eight barriers above. The stage and the counts row then ride pass 1
+// hostname terms, which look at the node's own matched pods). Two block
+// barriers frame the phase. The stage and the counts row then ride pass 1
 // per node: shared lookups at the node's domain per key, and the counts'
-// min and max over the feasible nodes ride the pass-1 block reduction. The
-// owning thread binds presence_dom next to presence, with no atomics. Pad
+// min and max over the feasible nodes ride the pass-1 exchange. The owning
+// thread binds presence_dom next to presence with an atomic add in L2, and
+// the third cluster barrier orders it before every CTA's next phase. Pad
 // nodes lie in domain 0 with zero presence and never add to a real domain's
 // sum.
 //
@@ -100,29 +117,34 @@
 // needs, per entry and label domain, the feasible nodes' sum of the pods in
 // the pod's first service: pass 1 stores each feasible node's count and
 // adds the total, then walks its slice once per entry into per-domain
-// registers that meet in shared memory with one atomic per domain per warp,
-// so the entries add no barrier; pass 2 normalizes. ServiceAffinity reads the
-// pod's lock (the first matching pod's node) from misc lane 1 + its
-// first-service signature, and the locked node's label values by direct
-// loads; the thread that binds writes the lock lanes, and the end-of-pod
-// barrier orders that write before the next pod reads it.
+// registers that meet in the CTA's values with one atomic per domain
+// per warp, so the entries add no barrier; pass 2 normalizes. ServiceAffinity
+// reads the pod's lock (the first matching pod's node) from the CTA's copy of
+// misc lanes 1.. at its first-service signature, and the locked node's label
+// values by direct loads; the thread that binds writes a new lock into every
+// CTA's copy, the third cluster barrier orders that write before the next
+// pod reads it, and rank 0 writes the lanes back at the end.
 //
 // Bound: per pod the kernel reads 8 static, 7 carry and 6 table rows of
 // Npad int32 values, plus the presence rows of the pod's groups: at Npad
 // 5120 about 430 KB a pod, 43 GB for 100k pods, about 13 ms at 3.35 TB/s.
 // The whole state is under 1 MB and stays resident in the 50 MB L2, so
-// neither device memory nor arithmetic is the limit: the chain of block
-// barriers per pod, a strictly sequential dependency from one pod's bind to
-// the next pod's filter, is. A cluster of CTAs splitting the node axis with
-// the carry in shared memory is the next design; this one is the simple,
-// exact first version.
+// neither device memory nor arithmetic is the limit: the chain from one
+// pod's bind to the next pod's filter is. Splitting the node axis over the
+// cluster cut the node loop to one node a thread; what is left (PERF.md,
+// the cluster-size sweep) is a per-pod chain that does not shrink with more
+// CTAs: the pod's setup and first loads of its signature rows, two or three
+// cluster barriers and the exchanges through distributed shared memory.
 //
 // Arithmetic is int32 like the reference kernel: products wrap as two's
 // complement and every division floors (JAX's //), so values that the plan's
 // int32 bounds keep exact stay exact and masked lanes never trap.
 
 #include <climits>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -130,6 +152,19 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxPriority = 10;
 constexpr int kAvoidWeight = 10000;
 constexpr int kMaxZones = 16;   // tpusim_torch/kernels/fastscan.py MAX_ZONES
+// the geometry (kernels/fastscan.py MAX_THREADS, CLUSTER_SIZES,
+// SCRATCH_ROWS, MISC_WIDTH): threads a CTA, CTAs a cluster, per-node
+// scratch rows, misc lanes
+constexpr int kMaxThreads = 512, kMaxCluster = 16, kScratchRows = 5,
+              kMiscWidth = 128;
+
+constexpr int kMaxWarps = kMaxThreads / 32;
+// a CTA's values for one pod, each a sum or a max from 0: the pass-1
+// values (feasible count, then maxima), the spread zone sums, the
+// ServiceAntiAffinity total and per-(entry, domain) sums; then the reason
+// histogram
+enum { R_RED = 0, R_ZSUM = 8, R_SAAT = R_ZSUM + kMaxZones, R_SAAS = R_SAAT + 1,
+       R_HIST = R_SAAS + 8 * kMaxZones, kAccWords = R_HIST + 32 };
 
 // pod column layout (tpusim_torch/kernels/fastscan.py POD_FIELDS); scalar
 // requests follow at P_SCALAR, then the group id and the group-set words
@@ -232,8 +267,9 @@ struct Args {
   int* choices;           // [k]
   int* counts;            // [k, num_bits]
   int* adv;               // [k]
-  int* scratch;           // [4, npad]: reason words, scores, spread and
-                          // inter-pod counts
+  int* scratch;           // [cluster, 5, slab] per-node scratch, or null
+                          // when it lives in dynamic shared memory
+  int scratch_smem;       // the scratch is in dynamic shared memory
   int k, pod_w, num_scalars, num_bits, npad, most_requested;
   // pod groups (the group variant only)
   int gpad;               // presence rows; words = ceil(gpad / 32)
@@ -272,8 +308,6 @@ struct Args {
 // what the policy variant keeps in shared memory
 struct PolShared {
   int h[kPolWords];                 // the header and stage program
-  int saa_seg[kMaxSaa][kMaxZones];  // entry e: my-service pods per domain
-  int saa_total;                    // my-service pods on feasible nodes
 };
 
 template <bool kPolicy>
@@ -407,8 +441,10 @@ __device__ __forceinline__ void own_term_at(const Args& a, int t,
 }
 
 // The inter-pod phase of one pod (group gid): fills `s`, block-parallel
-// over cells. tot and fail_all must be 0 on entry; a barrier must follow.
-__device__ void interpod_phase(const Args& a, int gid, IpShared& s) {
+// over cells, from the CTA's presence_dom replica pd_s. tot and fail_all
+// must be 0 on entry; a barrier must follow.
+__device__ void interpod_phase(const Args& a, const int* pd_s, int gid,
+                               IpShared& s) {
   const IpLayout& l = a.lay;
   const int* r = a.ipod + (size_t)gid * a.wip;
   const int* ex = a.exist;
@@ -457,7 +493,7 @@ __device__ void interpod_phase(const Args& a, int gid, IpShared& s) {
     int sum = 0;
     for (int g = 0; g < gpad; ++g)
       if (r[match_off + g] != 0)
-        sum = add32(sum, a.pd[(size_t)(g * nk + key) * a.dpad + d]);
+        sum = add32(sum, pd_s[(g * nk + key) * a.dpad + d]);
     s.seg[t][d] = sum;
     if (t < ta && sum != 0) atomicAdd(&s.tot[t], sum);
   }
@@ -466,7 +502,7 @@ __device__ void interpod_phase(const Args& a, int gid, IpShared& s) {
     const int k = c / nd, d = c % nd;
     int b = 0, wsum = 0;
     for (int g = 0; g < gpad; ++g) {
-      const int v = a.pd[(size_t)(g * nk + k) * a.dpad + d];
+      const int v = pd_s[(g * nk + k) * a.dpad + d];
       for (int t = 0; t < tb; ++t) {
         const int idx = g * tb + t;
         if (r[l.ex_anti + idx] && ex[l.e_anti_mask + idx] &&
@@ -496,7 +532,7 @@ __device__ void interpod_phase(const Args& a, int gid, IpShared& s) {
     const int g = c / tb;
     int pods = 0;
     for (int d = 0; d < nd; ++d)
-      pods = add32(pods, a.pd[(size_t)(g * nk) * a.dpad + d]);
+      pods = add32(pods, pd_s[g * nk * a.dpad + d]);
     if (pods > 0) atomicOr(&s.fail_all, 1);
   }
 }
@@ -801,11 +837,13 @@ __device__ __forceinline__ int node_score(const Args& a, const PodView& p,
 
 // weighted score of a feasible node under a policy, before the spread and
 // inter-pod terms: the eight components with the policy's weights, the
-// NodeLabel priority row, ImageLocality and ServiceAntiAffinity
+// NodeLabel priority row, ImageLocality and ServiceAntiAffinity (its
+// cluster-wide feasible total and per-domain sums in `agg`)
 __device__ __forceinline__ int node_score_policy(const Args& a,
                                                  const PodView& p, int i,
                                                  const Norms& m,
-                                                 const PolShared& pol) {
+                                                 const PolShared& pol,
+                                                 const int* agg) {
   const int n = a.npad;
   const int* w = pol.h + H_WEIGHTS;
   const int ac = a.statics[S_CPU * n + i];
@@ -836,13 +874,14 @@ __device__ __forceinline__ int node_score_policy(const Args& a,
   if (p.img) s = add32(s, mul32(p.img[i], pol.h[H_W_IMAGE]));
   // ServiceAntiAffinity (selector_spreading.go:176-280): my first service's
   // pods per label domain, normalized by their feasible total
-  const int total = pol.saa_total;
+  const int total = agg[R_SAAT];
   for (int e = 0; e < pol.h[H_N_SAA]; ++e) {
     const int d = a.saa_dom[(size_t)e * n + i];
     if (d <= 0) continue;
     const int f = total > 0
                       ? floordiv(mul32(kMaxPriority,
-                                       sub32(total, pol.saa_seg[e][d])),
+                                       sub32(total,
+                                             agg[R_SAAS + e * kMaxZones + d])),
                                  total)
                       : kMaxPriority;
     s = add32(s, mul32(f, pol.h[H_SAA_W + e]));
@@ -850,89 +889,67 @@ __device__ __forceinline__ int node_score_policy(const Args& a,
   return s;
 }
 
-// block-wide reduction of kN values: v[0] summed, the rest maxed; every
-// thread gets the results
-template <int kN>
-__device__ __forceinline__ void block_reduce(int (&v)[kN], int (*red)[8],
-                                             int* bc) {
-  static_assert(kN <= 8, "red holds eight values a warp");
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  v[0] = __reduce_add_sync(kFull, v[0]);
-#pragma unroll
-  for (int j = 1; j < kN; ++j) v[j] = __reduce_max_sync(kFull, v[j]);
-  if (lane == 0) {
-#pragma unroll
-    for (int j = 0; j < kN; ++j) red[warp][j] = v[j];
-  }
-  __syncthreads();
-  if (warp == 0) {
-    int w0 = lane < nwarps ? red[lane][0] : 0;
-    w0 = __reduce_add_sync(kFull, w0);
-    if (lane == 0) bc[0] = w0;
-#pragma unroll
-    for (int j = 1; j < kN; ++j) {
-      int wj = lane < nwarps ? red[lane][j] : INT_MIN;
-      wj = __reduce_max_sync(kFull, wj);
-      if (lane == 0) bc[j] = wj;
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < kN; ++j) v[j] = bc[j];
+static_assert(R_HIST == R_SAAS + kMaxSaa * kMaxZones,
+              "a CTA's values hold every ServiceAntiAffinity sum");
+
+// CTA r of a cluster of c owns the node slab [32 floor(r u / c),
+// 32 floor((r + 1) u / c)) of the u = npad / 32 lane groups (kernels/
+// fastscan.py slab_bounds): contiguous, in rank order, none empty while
+// c <= u, none wider than 32 ceil(u / c)
+__device__ __forceinline__ int slab_lo(int rank, int units, int csize) {
+  return 32 * (rank * units / csize);
 }
 
-// block-wide exclusive prefix sum of v (thread order); *total gets the sum
-__device__ __forceinline__ int block_excl_scan(int v, int* total, int* wscan,
-                                               int* bc) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  int x = v;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(kFull, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) wscan[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    const int w = lane < nwarps ? wscan[lane] : 0;
-    int wx = w;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(kFull, wx, o);
-      if (lane >= o) wx += y;
-    }
-    wscan[lane] = wx - w;
-    if (lane == 31) bc[0] = wx;
-  }
-  __syncthreads();
-  *total = bc[0];
-  return wscan[warp] + x - v;
+// the pass-1 value a push or gather thread moves: t < n_red the feasible
+// count and maxima, then n_z zone sums, then the ServiceAntiAffinity sums
+__device__ __forceinline__ int item_at(int t, int n_red, int n_z) {
+  return t < n_red ? R_RED + t
+         : t < n_red + n_z ? R_ZSUM + t - n_red : R_SAAT + t - n_red - n_z;
 }
 
-// One CTA a launch: the minimum of 1 block per SM lets ptxas use all 64
-// registers. With the thread bound alone it gives the inter-pod
-// instantiation 32 registers (room for two blocks) and spills 412 bytes.
+// One cluster of up to 16 CTAs runs the chunk, each CTA on its own SM. With
+// at most 512 threads and one CTA an SM, ptxas may give a thread 128
+// registers.
 template <bool kGroups, bool kInterpod, bool kPolicy>
-__global__ void __launch_bounds__(1024, 1) fastscan_kernel(Args a) {
+__global__ void __launch_bounds__(kMaxThreads, 1) fastscan_kernel(Args a) {
   static_assert(kGroups || !kInterpod, "inter-pod terms need pod groups");
   static_assert(kGroups || !kPolicy, "the policy variant has pod groups");
-  constexpr int kRed = kInterpod ? 7 : 5;   // values the pass-1 reduction holds
-  __shared__ int red[32][8];
-  __shared__ int bc[8];
+  constexpr int kRed = kInterpod ? 7 : 5;   // values the pass-1 exchange holds
+  extern __shared__ int smem_scratch[];
+  __shared__ int acc[kAccWords];      // my CTA's values for this pod
+  __shared__ int inbox[kMaxCluster][R_HIST];  // every CTA's, pushed by rank
+  __shared__ int hist_in[kMaxCluster][32];    // rank 0: every CTA's histogram
+  __shared__ int agg[R_HIST];         // the cluster's pass-1 totals
+  __shared__ int wpair[kMaxWarps][2];     // my warps' (score max, count)
+  __shared__ int cpair[kMaxCluster][2];   // every CTA's (score max, count)
   __shared__ IpSlot<kInterpod> ip_slot;
   __shared__ PolSlot<kPolicy> pol_slot;
-  __shared__ int wscan[32];
-  __shared__ int hist[32];
-  __shared__ int zsum[kMaxZones];   // per-zone sums of feasible spread counts
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int n = a.npad;
-  const int per = (n + blockDim.x - 1) / blockDim.x;
-  const int lo = min(tid * per, n), hi = min(lo + per, n);
-  int* reason_s = a.scratch;
-  int* score_s = a.scratch + n;
-  int* spread_s = a.scratch + 2 * n;
-  int* ipcount_s = a.scratch + 3 * n;
-  int* saa_s = a.scratch + 4 * n;
+  __shared__ int locks[kMiscWidth];   // ServiceAffinity locks, replicated
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int csize = (int)cluster.num_blocks();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nt = blockDim.x, nwarps = nt >> 5;
+  const int n = a.npad, units = n >> 5;
+  const int slab = 32 * ((units + csize - 1) / csize);
+  const int clo = slab_lo(rank, units, csize);
+  const int chi = slab_lo(rank + 1, units, csize);
+  const int per = (slab + nt - 1) / nt;
+  const int lo = min(clo + tid * per, chi), hi = min(lo + per, chi);
+  // per-node scratch, indexed by i - clo: read and written only by the
+  // thread that owns node i
+  int* scr = a.scratch_smem ? smem_scratch
+                            : a.scratch + (size_t)rank * kScratchRows * slab;
+  int* reason_s = scr;
+  int* score_s = scr + slab;
+  int* spread_s = scr + 2 * slab;
+  int* ipcount_s = scr + 3 * slab;
+  int* saa_s = scr + 4 * slab;
+  // each CTA's replica of presence_dom (inter-pod plans), after the
+  // scratch in dynamic shared memory
+  int* pd_s = smem_scratch + (a.scratch_smem ? kScratchRows * slab : 0);
+  const int pd_words = kInterpod ? a.gpad * a.k_keys * a.dpad : 0;
+  for (int t = tid; t < pd_words; t += nt) pd_s[t] = a.pd[t];
   const bool spread = kGroups && (a.flags & F_SPREAD) != 0;
   // the bind updates presence only where a stage reads what it binds
   const bool pres_update =
@@ -941,22 +958,16 @@ __global__ void __launch_bounds__(1024, 1) fastscan_kernel(Args a) {
   const IpShared* ips = nullptr;
   const PolShared* pols = nullptr;
   int rr = a.misc[0];
-  if constexpr (kInterpod) {
-    ips = &ip_slot.s;
-    if (tid < kMaxTerms) ip_slot.s.tot[tid] = 0;
-    if (tid == 0) ip_slot.s.fail_all = 0;
-  }
+  if constexpr (kInterpod) ips = &ip_slot.s;
+  for (int t = tid; t < kAccWords; t += nt) acc[t] = 0;
   if constexpr (kPolicy) {
     pols = &pol_slot.s;
-    for (int t = tid; t < kPolWords; t += blockDim.x) pol_slot.s.h[t] = a.pol[t];
-    for (int t = tid; t < kMaxSaa * kMaxZones; t += blockDim.x)
-      pol_slot.s.saa_seg[t / kMaxZones][t % kMaxZones] = 0;
-    if (tid == 0) pol_slot.s.saa_total = 0;
+    for (int t = tid; t < kPolWords; t += nt) pol_slot.s.h[t] = a.pol[t];
+    for (int f = tid; f < a.pol[H_FD]; f += nt) locks[f] = a.misc[1 + f];
   }
-  if (kGroups) {
-    if (tid < kMaxZones) zsum[tid] = 0;
-    __syncthreads();
-  }
+  // every CTA of the cluster is running and initialized before any reads
+  // another's shared memory
+  cluster.sync();
 
   for (int j = 0; j < a.k; ++j) {
     const int* pj = a.pods + (size_t)j * a.pod_w;
@@ -992,6 +1003,9 @@ __global__ void __launch_bounds__(1024, 1) fastscan_kernel(Args a) {
       }
       p.maxpd = p.my_typed[0] + p.my_typed[1] + p.my_typed[2] > 0;
     }
+    // whether this pod's bind locks a ServiceAffinity signature: the same
+    // answer in every CTA, which all hold the same locks
+    bool lock_bind = false;
     if constexpr (kPolicy) {
       // the policy columns (kernels/fastscan.py PodPolicy)
       const int* q = pj + a.pol_col;
@@ -1002,16 +1016,25 @@ __global__ void __launch_bounds__(1024, 1) fastscan_kernel(Args a) {
                               : nullptr;
       p.pins = q + a.words + 2;
       p.match = p.pins + h[H_LA];
-      p.lock = h[H_FD] > 0 ? a.misc[1 + q[a.words + 1]] : -1;
+      p.lock = h[H_FD] > 0 ? locks[q[a.words + 1]] : -1;
+      if (h[H_SA_LOCKS]) {
+        for (int f = 0; f < h[H_FD]; ++f)
+          lock_bind |= locks[f] == -1 && p.match[f] != 0;
+      }
     }
     if constexpr (kInterpod) {
-      interpod_phase(a, p.gid, ip_slot.s);
+      // every read of the last pod's phase is behind the last pod's
+      // barriers; the reset must be behind one before the phase's atomics
+      if (tid < kMaxTerms) ip_slot.s.tot[tid] = 0;
+      if (tid == 0) ip_slot.s.fail_all = 0;
+      __syncthreads();
+      interpod_phase(a, pd_s, p.gid, ip_slot.s);
       __syncthreads();
     }
 
-    // pass 1: reason words, feasible count, normalizer maxima, for
-    // spreading the node max, the zone sums and whether a zone is feasible,
-    // and for inter-pod terms the counts' max and negated min
+    // pass 1 over my nodes: reason words, feasible count, normalizer
+    // maxima, for spreading the node max, the zone sums and whether a zone
+    // is feasible, and for inter-pod terms the counts' max and negated min
     int red_v[kRed] = {};   // nf, aff max, intol max, node max, zoned[, ip]
     int zacc[kMaxZones];
 #pragma unroll
@@ -1020,9 +1043,10 @@ __global__ void __launch_bounds__(1024, 1) fastscan_kernel(Args a) {
     bool saa = false;   // ServiceAntiAffinity entries to sum
     if constexpr (kPolicy) saa = pol_slot.s.h[H_N_SAA] > 0;
     for (int i = lo; i < hi; ++i) {
+      const int l = i - clo;
       const int r = node_reason<kGroups, kInterpod, kPolicy>(a, p, i, ips,
                                                              pols);
-      reason_s[i] = r;
+      reason_s[l] = r;
       if (r != 0) continue;
       ++red_v[0];
       red_v[1] = max(red_v[1], p.aff[i]);
@@ -1037,30 +1061,32 @@ __global__ void __launch_bounds__(1024, 1) fastscan_kernel(Args a) {
             c = add32(c, a.carry[(size_t)(a.pres_row + g) * n + i]);
           }
         }
-        saa_s[i] = c;
+        saa_s[l] = c;
         saa_acc = add32(saa_acc, c);
       }
       if constexpr (kInterpod) {
         const int c = interpod_count(a, *ips, i);
-        ipcount_s[i] = c;
+        ipcount_s[l] = c;
         red_v[5] = max(red_v[5], c);
         red_v[6] = max(red_v[6], -c);
       }
       if (spread) {
         const int c = spread_count(a, p, i);
         const int z = a.zone_id[i];
-        spread_s[i] = c;
+        spread_s[l] = c;
         red_v[3] = max(red_v[3], c);
         red_v[4] |= z != 0;
 #pragma unroll
         for (int zz = 1; zz < kMaxZones; ++zz) zacc[zz] += zz == z ? c : 0;
       }
     }
+    // my CTA's pass-1 values: a warp reduction, then one shared atomic a
+    // value a warp
     if (spread) {
 #pragma unroll
       for (int zz = 1; zz < kMaxZones; ++zz) {
         const int s = __reduce_add_sync(kFull, zacc[zz]);
-        if (lane == 0 && s != 0) atomicAdd(&zsum[zz], s);
+        if (lane == 0 && s != 0) atomicAdd(&acc[R_ZSUM + zz], s);
       }
     }
     if constexpr (kPolicy) {
@@ -1068,14 +1094,14 @@ __global__ void __launch_bounds__(1024, 1) fastscan_kernel(Args a) {
         // ServiceAntiAffinity: the feasible total, then per entry the
         // per-domain sums, in registers and one atomic a domain a warp
         const int t = __reduce_add_sync(kFull, saa_acc);
-        if (lane == 0 && t != 0) atomicAdd(&pol_slot.s.saa_total, t);
+        if (lane == 0 && t != 0) atomicAdd(&acc[R_SAAT], t);
         for (int e = 0; e < pol_slot.s.h[H_N_SAA]; ++e) {
           const int* dom = a.saa_dom + (size_t)e * n;
 #pragma unroll
           for (int z = 0; z < kMaxZones; ++z) zacc[z] = 0;
           for (int i = lo; i < hi; ++i) {
-            if (reason_s[i] != 0) continue;
-            const int d = dom[i], c = saa_s[i];
+            if (reason_s[i - clo] != 0) continue;
+            const int d = dom[i], c = saa_s[i - clo];
 #pragma unroll
             for (int zz = 1; zz < kMaxZones; ++zz) zacc[zz] += zz == d ? c : 0;
           }
@@ -1083,56 +1109,93 @@ __global__ void __launch_bounds__(1024, 1) fastscan_kernel(Args a) {
           for (int zz = 1; zz < kMaxZones; ++zz) {
             const int sum = __reduce_add_sync(kFull, zacc[zz]);
             if (lane == 0 && sum != 0)
-              atomicAdd(&pol_slot.s.saa_seg[e][zz], sum);
+              atomicAdd(&acc[R_SAAS + e * kMaxZones + zz], sum);
           }
         }
       }
     }
-    block_reduce<kRed>(red_v, red, bc);
-    const int nf = red_v[0];
+    red_v[0] = __reduce_add_sync(kFull, red_v[0]);
+#pragma unroll
+    for (int v = 1; v < kRed; ++v) red_v[v] = __reduce_max_sync(kFull, red_v[v]);
+    if (lane == 0) {
+      if (red_v[0] != 0) atomicAdd(&acc[R_RED], red_v[0]);
+#pragma unroll
+      for (int v = 1; v < kRed; ++v)
+        if (red_v[v] > 0) atomicMax(&acc[R_RED + v], red_v[v]);
+    }
+
+    // push them into slot `rank` of every CTA's inbox
+    const int n_z = spread ? kMaxZones : 0;
+    int n_s = 0;
+    if constexpr (kPolicy) n_s = saa ? 1 + kMaxZones * pol_slot.s.h[H_N_SAA] : 0;
+    const int n_items = kRed + n_z + n_s;
+    __syncthreads();
+    for (int t = tid; t < n_items * csize; t += nt) {
+      const int at = item_at(t / csize, kRed, n_z);
+      cluster.map_shared_rank(&inbox[0][0], t % csize)[rank * R_HIST + at] =
+          acc[at];
+    }
+    // cluster barrier 1: every CTA's pass-1 values are in every inbox
+    cluster.sync();
+    // mine have been pushed; the next pod accumulates behind the next
+    // barrier
+    for (int t = tid; t < R_HIST; t += nt) acc[t] = 0;
+    // the cluster's totals, in rank order, from my inbox
+    for (int t = tid; t < n_items; t += nt) {
+      const int at = item_at(t, kRed, n_z);
+      const bool is_max = at > R_RED && at < R_RED + kRed;
+      int v = 0;
+      for (int r = 0; r < csize; ++r)
+        v = is_max ? max(v, inbox[r][at]) : add32(v, inbox[r][at]);
+      agg[at] = v;
+    }
+    __syncthreads();
+    const int nf = agg[R_RED];
     Norms m;
-    m.aff_max = red_v[1];
-    m.intol_max = red_v[2];
-    m.max_node = red_v[3];
-    m.have_zones = red_v[4];
+    m.aff_max = agg[R_RED + 1];
+    m.intol_max = agg[R_RED + 2];
+    m.max_node = agg[R_RED + 3];
+    m.have_zones = agg[R_RED + 4];
     m.max_zone = 0;
     m.ip_max = m.ip_min = 0;
     if constexpr (kInterpod) {
-      m.ip_max = red_v[5];
-      m.ip_min = -red_v[6];
+      m.ip_max = agg[R_RED + 5];
+      m.ip_min = -agg[R_RED + 6];
     }
     if (spread) {
-      for (int zz = 1; zz < a.n_zones; ++zz) m.max_zone = max(m.max_zone, zsum[zz]);
+      for (int zz = 1; zz < a.n_zones; ++zz)
+        m.max_zone = max(m.max_zone, agg[R_ZSUM + zz]);
     }
 
     if (nf > 0) {
       // pass 2: scores, and each thread's max with its multiplicity
       int lmax = -1, lcnt = 0;
       for (int i = lo; i < hi; ++i) {
-        if (reason_s[i] != 0) continue;
+        const int l = i - clo;
+        if (reason_s[l] != 0) continue;
         int s;
         if constexpr (kPolicy) {
           const int* w = pol_slot.s.h + H_WEIGHTS;
-          s = node_score_policy(a, p, i, m, pol_slot.s);
+          s = node_score_policy(a, p, i, m, pol_slot.s, agg);
           if (spread) {
             const int z = a.zone_id[i];
             s = add32(s, mul32(w[W_SPREAD],
-                               spread_score(m, spread_s[i], z,
-                                            z != 0 ? zsum[z] : 0)));
+                               spread_score(m, spread_s[l], z,
+                                            z != 0 ? agg[R_ZSUM + z] : 0)));
           }
           if constexpr (kInterpod)
             s = add32(s, mul32(w[W_INTERPOD],
-                               interpod_score(m, ipcount_s[i])));
+                               interpod_score(m, ipcount_s[l])));
         } else {
           s = node_score(a, p, i, m);
           if (spread) {
             const int z = a.zone_id[i];
-            s += spread_score(m, spread_s[i], z, z != 0 ? zsum[z] : 0);
+            s += spread_score(m, spread_s[l], z, z != 0 ? agg[R_ZSUM + z] : 0);
           }
           if constexpr (kInterpod)
-            s += kInterpodWeight * interpod_score(m, ipcount_s[i]);
+            s += kInterpodWeight * interpod_score(m, ipcount_s[l]);
         }
-        score_s[i] = s;
+        score_s[l] = s;
         if (s > lmax) {
           lmax = s;
           lcnt = 1;
@@ -1140,19 +1203,52 @@ __global__ void __launch_bounds__(1024, 1) fastscan_kernel(Args a) {
           ++lcnt;
         }
       }
-      int gm[2] = {0, lmax};
-      block_reduce<2>(gm, red, bc);
-      const int gmax = gm[1];
+      // each warp's (max, count at max), then my CTA's, pushed into slot
+      // `rank` of every CTA
+      const int wmax = __reduce_max_sync(kFull, lmax);
+      const int wcnt = __reduce_add_sync(kFull, lmax == wmax ? lcnt : 0);
+      if (lane == 0) {
+        wpair[warp][0] = wmax;
+        wpair[warp][1] = wcnt;
+      }
+      __syncthreads();
+      if (warp == 0) {
+        const int m = lane < nwarps ? wpair[lane][0] : INT_MIN;
+        const int cmax = __reduce_max_sync(kFull, m);
+        const int ccnt = __reduce_add_sync(
+            kFull, lane < nwarps && m == cmax ? wpair[lane][1] : 0);
+        if (lane < csize) {
+          int* dst = cluster.map_shared_rank(&cpair[0][0], lane) + 2 * rank;
+          dst[0] = cmax;
+          dst[1] = ccnt;
+        }
+      }
+      // cluster barrier 2: every CTA's pair is in every CTA
+      cluster.sync();
+      // every warp, from local copies: the score max, the ties at it, and
+      // the ties before me, (rank, warp) being node order
+      const int cm = lane < csize ? cpair[lane][0] : INT_MIN;
+      const int gmax = __reduce_max_sync(kFull, cm);
+      const int cc = lane < csize && cm == gmax ? cpair[lane][1] : 0;
+      const int ties = __reduce_add_sync(kFull, cc);
+      const int wm = lane < nwarps ? wpair[lane][0] : INT_MIN;
+      const int wc = lane < nwarps && wm == gmax ? wpair[lane][1] : 0;
+      const int wbefore = __reduce_add_sync(kFull, lane < rank ? cc : 0) +
+                          __reduce_add_sync(kFull, lane < warp ? wc : 0);
       const int tcnt = (lmax == gmax) ? lcnt : 0;
-      int ties = 0;
-      const int before = block_excl_scan(tcnt, &ties, wscan, bc);
+      int incl = tcnt;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(kFull, incl, o);
+        if (lane >= o) incl += y;
+      }
+      const int before = wbefore + incl - tcnt;
       const int pick = nf > 1 ? rr % max(ties, 1) : 0;
       if (tcnt > 0 && before <= pick && pick < before + tcnt) {
         // this thread's slice holds the pick-th tie: find it and bind
         int seen = before;
         int choice = -1;
         for (int i = lo; i < hi; ++i) {
-          if (reason_s[i] == 0 && score_s[i] == gmax) {
+          if (reason_s[i - clo] == 0 && score_s[i - clo] == gmax) {
             if (seen == pick) {
               choice = i;
               break;
@@ -1176,24 +1272,37 @@ __global__ void __launch_bounds__(1024, 1) fastscan_kernel(Args a) {
             if (p.vols[v] != 0) c[(size_t)(a.uv_row + v) * n + choice] = 1;
         }
         if constexpr (kInterpod) {
-          for (int k = 0; k < a.k_keys; ++k)
-            a.pd[(size_t)(p.gid * a.k_keys + k) * a.dpad +
-                 a.topo[(size_t)k * n + choice]] += 1;
+          // every CTA reads presence_dom in its next inter-pod phase: the
+          // add goes into every CTA's replica
+          for (int k = 0; k < a.k_keys; ++k) {
+            const int idx = (p.gid * a.k_keys + k) * a.dpad +
+                            a.topo[(size_t)k * n + choice];
+            for (int r = 0; r < csize; ++r)
+              atomicAdd(cluster.map_shared_rank(pd_s, r) + idx, 1);
+          }
         }
         if constexpr (kPolicy) {
-          // the first matching bind locks each unlocked signature
-          if (pol_slot.s.h[H_SA_LOCKS]) {
-            for (int f = 0; f < pol_slot.s.h[H_FD]; ++f)
-              if (a.misc[1 + f] == -1 && p.match[f] != 0) a.misc[1 + f] = choice;
+          // the first matching bind locks each unlocked signature, in every
+          // CTA's copy of the locks
+          if (lock_bind) {
+            for (int f = 0; f < pol_slot.s.h[H_FD]; ++f) {
+              if (locks[f] != -1 || p.match[f] == 0) continue;
+              for (int r = 0; r < csize; ++r)
+                cluster.map_shared_rank(locks, r)[f] = choice;
+            }
           }
         }
         a.choices[j] = choice;
       }
-      if (tid < a.num_bits) a.counts[(size_t)j * a.num_bits + tid] = 0;
+      if (rank == 0 && tid < a.num_bits)
+        a.counts[(size_t)j * a.num_bits + tid] = 0;
+      // cluster barrier 3, only where another CTA reads what the bind
+      // wrote: presence_dom, or a new ServiceAffinity lock
+      if (kInterpod || lock_bind) cluster.sync();
     } else {
-      // reason histogram over the real bits (pad nodes carry bit 30 only)
-      if (tid < 32) hist[tid] = 0;
-      __syncthreads();
+      // reason histogram over the real bits (pad nodes carry bit 30 only),
+      // my CTA's counts in my slots
+      int* hist = acc + R_HIST;
       bool count_mode = false;
       if constexpr (kPolicy) count_mode = pol_slot.s.h[H_COUNT_MODE] != 0;
       if (count_mode) {
@@ -1202,38 +1311,104 @@ __global__ void __launch_bounds__(1024, 1) fastscan_kernel(Args a) {
       } else {
         for (int b = 0; b < a.num_bits; ++b) {
           int cnt = 0;
-          for (int i = lo; i < hi; ++i) cnt += (reason_s[i] >> b) & 1;
+          for (int i = lo; i < hi; ++i) cnt += (reason_s[i - clo] >> b) & 1;
           cnt = __reduce_add_sync(kFull, cnt);
           if (lane == 0 && cnt != 0) atomicAdd(&hist[b], cnt);
         }
       }
+      // pushed into slot `rank` of rank 0's histogram inbox
       __syncthreads();
-      if (tid < a.num_bits) a.counts[(size_t)j * a.num_bits + tid] = hist[tid];
-      if (tid == 0) a.choices[j] = -1;
-    }
-    if (tid == 0) a.adv[j] = nf > 1 ? 1 : 0;
-    rr += nf > 1 ? 1 : 0;
-    // every read of this pod's zone sums is behind a barrier by now (the
-    // score max or the histogram's); the end-of-pod barrier orders the
-    // reset before the next pod's atomics
-    if (spread && tid < kMaxZones) zsum[tid] = 0;
-    if constexpr (kInterpod) {
-      if (tid < kMaxTerms) ip_slot.s.tot[tid] = 0;
-      if (tid == 0) ip_slot.s.fail_all = 0;
-    }
-    if constexpr (kPolicy) {
-      if (saa) {
-        for (int t = tid; t < kMaxSaa * kMaxZones; t += blockDim.x)
-          pol_slot.s.saa_seg[t / kMaxZones][t % kMaxZones] = 0;
-        if (tid == 0) pol_slot.s.saa_total = 0;
+      if (tid < a.num_bits)
+        cluster.map_shared_rank(&hist_in[0][0], 0)[rank * 32 + tid] = hist[tid];
+      // cluster barrier 2: every CTA's histogram is in rank 0; rank 0 sums
+      // them in rank order
+      cluster.sync();
+      if (tid < 32) hist[tid] = 0;
+      if (rank == 0) {
+        if (tid < a.num_bits) {
+          int v = 0;
+          for (int r = 0; r < csize; ++r) v = add32(v, hist_in[r][tid]);
+          a.counts[(size_t)j * a.num_bits + tid] = v;
+        }
+        if (tid == 0) a.choices[j] = -1;
       }
     }
-    __syncthreads();
+    if (rank == 0 && tid == 0) a.adv[j] = nf > 1 ? 1 : 0;
+    rr += nf > 1 ? 1 : 0;
   }
-  if (tid == 0) a.misc[0] = rr;
+  // no CTA exits while another can still read its shared memory
+  cluster.sync();
+  if (rank == 0) {
+    if (tid == 0) a.misc[0] = rr;
+    for (int t = tid; t < pd_words; t += nt) a.pd[t] = pd_s[t];
+    if constexpr (kPolicy) {
+      for (int f = tid; f < pol_slot.s.h[H_FD]; f += nt) a.misc[1 + f] = locks[f];
+    }
+  }
+}
+
+// the instantiation of a variant id (kernels/fastscan.py VARIANTS order)
+using KernelFn = void (*)(Args);
+KernelFn kernel_of(int variant) {
+  switch (variant) {
+    case 0: return fastscan_kernel<false, false, false>;
+    case 1: return fastscan_kernel<true, false, false>;
+    case 2: return fastscan_kernel<true, true, false>;
+    case 3: return fastscan_kernel<true, false, true>;
+    case 4: return fastscan_kernel<true, true, true>;
+  }
+  return nullptr;
+}
+
+// A launch configuration of one cluster of `cluster` CTAs; `attr` must
+// outlive it
+cudaError_t cluster_config(KernelFn kern, int cluster, int threads, int smem,
+                           cudaStream_t st, cudaLaunchAttribute* attr,
+                           cudaLaunchConfig_t* cfg) {
+  if (cluster < 1 || cluster > kMaxCluster || (cluster & (cluster - 1)) ||
+      threads < 32 || threads > kMaxThreads || threads % 32 != 0 || smem < 0)
+    return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (e != cudaSuccess) return e;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(cluster, 1, 1);
+  cfg->blockDim = dim3(threads, 1, 1);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
 }
 
 }  // namespace
+
+// How many clusters of this geometry the card can hold at once (0: it
+// cannot launch one); a negative value is a CUDA error, negated
+extern "C" int tpusim_fastscan_max_clusters(int variant, int cluster,
+                                            int threads, int smem) {
+  const KernelFn kern = kernel_of(variant);
+  if (!kern) return -(int)cudaErrorInvalidValue;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  cudaError_t e = cluster_config(kern, cluster, threads, smem, nullptr, &attr,
+                                 &cfg);
+  int count = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveClusters(&count, kern, &cfg);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return -(int)e;
+  }
+  return count;
+}
 
 extern "C" int tpusim_fastscan_chunk(
     const int* pods, int k, int pod_w, const int* statics, const int* sel,
@@ -1249,9 +1424,15 @@ extern "C" int tpusim_fastscan_chunk(
     const int* pol,
     const int* label_tbl, const int* label_prio, const int* image_tbl,
     const int* noexec_tbl, const int* saa_dom, const int* sa_val,
-    void* stream) {
+    int cluster, int threads, int smem, int scratch_smem, void* stream) {
   if (k <= 0) return 0;
   if (num_bits > 32 || npad <= 0 || npad % 32 != 0) return (int)cudaErrorInvalidValue;
+  if (cluster > npad / 32) return (int)cudaErrorInvalidValue;
+  const int slab = 32 * ((npad / 32 + cluster - 1) / cluster);
+  const int scratch_bytes = scratch_smem ? kScratchRows * slab * 4 : 0;
+  const int pd_bytes = k_keys > 0 ? gpad * k_keys * dpad * 4 : 0;
+  if ((!scratch_smem && !scratch) || smem < scratch_bytes + pd_bytes)
+    return (int)cudaErrorInvalidValue;
   if ((flags & F_SPREAD) && (n_zones <= 0 || n_zones > kMaxZones || !zone_id))
     return (int)cudaErrorInvalidValue;
   if ((flags & (F_PORTS | F_DISK | F_SPREAD)) && gpad <= 0)
@@ -1288,6 +1469,7 @@ extern "C" int tpusim_fastscan_chunk(
   a.counts = counts;
   a.adv = adv;
   a.scratch = scratch;
+  a.scratch_smem = scratch_smem != 0;
   a.k = k;
   a.pod_w = pod_w;
   a.num_scalars = num_scalars;
@@ -1330,18 +1512,18 @@ extern "C" int tpusim_fastscan_chunk(
   a.saa_dom = saa_dom;
   a.sa_val = sa_val;
   a.pol_col = P_SCALAR + num_scalars + 1 + 3 * a.words;
-  const int threads = npad < 1024 ? npad : 1024;
   const bool groups = gpad > 0 || flags != 0 || n_vols > 0;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (policy && interpod)
-    fastscan_kernel<true, true, true><<<1, threads, 0, st>>>(a);
-  else if (policy)
-    fastscan_kernel<true, false, true><<<1, threads, 0, st>>>(a);
-  else if (interpod)
-    fastscan_kernel<true, true, false><<<1, threads, 0, st>>>(a);
-  else if (groups)
-    fastscan_kernel<true, false, false><<<1, threads, 0, st>>>(a);
-  else
-    fastscan_kernel<false, false, false><<<1, threads, 0, st>>>(a);
+  const int variant = policy ? (interpod ? 4 : 3)
+                      : interpod ? 2 : groups ? 1 : 0;
+  const KernelFn kern = kernel_of(variant);
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  cudaError_t e = cluster_config(kern, cluster, threads, smem,
+                                 (cudaStream_t)stream, &attr, &cfg);
+  if (e == cudaSuccess) e = cudaLaunchKernelEx(&cfg, kern, a);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return (int)e;
+  }
   return (int)cudaGetLastError();
 }

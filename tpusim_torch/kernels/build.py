@@ -39,7 +39,11 @@ SOURCES: Dict[str, Dict[str, list]] = {
             # policy: header, label, label priority, image, NoExecute,
             # ServiceAntiAffinity domain and ServiceAffinity value tables
             _P, _P, _P, _P, _P, _P, _P,
-            _P],
+            # the geometry: cluster, threads, dynamic shared bytes, whether
+            # they hold the scratch; stream
+            _I, _I, _I, _I, _P],
+        # variant, cluster, threads, dynamic shared bytes
+        "tpusim_fastscan_max_clusters": [_I, _I, _I, _I],
     },
 }
 

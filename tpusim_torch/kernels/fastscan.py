@@ -80,6 +80,19 @@ TABLES = ("selector_ok", "taint_ok", "intolerable", "aff_count",
 CARRY_ROWS = 7
 MISC_WIDTH = 128
 MAX_ZONES = 16       # zone domains the kernel's shared zone sums hold
+# the kernel's launch geometry (csrc/fastscan.cu kMaxThreads, kMaxCluster,
+# kScratchRows): one thread-block cluster of CLUSTER_SIZES CTAs, each on its
+# own SM, at most MAX_THREADS threads a CTA, SCRATCH_ROWS per-node scratch
+# rows held in dynamic shared memory where they fit beside the kernel's
+# static shared memory (under STATIC_SMEM_RESERVE) in the SMEM_LIMIT bytes
+# an H100 CTA can use
+MAX_THREADS = 512
+CLUSTER_SIZES = (16, 8, 4, 2, 1)
+SCRATCH_ROWS = 5
+SMEM_LIMIT = 232_448
+STATIC_SMEM_RESERVE = 32_768
+# the kernel's instantiations, by the variant id its C entry takes
+VARIANTS = ("group_free", "groups", "interpod", "policy", "policy_interpod")
 # flag bits of the kernel's group features
 F_PORTS, F_DISK, F_SPREAD, F_VOL_ZONE = 1, 2, 4, 8
 
@@ -126,6 +139,67 @@ class GroupArgs:
 
 
 NO_GROUPS = GroupArgs()
+
+
+@dataclass(frozen=True)
+class Geometry:
+    """One launch of the kernel: one cluster of `cluster` CTAs of `threads`
+    threads. CTA r owns the node slab `slabs[r]`, none wider than `slab`;
+    its threads own contiguous runs of `nodes_per_thread` nodes, so node
+    order is (rank, thread) order. `smem` dynamic shared bytes hold the
+    per-node scratch where `scratch_in_smem` (else it lives in device
+    memory), then each CTA's replica of an inter-pod plan's presence_dom
+    carry."""
+
+    cluster: int
+    threads: int
+    slab: int
+    slabs: Tuple[Tuple[int, int], ...]
+    smem: int
+    scratch_in_smem: bool
+
+    @property
+    def nodes_per_thread(self) -> int:
+        return -(-self.slab // self.threads)
+
+
+def slab_bounds(npad: int, cluster: int) -> Tuple[Tuple[int, int], ...]:
+    """The node slab of each CTA: the u = npad / 32 lane groups split in
+    rank order as evenly as floors allow, so no slab is empty while
+    cluster <= u."""
+    units = npad // 32
+    return tuple((32 * (r * units // cluster), 32 * ((r + 1) * units // cluster))
+                 for r in range(cluster))
+
+
+def launch_geometry(npad: int, cluster: Optional[int] = None,
+                    pd_words: int = 0) -> Geometry:
+    """The kernel's geometry on an Npad-node axis: `cluster` CTAs (default
+    the largest of CLUSTER_SIZES with a lane group of 32 nodes a CTA at
+    least), one node a thread up to MAX_THREADS threads; a replica of the
+    `pd_words` presence_dom cells of an inter-pod plan (at most 128 KB
+    within the plan's budgets) and, where it fits beside, the scratch in
+    shared memory."""
+    if npad <= 0 or npad % 32:
+        raise ValueError(f"Npad {npad}: the kernel takes a positive multiple "
+                         "of 32")
+    units = npad // 32
+    if cluster is None:
+        cluster = next(c for c in CLUSTER_SIZES if c <= units)
+    elif cluster not in CLUSTER_SIZES or cluster > units:
+        raise ValueError(f"a cluster of {cluster} CTAs on Npad {npad}: the "
+                         f"kernel takes one of {CLUSTER_SIZES} up to "
+                         f"{units} (Npad / 32)")
+    slab = 32 * -(-units // cluster)
+    room = SMEM_LIMIT - STATIC_SMEM_RESERVE - 4 * pd_words
+    if room < 0:
+        raise ValueError(f"{pd_words} presence_dom cells: the kernel holds "
+                         f"{(SMEM_LIMIT - STATIC_SMEM_RESERVE) // 4}")
+    scratch = SCRATCH_ROWS * slab * 4
+    in_smem = scratch <= room
+    return Geometry(cluster, min(MAX_THREADS, slab), slab,
+                    slab_bounds(npad, cluster),
+                    4 * pd_words + scratch * in_smem, in_smem)
 
 # the kernel's compile-time maxima for Variant 3 (the plan's default budgets)
 MAX_TOPO_KEYS, MAX_TOPO_DOMS, MAX_TERMS, MAX_IP_GROUPS = 4, 64, 4, 128
@@ -958,12 +1032,66 @@ def _check_policy(pol: PolicyArgs, groups: GroupArgs, device, npad: int):
     return ptrs
 
 
+def _variant(groups: GroupArgs, ip: Optional[IpArgs],
+             pol: Optional[PolicyArgs]) -> str:
+    """The kernel instantiation a plan's operands run (VARIANTS)."""
+    if pol is not None:
+        return "policy_interpod" if ip is not None else "policy"
+    return "interpod" if ip is not None else groups.variant
+
+
+_GEOMETRY = {}
+
+
+def kernel_geometry(npad: int, variant: str, device,
+                    cluster: Optional[int] = None,
+                    pd_words: int = 0) -> Geometry:
+    """The geometry the kernel launches with on `device`: the largest
+    cluster of CLUSTER_SIZES (or the forced `cluster`) that the card can
+    schedule, by cudaOccupancyMaxActiveClusters. Raises when a forced
+    cluster, or none, can be scheduled."""
+    device = torch.device(device)
+    key = (npad, variant, device.index, cluster, pd_words)
+    geom = _GEOMETRY.get(key)
+    if geom is not None:
+        return geom
+    from tpusim_torch.kernels import build
+
+    lib = build.load("fastscan.cu")
+    sizes = ((cluster,) if cluster is not None
+             else tuple(c for c in CLUSTER_SIZES if c <= npad // 32))
+    for c in sizes:
+        g = launch_geometry(npad, c, pd_words)
+        with torch.cuda.device(device):
+            held = lib.tpusim_fastscan_max_clusters(
+                VARIANTS.index(variant), g.cluster, g.threads, g.smem)
+        if held < 0:
+            raise RuntimeError(f"fastscan cluster query failed: CUDA error "
+                               f"{-held}")
+        if held > 0:
+            _GEOMETRY[key] = g
+            return g
+    raise RuntimeError(f"no cluster of {sizes} CTAs of the {variant} kernel "
+                       f"can be scheduled on {device} at Npad {npad}")
+
+
 def fastscan_chunk(pods, statics, tables, carry, misc, alloc_scalar,
                    num_scalars: int, num_bits: int, most_requested: bool,
                    groups: GroupArgs = NO_GROUPS, ip: Optional[IpArgs] = None,
-                   pd=None, pol: Optional[PolicyArgs] = None):
+                   pd=None, pol: Optional[PolicyArgs] = None,
+                   cluster: Optional[int] = None):
     """Schedule one chunk of pods: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+    plain version for CPU tensors.
+
+    The kernel is one thread-block cluster that splits the node axis into
+    slabs, one a CTA and SM (launch_geometry; `cluster` forces the number
+    of CTAs, which otherwise is the largest the card can schedule). A CTA
+    reads and writes only its own nodes' carry cells; per pod the CTAs meet
+    at two cluster barriers, exchanging their partial counts, maxima and
+    sums and then each warp's score max and ties through distributed
+    shared memory, and at a third only where another CTA reads what the
+    bind wrote (presence_dom, a new ServiceAffinity lock). A geometry the
+    card refuses raises; there is no fallback."""
     device = pods.device
     if device.type == "cpu":
         return fastscan_chunk_plain(pods, statics, tables, carry, misc,
@@ -1003,34 +1131,42 @@ def fastscan_chunk(pods, statics, tables, carry, misc, alloc_scalar,
     from tpusim_torch.kernels import build
 
     lib = build.load("fastscan.cu")
+    variant = _variant(groups, ip, pol)
+    pd_words = groups.gpad * ip.k_keys * pd.shape[1] if ip is not None else 0
+    geom = kernel_geometry(npad, variant, device, cluster, pd_words)
     i32 = torch.int32
     choices = torch.empty((k,), dtype=i32, device=device)
     counts = torch.empty((k, num_bits), dtype=i32, device=device)
     adv = torch.empty((k,), dtype=i32, device=device)
-    scratch = torch.empty((5, npad), dtype=i32, device=device)
+    scratch = (None if geom.scratch_in_smem else torch.empty(
+        (geom.cluster, SCRATCH_ROWS, geom.slab), dtype=i32, device=device))
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = lib.tpusim_fastscan_chunk(
         pods.data_ptr(), k, pods.shape[1], statics.data_ptr(),
         *(t.data_ptr() for t in tables), carry.data_ptr(), misc.data_ptr(),
         alloc_scalar.data_ptr() if num_scalars else None, num_scalars,
         choices.data_ptr(), counts.data_ptr(), adv.data_ptr(),
-        scratch.data_ptr(), num_bits, npad, int(bool(most_requested)),
+        None if scratch is None else scratch.data_ptr(), num_bits, npad,
+        int(bool(most_requested)),
         groups.gpad, pres_row, groups.flags, zone_id, groups.n_zones,
         zone_ok, vol_tbl,
         groups.vol_tbl.shape[1] if groups.n_vols else 0, vol_type,
         groups.n_vols, uv_row, *groups.limits,
-        *ip_args, *pol_args, stream)
+        *ip_args, *pol_args, geom.cluster, geom.threads, geom.smem,
+        int(geom.scratch_in_smem), stream)
     if rc != 0:
         raise RuntimeError(f"fastscan kernel launch failed: CUDA error {rc}")
     fastscan_chunk.launches += 1
     fastscan_chunk.launches_by_variant[
-        "policy" if pol is not None
-        else "interpod" if ip is not None else groups.variant] += 1
+        "policy" if pol is not None else variant] += 1
+    fastscan_chunk.last_geometry = geom
     return choices, counts, adv
 
 
 # launches of the CUDA kernel, in all and per variant (the plain version
-# does not count)
+# does not count; both policy instantiations count as "policy"), and the
+# geometry of the last launch
 fastscan_chunk.launches = 0
 fastscan_chunk.launches_by_variant = {"group_free": 0, "groups": 0,
                                       "interpod": 0, "policy": 0}
+fastscan_chunk.last_geometry = None

@@ -791,3 +791,42 @@ def random_policy_workload(seed: int, num_pods: int, num_nodes: int,
     return _policy_labels(api, snapshot, pods,
                           np.random.RandomState(seed + 5000),
                           fresh=not interpod)
+
+
+def cluster_hazard_cases() -> dict:
+    """Small plans for what the fast-scan kernel's thread-block cluster
+    must get right, by name: (workload function, Policy dict or None,
+    most_requested, hard_weight, kernel variant). At 400-500 nodes (Npad
+    512) a cluster of 16 CTAs takes 32 nodes each and the last slabs hold
+    only pad nodes; at 130 nodes (Npad 256) the last CTA of 4 holds only pad
+    nodes and 16 CTAs do not fit; at 60 nodes (Npad 128) 4 CTAs at most.
+    Between them: identical nodes, whose ties span every slab and whose
+    round-robin pick walks into the last CTA; pods no node holds (the
+    reason histogram, in count mode too) beside CTAs with and without a
+    feasible node; binds in one CTA that the next pod's inter-pod phase or
+    ServiceAffinity lock reads in another."""
+    return {
+        "uniform_ties_400": (lambda: uniform_workload(300, 400), None,
+                             False, 10, "group_free"),
+        "infeasible_130": (lambda: random_workload(5, 300, 130,
+                                                   num_scalars=1,
+                                                   infeasible=True),
+                           None, True, 10, "group_free"),
+        "groups_400": (lambda: random_group_workload(
+            6, 300, 400, ports=True, services=True, disk=True,
+            vol_zone=True, maxpd=True), None, False, 10, "groups"),
+        "interpod_500": (lambda: interpod_workload(600, 500), None, True, 10,
+                         "interpod"),
+        "interpod_60": (lambda: random_interpod_workload(
+            7, 300, 60, services=True, ports=True), None, False, 100,
+            "interpod"),
+        "policy_count_400": (lambda: random_policy_workload(8, 300, 400),
+                             random_policy(8, count_mode=True, sa_entries=2),
+                             False, 10, "policy"),
+        "policy_interpod_400": (lambda: random_policy_workload(
+            13, 300, 400, interpod=True), COMPAT_POLICIES["1.9"], False, 10,
+            "policy_interpod"),
+        "policy_interpod_60": (lambda: random_policy_workload(
+            9, 300, 60, interpod=True), COMPAT_POLICIES["1.9"], False, 10,
+            "policy_interpod"),
+    }
