@@ -65,10 +65,26 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
      inter-pod phase or ServiceAffinity lock, and a plan too narrow for 16
      CTAs refused; one CTA on 10,000 nodes, whose scratch lives in device
      memory (a group-free and an inter-pod plan); then the first-chunk time
-     of config 3 and of the policy cell at 1, 2, 4, 8 and 16 CTAs.
-Phases 4-12 print the cluster geometry each workload launched with beside
-its times (every full-size cell must launch more than one CTA). Then a JSON
-line of the kernels and, last, the device line.
+     of config 3 and of the policy cell at 1, 2, 4, 8 and 16 CTAs;
+ 14. the two routes against each other on the card: config 3's first 2,048
+     pods on its 5,000 nodes through the fused kernel (route "kernel") and
+     through the exact sequential scan (route "scan"): choices, reason
+     counts and advanced flags must be equal (max |diff| 0), and the scan's
+     final rr the count of advanced pods;
+ 15. the scan route at full width: the hostname workload (config 3's nodes
+     with the documentation's two-tier hostname terms; 20,000 pods on 5,000
+     nodes, a plan the kernel refuses) through TorchBackend(route="auto")
+     on the card: it must take the scan, and place by the golden the JAX
+     package records; cold and warm wall; then the scan alone, eagerly on
+     its first 2,000 pods and as the backend runs it (blocks of steps
+     replayed as CUDA graphs) on all of them, each with its device span
+     (CUDA events) and microseconds a pod; then the reference
+     quickstart (byte-granular memory) through run_simulation on the card,
+     whose split must digest as the JAX package's does.
+Phases 4-12 run TorchBackend with route "kernel", so a plan that stopped
+reaching the kernel fails them, and print the cluster geometry each workload
+launched with beside its times (every full-size cell must launch more than
+one CTA). Then a JSON line of the kernels and, last, the device line.
 """
 
 import hashlib
@@ -99,6 +115,20 @@ GOLDENS = {
     "policy": ("policy_workload", dict(num_pods=100_000, num_nodes=5_000),
                "e06b439fd663eb85", 44_216),
 }
+# phase 15: the scan route's workload and golden (tools/port_golden.py
+# hostname 20000 5000), and the reference quickstart with the digest of the
+# JAX package's run_simulation split (tools/port_golden.py quickstart)
+SCAN_GOLDEN = ("hostname_workload", dict(num_pods=20_000, num_nodes=5_000),
+               "31d659393aad448d", 19_603)
+QUICKSTART_JSON = json.dumps([
+    {"name": name, "num": 10, "pod": {"spec": {"containers": [{"resources": {
+        "requests": {"cpu": cpu, "memory": memory}}}]}}}
+    for name, cpu, memory in (("A", "1", "1"), ("B", "100", "1000"))])
+QUICKSTART_DIGEST = "f00595f62c75d722"
+# phase 14: the pods of config 3 run through both routes
+ROUTES_PODS = 2_048
+# phase 15: the pods of the scan timed eagerly, beside the graph replay
+SCAN_EAGER_PODS = 2_000
 # the phase that drives each main-path workload, the kernel variant it must
 # launch, and the scheduler policy it runs under (workloads.COMPAT_POLICIES)
 PHASE = {"config3": 4, "config4_cpu_shape": 5, "groups": 8, "interpod": 10,
@@ -174,6 +204,16 @@ def card_line():
 def choices_golden(choices):
     return hashlib.sha256(np.asarray(choices).astype(np.int32).tobytes()
                           ).hexdigest()[:16]
+
+
+def split_digest(status):
+    """sha256 of a simulation Status's split (the scheduled pods and their
+    nodes, then the failed pods and their FitError text), first 16 hex
+    digits."""
+    split = [(p.name, p.spec.node_name) for p in status.successful_pods]
+    split += [(p.name, p.status.conditions[-1].message)
+              for p in status.failed_pods]
+    return hashlib.sha256(repr(split).encode()).hexdigest()[:16]
 
 
 def make_plan(snapshot, pods, most_requested, policy=None, hard_weight=10):
@@ -353,8 +393,8 @@ def drive_main_path(name, card, cuda):
     t0 = time.perf_counter()
     snapshot, pods = getattr(workloads, workload)(**params)
     build_s = time.perf_counter() - t0
-    backend = TorchBackend(device="cuda", policy=policy and decode_policy(
-        policy))
+    backend = TorchBackend(device="cuda", route="kernel",
+                           policy=policy and decode_policy(policy))
     fastscan_chunk.launches = 0
     for key in fastscan_chunk.launches_by_variant:
         fastscan_chunk.launches_by_variant[key] = 0
@@ -853,6 +893,133 @@ def cluster_sweep(name, plan, card, cuda):
     return times
 
 
+def compare_routes(card, cuda):
+    """Phase 14: config 3's first ROUTES_PODS pods through the kernel and
+    through the scan on the card, bit-equal."""
+    import torch
+
+    from tpusim_torch import workloads
+    from tpusim_torch.backend import compile_inputs
+    from tpusim_torch.fastplan import plan_fast
+    from tpusim_torch.fastscan import fast_scan
+    from tpusim_torch.scan import GRAPH_STEPS, scan_inputs, schedule_scan
+
+    snapshot, pods = workloads.build_workload(ROUTES_PODS, 5_000)
+    config, compiled, cols, ptabs = compile_inputs(snapshot, pods)
+    plan, why = plan_fast(config, compiled, cols, ptabs)
+    if plan is None:
+        raise AssertionError(f"phase 14: the kernel refused config 3: {why}")
+    kernel = fast_scan(plan, device=cuda)
+    carry, statics, xs = scan_inputs(config, compiled, cols, ptabs, cuda)
+    t0 = time.perf_counter()
+    final, *scan = schedule_scan(config, carry, statics, xs,
+                                 graph_steps=GRAPH_STEPS)
+    scan = [t.cpu().numpy() for t in scan]
+    scan_s = time.perf_counter() - t0
+    diff = max(int(np.abs(np.asarray(a).astype(np.int64)
+                          - b.astype(np.int64)).max(initial=0))
+               for a, b in zip(kernel, scan))
+    rr, advanced = int(final.rr), int(scan[2].sum())
+    placed = int((scan[0] >= 0).sum())
+    print(f"phase 14: config3 first {ROUTES_PODS} pods x 5000 nodes, "
+          f"kernel vs scan on the card: {placed} placed, {advanced} "
+          f"advanced, scan rr {rr}; choices, counts and advanced max |diff| "
+          f"{diff}; scan {scan_s:.2f}s on {card}")
+    if diff != 0 or rr != advanced or placed == 0:
+        raise AssertionError(f"phase 14: the routes disagree: max |diff| "
+                             f"{diff}, rr {rr} vs {advanced} advanced")
+
+
+def drive_scan_route(card, cuda):
+    """Phase 15: the hostname workload through TorchBackend on the card,
+    which must take the scan and place by the golden; then the scan alone,
+    timed; then the reference quickstart through run_simulation."""
+    import torch
+
+    from tpusim_torch import workloads
+    from tpusim_torch.api.podspec import (
+        expand_simulation_pods,
+        parse_simulation_pods,
+    )
+    from tpusim_torch.api.snapshot import synthetic_cluster
+    from tpusim_torch.backend import TorchBackend, compile_inputs
+    from tpusim_torch.kernels.fastscan import fastscan_chunk
+    from tpusim_torch.scan import GRAPH_STEPS, scan_inputs, schedule_scan
+    from tpusim_torch.simulator import run_simulation
+
+    workload, params, golden, want_scheduled = SCAN_GOLDEN
+    n, nodes = params["num_pods"], params["num_nodes"]
+    snapshot, pods = getattr(workloads, workload)(**params)
+    backend = TorchBackend(device="cuda")
+    launches = fastscan_chunk.launches
+    t0 = time.perf_counter()
+    placements = backend.schedule(pods, snapshot)
+    cold_s = time.perf_counter() - t0
+    got = choices_golden(backend.last_choices)
+    scheduled = sum(1 for p in placements if p.scheduled)
+    t0 = time.perf_counter()
+    backend.schedule(pods, snapshot)
+    warm_s = time.perf_counter() - t0
+    if choices_golden(backend.last_choices) != got:
+        raise AssertionError(f"{workload}: warm run placed differently")
+    print(f"phase 15: {workload} ({n} pods, {nodes} nodes): route "
+          f"{backend.last_route} ({backend.last_route_reason}); golden {got} "
+          f"(want {golden}), {scheduled} scheduled (want {want_scheduled}); "
+          f"cold {cold_s:.3f}s, warm {warm_s:.3f}s = {n / warm_s:.0f} pods/s "
+          f"end to end on {card}")
+    if backend.last_route != "scan" or fastscan_chunk.launches != launches:
+        raise AssertionError(f"{workload}: took route "
+                             f"{backend.last_route!r}, not the scan")
+    if got != golden or scheduled != want_scheduled:
+        raise AssertionError(f"{workload}: placement golden {got}/"
+                             f"{scheduled} != {golden}/{want_scheduled}")
+
+    # the scan alone: eagerly (one launch an operation) on the first
+    # SCAN_EAGER_PODS pods, and as the backend runs it (blocks of
+    # GRAPH_STEPS steps replayed as CUDA graphs) on every pod
+    config, compiled, cols, ptabs = compile_inputs(snapshot, pods)
+    carry, statics, xs = scan_inputs(config, compiled, cols, ptabs, cuda)
+    for graph_steps, count in ((0, SCAN_EAGER_PODS), (GRAPH_STEPS, n)):
+        part = type(xs)(*(col[:count] for col in xs))
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        _, choices, _, _ = schedule_scan(config, carry, statics, part,
+                                         graph_steps=graph_steps)
+        end.record()
+        queued_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        scan_s = time.perf_counter() - t0
+        span_ms = start.elapsed_time(end)
+        if not np.array_equal(choices.cpu().numpy(),
+                              backend.last_choices[:count]):
+            raise AssertionError(f"{workload}: the timed scan (graph_steps "
+                                 f"{graph_steps}) placed differently")
+        how = (f"{graph_steps} steps a CUDA graph" if graph_steps
+               else "eager")
+        print(f"phase 15: {workload} scan alone, {how}, first {count} pods: "
+              f"{scan_s:.3f}s wall ({queued_s:.3f}s to queue every step), "
+              f"device span {span_ms:.1f} ms (CUDA events), "
+              f"{1e6 * scan_s / count:.0f} us a pod on {card}; groups "
+              f"{compiled.groups.presence.shape[0]}, topology domains "
+              f"{config.n_topo_doms}")
+
+    sim_pods = expand_simulation_pods(parse_simulation_pods(QUICKSTART_JSON),
+                                      deterministic_ids=True)
+    status = run_simulation(list(reversed(sim_pods)), synthetic_cluster(
+        4, milli_cpu=4000, memory=16 * 1024**3), device="cuda")
+    digest = split_digest(status)
+    print(f"phase 15: quickstart through run_simulation on the card: "
+          f"{len(status.successful_pods)} scheduled, "
+          f"{len(status.failed_pods)} failed; digest {digest} (want "
+          f"{QUICKSTART_DIGEST})")
+    if digest != QUICKSTART_DIGEST:
+        raise AssertionError("quickstart placed differently from the JAX "
+                             "package")
+
+
 def main():
     import torch
 
@@ -915,6 +1082,10 @@ def main():
     pol_err = max(pol_err, hazard["policy"])
     for name, plan in (("config3", plan3), ("policy", plan_pol)):
         cluster_sweep(name, plan, card, cuda)
+
+    # phases 14-15: the exact sequential scan, against the kernel and alone
+    compare_routes(card, cuda)
+    drive_scan_route(card, cuda)
 
     kernels = []
     for name, variant, replaces, n_launch, err in (

@@ -1,14 +1,14 @@
-"""TorchBackend (CPU: the plain kernel versions) against the JAX package's
-JaxBackend and ReferenceBackend: identical placement hashes and
-byte-identical FitError text on the group-free parity workloads, the same
-simulation split, the same CLI report.
+"""TorchBackend (CPU: the plain kernel versions and the scan) against the
+JAX package's JaxBackend and ReferenceBackend: identical placement hashes
+and byte-identical FitError text on the group-free parity workloads, the
+same simulation split, the same CLI report.
 
-The workloads are the group-free shapes of tests/test_jax_parity.py, with
-memory and cpu in coarser units (and a few small pod limits) so that their
-int32 plan fits the fused scan's bounds: the byte-granular originals are
-refused by the JAX package's plan_fast too, which then takes its XLA scan, a
-route the port does not carry yet; the port raises for them instead
-(test_plan_ineligible_workload_raises).
+PARITY holds the group-free shapes of tests/test_jax_parity.py with memory
+and cpu in coarser units (and a few small pod limits) so that their int32
+plan fits the fused kernel's bounds; ORIGINAL holds them as
+tests/test_jax_parity.py builds them, byte-granular, which the kernel's plan
+refuses and the scan route runs (route="auto"), as the JAX package sends
+them to its XLA scan.
 """
 
 import random
@@ -248,50 +248,173 @@ def test_config_shape_end_to_end(affinity):
     assert 0 < int((choices >= 0).sum()) <= 2_000
 
 
-def test_plan_ineligible_workload_raises():
-    """The reference quickstart is past the int32 plan bounds: the port
-    raises with the reason the JAX package's plan_fast gives."""
+def _jax_plan_refusal(jsnap, jpods):
     from tpusim.jaxe.fastscan import plan_fast as jax_plan_fast
     from tpusim.jaxe.kernels import config_for as jax_config_for
     from tpusim.jaxe.state import compile_cluster as jax_compile
 
-    jpods = podspec_pods(jax_api, QUICKSTART_YAML)
-    compiled, cols = jax_compile(jax_api.synthetic_cluster(4), jpods)
+    compiled, cols = jax_compile(jsnap, jpods)
     plan, why = jax_plan_fast(jax_config_for([compiled], False, 24),
                               compiled, cols)
     assert plan is None
+    return why
+
+
+def assert_scan_parity(jsnap, jpods, psnap, ppods, route="auto"):
+    """The port on `route` places like JaxBackend and ReferenceBackend, on
+    the scan route."""
+    ref = ReferenceBackend().schedule(jpods, jsnap)
+    jx = JaxBackend(fallback="error").schedule(jpods, jsnap)
+    backend = TorchBackend(device="cpu", route=route)
+    port = backend.schedule(ppods, psnap)
+    assert backend.last_route == "scan"
+    assert [p.message for p in port] == [p.message for p in ref] == \
+        [p.message for p in jx]
+    assert placement_hash(port) == jax_hash(ref) == jax_hash(jx)
+    return backend, port
+
+
+def test_plan_ineligible_workload_raises():
+    """The reference quickstart is past the int32 plan bounds: route="kernel"
+    raises with the reason the JAX package's plan_fast gives; the default
+    route runs it on the scan, placed like JaxBackend and ReferenceBackend."""
+    jsnap = jax_api.synthetic_cluster(4)
+    jpods = podspec_pods(jax_api, QUICKSTART_YAML)
+    why = _jax_plan_refusal(jsnap, jpods)
+    psnap = port_api.synthetic_cluster(4)
     ppods = podspec_pods(port_api, QUICKSTART_YAML)
-    with pytest.raises(NotImplementedError, match=why):
-        TorchBackend(device="cpu").schedule(ppods,
-                                            port_api.synthetic_cluster(4))
+    with pytest.raises(NotImplementedError) as err:
+        TorchBackend(device="cpu", route="kernel").schedule(ppods, psnap)
+    assert str(err.value) == f"torch backend: {why}"
+    backend, port = assert_scan_parity(jsnap, jpods, psnap, ppods)
+    assert backend.last_route_reason == why
+    assert 0 < sum(p.scheduled for p in port) < len(port)
 
 
 def test_group_workload_raises_not_implemented():
     """A hostname-keyed inter-pod workload on 70 nodes has 71 topology
-    domains, past the kernel's 64: the port raises with the reason the JAX
-    package's plan_fast gives (JAX sends it to its XLA scan, which the port
-    does not have)."""
-    from tpusim.jaxe.fastscan import plan_fast as jax_plan_fast
-    from tpusim.jaxe.kernels import config_for as jax_config_for
-    from tpusim.jaxe.state import compile_cluster as jax_compile
-
+    domains, past the kernel's 64: route="kernel" raises with the reason
+    the JAX package's plan_fast gives; the default route runs it on the
+    scan, placed like JaxBackend and ReferenceBackend (one web pod a node,
+    the rest fail with the inter-pod reason)."""
     def build(api):
         return api.synthetic_cluster(70), [api.make_pod(
-            "p", milli_cpu=100, labels={"app": "web"},
+            f"p{i}", milli_cpu=100, labels={"app": "web"},
             affinity={"podAntiAffinity": {
                 "requiredDuringSchedulingIgnoredDuringExecution": [
                     {"labelSelector": {"matchLabels": {"app": "web"}},
-                     "topologyKey": "kubernetes.io/hostname"}]}})]
+                     "topologyKey": "kubernetes.io/hostname"}]}})
+            for i in range(75)]
 
     jsnap, jpods = build(jax_api)
-    compiled, cols = jax_compile(jsnap, jpods)
-    plan, why = jax_plan_fast(jax_config_for([compiled], False, 24),
-                              compiled, cols)
-    assert plan is None and "71 topology domains exceed" in why
+    why = _jax_plan_refusal(jsnap, jpods)
+    assert "71 topology domains exceed" in why
     snap, pods = build(port_api)
     with pytest.raises(NotImplementedError) as err:
-        TorchBackend(device="cpu").schedule(pods, snap)
+        TorchBackend(device="cpu", route="kernel").schedule(pods, snap)
     assert str(err.value) == f"torch backend: {why}"
+    _, port = assert_scan_parity(jsnap, jpods, snap, pods)
+    assert sum(p.scheduled for p in port) == 70
+    assert "didn't match pod affinity/anti-affinity" in port[-1].message
+
+
+def quickstart_bytes(api):
+    pods = podspec_pods(api, QUICKSTART_YAML)
+    return (api.synthetic_cluster(4, milli_cpu=4000, memory=16 * 1024**3),
+            list(reversed(pods)))
+
+
+def random_uniform_bytes(api):
+    rng = random.Random(42)
+    nodes = [api.make_node(f"n{i}", milli_cpu=rng.choice([2000, 4000, 8000]),
+                           memory=rng.choice([4, 8, 16]) * 1024**3,
+                           pods=rng.choice([5, 110]))
+             for i in range(12)]
+    pods = [api.make_pod(f"p{i}", milli_cpu=rng.randrange(0, 3000),
+                         memory=rng.randrange(0, 4 * 1024**3))
+            for i in range(80)]
+    return api.ClusterSnapshot(nodes=nodes), pods
+
+
+def taints_and_selectors_bytes(api):
+    snapshot, pods = taints_and_selectors(api)
+    rng = random.Random(7)
+    return snapshot, [api.make_pod(
+        p.name, milli_cpu=rng.randrange(100, 1500),
+        memory=rng.randrange(2**20, 2 * 1024**3),
+        node_selector=p.spec.node_selector or None,
+        tolerations=[t.to_obj() for t in p.spec.tolerations] or None)
+        for p in pods]
+
+
+def unschedulable_reasons_bytes(api):
+    nodes = [api.make_node("ok", milli_cpu=1000, memory=1024**3),
+             api.make_node("down", ready=False),
+             api.make_node("cordoned", unschedulable=True)]
+    pods = [api.make_pod("fits", milli_cpu=500, memory=3),
+            api.make_pod("too-big", milli_cpu=5000, memory=8 * 1024**3),
+            api.make_pod("fits2", milli_cpu=400, memory=12345),
+            api.make_pod("no-room", milli_cpu=500)]
+    return api.ClusterSnapshot(nodes=nodes), pods
+
+
+def scalars_and_gpu_bytes(api):
+    snapshot, pods = scalars_and_gpu(api)
+    pods[0] = api.make_pod("g0", milli_cpu=500, memory=7, gpus=1)
+    return snapshot, pods
+
+
+def prescheduled_bytes(api):
+    nodes = [api.make_node(f"n{i}", milli_cpu=4000, memory=8 * 1024**3 + 1)
+             for i in range(4)]
+    existing = [api.make_pod(f"e{i}", milli_cpu=1000, memory=1024**3 + i,
+                             node_name=f"n{i % 2}", phase="Running")
+                for i in range(4)]
+    pods = [api.make_pod(f"p{i}", milli_cpu=800, memory=512 * 2**20 + i)
+            for i in range(10)]
+    return api.ClusterSnapshot(nodes=nodes, pods=existing), pods
+
+
+def node_affinity_bytes(api):
+    snapshot, pods = node_affinity(api)
+    return snapshot, [api.make_pod(p.name, milli_cpu=300,
+                                   memory=512 * 2**20 + i,
+                                   affinity=p.spec.affinity.to_obj()
+                                   if p.spec.affinity else None)
+                      for i, p in enumerate(pods)]
+
+
+ORIGINAL = [quickstart_bytes, random_uniform_bytes, taints_and_selectors_bytes,
+            node_affinity_bytes, unschedulable_reasons_bytes,
+            scalars_and_gpu_bytes, prescheduled_bytes]
+
+
+@pytest.mark.parametrize("route", ["auto", "scan"])
+@pytest.mark.parametrize("build", ORIGINAL, ids=[b.__name__ for b in ORIGINAL])
+def test_byte_granular_shapes_run_on_the_scan(build, route):
+    jsnap, jpods = build(jax_api)
+    _jax_plan_refusal(jsnap, jpods)
+    psnap, ppods = build(port_api)
+    assert_scan_parity(jsnap, jpods, psnap, ppods, route)
+
+
+@pytest.mark.parametrize("build", PARITY[:-1], ids=[b.__name__
+                                                    for b in PARITY[:-1]])
+def test_routes_agree_where_the_kernel_runs(build):
+    """On plans the kernel takes, route="auto" launches it and route="scan"
+    places identically."""
+    snap, pods = build(port_api)
+    kernel = TorchBackend(device="cpu")
+    scan = TorchBackend(device="cpu", route="scan")
+    got_k, got_s = kernel.schedule(pods, snap), scan.schedule(pods, snap)
+    assert (kernel.last_route, scan.last_route) == ("kernel", "scan")
+    assert placement_hash(got_k) == placement_hash(got_s)
+    assert [p.message for p in got_k] == [p.message for p in got_s]
+
+
+def test_unknown_route_raises():
+    with pytest.raises(ValueError, match="route"):
+        TorchBackend(device="cpu", route="xla")
 
 
 def test_default_device_needs_cuda(monkeypatch):

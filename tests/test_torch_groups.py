@@ -402,7 +402,10 @@ def test_plan_budget_refusals_match(monkeypatch, env, build, reason):
     assert pwhy == jwhy and reason in pwhy
     snapshot, pods = build(port_api)
     with pytest.raises(NotImplementedError, match=reason):
-        TorchBackend(device="cpu").schedule(pods, snapshot)
+        TorchBackend(device="cpu", route="kernel").schedule(pods, snapshot)
+    backend = TorchBackend(device="cpu")
+    backend.schedule(pods, snapshot)
+    assert (backend.last_route, backend.last_route_reason) == ("scan", pwhy)
 
 
 @pytest.mark.parametrize("env,build", [

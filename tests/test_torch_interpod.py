@@ -389,8 +389,11 @@ def test_interpod_budget_refusals_match(build, reason):
     assert pwhy == jwhy and reason in pwhy
     snapshot, pods = build(port_api)
     with pytest.raises(NotImplementedError) as err:
-        TorchBackend(device="cpu").schedule(pods, snapshot)
+        TorchBackend(device="cpu", route="kernel").schedule(pods, snapshot)
     assert str(err.value) == f"torch backend: {jwhy}"
+    backend = TorchBackend(device="cpu")
+    backend.schedule(pods, snapshot)
+    assert (backend.last_route, backend.last_route_reason) == ("scan", jwhy)
 
 
 @pytest.mark.parametrize("weight", [0, 101])

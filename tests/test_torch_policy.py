@@ -595,9 +595,12 @@ def test_budget_refusals_match(monkeypatch, env, policy, reason):
     assert pwhy == jwhy and reason in pwhy
     psnap, ppods = compat_build(port_api)
     with pytest.raises(NotImplementedError) as err:
-        TorchBackend(device="cpu", policy=port_decode(policy)).schedule(
-            ppods, psnap)
+        TorchBackend(device="cpu", policy=port_decode(policy),
+                     route="kernel").schedule(ppods, psnap)
     assert str(err.value) == f"torch backend: {jwhy}"
+    backend = TorchBackend(device="cpu", policy=port_decode(policy))
+    backend.schedule(ppods, psnap)
+    assert (backend.last_route, backend.last_route_reason) == ("scan", jwhy)
 
 
 def test_plan_without_tables_refuses_alike():

@@ -7,6 +7,12 @@ the upstream 1.2 policy), and the golden is sha256(choices as int32)[:16]
 with the scheduled count, the form chip_smoke.py's GOLDENS hold.
 
     JAX_PLATFORMS=cpu python tools/port_golden.py groups 100000 5000
+
+`quickstart` instead prints the digest of the JAX package's run_simulation
+split of the reference quickstart on 4 synthetic nodes (chip_smoke.py
+QUICKSTART_DIGEST):
+
+    JAX_PLATFORMS=cpu python tools/port_golden.py quickstart
 """
 
 import hashlib
@@ -26,11 +32,31 @@ from tpusim_torch import workloads  # noqa: E402
 WORKLOADS = {"groups": workloads.groups_workload,
              "interpod": workloads.interpod_workload,
              "config3": workloads.build_workload,
-             "policy": workloads.policy_workload}
+             "policy": workloads.policy_workload,
+             "hostname": workloads.hostname_workload}
 POLICIES = {"policy": workloads.COMPAT_POLICIES["1.2"]}
 
 
+def quickstart_digest():
+    from chip_smoke import QUICKSTART_JSON, split_digest
+    from tpusim.api.podspec import (
+        expand_simulation_pods,
+        parse_simulation_pods,
+    )
+    from tpusim.simulator import run_simulation
+
+    pods = expand_simulation_pods(parse_simulation_pods(QUICKSTART_JSON),
+                                  deterministic_ids=True)
+    status = run_simulation(list(reversed(pods)), jax_api.synthetic_cluster(
+        4, milli_cpu=4000, memory=16 * 1024**3), backend="jax")
+    print(f"quickstart: digest {split_digest(status)}, "
+          f"{len(status.successful_pods)} scheduled")
+    return 0
+
+
 def main(argv):
+    if argv[0] == "quickstart":
+        return quickstart_digest()
     name, num_pods, num_nodes = argv[0], int(argv[1]), int(argv[2])
     t0 = time.perf_counter()
     snapshot, pods = WORKLOADS[name](num_pods, num_nodes, api=jax_api)

@@ -1,16 +1,21 @@
 """TorchBackend: Schedule(pod_batch, cluster_state) -> placements, on the
-fused fast scan.
+fused fast-scan kernel or on the exact sequential scan.
 
-The host compiles the cluster (numpy), `plan_fast` builds the int32 plan,
-`fast_scan` runs the pods through the chunk kernel (CUDA on the card, its
-plain version on the CPU), and `decode_placements` turns choices and reason
-counts into Placements and FitError text byte-identical to kube-scheduler's.
-Services, host ports, pod volumes and inter-pod (anti)affinity run on the
-kernel's group and inter-pod variants, a scheduler Policy on its policy
-variant. A workload the kernel does not carry (a group or topology-domain
-budget the plan exceeds, a volume the reference resolves host-side, a
-policy's extenders) raises NotImplementedError with the reason; there is no
-host fallback.
+The host compiles the cluster (numpy) and, under a policy, its tables; that
+one compile feeds both routes. `plan_fast` builds the kernel's int32 plan,
+and `fast_scan` runs the pods through the chunk kernel (CUDA on the card,
+its plain version on the CPU). A plan the int32 plan cannot hold (byte-sized
+memory, a group, zone or topology-domain budget, products past int32) runs
+on `scan.schedule_scan` instead: the same pipeline in int64 tensor code, on
+the same device. `decode_placements` turns choices and reason counts into
+Placements and FitError text byte-identical to kube-scheduler's.
+
+route="auto" takes the kernel when it accepts the plan and the scan
+otherwise, "kernel" raises NotImplementedError with plan_fast's reason where
+the kernel refuses, "scan" always takes the scan. A workload neither route
+carries (a volume the reference resolves host-side, a group budget of the
+compile, a policy's extenders) raises NotImplementedError with the reason;
+there is no host fallback.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from tpusim_torch.config import config_for
 from tpusim_torch.device import resolve_device
 from tpusim_torch.fastplan import plan_fast
 from tpusim_torch.fastscan import fast_scan
+from tpusim_torch.scan import GRAPH_STEPS, scan_inputs, schedule_scan
 from tpusim_torch.state import compile_cluster, reason_strings
 
 DEFAULT_PROVIDER = "DefaultProvider"
@@ -106,15 +112,15 @@ def decode_placements(pods: List[Pod], choices: np.ndarray, counts: np.ndarray,
     return placements
 
 
-def build_plan(snapshot: ClusterSnapshot, pods: List[Pod],
-               most_requested: bool = False, hard_weight: int = 10,
-               compiled_policy=None):
-    """The fast-scan plan of `pods` on `snapshot` and the compiled cluster:
-    (plan, compiled). compiled_policy (policyc.compile_policy) replaces the
-    provider's predicates and priorities, and its
-    hardPodAffinitySymmetricWeight, if set, `hard_weight`. Raises
-    NotImplementedError with the reason for a workload the kernel does not
-    carry."""
+def compile_inputs(snapshot: ClusterSnapshot, pods: List[Pod],
+                   most_requested: bool = False, hard_weight: int = 10,
+                   compiled_policy=None):
+    """The host compile both routes share: (config, compiled, cols, ptabs).
+    compiled_policy (policyc.compile_policy) replaces the provider's
+    predicates and priorities, and its hardPodAffinitySymmetricWeight, if
+    set, `hard_weight`; ptabs are its policyc.PolicyTables (None without a
+    policy). Raises NotImplementedError with the reason for a workload
+    neither route carries."""
     cp = compiled_policy
     ps = cp.spec if cp is not None else None
     compiled, cols = compile_cluster(
@@ -140,19 +146,37 @@ def build_plan(snapshot: ClusterSnapshot, pods: List[Pod],
         config = replace(config, policy=ps)
         if cp.saa_entries:
             config = replace(config, n_saa_doms=ptabs.n_saa_doms)
+    return config, compiled, cols, ptabs
+
+
+def build_plan(snapshot: ClusterSnapshot, pods: List[Pod],
+               most_requested: bool = False, hard_weight: int = 10,
+               compiled_policy=None):
+    """The fast-scan plan of `pods` on `snapshot` and the compiled cluster:
+    (plan, compiled), as compile_inputs takes its arguments. Raises
+    NotImplementedError with the reason for a workload the kernel does not
+    carry."""
+    config, compiled, cols, ptabs = compile_inputs(
+        snapshot, pods, most_requested, hard_weight, compiled_policy)
     plan, why = plan_fast(config, compiled, cols, ptabs)
     if plan is None:
         raise NotImplementedError(f"torch backend: {why}")
     return plan, compiled
 
 
+ROUTES = ("auto", "kernel", "scan")
+
+
 class TorchBackend:
     def __init__(self, provider: str = DEFAULT_PROVIDER, device="cuda",
-                 hard_pod_affinity_symmetric_weight: int = 10, policy=None):
+                 hard_pod_affinity_symmetric_weight: int = 10, policy=None,
+                 route: str = "auto"):
         """policy: an engine.policy.Policy, compiled (and validated) here to
         the kernel's stage gating, weights and residue tables; it replaces
         the provider's predicate and priority sets like factory.go
-        CreateFromConfig."""
+        CreateFromConfig. route: "auto" (the kernel where plan_fast accepts
+        the plan, the scan otherwise), "kernel" (raise where it refuses) or
+        "scan"."""
         if provider not in _KNOWN_PROVIDERS:
             raise KeyError(f"plugin {provider!r} has not been registered")
         if not 1 <= hard_pod_affinity_symmetric_weight <= 100:
@@ -160,22 +184,31 @@ class TorchBackend:
             raise ValueError("invalid hardPodAffinitySymmetricWeight: "
                              f"{hard_pod_affinity_symmetric_weight}, must be "
                              "in the range 1-100")
+        if route not in ROUTES:
+            raise ValueError(f"unknown route {route!r} (expected one of "
+                             f"{', '.join(ROUTES)})")
         self.provider = provider
         self.hard_pod_affinity_symmetric_weight = \
             hard_pod_affinity_symmetric_weight
         self.device = resolve_device(device)
+        self.route = route
         self.policy = policy
         self._compiled_policy = None
         if policy is not None:
             from tpusim_torch.policyc import compile_policy
 
             self._compiled_policy = compile_policy(policy)
-        # the last batch's raw device results, in pod order
+        # the last batch's raw device results, in pod order, and the route
+        # it took ("kernel" or "scan", "" before any) with plan_fast's
+        # reason where the scan ran
         self.last_choices = np.zeros(0, np.int32)
+        self.last_route = ""
+        self.last_route_reason = ""
 
     def schedule(self, pods: List[Pod],
                  snapshot: ClusterSnapshot) -> List[Placement]:
         self.last_choices = np.zeros(0, np.int32)
+        self.last_route = self.last_route_reason = ""
         if not pods:
             return []
         if not snapshot.nodes:
@@ -184,12 +217,26 @@ class TorchBackend:
             return [Placement(pod=mark_unschedulable(p, msg),
                               reason="Unschedulable", message=msg)
                     for p in pods]
-        plan, compiled = build_plan(
+        config, compiled, cols, ptabs = compile_inputs(
             snapshot, pods,
             most_requested=self.provider in _MOST_REQUESTED_PROVIDERS,
             hard_weight=self.hard_pod_affinity_symmetric_weight,
             compiled_policy=self._compiled_policy)
-        choices, counts, _adv = fast_scan(plan, device=self.device)
+        plan, why = None, "route='scan' asked for"
+        if self.route != "scan":
+            plan, why = plan_fast(config, compiled, cols, ptabs)
+            if plan is None and self.route == "kernel":
+                raise NotImplementedError(f"torch backend: {why}")
+        if plan is not None:
+            choices, counts, _adv = fast_scan(plan, device=self.device)
+            self.last_route = "kernel"
+        else:
+            carry, statics, xs = scan_inputs(config, compiled, cols, ptabs,
+                                             self.device)
+            _, choices, counts, _adv = schedule_scan(
+                config, carry, statics, xs, graph_steps=GRAPH_STEPS)
+            choices, counts = choices.cpu().numpy(), counts.cpu().numpy()
+            self.last_route, self.last_route_reason = "scan", why
         self.last_choices = choices
         return decode_placements(pods, choices, counts, compiled.statics.names,
                                  reason_strings(compiled.scalar_names))

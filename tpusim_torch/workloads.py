@@ -2,8 +2,9 @@
 builds (the placement goldens depend on it), the groups workload (config 3
 with Services, host ports and pod volumes), the inter-pod workload (config 3
 with pod (anti)affinity on zone and rack keys), the policy workload (the
-groups workload under the upstream 1.2 scheduler Policy), plus random
-workloads and policies for kernel checks.
+groups workload under the upstream 1.2 scheduler Policy), the hostname
+workload (config 3 with the documentation's two-tier hostname terms), plus
+random workloads and policies for kernel checks.
 
 `api` is the module whose make_node / make_pod / ClusterSnapshot build the
 objects: the port's own snapshot module by default; a caller may pass another
@@ -249,6 +250,58 @@ def interpod_workload(num_pods: int, num_nodes: int, seed: int = 12345,
     return api.ClusterSnapshot(nodes=nodes, pods=running), pods
 
 
+HOSTNAME_LABEL = "kubernetes.io/hostname"
+_REQUIRED = "requiredDuringSchedulingIgnoredDuringExecution"
+_PREFERRED = "preferredDuringSchedulingIgnoredDuringExecution"
+NUM_TIERS = 20       # Deployments of each tier
+
+
+def hostname_workload(num_pods: int, num_nodes: int, seed: int = 12345,
+                      api=None):
+    """Config 3's nodes and pod requests with the two-tier pattern of the
+    Kubernetes documentation ("Assigning Pods to Nodes", More practical
+    use-cases: redis-cache and web-store on topologyKey
+    kubernetes.io/hostname), at 20 Deployments a tier:
+      ~40% store-<d> cache replicas, required anti-affinity to their own
+           app on the hostname key (one replica a node);
+      ~40% web-store-<d> replicas, required anti-affinity to their own app
+           and required affinity to store-<d> on the hostname key (beside
+           a cache replica, one a node);
+      ~20% app=batch pods with no terms.
+    A hostname key has a topology domain per node, so the fused kernel's
+    64-domain budget refuses this plan on any real cluster; it runs on the
+    scan route."""
+    api = _api(api)
+    rng = np.random.RandomState(seed)
+    nodes = _config3_nodes(api, num_nodes, lambda i: {
+        "zone": f"z{i % 4}", HOSTNAME_LABEL: f"node-{i}"})
+    milli_cpu, memory, tolerate = _config3_requests(rng, num_pods)
+    tier = rng.rand(num_pods)
+    deploy = rng.randint(0, NUM_TIERS, size=num_pods)
+
+    pods = []
+    for i in range(num_pods):
+        kw = {}
+        if tolerate[i]:
+            kw["tolerations"] = [TOLERATION]
+        store = f"store-{deploy[i]}"
+        if tier[i] < 0.4:
+            app = store
+            kw["affinity"] = {"podAntiAffinity": {
+                _REQUIRED: [_term(app, HOSTNAME_LABEL)]}}
+        elif tier[i] < 0.8:
+            app = f"web-store-{deploy[i]}"
+            kw["affinity"] = {
+                "podAntiAffinity": {_REQUIRED: [_term(app, HOSTNAME_LABEL)]},
+                "podAffinity": {_REQUIRED: [_term(store, HOSTNAME_LABEL)]}}
+        else:
+            app = "batch"
+        pods.append(api.make_pod(f"p-{i}", milli_cpu=int(milli_cpu[i]),
+                                 memory=int(memory[i]), labels={"app": app},
+                                 **kw))
+    return api.ClusterSnapshot(nodes=nodes), pods
+
+
 def uniform_workload(num_pods: int, num_nodes: int, api=None):
     api = _api(api)
     nodes = [api.make_node(f"node-{i}", milli_cpu=4000, memory=16 * 1024**3)
@@ -421,9 +474,7 @@ def random_group_workload(seed: int, num_pods: int, num_nodes: int,
     return snapshot, [decorate(p) for p in pods]
 
 
-INTERPOD_KEYS = ("zone", RACK_LABEL, "kubernetes.io/hostname")
-_REQUIRED = "requiredDuringSchedulingIgnoredDuringExecution"
-_PREFERRED = "preferredDuringSchedulingIgnoredDuringExecution"
+INTERPOD_KEYS = ("zone", RACK_LABEL, HOSTNAME_LABEL)
 
 
 def random_interpod_workload(seed: int, num_pods: int, num_nodes: int,
