@@ -80,13 +80,34 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
      replayed as CUDA graphs) on all of them, each with its device span
      (CUDA events) and microseconds a pod; then the reference
      quickstart (byte-granular memory) through run_simulation on the card,
-     whose split must digest as the JAX package's does.
-Phases 4-12 run TorchBackend with route "kernel", so a plan that stopped
-reaching the kernel fails them, and print the cluster geometry each workload
-launched with beside its times (every full-size cell must launch more than
-one CTA). Then a JSON line of the kernels and, last, the device line.
+     with the host route made to raise, whose split must digest as the JAX
+     package's does;
+ 16. the host route on the card's machine, each part with its wall (host
+     time): (a) the quickstart through run_simulation with backend
+     "reference" and "auto" (which must pick the host for 20 pods on 4
+     nodes), both with the quickstart's digest; (b) config 3's first 200
+     pods on its 5,000 nodes, and config 4's node-affinity shape cut to
+     300 pods on 8 nodes (a third of them fail, with two dozen distinct
+     FitError texts), each through backend "reference" and through
+     backend "torch" on the card (the kernel route, and for the second
+     the scan route too): equal splits, FitError text included, and the
+     JAX package's host digest; (c) config 6's priority-banded feed with
+     PodPriority on backend "reference", cut to 3,000 pods on 150 nodes:
+     the JAX package's digest and preempted count; (d) a policy with one
+     filter extender, served in process, through TorchBackend on the
+     card: it must take the host route and place as ReferenceBackend
+     does, and raise with fallback="error". Phase 16 fails past its
+     150 s budget.
+Phases 4-15 run TorchBackend with fallback="error", and phases 15 and 16b
+run run_simulation on the card with the host route made to raise, so a
+workload that started to reroute to the host fails them; phases 4-12 run
+it with route "kernel", so a plan that stopped reaching the kernel fails
+them, and print the cluster geometry each workload launched with beside
+its times (every full-size cell must launch more than one CTA). Then a
+JSON line of the kernels and, last, the device line.
 """
 
+import contextlib
 import hashlib
 import json
 import os
@@ -125,6 +146,16 @@ QUICKSTART_JSON = json.dumps([
         "requests": {"cpu": cpu, "memory": memory}}}]}}}
     for name, cpu, memory in (("A", "1", "1"), ("B", "100", "1000"))])
 QUICKSTART_DIGEST = "f00595f62c75d722"
+# phase 16: the host route's workloads, and the split digest (and the
+# preempted count) of the JAX package's run_simulation(backend="reference")
+# on each (tools/port_golden.py config3_host 200 5000, config4_host 300 8,
+# config6 3000 150)
+HOST_CONFIG3 = (dict(num_pods=200, num_nodes=5_000), "3457639aca7e71a8")
+HOST_CONFIG4 = (dict(num_pods=300, num_nodes=8, affinity=True),
+                "da38c454da519992")
+HOST_CONFIG6 = (dict(num_pods=3_000, num_nodes=150, affinity=True,
+                     priorities=True, seed=777), "0be871220d60a22c", 12)
+HOST_BUDGET_S = 150
 # phase 14: the pods of config 3 run through both routes
 ROUTES_PODS = 2_048
 # phase 15: the pods of the scan timed eagerly, beside the graph replay
@@ -214,6 +245,27 @@ def split_digest(status):
     split += [(p.name, p.status.conditions[-1].message)
               for p in status.failed_pods]
     return hashlib.sha256(repr(split).encode()).hexdigest()[:16]
+
+
+@contextlib.contextmanager
+def device_routes_only():
+    """Make the port's host route raise while the block runs, so that a run
+    meant for the card fails if run_simulation or TorchBackend rerouted it
+    to the host, whose placements match the JAX package's by construction."""
+    import tpusim_torch.backend as backend_module
+    import tpusim_torch.simulator as simulator_module
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a run meant for the card was rerouted to the "
+                             "host route")
+
+    saved = backend_module.ReferenceBackend, simulator_module.ClusterCapacity
+    backend_module.ReferenceBackend = simulator_module.ClusterCapacity = refuse
+    try:
+        yield
+    finally:
+        backend_module.ReferenceBackend, simulator_module.ClusterCapacity = \
+            saved
 
 
 def make_plan(snapshot, pods, most_requested, policy=None, hard_weight=10):
@@ -393,7 +445,7 @@ def drive_main_path(name, card, cuda):
     t0 = time.perf_counter()
     snapshot, pods = getattr(workloads, workload)(**params)
     build_s = time.perf_counter() - t0
-    backend = TorchBackend(device="cuda", route="kernel",
+    backend = TorchBackend(device="cuda", route="kernel", fallback="error",
                            policy=policy and decode_policy(policy))
     fastscan_chunk.launches = 0
     for key in fastscan_chunk.launches_by_variant:
@@ -950,7 +1002,7 @@ def drive_scan_route(card, cuda):
     workload, params, golden, want_scheduled = SCAN_GOLDEN
     n, nodes = params["num_pods"], params["num_nodes"]
     snapshot, pods = getattr(workloads, workload)(**params)
-    backend = TorchBackend(device="cuda")
+    backend = TorchBackend(device="cuda", fallback="error")
     launches = fastscan_chunk.launches
     t0 = time.perf_counter()
     placements = backend.schedule(pods, snapshot)
@@ -1008,8 +1060,9 @@ def drive_scan_route(card, cuda):
 
     sim_pods = expand_simulation_pods(parse_simulation_pods(QUICKSTART_JSON),
                                       deterministic_ids=True)
-    status = run_simulation(list(reversed(sim_pods)), synthetic_cluster(
-        4, milli_cpu=4000, memory=16 * 1024**3), device="cuda")
+    with device_routes_only():
+        status = run_simulation(list(reversed(sim_pods)), synthetic_cluster(
+            4, milli_cpu=4000, memory=16 * 1024**3), device="cuda")
     digest = split_digest(status)
     print(f"phase 15: quickstart through run_simulation on the card: "
           f"{len(status.successful_pods)} scheduled, "
@@ -1018,6 +1071,141 @@ def drive_scan_route(card, cuda):
     if digest != QUICKSTART_DIGEST:
         raise AssertionError("quickstart placed differently from the JAX "
                              "package")
+
+
+def drive_host_route(card):
+    """Phase 16: the host route on the card's machine, parts (a)-(d)."""
+    from tpusim_torch import workloads
+    from tpusim_torch.api.podspec import (
+        expand_simulation_pods,
+        parse_simulation_pods,
+    )
+    from tpusim_torch.api.snapshot import synthetic_cluster
+    from tpusim_torch.backend import TorchBackend
+    from tpusim_torch.backends import ReferenceBackend, placement_hash
+    from tpusim_torch.engine.policy import decode_policy
+    from tpusim_torch.kernels.fastscan import fastscan_chunk
+    from tpusim_torch.simulator import auto_routes_to_host, run_simulation
+
+    def walled(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0
+
+    start = time.perf_counter()
+    # (a) the quickstart on the host, asked for and picked by "auto"
+    quick = expand_simulation_pods(parse_simulation_pods(QUICKSTART_JSON),
+                                   deterministic_ids=True)
+    if not auto_routes_to_host(len(quick), 4):
+        raise AssertionError("phase 16: auto would not pick the host for "
+                             "the quickstart")
+    for backend in ("reference", "auto"):
+        launches = fastscan_chunk.launches
+        status, wall = walled(lambda: run_simulation(
+            [p.copy() for p in reversed(quick)], synthetic_cluster(
+                4, milli_cpu=4000, memory=16 * 1024**3), backend=backend))
+        digest = split_digest(status)
+        print(f"phase 16a: quickstart, backend {backend}: digest {digest} "
+              f"(want {QUICKSTART_DIGEST}), {wall:.3f}s host wall")
+        if digest != QUICKSTART_DIGEST or fastscan_chunk.launches != launches:
+            raise AssertionError(f"phase 16a: quickstart on {backend}")
+
+    # (b) the host route against the device routes: config 3's first pods,
+    # which all fit, and config 4's node-affinity shape on 8 nodes, where a
+    # third fail, so FitError.error() is held against format_fit_error
+    for part, (params, want), routes in (
+            ("config3", HOST_CONFIG3, ("kernel",)),
+            ("config4", HOST_CONFIG4, ("kernel", "scan"))):
+        snapshot, pods = workloads.build_workload(**params)
+        host, host_s = walled(lambda: run_simulation(
+            [p.copy() for p in pods], snapshot, backend="reference"))
+        host_digest = split_digest(host)
+        print(f"phase 16b: {part} {params['num_pods']} pods x "
+              f"{params['num_nodes']} nodes: reference {host_digest} (want "
+              f"{want}) in {host_s:.3f}s host wall "
+              f"({params['num_pods'] / host_s:.1f} pods/s); "
+              f"{len(host.successful_pods)} scheduled, "
+              f"{len(host.failed_pods)} failed")
+        if host_digest != want:
+            raise AssertionError(f"phase 16b: {part} on the host route "
+                                 "misses the JAX package's digest")
+        if part == "config4" and not host.failed_pods:
+            raise AssertionError("phase 16b: config4 holds no FitError text")
+        for route in routes:
+            launches = fastscan_chunk.launches
+            with device_routes_only():
+                card_status, card_s = walled(lambda: run_simulation(
+                    [p.copy() for p in pods], snapshot, backend="torch",
+                    route=route))
+            kernel_launches = fastscan_chunk.launches - launches
+            card_digest = split_digest(card_status)
+            print(f"phase 16b: {part} torch {route} route {card_digest} in "
+                  f"{card_s:.3f}s ({kernel_launches} kernel launches)")
+            if card_digest != host_digest or \
+                    (kernel_launches > 0) != (route == "kernel"):
+                raise AssertionError(f"phase 16b: {part}'s {route} route "
+                                     "and the host route differ")
+
+    # (c) config 6's priority-banded feed with preemption on the host
+    params, want, want_preempted = HOST_CONFIG6
+    snapshot, pods = workloads.build_workload(**params)
+    status, wall = walled(lambda: run_simulation(
+        pods, snapshot, backend="reference", enable_pod_priority=True))
+    digest, preempted = split_digest(status), len(status.preempted_pods)
+    print(f"phase 16c: config6 {params['num_pods']} pods x "
+          f"{params['num_nodes']} nodes, PodPriority, backend reference: "
+          f"digest {digest} (want {want}), {preempted} preempted (want "
+          f"{want_preempted}), {len(status.successful_pods)} scheduled; "
+          f"{wall:.3f}s host wall ({params['num_pods'] / wall:.1f} pods/s)")
+    if digest != want or preempted != want_preempted:
+        raise AssertionError("phase 16c: config 6 differs from the JAX "
+                             "package")
+
+    # (d) a filter extender, served in process, dropping one node
+    snapshot, pods = workloads.build_workload(300, 40)
+    dropped = snapshot.nodes[0].name
+
+    def transport(verb, args):
+        items = [n for n in args["nodes"]["items"]
+                 if n["metadata"]["name"] != dropped]
+        return {"nodes": {"items": items},
+                "failedNodes": {dropped: "dropped by the extender"}}
+
+    policy = decode_policy({
+        "kind": "Policy", "predicates": [{"name": "GeneralPredicates"}],
+        "priorities": [{"name": "LeastRequestedPriority", "weight": 1}],
+        "extenders": [{"urlPrefix": "http://extender.invalid",
+                       "filterVerb": "filter"}]})
+    backend = TorchBackend(device="cuda", policy=policy,
+                           extender_transport=transport)
+    got, wall = walled(lambda: backend.schedule(pods, snapshot))
+    ref = ReferenceBackend(policy=policy, extender_transport=transport
+                           ).schedule(pods, snapshot)
+    same = placement_hash(got) == placement_hash(ref) and \
+        [p.message for p in got] == [p.message for p in ref]
+    print(f"phase 16d: extender policy through TorchBackend on the card: "
+          f"route {backend.last_route} ({backend.last_route_reason}), "
+          f"{sum(p.scheduled for p in got)} scheduled, none on {dropped}: "
+          f"{all(p.node_name != dropped for p in got)}; equal to "
+          f"ReferenceBackend: {same}; {wall:.3f}s host wall")
+    if backend.last_route != "reference" or not same \
+            or any(p.node_name == dropped for p in got):
+        raise AssertionError("phase 16d: the extender policy did not run "
+                             "on the host route as ReferenceBackend does")
+    try:
+        TorchBackend(device="cuda", policy=policy, fallback="error",
+                     extender_transport=transport).schedule(pods, snapshot)
+    except NotImplementedError as exc:
+        print(f"phase 16d: fallback='error' raises: {exc}")
+    else:
+        raise AssertionError("phase 16d: fallback='error' did not raise")
+
+    total = time.perf_counter() - start
+    print(f"phase 16: host route {total:.1f}s wall in all, against its "
+          f"{HOST_BUDGET_S} s budget, on the machine of {card}")
+    if total > HOST_BUDGET_S:
+        raise AssertionError(f"phase 16: {total:.1f}s is past its "
+                             f"{HOST_BUDGET_S} s budget")
 
 
 def main():
@@ -1086,6 +1274,9 @@ def main():
     # phases 14-15: the exact sequential scan, against the kernel and alone
     compare_routes(card, cuda)
     drive_scan_route(card, cuda)
+
+    # phase 16: the host route on this machine
+    drive_host_route(card)
 
     kernels = []
     for name, variant, replaces, n_launch, err in (

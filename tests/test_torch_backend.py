@@ -26,10 +26,26 @@ from tpusim.jaxe.backend import JaxBackend
 from tpusim.simulator import run_simulation as jax_run_simulation
 
 import tpusim_torch.api.snapshot as port_api
+import tpusim_torch.backend as port_backend
+import tpusim_torch.simulator as port_simulator
 from tpusim_torch.api.podspec import expand_simulation_pods, parse_simulation_pods
 from tpusim_torch.backend import TorchBackend, placement_hash
 from tpusim_torch.simulator import run_simulation
 from tpusim_torch.workloads import build_workload
+
+
+
+def forbid_host_route(monkeypatch):
+    """Make the port's host route raise, so that a device-route test fails
+    when its workload is rerouted (TorchBackend's fallback, run_simulation's
+    rules) instead of passing on the host's placements, which match the
+    JAX package's by construction."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("the workload was rerouted to the host route")
+
+    monkeypatch.setattr(port_backend, "ReferenceBackend", refuse)
+    monkeypatch.setattr(port_simulator, "ClusterCapacity", refuse)
+
 
 PODSPEC_YAML = """
 - name: A
@@ -204,7 +220,8 @@ def test_parity_with_jax_and_reference(build, provider):
     psnap, ppods = build(port_api)
     ref = ReferenceBackend(provider=provider).schedule(jpods, jsnap)
     jx = JaxBackend(provider=provider, fallback="error").schedule(jpods, jsnap)
-    port = TorchBackend(provider=provider, device="cpu").schedule(ppods, psnap)
+    port = TorchBackend(provider=provider, device="cpu",
+                        fallback="error").schedule(ppods, psnap)
     assert len(port) == len(ref)
     for r, p in zip(ref, port):
         assert (p.pod.name, p.node_name, p.reason) == \
@@ -213,7 +230,8 @@ def test_parity_with_jax_and_reference(build, provider):
     assert placement_hash(port) == jax_hash(ref) == jax_hash(jx)
 
 
-def test_run_simulation_split_matches_jax():
+def test_run_simulation_split_matches_jax(monkeypatch):
+    forbid_host_route(monkeypatch)
     jsnap, jpods = taints_and_selectors(jax_api)
     psnap, ppods = taints_and_selectors(port_api)
     want = jax_run_simulation(jpods, jsnap, backend="jax")
@@ -237,7 +255,7 @@ def test_config_shape_end_to_end(affinity):
     jsnap, jpods = bench.build_workload(2_000, 500, affinity=affinity)
     psnap, ppods = build_workload(2_000, 500, affinity=affinity)
     jx = JaxBackend(fallback="error").schedule(jpods, jsnap)
-    backend = TorchBackend(device="cpu")
+    backend = TorchBackend(device="cpu", fallback="error")
     port = backend.schedule(ppods, psnap)
     assert placement_hash(port) == jax_hash(jx)
     assert [p.message for p in port] == [p.message for p in jx]
@@ -427,7 +445,8 @@ def test_default_device_needs_cuda(monkeypatch):
         TorchBackend(device="meta")
 
 
-def test_cli_report_matches_jax_cli(tmp_path, capsys):
+def test_cli_report_matches_jax_cli(tmp_path, capsys, monkeypatch):
+    forbid_host_route(monkeypatch)
     from tpusim.cli import main as jax_main
     from tpusim_torch.cli import main as port_main
 

@@ -294,7 +294,8 @@ def test_backend_parity_with_jax_and_reference(name, provider):
     psnap, ppods = build(port_api)
     ref = ReferenceBackend(provider=provider).schedule(jpods, jsnap)
     jx = JaxBackend(provider=provider, fallback="error").schedule(jpods, jsnap)
-    port = TorchBackend(provider=provider, device="cpu").schedule(ppods, psnap)
+    port = TorchBackend(provider=provider, device="cpu",
+                        fallback="error").schedule(ppods, psnap)
     assert [(p.pod.name, p.node_name, p.reason, p.message) for p in port] \
         == [(r.pod.name, r.node_name, r.reason, r.message) for r in ref]
     assert placement_hash(port) == jax_hash(ref) == jax_hash(jx)
@@ -308,7 +309,7 @@ def test_groups_workload_end_to_end():
     jsnap, jpods = groups_workload(2_000, 500, api=jax_api)
     psnap, ppods = groups_workload(2_000, 500)
     jx = JaxBackend(fallback="error").schedule(jpods, jsnap)
-    backend = TorchBackend(device="cpu")
+    backend = TorchBackend(device="cpu", fallback="error")
     port = backend.schedule(ppods, psnap)
     assert placement_hash(port) == jax_hash(jx)
     assert [p.message for p in port] == [p.message for p in jx]
@@ -336,7 +337,7 @@ def test_interpod_workload_still_raises():
     jsnap, jpods = build(jax_api)
     psnap, ppods = build(port_api)
     jx = JaxBackend(fallback="error").schedule(jpods, jsnap)
-    port = TorchBackend(device="cpu").schedule(ppods, psnap)
+    port = TorchBackend(device="cpu", fallback="error").schedule(ppods, psnap)
     assert placement_hash(port) == jax_hash(jx)
     assert [p.message for p in port] == [p.message for p in jx]
     assert any(p.scheduled for p in port) and not all(
@@ -423,9 +424,19 @@ def test_unsupported_compile_raises_with_jax_reason(monkeypatch, env, build):
         JaxBackend(fallback="error").schedule(jpods, jsnap)
     psnap, ppods = build(port_api)
     with pytest.raises(NotImplementedError) as perr:
-        TorchBackend(device="cpu").schedule(ppods, psnap)
+        TorchBackend(device="cpu", fallback="error").schedule(ppods, psnap)
     detail = str(jerr.value).split(": ", 1)[1]
     assert str(perr.value).split(": ", 1)[1] == detail
+    # the default backend runs the workload on the host route, placed as
+    # the JAX package's backend places it on its reference fallback
+    jx = JaxBackend(fallback="reference").schedule(jpods, jsnap)
+    backend = TorchBackend(device="cpu")
+    port = backend.schedule(ppods, psnap)
+    assert (backend.last_route, backend.last_route_reason) == \
+        ("reference", detail)
+    assert placement_hash(port) == jax_hash(jx)
+    assert [p.message for p in port] == [p.message for p in jx]
+    assert any(p.scheduled for p in port)
 
 
 def test_unresolvable_claim_with_zones_is_unsupported():

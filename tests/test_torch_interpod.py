@@ -308,7 +308,7 @@ def test_backend_parity_with_jax_and_reference(provider, hard_weight, seed):
     jx = JaxBackend(provider=provider, fallback="error",
                     hard_pod_affinity_symmetric_weight=hard_weight
                     ).schedule(jpods, jsnap)
-    port = TorchBackend(provider=provider, device="cpu",
+    port = TorchBackend(provider=provider, device="cpu", fallback="error",
                         hard_pod_affinity_symmetric_weight=hard_weight
                         ).schedule(ppods, psnap)
     assert [(p.pod.name, p.node_name, p.reason, p.message) for p in port] \
@@ -324,7 +324,7 @@ def test_every_interpod_reason_reaches_the_fit_error():
     jsnap, jpods = random_build(0, num_pods=80, num_nodes=24)(jax_api)
     psnap, ppods = random_build(0, num_pods=80, num_nodes=24)(port_api)
     jx = JaxBackend(fallback="error").schedule(jpods, jsnap)
-    port = TorchBackend(device="cpu").schedule(ppods, psnap)
+    port = TorchBackend(device="cpu", fallback="error").schedule(ppods, psnap)
     assert [p.message for p in port] == [p.message for p in jx]
     text = " ".join(p.message for p in port)
     strings = reason_strings(())

@@ -42,8 +42,8 @@ def test_no_jax_or_tpusim_imports(path):
 def test_package_imports_without_yaml():
     code = ("import sys; sys.modules['yaml'] = None\n"
             "import tpusim_torch.cli, tpusim_torch.backend, "
-            "tpusim_torch.simulator, tpusim_torch.workloads, "
-            "tpusim_torch.kernels.build\n"
+            "tpusim_torch.backends, tpusim_torch.simulator, "
+            "tpusim_torch.workloads, tpusim_torch.kernels.build\n"
             "assert 'jax' not in sys.modules and 'tpusim' not in sys.modules\n"
             "assert 'triton' not in sys.modules\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -45,6 +45,7 @@ from tpusim_torch.engine.policy import decode_policy as port_decode  # noqa: E40
 from tpusim_torch.fastscan import fast_scan  # noqa: E402
 from tpusim_torch.simulator import run_simulation  # noqa: E402
 from tpusim_torch.state import NUM_FIXED_BITS  # noqa: E402
+from test_torch_backend import forbid_host_route  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 with open(os.path.join(ROOT, "tests", "compat_policies.json")) as _f:
@@ -495,15 +496,16 @@ def test_backend_parity_with_jax_and_reference(name):
     ref = ReferenceBackend(policy=jax_decode(policy)).schedule(jpods, jsnap)
     jx = JaxBackend(fallback="error", policy=jax_decode(policy)).schedule(
         jpods, jsnap)
-    port = TorchBackend(device="cpu", policy=port_decode(policy)).schedule(
-        ppods, psnap)
+    port = TorchBackend(device="cpu", policy=port_decode(policy),
+                        fallback="error").schedule(ppods, psnap)
     assert [(p.pod.name, p.node_name, p.reason, p.message) for p in port] \
         == [(r.pod.name, r.node_name, r.reason, r.message) for r in ref]
     assert placement_hash(port) == jax_hash(ref) == jax_hash(jx)
     assert [p.message for p in port] == [p.message for p in jx]
 
 
-def test_run_simulation_and_cli_take_a_policy(tmp_path, capsys):
+def test_run_simulation_and_cli_take_a_policy(tmp_path, capsys, monkeypatch):
+    forbid_host_route(monkeypatch)
     jstatus = jax_run(compat_workload(jax_api), compat_cluster(jax_api),
                       backend="jax", policy=jax_decode(COMPAT["1.2"]))
     status = run_simulation(compat_workload(port_api),
@@ -551,6 +553,17 @@ def test_unknown_names_raise_the_same_key_error(policy):
     assert str(perr.value) == str(jerr.value)
 
 
+def drop_node_transport(name):
+    """An in-process filter extender that drops node `name`."""
+    def send(verb, args):
+        assert verb == "filter"
+        items = [n for n in args["nodes"]["items"]
+                 if n["metadata"]["name"] != name]
+        return {"nodes": {"items": items},
+                "failedNodes": {name: "dropped by the extender"}}
+    return send
+
+
 def test_extenders_and_hard_weight_refuse_alike():
     ext = _policy(["PodFitsResources"], [], extenders=[
         {"urlPrefix": "http://extender", "filterVerb": "filter"}])
@@ -560,10 +573,25 @@ def test_extenders_and_hard_weight_refuse_alike():
                                                                       snap)
     psnap, ppods = compat_build(port_api)
     with pytest.raises(NotImplementedError) as perr:
-        TorchBackend(device="cpu", policy=port_decode(ext)).schedule(ppods,
-                                                                     psnap)
+        TorchBackend(device="cpu", policy=port_decode(ext),
+                     fallback="error").schedule(ppods, psnap)
     assert str(perr.value) == str(jerr.value).replace("jax backend",
                                                       "torch backend")
+    # the default backend runs the extender policy on the host route, as
+    # the JAX package's backend does on its reference fallback
+    dropped = psnap.nodes[0].name
+    jx = JaxBackend(policy=jax_decode(ext),
+                    extender_transport=drop_node_transport(dropped)
+                    ).schedule(pods, snap)
+    backend = TorchBackend(device="cpu", policy=port_decode(ext),
+                           extender_transport=drop_node_transport(dropped))
+    port = backend.schedule(ppods, psnap)
+    assert backend.last_route == "reference"
+    assert backend.last_route_reason == str(perr.value).split(": ", 1)[1]
+    assert placement_hash(port) == jax_hash(jx)
+    assert [p.message for p in port] == [p.message for p in jx]
+    assert dropped not in {p.node_name for p in port}
+    assert any(p.scheduled for p in port)
     heavy = {"kind": "Policy", "hardPodAffinitySymmetricWeight": 101}
     with pytest.raises(ValueError) as jerr:
         jpc.compile_policy(jax_decode(heavy))

@@ -13,6 +13,18 @@ split of the reference quickstart on 4 synthetic nodes (chip_smoke.py
 QUICKSTART_DIGEST):
 
     JAX_PLATFORMS=cpu python tools/port_golden.py quickstart
+
+`config3_host N M` prints the split digest of the JAX package's
+run_simulation(backend="reference") on config 3's first N pods on M nodes,
+`config4_host N M` that of config 4's node-affinity shape
+(build_workload(N, M, affinity=True)), and `config6 N M` that of config 6's
+priority-banded feed (build_workload(N, M, affinity=True, priorities=True,
+seed=777)) with PodPriority on, and its preempted count (chip_smoke.py
+HOST_CONFIG3, HOST_CONFIG4, HOST_CONFIG6):
+
+    JAX_PLATFORMS=cpu python tools/port_golden.py config3_host 200 5000
+    JAX_PLATFORMS=cpu python tools/port_golden.py config4_host 300 8
+    JAX_PLATFORMS=cpu python tools/port_golden.py config6 3000 150
 """
 
 import hashlib
@@ -54,9 +66,31 @@ def quickstart_digest():
     return 0
 
 
+def host_digest(name, num_pods, num_nodes):
+    from chip_smoke import split_digest
+    from tpusim.simulator import run_simulation
+
+    t0 = time.perf_counter()
+    priority = name == "config6"
+    kwargs = {"config3_host": {}, "config4_host": dict(affinity=True),
+              "config6": dict(affinity=True, priorities=True, seed=777)}[name]
+    snapshot, pods = workloads.build_workload(num_pods, num_nodes,
+                                              api=jax_api, **kwargs)
+    status = run_simulation(pods, snapshot, backend="reference",
+                            enable_pod_priority=priority)
+    print(f"{name}({num_pods}, {num_nodes}): digest {split_digest(status)}, "
+          f"{len(status.successful_pods)} scheduled, "
+          f"{len(status.failed_pods)} failed, "
+          f"{len(status.preempted_pods)} preempted, "
+          f"{time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 def main(argv):
     if argv[0] == "quickstart":
         return quickstart_digest()
+    if argv[0] in ("config3_host", "config4_host", "config6"):
+        return host_digest(argv[0], int(argv[1]), int(argv[2]))
     name, num_pods, num_nodes = argv[0], int(argv[1]), int(argv[2])
     t0 = time.perf_counter()
     snapshot, pods = WORKLOADS[name](num_pods, num_nodes, api=jax_api)

@@ -5,8 +5,11 @@ module names so each counterpart is easy to find, and imports nothing of
 tpusim or of JAX:
 
   api/        domain model, snapshots, podspec parsing
-  engine/     scheduler policies, and the host-side predicate/priority
-              helpers the compile step uses
+  engine/     the host scheduling engine (predicates, priorities, the
+              generic scheduler with preemption, providers, volumes,
+              extenders, cache, queues) and scheduler policies
+  framework/  the store, strategy and recorder of the host orchestrator,
+              and the report
   state       the numpy cluster compile (signature tables, pod columns)
   config      provider configuration, a policy's compiled image, weights
   policyc     a scheduler Policy compiled to stage gating, weights and tables
@@ -14,8 +17,12 @@ tpusim or of JAX:
   kernels/    the hand-written CUDA kernels, their wrappers and plain versions
   csrc/       the CUDA sources, built with nvcc at first use
   fastscan    the chunked driver of the fused scan
+  scan        the exact sequential scan route (int64 tensor code)
+  backends    Placement, ReferenceBackend (the host route), get_backend
   backend     TorchBackend: compile -> plan -> scan -> placements
-  simulator   run_simulation, the entry point of a simulation
+  gang        pod-group annotations and the gang's shared FitError
+  simulator   ClusterCapacity (the host orchestrator) and run_simulation,
+              the entry point of a simulation
   cli         python -m tpusim_torch.cli
 """
 

@@ -11,6 +11,7 @@ k8s-style camelCase dicts so `pods.json` / `nodes.json` checkpoints
 from __future__ import annotations
 
 import copy as _copy_mod
+import enum
 import re
 from dataclasses import dataclass, field, is_dataclass
 from typing import Any, Optional
@@ -51,6 +52,28 @@ def is_scalar_resource_name(name: str) -> bool:
     extended = ("/" in name and "kubernetes.io/" not in name
                 and not name.startswith("requests."))
     return extended or name.startswith("hugepages-")
+
+
+class ResourceType(enum.Enum):
+    """Reference: pkg/api/api.go:27-58 (ResourceType enum + ObjectType mapping)."""
+
+    PODS = "pods"
+    PERSISTENT_VOLUMES = "persistentvolumes"
+    NODES = "nodes"
+    SERVICES = "services"
+    PERSISTENT_VOLUME_CLAIMS = "persistentvolumeclaims"
+    STORAGE_CLASSES = "storageclasses"
+
+    @staticmethod
+    def from_string(s: str) -> "ResourceType":
+        """Reference: pkg/api/api.go:60-77 (StringToResourceType)."""
+        try:
+            return ResourceType(s.lower())
+        except ValueError:
+            raise ValueError(f"unknown resource type: {s}")
+
+    def object_type(self):
+        return _RESOURCE_OBJECT_TYPES[self]
 
 
 def _get(d: dict, *keys, default=None):
@@ -938,11 +961,18 @@ class Service:
         return f"{self.namespace}/{self.metadata.name}"
 
 
+# beta annotation override for StorageClassName (v1helper
+# GetPersistentVolume(Claim)Class reads it before the spec field)
+ANN_STORAGE_CLASS = "volume.beta.kubernetes.io/storage-class"
+# alpha node-affinity annotation on PVs (volumehelper checkAlphaNodeAffinity)
+ANN_ALPHA_NODE_AFFINITY = "volume.alpha.kubernetes.io/node-affinity"
+
+VOLUME_BINDING_IMMEDIATE = "Immediate"
+VOLUME_BINDING_WAIT = "WaitForFirstConsumer"
+
+
 @dataclass
 class PersistentVolume:
-    """A PersistentVolume: its zone labels (NoVolumeZoneConflict) and its
-    disk source (MaxPDVolumeCount) are what the scheduler reads."""
-
     metadata: ObjectMeta = field(default_factory=ObjectMeta)
     raw: dict = field(default_factory=dict)
 
@@ -952,6 +982,13 @@ class PersistentVolume:
     def from_obj(cls, o: dict) -> "PersistentVolume":
         return cls(metadata=ObjectMeta.from_obj(o.get("metadata")), raw=dict(o))
 
+    def to_obj(self) -> dict:
+        o = dict(self.raw)
+        o.setdefault("apiVersion", "v1")
+        o["kind"] = "PersistentVolume"
+        o["metadata"] = self.metadata.to_obj()
+        return o
+
     @property
     def name(self) -> str:
         return self.metadata.name
@@ -959,9 +996,50 @@ class PersistentVolume:
     def key(self) -> str:
         return self.metadata.name
 
+    def copy(self) -> "PersistentVolume":
+        """Deep copy: raw holds nested spec dicts, and the binder's assume path
+        mutates spec.claimRef — a shallow dict() would alias the original."""
+        import copy as _copy
+
+        return PersistentVolume(metadata=ObjectMeta.from_obj(self.metadata.to_obj()),
+                                raw=_copy.deepcopy(self.raw))
+
+    # --- typed spec accessors the scheduler reads ---
+
     @property
     def spec_raw(self) -> dict:
         return self.raw.get("spec") or {}
+
+    @property
+    def capacity_storage(self) -> int:
+        """spec.capacity.storage in bytes (Quantity.Value semantics); memoized —
+        it sits in the per-pod-per-node CheckVolumeBinding hot path."""
+        v = self.__dict__.get("_capacity_storage")
+        if v is None:
+            qty = (self.spec_raw.get("capacity") or {}).get("storage")
+            v = 0 if qty is None else parse_quantity(str(qty)).value()
+            self.__dict__["_capacity_storage"] = v
+        return v
+
+    @property
+    def claim_ref(self) -> Optional[dict]:
+        return self.spec_raw.get("claimRef")
+
+    @property
+    def access_modes(self) -> list:
+        return list(self.spec_raw.get("accessModes") or [])
+
+    @property
+    def volume_mode(self) -> str:
+        return self.spec_raw.get("volumeMode") or "Filesystem"
+
+    @property
+    def storage_class_name(self) -> str:
+        """v1helper.GetPersistentVolumeClass: beta annotation FIRST, then the
+        spec field (helpers.go:398-405)."""
+        if ANN_STORAGE_CLASS in self.metadata.annotations:
+            return self.metadata.annotations[ANN_STORAGE_CLASS]
+        return self.spec_raw.get("storageClassName") or ""
 
     @property
     def gce_persistent_disk(self) -> Optional[dict]:
@@ -975,12 +1053,31 @@ class PersistentVolume:
     def azure_disk(self) -> Optional[dict]:
         return self.spec_raw.get("azureDisk")
 
+    def node_affinity_terms(self) -> Optional[list]:
+        """Required node-affinity terms (ORed NodeSelectorTerm list) from
+        spec.nodeAffinity.required, else the alpha annotation
+        (volumeutil.CheckNodeAffinity reads both). None = unconstrained.
+        Memoized — evaluated per pod per node by CheckVolumeBinding."""
+        if "_node_affinity_terms" in self.__dict__:
+            return self.__dict__["_node_affinity_terms"]
+        na = self.spec_raw.get("nodeAffinity")
+        req = (na or {}).get("required")
+        if req is None:
+            ann = self.metadata.annotations.get(ANN_ALPHA_NODE_AFFINITY)
+            if ann:
+                import json as _json
+
+                affinity = _json.loads(ann)
+                req = affinity.get("requiredDuringSchedulingIgnoredDuringExecution")
+        terms = None if req is None else [
+            NodeSelectorTerm.from_obj(t)
+            for t in req.get("nodeSelectorTerms") or []]
+        self.__dict__["_node_affinity_terms"] = terms
+        return terms
+
 
 @dataclass
 class PersistentVolumeClaim:
-    """A PersistentVolumeClaim: the scheduler reads the volume it is bound
-    to."""
-
     metadata: ObjectMeta = field(default_factory=ObjectMeta)
     raw: dict = field(default_factory=dict)
 
@@ -989,6 +1086,13 @@ class PersistentVolumeClaim:
     @classmethod
     def from_obj(cls, o: dict) -> "PersistentVolumeClaim":
         return cls(metadata=ObjectMeta.from_obj(o.get("metadata")), raw=dict(o))
+
+    def to_obj(self) -> dict:
+        o = dict(self.raw)
+        o.setdefault("apiVersion", "v1")
+        o["kind"] = "PersistentVolumeClaim"
+        o["metadata"] = self.metadata.to_obj()
+        return o
 
     @property
     def name(self) -> str:
@@ -1001,6 +1105,11 @@ class PersistentVolumeClaim:
     def key(self) -> str:
         return f"{self.namespace}/{self.metadata.name}"
 
+    def copy(self) -> "PersistentVolumeClaim":
+        return PersistentVolumeClaim.from_obj(self.to_obj())
+
+    # --- typed spec accessors the scheduler reads ---
+
     @property
     def spec_raw(self) -> dict:
         return self.raw.get("spec") or {}
@@ -1008,6 +1117,117 @@ class PersistentVolumeClaim:
     @property
     def volume_name(self) -> str:
         return self.spec_raw.get("volumeName") or ""
+
+    @property
+    def access_modes(self) -> list:
+        return list(self.spec_raw.get("accessModes") or [])
+
+    @property
+    def volume_mode(self) -> str:
+        return self.spec_raw.get("volumeMode") or "Filesystem"
+
+    @property
+    def storage_class_name(self) -> str:
+        """v1helper.GetPersistentVolumeClaimClass: beta annotation FIRST, then
+        the spec field, which may be an explicit "" (helpers.go:409-420)."""
+        if ANN_STORAGE_CLASS in self.metadata.annotations:
+            return self.metadata.annotations[ANN_STORAGE_CLASS]
+        sc = self.spec_raw.get("storageClassName")
+        return sc if sc is not None else ""
+
+    @property
+    def request_storage(self) -> int:
+        v = self.__dict__.get("_request_storage")
+        if v is None:
+            qty = ((self.spec_raw.get("resources") or {}).get("requests")
+                   or {}).get("storage")
+            v = 0 if qty is None else parse_quantity(str(qty)).value()
+            self.__dict__["_request_storage"] = v
+        return v
+
+    def selector(self) -> Optional["LabelSelector"]:
+        if "_selector" not in self.__dict__:
+            self.__dict__["_selector"] = LabelSelector.from_obj(
+                self.spec_raw.get("selector"))
+        return self.__dict__["_selector"]
+
+
+@dataclass
+class StorageClass:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    raw: dict = field(default_factory=dict)
+
+    kind = "StorageClass"
+
+    @classmethod
+    def from_obj(cls, o: dict) -> "StorageClass":
+        return cls(metadata=ObjectMeta.from_obj(o.get("metadata")), raw=dict(o))
+
+    def to_obj(self) -> dict:
+        o = dict(self.raw)
+        o.setdefault("apiVersion", "storage.k8s.io/v1")
+        o["kind"] = "StorageClass"
+        o["metadata"] = self.metadata.to_obj()
+        return o
+
+    @property
+    def name(self) -> str:
+        return self.metadata.name
+
+    def key(self) -> str:
+        return self.metadata.name
+
+    @property
+    def volume_binding_mode(self) -> Optional[str]:
+        """None when unset — shouldDelayBinding errors on a gate-on class with
+        no mode (pv_controller.go:290-292)."""
+        return self.raw.get("volumeBindingMode")
+
+
+@dataclass
+class PodDisruptionBudget:
+    """Minimal policy/v1beta1 PDB: the scheduler reads namespace, selector, and
+    status.disruptionsAllowed (preemption victim filtering,
+    core/generic_scheduler.go filterPodsWithPDBViolation)."""
+
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    selector: Optional[LabelSelector] = None
+    disruptions_allowed: int = 0
+
+    kind = "PodDisruptionBudget"
+
+    @classmethod
+    def from_obj(cls, o: dict) -> "PodDisruptionBudget":
+        return cls(metadata=ObjectMeta.from_obj(o.get("metadata")),
+                   selector=LabelSelector.from_obj(_get(o, "spec", "selector")),
+                   disruptions_allowed=int(
+                       _get(o, "status", "disruptionsAllowed", default=0) or 0))
+
+    def to_obj(self) -> dict:
+        o: dict[str, Any] = {"apiVersion": "policy/v1beta1",
+                             "kind": "PodDisruptionBudget",
+                             "metadata": self.metadata.to_obj(), "spec": {},
+                             "status": {"disruptionsAllowed": self.disruptions_allowed}}
+        if self.selector is not None:
+            o["spec"]["selector"] = self.selector.to_obj()
+        return o
+
+    @property
+    def namespace(self) -> str:
+        return self.metadata.namespace or DEFAULT_NAMESPACE
+
+    def key(self) -> str:
+        return f"{self.namespace}/{self.metadata.name}"
+
+
+_RESOURCE_OBJECT_TYPES = {
+    ResourceType.PODS: Pod,
+    ResourceType.PERSISTENT_VOLUMES: PersistentVolume,
+    ResourceType.NODES: Node,
+    ResourceType.SERVICES: Service,
+    ResourceType.PERSISTENT_VOLUME_CLAIMS: PersistentVolumeClaim,
+    ResourceType.STORAGE_CLASSES: StorageClass,
+}
 
 
 # ---------------------------------------------------------------------------

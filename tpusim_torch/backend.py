@@ -12,22 +12,33 @@ Placements and FitError text byte-identical to kube-scheduler's.
 
 route="auto" takes the kernel when it accepts the plan and the scan
 otherwise, "kernel" raises NotImplementedError with plan_fast's reason where
-the kernel refuses, "scan" always takes the scan. A workload neither route
-carries (a volume the reference resolves host-side, a group budget of the
-compile, a policy's extenders) raises NotImplementedError with the reason;
-there is no host fallback.
+the kernel refuses, "scan" always takes the scan. A workload that the host
+compile classifies as unsupported by both routes (a claim the reference
+resolves per pod, a group budget of the compile, a policy's extenders) runs
+on the host route, backends.ReferenceBackend, with fallback="reference" (the
+default), as the JAX package's JaxBackend does; fallback="error" raises
+NotImplementedError with the reason. That classification is known before any
+device work, and it is the only reroute: a fault of a kernel build, a launch
+or the scan propagates.
 """
 
 from __future__ import annotations
 
-import hashlib
-from dataclasses import dataclass, replace
+import logging
+from dataclasses import replace
 from typing import List
 
 import numpy as np
 
 from tpusim_torch.api.snapshot import ClusterSnapshot
-from tpusim_torch.api.types import Pod, PodCondition
+from tpusim_torch.api.types import Pod
+from tpusim_torch.backends import (  # noqa: F401 (re-exported)
+    Placement,
+    ReferenceBackend,
+    bind_pod,
+    mark_unschedulable,
+    placement_hash,
+)
 from tpusim_torch.config import config_for
 from tpusim_torch.device import resolve_device
 from tpusim_torch.fastplan import plan_fast
@@ -43,49 +54,10 @@ _KNOWN_PROVIDERS = {DEFAULT_PROVIDER} | _MOST_REQUESTED_PROVIDERS
 
 # generic_scheduler.go:48 (FitError.Error's header)
 NO_NODE_AVAILABLE_MSG = "0/{} nodes are available"
+UNSUPPORTED_MSG = "torch backend does not yet carry state for: "
+FALLBACKS = ("reference", "error")
 
-
-@dataclass
-class Placement:
-    """One scheduling decision. For parity hashing: (pod name, node|'', reason)."""
-
-    pod: Pod
-    node_name: str = ""
-    reason: str = ""   # "" on success, "Unschedulable" on predicate failure
-    message: str = ""  # FitError reason histogram text
-
-    @property
-    def scheduled(self) -> bool:
-        return bool(self.node_name)
-
-
-def bind_pod(pod: Pod, node_name: str) -> Pod:
-    """The Bind intercept's state mutation (reference: simulator.go:108-128):
-    set nodeName, mark Running."""
-    bound = pod.copy()
-    bound.spec.node_name = node_name
-    bound.status.phase = "Running"
-    return bound
-
-
-def mark_unschedulable(pod: Pod, message: str) -> Pod:
-    """The Update intercept (reference: simulator.go:163-185 + scheduler.go
-    error path): Pending phase, PodScheduled=False condition,
-    Reason=Unschedulable."""
-    failed = pod.copy()
-    failed.status.phase = "Pending"
-    failed.status.conditions.append(PodCondition(
-        type="PodScheduled", status="False", reason="Unschedulable", message=message))
-    failed.status.reason = "Unschedulable"
-    return failed
-
-
-def placement_hash(placements: List[Placement]) -> str:
-    """Stable digest of the ordered decision list for parity checking."""
-    h = hashlib.sha256()
-    for p in placements:
-        h.update(f"{p.pod.name}\x00{p.node_name}\x00{p.reason}\n".encode())
-    return h.hexdigest()
+log = logging.getLogger(__name__)
 
 
 def format_fit_error(num_nodes: int, counts: np.ndarray, strings: List[str]) -> str:
@@ -112,15 +84,12 @@ def decode_placements(pods: List[Pod], choices: np.ndarray, counts: np.ndarray,
     return placements
 
 
-def compile_inputs(snapshot: ClusterSnapshot, pods: List[Pod],
-                   most_requested: bool = False, hard_weight: int = 10,
-                   compiled_policy=None):
-    """The host compile both routes share: (config, compiled, cols, ptabs).
-    compiled_policy (policyc.compile_policy) replaces the provider's
-    predicates and priorities, and its hardPodAffinitySymmetricWeight, if
-    set, `hard_weight`; ptabs are its policyc.PolicyTables (None without a
-    policy). Raises NotImplementedError with the reason for a workload
-    neither route carries."""
+def compile_host(snapshot: ClusterSnapshot, pods: List[Pod],
+                 compiled_policy=None):
+    """The host compile of the cluster: (compiled, cols, detail). detail is
+    "" when both device routes carry the workload, else the reasons the
+    compile and the policy classify it unsupported, as the JAX package's
+    backend joins them."""
     cp = compiled_policy
     ps = cp.spec if cp is not None else None
     compiled, cols = compile_cluster(
@@ -129,10 +98,15 @@ def compile_inputs(snapshot: ClusterSnapshot, pods: List[Pod],
     unsupported = list(compiled.unsupported)
     if cp is not None:
         unsupported.extend(cp.unsupported)
-    if unsupported:
-        detail = "; ".join(sorted(set(unsupported))[:5])
-        raise NotImplementedError(
-            f"torch backend does not yet carry state for: {detail}")
+    return compiled, cols, "; ".join(sorted(set(unsupported))[:5])
+
+
+def finish_inputs(snapshot: ClusterSnapshot, pods: List[Pod], compiled, cols,
+                  most_requested: bool = False, hard_weight: int = 10,
+                  compiled_policy=None):
+    """The device inputs of a supported host compile: (config, compiled,
+    cols, ptabs), as compile_inputs."""
+    cp = compiled_policy
     if cp is not None and cp.hard_weight is not None:
         hard_weight = cp.hard_weight
     config = config_for(compiled, most_requested=most_requested,
@@ -143,10 +117,26 @@ def compile_inputs(snapshot: ClusterSnapshot, pods: List[Pod],
 
         # fills cols.img_id and cols.sa_self_id in place
         ptabs = build_policy_tables(cp, snapshot, pods, compiled, cols)
-        config = replace(config, policy=ps)
+        config = replace(config, policy=cp.spec)
         if cp.saa_entries:
             config = replace(config, n_saa_doms=ptabs.n_saa_doms)
     return config, compiled, cols, ptabs
+
+
+def compile_inputs(snapshot: ClusterSnapshot, pods: List[Pod],
+                   most_requested: bool = False, hard_weight: int = 10,
+                   compiled_policy=None):
+    """The host compile both routes share: (config, compiled, cols, ptabs).
+    compiled_policy (policyc.compile_policy) replaces the provider's
+    predicates and priorities, and its hardPodAffinitySymmetricWeight, if
+    set, `hard_weight`; ptabs are its policyc.PolicyTables (None without a
+    policy). Raises NotImplementedError with the reason for a workload
+    neither route carries."""
+    compiled, cols, detail = compile_host(snapshot, pods, compiled_policy)
+    if detail:
+        raise NotImplementedError(UNSUPPORTED_MSG + detail)
+    return finish_inputs(snapshot, pods, compiled, cols, most_requested,
+                         hard_weight, compiled_policy)
 
 
 def build_plan(snapshot: ClusterSnapshot, pods: List[Pod],
@@ -170,15 +160,21 @@ ROUTES = ("auto", "kernel", "scan")
 class TorchBackend:
     def __init__(self, provider: str = DEFAULT_PROVIDER, device="cuda",
                  hard_pod_affinity_symmetric_weight: int = 10, policy=None,
-                 route: str = "auto"):
+                 route: str = "auto", fallback: str = "reference",
+                 extender_transport=None):
         """policy: an engine.policy.Policy, compiled (and validated) here to
         the kernel's stage gating, weights and residue tables; it replaces
         the provider's predicate and priority sets like factory.go
         CreateFromConfig. route: "auto" (the kernel where plan_fast accepts
         the plan, the scan otherwise), "kernel" (raise where it refuses) or
-        "scan"."""
+        "scan". fallback: "reference" runs a workload the compile classifies
+        unsupported on the host route, "error" raises. extender_transport:
+        the in-process extender seam handed to the host route (a policy's
+        extenders are host-bound)."""
         if provider not in _KNOWN_PROVIDERS:
             raise KeyError(f"plugin {provider!r} has not been registered")
+        if fallback not in FALLBACKS:
+            raise ValueError("fallback must be 'reference' or 'error'")
         if not 1 <= hard_pod_affinity_symmetric_weight <= 100:
             # factory.go:1024-1026
             raise ValueError("invalid hardPodAffinitySymmetricWeight: "
@@ -192,6 +188,8 @@ class TorchBackend:
             hard_pod_affinity_symmetric_weight
         self.device = resolve_device(device)
         self.route = route
+        self.fallback = fallback
+        self.extender_transport = extender_transport
         self.policy = policy
         self._compiled_policy = None
         if policy is not None:
@@ -199,11 +197,26 @@ class TorchBackend:
 
             self._compiled_policy = compile_policy(policy)
         # the last batch's raw device results, in pod order, and the route
-        # it took ("kernel" or "scan", "" before any) with plan_fast's
-        # reason where the scan ran
+        # it took ("kernel", "scan" or "reference", "" before any) with
+        # plan_fast's reason where the scan ran, the compile's where the
+        # host route ran
         self.last_choices = np.zeros(0, np.int32)
         self.last_route = ""
         self.last_route_reason = ""
+
+    def _reference(self, pods: List[Pod],
+                   snapshot: ClusterSnapshot) -> List[Placement]:
+        """The host route, built as the JAX package's JaxBackend builds its
+        fallback: the same provider, policy, transport and hard weight."""
+        placements = ReferenceBackend(
+            provider=self.provider, policy=self.policy,
+            extender_transport=self.extender_transport,
+            hard_pod_affinity_symmetric_weight=self.hard_pod_affinity_symmetric_weight,
+        ).schedule(pods, snapshot)
+        index = {n.name: i for i, n in enumerate(snapshot.nodes)}
+        self.last_choices = np.array(
+            [index.get(p.node_name, -1) for p in placements], np.int32)
+        return placements
 
     def schedule(self, pods: List[Pod],
                  snapshot: ClusterSnapshot) -> List[Placement]:
@@ -217,11 +230,20 @@ class TorchBackend:
             return [Placement(pod=mark_unschedulable(p, msg),
                               reason="Unschedulable", message=msg)
                     for p in pods]
-        config, compiled, cols, ptabs = compile_inputs(
-            snapshot, pods,
+        cp = self._compiled_policy
+        compiled, cols, detail = compile_host(snapshot, pods, cp)
+        if detail:
+            if self.fallback == "error":
+                raise NotImplementedError(UNSUPPORTED_MSG + detail)
+            log.warning("torch backend falling back to reference for: %s",
+                        detail)
+            self.last_route, self.last_route_reason = "reference", detail
+            return self._reference(pods, snapshot)
+        config, compiled, cols, ptabs = finish_inputs(
+            snapshot, pods, compiled, cols,
             most_requested=self.provider in _MOST_REQUESTED_PROVIDERS,
             hard_weight=self.hard_pod_affinity_symmetric_weight,
-            compiled_policy=self._compiled_policy)
+            compiled_policy=cp)
         plan, why = None, "route='scan' asked for"
         if self.route != "scan":
             plan, why = plan_fast(config, compiled, cols, ptabs)

@@ -1,13 +1,21 @@
 """Command-line entry of the PyTorch port.
 
     python -m tpusim_torch.cli --podspec pods.yaml --synthetic-nodes 4 \
-        [--scheduler-policy-file policy.json] [--device cpu]
+        [--scheduler-policy-file policy.json] [--device cpu] \
+        [--backend torch|reference|auto] [--enable-pod-priority]
 
 prints the Successful/Failed pods report of the reference simulator
-(cmd/app/server.go), scheduled by TorchBackend: the CUDA kernels by default,
-their plain PyTorch versions with --device cpu. A scheduler Policy from a
-file (--scheduler-policy-file) or from a ConfigMap object saved to a file
-(--scheduler-policy-configmap-file) replaces the algorithm provider.
+(cmd/app/server.go). --backend torch (the default) schedules on
+TorchBackend: the CUDA kernels, or their plain PyTorch versions with
+--device cpu. --backend reference runs the host orchestrator on the CPU,
+which also carries preemption (--enable-pod-priority), delayed volume
+binding (--enable-volume-scheduling) and the feature gates
+(--feature-gates); --backend auto picks the host for small workloads. The
+cluster comes from a saved ClusterSnapshot (--snapshot), from nodes.json and
+pods.json checkpoints (--nodes, --pods) or from synthetic nodes. A scheduler
+Policy from a file (--scheduler-policy-file) or from a ConfigMap object
+saved to a file (--scheduler-policy-configmap-file) replaces the algorithm
+provider.
 """
 
 from __future__ import annotations
@@ -17,7 +25,12 @@ import sys
 import time
 
 from tpusim_torch.api.podspec import expand_simulation_pods, load_simulation_pods
-from tpusim_torch.api.snapshot import synthetic_cluster
+from tpusim_torch.api.snapshot import (
+    ClusterSnapshot,
+    load_nodes_checkpoint,
+    load_pods_checkpoint,
+    synthetic_cluster,
+)
 from tpusim_torch.engine.policy import (
     PolicyError,
     load_policy_configmap_file,
@@ -28,7 +41,8 @@ from tpusim_torch.framework.report import (
     get_report,
     spec_print,
 )
-from tpusim_torch.simulator import run_simulation
+from tpusim_torch.engine.providers import parse_feature_gates
+from tpusim_torch.simulator import BACKENDS, run_simulation
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -50,6 +64,32 @@ def build_parser() -> argparse.ArgumentParser:
                              "under data['policy.cfg']")
     parser.add_argument("--namespace", default="default",
                         help="Namespace stamped onto simulated pods")
+    parser.add_argument("--backend", default="torch", choices=BACKENDS,
+                        help="Scheduling engine: torch (default: the device "
+                             "routes on --device), reference (the host "
+                             "orchestrator on the CPU) or auto (workloads "
+                             "under TPUSIM_AUTO_THRESHOLD pods x nodes "
+                             "[100k] on the host, larger ones on torch)")
+    parser.add_argument("--enable-pod-priority", action="store_true",
+                        help="Enable the PodPriority feature gate "
+                             "(preemption); reference backend only")
+    parser.add_argument("--enable-volume-scheduling", action="store_true",
+                        help="Enable the VolumeScheduling feature gate "
+                             "(CheckVolumeBinding + delayed PV binding); "
+                             "reference backend only")
+    parser.add_argument("--feature-gates", default="",
+                        help="Comma-separated key=bool feature gates "
+                             "(kube --feature-gates format): "
+                             "TaintNodesByCondition, "
+                             "ResourceLimitsPriorityFunction (registry "
+                             "surgery, defaults.go:181-205), plus "
+                             "PodPriority / VolumeScheduling as aliases "
+                             "for the dedicated flags")
+    # snapshot sources
+    parser.add_argument("--snapshot", default="",
+                        help="Combined ClusterSnapshot JSON ({nodes, pods, services})")
+    parser.add_argument("--nodes", default="", help="nodes.json checkpoint")
+    parser.add_argument("--pods", default="", help="pods.json checkpoint (Running pods)")
     parser.add_argument("--synthetic-nodes", type=int, default=0,
                         help="Generate N homogeneous synthetic nodes")
     parser.add_argument("--synthetic-milli-cpu", type=int, default=4000)
@@ -62,6 +102,21 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--quiet", action="store_true",
                         help="Only print the summary counts and timing")
     return parser
+
+
+def load_snapshot(args) -> ClusterSnapshot:
+    if args.snapshot:
+        return ClusterSnapshot.load(args.snapshot)
+    snapshot = ClusterSnapshot()
+    if args.nodes:
+        snapshot.nodes = load_nodes_checkpoint(args.nodes)
+    elif args.synthetic_nodes:
+        snapshot.nodes = synthetic_cluster(
+            args.synthetic_nodes, milli_cpu=args.synthetic_milli_cpu,
+            memory=args.synthetic_memory).nodes
+    if args.pods:
+        snapshot.pods = load_pods_checkpoint(args.pods)
+    return snapshot
 
 
 def load_policy_from_args(args):
@@ -79,15 +134,32 @@ def load_policy_from_args(args):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(sys.argv[1:] if argv is None else argv)
+    feature_gates = None
+    if args.feature_gates:
+        try:
+            feature_gates = parse_feature_gates(args.feature_gates)
+        except ValueError as exc:
+            print(f"error: --feature-gates: {exc}", file=sys.stderr)
+            return 2
+        # PodPriority / VolumeScheduling gate the same behavior as the
+        # dedicated flags (scheduler.go:175,210-213), before --backend auto
+        # sizes the run
+        if feature_gates.pop("PodPriority", False):
+            args.enable_pod_priority = True
+        if feature_gates.pop("VolumeScheduling", False):
+            args.enable_volume_scheduling = True
     if not args.podspec:
         print("error: --podspec is required", file=sys.stderr)
         return 2
-    if args.synthetic_nodes <= 0:
-        print("error: no cluster nodes; pass --synthetic-nodes", file=sys.stderr)
+    try:
+        snapshot = load_snapshot(args)
+    except (OSError, ValueError) as exc:
+        print(f"error: failed to load cluster snapshot: {exc}", file=sys.stderr)
         return 2
-    snapshot = synthetic_cluster(args.synthetic_nodes,
-                                 milli_cpu=args.synthetic_milli_cpu,
-                                 memory=args.synthetic_memory)
+    if not snapshot.nodes:
+        print("error: no cluster nodes; pass --snapshot, --nodes, or "
+              "--synthetic-nodes", file=sys.stderr)
+        return 2
     try:
         sim_pods = load_simulation_pods(args.podspec)
     except (OSError, ValueError) as exc:
@@ -101,9 +173,12 @@ def main(argv=None) -> int:
 
     start = time.perf_counter()
     try:
-        status = run_simulation(pods, snapshot,
-                                provider=args.algorithmprovider,
-                                device=args.device, policy=policy)
+        status = run_simulation(
+            pods, snapshot, provider=args.algorithmprovider,
+            backend=args.backend,
+            enable_pod_priority=args.enable_pod_priority,
+            enable_volume_scheduling=args.enable_volume_scheduling,
+            policy=policy, feature_gates=feature_gates, device=args.device)
     except (ValueError, KeyError, RuntimeError, NotImplementedError) as exc:
         print(f"error: {exc}", file=sys.stderr)
         return 2
@@ -118,9 +193,11 @@ def main(argv=None) -> int:
     n_ok = len(status.successful_pods)
     n_fail = len(status.failed_pods)
     rate = (n_ok + n_fail) / elapsed if elapsed > 0 else 0.0
+    engine = (f"torch backend on {args.device}" if args.backend == "torch"
+              else f"{args.backend} backend")
     print(f"\n{n_ok} pod(s) scheduled, {n_fail} unschedulable, "
           f"{len(status.scheduled_pods)} pre-scheduled "
-          f"[torch backend on {args.device}, {elapsed:.3f}s, {rate:.0f} pods/s]")
+          f"[{engine}, {elapsed:.3f}s, {rate:.0f} pods/s]")
     print(f"StopReason: {status.stop_reason.strip()}")
     return 0
 

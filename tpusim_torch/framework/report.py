@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 import datetime
+import io
 from typing import Dict, List, Optional
 
 from tpusim_torch.api.quantity import Quantity
@@ -17,12 +18,14 @@ from tpusim_torch.api.types import RESOURCE_NVIDIA_GPU, Pod, is_scalar_resource_
 
 @dataclass
 class Status:
-    """Reference: report.go:240-245."""
+    """Reference: report.go:240-245 (+ preempted_pods, an extension populated
+    only when the PodPriority gate is on)."""
 
     successful_pods: List[Pod] = field(default_factory=list)
     failed_pods: List[Pod] = field(default_factory=list)
     scheduled_pods: List[Pod] = field(default_factory=list)
     stop_reason: str = ""
+    preempted_pods: List[Pod] = field(default_factory=list)
 
 
 @dataclass
@@ -192,3 +195,9 @@ def cluster_capacity_review_print(review: GeneralReview, out=None) -> None:
     _print_header("Failed Pods", out)
     _status_print(review.review["failed"].status, out)
     _distribute_pods_print(review.review["failed"], out)
+
+
+def review_to_string(review: GeneralReview) -> str:
+    buf = io.StringIO()
+    cluster_capacity_review_print(review, out=buf)
+    return buf.getvalue()

@@ -28,6 +28,7 @@ streaming runtime; they come with the preemption and streaming slices.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from types import SimpleNamespace
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -315,7 +316,8 @@ def image_locality_columns(pods, nodes, node_index: Dict[str, int]):
     table = np.zeros((max(len(reps), 1), len(by_idx)), dtype=np.int64)
     for s, rep in enumerate(reps):
         for i, node in enumerate(by_idx):
-            table[s, i] = image_locality_priority_map(rep, node)
+            info = SimpleNamespace(node=node)
+            table[s, i] = image_locality_priority_map(rep, None, info).score
     return img_id, table
 
 

@@ -1042,10 +1042,11 @@ def signature_row_fns(nodes: List[Node], node_infos: List[NodeInfo]):
                    and not tolerations_tolerate_taint(tols, taint))
 
     def affinity_fn(rep: Pod, i: int) -> int:
-        return calculate_node_affinity_priority_map(rep, nodes[i])
+        return calculate_node_affinity_priority_map(rep, None, node_infos[i]).score
 
     def avoid_fn(rep: Pod, i: int) -> int:
-        return calculate_node_prefer_avoid_pods_priority_map(rep, nodes[i])
+        return calculate_node_prefer_avoid_pods_priority_map(
+            rep, None, node_infos[i]).score
 
     def host_fn(rep: Pod, i: int) -> bool:
         return (not rep.spec.node_name) or rep.spec.node_name == nodes[i].name

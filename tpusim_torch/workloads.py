@@ -59,9 +59,13 @@ def _config3_requests(rng, num_pods: int):
 
 
 def build_workload(num_pods: int, num_nodes: int, affinity: bool = False,
-                   seed: int = 12345, api=None):
+                   seed: int = 12345, api=None, priorities: bool = False):
     """Config-3 shape: heterogeneous nodes (taint slice, zone labels) + Zipf
-    pods; affinity=True adds the config-4 node-affinity slice."""
+    pods; affinity=True adds the config-4 node-affinity slice; priorities=True
+    adds the config-6 priority bands (60% band 0, 30% band 500, 10% band
+    1000, drawn pod by pod after the other columns, so the other columns do
+    not move): saturation makes late high-priority pods preempt earlier
+    ones."""
     api = _api(api)
     rng = np.random.RandomState(seed)
     nodes = _config3_nodes(api, num_nodes, lambda i: {"zone": f"z{i % 4}"})
@@ -80,8 +84,12 @@ def build_workload(num_pods: int, num_nodes: int, affinity: bool = False,
                     "nodeSelectorTerms": [{"matchExpressions": [
                         {"key": "zone", "operator": "In",
                          "values": [f"z{want_zone[i]}"]}]}]}}}
-        pods.append(api.make_pod(f"p-{i}", milli_cpu=int(milli_cpu[i]),
-                                 memory=int(memory[i]), **kwargs))
+        pod = api.make_pod(f"p-{i}", milli_cpu=int(milli_cpu[i]),
+                           memory=int(memory[i]), **kwargs)
+        if priorities:
+            pod.spec.priority = int(rng.choice([0, 500, 1000],
+                                               p=[0.6, 0.3, 0.1]))
+        pods.append(pod)
     return api.ClusterSnapshot(nodes=nodes), pods
 
 
