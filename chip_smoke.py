@@ -97,9 +97,26 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
      filter extender, served in process, through TorchBackend on the
      card: it must take the host route and place as ReferenceBackend
      does, and raise with fallback="error". Phase 16 fails past its
-     150 s budget.
-Phases 4-15 run TorchBackend with fallback="error", and phases 15 and 16b
-run run_simulation on the card with the host route made to raise, so a
+     150 s budget;
+ 17. the preemption hybrid on the card (PodPriority through
+     run_simulation(backend="torch")): (a) config 6 cut to 3,000 pods on
+     150 nodes on route "kernel" with victims "auto" (picked on the
+     device), then "host" (the host pipeline), then on route "scan": each
+     the JAX package's digest and preempted count (those of 16c), victims
+     picked on the device more than 0 times, the kernel launched on route
+     "kernel" and never on route "scan"; (b) config 6 at bench.py's
+     accelerator shape, 20,000 pods on 1,000 nodes, on route "kernel": the
+     JAX package's hybrid's digest and its scheduled, failed and preempted
+     counts, with the wall, pods/s, fast_scan calls, kernel launches,
+     re-arms and recompiles, victim picks by arm, preempt_select's
+     CUDA-event span a call (the host's launch pace included) and the
+     host's share of the wall (1 - the CUDA-event spans of the speculation
+     chunks and the victim selections over the wall); (c) preempt_select
+     on the card against the same call on the CPU, on every set of lanes
+     (b) produced, equal (tolerance 0), then those calls replayed under
+     torch.profiler for the card's busy time a call.
+Phases 4-15 run TorchBackend with fallback="error", and phases 15, 16b and
+17 run run_simulation on the card with the host route made to raise, so a
 workload that started to reroute to the host fails them; phases 4-12 run
 it with route "kernel", so a plan that stopped reaching the kernel fails
 them, and print the cluster geometry each workload launched with beside
@@ -156,6 +173,13 @@ HOST_CONFIG4 = (dict(num_pods=300, num_nodes=8, affinity=True),
 HOST_CONFIG6 = (dict(num_pods=3_000, num_nodes=150, affinity=True,
                      priorities=True, seed=777), "0be871220d60a22c", 12)
 HOST_BUDGET_S = 150
+# phase 17: config 6 at bench.py's accelerator shape through the preemption
+# hybrid, with the split digest and the scheduled, failed and preempted
+# counts of the JAX package's hybrid (tools/port_golden.py config6_hybrid
+# 20000 1000)
+HYBRID_CONFIG6 = (dict(num_pods=20_000, num_nodes=1_000, affinity=True,
+                       priorities=True, seed=777),
+                  "35a42fdde29dd2aa", (19_731, 155, 114))
 # phase 14: the pods of config 3 run through both routes
 ROUTES_PODS = 2_048
 # phase 15: the pods of the scan timed eagerly, beside the graph replay
@@ -251,21 +275,22 @@ def split_digest(status):
 def device_routes_only():
     """Make the port's host route raise while the block runs, so that a run
     meant for the card fails if run_simulation or TorchBackend rerouted it
-    to the host, whose placements match the JAX package's by construction."""
+    to the host, whose placements match the JAX package's by construction.
+    The host orchestrator's loop (ClusterCapacity.run) raises, not the class:
+    the preemption hybrid keeps a ClusterCapacity as its host mirror."""
     import tpusim_torch.backend as backend_module
-    import tpusim_torch.simulator as simulator_module
+    from tpusim_torch.simulator import ClusterCapacity
 
     def refuse(*args, **kwargs):
         raise AssertionError("a run meant for the card was rerouted to the "
                              "host route")
 
-    saved = backend_module.ReferenceBackend, simulator_module.ClusterCapacity
-    backend_module.ReferenceBackend = simulator_module.ClusterCapacity = refuse
+    saved = backend_module.ReferenceBackend, ClusterCapacity.run
+    backend_module.ReferenceBackend = ClusterCapacity.run = refuse
     try:
         yield
     finally:
-        backend_module.ReferenceBackend, simulator_module.ClusterCapacity = \
-            saved
+        backend_module.ReferenceBackend, ClusterCapacity.run = saved
 
 
 def make_plan(snapshot, pods, most_requested, policy=None, hard_weight=10):
@@ -1208,6 +1233,176 @@ def drive_host_route(card):
                              f"{HOST_BUDGET_S} s budget")
 
 
+@contextlib.contextmanager
+def timed_on_card(module, name, record):
+    """Wrap module.name so each call appends (args, outputs, start event,
+    end event) to `record`, the events around it on the current stream; the
+    caller reads the times after the run, so timing adds no wait."""
+    import torch
+
+    real = getattr(module, name)
+
+    def timed(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*args, **kwargs)
+        end.record()
+        record.append((args, out, start, end))
+        return out
+
+    setattr(module, name, timed)
+    try:
+        yield real
+    finally:
+        setattr(module, name, real)
+
+
+def profiled_device_us(event):
+    """An averaged profiler event's device self time, µs, under either
+    name torch has given it."""
+    t = getattr(event, "self_device_time_total", None)
+    return event.self_cuda_time_total if t is None else t
+
+
+def drive_hybrid(card):
+    """Phase 17: config 6 through the preemption hybrid on the card."""
+    import torch
+
+    from tpusim_torch import preempt, scan, workloads
+    from tpusim_torch.kernels.fastscan import fastscan_chunk
+    from tpusim_torch.simulator import run_simulation
+
+    def reset_counts():
+        fastscan_chunk.launches = 0
+        for key in fastscan_chunk.launches_by_variant:
+            fastscan_chunk.launches_by_variant[key] = 0
+        preempt.reset_preempt_stats()
+
+    # (a) the cut feed on every arm
+    params, want, want_preempted = HOST_CONFIG6
+    snapshot, pods = workloads.build_workload(**params)
+    for route, victims in (("kernel", "auto"), ("kernel", "host"),
+                           ("scan", "auto")):
+        feed = [p.copy() for p in pods]
+        reset_counts()
+        t0 = time.perf_counter()
+        with device_routes_only():
+            if victims == "auto":
+                status = run_simulation(feed, snapshot, backend="torch",
+                                        enable_pod_priority=True, route=route)
+            else:
+                status = preempt.run_with_preemption(
+                    feed, snapshot, route=route, victims=victims)
+        wall = time.perf_counter() - t0
+        digest, preempted = split_digest(status), len(status.preempted_pods)
+        paths = dict(preempt.PREEMPT_CLASS_STATS)
+        launches = fastscan_chunk.launches
+        print(f"phase 17a: config6 {params['num_pods']} pods x "
+              f"{params['num_nodes']} nodes, route {route}, victims "
+              f"{victims}: digest {digest} (want {want}), {preempted} "
+              f"preempted (want {want_preempted}); victim picks {paths}; "
+              f"{launches} kernel launches; "
+              f"{dict(preempt.HYBRID_STATS)}; {wall:.3f}s wall on {card}")
+        if digest != want or preempted != want_preempted:
+            raise AssertionError(f"phase 17a: route {route}, victims "
+                                 f"{victims} differs from the JAX package")
+        if (launches > 0) != (route == "kernel"):
+            raise AssertionError(f"phase 17a: route {route} launched the "
+                                 f"kernel {launches} times")
+        if victims == "auto" and not paths.get("device"):
+            raise AssertionError("phase 17a: no victims picked on the card")
+        if victims == "host" and paths.get("device"):
+            raise AssertionError("phase 17a: victims picked on the card")
+
+    # (b) bench.py's accelerator shape on route "kernel"
+    params, want, (want_ok, want_failed, want_preempted) = HYBRID_CONFIG6
+    snapshot, pods = workloads.build_workload(**params)
+    selects, chunks = [], []
+    reset_counts()
+    with device_routes_only(), \
+            timed_on_card(scan, "preempt_select", selects) as real_select, \
+            timed_on_card(preempt, "fast_scan", chunks):
+        t0 = time.perf_counter()
+        status = run_simulation(pods, snapshot, backend="torch",
+                                enable_pod_priority=True, route="kernel")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = fastscan_chunk.launches
+    stats, paths = dict(preempt.HYBRID_STATS), dict(preempt.PREEMPT_CLASS_STATS)
+    select_ms = [start.elapsed_time(end) for _, _, start, end in selects]
+    chunk_ms = [start.elapsed_time(end) for _, _, start, end in chunks]
+    device_ms = sum(select_ms) + sum(chunk_ms)
+    digest = split_digest(status)
+    counts = (len(status.successful_pods), len(status.failed_pods),
+              len(status.preempted_pods))
+    n = params["num_pods"]
+    print(f"phase 17b: config6 {n} pods x {params['num_nodes']} nodes, route "
+          f"kernel: digest {digest} (want {want}), scheduled/failed/"
+          f"preempted {counts} (want {(want_ok, want_failed, want_preempted)})"
+          f"; wall {wall:.3f}s = {n / wall:.1f} pods/s on {card}")
+    print(f"phase 17b: {stats.get('fast_scan_calls', 0)} fast_scan calls "
+          f"over {stats.get('pods_scanned', 0)} pods, {launches} kernel "
+          f"launches ({fastscan_chunk.launches_by_variant}), "
+          f"{stats.get('rearms', 0)} re-arms, {stats.get('recompiles', 0)} "
+          f"recompiles, {stats.get('compiles', 0)} compiles; victim picks "
+          f"{paths} ({stats.get('no_candidates', 0)} with no candidate)")
+    if select_ms:
+        print(f"phase 17b: preempt_select {len(select_ms)} calls, CUDA-event "
+              f"span a call (the host's launch pace included) mean "
+              f"{1000 * sum(select_ms) / len(select_ms):.1f} us, median "
+              f"{1000 * float(np.median(select_ms)):.1f} us, max "
+              f"{1000 * max(select_ms):.1f} us; lanes x slots up to "
+              f"{max(a[1].shape[0] for a, _, _, _ in selects)} x "
+              f"{max(a[13].shape[1] for a, _, _, _ in selects)}")
+    print(f"phase 17b: device spans {sum(chunk_ms):.3f} ms in fast_scan "
+          f"calls + {sum(select_ms):.3f} ms in preempt_select = "
+          f"{device_ms:.3f} ms of {1000 * wall:.3f} ms wall: host share "
+          f">= {1 - device_ms / (1000 * wall):.4f}")
+    if digest != want or counts != (want_ok, want_failed, want_preempted):
+        raise AssertionError("phase 17b: config 6 differs from the JAX "
+                             "package's hybrid")
+    if launches <= 0 or not paths.get("device") \
+            or stats.get("route_scan", 0):
+        raise AssertionError("phase 17b: the hybrid did not run on the "
+                             "kernel and the card's victim selection")
+
+    # (c) preempt_select on the card against the CPU on (b)'s lanes
+    worst = 0
+    for args, out, _, _ in selects:
+        zero_req, tensors = args[0], args[1:]
+        plain = real_select(zero_req, *(t.cpu() for t in tensors))
+        for got, ref in zip(out, plain):
+            diff = (got.cpu().to(torch.int64) - ref.to(torch.int64)).abs()
+            worst = max(worst, int(diff.max()) if diff.numel() else 0)
+    print(f"phase 17c: preempt_select on the card vs the CPU on "
+          f"{len(selects)} sets of lanes: max |diff| {worst}")
+    if not selects or worst:
+        raise AssertionError("phase 17c: preempt_select on the card differs "
+                             "from the CPU")
+    # the same calls replayed under torch.profiler: the card's busy time,
+    # without the host's launch gaps the CUDA-event spans of (b) include
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for args, _, _, _ in selects:
+            real_select(*args)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(profiled_device_us(e) for e in kernels)
+    n_kernels = sum(e.count for e in kernels)
+    if busy_us > 0:
+        print(f"phase 17c: preempt_select replayed under torch.profiler: "
+              f"{busy_us / len(selects):.1f} us of device busy time and "
+              f"{n_kernels / len(selects):.0f} kernels a call, over "
+              f"{len(selects)} calls on {card}")
+    else:
+        print("phase 17c: preempt_select device busy time not measured "
+              "(the profiler recorded no device time)")
+
+
 def main():
     import torch
 
@@ -1277,6 +1472,9 @@ def main():
 
     # phase 16: the host route on this machine
     drive_host_route(card)
+
+    # phase 17: the preemption hybrid
+    drive_hybrid(card)
 
     kernels = []
     for name, variant, replaces, n_launch, err in (

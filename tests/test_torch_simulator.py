@@ -341,13 +341,28 @@ def test_volume_scheduling_on_torch_raises():
     assert status.successful_pods
 
 
-def test_pod_priority_on_torch_raises():
-    snapshot, pods = quickstart(port_api)
-    with pytest.raises(NotImplementedError, match="preemption hybrid"):
-        run_simulation(pods, snapshot, device="cpu", enable_pod_priority=True)
-    with pytest.raises(NotImplementedError, match="preemption hybrid"):
-        run_simulation(pods, snapshot, device="cpu",
-                       feature_gates={"PodPriority": True})
+def config6_saturated(api):
+    return build_workload(900, 30, affinity=True, priorities=True, api=api)
+
+
+@pytest.mark.parametrize("build", [quickstart, config6_saturated])
+def test_pod_priority_on_torch_raises(build, monkeypatch):
+    """PodPriority on torch used to raise; it now runs the preemption
+    hybrid, and both forms of the gate give the JAX package's hybrid's
+    split, preempted pods included, without the host orchestrator's loop.
+    The name is kept on purpose, so the test's history stays one record:
+    nothing raises any more."""
+    jsnap, jpods = build(jax_api)
+    want = split(jax_run(jpods, jsnap, backend="jax",
+                         enable_pod_priority=True))
+    monkeypatch.setattr(ClusterCapacity, "run", lambda self: pytest.fail(
+        "the host orchestrator ran"))
+    for kwargs in ({"enable_pod_priority": True},
+                   {"feature_gates": {"PodPriority": True}}):
+        snapshot, pods = build(port_api)
+        got = run_simulation(pods, snapshot, device="cpu", **kwargs)
+        assert split(got) == want
+    assert bool(want[2]) == (build is config6_saturated)
 
 
 # a label predicate under the mandatory predicate's name: host-bound, and
@@ -479,14 +494,32 @@ def test_cli_refusals_exit_2(tmp_path, capsys):
     spec.write_text(PODSPEC_YAML)
     common = ["--podspec", str(spec), "--synthetic-nodes", "4",
               "--device", "cpu"]
-    assert port_main(common + ["--enable-pod-priority"]) == 2
-    assert "preemption hybrid" in capsys.readouterr().err
     assert port_main(common + ["--feature-gates", "Bogus=true"]) == 2
     assert "unrecognized feature gate: Bogus" in capsys.readouterr().err
     assert port_main(common + ["--enable-volume-scheduling"]) == 2
     assert "requires --backend reference" in capsys.readouterr().err
     assert port_main(["--podspec", str(spec)]) == 2
     assert "no cluster nodes" in capsys.readouterr().err
+
+
+def test_cli_pod_priority_on_torch(tmp_path, capsys):
+    """--enable-pod-priority on backend torch runs the hybrid and prints the
+    JAX package's report on backend jax (the engine line aside)."""
+    spec = tmp_path / "pods.json"
+    spec.write_text(json.dumps([
+        {"name": name, "num": num, "pod": {"spec": {
+            "priority": priority, "containers": [{"resources": {
+                "requests": {"cpu": cpu, "memory": "1Gi"}}}]}}}
+        for name, num, priority, cpu in (("high", 3, 100, "3"),
+                                         ("low", 8, 0, "1500m"))]))
+    argv = ["--podspec", str(spec), "--synthetic-nodes", "4",
+            "--enable-pod-priority"]
+    want = cli_lines(jax_main, argv + ["--backend", "jax"], capsys)
+    got = cli_lines(port_main, argv + ["--device", "cpu"], capsys)
+    assert got[:-2] + got[-1:] == want[:-2] + want[-1:]
+    assert "torch backend on cpu" in got[-2] and "jax backend" in want[-2]
+    # the three high pods preempt six of the eight low ones
+    assert "5 pod(s) scheduled, 0 unschedulable" in got[-2]
 
 
 def test_cli_gang_podspec_on_the_host(tmp_path, capsys):

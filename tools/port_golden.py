@@ -25,6 +25,12 @@ HOST_CONFIG3, HOST_CONFIG4, HOST_CONFIG6):
     JAX_PLATFORMS=cpu python tools/port_golden.py config3_host 200 5000
     JAX_PLATFORMS=cpu python tools/port_golden.py config4_host 300 8
     JAX_PLATFORMS=cpu python tools/port_golden.py config6 3000 150
+
+`config6_hybrid N M` prints the same for the JAX package's preemption hybrid,
+run_simulation(backend="jax", enable_pod_priority=True) on its XLA scan
+(chip_smoke.py HYBRID_CONFIG6; about 25 s on a CPU at 20,000 x 1,000):
+
+    JAX_PLATFORMS=cpu python tools/port_golden.py config6_hybrid 20000 1000
 """
 
 import hashlib
@@ -71,13 +77,15 @@ def host_digest(name, num_pods, num_nodes):
     from tpusim.simulator import run_simulation
 
     t0 = time.perf_counter()
-    priority = name == "config6"
-    kwargs = {"config3_host": {}, "config4_host": dict(affinity=True),
-              "config6": dict(affinity=True, priorities=True, seed=777)}[name]
+    priority = name.startswith("config6")
+    kwargs = (dict(affinity=True, priorities=True, seed=777) if priority
+              else {"config3_host": {}, "config4_host": dict(affinity=True)
+                    }[name])
     snapshot, pods = workloads.build_workload(num_pods, num_nodes,
                                               api=jax_api, **kwargs)
-    status = run_simulation(pods, snapshot, backend="reference",
-                            enable_pod_priority=priority)
+    status = run_simulation(
+        pods, snapshot, backend="jax" if name == "config6_hybrid"
+        else "reference", enable_pod_priority=priority)
     print(f"{name}({num_pods}, {num_nodes}): digest {split_digest(status)}, "
           f"{len(status.successful_pods)} scheduled, "
           f"{len(status.failed_pods)} failed, "
@@ -89,7 +97,8 @@ def host_digest(name, num_pods, num_nodes):
 def main(argv):
     if argv[0] == "quickstart":
         return quickstart_digest()
-    if argv[0] in ("config3_host", "config4_host", "config6"):
+    if argv[0] in ("config3_host", "config4_host", "config6",
+                   "config6_hybrid"):
         return host_digest(argv[0], int(argv[1]), int(argv[2]))
     name, num_pods, num_nodes = argv[0], int(argv[1]), int(argv[2])
     t0 = time.perf_counter()

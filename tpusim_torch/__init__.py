@@ -11,6 +11,7 @@ tpusim or of JAX:
   framework/  the store, strategy and recorder of the host orchestrator,
               and the report
   state       the numpy cluster compile (signature tables, pod columns)
+  delta       IncrementalCluster: watch events folded into compiled columns
   config      provider configuration, a policy's compiled image, weights
   policyc     a scheduler Policy compiled to stage gating, weights and tables
   fastplan    the int32 FastPlan of the fused scan
@@ -20,6 +21,8 @@ tpusim or of JAX:
   scan        the exact sequential scan route (int64 tensor code)
   backends    Placement, ReferenceBackend (the host route), get_backend
   backend     TorchBackend: compile -> plan -> scan -> placements
+  preempt     the preemption hybrid: speculation chunks on the card, victim
+              selection on the card or the host, re-arm after preemption
   gang        pod-group annotations and the gang's shared FitError
   simulator   ClusterCapacity (the host orchestrator) and run_simulation,
               the entry point of a simulation

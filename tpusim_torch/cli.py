@@ -7,8 +7,9 @@
 prints the Successful/Failed pods report of the reference simulator
 (cmd/app/server.go). --backend torch (the default) schedules on
 TorchBackend: the CUDA kernels, or their plain PyTorch versions with
---device cpu. --backend reference runs the host orchestrator on the CPU,
-which also carries preemption (--enable-pod-priority), delayed volume
+--device cpu; with --enable-pod-priority it runs the preemption hybrid
+(preempt.run_with_preemption) there. --backend reference runs the host
+orchestrator on the CPU, which also carries preemption, delayed volume
 binding (--enable-volume-scheduling) and the feature gates
 (--feature-gates); --backend auto picks the host for small workloads. The
 cluster comes from a saved ClusterSnapshot (--snapshot), from nodes.json and
@@ -72,7 +73,8 @@ def build_parser() -> argparse.ArgumentParser:
                              "[100k] on the host, larger ones on torch)")
     parser.add_argument("--enable-pod-priority", action="store_true",
                         help="Enable the PodPriority feature gate "
-                             "(preemption); reference backend only")
+                             "(preemption): the preemption hybrid on "
+                             "torch, the host orchestrator on reference")
     parser.add_argument("--enable-volume-scheduling", action="store_true",
                         help="Enable the VolumeScheduling feature gate "
                              "(CheckVolumeBinding + delayed PV binding); "

@@ -382,8 +382,15 @@ class GenericScheduler:
     }
 
     def preempt(self, pod: Pod, nodes: List[Node],
-                node_info_map: Dict[str, NodeInfo], schedule_err: Exception):
-        """Returns (node, victims, nominated_pods_to_clear)."""
+                node_info_map: Dict[str, NodeInfo], schedule_err: Exception,
+                candidate_filter=None):
+        """Returns (node, victims, nominated_pods_to_clear).
+
+        candidate_filter: optional `name -> bool` prefilter over potential
+        nodes; callers may pass one ONLY when it provably excludes just nodes
+        where _select_victims_on_node would return fits=False (e.g. the
+        vectorized lower-priority resource bound of the preemption hybrid),
+        so the outcome is identical to the unfiltered pipeline."""
         if not isinstance(schedule_err, FitError):
             return None, [], []
         if not self._pod_eligible_to_preempt_others(pod, node_info_map):
@@ -395,6 +402,13 @@ class GenericScheduler:
         if not potential:
             # clean up any existing nominated node name of the pod (:231-234)
             return None, [], [pod]
+        if candidate_filter is not None:
+            # an emptied list matches the all-candidates-unfit path below
+            # (empty node_to_victims -> None without clearing nominations),
+            # NOT the no-potential-nodes arm above
+            potential = [n for n in potential if candidate_filter(n.name)]
+            if not potential:
+                return None, [], []
         pdbs = self.pdb_lister()
         node_to_victims = self._select_nodes_for_preemption(
             pod, node_info_map, potential, pdbs)

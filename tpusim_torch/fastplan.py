@@ -46,6 +46,10 @@ from tpusim_torch.engine.predicates import (
     MAX_GCE_PD_VOLUME_COUNT_PRED,
 )
 from tpusim_torch.engine.priorities import MAX_PRIORITY
+from tpusim_torch.engine.resources import (
+    get_nonzero_pod_request,
+    get_resource_request,
+)
 from tpusim_torch.state import NUM_FIXED_BITS, CompiledCluster, PodColumns
 
 INT_LIMIT = 1 << 29          # per-value bound after gcd reduction
@@ -286,14 +290,122 @@ def _budget(name: str, default: int) -> int:
     return int(os.environ.get(name, default))
 
 
+def rearm_carry(plan: FastPlan, compiled: CompiledCluster,
+                rr: int) -> Optional[FastCarry]:
+    """The carry rebuilt from a refreshed CompiledCluster's original-unit
+    dynamic aggregates (IncrementalCluster.refresh_dynamic after the
+    preemption hybrid's churn: binds as ADDED, victims as DELETED), in plan
+    units. Every value must divide exactly by the plan's per-axis gcd and
+    stay inside the int32 budget, which plan_fast's fold of the placed
+    pods' requests into the gcds guarantees and this checks anyway. Returns
+    None where the refreshed state cannot be expressed in plan units."""
+    if plan.sa_lock_init is not None:
+        # ServiceAffinity locks are pod-assignment history the refreshed
+        # tables cannot reproduce (a policy never reaches the hybrid)
+        return None
+    d = compiled.dynamic
+    n = plan.num_nodes
+    npad = plan.alloc_cpu.shape[1]
+
+    def reduced(agg, g):
+        a = np.asarray(agg, dtype=np.int64)
+        if g > 1:
+            if (a % g).any():
+                return None
+            a = a // g
+        if a.size and int(a.max(initial=0)) >= INT_LIMIT:
+            return None
+        return a.astype(np.int32)
+
+    def reduce_row(agg, g):
+        a = reduced(agg, g)
+        if a is None:
+            return None
+        out = np.zeros((1, npad), dtype=np.int32)
+        out[0, :n] = a
+        return out
+
+    gc, gm, gg, ge = plan.gcds
+    rows = [reduce_row(d.used_cpu, gc), reduce_row(d.used_mem, gm),
+            reduce_row(d.used_gpu, gg), reduce_row(d.used_eph, ge),
+            reduce_row(d.nonzero_cpu, gc), reduce_row(d.nonzero_mem, gm),
+            reduce_row(d.pod_count, 1)]
+    if any(r is None for r in rows):
+        return None
+    scal = None
+    if plan.num_scalars:
+        scal = np.zeros((plan.used_scalar.shape[0], npad), dtype=np.int32)
+        us = np.asarray(d.used_scalar, dtype=np.int64)
+        for si, g in enumerate(plan.scalar_gcds):
+            col = reduced(us[:, si], g)
+            if col is None:
+                return None
+            scal[si, :n] = col
+    pres = pd = None
+    gt = compiled.groups
+    if plan.num_groups:
+        if gt.presence.shape[0] > plan.num_groups:
+            return None  # the group universe grew: the plan's rows are stale
+        pres = np.zeros((plan.num_groups, npad), dtype=np.int32)
+        pres[:gt.presence.shape[0], :n] = gt.presence.astype(np.int32)
+        if plan.has_interpod:
+            if gt.topo_dom.shape[0] != plan.n_topo_keys:
+                return None  # the topology-key universe changed
+            pd = embed_presence_dom(gt.presence, gt.topo_dom,
+                                    plan.n_topo_doms_ip, plan.num_groups,
+                                    plan.presence_dom.shape[1])
+    uv = None
+    if plan.has_maxpd:
+        if gt.vol_mask.shape[1] != plan.n_vols:
+            return None  # the volume-id universe changed
+        # refresh_dynamic succeeds only with clean group tables (a bind or
+        # victim with volumes dirties them), so used_vols_init is current
+        uv = np.zeros_like(plan.used_vols)
+        uv[:plan.n_vols, :n] = gt.used_vols_init.T.astype(np.int32)
+    misc = np.zeros((1, LANES), dtype=np.int32)
+    misc[0, 0] = rr
+    return FastCarry(rows=rows, misc=misc, scal=scal, pres=pres, pd=pd,
+                     uv=uv)
+
+
+def placed_pod_values(placed_pods, scalar_names) -> dict:
+    """Per-pod request values of already-placed pods, by axis, for
+    plan_fast's gcds: with them folded in, a preemption victim's deletion
+    keeps every refreshed aggregate an exact multiple of the plan's unit."""
+    vals = {"cpu": [], "mem": [], "gpu": [], "eph": [],
+            "scalar": [[] for _ in scalar_names]}
+    idx = {name: i for i, name in enumerate(scalar_names)}
+    for pod in placed_pods:
+        req = get_resource_request(pod)
+        nz = get_nonzero_pod_request(pod)
+        vals["cpu"] += [req.milli_cpu, nz.milli_cpu]
+        vals["mem"] += [req.memory, nz.memory]
+        vals["gpu"].append(req.nvidia_gpu)
+        vals["eph"].append(req.ephemeral_storage)
+        for name, v in (req.scalar or {}).items():
+            if name in idx:
+                vals["scalar"][idx[name]].append(v)
+    out = {key: np.asarray(vals[key], dtype=np.int64)
+           for key in ("cpu", "mem", "gpu", "eph")}
+    out["scalar"] = [np.asarray(col, dtype=np.int64)
+                     for col in vals["scalar"]]
+    return out
+
+
 def plan_fast(config: EngineConfig, compiled: CompiledCluster,
-              cols: PodColumns, ptabs=None) -> Tuple[Optional[FastPlan], str]:
+              cols: PodColumns, ptabs=None, placed_pods=None
+              ) -> Tuple[Optional[FastPlan], str]:
     """Build the int32 plan, or (None, reason) when ineligible. The budget
     refusals are word for word the JAX package's.
 
     ptabs: the policyc.PolicyTables of config.policy, needed when the policy
     uses any residue table (label rows, label priorities, image scores,
-    NoExecute taints, ServiceAntiAffinity, ServiceAffinity)."""
+    NoExecute taints, ServiceAntiAffinity, ServiceAffinity).
+
+    placed_pods: pods already bound (the preemption hybrid): their request
+    and nonzero values join the gcd reduction, so that a victim's deletion
+    leaves the refreshed aggregates expressible in plan units
+    (rearm_carry)."""
     ps = config.policy
     pol_label = ps is not None and bool(ps.label_rows)
     pol_prio = ps is not None and ps.has_label_prio
@@ -402,12 +514,23 @@ def plan_fast(config: EngineConfig, compiled: CompiledCluster,
                       f"({PAD_SENTINEL_BIT - NUM_FIXED_BITS})")
     s, t, d = compiled.statics, compiled.tables, compiled.dynamic
 
-    g_cpu, (ac, rc, nzc, uc, nzuc) = _gcd_reduce(
-        [s.alloc_cpu, cols.req_cpu, cols.nz_cpu, d.used_cpu, d.nonzero_cpu])
-    g_mem, (am, rm, nzm, um, nzum) = _gcd_reduce(
-        [s.alloc_mem, cols.req_mem, cols.nz_mem, d.used_mem, d.nonzero_mem])
-    g_gpu, (ag, rg, ug) = _gcd_reduce([s.alloc_gpu, cols.req_gpu, d.used_gpu])
-    g_eph, (ae, re_, ue) = _gcd_reduce([s.alloc_eph, cols.req_eph, d.used_eph])
+    placed = (placed_pod_values(placed_pods, compiled.scalar_names)
+              if placed_pods else None)
+
+    def axis(key):
+        # the placed pods' values join the gcd and are dropped after
+        return [placed[key]] if placed is not None else []
+
+    g_cpu, (ac, rc, nzc, uc, nzuc, *_) = _gcd_reduce(
+        [s.alloc_cpu, cols.req_cpu, cols.nz_cpu, d.used_cpu, d.nonzero_cpu]
+        + axis("cpu"))
+    g_mem, (am, rm, nzm, um, nzum, *_) = _gcd_reduce(
+        [s.alloc_mem, cols.req_mem, cols.nz_mem, d.used_mem, d.nonzero_mem]
+        + axis("mem"))
+    g_gpu, (ag, rg, ug, *_) = _gcd_reduce(
+        [s.alloc_gpu, cols.req_gpu, d.used_gpu] + axis("gpu"))
+    g_eph, (ae, re_, ue, *_) = _gcd_reduce(
+        [s.alloc_eph, cols.req_eph, d.used_eph] + axis("eph"))
     # each scalar axis reduces independently (fit comparisons never mix axes)
     scal_cols = []
     scal_gcds = []
@@ -416,8 +539,9 @@ def plan_fast(config: EngineConfig, compiled: CompiledCluster,
         rscal = np.asarray(cols.req_scalar, dtype=np.int64).reshape(-1, n_scal)
         uscal = np.asarray(d.used_scalar, dtype=np.int64).reshape(-1, n_scal)
         for si in range(n_scal):
-            g_s, (a_s, r_s, u_s) = _gcd_reduce(
-                [ascal[:, si], rscal[:, si], uscal[:, si]])
+            extra = [placed["scalar"][si]] if placed is not None else []
+            g_s, (a_s, r_s, u_s, *_) = _gcd_reduce(
+                [ascal[:, si], rscal[:, si], uscal[:, si]] + extra)
             scal_cols.append((a_s, r_s, u_s))
             scal_gcds.append(g_s)
 

@@ -100,9 +100,15 @@ def pod_matrix(plan: FastPlan, start: int, stop: int, rows: int) -> np.ndarray:
 
 
 class DevicePlan:
-    """The plan's node-side arrays on one device, in the kernel's layout."""
+    """The plan's arrays on one device, in the kernel's layout: the
+    node-side statics and tables, and the pod matrix of every pod of the
+    plan. A caller that runs the plan in many spans (the preemption hybrid)
+    stages it once and hands it to each fast_scan call."""
 
     def __init__(self, plan: FastPlan, device: torch.device):
+        self.plan = plan
+        self.device = device
+
         def put(a):
             return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)
                                     ).to(device)
@@ -117,6 +123,10 @@ class DevicePlan:
         self.groups = group_args(plan, device)
         self.ip = interpod_args(plan, device)
         self.pol = policy_args(plan, self.groups, device)
+        # no ghost rows: a policy without a resource predicate would place
+        # them
+        self.pods = torch.from_numpy(
+            pod_matrix(plan, 0, plan.num_pods, plan.num_pods)).to(device)
 
 
 def policy_args(plan: FastPlan, groups: GroupArgs,
@@ -203,32 +213,40 @@ def group_args(plan: FastPlan, device: torch.device) -> GroupArgs:
 
 def carry_tensors(carry: FastCarry, device: torch.device):
     """A fresh [7 + Srows + Gpad + Vpad, Npad] carry tensor and [128] misc
-    row on `device` (copies: the caller's carry is never updated in
-    place)."""
-    def host(a):
-        return a.cpu() if isinstance(a, torch.Tensor) else torch.from_numpy(
+    row on `device` (copies: the caller's carry is never updated in place).
+    A carry already on `device` (a previous call's) stays there."""
+    def put(a):
+        t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
             np.ascontiguousarray(a, dtype=np.int32))
+        return t.to(device=device, dtype=torch.int32)
 
-    parts = [host(r).reshape(1, -1) for r in carry.rows]
+    parts = [put(r).reshape(1, -1) for r in carry.rows]
     for extra in (carry.scal, carry.pres, carry.uv):
         if extra is not None:
-            parts.append(host(extra))
-    rows = torch.cat(parts, dim=0).to(torch.int32)
-    misc = host(carry.misc).reshape(-1)[:MISC_WIDTH].to(torch.int32)
-    return rows.to(device).contiguous(), misc.to(device).clone()
+            parts.append(put(extra))
+    rows = torch.cat(parts, dim=0).contiguous()
+    misc = put(carry.misc).reshape(-1)[:MISC_WIDTH].clone()
+    return rows, misc
 
 
 def fast_scan(plan: FastPlan, chunk: int = CHUNK, start: int = 0,
               stop: Optional[int] = None, carry_in: Optional[FastCarry] = None,
-              return_carry: bool = False, device="cuda"):
+              return_carry: bool = False, device="cuda",
+              staged: Optional[DevicePlan] = None):
     """Run pods [start, stop) of the plan in launches of `chunk` pods (the
     last one shorter); returns (choices, counts, advanced) over that
     span as numpy arrays, plus the FastCarry out (torch tensors on the
     device) when return_carry.
 
     carry_in: resume from an explicit carry instead of the plan's initial
-    state. device: "cuda" (the default) launches the CUDA kernel, "cpu" runs
-    its plain version."""
+    state; a previous call's carry out passes in without leaving the device.
+    device: "cuda" (the default) launches the CUDA kernel, "cpu" runs its
+    plain version. staged: the plan already staged on the device
+    (DevicePlan), instead of an upload each call."""
+    if staged is not None:
+        if staged.plan is not plan:
+            raise ValueError("staged holds another plan")
+        device = staged.device
     device = resolve_device(device)
     if stop is None:
         stop = plan.num_pods
@@ -237,13 +255,11 @@ def fast_scan(plan: FastPlan, chunk: int = CHUNK, start: int = 0,
     k = min(max(chunk, 1), max(span, 1))
     num_chunks = -(-span // k) if span > 0 else 0
 
-    dp = DevicePlan(plan, device)
+    dp = staged if staged is not None else DevicePlan(plan, device)
     carry_in = carry_in or init_carry(plan)
     carry, misc = carry_tensors(carry_in, device)
     pd = pd_tensor(carry_in, device)
-    # no ghost rows: a policy without a resource predicate would place them
-    pods = torch.from_numpy(pod_matrix(plan, start, stop, max(span, 0))
-                            ).to(device)
+    pods = dp.pods[start:max(start, stop)]
     # clamp to >= 1: 0 would keep every chunk's outputs on the device
     sync_every = max(1, env_int("TPUSIM_FAST_SYNC_EVERY", 64))
     results = []   # host triples (choices[n], counts[n, B], adv[n])

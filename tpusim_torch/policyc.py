@@ -20,9 +20,12 @@ port-conflict stage at its alphabetical tail slot; alwaysCheckAllPredicates
 switches the reason histogram to count mode. Unknown names raise the host
 registry's KeyError byte for byte.
 
-Left out here: the preemption victim-selection class (CompiledPolicy has no
-preemption_class fields) and the policy residency and delta tables of the
-streaming runtime; they come with the preemption and streaming slices.
+classify_preemption_class sorts a predicate set for the preemption hybrid's
+victim selection: "arithmetic" (the device victim program reproduces the
+host's reprieve) or "general" (the host pipeline). Left out here:
+CompiledPolicy's compile-time preemption class (the hybrid classifies at
+run time and a policy does not reach it) and the policy residency and
+delta tables of the streaming runtime; they come with the streaming slice.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import numpy as np
 
 from tpusim_torch.config import AVOID_PODS_WEIGHT, PolicySpec
 from tpusim_torch.engine import predicates as preds
+from tpusim_torch.engine.generic_scheduler import _POD_SET_INDEPENDENT_PREDS
 from tpusim_torch.engine.policy import Policy, validate_policy
 from tpusim_torch.engine.priorities import (
     MAX_PRIORITY,
@@ -90,6 +94,68 @@ COMPILABLE_PRIOS = frozenset(_WEIGHT_FIELDS) | {"EqualPriority",
 _DEFAULT_WEIGHTS = dict(w_least=1, w_most=0, w_balanced=1, w_node_aff=1,
                         w_taint=1, w_avoid=AVOID_PODS_WEIGHT, w_spread=1,
                         w_interpod=1)
+
+
+# Preemption victim-selection class. "arithmetic": every registered
+# predicate is PodFitsResources (or GeneralPredicates without host ports) or
+# does not depend on which pods remain on the node
+# (generic_scheduler._POD_SET_INDEPENDENT_PREDS), so the victim search is
+# integer arithmetic over resource aggregates, which the preemption hybrid
+# runs on the device (scan.preempt_select). Everything else keeps the host
+# clone/add reprieve pipeline. A pod-set-dependent predicate whose feature is
+# absent from the whole workload (no host ports anywhere, no conflictable or
+# MaxPD volumes, no inter-pod terms) is constant-true for every victim set
+# of the run, so the run-time feature flags can elide it, the same rule
+# GenericScheduler.preemption_reprieve_class applies to the reprieve chain.
+
+# pod-set-dependent predicate key -> workload feature flag that elides it
+_FEATURE_GATED_PREDS: Dict[str, str] = {
+    preds.POD_FITS_HOST_PORTS_PRED: "has_ports",
+    preds.NO_DISK_CONFLICT_PRED: "has_disk_conflict",
+    preds.MAX_EBS_VOLUME_COUNT_PRED: "has_maxpd",
+    preds.MAX_GCE_PD_VOLUME_COUNT_PRED: "has_maxpd",
+    preds.MAX_AZURE_DISK_VOLUME_COUNT_PRED: "has_maxpd",
+    preds.MATCH_INTERPOD_AFFINITY_PRED: "has_interpod",
+}
+
+
+def classify_preemption_class(pred_keys, feature_flags=None,
+                              has_extenders: bool = False):
+    """Classify a predicate key set for preemption victim selection.
+
+    Returns ("arithmetic" | "general", reason). pred_keys None means the
+    provider-default set (a policy that omits `predicates`). feature_flags
+    maps has_ports/has_disk_conflict/has_maxpd/has_interpod to whether the
+    feature occurs anywhere in the workload (new AND placed pods); None (the
+    policy-compile-time call, before any workload is known) treats every
+    feature as present, so "arithmetic" at compile time means arithmetic for
+    EVERY workload."""
+    if has_extenders:
+        return "general", "extenders re-filter preemption candidates"
+    if pred_keys is None:
+        from tpusim_torch.engine.providers import DEFAULT_PREDICATE_KEYS
+        pred_keys = DEFAULT_PREDICATE_KEYS
+    keys = set(pred_keys)
+    flags = feature_flags or {}
+    if (preds.GENERAL_PRED not in keys
+            and preds.POD_FITS_RESOURCES_PRED not in keys):
+        return "general", "no resource predicate registered"
+    for key in sorted(keys):
+        if key == preds.POD_FITS_RESOURCES_PRED:
+            continue
+        if key == preds.GENERAL_PRED:
+            # GeneralPredicates bundles PodFitsHostPorts (pod-set-dependent)
+            if flags.get("has_ports", True):
+                return "general", "GeneralPredicates with host ports in the workload"
+            continue
+        if key in _POD_SET_INDEPENDENT_PREDS:
+            continue
+        flag = _FEATURE_GATED_PREDS.get(
+            "PodFitsHostPorts" if key == _TAIL_PORTS_ALIAS else key)
+        if flag is not None and not flags.get(flag, True):
+            continue
+        return "general", f"pod-set-dependent predicate {key}"
+    return "arithmetic", ""
 
 
 @dataclass

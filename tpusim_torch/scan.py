@@ -992,3 +992,80 @@ def schedule_scan(config: EngineConfig, carry: Carry, statics: Statics,
     for _ in range(num_pods - done):
         step()
     return (carry,) + tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# Preemption victim selection (the JAX package's preempt_select), for the
+# arithmetic reprieve class (policyc.classify_preemption_class):
+#   selectVictimsOnNode (core/generic_scheduler.go:583-665) -> a cumulative
+#       reprieve over the victim slots, one lane a candidate node
+#   pickOneNodeForPreemption (:739-831) -> the tie-break criteria as staged
+#       min-filters over the lanes
+# The preemption hybrid (preempt.py) builds the lanes (the static-predicate
+# mask and the stripped-node resource fit) and the priority-sorted slots
+# from its victim table.
+
+PRIO_SUM_OFFSET = 1 << 31  # util.MAX_INT32 + 1 (pickOneNode criterion 4)
+PREEMPT_NONE = 1 << 62     # the "no lane qualifies" sentinel
+
+
+def preempt_select(zero_req: bool, lane_valid, node_idx, alloc_cpu,
+                   alloc_mem, alloc_gpu, alloc_eph, allowed, n_base,
+                   base_cpu, base_mem, base_gpu, base_eph, v_prio, v_cpu,
+                   v_mem, v_gpu, v_eph, v_valid):
+    """One failed pod against C candidate lanes x V victim slots, all int64
+    tensors (bool for the two masks) on one device.
+
+    Per lane [C]: node_idx the node's index (insertion-order tie-breaks),
+    alloc_* and allowed its allocatables, n_base its resident pods after
+    every lower-priority pod is stripped, base_* the stripped usage plus
+    the incoming pod's request. Per slot [C, V]: the lane's lower-priority
+    pods sorted by descending priority (stable in NodeInfo.pods order);
+    v_valid masks the real slots. zero_req: the incoming pod requests
+    nothing, so only the pod count is checked (predicates.go:706-776).
+
+    Returns (winner, empty_winner, victim [C, V] bool, num [C]): winner is
+    the node index criteria 2-5 pick over lanes with victims (criterion 2,
+    the PDB violations, is uniformly 0 in this class), empty_winner the
+    first lane with no victim at all (criterion 1: the node fits without
+    preempting anyone, which the caller must treat as a disagreement with
+    the scan); both 0-d tensors, PREEMPT_NONE when no lane qualifies."""
+    n, cpu, mem, gpu, eph = n_base, base_cpu, base_mem, base_gpu, base_eph
+    zero = torch.zeros((), dtype=I64, device=n_base.device)
+    victim_cols = []
+    for v in range(v_prio.shape[1]):
+        vc, vm, vg, ve = v_cpu[:, v], v_mem[:, v], v_gpu[:, v], v_eph[:, v]
+        valid = v_valid[:, v]
+        # the state holds the incoming pod already: +2 = the victim + the pod
+        fits = n + 2 <= allowed
+        if not zero_req:
+            fits = (fits & (alloc_cpu >= cpu + vc) & (alloc_mem >= mem + vm)
+                    & (alloc_gpu >= gpu + vg) & (alloc_eph >= eph + ve))
+        reprieved = fits & valid
+        n = n + reprieved.to(I64)
+        cpu = cpu + torch.where(reprieved, vc, zero)
+        mem = mem + torch.where(reprieved, vm, zero)
+        gpu = gpu + torch.where(reprieved, vg, zero)
+        eph = eph + torch.where(reprieved, ve, zero)
+        victim_cols.append(valid & ~fits)
+    victim = (torch.stack(victim_cols, dim=1) if victim_cols
+              else torch.zeros_like(v_valid))
+
+    big = torch.full((), PREEMPT_NONE, dtype=I64, device=n_base.device)
+    num = victim.to(I64).sum(dim=1)
+    empty_winner = torch.where(lane_valid & (num == 0), node_idx, big).min()
+
+    # criterion 3: the lowest highest-victim priority; slots are sorted by
+    # descending priority, so a lane's first victim carries its highest
+    first = victim.to(torch.int32).argmax(dim=1, keepdim=True)
+    highest = v_prio.gather(1, first)[:, 0]
+    # criterion 4: the smallest sum of (priority + MAX_INT32 + 1)
+    psum = torch.where(victim, v_prio + PRIO_SUM_OFFSET, zero).sum(dim=1)
+
+    # staged min-filters; a single surviving lane passes every later filter,
+    # as the host's len(names) > 1 guards have it
+    sel = lane_valid & (num > 0)
+    for key in (highest, psum, num):
+        sel = sel & (key == torch.where(sel, key, big).min())
+    winner = torch.where(sel, node_idx, big).min()  # criterion 5: the first
+    return winner, empty_winner, victim, num

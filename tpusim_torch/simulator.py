@@ -502,24 +502,34 @@ class ClusterCapacity:
         for p in self.scheduling_queue.clear_nominations_for_gangs(names):
             p.status.nominated_node_name = ""
 
-    def attempt_preemption(self, pod: Pod, fit_err: FitError):
+    def attempt_preemption(self, pod: Pod, fit_err: FitError,
+                           candidate_filter=None):
         """The preemption arm of scheduleOne (scheduler.go:449-455 → the full
         Preempt pipeline, core/generic_scheduler.go:205-262): pick a node +
         victims, delete the victims from the store (mutating the cache through
         the DELETED events), and nominate the pod. Returns (node, victims) —
-        node is None when preemption found nothing."""
+        node is None when preemption found nothing. Shared by the host loop
+        (_schedule_one retry) and the preemption hybrid (preempt.py), which
+        may prefilter the candidate nodes (GenericScheduler.preempt)."""
         try:
             # Preempt runs against the same cached snapshot the failed
             # Schedule used (g.cachedNodeInfoMap, generic_scheduler.go:205)
             node, victims, to_clear = self.scheduler.preempt(
-                pod, self.nodes, self._cached_node_infos, fit_err)
+                pod, self.nodes, self._cached_node_infos, fit_err,
+                candidate_filter=candidate_filter)
         except SchedulingError:
             # a failed preemption attempt (e.g. extender error) is
             # logged-and-dropped in the reference (scheduler.go:
             # 449-451); the pod still gets its Unschedulable condition
             node, victims, to_clear = None, [], []
-        # clear losing nominations, nominate the pod, delete victims from
-        # the store and emit the Preempted events (preempt.go:45-75)
+        return self.commit_preemption(pod, node, victims, to_clear)
+
+    def commit_preemption(self, pod: Pod, node, victims, to_clear):
+        """The side-effect half of attempt_preemption (preempt.go:45-75):
+        clear losing nominations, nominate the pod, delete the victims from
+        the store (mutating the cache through the DELETED events) and emit
+        the Preempted events. The hybrid's device victim arm commits a
+        kernel-picked (node, victims) through this same sequence."""
         for p in to_clear:
             p.status.nominated_node_name = ""
         if node is None:
@@ -617,9 +627,10 @@ def run_simulation(pods: List[Pod], snapshot: ClusterSnapshot,
     registry-surgery feature gates, a policy the compile classifies
     unsupported and a policy with PodPriority run on the host with a
     warning; VolumeScheduling on torch raises ValueError; PodPriority with
-    pod groups runs on the host; PodPriority alone and pod groups alone
-    raise NotImplementedError on torch, whose preemption hybrid and gang
-    driver are not ported yet. policy: an engine.policy.Policy replacing the
+    pod groups runs on the host; PodPriority alone runs the preemption
+    hybrid (preempt.run_with_preemption) on `device` and `route`; pod
+    groups alone raise NotImplementedError on torch, whose gang driver is
+    not ported yet. policy: an engine.policy.Policy replacing the
     provider's predicates and priorities (AlgorithmSource.Policy,
     simulator.go:383-424). feature_gates: kube --feature-gates as a dict
     (engine.providers.parse_feature_gates). extender_transport: the
@@ -690,10 +701,14 @@ def run_simulation(pods: List[Pod], snapshot: ClusterSnapshot,
         cc.run()
         return cc.status
     if enable_pod_priority:
-        raise NotImplementedError(
-            "PodPriority (preemption) on the torch backend needs the "
-            "preemption hybrid, which is not ported yet; use "
-            "backend='reference'")
+        # the host-device hybrid: the device scan places, victim selection
+        # runs on the device or the exact host pipeline (preempt.py)
+        from tpusim_torch.preempt import run_with_preemption
+
+        return run_with_preemption(
+            pods, snapshot, provider=provider,
+            hard_pod_affinity_symmetric_weight=hard_pod_affinity_symmetric_weight,
+            device=device, route=route)
     if has_gangs(pods):
         names = sorted({gang_name(p) for p in pods} - {""})
         raise NotImplementedError(

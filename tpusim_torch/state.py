@@ -55,6 +55,7 @@ from tpusim_torch.engine.resources import (
     get_resource_request,
     is_pod_best_effort,
 )
+from tpusim_torch.engine.util import get_pod_priority
 
 # ---------------------------------------------------------------------------
 # failure reason bit layout (decoded back to error.go strings for the report)
@@ -663,6 +664,9 @@ class _GroupCompile:
     n_topo_doms: int = 1
     n_zone_doms: int = 1
     unsupported: List[str] = field(default_factory=list)
+    # each raw canonical group signature key -> its merged group id (the
+    # incremental cluster scatters a placed pod's presence through it)
+    sig_to_gid: Dict[object, int] = field(default_factory=dict)
 
 
 def _compile_groups(snapshot: ClusterSnapshot, pods: List[Pod],
@@ -702,6 +706,7 @@ def _compile_groups(snapshot: ClusterSnapshot, pods: List[Pod],
         return fallback(f"{graw} distinct raw pod groups exceed the jax "
                         f"backend limit ({max_raw})")
     raw_reps = gi.representatives
+    raw_keys = list(gi._ids)  # insertion-ordered: index == raw id
 
     # --- volume tables (NoDiskConflict / MaxPDVolumeCount / NoVolumeZone) ---
     if has_volumes:
@@ -988,7 +993,8 @@ def _compile_groups(snapshot: ClusterSnapshot, pods: List[Pod],
         tables=tables, has_ports=has_ports, has_services=has_services,
         has_interpod=has_interpod, has_disk_conflict=has_disk,
         has_maxpd=has_maxpd, has_vol_zone=has_zone, maxpd_limits=maxpd_limits,
-        n_topo_doms=n_topo_doms, n_zone_doms=n_zone_doms)
+        n_topo_doms=n_topo_doms, n_zone_doms=n_zone_doms,
+        sig_to_gid={key: int(gid_of_raw[b]) for b, key in enumerate(raw_keys)})
 
 
 def node_static_row(node: Node, ni: NodeInfo, scalar_idx: Dict[str, int],
@@ -1226,3 +1232,33 @@ def compile_cluster(snapshot: ClusterSnapshot, pods: List[Pod],
 
 def reason_strings(scalar_names: List[str]) -> List[str]:
     return REASON_STRINGS + [f"Insufficient {name}" for name in scalar_names]
+
+
+def victim_order_columns(pods: List[Pod], node_index: Dict[str, int]):
+    """The victim columns of device-side preemption: one row per placed pod
+    of `pods` on a known node, in list order.
+
+    Row order is what keeps victim selection exact: the host's
+    sort_by_priority_desc over NodeInfo.pods is a stable sort, and
+    NodeInfo.pods is in snapshot then bind order, so a table seeded in
+    snapshot order and appended to on every bind gives the host's victim
+    order under a stable sort by descending priority.
+
+    Returns (node_i int32[R], prio int64[R], req int64[R, 4] of cpu, memory,
+    gpu and ephemeral storage in get_resource_request units, the
+    row-parallel list of pods)."""
+    rows = [(node_index[p.spec.node_name], p) for p in pods
+            if p.spec.node_name and p.spec.node_name in node_index]
+    r = len(rows)
+    node_i = np.zeros(r, dtype=np.int32)
+    prio = np.zeros(r, dtype=np.int64)
+    req = np.zeros((r, 4), dtype=np.int64)
+    objs = []
+    for k, (i, p) in enumerate(rows):
+        node_i[k] = i
+        prio[k] = get_pod_priority(p)
+        pr = get_resource_request(p)
+        req[k] = (pr.milli_cpu, pr.memory, pr.nvidia_gpu,
+                  pr.ephemeral_storage)
+        objs.append(p)
+    return node_i, prio, req, objs
