@@ -114,14 +114,34 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
      chunks and the victim selections over the wall); (c) preempt_select
      on the card against the same call on the CPU, on every set of lanes
      (b) produced, equal (tolerance 0), then those calls replayed under
-     torch.profiler for the card's busy time a call.
+     torch.profiler for the card's busy time a call;
+ 18. the chunked scan: config 3's first 8,192 pods on its 5,000 nodes
+     through TorchBackend(route="scan") whole and with TPUSIM_SCAN_CHUNK
+     2,048: choices, counts, advanced and the final carry bit-equal, with
+     the walls and µs a pod of each;
+ 19. BASELINE config 5: (a) 32 of its 50 scenarios (a cut of depth for the
+     phases' budget) of 20,000 pods on 1,000 nodes (build_workload, seeds
+     1000-1031) through run_what_if on route
+     "auto": one fast_scan a scenario on the kernel, with the wall, pods/s,
+     kernel time (CUDA events) and host share; (b) the first 8 again on the
+     batched scan (route "scan"), every scenario's placement hash equal to
+     (a)'s, with its µs a step; (c) bench.py's CPU shape (8 x 5,000 x 500)
+     on both routes, the JAX package's combined digest; then the batched
+     step's kernels and device busy time at S = 1 and S = 8 under
+     torch.profiler;
+ 20. bench.py's config 8 through the serve fleet (ScenarioFleet, buckets of
+     8): 64 requests of the first 1,001-2,000 pods of a 2,000-pod pool on
+     200 nodes, a cold and a warm pass, each the JAX package's combined
+     digest; the warm pass builds no program and hits the program cache on
+     every response. Phases 18-20 fail past their 300 s budget.
 Phases 4-15 run TorchBackend with fallback="error", and phases 15, 16b and
 17 run run_simulation on the card with the host route made to raise, so a
 workload that started to reroute to the host fails them; phases 4-12 run
 it with route "kernel", so a plan that stopped reaching the kernel fails
 them, and print the cluster geometry each workload launched with beside
-its times (every full-size cell must launch more than one CTA). Then a
-JSON line of the kernels and, last, the device line.
+its times (every full-size cell must launch more than one CTA). Then the
+whole script's wall, the card line, a JSON line of the kernels and, last,
+the device line.
 """
 
 import contextlib
@@ -180,6 +200,29 @@ HOST_BUDGET_S = 150
 HYBRID_CONFIG6 = (dict(num_pods=20_000, num_nodes=1_000, affinity=True,
                        priorities=True, seed=777),
                   "35a42fdde29dd2aa", (19_731, 155, 114))
+# phase 18: config 3's first pods on its nodes through the scan route,
+# whole and in chunks of TPUSIM_SCAN_CHUNK pods
+CHUNKED_SCAN = (dict(num_pods=8_192, num_nodes=5_000), 2_048)
+# phase 19: BASELINE config 5, scenarios of build_workload(pods, nodes,
+# seed=1000 + s): at full shape, the first BATCHED_SCENARIOS of them again on
+# the batched scan, and at bench.py's CPU shape with the combined digest of
+# the JAX package's run_what_if (tools/port_golden.py config5). Config 5 has
+# 50 scenarios; 32 run here, at full width: with all 50, phases 18-20 took
+# 260-273 s of their 300 s budget on an H100's machine (its host time alone,
+# about 3.5 s a scenario, varies by 10-30% between runs)
+CONFIG5_SCENARIOS = 50
+WHATIF_CONFIG5 = dict(scenarios=32, num_pods=20_000, num_nodes=1_000)
+BATCHED_SCENARIOS = 8
+WHATIF_CPU_SHAPE = (dict(scenarios=8, num_pods=5_000, num_nodes=500),
+                    "ea6b76450d7828a9")
+# phase 20: bench.py's config 8 through the serve fleet: the workload the
+# requests draw from, the bucket size, and the combined digest of the JAX
+# package's ScenarioFleet (tools/port_golden.py config8)
+SERVE_CONFIG8 = (dict(num_pods=2_000, num_nodes=200, seed=4242), 8,
+                 "d1c855554bfecaa6")
+SERVE_REQUESTS = 64
+# phases 18-20 together, seconds
+WHATIF_BUDGET_S = 300
 # phase 14: the pods of config 3 run through both routes
 ROUTES_PODS = 2_048
 # phase 15: the pods of the scan timed eagerly, beside the graph replay
@@ -269,6 +312,31 @@ def split_digest(status):
     split += [(p.name, p.status.conditions[-1].message)
               for p in status.failed_pods]
     return hashlib.sha256(repr(split).encode()).hexdigest()[:16]
+
+
+def combined_digest(hashes):
+    """sha256 of placement hashes in order, one a line, first 16 hex
+    digits: the digest of a what-if study or a serve load."""
+    return hashlib.sha256("\n".join(hashes).encode()).hexdigest()[:16]
+
+
+def serve_load(workload, request_cls):
+    """bench.py's config 8 load over `workload` (snapshot, pod pool): each
+    request the pool's first n pods, n in (pool/2, pool] from
+    RandomState(8), against the snapshot registered as "base", with a
+    cache key. Returns (snapshot, pool, load), load() making the requests
+    with `request_cls` (either package's WhatIfRequest)."""
+    snapshot, pool = workload
+    rng = np.random.RandomState(8)
+    sizes = [int(rng.randint(len(pool) // 2 + 1, len(pool) + 1))
+             for _ in range(SERVE_REQUESTS)]
+
+    def load():
+        return [request_cls(pods=pool[:n], snapshot_ref="base",
+                            cache_key=f"bench8-{i}-{n}")
+                for i, n in enumerate(sizes)]
+
+    return snapshot, pool, load
 
 
 @contextlib.contextmanager
@@ -1403,7 +1471,247 @@ def drive_hybrid(card):
               "(the profiler recorded no device time)")
 
 
+def as_numpy(a):
+    """A tensor on any device, or an array, as a numpy array."""
+    return a.cpu().numpy() if hasattr(a, "cpu") else np.asarray(a)
+
+
+def drive_chunked_scan(card):
+    """Phase 18: config 3's first pods through TorchBackend(route="scan")
+    whole and with TPUSIM_SCAN_CHUNK set, the outputs of both scans (the
+    choices, counts, advanced flags and final carry) bit-equal."""
+    import torch
+
+    import tpusim_torch.backend as backend_module
+    from tpusim_torch import workloads
+    from tpusim_torch.backend import TorchBackend
+
+    params, chunk = CHUNKED_SCAN
+    n, nodes = params["num_pods"], params["num_nodes"]
+    snapshot, pods = workloads.build_workload(**params)
+    saved = os.environ.pop("TPUSIM_SCAN_CHUNK", None)
+    outs = {}
+    try:
+        for name in ("schedule_scan", "schedule_scan_chunked"):
+            if name == "schedule_scan_chunked":
+                os.environ["TPUSIM_SCAN_CHUNK"] = str(chunk)
+            record = []
+            backend = TorchBackend(device="cuda", route="scan",
+                                   fallback="error")
+            with timed_on_card(backend_module, name, record):
+                t0 = time.perf_counter()
+                backend.schedule(pods, snapshot)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            if len(record) != 1 or backend.last_route != "scan":
+                raise AssertionError(f"phase 18: {name} ran {len(record)} "
+                                     f"times on route {backend.last_route}")
+            _, (final, *rest), start, end = record[0]
+            outs[name] = [as_numpy(t) for t in (*final, *rest)]
+            how = (f"chunks of {chunk} pods" if name != "schedule_scan"
+                   else "one dispatch")
+            print(f"phase 18: config3 first {n} pods x {nodes} nodes, route "
+                  f"scan, {how}: {wall:.3f}s wall, scan span "
+                  f"{start.elapsed_time(end):.1f} ms (CUDA events), "
+                  f"{1e6 * wall / n:.0f} us a pod end to end on {card}")
+    finally:
+        os.environ.pop("TPUSIM_SCAN_CHUNK", None)
+        if saved is not None:
+            os.environ["TPUSIM_SCAN_CHUNK"] = saved
+    whole, chunked = outs["schedule_scan"], outs["schedule_scan_chunked"]
+    worst = max(int(np.abs(a.astype(np.int64) - b.astype(np.int64)).max())
+                if a.size else 0 for a, b in zip(whole, chunked))
+    placed = int((whole[-3] >= 0).sum())
+    print(f"phase 18: chunked vs whole: choices, counts, advanced and "
+          f"{len(whole) - 3} carry fields max |diff| {worst}; {placed} of "
+          f"{n} placed")
+    if worst or any(a.shape != b.shape for a, b in zip(whole, chunked)):
+        raise AssertionError("phase 18: the chunked scan differs from the "
+                             "whole one")
+
+
+def placement_hashes(results):
+    from tpusim_torch.backends import placement_hash
+
+    return [placement_hash(r.placements) for r in results]
+
+
+def batched_step_profile(config_scenarios, steps=10):
+    """Kernels and device busy µs a step of the batched scan over the given
+    scenarios, from `steps` eager steps under torch.profiler (after two
+    warm-up steps)."""
+    import torch
+
+    from tpusim_torch import scan, whatif
+
+    config, staged = whatif._prepare_host_batch(
+        config_scenarios, "DefaultProvider", 10, None)
+    per = whatif._unify_batch([(s.statics, s.carry, s.xs) for s in staged])
+    program = scan.BatchedScan(config, *whatif.stage_batch(
+        *whatif._stack_host(per), torch.device("cuda")))
+    for dst, src in zip(program.carry, program.carry0):
+        dst.copy_(src)
+    program._steps.t1.zero_()
+    for _ in range(2):
+        program._steps.step()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            program._steps.step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.count for e in kernels) / steps,
+            sum(profiled_device_us(e) for e in kernels) / steps)
+
+
+def drive_what_if(card):
+    """Phase 19: BASELINE config 5 through run_what_if on the card."""
+    import torch
+
+    import tpusim_torch.fastscan as fastscan_module
+    from tpusim_torch import scan, whatif, workloads
+    from tpusim_torch.kernels.fastscan import fastscan_chunk
+
+    p = WHATIF_CONFIG5
+    n_scen, n_pods, n_nodes = p["scenarios"], p["num_pods"], p["num_nodes"]
+    t0 = time.perf_counter()
+    scenarios = [workloads.build_workload(n_pods, n_nodes, seed=1000 + s)
+                 for s in range(n_scen)]
+    print(f"phase 19: built {n_scen} scenarios of {n_pods} pods x {n_nodes} "
+          f"nodes in {time.perf_counter() - t0:.1f}s (not part of the "
+          f"what-if wall); config 5's {CONFIG5_SCENARIOS} scenarios cut to "
+          f"{n_scen}, widths kept, to hold phases 18-20 inside their "
+          f"{WHATIF_BUDGET_S} s budget")
+
+    # (a) the public entry point on route auto: the fast loop
+    fastscan_chunk.launches = 0
+    for key in fastscan_chunk.launches_by_variant:
+        fastscan_chunk.launches_by_variant[key] = 0
+    calls, chunks = [], []
+    with timed_on_card(whatif, "fast_scan", calls), \
+            timed_on_card(fastscan_module, "fastscan_chunk", chunks):
+        t0 = time.perf_counter()
+        results = whatif.run_what_if(scenarios)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = fastscan_chunk.launches
+    by_variant = dict(fastscan_chunk.launches_by_variant)
+    kernel_ms = sum(start.elapsed_time(end) for _, _, start, end in chunks)
+    fast_ms = sum(start.elapsed_time(end) for _, _, start, end in calls)
+    hashes = placement_hashes(results)
+    scheduled = sum(r.scheduled for r in results)
+    total = n_scen * n_pods
+    print(f"phase 19a: config5 {n_scen} x {n_pods} pods x {n_nodes} nodes "
+          f"through run_what_if (route auto): {wall:.3f}s wall = "
+          f"{total / wall:.0f} pods/s, {scheduled} scheduled, digest "
+          f"{combined_digest(hashes)}; {len(calls)} fast_scan calls, "
+          f"{launches} kernel launches ({by_variant}); kernel time "
+          f"{kernel_ms:.1f} ms (CUDA events), fast_scan spans "
+          f"{fast_ms:.1f} ms: host share >= {1 - fast_ms / (1000 * wall):.4f}"
+          f" on {card}")
+    if len(calls) != n_scen or by_variant["group_free"] <= 0:
+        raise AssertionError("phase 19a: the fast loop did not run one "
+                             "fast_scan a scenario on the kernel")
+
+    # (b) the first scenarios on the batched scan
+    k = BATCHED_SCENARIOS
+    runs = []
+    with timed_on_card(scan.BatchedScan, "run", runs):
+        t0 = time.perf_counter()
+        batched = whatif.run_what_if(scenarios[:k], route="scan")
+        torch.cuda.synchronize()
+        wall_b = time.perf_counter() - t0
+    if len(runs) != 1:
+        raise AssertionError(f"phase 19b: {len(runs)} batched runs")
+    span_ms = runs[0][2].elapsed_time(runs[0][3])
+    same = placement_hashes(batched) == hashes[:k]
+    print(f"phase 19b: first {k} scenarios on the batched scan (route "
+          f"scan): {wall_b:.3f}s wall, scan span {span_ms:.1f} ms (CUDA "
+          f"events, one eager step and the graph capture included) = "
+          f"{1000 * span_ms / n_pods:.0f} us a step at S = {k}; every "
+          f"scenario's digest equal to 19a's: {same}")
+    if not same:
+        raise AssertionError("phase 19b: the batched scan differs from the "
+                             "fast loop")
+
+    # (c) bench.py's CPU shape on both routes against the JAX package
+    params, want = WHATIF_CPU_SHAPE
+    small = [workloads.build_workload(params["num_pods"],
+                                      params["num_nodes"], seed=1000 + s)
+             for s in range(params["scenarios"])]
+    for route in ("auto", "scan"):
+        runs = []
+        with timed_on_card(scan.BatchedScan, "run", runs):
+            t0 = time.perf_counter()
+            got = combined_digest(placement_hashes(
+                whatif.run_what_if(small, route=route)))
+            wall_c = time.perf_counter() - t0
+        spans = "".join(f", scan span {start.elapsed_time(end):.1f} ms"
+                        for _, _, start, end in runs)
+        print(f"phase 19c: config5 CPU shape {params['scenarios']} x "
+              f"{params['num_pods']} x {params['num_nodes']}, route {route}:"
+              f" digest {got} (want {want}), {wall_c:.3f}s wall{spans}")
+        if got != want:
+            raise AssertionError(f"phase 19c: route {route} differs from "
+                                 "the JAX package's run_what_if")
+
+    # last, as the profiler may slow what runs after it: the batched step's
+    # kernels at S = 1 and S = BATCHED_SCENARIOS
+    for s in (1, k):
+        per_step, busy_us = batched_step_profile(scenarios[:s])
+        print(f"phase 19b: batched scan at S = {s}: {per_step:.0f} kernels "
+              f"and {busy_us:.0f} us of device busy time a step "
+              f"(torch.profiler, 10 eager steps) on {card}")
+
+
+def drive_serve(card):
+    """Phase 20: bench.py's config 8 load through the serve fleet."""
+    import torch
+
+    from tpusim_torch import whatif, workloads
+    from tpusim_torch.serve import ScenarioFleet, WhatIfRequest
+
+    params, bucket, want = SERVE_CONFIG8
+    snapshot, pool, load = serve_load(workloads.build_workload(**params),
+                                      WhatIfRequest)
+    fleet = ScenarioFleet(bucket_size=bucket, flush_after_s=0.05,
+                          device="cuda")
+    fleet.register_snapshot("base", snapshot)
+    for label in ("cold", "warm"):
+        before = whatif.compile_count()
+        t0 = time.perf_counter()
+        responses = fleet.run(load())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        builds = whatif.compile_count() - before
+        bad = [r for r in responses if not r.ok]
+        if bad:
+            raise AssertionError(f"phase 20: {len(bad)} requests failed: "
+                                 f"{bad[0].error}")
+        got = combined_digest(r_hash for r_hash in placement_hashes(
+            [r.result for r in responses]))
+        hits = sum(1 for r in responses if r.compile_cache_hit)
+        print(f"phase 20: config8 {label} pass: {len(responses)} requests "
+              f"of {min(len(r.result.placements) for r in responses)}-"
+              f"{max(len(r.result.placements) for r in responses)} pods x "
+              f"{params['num_nodes']} nodes, bucket {bucket}: {wall:.3f}s = "
+              f"{len(responses) / wall:.1f} scenarios/s; {builds} program "
+              f"builds, compile_cache_hit {hits}/{len(responses)}; digest "
+              f"{got} (want {want}) on {card}")
+        if got != want:
+            raise AssertionError(f"phase 20: the {label} pass differs from "
+                                 "the JAX package's ScenarioFleet")
+        if label == "warm" and (builds or hits != len(responses)):
+            raise AssertionError("phase 20: the warm pass built a program")
+    print(f"phase 20: fleet stats {fleet.executor.stats}, "
+          f"{len(fleet.executor._programs)} programs held")
+
+
 def main():
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -1476,6 +1784,18 @@ def main():
     # phase 17: the preemption hybrid
     drive_hybrid(card)
 
+    # phases 18-20: the chunked scan, batched what-if and the serve fleet
+    t_whatif = time.perf_counter()
+    drive_chunked_scan(card)
+    drive_what_if(card)
+    drive_serve(card)
+    whatif_s = time.perf_counter() - t_whatif
+    print(f"phases 18-20: {whatif_s:.1f}s wall in all, against their "
+          f"{WHATIF_BUDGET_S} s budget")
+    if whatif_s > WHATIF_BUDGET_S:
+        raise AssertionError(f"phases 18-20: {whatif_s:.1f}s is past their "
+                             f"{WHATIF_BUDGET_S} s budget")
+
     kernels = []
     for name, variant, replaces, n_launch, err in (
             ("config3", "group_free", "tpusim/jaxe/fastscan.py:1164",
@@ -1494,6 +1814,7 @@ def main():
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None,
         })
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f}s wall in all")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

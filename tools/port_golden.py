@@ -31,6 +31,17 @@ run_simulation(backend="jax", enable_pod_priority=True) on its XLA scan
 (chip_smoke.py HYBRID_CONFIG6; about 25 s on a CPU at 20,000 x 1,000):
 
     JAX_PLATFORMS=cpu python tools/port_golden.py config6_hybrid 20000 1000
+
+`config5 S N M` prints the combined digest (chip_smoke.combined_digest) of
+the JAX package's run_what_if over S scenarios of build_workload(N, M,
+seed=1000 + s), BASELINE config 5 at bench.py's CPU shape by default (8 x
+5,000 x 500), and `config8` that of its ScenarioFleet over bench.py's config
+8 load (64 requests of the first 1,001-2,000 pods of build_workload(2000,
+200, seed=4242), buckets of 8), one placement hash a request in submission
+order (chip_smoke.py WHATIF_CONFIG5, SERVE_CONFIG8):
+
+    JAX_PLATFORMS=cpu python tools/port_golden.py config5
+    JAX_PLATFORMS=cpu python tools/port_golden.py config8
 """
 
 import hashlib
@@ -94,9 +105,54 @@ def host_digest(name, num_pods, num_nodes):
     return 0
 
 
+def config5_digest(num_scenarios=8, num_pods=5_000, num_nodes=500):
+    from chip_smoke import combined_digest
+    from tpusim.backends import placement_hash
+    from tpusim.jaxe.whatif import run_what_if
+
+    t0 = time.perf_counter()
+    scenarios = [workloads.build_workload(num_pods, num_nodes,
+                                          seed=1000 + s, api=jax_api)
+                 for s in range(num_scenarios)]
+    results = run_what_if(scenarios)
+    digest = combined_digest(placement_hash(r.placements) for r in results)
+    print(f"config5({num_scenarios} x {num_pods} x {num_nodes}): digest "
+          f"{digest}, {sum(r.scheduled for r in results)} scheduled, "
+          f"{time.perf_counter() - t0:.1f} s")
+    return 0
+
+
+def config8_digest():
+    from chip_smoke import SERVE_CONFIG8, combined_digest, serve_load
+    from tpusim.backends import placement_hash
+    from tpusim.serve import ScenarioFleet, WhatIfRequest
+
+    t0 = time.perf_counter()
+    params, bucket, _ = SERVE_CONFIG8
+    snapshot, pool, load = serve_load(
+        workloads.build_workload(api=jax_api, **params), WhatIfRequest)
+    fleet = ScenarioFleet(bucket_size=bucket, flush_after_s=0.05)
+    fleet.register_snapshot("base", snapshot)
+    responses = fleet.run(load())
+    bad = [r for r in responses if not r.ok]
+    if bad:
+        raise RuntimeError(f"config 8: {len(bad)} requests failed: "
+                           f"{bad[0].error}")
+    digest = combined_digest(placement_hash(r.result.placements)
+                             for r in responses)
+    print(f"config8({len(responses)} requests, bucket {bucket}): digest "
+          f"{digest}, {sum(r.result.scheduled for r in responses)} "
+          f"scheduled, {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 def main(argv):
     if argv[0] == "quickstart":
         return quickstart_digest()
+    if argv[0] == "config5":
+        return config5_digest(*(int(a) for a in argv[1:]))
+    if argv[0] == "config8":
+        return config8_digest()
     if argv[0] in ("config3_host", "config4_host", "config6",
                    "config6_hybrid"):
         return host_digest(argv[0], int(argv[1]), int(argv[2]))

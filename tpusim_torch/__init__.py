@@ -18,7 +18,11 @@ tpusim or of JAX:
   kernels/    the hand-written CUDA kernels, their wrappers and plain versions
   csrc/       the CUDA sources, built with nvcc at first use
   fastscan    the chunked driver of the fused scan
-  scan        the exact sequential scan route (int64 tensor code)
+  scan        the exact sequential scan route (int64 tensor code), whole,
+              in chunks of pods, or batched over scenarios
+  sharding    node-axis padding with never-feasible nodes
+  whatif      run_what_if: many (snapshot, pods) scenarios in one call
+  serve/      ScenarioFleet, the what-if service over batched programs
   backends    Placement, ReferenceBackend (the host route), get_backend
   backend     TorchBackend: compile -> plan -> scan -> placements
   preempt     the preemption hybrid: speculation chunks on the card, victim

@@ -7,7 +7,9 @@ and `fast_scan` runs the pods through the chunk kernel (CUDA on the card,
 its plain version on the CPU). A plan the int32 plan cannot hold (byte-sized
 memory, a group, zone or topology-domain budget, products past int32) runs
 on `scan.schedule_scan` instead: the same pipeline in int64 tensor code, on
-the same device. `decode_placements` turns choices and reason counts into
+the same device; a batch past TPUSIM_SCAN_CHUNK pods (default 131072) runs
+there in chunks (`scan.schedule_scan_chunked`), so that only one chunk of
+its pod columns lies on the device at a time. `decode_placements` turns choices and reason counts into
 Placements and FitError text byte-identical to kube-scheduler's.
 
 route="auto" takes the kernel when it accepts the plan and the scan
@@ -43,8 +45,13 @@ from tpusim_torch.config import config_for
 from tpusim_torch.device import resolve_device
 from tpusim_torch.fastplan import plan_fast
 from tpusim_torch.fastscan import fast_scan
-from tpusim_torch.scan import GRAPH_STEPS, scan_inputs, schedule_scan
-from tpusim_torch.state import compile_cluster, reason_strings
+from tpusim_torch.scan import (
+    GRAPH_STEPS,
+    scan_inputs,
+    schedule_scan,
+    schedule_scan_chunked,
+)
+from tpusim_torch.state import compile_cluster, env_int, reason_strings
 
 DEFAULT_PROVIDER = "DefaultProvider"
 CLUSTER_AUTOSCALER_PROVIDER = "ClusterAutoscalerProvider"
@@ -253,11 +260,21 @@ class TorchBackend:
             choices, counts, _adv = fast_scan(plan, device=self.device)
             self.last_route = "kernel"
         else:
+            # a batch past TPUSIM_SCAN_CHUNK pods streams its pod columns
+            # to the device chunk by chunk (the JAX package's setting and
+            # default)
+            scan_chunk = env_int("TPUSIM_SCAN_CHUNK", 131072)
+            chunked = 0 < scan_chunk < len(pods)
             carry, statics, xs = scan_inputs(config, compiled, cols, ptabs,
-                                             self.device)
-            _, choices, counts, _adv = schedule_scan(
-                config, carry, statics, xs, graph_steps=GRAPH_STEPS)
-            choices, counts = choices.cpu().numpy(), counts.cpu().numpy()
+                                             self.device, host_pods=chunked)
+            if chunked:
+                _, choices, counts, _adv = schedule_scan_chunked(
+                    config, carry, statics, xs, scan_chunk,
+                    graph_steps=GRAPH_STEPS)
+            else:
+                _, choices, counts, _adv = schedule_scan(
+                    config, carry, statics, xs, graph_steps=GRAPH_STEPS)
+                choices, counts = choices.cpu().numpy(), counts.cpu().numpy()
             self.last_route, self.last_route_reason = "scan", why
         self.last_choices = choices
         return decode_placements(pods, choices, counts, compiled.statics.names,

@@ -3,6 +3,9 @@
     python -m tpusim_torch.cli --podspec pods.yaml --synthetic-nodes 4 \
         [--scheduler-policy-file policy.json] [--device cpu] \
         [--backend torch|reference|auto] [--enable-pod-priority]
+    python -m tpusim_torch.cli --what-if manifest.json [--device cpu]
+    python -m tpusim_torch.cli serve --synthetic-nodes 16 \
+        --podspec pods.yaml [--requests 32] [--device cpu]
 
 prints the Successful/Failed pods report of the reference simulator
 (cmd/app/server.go). --backend torch (the default) schedules on
@@ -17,6 +20,12 @@ pods.json checkpoints (--nodes, --pods) or from synthetic nodes. A scheduler
 Policy from a file (--scheduler-policy-file) or from a ConfigMap object
 saved to a file (--scheduler-policy-configmap-file) replaces the algorithm
 provider.
+
+--what-if runs a manifest of scenarios (a JSON list of {snapshot, podspec}
+file pairs) through whatif.run_what_if and prints a line a scenario. The
+serve subcommand stands up a serve.ScenarioFleet over one snapshot and
+drives it with a synthetic load drawn from the podspec's pods (in process,
+no network listener), printing a line a pass.
 """
 
 from __future__ import annotations
@@ -99,6 +108,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--device", default="cuda",
                         help="cuda (default: the CUDA kernels) or cpu (their "
                              "plain PyTorch versions)")
+    parser.add_argument("--what-if", default="",
+                        help="Batched multi-snapshot mode: a JSON manifest "
+                             "[{snapshot, podspec}, ...], one scenario an "
+                             "entry (whatif.run_what_if)")
     parser.add_argument("--print-requirements", action="store_true",
                         help="Also print per-pod requirement spec")
     parser.add_argument("--quiet", action="store_true",
@@ -134,8 +147,212 @@ def load_policy_from_args(args):
     return None, None
 
 
+def run_what_if_cli(args) -> int:
+    """--what-if: the manifest's scenarios through run_what_if."""
+    import json
+
+    from tpusim_torch.whatif import run_what_if
+
+    try:
+        with open(args.what_if) as f:
+            manifest = json.load(f)
+        if not isinstance(manifest, list) or not manifest:
+            raise ValueError("manifest must be a non-empty JSON list")
+        scenarios = []
+        for entry in manifest:
+            snapshot = ClusterSnapshot.load(entry["snapshot"])
+            sim_pods = load_simulation_pods(entry["podspec"])
+            pods = expand_simulation_pods(sim_pods, namespace=args.namespace)
+            # run_simulation's LIFO feed order
+            scenarios.append((snapshot, list(reversed(pods))))
+    except (OSError, KeyError, TypeError, ValueError) as exc:
+        print(f"error: invalid what-if manifest: {exc}", file=sys.stderr)
+        return 2
+    policy, policy_err = load_policy_from_args(args)
+    if policy_err:
+        print(f"error: {policy_err}", file=sys.stderr)
+        return 2
+    start = time.perf_counter()
+    try:
+        results = run_what_if(scenarios, provider=args.algorithmprovider,
+                              policy=policy, device=args.device)
+    except (KeyError, ValueError, RuntimeError, NotImplementedError) as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 2
+    elapsed = time.perf_counter() - start
+    total = sum(r.total for r in results)
+    for i, result in enumerate(results):
+        print(f"scenario {i}: {result.scheduled} scheduled, "
+              f"{result.unschedulable} unschedulable")
+    rate = total / elapsed if elapsed > 0 else 0.0
+    print(f"\n{len(results)} scenarios, {total} pods in one batched dispatch "
+          f"[{elapsed:.3f}s, {rate:.0f} pods/s]")
+    return 0
+
+
+def build_serve_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="tpusim_torch serve",
+        description="Scenario fleet: run the what-if capacity service over "
+                    "a snapshot and drive it with a synthetic request load "
+                    "(in process, no network listener)")
+    parser.add_argument("--snapshot", default="",
+                        help="Combined ClusterSnapshot JSON ({nodes, pods})")
+    parser.add_argument("--nodes", default="", help="nodes.json checkpoint")
+    parser.add_argument("--synthetic-nodes", type=int, default=0,
+                        help="Generate N homogeneous synthetic nodes")
+    parser.add_argument("--synthetic-milli-cpu", type=int, default=4000)
+    parser.add_argument("--synthetic-memory", type=int, default=16 * 1024**3)
+    parser.add_argument("--podspec", required=True,
+                        help="YAML/JSON [{name, pod, num}] entries: the pod "
+                             "pool the load draws request workloads from")
+    parser.add_argument("--algorithmprovider", default="DefaultProvider")
+    parser.add_argument("--scheduler-policy-file", default="",
+                        help="schedulerapi/v1 Policy file applied to every "
+                             "request")
+    parser.add_argument("--namespace", default="default")
+    parser.add_argument("--requests", type=int, default=32,
+                        help="Synthetic what-if requests to generate")
+    parser.add_argument("--seed", type=int, default=0,
+                        help="Load-generator seed (request sizes)")
+    parser.add_argument("--bucket-size", type=int, default=4,
+                        help="Scenarios a dispatched batched program")
+    parser.add_argument("--flush-after-ms", type=float, default=50.0,
+                        help="Deadline before a partial bucket dispatches "
+                             "ghost-padded")
+    parser.add_argument("--deadline-ms", type=float, default=0.0,
+                        help="Fleet-wide request deadline: a request older "
+                             "than this at staging or bucket time is "
+                             "rejected instead of run (0: no deadline)")
+    parser.add_argument("--max-queue", type=int, default=256,
+                        help="Admission queue bound (backpressure)")
+    parser.add_argument("--warm-repeats", type=int, default=1,
+                        help="Extra passes over the same request set: repeat "
+                             "traffic must ride the built programs and the "
+                             "device-batch cache")
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (default) or cpu (the plain versions)")
+    parser.add_argument("--quiet", action="store_true",
+                        help="Only print the summary lines")
+    return parser
+
+
+def _percentile(sorted_vals, q: float) -> float:
+    if not sorted_vals:
+        return 0.0
+    idx = min(len(sorted_vals) - 1, int(round(q * (len(sorted_vals) - 1))))
+    return sorted_vals[idx]
+
+
+def serve_cli(argv) -> int:
+    """`serve`: stand up a ScenarioFleet and drive it with a synthetic
+    load."""
+    import random
+
+    args = build_serve_parser().parse_args(argv)
+    try:
+        if args.snapshot:
+            snapshot = ClusterSnapshot.load(args.snapshot)
+        elif args.nodes:
+            snapshot = ClusterSnapshot(nodes=load_nodes_checkpoint(args.nodes))
+        elif args.synthetic_nodes:
+            snapshot = synthetic_cluster(
+                args.synthetic_nodes, milli_cpu=args.synthetic_milli_cpu,
+                memory=args.synthetic_memory)
+        else:
+            print("error: no cluster nodes; pass --snapshot, --nodes, or "
+                  "--synthetic-nodes", file=sys.stderr)
+            return 2
+        sim_pods = load_simulation_pods(args.podspec)
+    except (OSError, ValueError) as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 2
+    pool = expand_simulation_pods(sim_pods, namespace=args.namespace)
+    if not pool:
+        print("error: podspec expands to zero pods", file=sys.stderr)
+        return 2
+    policy = None
+    if args.scheduler_policy_file:
+        try:
+            policy = load_policy_file(args.scheduler_policy_file)
+        except (OSError, PolicyError) as exc:
+            print(f"error: invalid scheduler policy: {exc}", file=sys.stderr)
+            return 2
+
+    from tpusim_torch.serve import ScenarioFleet, WhatIfRequest
+
+    try:
+        fleet = ScenarioFleet(provider=args.algorithmprovider,
+                              bucket_size=args.bucket_size,
+                              flush_after_s=args.flush_after_ms / 1000.0,
+                              max_queue=args.max_queue,
+                              deadline_s=(args.deadline_ms / 1000.0
+                                          if args.deadline_ms > 0 else None),
+                              device=args.device)
+    except (KeyError, ValueError, RuntimeError) as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 2
+    fleet.register_snapshot("base", snapshot)
+
+    # the load: random-size queries drawn from the pod pool, each
+    # cache-keyed, so that the warm repeats ride the caches
+    rng = random.Random(args.seed)
+    sizes = [rng.randint(1, len(pool)) for _ in range(args.requests)]
+    make_load = lambda: [  # noqa: E731
+        WhatIfRequest(pods=pool[:n], snapshot_ref="base", policy=policy,
+                      cache_key=f"load-{i}-{n}")
+        for i, n in enumerate(sizes)]
+
+    fleet.start()
+    try:
+        passes = []  # (label, elapsed, responses)
+        for rep in range(1 + max(0, args.warm_repeats)):
+            label = "cold" if rep == 0 else f"warm {rep}"
+            start = time.perf_counter()
+            futures = [fleet.submit(r) for r in make_load()]
+            responses = [f.result(timeout=600) for f in futures]
+            passes.append((label, time.perf_counter() - start, responses))
+    finally:
+        fleet.stop()
+
+    stats = fleet.executor.stats
+    exit_code = 0
+    for label, elapsed, responses in passes:
+        ok = [r for r in responses if r.ok]
+        rejected = [r for r in responses if r.rejected is not None]
+        errors = [r for r in responses if r.error and r.rejected is None]
+        lat = sorted(r.latency_s for r in ok)
+        rate = len(responses) / elapsed if elapsed > 0 else 0.0
+        hits = sum(1 for r in ok if r.compile_cache_hit)
+        print(f"{label}: {len(ok)}/{len(responses)} ok "
+              f"({len(rejected)} rejected, {len(errors)} failed), "
+              f"{rate:.1f} scenarios/s, latency p50/p90/max "
+              f"{_percentile(lat, 0.5) * 1e3:.1f}/"
+              f"{_percentile(lat, 0.9) * 1e3:.1f}/"
+              f"{(lat[-1] if lat else 0.0) * 1e3:.1f} ms, "
+              f"compile_cache_hit {hits}/{len(ok)}")
+        if not args.quiet:
+            for r in rejected[:5]:
+                print(f"  rejected {r.request_id}: [{r.rejected}] {r.error}",
+                      file=sys.stderr)
+            for r in errors[:5]:
+                print(f"  failed {r.request_id}: {r.error}", file=sys.stderr)
+        if errors:
+            exit_code = 1
+    print(f"fleet: {stats['dispatches']} dispatches "
+          f"({stats['warm_hits']} warm, {stats['device_batch_hits']} "
+          f"device-resident), {stats['traces']} program builds, "
+          f"{stats['staged_hits']} staged-cache hits")
+    return exit_code
+
+
 def main(argv=None) -> int:
-    args = build_parser().parse_args(sys.argv[1:] if argv is None else argv)
+    argv = sys.argv[1:] if argv is None else argv
+    if argv and argv[0] == "serve":
+        return serve_cli(argv[1:])
+    args = build_parser().parse_args(argv)
+    if args.what_if:
+        return run_what_if_cli(args)
     feature_gates = None
     if args.feature_gates:
         try:
@@ -151,7 +368,8 @@ def main(argv=None) -> int:
         if feature_gates.pop("VolumeScheduling", False):
             args.enable_volume_scheduling = True
     if not args.podspec:
-        print("error: --podspec is required", file=sys.stderr)
+        print("error: --podspec is required (or use --what-if)",
+              file=sys.stderr)
         return 2
     try:
         snapshot = load_snapshot(args)

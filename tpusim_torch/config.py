@@ -11,7 +11,6 @@ from tpusim_torch.engine.predicates import (
     DEFAULT_MAXPD_LIMITS,
     POD_TOLERATES_NODE_NO_EXECUTE_TAINTS_PRED,
 )
-from tpusim_torch.state import CompiledCluster
 
 AVOID_PODS_WEIGHT = 10000    # NodePreferAvoidPodsPriority weight (defaults.go)
 
@@ -95,21 +94,27 @@ class EngineConfig:
     n_saa_doms: int = 1
 
 
-def config_for(compiled: CompiledCluster, most_requested: bool,
+def config_for(compiled, most_requested: bool,
                hard_weight: int = 10) -> EngineConfig:
+    """The EngineConfig of one CompiledCluster, or the union over a list of
+    them (a what-if batch shares one program: a feature any scenario has is
+    compiled in for all, the domain counts are the largest, and the MaxPD
+    limits are the first scenario's that has MaxPD)."""
+    compiled_list = (list(compiled) if isinstance(compiled, (list, tuple))
+                     else [compiled])
+    limits = [c.maxpd_limits for c in compiled_list if c.has_maxpd]
     return EngineConfig(
         most_requested=most_requested,
-        has_ports=compiled.has_ports,
-        has_services=compiled.has_services,
-        has_interpod=compiled.has_interpod,
-        has_disk_conflict=compiled.has_disk_conflict,
-        has_maxpd=compiled.has_maxpd,
-        has_vol_zone=compiled.has_vol_zone,
-        maxpd_limits=(compiled.maxpd_limits if compiled.has_maxpd
-                      else DEFAULT_MAXPD_LIMITS),
+        has_ports=any(c.has_ports for c in compiled_list),
+        has_services=any(c.has_services for c in compiled_list),
+        has_interpod=any(c.has_interpod for c in compiled_list),
+        has_disk_conflict=any(c.has_disk_conflict for c in compiled_list),
+        has_maxpd=any(c.has_maxpd for c in compiled_list),
+        has_vol_zone=any(c.has_vol_zone for c in compiled_list),
+        maxpd_limits=limits[0] if limits else DEFAULT_MAXPD_LIMITS,
         hard_weight=hard_weight,
-        n_topo_doms=compiled.n_topo_doms,
-        n_zone_doms=compiled.n_zone_doms)
+        n_topo_doms=max(c.n_topo_doms for c in compiled_list),
+        n_zone_doms=max(c.n_zone_doms for c in compiled_list))
 
 
 def policy_weights(ps: Optional[PolicySpec], most_requested: bool) -> tuple:

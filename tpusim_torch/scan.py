@@ -14,10 +14,16 @@ tensor value on the host and never copies one from it (no .item(), no
 branch on a tensor, no boolean mask indexing, no tensor built from a Python
 value), so on a GPU the whole batch queues without a stall, its outputs
 come back in one copy, and blocks of steps can be captured as CUDA graphs.
+
+The same step runs a batch whole (schedule_scan), in chunks of pods whose
+columns reach the device one chunk at a time (schedule_scan_chunked), or
+over S scenarios stacked on a leading axis in lockstep (BatchedScan, the
+what-if route).
 """
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -74,6 +80,9 @@ from tpusim_torch.state import (
 
 MAX_PRIORITY = 10
 I64 = torch.int64
+# cond_fail_bits of a node padded onto the node axis: fails the condition
+# stage and lies past every decoded reason bit
+PAD_SENTINEL = 1 << 62
 # steps a CUDA graph on the card: the step is a few hundred small kernels,
 # launched from Python in ~9 ms a pod and replayed from a graph in under 1
 # ms; small blocks keep the capture (one eager pass) short
@@ -184,6 +193,59 @@ class PodX(NamedTuple):
     sa_self_id: torch.Tensor
 
 
+# Axis registries: for each field of a tree, a tuple naming every array
+# axis. sharding.py pads the "node" axis; whatif.py unifies every other named
+# axis to one size across scenarios. PodX omits its leading pod axis.
+STATICS_AXES = dict(
+    alloc_cpu=("node",), alloc_mem=("node",), alloc_gpu=("node",),
+    alloc_eph=("node",), allowed_pods=("node",),
+    alloc_scalar=("node", "scalar"), cond_fail_bits=("node",),
+    mem_pressure=("node",), disk_pressure=("node",),
+    selector_ok=("sig_sel", "node"), taint_ok=("sig_tol", "node"),
+    taint_ok_noexec=("sig_tol", "node"), intolerable=("sig_tol", "node"),
+    affinity_count=("sig_aff", "node"), avoid_score=("sig_avoid", "node"),
+    host_ok=("sig_host", "node"),
+    port_conflict=("port_sig", "port_sig"), port_sig=("group",),
+    disk_conflict=("disk_sig", "disk_sig"), disk_sig=("group",),
+    vol_mask=("group", "vol_id"), vol_type=("vol_id", "vol_filter"),
+    zone_ok=("group", "node"),
+    ss_rows=("spread_sig", "group"), ss_sig=("group",),
+    saa_rows=("saa_sig", "group"), saa_sig=("group",),
+    term_match=("term_sig", "group"),
+    zone_dom=("node",), topo_dom=("topo_key", "node"),
+    aff_valid=("group", "aff_term"), aff_err=("group",),
+    aff_empty=("group", "aff_term"), aff_term=("group", "aff_term"),
+    aff_key=("group", "aff_term"), aff_hostname=("group", "aff_term"),
+    aff_self=("group", "aff_term"), aff_unplaced=("group", "aff_term"),
+    anti_valid=("group", "anti_term"), anti_err=("group",),
+    anti_empty=("group", "anti_term"), anti_term=("group", "anti_term"),
+    anti_key=("group", "anti_term"), anti_hostname=("group", "anti_term"),
+    pref_w=("group", "pref_term"), pref_term=("group", "pref_term"),
+    pref_key=("group", "pref_term"),
+    label_ok=("label_pred", "node"), label_prio=("node",),
+    image_score=("sig_img", "node"), saa_dom=("saa_entry", "node"),
+    sa_val=("sa_label", "node"),
+    sa_pin=("sig_sa_self", "sa_label"),
+)
+CARRY_AXES = dict(
+    used_cpu=("node",), used_mem=("node",), used_gpu=("node",),
+    used_eph=("node",), used_scalar=("node", "scalar"),
+    nonzero_cpu=("node",), nonzero_mem=("node",), pod_count=("node",),
+    presence=("group", "node"),
+    presence_dom=("group", "topo_key", "topo_dom"),
+    used_vols=("node", "vol_id"), sa_lock=("saa_sig",), rr=(),
+)
+PODX_AXES = dict(
+    req_cpu=(), req_mem=(), req_gpu=(), req_eph=(), req_scalar=("scalar",),
+    nz_cpu=(), nz_mem=(), zero_request=(), best_effort=(), sel_id=(),
+    tol_id=(), aff_id=(), avoid_id=(), host_id=(), group_id=(), img_id=(),
+    sa_self_id=(),
+)
+# Node-axis pad fill per field (default 0); sharding.pad_node_axis gives
+# cond_fail_bits its infeasible sentinel instead.
+PAD_FILLS: dict = {}
+
+
 def _upload(a, device, index: bool = False) -> torch.Tensor:
     """A fresh copy of numpy array `a` on `device`; `index` widens int32 to
     int64."""
@@ -193,9 +255,16 @@ def _upload(a, device, index: bool = False) -> torch.Tensor:
     return t
 
 
-def statics_to(compiled: CompiledCluster, device, ptabs=None) -> Statics:
-    """Statics of `compiled` on `device`, with a policy's rows from `ptabs`
-    (policyc.PolicyTables) when given."""
+def tree_to(tree, device, index: bool = False):
+    """A tree of host numpy arrays (Statics, Carry or PodX) on `device`;
+    `index` widens int32 ids to int64 (Statics and PodX)."""
+    return type(tree)(*(_upload(a, device, index) for a in tree))
+
+
+def statics_to_host(compiled: CompiledCluster, ptabs=None) -> Statics:
+    """Statics of `compiled` over host numpy arrays, with a policy's rows
+    from `ptabs` (policyc.PolicyTables) when given, trivial rows
+    otherwise."""
     s, t, gt = compiled.statics, compiled.tables, compiled.groups
     n = len(s.alloc_cpu)
     if ptabs is None:
@@ -220,8 +289,13 @@ def statics_to(compiled: CompiledCluster, device, ptabs=None) -> Statics:
         host_ok=t.host_ok, **rows)
     host.update({name: getattr(gt, name) for name in Statics._fields
                  if name not in host})
-    return Statics(**{name: _upload(host[name], device, index=True)
-                      for name in Statics._fields})
+    return Statics(**host)
+
+
+def statics_to(compiled: CompiledCluster, device, ptabs=None) -> Statics:
+    """Statics of `compiled` on `device`, with a policy's rows from `ptabs`
+    (policyc.PolicyTables) when given."""
+    return tree_to(statics_to_host(compiled, ptabs), device, index=True)
 
 
 def _presence_dom_init(presence: np.ndarray, topo_dom: np.ndarray,
@@ -235,14 +309,14 @@ def _presence_dom_init(presence: np.ndarray, topo_dom: np.ndarray,
     return pd
 
 
-def carry_init(compiled: CompiledCluster, device,
-               sa_lock_init: Optional[np.ndarray] = None) -> Carry:
-    """The initial carry of `compiled` on `device`; a policy's
+def carry_init_host(compiled: CompiledCluster,
+                    sa_lock_init: Optional[np.ndarray] = None) -> Carry:
+    """The initial carry of `compiled` over host numpy arrays; a policy's
     ServiceAffinity locks from `sa_lock_init` when given."""
     d, gt = compiled.dynamic, compiled.groups
     if sa_lock_init is None:
         sa_lock_init = np.full(gt.saa_rows.shape[0], -1, dtype=np.int32)
-    host = dict(
+    return Carry(
         used_cpu=d.used_cpu, used_mem=d.used_mem, used_gpu=d.used_gpu,
         used_eph=d.used_eph, used_scalar=d.used_scalar,
         nonzero_cpu=d.nonzero_cpu, nonzero_mem=d.nonzero_mem,
@@ -251,26 +325,37 @@ def carry_init(compiled: CompiledCluster, device,
                                         compiled.n_topo_doms),
         used_vols=gt.used_vols_init, sa_lock=sa_lock_init,
         rr=np.int64(0))
-    return Carry(**{name: _upload(host[name], device)
-                    for name in Carry._fields})
+
+
+def carry_init(compiled: CompiledCluster, device,
+               sa_lock_init: Optional[np.ndarray] = None) -> Carry:
+    """The initial carry of `compiled` on `device`; a policy's
+    ServiceAffinity locks from `sa_lock_init` when given."""
+    return tree_to(carry_init_host(compiled, sa_lock_init), device)
+
+
+def pod_columns_to_host(cols: PodColumns) -> PodX:
+    """The pods' columns over host numpy arrays."""
+    return PodX(*(getattr(cols, name) for name in PodX._fields))
 
 
 def pod_columns_to(cols: PodColumns, device) -> PodX:
-    return PodX(**{name: _upload(getattr(cols, name), device, index=True)
-                   for name in PodX._fields})
+    return tree_to(pod_columns_to_host(cols), device, index=True)
 
 
 def scan_inputs(config: EngineConfig, compiled: CompiledCluster,
-                cols: PodColumns, ptabs, device):
+                cols: PodColumns, ptabs, device, host_pods: bool = False):
     """(carry, statics, xs) on `device`: under a policy its rows grafted
     onto the statics and, with ServiceAffinity, its initial locks onto the
-    carry (the same tables plan_fast bakes into the kernel's plan)."""
+    carry (the same tables plan_fast bakes into the kernel's plan).
+    host_pods leaves xs in host memory (schedule_scan_chunked)."""
     ps = config.policy
     sa_lock_init = (ptabs.sa_lock_init if ps is not None and ps.sa_enabled
                     else None)
     return (carry_init(compiled, device, sa_lock_init),
             statics_to(compiled, device, ptabs),
-            pod_columns_to(cols, device))
+            pod_columns_to_host(cols) if host_pods
+            else pod_columns_to(cols, device))
 
 
 def _fdiv(a, b):
@@ -318,8 +403,11 @@ def _mul_limbs(a, b):
     # made from a Python list would be a host copy that waits for the card
     limb = torch.arange(_NUM_LIMBS, device=a.device)
     col = (limb[:, None] + limb[None, :]).reshape(-1)
+    # out of place: the batched scan maps this over scenarios (torch.func.
+    # vmap), where an in-place add of a batched product into a fresh zeros
+    # tensor is refused
     out = torch.zeros((_NUM_COLS,) + a.shape, dtype=I64, device=a.device)
-    return out.index_add_(0, col, prod.reshape((-1,) + a.shape))
+    return out.index_add(0, col, prod.reshape((-1,) + a.shape))
 
 
 def _nonneg_limbs(cols):
@@ -356,13 +444,13 @@ def _seg_rows(values, doms, num_segments: int):
     """Row-wise segment sums: [T, N] values x [T, N] domain ids -> [T, D]."""
     out = torch.zeros((values.shape[0], num_segments), dtype=values.dtype,
                       device=values.device)
-    return out.scatter_add_(1, doms, values)
+    return out.scatter_add(1, doms, values)     # out of place, as _mul_limbs
 
 
 def _seg(values, doms, num_segments: int):
     """Segment sums of [N] values over [N] domain ids -> [D]."""
     out = torch.zeros(num_segments, dtype=values.dtype, device=values.device)
-    return out.scatter_add_(0, doms, values)
+    return out.scatter_add(0, doms, values)
 
 
 def _row(table, i1):
@@ -682,8 +770,10 @@ def _evaluate(config: EngineConfig, carry: Carry, st: Statics, x: PodX,
     if ps is not None and ps.always_check_all:
         # alwaysCheckAllPredicates: every failing stage reports, so the
         # histogram sums stage firings (a reason string can occur several
-        # times a node); reason_bits stays zero
-        fail_stack = torch.stack([fail for fail, _ in stages])
+        # times a node); reason_bits stays zero. A node padded on (bit 62 of
+        # its condition bits, sharding.pad_node_axis) reports nothing.
+        is_pad = (st.cond_fail_bits & PAD_SENTINEL) != 0
+        fail_stack = torch.stack([fail & ~is_pad for fail, _ in stages])
         bits_stack = torch.stack([
             bits.expand(fail.shape) if isinstance(bits, torch.Tensor)
             else torch.full(fail.shape, bits, dtype=I64, device=fail.device)
@@ -863,25 +953,38 @@ def _aca_histogram(aca_counts, const: _Const):
 _BOOL_FIELDS = ("zero_request", "best_effort")
 
 
-def _pack_pods(xs: PodX):
-    """The pods' columns as one [P, F] int64 matrix (req_scalar spread over
-    S columns) and a function from a row of it to a PodX of 0-d views."""
-    cols, at = [], {}
+def _pod_layout(n_scalars: int):
+    """Where each PodX field sits in the packed int64 matrix of the pods'
+    columns: ({name: (first column, width)}, total width); req_scalar
+    spreads over its n_scalars columns."""
+    at, lo = {}, 0
     for name in PodX._fields:
-        col = getattr(xs, name).to(I64)
-        col = col if col.dim() == 2 else col[:, None]
-        at[name] = (sum(c.shape[1] for c in cols), col.shape[1])
-        cols.append(col)
-    packed = torch.cat(cols, dim=1)
+        width = n_scalars if name == "req_scalar" else 1
+        at[name] = (lo, width)
+        lo += width
+    return at, lo
+
+
+def _pack_pods(xs: PodX) -> torch.Tensor:
+    """The pods' columns as one [..., P, F] int64 matrix (_pod_layout)."""
+    return torch.cat([col.to(I64) if name == "req_scalar"
+                      else col.to(I64)[..., None]
+                      for name, col in zip(PodX._fields, xs)], dim=-1)
+
+
+def _unpacker(n_scalars: int):
+    """A function from a packed row [..., F] to a PodX of views ([...]
+    each, req_scalar [..., S])."""
+    at, _ = _pod_layout(n_scalars)
 
     def unpack(row) -> PodX:
         fields = {}
         for name, (lo, width) in at.items():
-            v = row[lo:lo + width] if name == "req_scalar" else row[lo]
+            v = row[..., lo:lo + width] if name == "req_scalar" else row[..., lo]
             fields[name] = v != 0 if name in _BOOL_FIELDS else v
         return PodX(**fields)
 
-    return packed, unpack
+    return unpack
 
 
 class ScanOutputs(NamedTuple):
@@ -890,21 +993,28 @@ class ScanOutputs(NamedTuple):
     advanced: torch.Tensor   # [P] bool
 
 
-def make_step(config: EngineConfig, st: Statics, xs: PodX, carry: Carry,
+def _outputs(lead: tuple, num_bits: int, dev) -> ScanOutputs:
+    return ScanOutputs(
+        choices=torch.empty(lead, dtype=torch.int32, device=dev),
+        counts=torch.empty(lead + (num_bits,), dtype=torch.int32, device=dev),
+        advanced=torch.empty(lead, dtype=torch.bool, device=dev))
+
+
+def make_step(config: EngineConfig, st: Statics, pods, carry: Carry,
               out: ScanOutputs, t1):
     """The exact sequential step over device-held state: step() takes pod
-    t1 (a one-element int64 counter on the device), binds it into `carry`
-    in place, writes its row of `out` and advances t1. Nothing in it reads
-    the device from the host, so a block of steps can be captured in a
-    CUDA graph."""
+    t1 (a one-element int64 counter on the device) from `pods`, the packed
+    [P, F] columns (_pack_pods), binds it into `carry` in place, writes its
+    row of `out` and advances t1. Nothing in it reads the device from the
+    host, so a block of steps can be captured in a CUDA graph."""
     const = _Const(config, st)
-    packed, unpack = _pack_pods(xs)
+    unpack = _unpacker(st.alloc_scalar.shape[-1])
     group_bound = (config.has_ports or config.has_services
                    or config.has_interpod or config.has_disk_conflict)
     sa_on = config.policy is not None and config.policy.sa_enabled
 
     def step():
-        x = unpack(packed.index_select(0, t1)[0])
+        x = unpack(pods.index_select(0, t1)[0])
         g1 = x.group_id.reshape(1)
         feasible, reason_bits, score, n_feasible, aca_counts = _evaluate(
             config, carry, st, x, g1, const)
@@ -954,6 +1064,40 @@ def make_step(config: EngineConfig, st: Statics, xs: PodX, carry: Carry,
     return step
 
 
+class _Steps:
+    """Runs a step over a batch of pods: t1 reset to 0, then `count` steps.
+    With graph_steps > 0 on a CUDA device, blocks of graph_steps steps
+    replay one CUDA graph, captured on the first run after one eager step
+    that warms up every operation; the steps left over run eagerly. The
+    graph reads and writes the step's buffers where they lie, so a later run
+    over new contents of the same buffers replays it as it is."""
+
+    def __init__(self, step, t1, graph_steps: int):
+        self.step, self.t1 = step, t1
+        self.graph_steps = graph_steps if t1.device.type == "cuda" else 0
+        self.graph = None
+
+    def run(self, count: int):
+        step, g = self.step, self.graph_steps
+        self.t1.zero_()
+        done = 0
+        if g > 0 and count > g:
+            if self.graph is None:
+                step()
+                done = 1
+                torch.cuda.synchronize(self.t1.device)
+                self.graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(self.graph):
+                    for _ in range(g):
+                        step()
+            blocks = (count - done) // g
+            for _ in range(blocks):
+                self.graph.replay()
+            done += blocks * g
+        for _ in range(count - done):
+            step()
+
+
 def schedule_scan(config: EngineConfig, carry: Carry, statics: Statics,
                   xs: PodX, graph_steps: int = 0):
     """Every pod of `xs` in order: (final_carry, choices int32 [P], counts
@@ -967,31 +1111,274 @@ def schedule_scan(config: EngineConfig, carry: Carry, statics: Statics,
     carry = Carry(*(t.clone() for t in carry))
     num_pods = xs.req_cpu.shape[0]
     dev = statics.alloc_cpu.device
-    num_bits = NUM_FIXED_BITS + statics.alloc_scalar.shape[-1]
-    out = ScanOutputs(
-        choices=torch.empty(num_pods, dtype=torch.int32, device=dev),
-        counts=torch.empty((num_pods, num_bits), dtype=torch.int32,
-                           device=dev),
-        advanced=torch.empty(num_pods, dtype=torch.bool, device=dev))
+    out = _outputs((num_pods,), NUM_FIXED_BITS + statics.alloc_scalar.shape[-1],
+                   dev)
     t1 = torch.zeros(1, dtype=I64, device=dev)
-    step = make_step(config, statics, xs, carry, out, t1)
-    done = 0
-    if graph_steps > 0 and dev.type == "cuda" and num_pods > graph_steps:
-        step()              # the first step eagerly: warms up every op
-        done = 1
-        blocks = (num_pods - done) // graph_steps
-        if blocks:
-            torch.cuda.synchronize(dev)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                for _ in range(graph_steps):
-                    step()
-            for _ in range(blocks):
-                graph.replay()
-            done += blocks * graph_steps
-    for _ in range(num_pods - done):
-        step()
+    step = make_step(config, statics, _pack_pods(xs), carry, out, t1)
+    _Steps(step, t1, graph_steps).run(num_pods)
     return (carry,) + tuple(out)
+
+
+# req_cpu of a pod row padded on: past any allocatable, so it fails
+# PodFitsResources on every node, binds nothing and leaves rr as it was
+GHOST_CPU = 1 << 61
+
+
+def pad_infeasible_rows(xs: PodX, pad: int) -> PodX:
+    """`xs` (host numpy columns) with `pad` rows appended that fit no node
+    (req_cpu = GHOST_CPU, every other column 0): no bind, no rr advance.
+    Under a policy without a resource predicate such a row can fit, so
+    callers put them after every real pod."""
+    if pad <= 0:
+        return xs
+
+    def pad_field(name, arr):
+        arr = np.asarray(arr)
+        fill = np.int64(GHOST_CPU) if name == "req_cpu" else 0
+        widths = [(0, pad)] + [(0, 0)] * (arr.ndim - 1)
+        return np.pad(arr, widths, constant_values=fill)
+
+    return PodX(*(pad_field(name, arr)
+                  for name, arr in zip(PodX._fields, xs)))
+
+
+def schedule_scan_chunked(config: EngineConfig, carry: Carry,
+                          statics: Statics, xs_host: PodX, chunk: int,
+                          graph_steps: int = 0):
+    """The exact sequential scan over a pod batch in chunks of `chunk` pods,
+    so that only one chunk of the pods' columns lies on the device at a
+    time: (final_carry on the statics' device, choices [P], counts [P, bits]
+    and advanced [P] as numpy arrays), bit-identical to schedule_scan.
+    `carry` is left as it was.
+
+    xs_host holds the pods' columns as host numpy arrays
+    (pod_columns_to_host). The carry crosses chunk boundaries untouched. The
+    last chunk is padded with rows that fit no node (pad_infeasible_rows),
+    so every chunk runs one step over the same buffers, and on a CUDA
+    device one captured graph (graph_steps) serves every chunk. There,
+    while chunk t runs, chunk t+1's columns upload from pinned host memory
+    on a side stream."""
+    if chunk < 1:
+        raise ValueError(f"chunk={chunk}: need at least 1 pod a chunk")
+    p = int(np.asarray(xs_host.req_cpu).shape[0])
+    pad = (-p) % chunk
+    host = _pack_pods(PodX(*(torch.from_numpy(np.asarray(col))
+                             for col in pad_infeasible_rows(xs_host, pad))))
+    num_chunks = host.shape[0] // chunk
+    dev = statics.alloc_cpu.device
+    cuda = dev.type == "cuda"
+    carry = Carry(*(t.clone() for t in carry))
+    num_bits = NUM_FIXED_BITS + statics.alloc_scalar.shape[-1]
+    out = _outputs((chunk,), num_bits, dev)
+    every = _outputs((p + pad,), num_bits, dev)
+    pods = torch.empty((chunk, host.shape[1]), dtype=I64, device=dev)
+    t1 = torch.zeros(1, dtype=I64, device=dev)
+    steps = _Steps(make_step(config, statics, pods, carry, out, t1), t1,
+                   graph_steps)
+    if cuda:
+        host = host.pin_memory()
+        main = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        staging = torch.empty_like(pods)
+        ready, consumed = torch.cuda.Event(), torch.cuda.Event()
+
+    def upload(ci):
+        # chunk ci's columns into the staging buffer, on the side stream,
+        # once the previous chunk has left it
+        with torch.cuda.stream(side):
+            side.wait_event(consumed)
+            staging.copy_(host[ci * chunk:(ci + 1) * chunk],
+                          non_blocking=True)
+            ready.record(side)
+
+    if cuda:
+        upload(0)
+    for ci in range(num_chunks):
+        if cuda:
+            main.wait_event(ready)
+            pods.copy_(staging)
+            consumed.record(main)
+            if ci + 1 < num_chunks:
+                upload(ci + 1)
+        else:
+            pods.copy_(host[ci * chunk:(ci + 1) * chunk])
+        steps.run(chunk)
+        for dst, src in zip(every, out):
+            dst[ci * chunk:(ci + 1) * chunk].copy_(src)
+    choices, counts, advanced = (t[:p].cpu().numpy() for t in every)
+    return carry, choices, counts, advanced
+
+
+# ---------------------------------------------------------------------------
+# The batched exact scan: S scenarios stacked on a leading axis of every
+# field, scheduled in lockstep, pod t of every scenario in step t. The
+# filter, score and select of one step are one torch.func.vmap of _evaluate
+# and _select over the scenario axis, and the bind scatters into flattened
+# views at offsets s * N, so a step launches the same kernels whatever S is.
+
+# the _Const fields that depend on a scenario's statics
+_CONST_PER_SCENARIO = ("vol_type", "key_oh", "key_oh_p", "key_oh_a")
+
+
+def _batched_const(config: EngineConfig, st_b: Statics) -> _Const:
+    """_Const over stacked statics: the fields of _CONST_PER_SCENARIO carry
+    the leading scenario axis, the rest are the scenarios' shared ones."""
+    const = _Const(config, Statics(*(t[0] for t in st_b)))
+    if config.has_maxpd:
+        const.vol_type = st_b.vol_type.to(torch.float64)
+    if config.has_interpod:
+        k = st_b.topo_dom.shape[1]
+        for name, key in (("key_oh", st_b.anti_key), ("key_oh_p", st_b.pref_key),
+                          ("key_oh_a", st_b.aff_key)):
+            setattr(const, name,
+                    torch.nn.functional.one_hot(key, k).to(torch.float64))
+    return const
+
+
+class BatchedScan:
+    """The batched exact scan as a built program: device buffers for S
+    scenarios' statics, initial carries and pod columns (a leading scenario
+    axis on every field, the scenarios unified to one shape), the step over
+    all of them, and, on a CUDA device with graph_steps > 0, its captured
+    graph. load() copies another batch of the same shapes into the buffers;
+    run() schedules the loaded batch from its initial carries. The graph is
+    bound to the buffers' addresses, so loading copies and never rebinds.
+
+    rr, the tie pick and the bind are each scenario's own; every scenario
+    gives what schedule_scan gives it alone."""
+
+    def __init__(self, config: EngineConfig, carries: Carry,
+                 statics_b: Statics, xs_b: PodX, graph_steps: int = 0):
+        self.config = config
+        self.statics = Statics(*(torch.empty_like(t) for t in statics_b))
+        self.carry0 = Carry(*(torch.empty_like(t) for t in carries))
+        self.carry = Carry(*(torch.empty_like(t) for t in carries))
+        s, p = xs_b.req_cpu.shape
+        dev = self.statics.alloc_cpu.device
+        n_scal = statics_b.alloc_scalar.shape[-1]
+        self.pods = torch.empty((s, p, _pod_layout(n_scal)[1]), dtype=I64,
+                                device=dev)
+        self.out = _outputs((s, p), NUM_FIXED_BITS + n_scal, dev)
+        self.const = None
+        self.load(carries, statics_b, xs_b)
+        t1 = torch.zeros(1, dtype=I64, device=dev)
+        self._steps = _Steps(self._make_step(t1), t1, graph_steps)
+
+    def load(self, carries: Carry, statics_b: Statics, xs_b: PodX):
+        """Copy a batch of the program's shapes into its buffers."""
+        for dst, src in zip(self.statics, statics_b):
+            dst.copy_(src)
+        for dst, src in zip(self.carry0, carries):
+            dst.copy_(src)
+        self.pods.copy_(_pack_pods(xs_b))
+        fresh = _batched_const(self.config, self.statics)
+        if self.const is None:
+            self.const = fresh
+        else:
+            for name in _CONST_PER_SCENARIO:
+                if hasattr(fresh, name):
+                    getattr(self.const, name).copy_(getattr(fresh, name))
+
+    def run(self):
+        """Schedule the loaded batch: (choices int32 [S, P], counts int32
+        [S, P, bits]), the program's own output buffers on its device (the
+        next run overwrites them)."""
+        for dst, src in zip(self.carry, self.carry0):
+            dst.copy_(src)
+        self._steps.run(self.pods.shape[1])
+        return self.out.choices, self.out.counts
+
+    def _make_step(self, t1):
+        config, st, carry, out = self.config, self.statics, self.carry, self.out
+        const = self.const
+        unpack = _unpacker(st.alloc_scalar.shape[-1])
+        per_names = [n for n in _CONST_PER_SCENARIO if hasattr(const, n)]
+        shared = {k: v for k, v in vars(const).items() if k not in per_names}
+
+        def one(carry_s, st_s, x, per):
+            view = SimpleNamespace(**shared, **per)
+            g1 = x.group_id.reshape(1)
+            feasible, reason_bits, score, n_feasible, aca_counts = _evaluate(
+                config, carry_s, st_s, x, g1, view)
+            choice, found = _select(feasible, score, n_feasible, carry_s.rr)
+            hist = (_aca_histogram(aca_counts, view) if aca_counts is not None
+                    else _reason_histogram(reason_bits, view))
+            return (choice, found, n_feasible > 1,
+                    torch.where(found, view.no_counts, hist))
+
+        evaluate = torch.func.vmap(one)
+        s, n = st.alloc_cpu.shape
+        g_count = carry.presence.shape[1]
+        n_scal = st.alloc_scalar.shape[-1]
+        dev = st.alloc_cpu.device
+        s_ids = torch.arange(s, device=dev)
+        keys = torch.arange(carry.presence_dom.shape[2], device=dev)
+        group_bound = (config.has_ports or config.has_services
+                       or config.has_interpod or config.has_disk_conflict)
+        sa_on = config.policy is not None and config.policy.sa_enabled
+
+        def step():
+            x = unpack(self.pods.index_select(1, t1)[:, 0])      # [S] each
+            per = {name: getattr(const, name) for name in per_names}
+            choice, found, advanced, counts = evaluate(carry, st, x, per)
+            g = x.group_id
+            idx = choice.clamp(min=0).to(I64)
+            node = s_ids * n + idx          # rows of the [S * N, ...] views
+            gate = found.to(I64)
+            gate32 = found.to(torch.int32)
+            if group_bound:
+                carry.presence.view(-1).index_add_(
+                    0, (s_ids * g_count + g) * n + idx, gate32)
+            if config.has_maxpd:
+                v = carry.used_vols.shape[-1]
+                used = carry.used_vols.view(s * n, v)
+                cur = used.index_select(0, node)
+                mask = st.vol_mask.view(s * g_count, v).index_select(
+                    0, s_ids * g_count + g)
+                used.index_copy_(0, node, torch.where(found[:, None],
+                                                      cur | mask, cur))
+            if config.has_interpod:
+                _, _, k_count, d_count = carry.presence_dom.shape
+                dom_at = st.topo_dom.gather(
+                    2, idx.view(s, 1, 1).expand(s, k_count, 1))[:, :, 0]
+                flat = (((s_ids * g_count + g)[:, None] * k_count
+                         + keys[None, :]) * d_count + dom_at)
+                carry.presence_dom.view(-1).index_add_(
+                    0, flat.reshape(-1),
+                    gate32[:, None].expand(s, k_count).reshape(-1))
+            if sa_on:
+                f_count = st.saa_rows.shape[1]
+                match_f = st.saa_rows.gather(
+                    2, g.view(s, 1, 1).expand(s, f_count, 1))[:, :, 0]
+                carry.sa_lock.copy_(torch.where(
+                    (carry.sa_lock == -1) & match_f & found[:, None],
+                    idx.to(torch.int32)[:, None], carry.sa_lock))
+            for name, req in (("used_cpu", x.req_cpu),
+                              ("used_mem", x.req_mem),
+                              ("used_gpu", x.req_gpu),
+                              ("used_eph", x.req_eph),
+                              ("nonzero_cpu", x.nz_cpu),
+                              ("nonzero_mem", x.nz_mem), ("pod_count", 1)):
+                getattr(carry, name).view(-1).index_add_(0, node, gate * req)
+            carry.used_scalar.view(s * n, n_scal).index_add_(
+                0, node, gate[:, None] * x.req_scalar)
+            carry.rr.add_(advanced.to(I64))
+            out.choices.index_copy_(1, t1, choice[:, None])
+            out.counts.index_copy_(1, t1, counts[:, None])
+            out.advanced.index_copy_(1, t1, advanced[:, None])
+            t1.add_(1)
+
+        return step
+
+
+def schedule_scan_batched(config: EngineConfig, carries: Carry,
+                          statics_b: Statics, xs_b: PodX,
+                          graph_steps: int = 0):
+    """S scenarios stacked on a leading axis, each scanned over its pods as
+    schedule_scan would: (choices int32 [S, P], counts int32 [S, P, bits])
+    on the statics' device. The scenarios share one shape (whatif unifies
+    them) and one EngineConfig."""
+    return BatchedScan(config, carries, statics_b, xs_b, graph_steps).run()
 
 
 # ---------------------------------------------------------------------------
