@@ -119,9 +119,9 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
      through TorchBackend(route="scan") whole and with TPUSIM_SCAN_CHUNK
      2,048: choices, counts, advanced and the final carry bit-equal, with
      the walls and µs a pod of each;
- 19. BASELINE config 5: (a) 32 of its 50 scenarios (a cut of depth for the
-     phases' budget) of 20,000 pods on 1,000 nodes (build_workload, seeds
-     1000-1031) through run_what_if on route
+ 19. BASELINE config 5: (a) 16 of its 50 scenarios (a cut of depth for the
+     script's time) of 20,000 pods on 1,000 nodes (build_workload, seeds
+     1000-1015) through run_what_if on route
      "auto": one fast_scan a scenario on the kernel, with the wall, pods/s,
      kernel time (CUDA events) and host share; (b) the first 8 again on the
      batched scan (route "scan"), every scenario's placement hash equal to
@@ -133,7 +133,35 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
      8): 64 requests of the first 1,001-2,000 pods of a 2,000-pod pool on
      200 nodes, a cold and a warm pass, each the JAX package's combined
      digest; the warm pass builds no program and hits the program cache on
-     every response. Phases 18-20 fail past their 300 s budget.
+     every response. Phases 18-20 fail past their 300 s budget;
+ 21. bench config 9 through the streaming twin (run_stream_simulation on
+     the card, the resident scan replaying its captured graphs, each run's
+     CUDA-event span): the stream arm at 16,000 nodes (40 cycles of 64
+     arrivals, 25% evicted, seed 9), which must restage only at its cold
+     start and launch no fused kernel; the stream and restage arms at 4,000
+     nodes, equal chains; a verified run at 4,000 nodes (10 cycles, every
+     cycle held against a fresh TorchBackend.schedule); bench.py's CPU
+     shape (800 nodes, 24 cycles), the JAX package's placement and fold
+     chains;
+ 22. bench config 10, its policy at 4,000 nodes with label and taint churn,
+     synchronous and pipelined: equal chains, no restage after the cold
+     start; the CPU shape against the JAX package's chains;
+ 23. bench config 13, gangs on the stream: 2,000 racked nodes, 30 cycles of
+     32 arrivals and 2 gangs of 8, verified, with the host route made to
+     raise; every gang_select call of the run against select_oracle on the
+     same inputs (max |diff| 0) and the fused kernel's launches for the
+     ungrouped segments; the CPU shape against the JAX package's chains;
+     then a one-shot gang feed through run_simulation on the card, the
+     solve on the card and on the oracle (TPUSIM_GANG_KERNEL=0), each
+     the JAX package's split: a gang no node can hold rejected whole with
+     its one shared FitError, a gang admitted at its min-available with
+     its overflow members' text; and its ungrouped segments on route
+     "kernel";
+ 24. bench config 16: a warm twin of 20,000 nodes answers an 8-pod what-if
+     overlay as run_what_if does on the live snapshot, the resident carry
+     bit-equal after the queries and the timed queries building and
+     capturing nothing, with the overlay's ms beside the staged
+     run_what_if's. Phases 21-24 fail past their 240 s budget.
 Phases 4-15 run TorchBackend with fallback="error", and phases 15, 16b and
 17 run run_simulation on the card with the host route made to raise, so a
 workload that started to reroute to the host fails them; phases 4-12 run
@@ -207,11 +235,13 @@ CHUNKED_SCAN = (dict(num_pods=8_192, num_nodes=5_000), 2_048)
 # seed=1000 + s): at full shape, the first BATCHED_SCENARIOS of them again on
 # the batched scan, and at bench.py's CPU shape with the combined digest of
 # the JAX package's run_what_if (tools/port_golden.py config5). Config 5 has
-# 50 scenarios; 32 run here, at full width: with all 50, phases 18-20 took
+# 50 scenarios; 16 run here, at full width: with all 50, phases 18-20 took
 # 260-273 s of their 300 s budget on an H100's machine (its host time alone,
-# about 3.5 s a scenario, varies by 10-30% between runs)
+# about 3 s a scenario, varies by 10-30% between runs), and with 32 the
+# whole script took 764 s once phases 21-24 came, where it aims at half of
+# its 1,200 s limit
 CONFIG5_SCENARIOS = 50
-WHATIF_CONFIG5 = dict(scenarios=32, num_pods=20_000, num_nodes=1_000)
+WHATIF_CONFIG5 = dict(scenarios=16, num_pods=20_000, num_nodes=1_000)
 BATCHED_SCENARIOS = 8
 WHATIF_CPU_SHAPE = (dict(scenarios=8, num_pods=5_000, num_nodes=500),
                     "ea6b76450d7828a9")
@@ -223,6 +253,47 @@ SERVE_CONFIG8 = (dict(num_pods=2_000, num_nodes=200, seed=4242), 8,
 SERVE_REQUESTS = 64
 # phases 18-20 together, seconds
 WHATIF_BUDGET_S = 300
+# phases 21-24: the streaming twin at bench.py's stream cells. Each golden is
+# the placement_chain and fold_chain of the JAX package's
+# run_stream_simulation at bench.py's CPU shape (tools/port_golden.py
+# config9, config10, config13); "racked" is config 13's cluster
+# (workloads.racked_cluster), "policy" config 10's (workloads.STREAM_POLICY).
+STREAM_GOLDENS = {
+    "config9": (dict(num_nodes=800, cycles=24, arrivals=64,
+                     evict_fraction=0.25, seed=9),
+        "462bdd7773d7ba18a3bd5ba43c3b2ce3d3f17e8761be7dc6a5d4ac987c6400d1",
+        "a9c5450856090575565b111960db995ac4cc11d1b6cb639ac321abcc3b26cdde"),
+    "config10": (dict(num_nodes=800, cycles=24, arrivals=64,
+                      evict_fraction=0.25, seed=9, policy=True,
+                      label_churn=2, taint_churn=1),
+        "3e704ea87d2f32480528625f315f673e1ad529736ffb60a239b10b305a5d3e49",
+        "016b6ea5a24ffcb4dcb6aa8d346d2d6e18b06281527275a929815ee97ede5bfc"),
+    "config13": (dict(racked=400, cycles=16, arrivals=16,
+                      evict_fraction=0.25, gang_size=8, gang_count=2,
+                      seed=13),
+        "8e5ca527beb3a96ee14973fe05f715e35a8c43c795630767bd7ec2c80c0309fd",
+        "504396bf5653ddbdcdb3cc97bfdee3644105b54d5006684a882d0d79d5675c9c"),
+}
+# bench.py's accelerator shapes of configs 9 and 10: the sizes, the churn
+# curves at the middle size, the cycles of a verified config 9 run
+STREAM_SIZES = (1_000, 4_000, 16_000)
+STREAM_CONFIG9 = dict(cycles=40, arrivals=64, evict_fraction=0.25, seed=9)
+STREAM_EVICT_CURVE = (0.05, 0.25, 0.5)
+STREAM_VERIFY_CYCLES = 10
+STREAM_CONFIG10 = dict(cycles=40, arrivals=64, evict_fraction=0.25, seed=9,
+                       policy=True)
+STREAM_CHURN_CURVE = ((0, 0), (2, 1), (8, 4))
+# config 13, and config 16's twins
+STREAM_CONFIG13 = dict(racked=2_000, cycles=30, arrivals=32,
+                       evict_fraction=0.25, gang_size=8, gang_count=2,
+                       seed=13, verify=True)
+# the split digest of the JAX package's run_simulation(backend="jax") on
+# phase 23's one-shot gang feed (tools/port_golden.py gang_feed)
+GANG_FEED_DIGEST = "f3049f3df5ac0745"
+LIVE_WHATIF = dict(sizes=(200, 800, 3_200, 20_000), warm_cycles=4,
+                   arrivals=32, query_pods=8, repeats=5)
+# phases 21-24 together, seconds
+STREAM_BUDGET_S = 240
 # phase 14: the pods of config 3 run through both routes
 ROUTES_PODS = 2_048
 # phase 15: the pods of the scan timed eagerly, beside the graph replay
@@ -299,6 +370,15 @@ def card_line():
     return out.strip().splitlines()[0]
 
 
+def reset_launches():
+    """Set the fused kernel's launch counts to 0."""
+    from tpusim_torch.kernels.fastscan import fastscan_chunk
+
+    fastscan_chunk.launches = 0
+    for key in fastscan_chunk.launches_by_variant:
+        fastscan_chunk.launches_by_variant[key] = 0
+
+
 def choices_golden(choices):
     return hashlib.sha256(np.asarray(choices).astype(np.int32).tobytes()
                           ).hexdigest()[:16]
@@ -337,6 +417,21 @@ def serve_load(workload, request_cls):
                 for i, n in enumerate(sizes)]
 
     return snapshot, pool, load
+
+
+def stream_arguments(params, api, decode_policy):
+    """run_stream_simulation's keyword arguments for a STREAM_GOLDENS or
+    STREAM_CONFIG* cell, built with either package's snapshot module and
+    policy decoder: "racked" becomes config 13's cluster, "policy" config
+    10's policy."""
+    from tpusim_torch import workloads
+
+    kw = dict(params)
+    if "racked" in kw:
+        kw["snapshot"] = workloads.racked_cluster(kw.pop("racked"), api=api)
+    if kw.pop("policy", False):
+        kw["policy"] = decode_policy(workloads.STREAM_POLICY)
+    return kw
 
 
 @contextlib.contextmanager
@@ -540,9 +635,7 @@ def drive_main_path(name, card, cuda):
     build_s = time.perf_counter() - t0
     backend = TorchBackend(device="cuda", route="kernel", fallback="error",
                            policy=policy and decode_policy(policy))
-    fastscan_chunk.launches = 0
-    for key in fastscan_chunk.launches_by_variant:
-        fastscan_chunk.launches_by_variant[key] = 0
+    reset_launches()
     t0 = time.perf_counter()
     placements = backend.schedule(pods, snapshot)
     cold_s = time.perf_counter() - t0
@@ -1342,9 +1435,7 @@ def drive_hybrid(card):
     from tpusim_torch.simulator import run_simulation
 
     def reset_counts():
-        fastscan_chunk.launches = 0
-        for key in fastscan_chunk.launches_by_variant:
-            fastscan_chunk.launches_by_variant[key] = 0
+        reset_launches()
         preempt.reset_preempt_stats()
 
     # (a) the cut feed on every arm
@@ -1583,13 +1674,10 @@ def drive_what_if(card):
     print(f"phase 19: built {n_scen} scenarios of {n_pods} pods x {n_nodes} "
           f"nodes in {time.perf_counter() - t0:.1f}s (not part of the "
           f"what-if wall); config 5's {CONFIG5_SCENARIOS} scenarios cut to "
-          f"{n_scen}, widths kept, to hold phases 18-20 inside their "
-          f"{WHATIF_BUDGET_S} s budget")
+          f"{n_scen}, widths kept, for the script's time")
 
     # (a) the public entry point on route auto: the fast loop
-    fastscan_chunk.launches = 0
-    for key in fastscan_chunk.launches_by_variant:
-        fastscan_chunk.launches_by_variant[key] = 0
+    reset_launches()
     calls, chunks = [], []
     with timed_on_card(whatif, "fast_scan", calls), \
             timed_on_card(fastscan_module, "fastscan_chunk", chunks):
@@ -1710,6 +1798,318 @@ def drive_serve(card):
           f"{len(fleet.executor._programs)} programs held")
 
 
+def percentile(values, q):
+    values = sorted(values)
+    return values[min(len(values) - 1, int(round(q * (len(values) - 1))))]
+
+
+def run_stream(params, label, phase, card):
+    """run_stream_simulation on the card over a STREAM_GOLDENS or
+    STREAM_CONFIG* cell, with each resident scan's CUDA-event span; prints
+    a line and returns (summary, spans in ms, fused kernel launches)."""
+    import torch
+
+    import tpusim_torch.api.snapshot as api
+    from tpusim_torch import scan
+    from tpusim_torch.engine.policy import decode_policy
+    from tpusim_torch.kernels.fastscan import fastscan_chunk
+    from tpusim_torch.simulator import run_stream_simulation
+
+    kw = stream_arguments(params, api, decode_policy)
+    record = []
+    reset_launches()
+    with timed_on_card(scan.ResidentScan, "run", record):
+        out = run_stream_simulation(device="cuda", **kw)
+        torch.cuda.synchronize()
+    spans = [start.elapsed_time(end) for _, _, start, end in record]
+    launches = fastscan_chunk.launches
+    scan_text = (f"resident scan {len(spans)} runs, CUDA-event span p50 "
+                 f"{percentile(spans, 0.5):.3f} / p99 "
+                 f"{percentile(spans, 0.99):.3f} / sum {sum(spans):.1f} ms"
+                 if spans else "no resident scan")
+    verified = (f"; verified {out['verified']}" if "verified" in out
+                else "")
+    print(f"phase {phase}: {label}: {out['cycles']} cycles x "
+          f"{params['arrivals']} arrivals on {out['nodes']} nodes: "
+          f"{out['elapsed_s']:.3f}s wall, {out['decisions_per_s']:.1f} "
+          f"decisions/s, {out['scheduled']}/{out['decisions']} scheduled, "
+          f"cycle p50/p99 {out['p50_cycle_ms']:.2f}/"
+          f"{out['p99_cycle_ms']:.2f} ms; {scan_text}; fused kernel "
+          f"launches {launches}; paths {out['paths']}, restages "
+          f"{out['restages']}, commits {out['commits']}; chain "
+          f"{out['placement_chain'][:16]}, fold {out['fold_chain'][:16]}"
+          f"{verified} on {card}")
+    return out, spans, launches
+
+
+def check_stream_golden(name, phase, card):
+    """A stream cell at bench.py's CPU shape on the card against the JAX
+    package's chains."""
+    params, want_chain, want_fold = STREAM_GOLDENS[name]
+    out, _, _ = run_stream(params, f"{name} CPU shape", phase, card)
+    if (out["placement_chain"], out["fold_chain"]) != (want_chain,
+                                                       want_fold):
+        raise AssertionError(f"phase {phase}: {name} differs from the JAX "
+                             f"package's chains {want_chain[:16]}, "
+                             f"{want_fold[:16]}")
+
+
+def drive_stream_churn(card):
+    """Phase 21: bench config 9, stream churn: the eviction curve at the
+    middle size, the stream and restage arms at every size (equal chains),
+    a verified run and the CPU shape."""
+    big_mid = STREAM_SIZES[1]
+    stream = {}
+    for frac in STREAM_EVICT_CURVE:
+        out, _, launches = run_stream(
+            dict(STREAM_CONFIG9, num_nodes=big_mid, evict_fraction=frac),
+            f"config9 stream arm, evict {frac}", 21, card)
+        if out["restages"] != {"cold_start": 1} or launches:
+            raise AssertionError("phase 21: the stream arm restaged past its "
+                                 "cold start or launched the fused kernel")
+        if frac == STREAM_CONFIG9["evict_fraction"]:
+            stream[big_mid] = out
+    for n in STREAM_SIZES:
+        if n not in stream:
+            stream[n], _, _ = run_stream(dict(STREAM_CONFIG9, num_nodes=n),
+                                         "config9 stream arm", 21, card)
+        restage, _, _ = run_stream(dict(STREAM_CONFIG9, num_nodes=n,
+                                        always_restage=True),
+                                   "config9 restage arm", 21, card)
+        if restage["placement_chain"] != stream[n]["placement_chain"]:
+            raise AssertionError(f"phase 21: the arms differ at {n} nodes")
+    got, _, _ = run_stream(dict(STREAM_CONFIG9, num_nodes=big_mid,
+                                cycles=STREAM_VERIFY_CYCLES, verify=True),
+                           "config9 verified", 21, card)
+    if not got["verified"]:
+        raise AssertionError(f"phase 21: {got['mismatched_cycles']} cycles "
+                             "differ from a fresh TorchBackend.schedule")
+    check_stream_golden("config9", 21, card)
+
+
+def drive_policy_stream(card):
+    """Phase 22: bench config 10, the policy stream: the churn curve at the
+    middle size (no restage after the cold start), the synchronous,
+    pipelined and restage arms at every size (equal chains) and the CPU
+    shape."""
+    for label_churn, taint_churn in STREAM_CHURN_CURVE:
+        out, _, _ = run_stream(
+            dict(STREAM_CONFIG10, num_nodes=STREAM_SIZES[1],
+                 label_churn=label_churn, taint_churn=taint_churn),
+            f"config10 churn {label_churn}+{taint_churn}", 22, card)
+        if out["restages"] != {"cold_start": 1}:
+            raise AssertionError("phase 22: label and taint churn restaged")
+    for n in STREAM_SIZES:
+        chains = set()
+        for arm, extra in (("synchronous", {}),
+                           ("pipelined", {"pipeline": True}),
+                           ("restage", {"always_restage": True})):
+            out, _, _ = run_stream(
+                dict(STREAM_CONFIG10, num_nodes=n, label_churn=2,
+                     taint_churn=1, **extra), f"config10 {arm}", 22, card)
+            chains.add((out["placement_chain"], out["fold_chain"]))
+            if arm != "restage" and out["restages"] != {"cold_start": 1}:
+                raise AssertionError("phase 22: label and taint churn "
+                                     "restaged")
+        if len(chains) != 1:
+            raise AssertionError(f"phase 22: the arms differ at {n} nodes")
+    check_stream_golden("config10", 22, card)
+
+
+def gang_feed(api, grp):
+    """A one-shot feed of config 13's shape: 8 gangs of 8 members of 500m
+    between runs of 16 ungrouped pods, in podspec order, after two gangs
+    that nodes of 4 CPUs cannot wholly hold: "huge" (8 members of 8 CPUs,
+    rejected whole) and "part" (min-available 4, every other member of 8
+    CPUs: admitted at 4/8)."""
+    pods = [grp.mark_gang(api.make_pod(f"huge-{j}", milli_cpu=8000), "huge")
+            for j in range(8)]
+    pods += [grp.mark_gang(api.make_pod(f"part-{j}",
+                                        milli_cpu=8000 if j % 2 else 500),
+                           "part", min_available=4) for j in range(8)]
+    for g in range(8):
+        pods += [api.make_pod(f"solo-{g}-{j}", milli_cpu=250,
+                              memory=512 << 20) for j in range(16)]
+        pods += [grp.mark_gang(api.make_pod(f"g{g}-{j}", milli_cpu=500),
+                               f"g{g}") for j in range(8)]
+    return pods
+
+
+def drive_gang_stream(card):
+    """Phase 23: bench config 13, gang admission on the stream, and a
+    one-shot gang feed through run_simulation on the card."""
+    import os
+
+    import torch
+
+    import tpusim_torch.api.snapshot as api
+    from tpusim_torch import gang, scan, workloads
+    from tpusim_torch.backend import TorchBackend
+    from tpusim_torch.delta import IncrementalCluster
+    from tpusim_torch.gang.driver import schedule_with_gangs
+    from tpusim_torch.gang.oracle import select_oracle
+    from tpusim_torch.kernels.fastscan import fastscan_chunk
+    from tpusim_torch.simulator import run_simulation
+
+    calls = []
+    with device_routes_only(), timed_on_card(scan, "gang_select", calls):
+        out, _, launches = run_stream(STREAM_CONFIG13, "config13 gang stream",
+                                      23, card)
+    cycles = STREAM_CONFIG13["cycles"]
+    if not out["verified"] or out["paths"] != {"gang": cycles} \
+            or launches <= 0:
+        raise AssertionError("phase 23: the gang stream was not verified, "
+                             "not all gang cycles, or never launched the "
+                             "fused kernel")
+    solve_ms = [start.elapsed_time(end) for _, _, start, end in calls]
+    diff = 0
+    for args, choices, _, _ in calls:
+        feasible, score, *members, gi, n_zone, n_rack = args
+        host = [t.cpu().numpy() for t in (feasible, score, *members, *gi)]
+        want = select_oracle(*host, n_zone, n_rack)
+        diff = max(diff, int(np.abs(np.asarray(want)
+                                    - choices.cpu().numpy()).max()))
+    print(f"phase 23: gang_select on the card vs select_oracle on "
+          f"{len(calls)} gangs (both the twin's and the verify arm's): max "
+          f"|diff| {diff}; CUDA-event span a solve p50 "
+          f"{percentile(solve_ms, 0.5):.3f} ms; {launches} fused kernel "
+          f"launches for the ungrouped segments on {card}")
+    if diff:
+        raise AssertionError("phase 23: gang_select differs from its oracle")
+    check_stream_golden("config13", 23, card)
+
+    # a one-shot gang feed through run_simulation on the card, the solve on
+    # the card and on the host oracle
+    def racked():
+        return workloads.racked_cluster(STREAM_CONFIG13["racked"])
+
+    # the rejected gang's one shared FitError, the overflow members' own
+    want_failed = {f"huge-{j}": (
+        f"0/{len(racked().nodes)} nodes are available: pod group \"huge\" "
+        f"requires 8/8 members, only 0 fit jointly.") for j in range(8)}
+    want_failed.update({f"part-{j}": (
+        "pod group \"part\" admitted at 4/8; this member did not fit.")
+        for j in range(1, 8, 2)})
+    splits = {}
+    for solve in ("device", "host"):
+        if solve == "host":
+            os.environ["TPUSIM_GANG_KERNEL"] = "0"
+        try:
+            t0 = time.perf_counter()
+            with device_routes_only():
+                status = run_simulation(gang_feed(api, gang), racked())
+            wall = time.perf_counter() - t0
+        finally:
+            os.environ.pop("TPUSIM_GANG_KERNEL", None)
+        failed = {p.name: p.status.conditions[-1].message
+                  for p in status.failed_pods}
+        bound = {p.name for p in status.successful_pods}
+        if failed != want_failed or len(bound) != len(gang_feed(api, gang)) \
+                - len(want_failed):
+            raise AssertionError(f"phase 23: solve on the {solve}: the "
+                                 "rejected and overflow members differ from "
+                                 "all or nothing at min-available")
+        splits[solve] = split_digest(status)
+        print(f"phase 23: one-shot gang feed through run_simulation, solve "
+              f"on the {solve}: {len(status.successful_pods)} scheduled, "
+              f"{len(status.failed_pods)} failed, digest {splits[solve]}, "
+              f"{wall:.3f}s")
+    if set(splits.values()) != {GANG_FEED_DIGEST}:
+        raise AssertionError("phase 23: the one-shot feed's split differs "
+                             f"from the JAX package's {GANG_FEED_DIGEST}")
+    backend = TorchBackend(device="cuda")
+    reset_launches()
+    with device_routes_only():
+        schedule_with_gangs(backend, IncrementalCluster(racked()),
+                            list(reversed(gang_feed(api, gang))))
+    torch.cuda.synchronize()
+    print(f"phase 23: the feed's ungrouped segments: route "
+          f"{backend.last_route}, {fastscan_chunk.launches} fused kernel "
+          f"launches ({dict(fastscan_chunk.launches_by_variant)})")
+    if backend.last_route != "kernel" or fastscan_chunk.launches <= 0:
+        raise AssertionError("phase 23: the ungrouped segments did not run "
+                             "the fused kernel")
+
+
+def drive_live_whatif(card):
+    """Phase 24: bench config 16, live what-if overlays on warm twins."""
+    import torch
+
+    from tpusim_torch.api.snapshot import make_pod, synthetic_cluster
+    from tpusim_torch.backends import placement_hash
+    from tpusim_torch.stream import ChurnLoadGen, StreamSession
+    from tpusim_torch.whatif import run_what_if
+
+    p = LIVE_WHATIF
+    rng = np.random.RandomState(16)
+    qpods = [make_pod(f"bench16-q{i}", milli_cpu=int(rng.randint(100, 1500)),
+                      memory=int(rng.randint(2 ** 20, 2 ** 30)))
+             for i in range(p["query_pods"])]
+    for n in p["sizes"]:
+        t0 = time.perf_counter()
+        session = StreamSession(synthetic_cluster(n))
+        gen = ChurnLoadGen(synthetic_cluster(n), seed=16,
+                           arrivals=p["arrivals"], evict_fraction=0.25)
+        for c in range(p["warm_cycles"]):
+            session.apply_events(gen.events(c))
+            gen.note_bound(session.schedule(gen.batch()))
+        warm = time.perf_counter() - t0
+        # the first query builds its bucket's program and captures its
+        # graph; the timed ones must replay it and build nothing
+        if session.overlay_query(qpods) is None:
+            raise AssertionError(f"phase 24: the warm twin of {n} nodes "
+                                 "refused the overlay")
+        programs = dict(session.device._programs)
+        graphs = {b: prog._steps.graph for b, prog in programs.items()}
+        before = [t.clone() for t in session.device.carry]
+        times = []
+        for _ in range(p["repeats"]):
+            t0 = time.perf_counter()
+            placements = session.overlay_query(qpods)
+            torch.cuda.synchronize()
+            times.append(1000 * (time.perf_counter() - t0))
+        same = all(torch.equal(a, b)
+                   for a, b in zip(before, session.device.carry))
+        retraced = (session.device._programs != programs
+                    or any(prog._steps.graph is not graphs[b]
+                           for b, prog in programs.items()))
+        live = session.inc.to_snapshot()
+        run_what_if([(live, qpods)])
+        t0 = time.perf_counter()
+        [staged] = run_what_if([(live, qpods)])
+        staged_ms = 1000 * (time.perf_counter() - t0)
+        parity = (placement_hash(placements)
+                  == placement_hash(staged.placements))
+        print(f"phase 24: config16 warm twin of {n} nodes "
+              f"({p['warm_cycles']} cycles, {warm:.1f}s), {p['query_pods']} "
+              f"query pods: overlay {sum(times) / len(times):.3f} ms a query "
+              f"(mean of {p['repeats']}: "
+              f"{', '.join(f'{t:.3f}' for t in times)}), staged run_what_if "
+              f"{staged_ms:.3f} ms; answers equal run_what_if on the live "
+              f"snapshot: {parity}; carry bit-equal after the queries: "
+              f"{same}; programs built or graphs captured by the timed "
+              f"queries: {int(retraced)} on {card}")
+        if not (parity and same) or retraced:
+            raise AssertionError("phase 24: the overlay differs from "
+                                 "run_what_if, left the carry changed or "
+                                 "built or captured again while timed")
+
+
+def drive_stream_phases(card):
+    """Phases 21-24 inside STREAM_BUDGET_S."""
+    t0 = time.perf_counter()
+    drive_stream_churn(card)
+    drive_policy_stream(card)
+    drive_gang_stream(card)
+    drive_live_whatif(card)
+    wall = time.perf_counter() - t0
+    print(f"phases 21-24: {wall:.1f}s wall in all, against their "
+          f"{STREAM_BUDGET_S} s budget")
+    if wall > STREAM_BUDGET_S:
+        raise AssertionError(f"phases 21-24: {wall:.1f}s is past their "
+                             f"{STREAM_BUDGET_S} s budget")
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -1795,6 +2195,9 @@ def main():
     if whatif_s > WHATIF_BUDGET_S:
         raise AssertionError(f"phases 18-20: {whatif_s:.1f}s is past their "
                              f"{WHATIF_BUDGET_S} s budget")
+
+    # phases 21-24: the gang driver and the streaming twin
+    drive_stream_phases(card)
 
     kernels = []
     for name, variant, replaces, n_launch, err in (

@@ -42,6 +42,20 @@ order (chip_smoke.py WHATIF_CONFIG5, SERVE_CONFIG8):
 
     JAX_PLATFORMS=cpu python tools/port_golden.py config5
     JAX_PLATFORMS=cpu python tools/port_golden.py config8
+
+`config9`, `config10` and `config13` print the placement_chain and the
+fold_chain of the JAX package's run_stream_simulation at bench.py's CPU
+shape of each stream cell (chip_smoke.py STREAM_GOLDENS: config 9's churn,
+config 10's policy stream, config 13's gang stream on racked nodes):
+
+    JAX_PLATFORMS=cpu python tools/port_golden.py config9
+
+`gang_feed` prints the split digest of the JAX package's
+run_simulation(backend="jax") on phase 23's one-shot gang feed
+(chip_smoke.gang_feed on config 13's 2,000 racked nodes; chip_smoke.py
+GANG_FEED_DIGEST):
+
+    JAX_PLATFORMS=cpu python tools/port_golden.py gang_feed
 """
 
 import hashlib
@@ -146,7 +160,43 @@ def config8_digest():
     return 0
 
 
+def stream_chains(name):
+    from chip_smoke import STREAM_GOLDENS, stream_arguments
+    from tpusim.simulator import run_stream_simulation
+
+    t0 = time.perf_counter()
+    params, _, _ = STREAM_GOLDENS[name]
+    out = run_stream_simulation(
+        **stream_arguments(params, jax_api, decode_policy))
+    print(f"{name}({params}): placement_chain {out['placement_chain']}, "
+          f"fold_chain {out['fold_chain']}, {out['scheduled']}/"
+          f"{out['decisions']} scheduled, paths {out['paths']}, restages "
+          f"{out['restages']}, {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
+def gang_feed_digest():
+    from chip_smoke import STREAM_CONFIG13, gang_feed, split_digest
+    from tpusim.gang import group
+    from tpusim.simulator import run_simulation
+
+    t0 = time.perf_counter()
+    status = run_simulation(
+        gang_feed(jax_api, group),
+        workloads.racked_cluster(STREAM_CONFIG13["racked"], api=jax_api),
+        backend="jax")
+    print(f"gang_feed: digest {split_digest(status)}, "
+          f"{len(status.successful_pods)} scheduled, "
+          f"{len(status.failed_pods)} failed, "
+          f"{time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 def main(argv):
+    if argv[0] == "gang_feed":
+        return gang_feed_digest()
+    if argv[0] in ("config9", "config10", "config13"):
+        return stream_chains(argv[0])
     if argv[0] == "quickstart":
         return quickstart_digest()
     if argv[0] == "config5":

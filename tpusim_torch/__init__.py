@@ -11,7 +11,8 @@ tpusim or of JAX:
   framework/  the store, strategy and recorder of the host orchestrator,
               and the report
   state       the numpy cluster compile (signature tables, pod columns)
-  delta       IncrementalCluster: watch events folded into compiled columns
+  delta       IncrementalCluster: watch events folded into compiled columns,
+              with the delta journal the streaming twin commits from
   config      provider configuration, a policy's compiled image, weights
   policyc     a scheduler Policy compiled to stage gating, weights and tables
   fastplan    the int32 FastPlan of the fused scan
@@ -19,7 +20,9 @@ tpusim or of JAX:
   csrc/       the CUDA sources, built with nvcc at first use
   fastscan    the chunked driver of the fused scan
   scan        the exact sequential scan route (int64 tensor code), whole,
-              in chunks of pods, or batched over scenarios
+              in chunks of pods, batched over scenarios, or resident with
+              in-place delta commits; the gang lanes and packing solve
+  packing     the gang packer's int64 rank key
   sharding    node-axis padding with never-feasible nodes
   whatif      run_what_if: many (snapshot, pods) scenarios in one call
   serve/      ScenarioFleet, the what-if service over batched programs
@@ -27,9 +30,12 @@ tpusim or of JAX:
   backend     TorchBackend: compile -> plan -> scan -> placements
   preempt     the preemption hybrid: speculation chunks on the card, victim
               selection on the card or the host, re-arm after preemption
-  gang        pod-group annotations and the gang's shared FitError
-  simulator   ClusterCapacity (the host orchestrator) and run_simulation,
-              the entry point of a simulation
+  gang/       pod-group annotations, feed planning, the packing oracle and
+              the gang driver (all-or-nothing admission)
+  stream/     the streaming twin: StreamSession, the device-resident
+              cluster, the churn load generator
+  simulator   ClusterCapacity (the host orchestrator), run_simulation and
+              run_stream_simulation, the entry points of a simulation
   cli         python -m tpusim_torch.cli
 """
 

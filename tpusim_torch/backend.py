@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import logging
 from dataclasses import replace
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 
@@ -76,14 +76,21 @@ def format_fit_error(num_nodes: int, counts: np.ndarray, strings: List[str]) -> 
 
 
 def decode_placements(pods: List[Pod], choices: np.ndarray, counts: np.ndarray,
-                      names: List[str], strings: List[str]) -> List[Placement]:
-    """Device results -> Placements, in pod order."""
+                      names: List[str], strings: List[str],
+                      prebound: Optional[List[Placement]] = None
+                      ) -> List[Placement]:
+    """Device results -> Placements, in pod order. prebound: Placements
+    already made for the scheduled pods, in pod order (the streaming twin's
+    pipelined fold-back binds each placed pod once and hands them in here,
+    so no pod is copied twice)."""
     placements: List[Placement] = []
+    bound_iter = iter(prebound) if prebound is not None else None
     for j, pod in enumerate(pods):
         c = int(choices[j])
         if c >= 0:
-            placements.append(Placement(pod=bind_pod(pod, names[c]),
-                                        node_name=names[c]))
+            placements.append(next(bound_iter) if bound_iter is not None
+                              else Placement(pod=bind_pod(pod, names[c]),
+                                             node_name=names[c]))
         else:
             msg = format_fit_error(len(names), counts[j], strings)
             placements.append(Placement(pod=mark_unschedulable(pod, msg),
@@ -102,10 +109,17 @@ def compile_host(snapshot: ClusterSnapshot, pods: List[Pod],
     compiled, cols = compile_cluster(
         snapshot, pods, need_noexec=ps is not None and ps.has_noexec,
         need_saa=ps is not None and ps.has_services)
+    return compiled, cols, unsupported_detail(compiled, cp)
+
+
+def unsupported_detail(compiled, compiled_policy=None) -> str:
+    """The reasons the compile and the policy classify a workload
+    unsupported by both device routes, joined as the JAX package's backend
+    joins them; "" when both routes carry it."""
     unsupported = list(compiled.unsupported)
-    if cp is not None:
-        unsupported.extend(cp.unsupported)
-    return compiled, cols, "; ".join(sorted(set(unsupported))[:5])
+    if compiled_policy is not None:
+        unsupported.extend(compiled_policy.unsupported)
+    return "; ".join(sorted(set(unsupported))[:5])
 
 
 def finish_inputs(snapshot: ClusterSnapshot, pods: List[Pod], compiled, cols,
@@ -225,8 +239,13 @@ class TorchBackend:
             [index.get(p.node_name, -1) for p in placements], np.int32)
         return placements
 
-    def schedule(self, pods: List[Pod],
-                 snapshot: ClusterSnapshot) -> List[Placement]:
+    def schedule(self, pods: List[Pod], snapshot: ClusterSnapshot,
+                 precompiled=None) -> List[Placement]:
+        """precompiled: a (CompiledCluster, PodColumns) pair of `pods` on
+        `snapshot` made already (delta.IncrementalCluster.compile, the gang
+        driver's ungrouped segments), used in place of a compile of its
+        own; one built without the NoExecute or ServiceAffinity tables the
+        policy reads is compiled afresh."""
         self.last_choices = np.zeros(0, np.int32)
         self.last_route = self.last_route_reason = ""
         if not pods:
@@ -238,7 +257,16 @@ class TorchBackend:
                               reason="Unschedulable", message=msg)
                     for p in pods]
         cp = self._compiled_policy
-        compiled, cols, detail = compile_host(snapshot, pods, cp)
+        ps = cp.spec if cp is not None else None
+        if precompiled is not None and ps is not None and (
+                (ps.has_noexec and not precompiled[0].has_noexec_table)
+                or (ps.has_services and not precompiled[0].has_saa_table)):
+            precompiled = None
+        if precompiled is None:
+            compiled, cols, detail = compile_host(snapshot, pods, cp)
+        else:
+            compiled, cols = precompiled
+            detail = unsupported_detail(compiled, cp)
         if detail:
             if self.fallback == "error":
                 raise NotImplementedError(UNSUPPORTED_MSG + detail)

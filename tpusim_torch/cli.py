@@ -6,6 +6,8 @@
     python -m tpusim_torch.cli --what-if manifest.json [--device cpu]
     python -m tpusim_torch.cli serve --synthetic-nodes 16 \
         --podspec pods.yaml [--requests 32] [--device cpu]
+    python -m tpusim_torch.cli stream --synthetic-nodes 64 --cycles 50 \
+        [--pipeline] [--verify] [--gang-size 3 --gang-count 1] [--device cpu]
 
 prints the Successful/Failed pods report of the reference simulator
 (cmd/app/server.go). --backend torch (the default) schedules on
@@ -25,7 +27,9 @@ provider.
 file pairs) through whatif.run_what_if and prints a line a scenario. The
 serve subcommand stands up a serve.ScenarioFleet over one snapshot and
 drives it with a synthetic load drawn from the podspec's pods (in process,
-no network listener), printing a line a pass.
+no network listener), printing a line a pass. The stream subcommand drives
+the streaming twin (stream.StreamSession) with seeded churn through
+simulator.run_stream_simulation and prints its summary.
 """
 
 from __future__ import annotations
@@ -346,10 +350,157 @@ def serve_cli(argv) -> int:
     return exit_code
 
 
+def build_stream_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="tpusim_torch stream",
+        description="The streaming twin: hold the compiled cluster resident "
+                    "on the device and drive it with seeded churn "
+                    "(arrivals, evictions, node flaps, label and taint "
+                    "churn, gangs). Warm cycles commit the watch delta "
+                    "instead of staging the cluster again")
+    parser.add_argument("--snapshot", default="",
+                        help="Combined ClusterSnapshot JSON ({nodes, pods})")
+    parser.add_argument("--synthetic-nodes", type=int, default=64,
+                        help="Generate N homogeneous synthetic nodes "
+                             "(ignored with --snapshot)")
+    # taken for the JAX package's command line, which reads neither: the
+    # synthetic nodes are synthetic_cluster's defaults, and another value
+    # is refused rather than ignored
+    parser.add_argument("--synthetic-milli-cpu", type=int, default=4000,
+                        help="Only the default, 4000, is accepted")
+    parser.add_argument("--synthetic-memory", type=int, default=16 * 1024**3,
+                        help="Only the default, 16 GiB, is accepted")
+    parser.add_argument("--cycles", type=int, default=50,
+                        help="Scheduling cycles to run")
+    parser.add_argument("--arrivals", type=int, default=32,
+                        help="Fresh pod arrivals per cycle")
+    parser.add_argument("--evict-fraction", type=float, default=0.25,
+                        help="Fraction of the arrival batch size evicted "
+                             "from the bound pods per cycle")
+    parser.add_argument("--flap-every", type=int, default=0,
+                        help="Cordon and restore a random node every k-th "
+                             "cycle (structural: classified restages; "
+                             "0 = never)")
+    parser.add_argument("--label-churn", type=int, default=0,
+                        help="Rewrite N random nodes' labels per cycle "
+                             "(absorbed by the statics commit)")
+    parser.add_argument("--taint-churn", type=int, default=0,
+                        help="Toggle a NoSchedule taint on N random nodes "
+                             "per cycle (absorbed by the statics commit)")
+    parser.add_argument("--gang-size", type=int, default=0,
+                        help="Members per generated pod group (all-or-"
+                             "nothing admission with rank-aware packing; "
+                             "0 = no gangs)")
+    parser.add_argument("--gang-count", type=int, default=0,
+                        help="Pod groups appended to each cycle's arrivals "
+                             "(with --gang-size)")
+    parser.add_argument("--seed", type=int, default=0,
+                        help="Load-generator seed")
+    parser.add_argument("--algorithmprovider", default="DefaultProvider")
+    parser.add_argument("--policy-file", default="",
+                        help="Scheduler policy JSON (kube-scheduler "
+                             "--policy-config-file shape), resident with "
+                             "the twin")
+    parser.add_argument("--pipeline", action="store_true",
+                        help="Pipelined cycles: launch cycle N on the "
+                             "device, decode cycle N-1 while it runs "
+                             "(identical placements)")
+    parser.add_argument("--always-restage", action="store_true",
+                        help="No resident path: full compile and staging "
+                             "every cycle (the comparison arm)")
+    parser.add_argument("--verify", action="store_true",
+                        help="Hold every cycle against a fresh "
+                             "TorchBackend.schedule (placement_hash)")
+    parser.add_argument("--whatif-every", type=int, default=0,
+                        help="Answer a live what-if query on the resident "
+                             "twin every N cycles (an overlay rolled back "
+                             "after it; the chains are unchanged); 0 = none")
+    parser.add_argument("--whatif-pods", type=int, default=4,
+                        help="Pods per live what-if query")
+    parser.add_argument("--json", action="store_true",
+                        help="Print the whole summary as JSON")
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (default) or cpu")
+    return parser
+
+
+def stream_cli(argv) -> int:
+    """`stream`: seeded churn against the streaming twin."""
+    args = build_stream_parser().parse_args(argv)
+    if (args.synthetic_milli_cpu, args.synthetic_memory) != (4000,
+                                                             16 * 1024**3):
+        print("error: stream builds its synthetic nodes at 4000m and 16 GiB; "
+              "--synthetic-milli-cpu and --synthetic-memory take no other "
+              "value (give other nodes with --snapshot)", file=sys.stderr)
+        return 2
+    snapshot = policy = None
+    try:
+        if args.snapshot:
+            snapshot = ClusterSnapshot.load(args.snapshot)
+        if args.policy_file:
+            policy = load_policy_file(args.policy_file)
+    except (OSError, ValueError) as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 2
+
+    from tpusim_torch.simulator import run_stream_simulation
+
+    try:
+        out = run_stream_simulation(
+            snapshot, num_nodes=args.synthetic_nodes, cycles=args.cycles,
+            arrivals=args.arrivals, evict_fraction=args.evict_fraction,
+            node_flap_every=args.flap_every, seed=args.seed,
+            label_churn=args.label_churn, taint_churn=args.taint_churn,
+            gang_size=args.gang_size, gang_count=args.gang_count,
+            provider=args.algorithmprovider, policy=policy,
+            pipeline=args.pipeline, always_restage=args.always_restage,
+            verify=args.verify, whatif_every=args.whatif_every,
+            whatif_pods=args.whatif_pods, device=args.device)
+    except (KeyError, ValueError, RuntimeError) as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 2
+
+    if args.json:
+        import json
+
+        print(json.dumps(out, indent=2, sort_keys=True))
+    else:
+        paths = ", ".join(f"{k} x{v}" for k, v in sorted(out["paths"].items()))
+        restages = ", ".join(f"{k} x{v}"
+                             for k, v in sorted(out["restages"].items()))
+        print(f"{out['cycles']} cycles over {out['nodes']} nodes: "
+              f"{out['scheduled']}/{out['decisions']} scheduled, "
+              f"{out['decisions_per_s']:.0f} decisions/s, cycle p50/p99 "
+              f"{out['p50_cycle_ms']:.1f}/{out['p99_cycle_ms']:.1f} ms")
+        print(f"paths: {paths or 'none'}; restages: {restages or 'none'}; "
+              f"{out['commits']} scatter commits")
+        print(f"load: {out['load']['arrivals']} arrivals, "
+              f"{out['load']['evictions']} evictions, "
+              f"{out['load']['flaps']} flaps; "
+              f"placement chain {out['placement_chain'][:16]}")
+        if "overlay" in out:
+            ov = out["overlay"]
+            print(f"live what-if: {ov['answered']}/{ov['queries']} overlay "
+                  f"queries answered ({ov['fallbacks']} fell back), query "
+                  f"p50/p99 {ov['p50_query_ms']:.1f}/"
+                  f"{ov['p99_query_ms']:.1f} ms")
+    if args.verify:
+        if out["verified"]:
+            print("verify: every cycle placement_hash-identical to the "
+                  "full-restage backend")
+        else:
+            print(f"verify: FAILED — {out['mismatched_cycles']} cycles "
+                  "diverged from the full-restage backend", file=sys.stderr)
+            return 1
+    return 0
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv and argv[0] == "serve":
         return serve_cli(argv[1:])
+    if argv and argv[0] == "stream":
+        return stream_cli(argv[1:])
     args = build_parser().parse_args(argv)
     if args.what_if:
         return run_what_if_cli(args)

@@ -24,15 +24,20 @@ classify_preemption_class sorts a predicate set for the preemption hybrid's
 victim selection: "arithmetic" (the device victim program reproduces the
 host's reprieve) or "general" (the host pipeline). Left out here:
 CompiledPolicy's compile-time preemption class (the hybrid classifies at
-run time and a policy does not reach it) and the policy residency and
-delta tables of the streaming runtime; they come with the streaming slice.
+run time and a policy does not reach it).
+
+The streaming twin (stream.runtime) keeps a policy's tables resident:
+policy_plan_key names the plan they serve, PolicyResidency records the
+interning they were built with, remap_policy_columns maps a new batch's
+per-pod columns onto it and policy_delta_columns recomputes the churned
+nodes' columns against it; a value outside the resident interning restages.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from types import SimpleNamespace
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -564,3 +569,167 @@ def build_policy_tables(cp: CompiledPolicy, snapshot, pods,
                         saa_dom=saa_dom, n_saa_doms=n_saa_doms,
                         sa_pin=sa_pin, sa_val=sa_val,
                         sa_lock_init=sa_lock_init)
+
+
+# ---------------------------------------------------------------------------
+# Policy residency: the interning a resident set of policy tables was built
+# with, so that the streaming twin can (a) map a new batch's per-pod
+# signature columns onto the RESIDENT id spaces and (b) recompute only the
+# churned nodes' policy columns, both without restaging. A signature or a
+# label value outside the resident spaces would grow a table: the caller
+# restages.
+
+
+def policy_plan_key(cp: Optional[CompiledPolicy]):
+    """A hashable identity of the plan a policy's tables serve. PolicySpec
+    alone under-determines the tables (label_rows holds slots, not the
+    labels; two policies can share a spec and mask different labels), so the
+    key freezes every input that shapes them. Equal keys stage equal policy
+    statics on one cluster; a change of key is the policy_plan_change
+    restage."""
+    if cp is None:
+        return None
+    return (cp.spec, cp.hard_weight,
+            tuple((slot, tuple((tuple(labels), presence)
+                               for labels, presence in entries))
+                  for slot, entries in cp.label_rows),
+            tuple((label, presence, weight)
+                  for label, presence, weight in cp.label_prios),
+            tuple((label, weight) for label, weight in cp.saa_entries),
+            tuple(tuple(entry) for entry in cp.sa_entries))
+
+
+@dataclass
+class PolicyResidency:
+    """The interning captured at a restage (build_policy_residency).
+
+    img_rows / img_reps: container-image multiset -> image_score row, and
+    the representative pod of each row (image_locality_columns' first-seen
+    order). sa_rows: pod pin signature -> sa_pin row. sa_value_maps /
+    saa_value_maps: per label, value -> id (sa_val / saa_dom), derived again
+    from the snapshot exactly as the table builders interned them."""
+
+    img_rows: Dict[tuple, int] = field(default_factory=dict)
+    img_reps: List = field(default_factory=list)
+    sa_labels: tuple = ()
+    sa_rows: Dict[tuple, int] = field(default_factory=dict)
+    sa_value_maps: List[Dict[str, int]] = field(default_factory=list)
+    saa_value_maps: List[Dict[str, int]] = field(default_factory=list)
+
+
+def build_policy_residency(cp: CompiledPolicy, snapshot, pods,
+                           compiled, ptabs: PolicyTables) -> PolicyResidency:
+    """The interning the `ptabs` tables were built with: pods and nodes are
+    walked in the table builders' order, so the ids line up."""
+    by_idx = _nodes_by_index(snapshot.nodes, compiled.node_index)
+    res = PolicyResidency()
+
+    if ptabs.has_image:
+        for pod in pods:
+            sig = tuple(sorted(c.image for c in pod.spec.containers))
+            if sig not in res.img_rows:
+                res.img_rows[sig] = len(res.img_reps)
+                res.img_reps.append(pod)
+
+    ps = cp.spec
+    if ps.sa_enabled or ps.sa_slots:
+        labels = [label for entry in cp.sa_entries for label in entry]
+        res.sa_labels = tuple(labels)
+        pinned_values: List[set] = [set() for _ in labels]
+        for pod in pods:
+            selector = pod.spec.node_selector or {}
+            for li, label in enumerate(labels):
+                if label in selector:
+                    pinned_values[li].add(selector[label])
+        res.sa_value_maps = [{} for _ in range(max(len(labels), 1))]
+        for li, label in enumerate(labels):
+            _, _, res.sa_value_maps[li] = _label_value_row(
+                by_idx, label, extra_values=sorted(pinned_values[li]))
+        label_set = set(labels)
+        for pod in pods:
+            selector = pod.spec.node_selector or {}
+            pins = tuple(sorted((label, selector[label])
+                                for label in label_set if label in selector))
+            if pins not in res.sa_rows:
+                res.sa_rows[pins] = len(res.sa_rows)
+
+    for label, _w in cp.saa_entries:
+        _, _, vmap = _label_value_row(by_idx, label)
+        res.saa_value_maps.append(vmap)
+    return res
+
+
+def remap_policy_columns(cp: CompiledPolicy, res: PolicyResidency,
+                         pods, cols) -> Optional[str]:
+    """Fill cols.img_id and cols.sa_self_id of a NEW batch against the
+    resident id spaces. None on success, or the restage reason
+    ("new_signature") when a pod carries a signature the resident tables
+    never interned."""
+    ps = cp.spec
+    if ps.w_image:
+        for j, pod in enumerate(pods):
+            sig = tuple(sorted(c.image for c in pod.spec.containers))
+            row = res.img_rows.get(sig)
+            if row is None:
+                return "new_signature"
+            cols.img_id[j] = row
+    if ps.sa_enabled or ps.sa_slots:
+        label_set = set(res.sa_labels)
+        for j, pod in enumerate(pods):
+            selector = pod.spec.node_selector or {}
+            pins = tuple(sorted((label, selector[label])
+                                for label in label_set if label in selector))
+            row = res.sa_rows.get(pins)
+            if row is None:
+                return "new_signature"
+            cols.sa_self_id[j] = row
+    return None
+
+
+def policy_delta_columns(cp: Optional[CompiledPolicy],
+                         res: Optional[PolicyResidency],
+                         ptabs: Optional[PolicyTables],
+                         by_idx: list, idxs, shapes):
+    """The policy statics columns of the churned node indices `idxs`.
+
+    by_idx: the nodes in compiled order (post-churn host truth); shapes: the
+    resident (L, Si, E, La) leading axes. Returns (label_ok [L, U],
+    label_prio [U], image_score [Si, U], saa_dom [E, U], sa_val [La, U]), or
+    the restage reason ("new_signature") when a churned node carries a label
+    value outside the resident interning."""
+    n_l, n_si, n_e, n_la = shapes
+    u = len(idxs)
+    label_ok = np.ones((n_l, u), dtype=bool)
+    label_prio = np.zeros(u, dtype=np.int64)
+    image_score = np.zeros((n_si, u), dtype=np.int64)
+    saa_dom = np.zeros((n_e, u), dtype=np.int32)
+    sa_val = np.zeros((n_la, u), dtype=np.int32)
+    if cp is None:
+        return label_ok, label_prio, image_score, saa_dom, sa_val
+
+    for r, (_slot, entries) in enumerate(cp.label_rows):
+        label_ok[r] = _label_pred_row([by_idx[i] for i in idxs], entries)
+    for label, presence, weight in cp.label_prios:
+        for k, i in enumerate(idxs):
+            if (label in by_idx[i].metadata.labels) == presence:
+                label_prio[k] += weight * MAX_PRIORITY
+    if ptabs is not None and ptabs.has_image:
+        for s, rep in enumerate(res.img_reps):
+            for k, i in enumerate(idxs):
+                info = SimpleNamespace(node=by_idx[i])
+                image_score[s, k] = image_locality_priority_map(
+                    rep, None, info).score
+    for rows, labels, maps in ((saa_dom, [lb for lb, _w in cp.saa_entries],
+                                res.saa_value_maps),
+                               (sa_val, res.sa_labels, res.sa_value_maps)):
+        for li, label in enumerate(labels):
+            vmap = maps[li]
+            for k, i in enumerate(idxs):
+                value = by_idx[i].metadata.labels.get(label)
+                if value is None:
+                    continue
+                vid = vmap.get(value)
+                if vid is None:
+                    return "new_signature"
+                rows[li, k] = vid
+    return label_ok, label_prio, image_score, saa_dom, sa_val

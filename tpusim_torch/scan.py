@@ -1067,10 +1067,11 @@ def make_step(config: EngineConfig, st: Statics, pods, carry: Carry,
 class _Steps:
     """Runs a step over a batch of pods: t1 reset to 0, then `count` steps.
     With graph_steps > 0 on a CUDA device, blocks of graph_steps steps
-    replay one CUDA graph, captured on the first run after one eager step
-    that warms up every operation; the steps left over run eagerly. The
-    graph reads and writes the step's buffers where they lie, so a later run
-    over new contents of the same buffers replays it as it is."""
+    replay one CUDA graph, captured on the first run of at least
+    graph_steps steps after one eager step that warms up every operation;
+    the steps left over run eagerly. The graph reads and writes the step's
+    buffers where they lie, so a later run over new contents of the same
+    buffers replays it as it is."""
 
     def __init__(self, step, t1, graph_steps: int):
         self.step, self.t1 = step, t1
@@ -1081,7 +1082,7 @@ class _Steps:
         step, g = self.step, self.graph_steps
         self.t1.zero_()
         done = 0
-        if g > 0 and count > g:
+        if g > 0 and count >= g:
             if self.graph is None:
                 step()
                 done = 1
@@ -1456,3 +1457,247 @@ def preempt_select(zero_req: bool, lane_valid, node_idx, alloc_cpu,
         sel = sel & (key == torch.where(sel, key, big).min())
     winner = torch.where(sel, node_idx, big).min()  # criterion 5: the first
     return winner, empty_winner, victim, num
+
+
+# ---------------------------------------------------------------------------
+# The streaming twin's device programs (stream.runtime): the resident scan
+# and the O(delta) commits that patch its tensors in place between cycles.
+#
+# The host (delta.IncrementalCluster) stays the source of truth: after
+# folding a cycle's watch events it gathers the authoritative post-event
+# values of every touched node row and presence cell, and the commit SETS
+# them into the resident carry. Setting authoritative values (not adding a
+# delta) makes a commit idempotent: the device cannot drift from the host
+# columns it syncs. presence_dom and used_vols have no commit path; the
+# twin restages whenever a config that reads them (inter-pod terms, MaxPD)
+# sees presence or volume churn.
+
+
+def _on(a, like: torch.Tensor) -> torch.Tensor:
+    """`a` (a numpy array or a tensor) on `like`'s device, in its dtype."""
+    return torch.as_tensor(a, device=like.device).to(like.dtype)
+
+
+class DeltaRows(NamedTuple):
+    """Authoritative post-event dynamic values of the committed node rows,
+    gathered from the host columns: [U] each, used_scalar [U, S]."""
+
+    used_cpu: object
+    used_mem: object
+    used_gpu: object
+    used_eph: object
+    used_scalar: object
+    nonzero_cpu: object
+    nonzero_mem: object
+    pod_count: object
+
+
+def _set_rows_(carry: Carry, node_idx, rows: DeltaRows, pres_gid, pres_nid,
+               pres_val) -> None:
+    # "set" semantics, no accumulation: the bucket padding repeats a real
+    # row (or cell) with the same authoritative value, so whichever copy of
+    # a duplicate index lands last writes the same bytes
+    idx = _on(node_idx, carry.rr)
+    for name in DeltaRows._fields:
+        dst = getattr(carry, name)
+        dst.index_copy_(0, idx, _on(getattr(rows, name), dst))
+    carry.presence.index_put_(
+        (_on(pres_gid, carry.rr), _on(pres_nid, carry.rr)),
+        _on(pres_val, carry.presence))
+
+
+def apply_delta_(carry: Carry, node_idx, rows: DeltaRows, pres_gid,
+                 pres_nid, pres_val, sa_lock_init) -> None:
+    """Commit a cycle's delta into the resident `carry` in place: set the
+    rows `node_idx` and the presence cells (pres_gid, pres_nid), then re-arm
+    the per-batch lanes as carry_init_host arms a restage's carry (sa_lock to
+    `sa_lock_init`: all unlocked for a provider, the live first-matching-pod
+    pins under a ServiceAffinity policy; rr to 0), so that a stream cycle
+    and a restage cycle scan from equal carries."""
+    _set_rows_(carry, node_idx, rows, pres_gid, pres_nid, pres_val)
+    carry.sa_lock.copy_(_on(sa_lock_init, carry.sa_lock))
+    carry.rr.zero_()
+
+
+def overlay_restore_(carry: Carry, node_idx, rows: DeltaRows, pres_gid,
+                     pres_nid, pres_val, sa_lock_save, rr_save) -> None:
+    """Roll an overlay query back in place: the same authoritative set over
+    the nodes the query bound, and the per-batch lanes restored from the
+    copies taken before the query (not re-armed), so the carry after it is
+    bit-equal to the carry before."""
+    _set_rows_(carry, node_idx, rows, pres_gid, pres_nid, pres_val)
+    carry.sa_lock.copy_(_on(sa_lock_save, carry.sa_lock))
+    carry.rr.copy_(_on(rr_save, carry.rr))
+
+
+class StaticsDelta(NamedTuple):
+    """Authoritative post-churn statics columns of the churned nodes: one
+    column slice a table whose cells depend on node labels or taints. The
+    leading (signature or policy row) axes are the resident tables'; the
+    last is the padded churn bucket U (label_prio is [U])."""
+
+    selector_ok: object
+    taint_ok: object
+    taint_ok_noexec: object
+    intolerable: object
+    affinity_count: object
+    avoid_score: object
+    host_ok: object
+    label_ok: object
+    label_prio: object
+    image_score: object
+    saa_dom: object
+    sa_val: object
+
+
+def apply_statics_delta_(statics: Statics, node_idx, d: StaticsDelta) -> None:
+    """Set the churned nodes' columns of the resident statics in place.
+    Label and taint churn moves only per-(signature, node) and per-(policy
+    row, node) cells; every other table is node-structural or group-derived
+    and restages instead. Duplicate padded indices carry equal columns."""
+    idx = _on(node_idx, statics.alloc_cpu)
+    for name in StaticsDelta._fields:
+        dst = getattr(statics, name)
+        dst.index_copy_(0 if name == "label_prio" else 1, idx,
+                        _on(getattr(d, name), dst))
+
+
+class ResidentScan:
+    """The exact scan over the streaming twin's resident tensors, as a
+    built program for one pod bucket: the step (make_step) bound to the
+    resident `carry` and `statics` and to buffers of its own for the
+    bucket's packed pod columns and outputs.
+
+    run() copies a bucket of pods in and scans them (_Steps: on a CUDA
+    device with graph_steps > 0 its graph is captured on the first run and
+    replayed from then on), binding into the resident carry in place. The
+    graph reads and writes the tensors where they lie, so the commits
+    between cycles must patch them in place (apply_delta_,
+    apply_statics_delta_, overlay_restore_): a rebinding such as
+    carry = Carry(...) would leave the graph reading stale buffers."""
+
+    def __init__(self, config: EngineConfig, carry: Carry, statics: Statics,
+                 bucket: int, graph_steps: int = 0):
+        dev = statics.alloc_cpu.device
+        n_scal = statics.alloc_scalar.shape[-1]
+        self.pods = torch.empty((bucket, _pod_layout(n_scal)[1]), dtype=I64,
+                                device=dev)
+        self.out = _outputs((bucket,), NUM_FIXED_BITS + n_scal, dev)
+        t1 = torch.zeros(1, dtype=I64, device=dev)
+        self._steps = _Steps(make_step(config, statics, self.pods, carry,
+                                       self.out, t1), t1, graph_steps)
+
+    def run(self, xs_host: PodX) -> ScanOutputs:
+        """Scan a bucket of pods (host numpy columns, exactly the bucket's
+        rows; pad_infeasible_rows pads): the outputs are the program's own
+        buffers, which the next run overwrites."""
+        self.pods.copy_(_pack_pods(PodX(*(torch.from_numpy(np.asarray(c))
+                                          for c in xs_host))))
+        self._steps.run(self.pods.shape[0])
+        return self.out
+
+
+# ---------------------------------------------------------------------------
+# Gang admission (gang.driver): every member's feasibility and score lanes
+# against one carry, and the joint packing solve over them.
+
+
+class GangIn(NamedTuple):
+    """The per-node columns the packing solve reads ([N] each, int64; the
+    domain ids 0 = no domain)."""
+
+    alloc_cpu: torch.Tensor
+    alloc_mem: torch.Tensor
+    alloc_gpu: torch.Tensor
+    alloc_eph: torch.Tensor
+    allowed_pods: torch.Tensor
+    used_cpu: torch.Tensor
+    used_mem: torch.Tensor
+    used_gpu: torch.Tensor
+    used_eph: torch.Tensor
+    pod_count: torch.Tensor
+    zone_dom: torch.Tensor
+    rack_dom: torch.Tensor
+
+
+def gang_columns(statics: Statics, carry: Carry, zone_dom,
+                 rack_dom) -> GangIn:
+    """A GangIn of the engine's statics and carry and the packing domains
+    (gang.oracle.packing_domains) on their device."""
+    return GangIn(
+        alloc_cpu=statics.alloc_cpu, alloc_mem=statics.alloc_mem,
+        alloc_gpu=statics.alloc_gpu, alloc_eph=statics.alloc_eph,
+        allowed_pods=statics.allowed_pods,
+        used_cpu=carry.used_cpu, used_mem=carry.used_mem,
+        used_gpu=carry.used_gpu, used_eph=carry.used_eph,
+        pod_count=carry.pod_count,
+        zone_dom=_on(zone_dom, carry.rr), rack_dom=_on(rack_dom, carry.rr))
+
+
+def gang_lanes(config: EngineConfig, carry: Carry, statics: Statics,
+               xs: PodX):
+    """(feasible [M, N] bool, score [M, N] int64): the scan's filter and
+    score for each of the M members against the SAME carry, one
+    torch.func.vmap of _evaluate over the member axis (no loop over the
+    members). Only the two lanes the packing solve reads come back: a
+    rejected gang's text is the driver's shared FitError, not a per-member
+    reason histogram."""
+    const = _Const(config, statics)
+
+    def lanes(x: PodX):
+        feasible, _bits, score, _n, _aca = _evaluate(
+            config, carry, statics, x, x.group_id.reshape(1), const)
+        return feasible, score
+
+    return torch.func.vmap(lanes)(xs)
+
+
+def gang_select(feasible, score, req_cpu, req_mem, req_gpu, req_eph,
+                zero_request, gi: GangIn, n_zone: int, n_rack: int):
+    """The joint greedy packing over the (member, node) lanes, on their
+    device: choices [M] int32, a node index or -1. Members go in feed
+    order; each placement feeds the next member's domain bonuses and
+    capacity stack. The rank key is packing.encode_gang_rank and the pick
+    a first-occurrence argmax, as in gang.oracle.select_oracle. The loop
+    reads nothing back from the device: every member's ops queue at once."""
+    from tpusim_torch.packing import encode_gang_rank
+
+    m, n = feasible.shape
+    dev = feasible.device
+    gang = [torch.zeros(n, dtype=I64, device=dev) for _ in range(5)]
+    gang_cpu, gang_mem, gang_gpu, gang_eph, gang_pods = gang
+    zone_cnt = torch.zeros(n_zone, dtype=I64, device=dev)
+    rack_cnt = torch.zeros(n_rack, dtype=I64, device=dev)
+    zone_dom, rack_dom = gi.zone_dom.to(I64), gi.rack_dom.to(I64)
+    zone_on, rack_on = zone_dom > 0, rack_dom > 0
+    members = torch.arange(m, device=dev)
+    choices = torch.full((m,), -1, dtype=torch.int32, device=dev)
+    for i in range(m):
+        check = ~zero_request[i]
+        fits = (gi.pod_count + gang_pods + 1) <= gi.allowed_pods
+        for alloc, used, stacked, req in (
+                (gi.alloc_cpu, gi.used_cpu, gang_cpu, req_cpu[i]),
+                (gi.alloc_mem, gi.used_mem, gang_mem, req_mem[i]),
+                (gi.alloc_gpu, gi.used_gpu, gang_gpu, req_gpu[i]),
+                (gi.alloc_eph, gi.used_eph, gang_eph, req_eph[i])):
+            fits = fits & (~check | (alloc >= used + stacked + req))
+        ok = feasible[i] & fits
+        zone_bonus = torch.where(zone_on, zone_cnt.index_select(0, zone_dom),
+                                 0)
+        rack_bonus = torch.where(rack_on, rack_cnt.index_select(0, rack_dom),
+                                 0)
+        rank = encode_gang_rank(zone_bonus, rack_bonus, score[i], ok)
+        idx1 = torch.argmax(rank).reshape(1)   # the first of the maxima
+        found = rank.index_select(0, idx1) >= 0                      # [1]
+        gate = found.to(I64)
+        for stacked, req in ((gang_cpu, req_cpu[i]), (gang_mem, req_mem[i]),
+                             (gang_gpu, req_gpu[i]), (gang_eph, req_eph[i])):
+            stacked.index_add_(0, idx1, gate * req)
+        gang_pods.index_add_(0, idx1, gate)
+        # domain slot 0 is the "no domain" bucket: counting into it is
+        # harmless, as the bonuses read it only where the domain is > 0
+        zone_cnt.index_add_(0, zone_dom.index_select(0, idx1), gate)
+        rack_cnt.index_add_(0, rack_dom.index_select(0, idx1), gate)
+        choices.index_copy_(0, members[i:i + 1],
+                            torch.where(found, idx1, -1).to(torch.int32))
+    return choices

@@ -1,6 +1,7 @@
 """The simulation entry: run_simulation routes a pod batch to the host
 orchestrator (ClusterCapacity) or to TorchBackend on the card, and returns
-the Status the report prints.
+the Status the report prints; run_stream_simulation drives the streaming
+twin (stream.StreamSession) through seeded churn.
 
 ClusterCapacity is the host route. Reference: pkg/scheduler/simulator.go.
 The control-flow inversion of the reference is kept in-process and
@@ -52,7 +53,6 @@ from tpusim_torch.framework.store import (
 )
 from tpusim_torch.framework.strategy import PredictiveStrategy
 from tpusim_torch.gang import (
-    GANG_NAME_ANNOTATION,
     PodGroup,
     gang_fit_message,
     gang_name,
@@ -629,9 +629,9 @@ def run_simulation(pods: List[Pod], snapshot: ClusterSnapshot,
     warning; VolumeScheduling on torch raises ValueError; PodPriority with
     pod groups runs on the host; PodPriority alone runs the preemption
     hybrid (preempt.run_with_preemption) on `device` and `route`; pod
-    groups alone raise NotImplementedError on torch, whose gang driver is
-    not ported yet. policy: an engine.policy.Policy replacing the
-    provider's predicates and priorities (AlgorithmSource.Policy,
+    groups alone run the gang driver (gang.driver.schedule_with_gangs) on
+    `device` and `route`, each gang admitted all or nothing. policy: an
+    engine.policy.Policy replacing the provider's predicates and priorities (AlgorithmSource.Policy,
     simulator.go:383-424). feature_gates: kube --feature-gates as a dict
     (engine.providers.parse_feature_gates). extender_transport: the
     in-process seam a policy's extenders are called through, on whichever
@@ -709,12 +709,6 @@ def run_simulation(pods: List[Pod], snapshot: ClusterSnapshot,
             pods, snapshot, provider=provider,
             hard_pod_affinity_symmetric_weight=hard_pod_affinity_symmetric_weight,
             device=device, route=route)
-    if has_gangs(pods):
-        names = sorted({gang_name(p) for p in pods} - {""})
-        raise NotImplementedError(
-            f"pod groups ({GANG_NAME_ANNOTATION}: {', '.join(names)}) are "
-            "admitted all or nothing, and the torch backend has no gang "
-            "driver yet; use backend='reference'")
     from tpusim_torch.backend import TorchBackend
 
     torch_backend = TorchBackend(
@@ -722,5 +716,205 @@ def run_simulation(pods: List[Pod], snapshot: ClusterSnapshot,
         hard_pod_affinity_symmetric_weight=hard_pod_affinity_symmetric_weight,
         policy=policy, route=route, extender_transport=extender_transport)
     feed = list(reversed(pods))  # the LIFO queue pops the last element first
-    return _status_from_placements(torch_backend.schedule(feed, snapshot),
-                                   snapshot)
+    if has_gangs(feed):
+        # the gang driver: ungrouped runs take the per-pod path against the
+        # live incremental cluster, gangs are admitted all or nothing
+        from tpusim_torch.delta import IncrementalCluster
+        from tpusim_torch.gang.driver import schedule_with_gangs
+
+        placements = schedule_with_gangs(torch_backend,
+                                         IncrementalCluster(snapshot), feed)
+    else:
+        placements = torch_backend.schedule(feed, snapshot)
+    return _status_from_placements(placements, snapshot)
+
+
+def run_stream_simulation(snapshot: Optional[ClusterSnapshot] = None, *,
+                          num_nodes: int = 64, cycles: int = 50,
+                          arrivals: int = 32, evict_fraction: float = 0.25,
+                          node_flap_every: int = 0,
+                          label_churn: int = 0, taint_churn: int = 0,
+                          gang_size: int = 0, gang_count: int = 0,
+                          seed: int = 0,
+                          provider: str = DEFAULT_PROVIDER,
+                          policy=None, pipeline: bool = False,
+                          always_restage: bool = False, verify: bool = False,
+                          whatif_every: int = 0, whatif_pods: int = 4,
+                          device="cuda") -> dict:
+    """Drive a stream.StreamSession through seeded churn
+    (stream.ChurnLoadGen) and return a summary dict: the `stream` CLI's
+    loop. Each cycle, watch events fold into the host picture, the delta
+    commits onto the device-resident carry, and a fresh arrival batch
+    schedules against it: O(delta) a warm cycle instead of O(cluster).
+
+    snapshot: the cluster (None: synthetic_cluster(num_nodes), whose node
+        labels are seeded from the churn universe when a policy or label or
+        taint churn is on, so the cold start interns every label value).
+    always_restage: no resident path (the restage comparison arm).
+    policy: an engine.policy.Policy, resident with the twin.
+    pipeline: decode cycle N-1 while cycle N runs on the device
+        (StreamSession.schedule_pipelined); the placements and the chains
+        equal the synchronous path's.
+    label_churn / taint_churn: label rewrites / taint toggles a cycle.
+    gang_size / gang_count: pod groups a cycle, each cycle with gangs a gang
+        cycle (the gang driver, all or nothing).
+    verify: also run every cycle through a fresh TorchBackend.schedule (or
+        the gang driver) on a second IncrementalCluster fed the same events,
+        and count the cycles whose placement hash differs
+        ("mismatched_cycles"; pipelined cycles compare when their
+        placements emerge).
+    whatif_every: every N cycles, answer a live what-if query of
+        whatif_pods pods (from a separate seeded stream) on the resident
+        twin (StreamSession.overlay_query); the chains are unchanged by the
+        queries. The summary gains an "overlay" block.
+    device: "cuda" (the default) or "cpu".
+
+    The JAX package's chaos_plan, checkpoint_dir, checkpoint_every,
+    fsync_every, replicate_to and recover are not taken: their modules are
+    not ported yet."""
+    import hashlib
+    from time import perf_counter
+
+    from numpy.random import RandomState
+
+    from tpusim_torch.api.snapshot import make_pod, synthetic_cluster
+    from tpusim_torch.backend import TorchBackend
+    from tpusim_torch.backends import placement_hash
+    from tpusim_torch.delta import IncrementalCluster
+    from tpusim_torch.gang.driver import schedule_with_gangs
+    from tpusim_torch.stream import ChurnLoadGen, StreamSession, chain_fold
+    from tpusim_torch.stream.loadgen import DEFAULT_LABEL_UNIVERSE
+
+    if snapshot is None:
+        snapshot = synthetic_cluster(num_nodes)
+        if policy is not None or label_churn or taint_churn:
+            for i, node in enumerate(snapshot.nodes):
+                node.metadata.labels.update(
+                    {k: vals[i % len(vals)]
+                     for k, vals in DEFAULT_LABEL_UNIVERSE.items()})
+    session = StreamSession(snapshot, provider=provider, policy=policy,
+                            always_restage=always_restage, device=device)
+
+    def load_gen():
+        return ChurnLoadGen(snapshot, seed=seed, arrivals=arrivals,
+                            evict_fraction=evict_fraction,
+                            node_flap_every=node_flap_every,
+                            label_churn=label_churn, taint_churn=taint_churn,
+                            gang_size=gang_size, gang_count=gang_count)
+
+    gen = load_gen()
+    ref_inc = ref_backend = ref_gen = None
+    if verify:
+        ref_inc = IncrementalCluster(snapshot)
+        ref_backend = TorchBackend(provider=provider, policy=policy,
+                                   device=device)
+        ref_gen = load_gen()
+    chain = hashlib.sha256()
+    fold = ""
+    latencies: List[float] = []
+    expected: List[str] = []       # the verify arm's hashes, in order
+    counts = {"decisions": 0, "scheduled": 0, "mismatches": 0}
+
+    def account(placements) -> None:
+        nonlocal fold
+        counts["decisions"] += len(placements)
+        counts["scheduled"] += sum(1 for p in placements if p.node_name)
+        h = placement_hash(placements)
+        chain.update(h.encode())
+        fold = chain_fold(fold, h)
+        if verify and expected.pop(0) != h:
+            counts["mismatches"] += 1
+
+    # the live what-if queries draw from a stream of their own, so they
+    # never move the churn draws
+    whatif_rng = RandomState(seed + 9173) if whatif_every else None
+    whatif_lat: List[float] = []
+    whatif_stats = {"queries": 0, "answered": 0, "fallbacks": 0}
+
+    def live_query(cycle: int) -> None:
+        qpods = [make_pod(f"whatif-c{cycle}-p{i}",
+                          milli_cpu=int(whatif_rng.randint(100, 1500)),
+                          memory=int(whatif_rng.randint(2 ** 20, 2 ** 30)))
+                 for i in range(whatif_pods)]
+        whatif_stats["queries"] += 1
+        tq = perf_counter()
+        if session.overlay_query(qpods) is None:
+            whatif_stats["fallbacks"] += 1
+        else:
+            whatif_stats["answered"] += 1
+            whatif_lat.append(perf_counter() - tq)
+
+    t_start = perf_counter()
+    for cycle in range(cycles):
+        if pipeline:
+            # fold cycle N-1's binds BEFORE drawing cycle N's events: the
+            # host picture evolves in the synchronous order
+            gen.note_bound(session.poll_placed())
+        session.apply_events(gen.events(cycle))
+        batch = gen.batch()
+        t0 = perf_counter()
+        prev = (session.schedule_pipelined(batch) if pipeline
+                else session.schedule(batch))
+        latencies.append(perf_counter() - t0)
+        if verify:
+            # the reference picture advances at dispatch time; the
+            # comparison happens when the placements emerge
+            ref_inc.apply_events(ref_gen.events(cycle))
+            ref_batch = ref_gen.batch()
+            if has_gangs(ref_batch):
+                # the gang driver applies its binds to ref_inc itself
+                want = schedule_with_gangs(ref_backend, ref_inc, ref_batch)
+            else:
+                want = ref_backend.schedule(ref_batch, ref_inc.to_snapshot())
+                for pl in want:
+                    if pl.node_name:
+                        ref_inc.apply(MODIFIED, pl.pod)
+            ref_gen.note_bound(want)
+            expected.append(placement_hash(want))
+        if pipeline:
+            if prev is not None:
+                account(prev)
+        else:
+            gen.note_bound(prev)
+            account(prev)
+        if whatif_every and (cycle + 1) % whatif_every == 0:
+            live_query(cycle)
+    if pipeline:
+        tail = session.flush()
+        if tail:
+            account(tail)
+    elapsed = perf_counter() - t_start
+
+    def pct(values: List[float], q: float) -> float:
+        if not values:
+            return 0.0
+        values = sorted(values)
+        return values[min(len(values) - 1,
+                          int(round(q * (len(values) - 1))))]
+
+    decisions = counts["decisions"]
+    out = {
+        "cycles": cycles, "nodes": len(session.inc.nodes),
+        "decisions": decisions, "scheduled": counts["scheduled"],
+        "unschedulable": decisions - counts["scheduled"],
+        "elapsed_s": elapsed,
+        "decisions_per_s": decisions / elapsed if elapsed > 0 else 0.0,
+        "p50_cycle_ms": pct(latencies, 0.5) * 1e3,
+        "p99_cycle_ms": pct(latencies, 0.99) * 1e3,
+        "paths": dict(session.path_counts),
+        "restages": dict(session.restage_counts),
+        "commits": session.device.commits,
+        "placement_chain": chain.hexdigest(),
+        "fold_chain": fold,
+        "load": dict(gen.stats),
+    }
+    if whatif_every:
+        out["overlay"] = {
+            **whatif_stats,
+            "p50_query_ms": pct(whatif_lat, 0.5) * 1e3,
+            "p99_query_ms": pct(whatif_lat, 0.99) * 1e3,
+        }
+    if verify:
+        out["verified"] = counts["mismatches"] == 0
+        out["mismatched_cycles"] = counts["mismatches"]
+    return out

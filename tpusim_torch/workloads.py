@@ -3,8 +3,9 @@ builds (the placement goldens depend on it), the groups workload (config 3
 with Services, host ports and pod volumes), the inter-pod workload (config 3
 with pod (anti)affinity on zone and rack keys), the policy workload (the
 groups workload under the upstream 1.2 scheduler Policy), the hostname
-workload (config 3 with the documentation's two-tier hostname terms), plus
-random workloads and policies for kernel checks.
+workload (config 3 with the documentation's two-tier hostname terms), the
+streaming cells' cluster and policy (bench configs 10 and 13), plus random
+workloads and policies for kernel checks.
 
 `api` is the module whose make_node / make_pod / ClusterSnapshot build the
 objects: the port's own snapshot module by default; a caller may pass another
@@ -641,6 +642,42 @@ COMPAT_POLICIES = {
             {"name": "InterPodAffinityPriority", "weight": 2},
             {"name": "MostRequestedPriority", "weight": 2}]},
 }
+
+# Bench config 10's scheduler policy (bench.py _POLICY_STREAM_DOC): a
+# selector, a taint, ServiceAffinity, label-presence, ServiceAntiAffinity
+# and label-preference tables all resident, so the streaming twin's statics
+# commit covers every policy-derived column family.
+STREAM_POLICY = {
+    "apiVersion": "v1", "kind": "Policy",
+    "predicates": [
+        {"name": "MatchNodeSelector"},
+        {"name": "PodFitsResources"},
+        {"name": "PodToleratesNodeTaints"},
+        {"name": "TestServiceAffinity",
+         "argument": {"serviceAffinity": {"labels": ["region"]}}},
+        {"name": "TestLabelsPresence",
+         "argument": {"labelsPresence": {"labels": ["foo"],
+                                         "presence": True}}},
+    ],
+    "priorities": [
+        {"name": "LeastRequestedPriority", "weight": 1},
+        {"name": "zone-spread", "weight": 2,
+         "argument": {"serviceAntiAffinity": {"label": "zone"}}},
+        {"name": "bar-pref", "weight": 1,
+         "argument": {"labelPreference": {"label": "bar",
+                                          "presence": True}}},
+    ],
+}
+
+
+def racked_cluster(num_nodes: int, api=None):
+    """Bench config 13's cluster: synthetic_cluster(num_nodes), racks of 16
+    nodes (topology.kubernetes.io/rack)."""
+    snapshot = _api(api).synthetic_cluster(num_nodes)
+    for i, node in enumerate(snapshot.nodes):
+        node.metadata.labels["topology.kubernetes.io/rack"] = f"rack-{i // 16}"
+    return snapshot
+
 
 MB = 1024 * 1024
 # container images, sizes spread over ImageLocalityPriority's 23 MB-1 GB
