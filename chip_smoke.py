@@ -161,7 +161,33 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
      overlay as run_what_if does on the live snapshot, the resident carry
      bit-equal after the queries and the timed queries building and
      capturing nothing, with the overlay's ms beside the staged
-     run_what_if's. Phases 21-24 fail past their 240 s budget.
+     run_what_if's. Phases 21-24 fail past their 240 s budget;
+ 25. event-log replay at full width: config 3 (100k pods on 5k nodes) with
+     a watch-event log of 2,200 events (workloads.event_log_workload: nodes
+     added, deleted and grown, placed pods added and deleted) written as
+     wire frames, read back through load_event_log and run through
+     run_simulation(events=) on the card with the host route made to raise:
+     the JAX package's split digest, the same split as a run on the folded
+     snapshot, 196 fused launches, and the wall with the fold's and the
+     compile's spans; (b) the preemption hybrid with such a log on config
+     6's feed (20,000 pods on 1,000 nodes): the JAX package's digest and
+     counts; (c) the CLI's --event-log once at a small shape;
+ 26. the flight recorder and the metrics registry on the main path: config
+     3 through run_simulation once more, warm, with a recorder installed:
+     phase 4's golden, and the trace, exported and read back as Chrome
+     JSON, split into backend_schedule's layers (compile_cluster,
+     device_dispatch's wall and CUDA-event time, decode_placements and the
+     rest), its wall beside phase 4's; one config 9 stream at 4,000 nodes
+     with the recorder, split into its cycles' commit, dispatch and decode
+     spans; then the stream CLI's --metrics-out, whose scheduler_*,
+     tpusim_backend_* and tpusim_stream_* families must count;
+ 27. serve's live twins: a config 16 twin (a StreamSession on 4,000 nodes
+     after 4 churn cycles) attached to a ScenarioFleet answers 32 requests
+     of 8 pods by overlay queries, each equal to a staged run_what_if on
+     the twin's live snapshot, the carry bit-equal after them; a request
+     under another policy goes the staged path, counted as a plan
+     mismatch; the overlay's ms a query; then `serve --attach-stream` once.
+     Phases 25-27 fail past their 120 s budget.
 Phases 4-15 run TorchBackend with fallback="error", and phases 15, 16b and
 17 run run_simulation on the card with the host route made to raise, so a
 workload that started to reroute to the host fails them; phases 4-12 run
@@ -294,6 +320,24 @@ LIVE_WHATIF = dict(sizes=(200, 800, 3_200, 20_000), warm_cycles=4,
                    arrivals=32, query_pods=8, repeats=5)
 # phases 21-24 together, seconds
 STREAM_BUDGET_S = 240
+# phase 25: config 3 with a watch-event log (workloads.event_log_workload),
+# the split digest and scheduled count of the JAX package's
+# run_simulation(backend="jax", events=) (tools/port_golden.py event_replay
+# 100000 5000), and config 6's feed with such a log through the preemption
+# hybrid, with the scheduled, failed and preempted counts
+# (tools/port_golden.py event_hybrid 20000 1000)
+EVENT_REPLAY = (dict(num_pods=100_000, num_nodes=5_000), "d4be11e33a69c71d",
+                99_364)
+EVENT_HYBRID = (dict(num_pods=20_000, num_nodes=1_000, affinity=True,
+                     priorities=True, seed=777), "7c9ada4b349ce599",
+                (19_825, 107, 68))
+# phase 26: the stream cell traced with the recorder (config 9 at 4,000
+# nodes); phase 27: config 16's twin, its requests and their pods
+TRACED_STREAM_NODES = 4_000
+LIVE_TWIN = dict(nodes=4_000, warm_cycles=4, arrivals=32, requests=32,
+                 query_pods=8)
+# phases 25-27 together, seconds
+OBS_BUDGET_S = 120
 # phase 14: the pods of config 3 run through both routes
 ROUTES_PODS = 2_048
 # phase 15: the pods of the scan timed eagerly, beside the graph replay
@@ -616,6 +660,11 @@ def compare_group_kernel_with_plain(cuda):
     return worst
 
 
+# the warm wall of each main-path workload's second run (phase 26 prints
+# config 3's beside its traced run)
+WARM_WALL = {}
+
+
 def drive_main_path(name, card, cuda):
     """Phases 4, 5, 8 and 10: one workload through TorchBackend, checked
     against its golden; returns the kernel launches of the first run and
@@ -665,6 +714,7 @@ def drive_main_path(name, card, cuda):
     if launches <= 0 or launches != all_launches:
         raise AssertionError(f"{name}: the {variant} kernel variant was "
                              f"launched {launches} of {all_launches} times")
+    WARM_WALL[name] = warm_s
     # the scan alone, device time of every chunk launch in sequence
     plan = make_plan(snapshot, pods, False, policy)
     if plan.has_interpod:
@@ -2110,6 +2160,381 @@ def drive_stream_phases(card):
                              f"{STREAM_BUDGET_S} s budget")
 
 
+def span_totals(doc):
+    """{span name: [count, wall ms, CUDA-event ms]} over a Chrome trace's
+    complete events (the CUDA-event time where the span carries one)."""
+    out = {}
+    for ev in doc["traceEvents"]:
+        if ev.get("ph") != "X":
+            continue
+        t = out.setdefault(ev["name"], [0, 0.0, 0.0])
+        t[0] += 1
+        t[1] += ev["dur"] / 1e3
+        t[2] += (ev.get("args") or {}).get("device_us", 0.0) / 1e3
+    return out
+
+
+def traced(fn):
+    """Run fn() with a flight recorder installed: (its value, the trace
+    exported as Chrome JSON and read back)."""
+    from tpusim_torch.obs import recorder as flight
+
+    rec = flight.install(flight.FlightRecorder())
+    try:
+        value = fn()
+    finally:
+        flight.uninstall()
+    return value, json.loads(rec.to_chrome_json())
+
+
+def counts_line(text):
+    """(scheduled, unschedulable) from the CLI's summary line."""
+    import re
+
+    m = re.search(r"(\d+) pod\(s\) scheduled, (\d+) unschedulable", text)
+    return int(m.group(1)), int(m.group(2))
+
+
+def drive_event_replay(card):
+    """Phase 25: event-log replay at full width, the hybrid with a log, and
+    the CLI's --event-log."""
+    import io
+    import tempfile
+
+    from tpusim_torch import cli, delta, workloads
+    from tpusim_torch.api.podspec import (
+        expand_simulation_pods,
+        load_simulation_pods,
+    )
+    from tpusim_torch.api.snapshot import ClusterSnapshot, make_pod
+    from tpusim_torch.fastscan import CHUNK
+    from tpusim_torch.framework.events import WatchEvent, load_event_log
+    from tpusim_torch.kernels.fastscan import fastscan_chunk
+    from tpusim_torch.simulator import run_simulation
+
+    params, golden, want_scheduled = EVENT_REPLAY
+    want_launches = -(-params["num_pods"] // CHUNK)
+    t0 = time.perf_counter()
+    snapshot, pods, events = workloads.event_log_workload(**params)
+    build_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "events.jsonl")
+        t0 = time.perf_counter()
+        with open(path, "w") as f:
+            f.writelines(WatchEvent(t, o).to_frame() + "\n"
+                         for t, o in events)
+        loaded = load_event_log(path)
+        log_s = time.perf_counter() - t0
+    if [(t, o.to_obj()) for t, o in loaded] != \
+            [(t, o.to_obj()) for t, o in events]:
+        raise AssertionError("phase 25: the event log did not read back "
+                             "as written")
+    reset_launches()
+    with device_routes_only():
+        t0 = time.perf_counter()
+        status, doc = traced(lambda: run_simulation(
+            pods, snapshot, backend="torch", events=loaded))
+        wall = time.perf_counter() - t0
+    launches = fastscan_chunk.launches_by_variant["group_free"]
+    all_launches = fastscan_chunk.launches
+    digest = split_digest(status)
+    spans = span_totals(doc)
+    inc = delta.IncrementalCluster(snapshot)
+    inc.apply_events(loaded)
+    folded = inc.to_snapshot()
+    with device_routes_only():
+        fresh = run_simulation(pods, ClusterSnapshot(
+            nodes=folded.nodes, pods=folded.pods, services=folded.services,
+            pvs=folded.pvs, pvcs=folded.pvcs), backend="torch")
+    same = split_digest(fresh) == digest
+    scheduled = len(status.successful_pods)
+    fold_ms, compile_ms = (spans["event_fold"][1],
+                           spans["compile_cluster"][1])
+    sched = spans["backend_schedule"]
+    print(f"phase 25: event replay, config 3 ({params['num_pods']} pods, "
+          f"{params['num_nodes']} nodes) + {len(events)} events "
+          f"({len(folded.nodes)} nodes and {len(folded.pods)} placed pods "
+          f"after the fold): digest {digest} (want {golden}), {scheduled} "
+          f"scheduled (want {want_scheduled}); equal to the run on the "
+          f"folded snapshot: {same}; {launches} fused launches (group_free "
+          f"variant, want {want_launches}); workload build {build_s:.2f}s, log write and "
+          f"read {log_s:.2f}s; wall {wall:.3f}s = event_fold "
+          f"{fold_ms:.1f} ms + compile_cluster {compile_ms:.1f} ms + "
+          f"backend_schedule {sched[1]:.1f} ms (device_dispatch "
+          f"{spans['device_dispatch'][1]:.1f} ms wall, "
+          f"{spans['device_dispatch'][2]:.1f} ms CUDA events; "
+          f"decode_placements {spans['decode_placements'][1]:.1f} ms) on "
+          f"{card}")
+    if (digest, scheduled) != (golden, want_scheduled) or not same:
+        raise AssertionError("phase 25: the replay differs from the JAX "
+                             "package's or from the folded-snapshot run")
+    if launches != want_launches or all_launches != want_launches:
+        raise AssertionError(f"phase 25: {launches} group_free launches of "
+                             f"{all_launches}, want {want_launches}")
+
+    # (b) the preemption hybrid fed by the replay's IncrementalCluster
+    params, golden, want_counts = EVENT_HYBRID
+    snapshot, pods, events = workloads.event_log_workload(**params)
+    reset_launches()
+    with device_routes_only():
+        t0 = time.perf_counter()
+        status = run_simulation(pods, snapshot, backend="torch",
+                                events=events, enable_pod_priority=True)
+        wall = time.perf_counter() - t0
+    counts = (len(status.successful_pods), len(status.failed_pods),
+              len(status.preempted_pods))
+    digest = split_digest(status)
+    print(f"phase 25b: event replay into the preemption hybrid, config 6 "
+          f"({params['num_pods']} pods, {params['num_nodes']} nodes) + "
+          f"{len(events)} events: digest {digest} (want {golden}), "
+          f"scheduled/failed/preempted {counts} (want {want_counts}), "
+          f"{fastscan_chunk.launches} fused launches, {wall:.3f}s wall on "
+          f"{card}")
+    if (digest, counts) != (golden, want_counts) \
+            or fastscan_chunk.launches <= 0:
+        raise AssertionError("phase 25b: the hybrid's replay differs from "
+                             "the JAX package's or launched no kernel")
+
+    # (c) the CLI's --event-log, against run_simulation on the same input
+    snapshot, _, events = workloads.event_log_workload(2_000, 200)
+    with tempfile.TemporaryDirectory() as tmp:
+        snap_path = os.path.join(tmp, "snapshot.json")
+        log_path = os.path.join(tmp, "events.jsonl")
+        spec_path = os.path.join(tmp, "pods.json")
+        snapshot.save(snap_path)
+        with open(log_path, "w") as f:
+            f.writelines(WatchEvent(t, o).to_frame() + "\n"
+                         for t, o in events)
+        with open(spec_path, "w") as f:
+            json.dump([{"name": "w", "num": 1_200, "pod": make_pod(
+                "w", milli_cpu=1_500, memory=2 * 1024 ** 3).to_obj()}], f)
+        out = io.StringIO()
+        with device_routes_only(), contextlib.redirect_stdout(out):
+            rc = cli.main(["--podspec", spec_path, "--snapshot", snap_path,
+                           "--event-log", log_path, "--quiet"])
+        cli_pods = expand_simulation_pods(load_simulation_pods(spec_path))
+    with device_routes_only():
+        want = run_simulation(cli_pods, snapshot, events=events)
+    got = counts_line(out.getvalue())
+    want = (len(want.successful_pods), len(want.failed_pods))
+    print(f"phase 25c: the CLI's --event-log ({len(events)} events on 200 "
+          f"nodes, 1,200 pods): rc {rc}, scheduled/unschedulable {got}, "
+          f"run_simulation {want}")
+    if rc != 0 or got != want:
+        raise AssertionError("phase 25c: the CLI's --event-log run differs "
+                             "from run_simulation's")
+
+
+def drive_recorder(card):
+    """Phase 26: the recorder's per-layer split of the main path and of a
+    stream cycle, and the registry's families through --metrics-out."""
+    import io
+    import tempfile
+
+    from tpusim_torch import cli, workloads
+    from tpusim_torch.framework.metrics import register
+    from tpusim_torch.simulator import run_simulation, run_stream_simulation
+
+    _, params, golden, want_scheduled = GOLDENS["config3"]
+    snapshot, pods = workloads.build_workload(**params)
+    feed = list(reversed(pods))  # run_simulation feeds LIFO: pods in order
+    with device_routes_only():
+        t0 = time.perf_counter()
+        status, doc = traced(lambda: run_simulation(
+            feed, snapshot, backend="torch", route="kernel"))
+        wall = time.perf_counter() - t0
+    index = {n.name: i for i, n in enumerate(snapshot.nodes)}
+    placed = {p.name: index[p.spec.node_name] for p in status.successful_pods}
+    got = choices_golden([placed.get(p.name, -1) for p in pods])
+    layers = span_totals(doc)
+    sched = layers["backend_schedule"][1]
+    comp, disp, dec = (layers[k] for k in ("compile_cluster",
+                                           "device_dispatch",
+                                           "decode_placements"))
+    rest = sched - comp[1] - disp[1] - dec[1]
+    print(f"phase 26: config 3 traced ({params['num_pods']} pods, "
+          f"{params['num_nodes']} nodes, warm): golden {got} (want "
+          f"{golden}), {len(status.successful_pods)} scheduled; "
+          f"{wall:.3f}s wall traced against phase 4's {WARM_WALL['config3']:.3f}"
+          f"s untraced; backend_schedule {sched:.1f} ms = compile_cluster "
+          f"{comp[1]:.1f} ms ({100 * comp[1] / sched:.1f}%) + "
+          f"device_dispatch {disp[1]:.1f} ms ({100 * disp[1] / sched:.1f}%; "
+          f"{disp[2]:.1f} ms CUDA events) + decode_placements {dec[1]:.1f} "
+          f"ms ({100 * dec[1] / sched:.1f}%) + plan and input finishing "
+          f"{rest:.1f} ms ({100 * rest / sched:.1f}%); "
+          f"{len(doc['traceEvents'])} trace events on {card}")
+    if (got, len(status.successful_pods)) != (golden, want_scheduled):
+        raise AssertionError("phase 26: the traced run placed differently")
+    if not 0 < disp[2] <= disp[1]:
+        raise AssertionError("phase 26: device_dispatch's CUDA-event time "
+                             f"{disp[2]:.3f} ms is not inside its wall")
+
+    out, doc = traced(lambda: run_stream_simulation(
+        device="cuda", num_nodes=TRACED_STREAM_NODES, **STREAM_CONFIG9))
+    t = span_totals(doc)
+    cycles = out["cycles"]
+
+    def per_cycle(name, i=1):
+        return t.get(name, [0, 0.0, 0.0])[i] / cycles
+
+    print(f"phase 26: config 9 stream traced ({TRACED_STREAM_NODES} nodes, "
+          f"{cycles} cycles, paths {out['paths']}): a cycle's mean "
+          f"{1000 * out['elapsed_s'] / cycles:.2f} ms wall = stream_commit "
+          f"{per_cycle('stream_commit'):.3f} ms ("
+          f"{per_cycle('stream_commit', 2):.3f} ms CUDA events) + "
+          f"device_dispatch {per_cycle('device_dispatch'):.3f} ms ("
+          f"{per_cycle('device_dispatch', 2):.3f} ms CUDA events) + decode "
+          f"{per_cycle('decode_placements') + per_cycle('stream_decode'):.3f}"
+          f" ms + compile_cluster {per_cycle('compile_cluster'):.3f} ms "
+          f"(restages) + the rest; chain {out['placement_chain'][:16]} on "
+          f"{card}")
+
+    register().reset()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "metrics.prom")
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(["stream", "--synthetic-nodes", "400", "--cycles",
+                           "6", "--arrivals", "32", "--metrics-out", path])
+        with open(path) as f:
+            text = f.read()
+    counted = {}
+    for line in text.splitlines():
+        if line.startswith("#"):
+            continue
+        name, value = line.rsplit(" ", 1)
+        for family in ("scheduler_", "tpusim_backend_", "tpusim_stream_"):
+            if name.startswith(family) and float(value) > 0:
+                counted.setdefault(family, set()).add(name.split("{")[0])
+    print(f"phase 26: the stream CLI's --metrics-out (rc {rc}): counting "
+          + "; ".join(f"{k}* {len(v)} series" for k, v in
+                      sorted(counted.items())))
+    if rc != 0 or set(counted) != {"scheduler_", "tpusim_backend_",
+                                   "tpusim_stream_"}:
+        raise AssertionError("phase 26: --metrics-out lacks a counting "
+                             "scheduler_*, tpusim_backend_* or "
+                             "tpusim_stream_* family")
+
+
+def drive_live_twin(card):
+    """Phase 27: serve's live twins, a config 16 twin answering a fleet's
+    requests by overlays."""
+    import io
+    import tempfile
+
+    import torch
+
+    from tpusim_torch import cli, workloads
+    from tpusim_torch.api.snapshot import make_pod, synthetic_cluster
+    from tpusim_torch.backends import placement_hash
+    from tpusim_torch.engine.policy import decode_policy
+    from tpusim_torch.framework.metrics import register
+    from tpusim_torch.serve import ScenarioFleet, WhatIfRequest
+    from tpusim_torch.stream import ChurnLoadGen, StreamSession
+    from tpusim_torch.whatif import run_what_if
+
+    p = LIVE_TWIN
+    n = p["nodes"]
+    t0 = time.perf_counter()
+    session = StreamSession(synthetic_cluster(n))
+    gen = ChurnLoadGen(synthetic_cluster(n), seed=16, arrivals=p["arrivals"],
+                       evict_fraction=0.25)
+    for c in range(p["warm_cycles"]):
+        session.apply_events(gen.events(c))
+        gen.note_bound(session.schedule(gen.batch()))
+    warm_s = time.perf_counter() - t0
+    fleet = ScenarioFleet(bucket_size=8, flush_after_s=60.0)
+    fleet.attach_stream(session, ref="live")
+    rng = np.random.RandomState(27)
+    queries = [[make_pod(f"twin-q{r}-{i}",
+                         milli_cpu=int(rng.randint(100, 1500)),
+                         memory=int(rng.randint(2 ** 20, 2 ** 30)))
+                for i in range(p["query_pods"])]
+               for r in range(p["requests"])]
+    register().reset()
+    before = [t.clone() for t in session.device.carry]
+    times, answers = [], []
+    for q in queries:
+        t0 = time.perf_counter()
+        fut = fleet.submit(WhatIfRequest(pods=q, snapshot_ref="live"))
+        fleet.drain()
+        resp = fut.result()
+        times.append(1000 * (time.perf_counter() - t0))
+        if not resp.ok:
+            raise AssertionError(f"phase 27: a request failed: {resp.error}")
+        answers.append(placement_hash(resp.result.placements))
+    stats = dict(fleet.executor.stats)
+    same = all(torch.equal(a, b) for a, b in zip(before,
+                                                 session.device.carry))
+    live = session.inc.to_snapshot()
+    t0 = time.perf_counter()
+    staged = run_what_if([(live, q) for q in queries])
+    staged_s = time.perf_counter() - t0
+    parity = answers == [placement_hash(r.placements) for r in staged]
+    policy = decode_policy(workloads.COMPAT_POLICIES["1.2"])
+    fut = fleet.submit(WhatIfRequest(pods=queries[0], snapshot_ref="live",
+                                     policy=policy))
+    fleet.drain()
+    resp = fut.result()
+    [want] = run_what_if([(live, queries[0])], policy=policy)
+    mismatch = register().overlay_fallback.get("plan_mismatch")
+    policy_ok = (resp.ok and placement_hash(resp.result.placements)
+                 == placement_hash(want.placements))
+    warm_ms = times[1:]
+    print(f"phase 27: config 16 live twin of {n} nodes ({p['warm_cycles']} "
+          f"churn cycles, {warm_s:.1f}s) behind a ScenarioFleet: "
+          f"{stats['overlay_hits']}/{len(queries)} requests of "
+          f"{p['query_pods']} pods answered by overlays, "
+          f"{stats['overlay_fallbacks']} fallbacks; submit to answer "
+          f"{times[0]:.3f} ms the first, then mean "
+          f"{sum(warm_ms) / len(warm_ms):.3f} / p50 "
+          f"{percentile(warm_ms, 0.5):.3f} / max {max(warm_ms):.3f} ms a "
+          f"query; answers equal staged run_what_if on the live snapshot: "
+          f"{parity} ({staged_s:.2f}s for the {len(queries)} staged); carry "
+          f"bit-equal after them: {same}; a request under policy 1.2: "
+          f"staged, equal to run_what_if {policy_ok}, "
+          f"tpusim_overlay_fallback_total{{reason=\"plan_mismatch\"}} "
+          f"{mismatch:g} on {card}")
+    if (stats["overlay_hits"], stats["overlay_fallbacks"]) != \
+            (len(queries), 0) or not (parity and same and policy_ok) \
+            or mismatch != 1:
+        raise AssertionError("phase 27: the live twin's overlays missed, "
+                             "differed from run_what_if, changed the carry "
+                             "or miscounted the plan mismatch")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        spec = os.path.join(tmp, "pods.json")
+        with open(spec, "w") as f:
+            json.dump([{"name": "q", "num": 8, "pod": make_pod(
+                "q", milli_cpu=250, memory=256 * 2 ** 20).to_obj()}], f)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["serve", "--synthetic-nodes", "200", "--podspec",
+                           spec, "--requests", "16", "--attach-stream",
+                           "--stream-cycles", "3", "--quiet"])
+    line = [x for x in out.getvalue().splitlines()
+            if x.startswith("overlay:")]
+    print(f"phase 27: serve --attach-stream on 200 nodes: rc {rc}, "
+          f"{line[0] if line else 'no overlay line'}")
+    if rc != 0 or line != ["overlay: 32 served from the resident twin, 0 "
+                           "staged fallbacks"]:
+        raise AssertionError("phase 27: serve --attach-stream did not "
+                             "answer every request from the twin")
+
+
+def drive_obs_phases(card):
+    """Phases 25-27 inside OBS_BUDGET_S."""
+    t0 = time.perf_counter()
+    drive_event_replay(card)
+    drive_recorder(card)
+    drive_live_twin(card)
+    wall = time.perf_counter() - t0
+    print(f"phases 25-27: {wall:.1f}s wall in all, against their "
+          f"{OBS_BUDGET_S} s budget")
+    if wall > OBS_BUDGET_S:
+        raise AssertionError(f"phases 25-27: {wall:.1f}s is past their "
+                             f"{OBS_BUDGET_S} s budget")
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -2198,6 +2623,10 @@ def main():
 
     # phases 21-24: the gang driver and the streaming twin
     drive_stream_phases(card)
+
+    # phases 25-27: event-log replay, the recorder and registry, serve's
+    # live twins
+    drive_obs_phases(card)
 
     kernels = []
     for name, variant, replaces, n_launch, err in (

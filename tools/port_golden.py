@@ -56,6 +56,16 @@ run_simulation(backend="jax") on phase 23's one-shot gang feed
 GANG_FEED_DIGEST):
 
     JAX_PLATFORMS=cpu python tools/port_golden.py gang_feed
+
+`event_replay N M` prints the split digest of the JAX package's
+run_simulation(backend="jax", events=...) on workloads.event_log_workload(N,
+M) (config 3 with a watch-event log folded on top), and `event_hybrid N M`
+that of its preemption hybrid on config 6's priority-banded feed with the
+same kind of log, and its preempted count (chip_smoke.py EVENT_REPLAY,
+EVENT_HYBRID):
+
+    JAX_PLATFORMS=cpu python tools/port_golden.py event_replay 100000 5000
+    JAX_PLATFORMS=cpu python tools/port_golden.py event_hybrid 20000 1000
 """
 
 import hashlib
@@ -192,7 +202,28 @@ def gang_feed_digest():
     return 0
 
 
+def event_digest(name, num_pods, num_nodes):
+    from chip_smoke import split_digest
+    from tpusim.simulator import run_simulation
+
+    t0 = time.perf_counter()
+    hybrid = name == "event_hybrid"
+    kwargs = dict(affinity=True, priorities=True, seed=777) if hybrid else {}
+    snapshot, pods, events = workloads.event_log_workload(
+        num_pods, num_nodes, api=jax_api, **kwargs)
+    status = run_simulation(pods, snapshot, backend="jax", events=events,
+                            enable_pod_priority=hybrid)
+    print(f"{name}({num_pods}, {num_nodes}, {len(events)} events): digest "
+          f"{split_digest(status)}, {len(status.successful_pods)} scheduled, "
+          f"{len(status.failed_pods)} failed, "
+          f"{len(status.preempted_pods)} preempted, "
+          f"{time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 def main(argv):
+    if argv[0] in ("event_replay", "event_hybrid"):
+        return event_digest(argv[0], int(argv[1]), int(argv[2]))
     if argv[0] == "gang_feed":
         return gang_feed_digest()
     if argv[0] in ("config9", "config10", "config13"):

@@ -22,12 +22,19 @@ default), as the JAX package's JaxBackend does; fallback="error" raises
 NotImplementedError with the reason. That classification is known before any
 device work, and it is the only reroute: a fault of a kernel build, a launch
 or the scan propagates.
+
+With a flight recorder installed (obs.recorder), schedule records the JAX
+package's spans: compile_cluster, device_dispatch (a device span, with its
+CUDA-event time on the card), the route instant and decode_placements; the
+metrics registry gets the compile, dispatch, algorithm and e2e latencies and
+the plan_fast refusals by blocker class.
 """
 
 from __future__ import annotations
 
 import logging
 from dataclasses import replace
+from time import perf_counter
 from typing import List, Optional
 
 import numpy as np
@@ -45,6 +52,8 @@ from tpusim_torch.config import config_for
 from tpusim_torch.device import resolve_device
 from tpusim_torch.fastplan import plan_fast
 from tpusim_torch.fastscan import fast_scan
+from tpusim_torch.framework.metrics import register, since_in_microseconds
+from tpusim_torch.obs import recorder as flight
 from tpusim_torch.scan import (
     GRAPH_STEPS,
     scan_inputs,
@@ -65,6 +74,54 @@ UNSUPPORTED_MSG = "torch backend does not yet carry state for: "
 FALLBACKS = ("reference", "error")
 
 log = logging.getLogger(__name__)
+
+# plan_fast's refusal reasons, classified into low-cardinality counter keys
+# (the raw strings embed counts and budgets); the first substring match wins
+_FALLBACK_KEYS = (
+    ("policy static tables unavailable", "policy_tables_missing"),
+    ("not compiled", "tables_not_compiled"),
+    ("ServiceAffinity lock segments", "sa_segs_budget"),
+    ("ServiceAffinity entry labels", "sa_segs_budget"),
+    ("ServiceAntiAffinity label domains", "saa_doms_budget"),
+    ("ServiceAntiAffinity spread counts", "saa_int32"),
+    ("negative", "negative_scores"),
+    ("pod groups exceed", "groups_budget"),
+    ("zone domains exceed", "zones_budget"),
+    ("topology keys exceed", "interpod_budget"),
+    ("topology domains exceed", "interpod_budget"),
+    ("inter-pod terms exceed", "interpod_budget"),
+    ("inter-pod priority counts", "interpod_int32"),
+    ("non-integral preferred inter-pod", "interpod_weights"),
+    ("MaxPD volume ids", "maxpd_budget"),
+    ("scalar resource kinds", "reason_bits_budget"),
+    ("priority weights exceed", "score_int32"),
+    ("int32", "int32_overflow"),
+    ("explain lanes", "explain"),
+)
+
+
+def fast_fallback_key(why: str) -> str:
+    for marker, key in _FALLBACK_KEYS:
+        if marker in why:
+            return key
+    return "other"
+
+
+def note_fast_fallback(why: str) -> None:
+    """A plan_fast refusal the scan route absorbs: counted by blocker class
+    in tpusim_fast_fallback_total, with the full reason on the trace."""
+    key = fast_fallback_key(why)
+    register().fast_fallback.inc(key)
+    flight.note_fast_fallback(key, why)
+
+
+def plan_signature(plan) -> tuple:
+    """The kernel-variant key of a plan: node width, the feature flags and
+    the scalar and group widths."""
+    return (plan.alloc_cpu.shape[1], plan.most_requested, plan.num_scalars,
+            plan.num_groups, plan.n_zone_doms, plan.has_ports, plan.has_disk,
+            plan.has_spread, plan.has_vol_zone, plan.has_interpod,
+            plan.has_maxpd, plan.policy is not None)
 
 
 def format_fit_error(num_nodes: int, counts: np.ndarray, strings: List[str]) -> str:
@@ -256,6 +313,7 @@ class TorchBackend:
             return [Placement(pod=mark_unschedulable(p, msg),
                               reason="Unschedulable", message=msg)
                     for p in pods]
+        metrics = register()
         cp = self._compiled_policy
         ps = cp.spec if cp is not None else None
         if precompiled is not None and ps is not None and (
@@ -263,7 +321,14 @@ class TorchBackend:
                 or (ps.has_services and not precompiled[0].has_saa_table)):
             precompiled = None
         if precompiled is None:
-            compiled, cols, detail = compile_host(snapshot, pods, cp)
+            compile_start = perf_counter()
+            with flight.span("compile_cluster") as csp:
+                compiled, cols, detail = compile_host(snapshot, pods, cp)
+                if csp:
+                    csp.set("pods", len(pods))
+                    csp.set("nodes", len(snapshot.nodes))
+            metrics.backend_compile_latency.observe(
+                since_in_microseconds(compile_start))
         else:
             compiled, cols = precompiled
             detail = unsupported_detail(compiled, cp)
@@ -272,6 +337,7 @@ class TorchBackend:
                 raise NotImplementedError(UNSUPPORTED_MSG + detail)
             log.warning("torch backend falling back to reference for: %s",
                         detail)
+            flight.note_route("reference", len(pods))
             self.last_route, self.last_route_reason = "reference", detail
             return self._reference(pods, snapshot)
         config, compiled, cols, ptabs = finish_inputs(
@@ -282,12 +348,11 @@ class TorchBackend:
         plan, why = None, "route='scan' asked for"
         if self.route != "scan":
             plan, why = plan_fast(config, compiled, cols, ptabs)
-            if plan is None and self.route == "kernel":
-                raise NotImplementedError(f"torch backend: {why}")
-        if plan is not None:
-            choices, counts, _adv = fast_scan(plan, device=self.device)
-            self.last_route = "kernel"
-        else:
+            if plan is None:
+                if self.route == "kernel":
+                    raise NotImplementedError(f"torch backend: {why}")
+                note_fast_fallback(why)
+        if plan is None:
             # a batch past TPUSIM_SCAN_CHUNK pods streams its pod columns
             # to the device chunk by chunk (the JAX package's setting and
             # default)
@@ -295,15 +360,43 @@ class TorchBackend:
             chunked = 0 < scan_chunk < len(pods)
             carry, statics, xs = scan_inputs(config, compiled, cols, ptabs,
                                              self.device, host_pods=chunked)
-            if chunked:
-                _, choices, counts, _adv = schedule_scan_chunked(
-                    config, carry, statics, xs, scan_chunk,
-                    graph_steps=GRAPH_STEPS)
-            else:
-                _, choices, counts, _adv = schedule_scan(
-                    config, carry, statics, xs, graph_steps=GRAPH_STEPS)
-                choices, counts = choices.cpu().numpy(), counts.cpu().numpy()
+        # the dispatch span runs from the plan (or the staged scan inputs)
+        # to the choices on the host; its CUDA-event time is read at export
+        dispatch_start = perf_counter()
+        dsp = flight.span("device_dispatch", "device", self.device)
+        if plan is not None:
+            with flight.profiled("tpusim:fast_scan"):
+                choices, counts, _adv = fast_scan(plan, device=self.device)
+            self.last_route = "kernel"
+        else:
+            with flight.profiled("tpusim:schedule_scan"):
+                if chunked:
+                    _, choices, counts, _adv = schedule_scan_chunked(
+                        config, carry, statics, xs, scan_chunk,
+                        graph_steps=GRAPH_STEPS)
+                else:
+                    _, choices, counts, _adv = schedule_scan(
+                        config, carry, statics, xs, graph_steps=GRAPH_STEPS)
+                    choices = choices.cpu().numpy()
+                    counts = counts.cpu().numpy()
             self.last_route, self.last_route_reason = "scan", why
+        flight.note_route(self.last_route, len(pods))
+        if dsp:
+            dsp.set("route", self.last_route)
+            dsp.set("pods", len(pods))
+            if plan is not None:
+                dsp.set("sig", str(plan_signature(plan)))
+            dsp.end()
+        metrics.backend_dispatch_latency.observe(
+            since_in_microseconds(dispatch_start))
+        metrics.scheduling_algorithm_latency.observe(
+            since_in_microseconds(dispatch_start))
         self.last_choices = choices
-        return decode_placements(pods, choices, counts, compiled.statics.names,
-                                 reason_strings(compiled.scalar_names))
+        with flight.span("decode_placements"):
+            placements = decode_placements(
+                pods, choices, counts, compiled.statics.names,
+                reason_strings(compiled.scalar_names))
+        # e2e also covers the host's decode of the results
+        metrics.e2e_scheduling_latency.observe(
+            since_in_microseconds(dispatch_start))
+        return placements

@@ -2,10 +2,13 @@
 
     python -m tpusim_torch.cli --podspec pods.yaml --synthetic-nodes 4 \
         [--scheduler-policy-file policy.json] [--device cpu] \
-        [--backend torch|reference|auto] [--enable-pod-priority]
+        [--backend torch|reference|auto] [--enable-pod-priority] \
+        [--event-log events.jsonl] [--v 5] \
+        [--trace-out trace.json] [--metrics-out metrics.prom]
     python -m tpusim_torch.cli --what-if manifest.json [--device cpu]
     python -m tpusim_torch.cli serve --synthetic-nodes 16 \
-        --podspec pods.yaml [--requests 32] [--device cpu]
+        --podspec pods.yaml [--requests 32] [--device cpu] \
+        [--attach-stream [--stream-cycles 4 --stream-arrivals 16]]
     python -m tpusim_torch.cli stream --synthetic-nodes 64 --cycles 50 \
         [--pipeline] [--verify] [--gang-size 3 --gang-count 1] [--device cpu]
 
@@ -21,13 +24,19 @@ cluster comes from a saved ClusterSnapshot (--snapshot), from nodes.json and
 pods.json checkpoints (--nodes, --pods) or from synthetic nodes. A scheduler
 Policy from a file (--scheduler-policy-file) or from a ConfigMap object
 saved to a file (--scheduler-policy-configmap-file) replaces the algorithm
-provider.
+provider. --event-log replays a watch-event log (JSON lines of wire
+frames) on top of the snapshot before scheduling. --v sets the log
+verbosity (2: INFO, 5: DEBUG with the host engine's per-node score dump).
+--trace-out writes the flight recorder's timeline (Chrome trace JSON, or
+JSON lines with a .jsonl name) and --metrics-out the metrics registry in
+Prometheus text format after the run; serve and stream take both.
 
 --what-if runs a manifest of scenarios (a JSON list of {snapshot, podspec}
 file pairs) through whatif.run_what_if and prints a line a scenario. The
 serve subcommand stands up a serve.ScenarioFleet over one snapshot and
 drives it with a synthetic load drawn from the podspec's pods (in process,
-no network listener), printing a line a pass. The stream subcommand drives
+no network listener), printing a line a pass; --attach-stream answers the
+load from a live streaming twin warmed by a few churn cycles. The stream subcommand drives
 the streaming twin (stream.StreamSession) with seeded churn through
 simulator.run_stream_simulation and prints its summary.
 """
@@ -116,11 +125,84 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Batched multi-snapshot mode: a JSON manifest "
                              "[{snapshot, podspec}, ...], one scenario an "
                              "entry (whatif.run_what_if)")
+    parser.add_argument("--event-log", default="",
+                        help="Watch-event log (JSON lines, the watch wire "
+                             "frames: {type: Added|Modified|Deleted, "
+                             "object: {kind: Pod|Node|Service|"
+                             "PersistentVolume|PersistentVolumeClaim, ...}}) "
+                             "replayed on top of the snapshot before "
+                             "scheduling; on torch the replay drives the "
+                             "incremental compile")
     parser.add_argument("--print-requirements", action="store_true",
                         help="Also print per-pod requirement spec")
     parser.add_argument("--quiet", action="store_true",
                         help="Only print the summary counts and timing")
+    parser.add_argument("--v", type=int, default=0, dest="verbosity",
+                        help="Log verbosity (glog analog): >=2 surfaces the "
+                             "tpusim_torch loggers on stderr (slow-schedule "
+                             "traces, backend routing); >=5 enables DEBUG "
+                             "and the host engine's per-node score dump "
+                             "(generic_scheduler.go:618-622,670-674)")
+    add_obs_flags(parser, "the flight-recorder timeline")
     return parser
+
+
+def add_obs_flags(parser, timeline: str) -> None:
+    parser.add_argument("--trace-out", default="",
+                        help=f"Write {timeline} after the run: Chrome "
+                             "trace_event JSON (Perfetto-loadable), or a "
+                             "raw span stream with a .jsonl extension")
+    parser.add_argument("--metrics-out", default="",
+                        help="Write the metrics registry in Prometheus text "
+                             "exposition format after the run")
+
+
+def _write_metrics(path: str) -> None:
+    from tpusim_torch.framework.metrics import register
+
+    with open(path, "w") as f:
+        f.write(register().expose())
+
+
+def _start_trace(args, process_name: str = "tpusim"):
+    """Install a flight recorder when --trace-out asks for one."""
+    if not args.trace_out:
+        return None
+    from tpusim_torch.obs import recorder as flight
+
+    return flight.install(flight.FlightRecorder(process_name=process_name))
+
+
+def _drop_trace(recorder) -> None:
+    """Uninstall the recorder of a run that failed, writing nothing."""
+    if recorder is not None:
+        from tpusim_torch.obs import recorder as flight
+
+        flight.uninstall()
+
+
+def _finish_obs(args, recorder) -> int:
+    """Uninstall and write the recorder, then the metrics: 0, or 2 when a
+    file cannot be written."""
+    if recorder is not None:
+        from tpusim_torch.obs import recorder as flight
+
+        flight.uninstall()
+        try:
+            recorder.write(args.trace_out)
+        except OSError as exc:
+            print(f"error: failed to write trace: {exc}", file=sys.stderr)
+            return 2
+        if not getattr(args, "quiet", False):
+            print(f"trace: {args.trace_out} "
+                  f"({len(recorder.events)} events)", file=sys.stderr)
+    if args.metrics_out:
+        try:
+            _write_metrics(args.metrics_out)
+        except OSError as exc:
+            print(f"error: failed to write metrics: {exc}", file=sys.stderr)
+            return 2
+    return 0
 
 
 def load_snapshot(args) -> ClusterSnapshot:
@@ -234,10 +316,22 @@ def build_serve_parser() -> argparse.ArgumentParser:
                         help="Extra passes over the same request set: repeat "
                              "traffic must ride the built programs and the "
                              "device-batch cache")
+    parser.add_argument("--attach-stream", action="store_true",
+                        help="Live-twin serving: hold the cluster resident "
+                             "in a StreamSession, warm it with a few churn "
+                             "cycles, and answer requests by overlay "
+                             "queries on the resident carry (no per-request "
+                             "staging; the staged path stays armed as the "
+                             "fallback)")
+    parser.add_argument("--stream-cycles", type=int, default=4,
+                        help="Churn warm-up cycles for --attach-stream")
+    parser.add_argument("--stream-arrivals", type=int, default=16,
+                        help="Arrivals per --attach-stream warm-up cycle")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu (the plain versions)")
     parser.add_argument("--quiet", action="store_true",
                         help="Only print the summary lines")
+    add_obs_flags(parser, "the serve: span timeline")
     return parser
 
 
@@ -285,6 +379,7 @@ def serve_cli(argv) -> int:
 
     from tpusim_torch.serve import ScenarioFleet, WhatIfRequest
 
+    recorder = _start_trace(args, "tpusim-serve")
     try:
         fleet = ScenarioFleet(provider=args.algorithmprovider,
                               bucket_size=args.bucket_size,
@@ -296,14 +391,42 @@ def serve_cli(argv) -> int:
     except (KeyError, ValueError, RuntimeError) as exc:
         print(f"error: {exc}", file=sys.stderr)
         return 2
-    fleet.register_snapshot("base", snapshot)
+    ref = "base"
+    if args.attach_stream:
+        # live-twin serving: the fleet answers by overlay queries on a
+        # resident StreamSession's carry. The twin and the churn generator
+        # get object graphs of their own, shared with nothing else
+        from tpusim_torch.stream import ChurnLoadGen, StreamSession
+
+        twin_snap = ClusterSnapshot.from_obj(snapshot.to_obj())
+        try:
+            session = StreamSession(twin_snap,
+                                    provider=args.algorithmprovider,
+                                    policy=policy, device=args.device)
+        except (KeyError, ValueError, RuntimeError) as exc:
+            print(f"error: {exc}", file=sys.stderr)
+            return 2
+        sgen = ChurnLoadGen(ClusterSnapshot.from_obj(snapshot.to_obj()),
+                            seed=args.seed, arrivals=args.stream_arrivals,
+                            evict_fraction=0.25)
+        for c in range(max(1, args.stream_cycles)):
+            session.apply_events(sgen.events(c))
+            sgen.note_bound(session.schedule(sgen.batch()))
+        fleet.attach_stream(session, ref="live")
+        ref = "live"
+        if not args.quiet:
+            print(f"live twin: {max(1, args.stream_cycles)} warm-up churn "
+                  f"cycles over {len(twin_snap.nodes)} nodes; overlay path "
+                  "armed (staged fallback behind it)", file=sys.stderr)
+    else:
+        fleet.register_snapshot("base", snapshot)
 
     # the load: random-size queries drawn from the pod pool, each
     # cache-keyed, so that the warm repeats ride the caches
     rng = random.Random(args.seed)
     sizes = [rng.randint(1, len(pool)) for _ in range(args.requests)]
     make_load = lambda: [  # noqa: E731
-        WhatIfRequest(pods=pool[:n], snapshot_ref="base", policy=policy,
+        WhatIfRequest(pods=pool[:n], snapshot_ref=ref, policy=policy,
                       cache_key=f"load-{i}-{n}")
         for i, n in enumerate(sizes)]
 
@@ -347,7 +470,10 @@ def serve_cli(argv) -> int:
           f"({stats['warm_hits']} warm, {stats['device_batch_hits']} "
           f"device-resident), {stats['traces']} program builds, "
           f"{stats['staged_hits']} staged-cache hits")
-    return exit_code
+    if args.attach_stream:
+        print(f"overlay: {stats['overlay_hits']} served from the resident "
+              f"twin, {stats['overlay_fallbacks']} staged fallbacks")
+    return _finish_obs(args, recorder) or exit_code
 
 
 def build_stream_parser() -> argparse.ArgumentParser:
@@ -421,6 +547,7 @@ def build_stream_parser() -> argparse.ArgumentParser:
                         help="Print the whole summary as JSON")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
+    add_obs_flags(parser, "the stream span timeline")
     return parser
 
 
@@ -445,6 +572,7 @@ def stream_cli(argv) -> int:
 
     from tpusim_torch.simulator import run_stream_simulation
 
+    recorder = _start_trace(args, "tpusim-stream")
     try:
         out = run_stream_simulation(
             snapshot, num_nodes=args.synthetic_nodes, cycles=args.cycles,
@@ -457,8 +585,12 @@ def stream_cli(argv) -> int:
             verify=args.verify, whatif_every=args.whatif_every,
             whatif_pods=args.whatif_pods, device=args.device)
     except (KeyError, ValueError, RuntimeError) as exc:
+        _drop_trace(recorder)
         print(f"error: {exc}", file=sys.stderr)
         return 2
+    rc = _finish_obs(args, recorder)
+    if rc:
+        return rc
 
     if args.json:
         import json
@@ -495,6 +627,23 @@ def stream_cli(argv) -> int:
     return 0
 
 
+def _device_bound(args, pods, snapshot, events) -> bool:
+    """Whether this invocation runs on the device routes: backend torch, or
+    auto routing away from the host, sized after the event-log fold (node
+    adds and deletes count)."""
+    from tpusim_torch.api.types import Node
+    from tpusim_torch.framework.store import ADDED, DELETED
+    from tpusim_torch.simulator import auto_routes_to_host
+
+    n_nodes = len(snapshot.nodes)
+    for etype, obj in events or []:
+        if isinstance(obj, Node):
+            n_nodes += 1 if etype == ADDED else -1 if etype == DELETED else 0
+    return (args.backend == "torch"
+            or (args.backend == "auto" and not auto_routes_to_host(
+                len(pods), n_nodes, args.enable_volume_scheduling)))
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv and argv[0] == "serve":
@@ -502,8 +651,30 @@ def main(argv=None) -> int:
     if argv and argv[0] == "stream":
         return stream_cli(argv[1:])
     args = build_parser().parse_args(argv)
+    if args.verbosity >= 2:
+        # glog -v analog: the tpusim_torch loggers (slow-schedule traces,
+        # backend routing) print on stderr from V(2); V(5) turns on DEBUG,
+        # which includes the host engine's per-node score dump
+        import logging
+
+        logging.basicConfig(stream=sys.stderr, format="%(message)s")
+        logging.getLogger("tpusim_torch").setLevel(
+            logging.DEBUG if args.verbosity >= 5 else logging.INFO)
     if args.what_if:
-        return run_what_if_cli(args)
+        if args.event_log:
+            print("error: --event-log cannot be combined with --what-if "
+                  "(what-if scenarios carry their own snapshots)",
+                  file=sys.stderr)
+            return 2
+        if args.trace_out:
+            print("error: --trace-out cannot be combined with --what-if "
+                  "(scenario runs share one process; their spans would "
+                  "interleave on a single timeline)", file=sys.stderr)
+            return 2
+        rc = run_what_if_cli(args)
+        if rc == 0 and args.metrics_out:
+            rc = _finish_obs(args, None)
+        return rc
     feature_gates = None
     if args.feature_gates:
         try:
@@ -542,6 +713,24 @@ def main(argv=None) -> int:
         print(f"error: {policy_err}", file=sys.stderr)
         return 2
 
+    events = None
+    if args.event_log:
+        from tpusim_torch.framework.events import load_event_log
+
+        try:
+            events = load_event_log(args.event_log)
+        except (OSError, ValueError) as exc:
+            print(f"error: invalid event log: {exc}", file=sys.stderr)
+            return 2
+
+    if args.verbosity >= 5 and _device_bound(args, pods, snapshot, events):
+        # the per-node score dump is a host-engine trace; the device routes
+        # have no per-node observation point
+        print("note: the per-node score dump (--v 5) is produced by "
+              "the host engine; this run uses the device routes. Use "
+              "--backend reference to see the dump.", file=sys.stderr)
+
+    recorder = _start_trace(args)
     start = time.perf_counter()
     try:
         status = run_simulation(
@@ -549,11 +738,16 @@ def main(argv=None) -> int:
             backend=args.backend,
             enable_pod_priority=args.enable_pod_priority,
             enable_volume_scheduling=args.enable_volume_scheduling,
-            policy=policy, feature_gates=feature_gates, device=args.device)
+            policy=policy, events=events, feature_gates=feature_gates,
+            device=args.device)
     except (ValueError, KeyError, RuntimeError, NotImplementedError) as exc:
+        _drop_trace(recorder)
         print(f"error: {exc}", file=sys.stderr)
         return 2
     elapsed = time.perf_counter() - start
+    rc = _finish_obs(args, recorder)
+    if rc:
+        return rc
 
     report = get_report(status)
     if args.print_requirements and not args.quiet:

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import logging
 from dataclasses import dataclass
+from time import perf_counter as _now
 from typing import Callable, Dict, List, Optional
 
 from tpusim_torch.api.types import Node, Pod
@@ -44,6 +45,11 @@ from tpusim_torch.engine.predicates import (
 from tpusim_torch.engine.priorities import HostPriority, PriorityConfig
 from tpusim_torch.engine.resources import NodeInfo, get_resource_request
 from tpusim_torch.engine.trace import Trace
+from tpusim_torch.framework.metrics import (
+    register as register_metrics,
+    since_in_microseconds,
+)
+from tpusim_torch.obs import recorder as flight
 from tpusim_torch.engine.util import (
     MAX_INT32,
     get_pod_priority as util_get_pod_priority,
@@ -145,6 +151,7 @@ class GenericScheduler:
         # keys; reproducing it would make PredicateArgument configs dead weight.
         self._predicate_key_order = list(PREDICATES_ORDERING) + sorted(
             k for k in self.predicates if k not in PREDICATES_ORDERING)
+        self._metrics = register_metrics()
 
     # --- filter phase ---
 
@@ -345,21 +352,42 @@ class GenericScheduler:
     def schedule(self, pod: Pod, nodes: List[Node],
                  node_info_map: Dict[str, NodeInfo]) -> str:
         """Reference: generic_scheduler.go:112-180 — incl. the per-pod
-        utiltrace ("Scheduling ns/name", logged >100ms, :113-114)."""
+        utiltrace ("Scheduling ns/name", logged >100ms, :113-114) and the
+        predicate/priority evaluation histograms (:148,154,163)."""
         trace = Trace(f"Scheduling {pod.namespace}/{pod.name}")
+        metrics = self._metrics
         try:
             if not nodes:
                 raise ERR_NO_NODES_AVAILABLE
-            filtered, failed_predicate_map = self.find_nodes_that_fit(
-                pod, nodes, node_info_map)
+            start = _now()
+            with flight.span("predicates") as fsp:
+                filtered, failed_predicate_map = self.find_nodes_that_fit(
+                    pod, nodes, node_info_map)
+                if fsp:
+                    fsp.set("nodes", len(nodes))
+                    fsp.set("feasible", len(filtered))
+            metrics.predicate_evaluation.observe(since_in_microseconds(start))
             trace.step("Computing predicates")
             if not filtered:
-                raise FitError(pod, len(nodes), failed_predicate_map)
+                fit_err = FitError(pod, len(nodes), failed_predicate_map)
+                if flight.get_recorder() is not None:
+                    flight.instant("fit_error", "host", {
+                        "pod": f"{pod.namespace}/{pod.name}",
+                        "nodes": len(nodes),
+                        "reasons": fit_err.reason_histogram(),
+                    })
+                raise fit_err
+            start = _now()
             if len(filtered) == 1:
+                metrics.priority_evaluation.observe(since_in_microseconds(start))
                 return filtered[0].name
-            priority_list = self.prioritize_nodes(pod, node_info_map, filtered)
+            with flight.span("priorities"):
+                priority_list = self.prioritize_nodes(pod, node_info_map,
+                                                      filtered)
+            metrics.priority_evaluation.observe(since_in_microseconds(start))
             trace.step("Prioritizing")
-            host = self.select_host(priority_list)
+            with flight.span("select_host"):
+                host = self.select_host(priority_list)
             trace.step("Selecting host")
             return host
         finally:
@@ -457,12 +485,16 @@ class GenericScheduler:
         pick-one tie-breaking (Go iterates a map in random order)."""
         meta = self.predicate_meta_producer(pod, node_info_map)
         result: Dict[str, tuple] = {}
-        for node in potential:
-            meta_copy = meta.shallow_copy() if meta is not None else None
-            victims, violations, fits = self._select_victims_on_node(
-                pod, meta_copy, node_info_map[node.name], pdbs)
-            if fits:
-                result[node.name] = (victims, violations)
+        with flight.span("preempt_candidates") as csp:
+            for node in potential:
+                meta_copy = meta.shallow_copy() if meta is not None else None
+                victims, violations, fits = self._select_victims_on_node(
+                    pod, meta_copy, node_info_map[node.name], pdbs)
+                if fits:
+                    result[node.name] = (victims, violations)
+            if csp:
+                csp.set("candidates", len(potential))
+                csp.set("fitting", len(result))
         return result
 
     def _select_victims_on_node(self, pod: Pod, meta, node_info: NodeInfo,

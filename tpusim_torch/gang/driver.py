@@ -29,17 +29,22 @@ from typing import Dict, List, Tuple
 
 from tpusim_torch.api.types import Pod
 from tpusim_torch.backends import Placement, bind_pod, mark_unschedulable
+from tpusim_torch.framework import metrics as _metrics
 from tpusim_torch.framework.store import MODIFIED
 from tpusim_torch.gang.group import PodGroup, gang_fit_message, split_feed
 from tpusim_torch.gang.kernel import gang_choices
 from tpusim_torch.gang.oracle import packing_domains
+from tpusim_torch.obs import recorder as flight
 
 log = logging.getLogger(__name__)
 
 
-def _reject(group: PodGroup, num_nodes: int,
-            placed: int) -> List[Placement]:
+def _reject(group: PodGroup, num_nodes: int, placed: int,
+            reason: str) -> List[Placement]:
     msg = gang_fit_message(group, num_nodes, placed)
+    _metrics.register().gang_rejected.inc(reason)
+    flight.note_gang("reject", {"group": group.name, "reason": reason,
+                                "placed": placed})
     return [Placement(pod=mark_unschedulable(p, msg),
                       reason="Unschedulable", message=msg)
             for p in group.pods]
@@ -49,20 +54,26 @@ def admit_gang(backend, inc, group: PodGroup) -> List[Placement]:
     """All-or-nothing admission of one gang against the live incremental
     cluster. On admission the binds are applied to `inc` inside a journal
     mark; on rejection nothing is applied."""
+    m = _metrics.register()
+    m.gang_size.observe(len(group.pods))
     members = group.pods
     num_nodes = len(inc.nodes)
     if num_nodes == 0:
-        return _reject(group, 0, 0)
-    compiled, cols = inc.compile(members)
-    if compiled.unsupported:
-        choices, node_names = _sequential_trial(backend, inc, members,
-                                                compiled, cols)
-    else:
-        choices, node_names = _joint_solve(backend, inc, compiled, cols)
+        return _reject(group, 0, 0, "no_nodes")
+    with flight.span("gang:admit") as sp:
+        if sp:
+            sp.set("group", group.name)
+            sp.set("members", len(members))
+        compiled, cols = inc.compile(members)
+        if compiled.unsupported:
+            choices, node_names = _sequential_trial(backend, inc, members,
+                                                    compiled, cols)
+        else:
+            choices, node_names = _joint_solve(backend, inc, compiled, cols)
 
     placed = sum(1 for c in choices if c >= 0)
     if placed < group.min_available:
-        return _reject(group, num_nodes, placed)
+        return _reject(group, num_nodes, placed, "min_available")
 
     # every placed member binds; a failure mid-loop rolls the journal back,
     # so no partial gang survives in the delta stream
@@ -85,8 +96,13 @@ def admit_gang(backend, inc, group: PodGroup) -> List[Placement]:
                     reason="Unschedulable", message=msg))
     except Exception:
         inc.journal_rollback(mark)
+        m.gang_partial_rollback.inc()
+        flight.note_gang("rollback", {"group": group.name})
         raise
     inc.journal_release()
+    m.gang_admitted.inc()
+    flight.note_gang("admit", {"group": group.name, "placed": placed,
+                               "members": len(members)})
     return placements
 
 

@@ -44,7 +44,8 @@ from __future__ import annotations
 import logging
 import os
 from collections import Counter
-from typing import List
+from time import perf_counter
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -70,8 +71,10 @@ from tpusim_torch.engine.resources import get_resource_request, request_memo
 from tpusim_torch.engine.util import get_pod_priority
 from tpusim_torch.fastplan import init_carry, plan_fast, rearm_carry
 from tpusim_torch.fastscan import DevicePlan, fast_scan
+from tpusim_torch.framework.metrics import since_in_microseconds
 from tpusim_torch.framework.report import Status
 from tpusim_torch.framework.store import ADDED, DELETED
+from tpusim_torch.obs import recorder as flight
 from tpusim_torch.policyc import classify_preemption_class
 from tpusim_torch.simulator import ClusterCapacity, SchedulerServerConfig
 from tpusim_torch.state import reason_strings, victim_order_columns
@@ -100,7 +103,10 @@ def reset_preempt_stats() -> None:
 
 
 def _note_victim_path(path: str) -> None:
+    """One preemption's victim-selection path: the in-module Counter and
+    the tpusim_backend_victim_path_total family with its recorder instant."""
     PREEMPT_CLASS_STATS[path] += 1
+    flight.note_victim_path(path)
 
 
 class _VictimTable:
@@ -330,6 +336,7 @@ def _victim_class(cc, config):
 def run_with_preemption(pods: List[Pod], snapshot: ClusterSnapshot,
                         provider: str = DEFAULT_PROVIDER,
                         hard_pod_affinity_symmetric_weight: int = 10,
+                        incremental: Optional[IncrementalCluster] = None,
                         device="cuda", route: str = "auto",
                         victims: str = "auto") -> Status:
     """Run `pods` (podspec order; the LIFO feed reversal happens here, as
@@ -337,6 +344,8 @@ def run_with_preemption(pods: List[Pod], snapshot: ClusterSnapshot,
     return the final Status: the successful, failed and preempted pods and
     the stop reason of the host orchestrator's run, byte for byte.
 
+    incremental: an IncrementalCluster already equivalent to `snapshot`
+    (an event-log replay's fold), used in place of a fresh one.
     device: where the scan and the victim selection run ("cuda" launches
     the CUDA kernel, "cpu" runs the plain versions). route: "auto" (the
     kernel where plan_fast accepts a compile's plan, the exact scan
@@ -384,7 +393,8 @@ def run_with_preemption(pods: List[Pod], snapshot: ClusterSnapshot,
         cc.close()
         return cc.status
 
-    inc = IncrementalCluster(snapshot)
+    inc = incremental if incremental is not None else IncrementalCluster(snapshot)
+    metrics = cc.metrics
     by_name = {n.name: n for n in cc.nodes}
     most_requested = provider in _MOST_REQUESTED_PROVIDERS
     # priority histogram of placed pods: the preemption-possible gate
@@ -443,7 +453,13 @@ def run_with_preemption(pods: List[Pod], snapshot: ClusterSnapshot,
         while pos < len(feed):
             # (re)compile feed[pos:] against the current picture: once up
             # front, again only after structural churn
-            compiled, cols = inc.compile(feed[pos:])
+            compile_start = perf_counter()
+            with flight.span("compile_cluster") as csp:
+                compiled, cols = inc.compile(feed[pos:])
+                if csp:
+                    csp.set("pods", len(feed) - pos)
+            metrics.backend_compile_latency.observe(
+                since_in_microseconds(compile_start))
             HYBRID_STATS["compiles"] += 1
             HYBRID_STATS["recompiles"] += int(not first_compile)
             if compiled.unsupported:
@@ -493,26 +509,42 @@ def run_with_preemption(pods: List[Pod], snapshot: ClusterSnapshot,
                 xs_all = scan.pod_columns_to(cols, device)
                 carry = scan.carry_init(compiled, device)
                 carry.rr.fill_(rr_start)
+            engine = "kernel" if fplan is not None else "scan"
+            flight.note_route(engine, len(feed) - pos)
             chunk = chunk0
 
             while pos < len(feed):
                 take = min(chunk, len(feed) - pos)
                 off = pos - base
                 HYBRID_STATS["pods_scanned"] += take
+                dispatch_start = perf_counter()
+                dsp = flight.span("device_dispatch", "device", device)
                 if fplan is not None:
                     HYBRID_STATS["fast_scan_calls"] += 1
-                    choices, counts, advanced, carry_out = fast_scan(
-                        fplan, start=off, stop=off + take, carry_in=fcarry,
-                        return_carry=True, staged=staged)
+                    with flight.profiled("tpusim:fast_scan"):
+                        choices, counts, advanced, carry_out = fast_scan(
+                            fplan, start=off, stop=off + take,
+                            carry_in=fcarry, return_carry=True,
+                            staged=staged)
                 else:
                     HYBRID_STATS["scan_calls"] += 1
                     xs = scan.PodX(*(a[off:off + take] for a in xs_all))
-                    carry_out, choices, counts, advanced = scan.schedule_scan(
-                        config, carry, statics, xs,
-                        graph_steps=scan.GRAPH_STEPS)
-                    choices = choices.cpu().numpy()
-                    counts = counts.cpu().numpy()
-                    advanced = advanced.cpu().numpy()
+                    with flight.profiled("tpusim:schedule_scan"):
+                        carry_out, choices, counts, advanced = \
+                            scan.schedule_scan(config, carry, statics, xs,
+                                               graph_steps=scan.GRAPH_STEPS)
+                        choices = choices.cpu().numpy()
+                        counts = counts.cpu().numpy()
+                        advanced = advanced.cpu().numpy()
+                if dsp:
+                    dsp.set("engine", engine)
+                    dsp.set("chunk", chunk)
+                    dsp.set("take", take)
+                    dsp.end()
+                metrics.backend_dispatch_latency.observe(
+                    since_in_microseconds(dispatch_start))
+                metrics.scheduling_algorithm_latency.observe(
+                    since_in_microseconds(dispatch_start))
 
                 mutated = False
                 for j in range(take):
@@ -540,6 +572,7 @@ def run_with_preemption(pods: List[Pod], snapshot: ClusterSnapshot,
                     preq = get_resource_request(pod)
                     if (device_victims and not preq.scalar
                             and not pod.spec.volumes):
+                        select_start = perf_counter()
                         picked = _device_select_victims(
                             vtable, compiled, cols, off + j, pod, device)
                         HYBRID_STATS["no_candidates"] += int(picked is None)
@@ -548,8 +581,11 @@ def run_with_preemption(pods: List[Pod], snapshot: ClusterSnapshot,
                         # and event sequence the host pipeline uses
                         win, chosen = picked
                         name = names[win]
+                        metrics.preemption_attempts.inc()
                         to_clear = cc.scheduler._get_lower_priority_nominated_pods(
                             pod, name)
+                        metrics.preemption_evaluation.observe(
+                            since_in_microseconds(select_start))
                         _note_victim_path("device")
                         _node, chosen = cc.commit_preemption(
                             pod, by_name[name], chosen, to_clear)

@@ -18,17 +18,28 @@ One bucket runs as one batched program. Ghost scenarios (replicas of the
 bucket's first entry) fill a partial bucket; decode walks only the real
 entries. A device error propagates to the fleet, which resolves the
 bucket's futures with it: there is no host answer.
+
+Live twins: a StreamSession attached under a snapshot ref (attach_twin)
+answers the requests naming that ref by an overlay query on its resident
+carry (try_overlay), O(query) a request with no staging. Where the overlay
+refuses (the request names another plan, or the session's overlay_query
+returns None), the request goes the staged path against the twin's CURRENT
+host picture (session.inc.to_snapshot()), counted in
+stats["overlay_fallbacks"] and tpusim_overlay_fallback_total{reason}. An
+error inside an overlay raises.
 """
 
 from __future__ import annotations
 
 import threading
 from collections import OrderedDict
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 from tpusim_torch.api.snapshot import ClusterSnapshot
 from tpusim_torch.backend import _KNOWN_PROVIDERS
 from tpusim_torch.device import resolve_device
+from tpusim_torch.framework.metrics import register
+from tpusim_torch.obs.recorder import note_serve, span
 from tpusim_torch.serve.batcher import Bucket
 from tpusim_torch.serve.request import (
     REJECT_INVALID,
@@ -36,6 +47,7 @@ from tpusim_torch.serve.request import (
     REJECT_UNSUPPORTED,
     ServeRejected,
     WhatIfRequest,
+    _budget,
     shape_class_for,
 )
 from tpusim_torch.sharding import pad_node_axis
@@ -51,6 +63,12 @@ from tpusim_torch.whatif import (
     decode_one,
     stage_batch,
 )
+
+
+def _twin_session(twin):
+    """The StreamSession behind a twin handle (a session itself, or a
+    wrapper holding one as `.session`)."""
+    return getattr(twin, "session", twin)
 
 
 class ServeExecutor:
@@ -75,14 +93,92 @@ class ServeExecutor:
         # bucket at a time, and a graph is captured and replayed by the
         # thread that holds this lock
         self._lock = threading.Lock()
+        # live twins: snapshot_ref -> StreamSession answering what-if
+        # requests as overlays on its resident carry
+        self._twins: Dict[str, Any] = {}
+        self._overlay_shapes: Dict[str, set] = {}
         self.stats = {"dispatches": 0, "warm_hits": 0, "traces": 0,
-                      "staged_hits": 0, "device_batch_hits": 0}
+                      "staged_hits": 0, "device_batch_hits": 0,
+                      "overlay_hits": 0, "overlay_fallbacks": 0}
 
     # -- snapshot registry (the base clusters requests reference) ---------
 
     def register_snapshot(self, ref: str, snapshot: ClusterSnapshot) -> str:
         self._snapshots[ref] = snapshot
         return ref
+
+    def snapshot_refs(self) -> List[str]:
+        return list(self._snapshots)
+
+    # -- live twins: resident-overlay dispatch -----------------------------
+
+    def attach_twin(self, ref: str, session) -> str:
+        """Install a live StreamSession as the resident twin behind `ref`:
+        requests naming the ref are answered by an overlay query on the
+        session's device-resident carry, falling back to staging the
+        session's CURRENT host picture where the overlay refuses. The
+        session stays owned by its driver: queries interleave with its
+        churn cycles without touching its cycle chain."""
+        self._twins[ref] = session
+        return ref
+
+    def detach_twin(self, ref: str) -> None:
+        self._twins.pop(ref, None)
+        self._overlay_shapes.pop(ref, None)
+
+    def _overlay_plan_ok(self, session, request: WhatIfRequest) -> bool:
+        # an overlay answer rides the twin's compiled plan; a request naming
+        # another policy (or provider) needs the staged path
+        if session.provider != self.provider:
+            return False
+        if request.policy is None:
+            return session.policy is None
+        return request.policy is session.policy
+
+    def try_overlay(self, request: WhatIfRequest
+                    ) -> Optional[Tuple[WhatIfResult, bool, str]]:
+        """Answer a request on the live twin behind its snapshot_ref:
+        (result, compile_cache_hit, path) with path "resident", or None
+        when no twin is installed, the request pins its own plan, or the
+        overlay refuses: the caller falls back to stage()."""
+        ref = request.snapshot_ref
+        if request.snapshot is not None or ref is None:
+            return None
+        twin = self._twins.get(ref)
+        if twin is None:
+            return None
+        if not request.pods:
+            raise ServeRejected(REJECT_INVALID,
+                                "request carries an empty pod list")
+        path = "resident"
+        with span("serve:overlay") as osp:
+            if osp:
+                osp.set("ref", ref)
+            eligible = self._overlay_plan_ok(_twin_session(twin), request)
+            placements = (twin.overlay_query(request.pods) if eligible
+                          else None)
+            if placements is not None:
+                scheduled = sum(1 for p in placements if p.node_name)
+                result = WhatIfResult(
+                    placements=placements, scheduled=scheduled,
+                    unschedulable=len(placements) - scheduled)
+                shapes = self._overlay_shapes.setdefault(ref, set())
+                shape = (_budget(len(request.pods)), path)
+                warm = shape in shapes
+                shapes.add(shape)
+                self.stats["overlay_hits"] += 1
+                register().serve_dispatch.inc("overlay")
+                if osp:
+                    osp.set("path", path)
+                note_serve("overlay", {"path": path, "ref": ref,
+                                       "pods": len(request.pods)})
+                return result, warm, path
+            if osp:
+                osp.set("path", "fallback")
+            if not eligible:
+                register().overlay_fallback.inc("plan_mismatch")
+            self.stats["overlay_fallbacks"] += 1
+            return None
 
     # -- staging -----------------------------------------------------------
 
@@ -102,11 +198,17 @@ class ServeExecutor:
         return prep
 
     def _resolve_snapshot(self, request: WhatIfRequest) -> ClusterSnapshot:
-        """The base cluster a request runs against: its inline snapshot or
-        a registered ref. Raises ServeRejected when none resolves."""
+        """The base cluster a request runs against: its inline snapshot, a
+        live twin's CURRENT host picture or a registered ref. Raises
+        ServeRejected when none resolves."""
         if request.snapshot is not None:
             return request.snapshot
         if request.snapshot_ref is not None:
+            twin = self._twins.get(request.snapshot_ref)
+            if twin is not None:
+                # the staged answer for a twin ref runs on the state the
+                # overlay would have used: live, not the twin's seed
+                return _twin_session(twin).inc.to_snapshot()
             snapshot = self._snapshots.get(request.snapshot_ref)
             if snapshot is None:
                 raise ServeRejected(
@@ -127,8 +229,12 @@ class ServeExecutor:
         cp, need_noexec, need_saa, hard_weight = self._policy(request.policy)
         # the part of a program's identity a request chooses
         plan_sig = (self.provider, cp.spec if cp is not None else None)
+        # a twin ref resolves to a live picture that changes every cycle:
+        # its staged trees are never memoized
+        live = (request.snapshot is None
+                and request.snapshot_ref in self._twins)
         memo_key = ((request.cache_key, plan_sig)
-                    if request.cache_key is not None else None)
+                    if request.cache_key is not None and not live else None)
         if memo_key is not None and memo_key in self._staged:
             staged, shape_class = self._staged[memo_key]
             self._staged.move_to_end(memo_key)
@@ -175,8 +281,9 @@ class ServeExecutor:
                                        self.device)
 
     def _device_batch(self, bucket: Bucket):
-        """(config, device trees): from the device-batch cache when the
-        whole bucket is cache-keyed and ran before."""
+        """((config, device trees), resident): from the device-batch cache
+        (resident True) when the whole bucket is cache-keyed and ran
+        before."""
         keys = [e.request.cache_key for e in bucket.entries]
         dkey = None
         if all(k is not None for k in keys):
@@ -185,13 +292,13 @@ class ServeExecutor:
             if hit is not None:
                 self._device_batches.move_to_end(dkey)
                 self.stats["device_batch_hits"] += 1
-                return hit
+                return hit, True
         built = self._build_device_batch(bucket)
         if dkey is not None:
             self._device_batches[dkey] = built
             while len(self._device_batches) > self._max_device_batches:
                 self._device_batches.popitem(last=False)
-        return built
+        return built, False
 
     def _program(self, bucket: Bucket, config, carries, statics_b, xs_b):
         """The built program of the bucket's key, size and config, loaded
@@ -213,9 +320,14 @@ class ServeExecutor:
         bucket.entries, compile_cache_hit). Ghost scenarios and padded pods
         are dropped here."""
         program_key = bucket.key
-        with self._lock:
+        with self._lock, span("serve:dispatch") as sp:
+            if sp:
+                sp.set("real", len(bucket.entries))
+                sp.set("ghosts", bucket.ghosts)
+                sp.set("shape", program_key[0].describe())
             self.stats["dispatches"] += 1
-            config, carries, statics_b, xs_b = self._device_batch(bucket)
+            (config, carries, statics_b, xs_b), resident = \
+                self._device_batch(bucket)
             seen = program_key in self._warm
             before = compile_count()
             choices_b, counts_b = self._program(
@@ -228,7 +340,14 @@ class ServeExecutor:
             self.stats["traces"] += built
             if warm:
                 self.stats["warm_hits"] += 1
-        results = [decode_one(e.request.pods, e.staged.compiled,
-                              choices_b[i], counts_b[i])
-                   for i, e in enumerate(bucket.entries)]
+            path = ("device_cache" if resident and warm
+                    else "warm" if warm else "cold")
+            register().serve_dispatch.inc(path)
+            note_serve("dispatch", {"path": path,
+                                    "real": len(bucket.entries),
+                                    "ghosts": bucket.ghosts})
+        with span("serve:decode"):
+            results = [decode_one(e.request.pods, e.staged.compiled,
+                                  choices_b[i], counts_b[i])
+                       for i, e in enumerate(bucket.entries)]
         return results, warm

@@ -3,7 +3,8 @@
 Backpressure lives here, not in the batcher: a full queue rejects at submit
 time, so callers see overload at once instead of a latency that grows
 without bound; or, when the newcomer outranks a waiter, it sheds the
-earliest entry of the lowest priority instead (`offer`).
+earliest entry of the lowest priority instead (`offer`). Every transition
+sets the tpusim_serve_queue_depth gauge.
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ import threading
 import time
 from collections import deque
 from typing import Any, Optional, Tuple
+
+from tpusim_torch.framework.metrics import register
 
 
 class AdmissionQueue:
@@ -52,6 +55,7 @@ class AdmissionQueue:
                 return False, None
             if len(self._items) < self.maxsize:
                 self._items.append((item, priority))
+                register().serve_queue_depth.set(len(self._items))
                 self._nonempty.notify()
                 return True, None
             if not shed:
@@ -64,6 +68,7 @@ class AdmissionQueue:
                 return False, None
             del self._items[vi]
             self._items.append((item, priority))
+            register().serve_queue_depth.set(len(self._items))
             self._nonempty.notify()
             return True, victim
 
@@ -81,6 +86,7 @@ class AdmissionQueue:
                     return None
                 self._nonempty.wait(remaining)
             item, _priority = self._items.popleft()
+            register().serve_queue_depth.set(len(self._items))
             return item
 
     def close(self) -> None:

@@ -4,6 +4,9 @@ The life of a request:
 
   submit()   admission: bounded-queue backpressure; a rejection resolves the
              future at once with a REJECT_* reason.
+  overlay    a request naming a live twin's ref (attach_stream) is answered
+             at once by an overlay query on the twin's resident carry, and
+             never buckets; where the overlay refuses it goes on staged.
   stage      host staging on the worker side: snapshot resolution, the
              policy's compile, compile_cluster, or a staged-cache hit.
   bucket     shape-class filing; a full bucket dispatches at once, a partial
@@ -27,6 +30,8 @@ from concurrent.futures import Future
 from typing import Callable, List, Optional, Sequence
 
 from tpusim_torch.api.snapshot import ClusterSnapshot
+from tpusim_torch.framework.metrics import register
+from tpusim_torch.obs.recorder import note_serve, span
 from tpusim_torch.serve.batcher import Bucket, PendingEntry, ShapeClassBatcher
 from tpusim_torch.serve.executor import ServeExecutor
 from tpusim_torch.serve.queue import AdmissionQueue
@@ -63,11 +68,19 @@ class ScenarioFleet:
     def register_snapshot(self, ref: str, snapshot: ClusterSnapshot) -> str:
         return self.executor.register_snapshot(ref, snapshot)
 
+    def attach_stream(self, session, ref: str = "live") -> str:
+        """Serve `ref` from a live StreamSession's resident twin: requests
+        naming the ref ride the overlay path and fall back to staging the
+        session's current host picture."""
+        return self.executor.attach_twin(ref, session)
+
     # -- admission ---------------------------------------------------------
 
     @staticmethod
     def _reject(request: WhatIfRequest, reason: str,
                 message: str) -> WhatIfResponse:
+        register().serve_rejected.inc(reason)
+        note_serve("reject", {"id": request.request_id, "reason": reason})
         return WhatIfResponse(request_id=request.request_id, error=message,
                               rejected=reason)
 
@@ -76,25 +89,30 @@ class ScenarioFleet:
         rejection resolves it at once: submit never raises for a problem of
         the request)."""
         future: "Future[WhatIfResponse]" = Future()
-        admitted, victim = self.queue.offer(
-            (request, future, self._clock()), priority=request.priority)
-        if victim is not None:
-            # a full queue shed its earliest lowest-priority waiter to make
-            # room for this higher-priority newcomer
-            v_request, v_future, _ = victim
-            if not v_future.done():
-                v_future.set_result(self._reject(
-                    v_request, REJECT_SHED,
-                    f"shed by higher-priority {request.request_id} "
-                    f"(priority {request.priority} > "
-                    f"{v_request.priority}) on a full queue"))
-        if not admitted:
-            reason = (REJECT_SHUTDOWN if self.queue.closed
-                      else REJECT_QUEUE_FULL)
-            future.set_result(self._reject(
-                request, reason,
-                "fleet is shutting down" if reason == REJECT_SHUTDOWN
-                else f"admission queue full ({self.queue.maxsize})"))
+        with span("serve:admit") as sp:
+            if sp:
+                sp.set("id", request.request_id)
+            admitted, victim = self.queue.offer(
+                (request, future, self._clock()), priority=request.priority)
+            if victim is not None:
+                # a full queue shed its earliest lowest-priority waiter to
+                # make room for this higher-priority newcomer
+                v_request, v_future, _ = victim
+                if not v_future.done():
+                    v_future.set_result(self._reject(
+                        v_request, REJECT_SHED,
+                        f"shed by higher-priority {request.request_id} "
+                        f"(priority {request.priority} > "
+                        f"{v_request.priority}) on a full queue"))
+            if not admitted:
+                reason = (REJECT_SHUTDOWN if self.queue.closed
+                          else REJECT_QUEUE_FULL)
+                future.set_result(self._reject(
+                    request, reason,
+                    "fleet is shutting down" if reason == REJECT_SHUTDOWN
+                    else f"admission queue full ({self.queue.maxsize})"))
+            else:
+                note_serve("admit", {"id": request.request_id})
         return future
 
     # -- pipeline ----------------------------------------------------------
@@ -117,8 +135,25 @@ class ScenarioFleet:
                 "staging"))
             return
         try:
-            (staged, shape_class, plan_sig, cp,
-             hard_weight) = self.executor.stage(request)
+            hit = self.executor.try_overlay(request)
+            if hit is not None:
+                # the live twin answered: resolve now (an overlay never
+                # buckets; the resident program ran already)
+                result, warm, path = hit
+                latency = self._clock() - admitted_at
+                register().serve_request_latency.observe(latency * 1e6)
+                note_serve("overlay_resolve", {"id": request.request_id,
+                                               "path": path})
+                future.set_result(WhatIfResponse(
+                    request_id=request.request_id, result=result,
+                    bucket_real=1, bucket_ghosts=0, compile_cache_hit=warm,
+                    latency_s=latency))
+                return
+            with span("serve:stage") as sp:
+                if sp:
+                    sp.set("id", request.request_id)
+                (staged, shape_class, plan_sig, cp,
+                 hard_weight) = self.executor.stage(request)
         except ServeRejected as exc:
             future.set_result(self._reject(request, exc.reason, str(exc)))
             return
@@ -126,7 +161,10 @@ class ScenarioFleet:
                              admitted_at=admitted_at,
                              shape_class=shape_class, plan_sig=plan_sig,
                              cp=cp, hard_weight=hard_weight)
-        full = self.batcher.add(entry)
+        with span("serve:bucket"):
+            full = self.batcher.add(entry)
+        note_serve("bucket", {"id": request.request_id,
+                              "shape": shape_class.describe()})
         if full is not None:
             self._dispatch(full)
 
@@ -148,6 +186,8 @@ class ScenarioFleet:
             return
         if len(live) < len(bucket.entries):
             bucket = Bucket(key=bucket.key, size=bucket.size, entries=live)
+        reg = register()
+        reg.serve_batch_occupancy.observe(len(bucket.entries))
         try:
             results, warm = self.executor.dispatch(bucket)
         except Exception as exc:  # a bucket failure fails its members only
@@ -159,12 +199,14 @@ class ScenarioFleet:
             return
         now = self._clock()
         for entry, result in zip(bucket.entries, results):
+            latency = now - entry.admitted_at
+            reg.serve_request_latency.observe(latency * 1e6)
             if not entry.future.done():
                 entry.future.set_result(WhatIfResponse(
                     request_id=entry.request.request_id, result=result,
                     bucket_real=len(bucket.entries),
                     bucket_ghosts=bucket.ghosts, compile_cache_hit=warm,
-                    latency_s=now - entry.admitted_at))
+                    latency_s=latency))
 
     def _process_guarded(self, item) -> None:
         """_process with worker-death containment: an unexpected exception

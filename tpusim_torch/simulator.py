@@ -17,6 +17,7 @@ from __future__ import annotations
 import logging
 import os
 from dataclasses import dataclass
+from time import perf_counter
 from typing import Dict, List, Optional
 
 from tpusim_torch.api.snapshot import ClusterSnapshot
@@ -43,6 +44,10 @@ from tpusim_torch.engine.resources import NodeInfo
 from tpusim_torch.engine.util import PodBackoff
 from tpusim_torch.engine.volume import VolumeBinder
 from tpusim_torch.framework.events import Recorder
+from tpusim_torch.framework.metrics import (
+    register as register_metrics,
+    since_in_microseconds,
+)
 from tpusim_torch.framework.report import GeneralReview, Status, get_report
 from tpusim_torch.framework.store import (
     ADDED,
@@ -58,6 +63,7 @@ from tpusim_torch.gang import (
     gang_name,
     has_gangs,
 )
+from tpusim_torch.obs import recorder as flight
 
 DEFAULT_SCHEDULER_NAME = "TD-Scheduler"  # options.go:49
 BACKENDS = ("torch", "reference", "auto")
@@ -199,6 +205,7 @@ class ClusterCapacity:
         # simulator.go:352-366) but can be injected for preemption studies
         self.pdbs: list = []
         self.scheduler.pdb_lister = lambda: list(self.pdbs)
+        self.metrics = register_metrics()
 
     # --- cache event handlers ---
 
@@ -331,11 +338,29 @@ class ClusterCapacity:
         back anyway. Deviation from the reference, documented: the transient
         Unschedulable condition the Go scheduler sets before a successful
         preemption is not recorded in FailedPods."""
+        sp = flight.span("pod_attempt")
+        if not sp:
+            return self._schedule_one_inner(pod, preempt_budget)
+        sp.set("pod", pod.key())
+        sp.set("preempt_budget", preempt_budget)
+        try:
+            outcome = self._schedule_one_inner(pod, preempt_budget)
+            sp.set("outcome", outcome)
+            return outcome
+        finally:
+            sp.end()
+
+    def _schedule_one_inner(self, pod: Pod, preempt_budget: int) -> str:
+        metrics = self.metrics
+        e2e_start = algo_start = perf_counter()
         # the algorithm runs against the cache's generation-checked snapshot,
         # not the live view (generic_scheduler.go:129)
         node_infos = self.refresh_node_info_snapshot()
         try:
-            host = self.scheduler.schedule(pod, self.nodes, node_infos)
+            with flight.span("schedule"):
+                host = self.scheduler.schedule(pod, self.nodes, node_infos)
+            metrics.scheduling_algorithm_latency.observe(
+                since_in_microseconds(algo_start))
         except FitError as fit_err:
             if self.config.enable_pod_priority and preempt_budget > 0:
                 node, _victims = self.attempt_preemption(pod, fit_err)
@@ -366,20 +391,28 @@ class ClusterCapacity:
         assumed = pod.copy()
         assumed.spec.node_name = host
         try:
-            self.cache.assume_pod(assumed)
+            with flight.span("assume"):
+                self.cache.assume_pod(assumed)
         except CacheError as cache_err:
             # assume error arm (scheduler.go:377-380 → config.Error): the pod
             # is reported failed, the run continues — e.g. a fed pod whose
             # namespace/name collides with an already-cached pod
             return self._fail(pod, str(cache_err))
+        # binding latency + e2e (scheduler.go:425,492)
+        binding_start = perf_counter()
         try:
-            self.bind(pod, host)
+            with flight.span("bind") as bsp:
+                if bsp:
+                    bsp.set("host", host)
+                self.bind(pod, host)
         except SchedulingError:
             # bind error arm (scheduler.go:484-496): forget the assumed pod
             # so its resources are returned, then surface the error
             self.cache.forget_pod(assumed)
             raise
         self.cache.finish_binding(assumed)  # no-op once confirmed
+        metrics.binding_latency.observe(since_in_microseconds(binding_start))
+        metrics.e2e_scheduling_latency.observe(since_in_microseconds(e2e_start))
         return "bound"
 
     # --- gang admission: all-or-nothing group scheduling ---
@@ -440,17 +473,23 @@ class ClusterCapacity:
         whole gang with ONE shared FitError. Gang admission does not
         attempt preemption."""
         group = self._gather_gang(pod)
+        m = self.metrics
+        m.gang_size.observe(len(group.pods))
         bound: List[Pod] = []
         overflow: List[Pod] = []
-        for member in group.pods:
-            _stored, exists = self.resource_store.get(
-                ResourceType.PODS, member.key())
-            if not exists:
-                self.resource_store.add(ResourceType.PODS, member)
-            if self._trial_member(member) is not None:
-                bound.append(member)
-            else:
-                overflow.append(member)
+        with flight.span("gang:admit") as sp:
+            if sp:
+                sp.set("group", group.name)
+                sp.set("members", len(group.pods))
+            for member in group.pods:
+                _stored, exists = self.resource_store.get(
+                    ResourceType.PODS, member.key())
+                if not exists:
+                    self.resource_store.add(ResourceType.PODS, member)
+                if self._trial_member(member) is not None:
+                    bound.append(member)
+                else:
+                    overflow.append(member)
 
         if len(bound) >= group.min_available:
             # admitted: the gang stands; overflow members failed
@@ -462,6 +501,10 @@ class ClusterCapacity:
                 self._fail(member, f"pod group \"{group.name}\" admitted at "
                                    f"{len(bound)}/{len(group.pods)}; this "
                                    "member did not fit.")
+            m.gang_admitted.inc()
+            flight.note_gang("admit", {"group": group.name,
+                                       "placed": len(bound),
+                                       "members": len(group.pods)})
             return "bound"
 
         # rejected: roll back every trial bind so no partial gang survives
@@ -477,6 +520,13 @@ class ClusterCapacity:
             # the pristine pending member goes back to the store, exactly
             # like a pod that never trial-bound
             self.resource_store.add(ResourceType.PODS, member)
+        if bound:
+            m.gang_partial_rollback.inc()
+            flight.note_gang("rollback", {"group": group.name,
+                                          "unbound": len(bound)})
+        m.gang_rejected.inc("min_available" if self.nodes else "no_nodes")
+        flight.note_gang("reject", {"group": group.name,
+                                    "placed": len(bound)})
         for member in group.pods:
             self._fail(member, msg)
         return "failed"
@@ -499,8 +549,10 @@ class ClusterCapacity:
             self.recorder.eventf(mate, "Normal", "Preempted",
                                  "gang released by %s on node %s",
                                  preemptor.name, node.name)
+            self.metrics.gang_partial_rollback.inc()
         for p in self.scheduling_queue.clear_nominations_for_gangs(names):
             p.status.nominated_node_name = ""
+        flight.note_gang("release", {"groups": sorted(names)})
 
     def attempt_preemption(self, pod: Pod, fit_err: FitError,
                            candidate_filter=None):
@@ -511,6 +563,10 @@ class ClusterCapacity:
         node is None when preemption found nothing. Shared by the host loop
         (_schedule_one retry) and the preemption hybrid (preempt.py), which
         may prefilter the candidate nodes (GenericScheduler.preempt)."""
+        metrics = self.metrics
+        preemption_start = perf_counter()
+        metrics.preemption_attempts.inc()
+        psp = flight.span("preempt")
         try:
             # Preempt runs against the same cached snapshot the failed
             # Schedule used (g.cachedNodeInfoMap, generic_scheduler.go:205)
@@ -522,6 +578,13 @@ class ClusterCapacity:
             # logged-and-dropped in the reference (scheduler.go:
             # 449-451); the pod still gets its Unschedulable condition
             node, victims, to_clear = None, [], []
+        if psp:
+            psp.set("pod", pod.key())
+            psp.set("node", node.name if node is not None else "")
+            psp.set("victims", len(victims))
+            psp.end()
+        metrics.preemption_evaluation.observe(
+            since_in_microseconds(preemption_start))
         return self.commit_preemption(pod, node, victims, to_clear)
 
     def commit_preemption(self, pod: Pod, node, victims, to_clear):
@@ -530,6 +593,7 @@ class ClusterCapacity:
         the store (mutating the cache through the DELETED events) and emit
         the Preempted events. The hybrid's device victim arm commits a
         kernel-picked (node, victims) through this same sequence."""
+        self.metrics.preemption_victims.set(len(victims))
         for p in to_clear:
             p.status.nominated_node_name = ""
         if node is None:
@@ -563,11 +627,20 @@ class ClusterCapacity:
 
     def run(self) -> None:
         """Reference: simulator.go:187-213 — feed one pod at a time until the
-        queue drains; the stop-reason strings match the Go format verbatim."""
+        queue drains; the stop-reason strings match the Go format verbatim.
+        With a recorder installed, the time each pod sat in the feed since
+        the scheduler last went idle lands as a queue_wait span."""
+        rec = flight.get_recorder()
+        idle_since = rec.clock() if rec is not None else 0.0
         outcome = "run"
         pod = self._next_pod()
         while pod is not None:
+            if rec is not None:
+                rec.add_span("queue_wait", "host", idle_since, rec.clock(),
+                             {"pod": pod.key()})
             outcome = self._schedule_or_admit(pod)
+            if rec is not None:
+                idle_since = rec.clock()
             pod = self._next_pod()
         self.status.stop_reason = self.STOP_REASONS[outcome]
         self.close()
@@ -581,12 +654,20 @@ class ClusterCapacity:
         return self.report
 
 
+def new_cluster_capacity(config: SchedulerServerConfig, new_pods: List[Pod],
+                         scheduled_pods: List[Pod], nodes: List[Node],
+                         services: Optional[list] = None) -> ClusterCapacity:
+    """Reference: scheduler.New (simulator.go:286-342)."""
+    return ClusterCapacity(config, new_pods, scheduled_pods, nodes, services)
+
+
 def auto_routes_to_host(num_pods: int, num_nodes: int,
                         enable_volume_scheduling: bool = False) -> bool:
     """The backend="auto" rule: a workload under TPUSIM_AUTO_THRESHOLD
     (100,000) pod × node pairs runs on the host route, where a device
     dispatch would cost more than it saves. Volume scheduling is host-bound
-    and wins over everything."""
+    and wins over everything. Callers size num_nodes after any event-log
+    fold, since a log that adds nodes counts toward the threshold."""
     if enable_volume_scheduling:
         return True
     threshold = int(os.environ.get("TPUSIM_AUTO_THRESHOLD", 100_000))
@@ -612,6 +693,7 @@ def run_simulation(pods: List[Pod], snapshot: ClusterSnapshot,
                    enable_pod_priority: bool = False,
                    enable_volume_scheduling: bool = False,
                    policy: Optional[Policy] = None,
+                   events: Optional[list] = None,
                    feature_gates: Optional[Dict[str, bool]] = None,
                    device="cuda", route: str = "auto",
                    hard_pod_affinity_symmetric_weight: int = 10,
@@ -636,10 +718,40 @@ def run_simulation(pods: List[Pod], snapshot: ClusterSnapshot,
     (engine.providers.parse_feature_gates). extender_transport: the
     in-process seam a policy's extenders are called through, on whichever
     route runs them (None makes real HTTP calls). scheduler_name is taken
-    for the JAX package's signature; as there, nothing reads it."""
+    for the JAX package's signature; as there, nothing reads it.
+
+    events: an optional [(ADDED|MODIFIED|DELETED, Pod|Node|Service|
+    PersistentVolume|PersistentVolumeClaim), ...] watch-event log
+    (framework.events.load_event_log) folded into `snapshot` before
+    scheduling through delta.IncrementalCluster. backend "auto" is sized
+    after the fold. On torch the fold's IncrementalCluster feeds the device
+    route its compile (TorchBackend.schedule(precompiled=)), the gang
+    driver its live cluster and the preemption hybrid its incremental
+    state, so compiled state is patched, not rebuilt. With a flight
+    recorder installed the fold runs under an event_fold span and the
+    replay's compile under compile_cluster."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")
+    incremental = None
+    if events:
+        from tpusim_torch.delta import IncrementalCluster
+
+        with flight.span("event_fold") as fsp:
+            incremental = IncrementalCluster(snapshot)
+            incremental.apply_events(events)
+            folded = incremental.to_snapshot()
+            if fsp:
+                fsp.set("events", len(events))
+                fsp.set("nodes", len(folded.nodes))
+        # the folded PV and PVC state includes applied PersistentVolume
+        # (Claim) events; StorageClass objects are not watch events and
+        # pass through from the seed snapshot
+        snapshot = ClusterSnapshot(
+            nodes=folded.nodes, pods=folded.pods, services=folded.services,
+            pvs=folded.pvs, pvcs=folded.pvcs,
+            storage_classes=snapshot.storage_classes)
     if backend == "auto":
+        # sized AFTER the fold, so a log that adds nodes counts
         backend = ("reference"
                    if auto_routes_to_host(len(pods), len(snapshot.nodes),
                                           enable_volume_scheduling)
@@ -708,7 +820,7 @@ def run_simulation(pods: List[Pod], snapshot: ClusterSnapshot,
         return run_with_preemption(
             pods, snapshot, provider=provider,
             hard_pod_affinity_symmetric_weight=hard_pod_affinity_symmetric_weight,
-            device=device, route=route)
+            incremental=incremental, device=device, route=route)
     from tpusim_torch.backend import TorchBackend
 
     torch_backend = TorchBackend(
@@ -716,16 +828,30 @@ def run_simulation(pods: List[Pod], snapshot: ClusterSnapshot,
         hard_pod_affinity_symmetric_weight=hard_pod_affinity_symmetric_weight,
         policy=policy, route=route, extender_transport=extender_transport)
     feed = list(reversed(pods))  # the LIFO queue pops the last element first
-    if has_gangs(feed):
-        # the gang driver: ungrouped runs take the per-pod path against the
-        # live incremental cluster, gangs are admitted all or nothing
-        from tpusim_torch.delta import IncrementalCluster
-        from tpusim_torch.gang.driver import schedule_with_gangs
+    gangs = has_gangs(feed)
+    precompiled = None
+    if incremental is not None and feed and snapshot.nodes and not gangs:
+        # the replay's incremental compile stands in for the backend's own
+        with flight.span("compile_cluster") as csp:
+            precompiled = incremental.compile(feed)
+            if csp:
+                csp.set("pods", len(feed))
+                csp.set("nodes", len(snapshot.nodes))
+    with flight.span("backend_schedule") as bsp:
+        if bsp:
+            bsp.set("backend", "torch")
+            bsp.set("pods", len(feed))
+        if gangs:
+            # the gang driver: ungrouped runs take the per-pod path against
+            # the live incremental cluster, gangs are admitted all or nothing
+            from tpusim_torch.delta import IncrementalCluster
+            from tpusim_torch.gang.driver import schedule_with_gangs
 
-        placements = schedule_with_gangs(torch_backend,
-                                         IncrementalCluster(snapshot), feed)
-    else:
-        placements = torch_backend.schedule(feed, snapshot)
+            inc = incremental or IncrementalCluster(snapshot)
+            placements = schedule_with_gangs(torch_backend, inc, feed)
+        else:
+            placements = torch_backend.schedule(feed, snapshot,
+                                                precompiled=precompiled)
     return _status_from_placements(placements, snapshot)
 
 

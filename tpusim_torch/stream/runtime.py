@@ -41,12 +41,20 @@ runs synchronously.
 No cycle silently leaves the device: a device error raises, and a cycle
 reaches the host route only when the compile classifies its workload
 unsupported ("reference_fallback", counted in path_counts["host"]).
+
+With a flight recorder installed the runtime records the JAX package's
+spans (stream_commit, statics_commit, compile_cluster, device_dispatch,
+decode_placements, stream_overlap, stream_decode and the overlay_* spans);
+every cycle counts in tpusim_stream_cycles_total{path} and its latency in
+tpusim_stream_cycle_latency_us{path}, every restage in
+tpusim_stream_restage_total{reason}.
 """
 
 from __future__ import annotations
 
 import logging
 from dataclasses import replace
+from time import perf_counter
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -71,9 +79,11 @@ from tpusim_torch.backends import (
 from tpusim_torch.config import config_for
 from tpusim_torch.delta import _SIG_KINDS, IncrementalCluster
 from tpusim_torch.device import resolve_device
+from tpusim_torch.framework.metrics import register, since_in_microseconds
 from tpusim_torch.framework.store import MODIFIED
 from tpusim_torch.gang.driver import schedule_with_gangs
 from tpusim_torch.gang.group import has_gangs
+from tpusim_torch.obs import recorder as flight
 from tpusim_torch.policyc import (
     build_policy_residency,
     build_policy_tables,
@@ -311,8 +321,13 @@ class DeviceResidentCluster:
         first-matching-pod pins under ServiceAffinity; rr 0)."""
         nodes, cells = inc.drain_journal()
         idx, rows = _delta_rows(inc, nodes)
+        sp = flight.span("stream_commit", "device", self.device)
         apply_delta_(self.carry, idx, rows, *_presence_cells(inc, cells),
                      sa_lock_init)
+        if sp:
+            sp.set("rows", int(len(nodes)))
+            sp.set("cells", int(len(cells)))
+            sp.end()
         self.commits += 1
 
 
@@ -321,12 +336,15 @@ class _PendingCycle:
     host), or one run synchronously and buffered for emission order."""
 
     __slots__ = ("pods", "fetch", "compiled", "folded", "choices", "counts",
-                 "bound", "placements")
+                 "bound", "placements", "t0", "dispatched_at")
 
-    def __init__(self, pods, fetch=None, compiled=None, placements=None):
+    def __init__(self, pods, fetch=None, compiled=None, placements=None,
+                 t0: float = 0.0, dispatched_at: float = 0.0):
         self.pods = pods
         self.fetch = fetch
         self.compiled = compiled
+        self.t0 = t0
+        self.dispatched_at = dispatched_at
         self.folded = placements is not None
         self.choices = self.counts = None
         self.bound: List[Placement] = []
@@ -374,6 +392,7 @@ class StreamSession:
         self._statics_patch = None    # (padded idx, StaticsDelta) or None
         self._pending: Optional[_PendingCycle] = None
         self._gang_torch = None       # TorchBackend of the gang cycles
+        self._last_path = ""
 
     def set_policy(self, policy=None, compiled_policy=None) -> None:
         """Swap the session's policy. The next cycle restages once,
@@ -411,14 +430,18 @@ class StreamSession:
             return []
         self.cycles += 1
         inc = self.inc
+        t0 = perf_counter()
         if not inc.nodes:
             msg = "no nodes available to schedule pods"
-            self._note_path("no_nodes")
+            self._note_path("no_nodes", len(pods))
+            self._observe_cycle("no_nodes", t0)
             return [Placement(pod=mark_unschedulable(p, msg),
                               reason="Unschedulable", message=msg)
                     for p in pods]
         if has_gangs(pods):
-            return self._gang_cycle(pods)
+            placements = self._gang_cycle(pods)
+            self._observe_cycle("gang", t0)
+            return placements
         reason, cols = _routed if _routed is not None else self._route(pods)
         if reason is None:
             placements = self._stream_cycle(pods, cols)
@@ -432,6 +455,7 @@ class StreamSession:
             # with the same integer arithmetic: committing the fold-back's
             # journal next cycle would set the bytes it holds
             inc.drain_journal()
+        self._observe_cycle(self._last_path, t0)
         return placements
 
     def _gang_cycle(self, pods: List[Pod]) -> List[Placement]:
@@ -441,7 +465,7 @@ class StreamSession:
         cycle's commit carries them onto the resident carry like any other
         churn: residency holds, nothing restages."""
         placements = schedule_with_gangs(self._gang_backend(), self.inc, pods)
-        self._note_path("gang")
+        self._note_path("gang", len(pods))
         return placements
 
     def _gang_backend(self) -> TorchBackend:
@@ -569,23 +593,48 @@ class StreamSession:
             return
         idx, delta = self._statics_patch
         self._statics_patch = None
+        sp = flight.span("statics_commit", "device", self.torch_device)
         apply_statics_delta_(self.device.statics, idx, delta)
+        if sp:
+            sp.set("cols", int(len(idx)))
+            sp.end()
 
-    def _commit_and_scan(self, pods: List[Pod], cols):
-        """Commit the pending churn and launch the resident scan of the
-        batch: the scan's output buffers."""
-        dev = self.device
+    def _commit(self) -> None:
+        """Commit the pending churn (label and taint columns, then the
+        journal's rows and cells) into the resident state."""
         self._apply_statics_patch()
-        dev.commit(self.inc, self._commit_sa_lock())
+        self.device.commit(self.inc, self._commit_sa_lock())
+
+    @staticmethod
+    def _xs_host(pods: List[Pod], cols):
         p = len(pods)
-        return dev.scan(pad_infeasible_rows(pod_columns_to_host(cols),
-                                            bucket_size(p) - p))
+        return pad_infeasible_rows(pod_columns_to_host(cols),
+                                   bucket_size(p) - p)
+
+    def _dispatch(self, pods: List[Pod], xs_host, compiled
+                  ) -> List[Placement]:
+        """Scan the batch on the resident state and wait for its choices
+        on the host (the device_dispatch span), then decode."""
+        metrics = register()
+        t0 = perf_counter()
+        dsp = flight.span("device_dispatch", "device", self.torch_device)
+        with flight.profiled("tpusim:stream_scan"):
+            out = self.device.scan(xs_host)
+            choices, counts = _Fetch(out, len(pods)).get()
+        if dsp:
+            dsp.set("pods", len(pods))
+            dsp.end()
+        metrics.backend_dispatch_latency.observe(since_in_microseconds(t0))
+        metrics.scheduling_algorithm_latency.observe(
+            since_in_microseconds(t0))
+        with flight.span("decode_placements"):
+            return self._decode(pods, choices, counts, compiled)
 
     def _stream_cycle(self, pods: List[Pod], cols) -> List[Placement]:
-        out = self._commit_and_scan(pods, cols)
-        placements = self._decode(pods, *_Fetch(out, len(pods)).get(),
-                                  self.device.compiled)
-        self._note_path("stream_scan")
+        self._commit()
+        placements = self._dispatch(pods, self._xs_host(pods, cols),
+                                    self.device.compiled)
+        self._note_path("stream_scan", len(pods))
         return placements
 
     def _restage_cycle(self, pods: List[Pod], reason: str) -> List[Placement]:
@@ -596,9 +645,15 @@ class StreamSession:
         inc.drain_journal()  # a structural restage: indices may have moved
         self._statics_patch = None
         ps = cp.spec if cp is not None else None
-        compiled, cols = inc.compile(
-            pods, need_noexec=ps is not None and ps.has_noexec,
-            need_saa=ps is not None and ps.has_services)
+        t0 = perf_counter()
+        with flight.span("compile_cluster") as csp:
+            compiled, cols = inc.compile(
+                pods, need_noexec=ps is not None and ps.has_noexec,
+                need_saa=ps is not None and ps.has_services)
+            if csp:
+                csp.set("pods", len(pods))
+                csp.set("nodes", len(inc.nodes))
+        register().backend_compile_latency.observe(since_in_microseconds(t0))
         detail = unsupported_detail(compiled, cp)
         if detail:
             log.warning("stream runtime falling back to reference for: %s",
@@ -627,14 +682,11 @@ class StreamSession:
                 sa_lock_init = ptabs.sa_lock_init
         dev.stage(config, statics_to_host(compiled, ptabs),
                   carry_init_host(compiled, sa_lock_init))
-        p = len(pods)
-        out = dev.scan(pad_infeasible_rows(pod_columns_to_host(cols),
-                                           bucket_size(p) - p))
-        placements = self._decode(pods, *_Fetch(out, p).get(), compiled)
+        placements = self._dispatch(pods, self._xs_host(pods, cols), compiled)
         dev.adopt(inc, compiled, plan_key=self._plan_key, ptabs=ptabs,
                   pol_res=pol_res)
         self._classify(reason)
-        self._note_path("restage_scan")
+        self._note_path("restage_scan", len(pods))
         return placements
 
     @staticmethod
@@ -655,7 +707,7 @@ class StreamSession:
             hard_pod_affinity_symmetric_weight=self.hard_weight,
             policy=self.policy,
         ).schedule(pods, self.inc.to_snapshot())
-        self._note_path("host")
+        self._note_path("host", len(pods))
         return placements
 
     # -- pipelined cycles -------------------------------------------------
@@ -694,15 +746,29 @@ class StreamSession:
             routed = self._route(pods)
         if routed is not None and routed[0] is None:
             self.cycles += 1
-            out = self._commit_and_scan(pods, routed[1])
-            self._pending = _PendingCycle(pods, _Fetch(out, len(pods)),
-                                          self.device.compiled)
-            return self._finalize(prev_p)
+            t0 = perf_counter()
+            self._commit()
+            xs_host = self._xs_host(pods, routed[1])
+            dsp = flight.span("device_dispatch", "device", self.torch_device)
+            with flight.profiled("tpusim:stream_scan"):
+                fetch = _Fetch(self.device.scan(xs_host), len(pods))
+            if dsp:
+                dsp.set("pods", len(pods))
+                dsp.end()
+            self._pending = _PendingCycle(pods, fetch, self.device.compiled,
+                                          t0=t0, dispatched_at=perf_counter())
+            register().stream_pipeline_depth.set(1.0)
+            osp = flight.span("stream_overlap")
+            prev = self._finalize(prev_p)
+            if osp:
+                osp.end()
+            return prev
         # off the resident path: drain the pipeline, then run this cycle
         # synchronously (restage classification included)
         prev = self._finalize(prev_p)
         self._pending = _PendingCycle(pods, placements=self.schedule(
             pods, _routed=routed))
+        register().stream_pipeline_depth.set(0.0)
         return prev
 
     def flush(self) -> List[Placement]:
@@ -710,6 +776,7 @@ class StreamSession:
         placements ([] when none): a pipelined run's tail."""
         p, self._pending = self._pending, None
         out = self._finalize(p)
+        register().stream_pipeline_depth.set(0.0)
         return out if out is not None else []
 
     def _fold_binds(self, p: _PendingCycle) -> None:
@@ -720,7 +787,13 @@ class StreamSession:
         journaled BEFORE the fold sit inside the mark and stay."""
         if p.folded:
             return
+        waited0 = perf_counter()
         p.choices, p.counts = p.fetch.get()
+        waited = perf_counter() - waited0
+        # the share of the cycle's device time the host did not wait for
+        elapsed = max(waited0 - p.dispatched_at + waited, 1e-9)
+        register().stream_overlap_fraction.set(
+            max(0.0, 1.0 - waited / elapsed))
         names = p.compiled.statics.names
         mark = self.inc.journal_mark()
         for pod, c in zip(p.pods, p.choices):
@@ -742,9 +815,11 @@ class StreamSession:
         if p.placements is not None:
             return p.placements
         self._fold_binds(p)
-        p.placements = self._decode(p.pods, p.choices, p.counts, p.compiled,
-                                    prebound=p.bound)
-        self._note_path("pipelined")
+        with flight.span("stream_decode"):
+            p.placements = self._decode(p.pods, p.choices, p.counts,
+                                        p.compiled, prebound=p.bound)
+        self._note_path("pipelined", len(p.pods))
+        self._observe_cycle("pipelined", p.t0)
         return p.placements
 
     # -- live what-if overlays --------------------------------------------
@@ -768,10 +843,17 @@ class StreamSession:
         would have."""
         if not pods:
             return []
+        t0 = perf_counter()
         routed = self._overlay_route(pods)
         if isinstance(routed, str):
+            register().overlay_fallback.inc(routed)
+            flight.note_route("overlay_fallback", len(pods))
             return None
-        return self._overlay_dispatch(pods, routed)
+        placements = self._overlay_dispatch(pods, routed)
+        m = register()
+        m.overlay_queries.inc("resident")
+        m.overlay_latency.observe(since_in_microseconds(t0))
+        return placements
 
     def _overlay_route(self, pods: List[Pod]):
         """_route for a query, without disturbing the live session: the
@@ -839,14 +921,17 @@ class StreamSession:
         rr_save = dev.carry.rr.clone()
         sa_save = dev.carry.sa_lock.clone()
         try:
-            out = self._commit_and_scan(pods, cols)
-            choices, counts = _Fetch(out, len(pods)).get()
+            self._commit()
+            xs_host = self._xs_host(pods, cols)
+            with flight.span("overlay_scan", "device", self.torch_device):
+                choices, counts = _Fetch(dev.scan(xs_host), len(pods)).get()
         except Exception:
             inc.journal_rollback(mark)
             dev.invalidate()
             raise
         self._overlay_rollback(cols, choices, mark, sa_save, rr_save)
-        return self._decode(pods, choices, counts, dev.compiled)
+        with flight.span("overlay_decode"):
+            return self._decode(pods, choices, counts, dev.compiled)
 
     def _overlay_rollback(self, cols, choices: np.ndarray, mark,
                           sa_save, rr_save) -> None:
@@ -859,14 +944,30 @@ class StreamSession:
         idx, rows = _delta_rows(inc, bound)
         cells = {(int(cols.group_id[j]), int(c))
                  for j, c in enumerate(choices) if int(c) >= 0}
+        sp = flight.span("overlay_rollback", "device", self.torch_device)
         overlay_restore_(self.device.carry, idx, rows,
                          *_presence_cells(inc, cells), sa_save, rr_save)
+        if sp:
+            sp.set("rows", int(len(bound)))
+            sp.end()
         inc.journal_rollback(mark)
 
     # -- accounting -------------------------------------------------------
 
     def _classify(self, reason: str) -> None:
         self.restage_counts[reason] = self.restage_counts.get(reason, 0) + 1
+        flight.note_stream_restage(reason)
 
-    def _note_path(self, path: str) -> None:
+    def _note_path(self, path: str, pods: int) -> None:
         self.path_counts[path] = self.path_counts.get(path, 0) + 1
+        self._last_path = path
+        flight.note_stream_cycle(path, pods)
+
+    @staticmethod
+    def _observe_cycle(path: str, t0: float) -> None:
+        """A cycle's latency, in the e2e histogram and in the per-path
+        stream histogram."""
+        us = since_in_microseconds(t0)
+        m = register()
+        m.e2e_scheduling_latency.observe(us)
+        m.stream_cycle_latency.observe(path, us)

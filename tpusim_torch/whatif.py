@@ -42,6 +42,7 @@ from tpusim_torch.backend import (
     ROUTES,
     Placement,
     decode_placements,
+    note_fast_fallback,
 )
 from tpusim_torch.config import config_for
 from tpusim_torch.device import resolve_device
@@ -370,6 +371,7 @@ def run_what_if(scenarios: Sequence[Tuple[ClusterSnapshot, List[Pod]]],
                                  [o[1] for o in outs])
         if route == "kernel":
             raise NotImplementedError(f"what-if fast loop: {why}")
+        note_fast_fallback(why)
         log.info("what-if fast loop ineligible (%s); using the batched scan",
                  why)
     choices_b, counts_b = _run_batched(config, staged, device)

@@ -29,20 +29,23 @@ TOLERATION = {"key": "dedicated", "operator": "Equal", "value": "batch",
               "effect": "NoSchedule"}
 
 
+def _config3_node(api, i: int, labels: dict, scale: int = 1):
+    """Config 3's node i: one of three shapes, in the 10% taint slice when
+    i % 10 == 0; `scale` multiplies its cpu and memory."""
+    shape = i % 3
+    taints = None
+    if i % 10 == 0:
+        taints = [{"key": "dedicated", "value": "batch", "effect": "NoSchedule"}]
+    return api.make_node(
+        f"node-{i}", milli_cpu=[4000, 8000, 16000][shape] * scale,
+        memory=[8, 16, 32][shape] * 1024**3 * scale, pods=110, labels=labels,
+        taints=taints)
+
+
 def _config3_nodes(api, num_nodes: int, labels) -> list:
     """Config 3's nodes: three shapes and a 10% taint slice; `labels(i)` is
     node i's labels."""
-    nodes = []
-    for i in range(num_nodes):
-        shape = i % 3
-        taints = None
-        if i % 10 == 0:
-            taints = [{"key": "dedicated", "value": "batch", "effect": "NoSchedule"}]
-        nodes.append(api.make_node(
-            f"node-{i}", milli_cpu=[4000, 8000, 16000][shape],
-            memory=[8, 16, 32][shape] * 1024**3, pods=110, labels=labels(i),
-            taints=taints))
-    return nodes
+    return [_config3_node(api, i, labels(i)) for i in range(num_nodes)]
 
 
 def _config3_requests(rng, num_pods: int):
@@ -92,6 +95,57 @@ def build_workload(num_pods: int, num_nodes: int, affinity: bool = False,
                                                p=[0.6, 0.3, 0.1]))
         pods.append(pod)
     return api.ClusterSnapshot(nodes=nodes), pods
+
+
+def event_log_workload(num_pods: int, num_nodes: int, api=None,
+                       seed: int = 2200, **workload):
+    """Config 3 (build_workload(num_pods, num_nodes, **workload)) with a
+    watch-event log folded on top of its snapshot: (snapshot, pods,
+    events), events as [(ADDED|MODIFIED|DELETED, obj), ...] in log order.
+
+    The log, drawn from RandomState(seed):
+      nodes  10% added in config 3's shapes (node-N, node-N+1, ...), 5% of
+             the seed nodes deleted, another 5% modified to double cpu and
+             memory;
+      pods   as many as a fifth of the node count added as Running on the
+             surviving nodes, with config 3's request draws, then a fifth of
+             those deleted again.
+    No Services and no volumes, so the fused kernel's plan stays
+    group-free. The pods are build_workload's, untouched."""
+    api = _api(api)
+    snapshot, pods = build_workload(num_pods, num_nodes, api=api, **workload)
+    rng = np.random.RandomState(seed)
+    n_add = num_nodes // 10
+    n_del = num_nodes // 20
+    n_mod = num_nodes // 20
+    picked = rng.permutation(num_nodes)
+    deleted = sorted(int(i) for i in picked[:n_del])
+    modified = sorted(int(i) for i in picked[n_del:n_del + n_mod])
+    events = []
+    for k in range(n_add):
+        i = num_nodes + k
+        events.append(("ADDED", _config3_node(api, i, {"zone": f"z{i % 4}"})))
+    for i in deleted:
+        events.append(("DELETED", snapshot.nodes[i]))
+    for i in modified:
+        events.append(("MODIFIED",
+                       _config3_node(api, i, {"zone": f"z{i % 4}"}, scale=2)))
+    gone = set(deleted)
+    surviving = ([f"node-{i}" for i in range(num_nodes) if i not in gone]
+                 + [f"node-{num_nodes + k}" for k in range(n_add)])
+    n_placed = num_nodes // 5
+    milli_cpu, memory, _tolerate = _config3_requests(rng, n_placed)
+    hosts = rng.randint(0, len(surviving), size=n_placed)
+    placed = [api.make_pod(f"placed-{k}", milli_cpu=int(milli_cpu[k]),
+                           memory=int(memory[k]),
+                           node_name=surviving[int(hosts[k])],
+                           phase="Running")
+              for k in range(n_placed)]
+    events.extend(("ADDED", p) for p in placed)
+    for k in sorted(int(k) for k in rng.choice(n_placed, n_placed // 5,
+                                                  replace=False)):
+        events.append(("DELETED", placed[k]))
+    return snapshot, pods, events
 
 
 ZONE_LABEL = "failure-domain.beta.kubernetes.io/zone"
