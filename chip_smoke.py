@@ -187,7 +187,28 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
      the twin's live snapshot, the carry bit-equal after them; a request
      under another policy goes the staged path, counted as a plan
      mismatch; the overlay's ms a query; then `serve --attach-stream` once.
-     Phases 25-27 fail past their 120 s budget.
+     Phases 25-27 fail past their 120 s budget;
+ 28. decision provenance: (a) config 3 at full width on route "kernel"
+     with a failures-only ProvenanceLog: phase 4's golden, 196 launches,
+     a record a pod, each failure's message its Placement's, the schedule's
+     wall beside phase 4's and the records' decode; (b) the explain lanes
+     (top 3) on the scan route with graphs, on config 3's first 8,192 pods
+     on its 5,000 nodes (also timed without the lanes) and on the policy
+     workload's first 2,048 under the upstream 1.2 policy: the digest of
+     the records (time stamps dropped) equal to the JAX package's, every
+     row's parts summing to its score, µs a pod, and route "kernel" with
+     top-k lanes raising;
+ 29. bench config 12 (bench.py:1712-1745): the config 9 stream at 4,000
+     nodes (40 cycles of 64 arrivals, 25% evicted, seed 9) after a
+     warm-up, with the analytics plane off and on, synchronous and
+     pipelined: chains equal and the JAX package's, the cold start the only
+     restage, overhead_fraction printed beside the JAX contract (< 2%, not
+     gated); a run sampling every cycle with its inputs kept, every sample
+     equal to host_reduce, with the reduction's CUDA-event span; the CPU
+     shape's samples digest equal to the JAX package's; one config 8 serve
+     bucket's pre-bind samples against host_reduce; the reduction's kernels
+     and device time under torch.profiler. Phases 28-29 fail past their
+     90 s budget.
 Phases 4-15 run TorchBackend with fallback="error", and phases 15, 16b and
 17 run run_simulation on the card with the host route made to raise, so a
 workload that started to reroute to the host fails them; phases 4-12 run
@@ -338,6 +359,26 @@ LIVE_TWIN = dict(nodes=4_000, warm_cycles=4, arrivals=32, requests=32,
                  query_pods=8)
 # phases 25-27 together, seconds
 OBS_BUDGET_S = 120
+# phase 28b: the explain lanes' depth and cells (workload, its arguments, the
+# upstream policy it runs under, and the digest of the JAX package's records
+# on it: tools/port_golden.py explain NAME)
+EXPLAIN_TOP_K = 3
+EXPLAIN_CELLS = {
+    "config3": ("build_workload", dict(num_pods=8_192, num_nodes=5_000),
+                None, "9fc8f134e8e8e601"),
+    "policy": ("policy_workload", dict(num_pods=2_048, num_nodes=5_000),
+               "1.2", "f1d0b68fc0222ab1"),
+}
+# phase 29: bench config 12 (bench.py:1712-1745), the config 9 stream at
+# 4,000 nodes with the analytics plane off and on: the JAX package's chain
+# there, and the digest of its analytics samples (one a cycle) at bench.py's
+# CPU shape, STREAM_GOLDENS["config9"] (tools/port_golden.py config12)
+CONFIG12 = (dict(num_nodes=4_000, cycles=40, arrivals=64,
+                 evict_fraction=0.25, seed=9),
+            "1f485925753c53714f8fcf6e28d8a25bc29c743c7374b7901970cb72788e24e7",
+            "65a1a49c73446f2c")
+# phases 28-29 together, seconds
+ANALYTICS_BUDGET_S = 90
 # phase 14: the pods of config 3 run through both routes
 ROUTES_PODS = 2_048
 # phase 15: the pods of the scan timed eagerly, beside the graph replay
@@ -442,6 +483,14 @@ def combined_digest(hashes):
     """sha256 of placement hashes in order, one a line, first 16 hex
     digits: the digest of a what-if study or a serve load."""
     return hashlib.sha256("\n".join(hashes).encode()).hexdigest()[:16]
+
+
+def records_digest(records):
+    """sha256 of provenance records or analytics samples without their
+    time stamps (JSON with sorted keys, one a line), first 16 hex digits."""
+    return hashlib.sha256("\n".join(
+        json.dumps({k: v for k, v in r.items() if k != "ts"},
+                   sort_keys=True) for r in records).encode()).hexdigest()[:16]
 
 
 def serve_load(workload, request_cls):
@@ -2535,6 +2584,289 @@ def drive_obs_phases(card):
                              f"{OBS_BUDGET_S} s budget")
 
 
+def drive_provenance_kernel(card):
+    """Phase 28a: config 3 at full width on the kernel route with a
+    failures-only provenance log."""
+    from tpusim_torch import workloads
+    from tpusim_torch.backend import TorchBackend
+    from tpusim_torch.fastscan import CHUNK
+    from tpusim_torch.kernels.fastscan import fastscan_chunk
+    from tpusim_torch.obs import provenance
+
+    _, params, golden, want_scheduled = GOLDENS["config3"]
+    snapshot, pods = workloads.build_workload(**params)
+    n = len(pods)
+    backend = TorchBackend(device="cuda", route="kernel", fallback="error")
+    log = provenance.install(provenance.ProvenanceLog(capacity=n))
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        placements = backend.schedule(pods, snapshot)
+        wall = time.perf_counter() - t0
+        launches = fastscan_chunk.launches_by_variant["group_free"]
+        all_launches = fastscan_chunk.launches
+        t0 = time.perf_counter()
+        records = log.tail(n)
+        decode_s = time.perf_counter() - t0
+    finally:
+        provenance.uninstall()
+    # the capture alone: what the schedule paid for the log
+    spare = provenance.ProvenanceLog(capacity=n)
+    t0 = time.perf_counter()
+    spare.capture_batch(placements, "backend")
+    capture_us = 1e6 * (time.perf_counter() - t0)
+    got = choices_golden(backend.last_choices)
+    scheduled = sum(1 for p in placements if p.scheduled)
+    failed = [(r, pl) for r, pl in zip(records, placements)
+              if not r["placed"]]
+    wrong = sum(1 for r, pl in zip(records, placements)
+                if r["pod"].split("/", 1)[1] != pl.pod.metadata.name
+                or r["placed"] != bool(pl.node_name)
+                or r.get("node") != (pl.node_name or None))
+    wrong += sum(1 for r, pl in failed if r["message"] != pl.message)
+    print(f"phase 28a: config3 ({n} pods, {params['num_nodes']} nodes) on "
+          f"route kernel with a failures-only provenance log: golden {got} "
+          f"(want {golden}), {scheduled} scheduled, {launches} kernel "
+          f"launches ({all_launches} in all, want {-(-n // CHUNK)}); "
+          f"{len(records)} records ({len(failed)} failures, {wrong} unlike "
+          f"their Placement); schedule {wall:.3f}s with the log against "
+          f"phase 4's {WARM_WALL['config3']:.3f}s without (the capture "
+          f"itself {capture_us:.1f} us), the records' lazy decode "
+          f"{decode_s:.3f}s on {card}")
+    if (got, scheduled) != (golden, want_scheduled):
+        raise AssertionError("phase 28a: config 3 placed differently with "
+                             "a provenance log")
+    if launches != -(-n // CHUNK) or launches != all_launches:
+        raise AssertionError(f"phase 28a: {launches} group_free launches of "
+                             f"{all_launches}, want {-(-n // CHUNK)}")
+    if len(records) != n or wrong or not failed:
+        raise AssertionError(f"phase 28a: {len(records)} records, {wrong} "
+                             "unlike their Placement")
+
+
+def drive_explain(card):
+    """Phase 28b: the explain lanes on the scan route at full width: the
+    JAX package's records on config 3's first pods and the policy cell,
+    parts summing to scores, the lanes' cost against the same scan without
+    them, and route "kernel" refusing them."""
+    import torch
+
+    import tpusim_torch.backend as backend_module
+    from tpusim_torch import workloads
+    from tpusim_torch.backend import TorchBackend
+    from tpusim_torch.engine.policy import decode_policy
+    from tpusim_torch.obs import provenance
+
+    for name, (workload, params, version, digest) in EXPLAIN_CELLS.items():
+        snapshot, pods = getattr(workloads, workload)(**params)
+        n = len(pods)
+        policy = (decode_policy(workloads.COMPAT_POLICIES[version])
+                  if version else None)
+        # config 3 in turns, without the lanes, with, with, without: the
+        # lanes' cost is the least span with them less the least without
+        spans = {}
+        for top_k in ((0, EXPLAIN_TOP_K, EXPLAIN_TOP_K, 0)
+                      if name == "config3" else (EXPLAIN_TOP_K,)):
+            backend = TorchBackend(device="cuda", fallback="error",
+                                   route="scan" if top_k == 0 else "auto",
+                                   policy=policy)
+            log = provenance.install(provenance.ProvenanceLog(
+                capacity=n, top_k=top_k))
+            record = []
+            try:
+                t0 = time.perf_counter()
+                with timed_on_card(backend_module, "schedule_scan", record):
+                    backend.schedule(pods, snapshot)
+                wall = time.perf_counter() - t0
+                records = log.tail(n)
+            finally:
+                provenance.uninstall()
+            torch.cuda.synchronize()
+            (_, _, start, end), = record
+            span = start.elapsed_time(end)
+            spans[top_k] = min(span, spans.get(top_k, span))
+            print(f"phase 28b: {name} first {n} pods x {params['num_nodes']}"
+                  f" nodes, top_k {top_k}: route {backend.last_route}, "
+                  f"schedule {wall:.3f}s, scan span {span:.1f} ms "
+                  f"(CUDA events, graphs of 8 steps) = "
+                  f"{1000 * span / n:.0f} us a pod on {card}")
+            if top_k:
+                got = records_digest(records)
+                rows = [row for r in records if r["placed"]
+                        for row in r["top_k"]]
+        bad = sum(1 for row in rows if sum(row["parts"].values())
+                  != row["score"])
+        cost = ""
+        if 0 in spans:
+            extra_us = 1000 * (spans[EXPLAIN_TOP_K] - spans[0]) / n
+            cost = (f"; the lanes cost {extra_us:.0f} us a pod "
+                    f"({spans[EXPLAIN_TOP_K] / spans[0]:.2f}x the scan "
+                    "without them; phase 15's scan 666 us a pod)")
+        parts = len(rows[0]["parts"]) if rows else 0
+        print(f"phase 28b: {name}: records digest {got} (want {digest}), "
+              f"{len(rows)} top-k rows of {parts} parts, {bad} not summing "
+              f"to their score{cost}")
+        if got != digest or bad or not rows:
+            raise AssertionError(f"phase 28b: {name}'s records differ from "
+                                 "the JAX package's")
+    provenance.install(provenance.ProvenanceLog(top_k=EXPLAIN_TOP_K))
+    try:
+        TorchBackend(device="cuda", route="kernel").schedule(
+            pods[:64], snapshot)
+    except NotImplementedError as exc:
+        print(f"phase 28b: route kernel with top_k {EXPLAIN_TOP_K} raises: "
+              f"{exc}")
+    else:
+        raise AssertionError("phase 28b: route kernel took the explain "
+                             "lanes")
+    finally:
+        provenance.uninstall()
+
+
+def drive_config12(card):
+    """Phase 29: bench config 12, the config 9 stream with the analytics
+    plane off and on, synchronous and pipelined; every sample of a kept
+    run against host_reduce; the CPU shape's samples against the JAX
+    package's; one serve bucket's pre-bind samples; the reduction's
+    kernels and device time."""
+    import torch
+
+    from tpusim_torch import scan, workloads
+    from tpusim_torch.obs import analytics
+    from tpusim_torch.serve import ScenarioFleet, WhatIfRequest
+    from tpusim_torch.simulator import run_stream_simulation
+
+    params, want_chain, want_stats = CONFIG12
+    run_stream_simulation(device="cuda", **dict(params, cycles=3))  # warm
+    for pipeline in (False, True):
+        # the arms in turns, off, on, on, off; each arm's best run, as
+        # bench.py takes it
+        runs = {False: [], True: []}
+        for armed in (False, True, True, False):
+            if armed:
+                log = analytics.install(analytics.ClusterAnalytics(
+                    capacity=512))
+            try:
+                out = run_stream_simulation(device="cuda",
+                                            pipeline=pipeline, **params)
+                if armed:
+                    out["samples"] = len(log.samples())
+            finally:
+                analytics.uninstall()
+            runs[armed].append(out)
+        off, on = (max(runs[armed], key=lambda o: o["decisions_per_s"])
+                   for armed in (False, True))
+        a, b = off["decisions_per_s"], on["decisions_per_s"]
+        chains = {o["placement_chain"] for arm in runs.values() for o in arm}
+        print(f"phase 29: config 12 {'pipelined' if pipeline else 'sync'} "
+              f"({params['num_nodes']} nodes, {params['cycles']} cycles x "
+              f"{params['arrivals']} arrivals; best of 2 runs an arm, in "
+              f"turns): analytics off {a:.1f} decisions/s (p50 "
+              f"{off['p50_cycle_ms']:.2f} ms; the other run "
+              f"{min(o['decisions_per_s'] for o in runs[False]):.1f}), on "
+              f"{b:.1f} (p50 {on['p50_cycle_ms']:.2f} ms, {on['samples']} "
+              f"samples at 4 Hz; the other run "
+              f"{min(o['decisions_per_s'] for o in runs[True]):.1f}); "
+              f"overhead_fraction {(a - b) / a:.4f} (the JAX contract: < "
+              f"0.02; host walls spread 10-30%, not gated); chain "
+              f"{on['placement_chain'][:16]} in all {len(chains)} distinct "
+              f"(want {want_chain[:16]}); restages {on['restages']} on "
+              f"{card}")
+        if chains != {want_chain}:
+            raise AssertionError("phase 29: the chains differ with the "
+                                 "analytics plane on")
+        if any(o["restages"] != {"cold_start": 1} for o in runs[True]):
+            raise AssertionError("phase 29: the analytics plane restaged")
+
+    record = []
+    log = analytics.install(analytics.ClusterAnalytics(
+        keep_inputs=True, sample_interval_s=0.0))
+    try:
+        with timed_on_card(scan, "analytics_reduce", record):
+            out = run_stream_simulation(device="cuda", **params)
+        problems = log.verify_against_host()
+        kept = len(log.samples())
+    finally:
+        analytics.uninstall()
+    torch.cuda.synchronize()
+    spans = [start.elapsed_time(end) for _, _, start, end in record]
+    print(f"phase 29: every cycle sampled, inputs kept: {kept} samples, "
+          f"{len(problems)} unlike host_reduce; the reduction's CUDA-event "
+          f"span p50 {1000 * percentile(spans, 0.5):.1f} us a cycle against "
+          f"a cycle's p50 {out['p50_cycle_ms']:.2f} ms; chain "
+          f"{out['placement_chain'][:16]} on {card}")
+    if problems or kept != params["cycles"] or \
+            out["placement_chain"] != want_chain:
+        raise AssertionError(f"phase 29: {problems[:3]}")
+
+    cpu_params, cpu_chain, _ = STREAM_GOLDENS["config9"]
+    log = analytics.install(analytics.ClusterAnalytics(
+        sample_interval_s=0.0))
+    try:
+        out = run_stream_simulation(device="cuda", **cpu_params)
+        got = records_digest(log.series(limit=len(log.samples())))
+    finally:
+        analytics.uninstall()
+    print(f"phase 29: the CPU shape ({cpu_params['num_nodes']} nodes, "
+          f"{cpu_params['cycles']} cycles): samples digest {got} (want "
+          f"{want_stats}), chain {out['placement_chain'][:16]} (want "
+          f"{cpu_chain[:16]})")
+    if got != want_stats or out["placement_chain"] != cpu_chain:
+        raise AssertionError("phase 29: the CPU shape's samples differ from "
+                             "the JAX package's")
+
+    wparams, bucket, _ = SERVE_CONFIG8
+    snapshot, _, load = serve_load(workloads.build_workload(**wparams),
+                                   WhatIfRequest)
+    log = analytics.install(analytics.ClusterAnalytics(
+        keep_inputs=True, sample_interval_s=0.0))
+    try:
+        fleet = ScenarioFleet(bucket_size=bucket, flush_after_s=60.0)
+        fleet.register_snapshot("base", snapshot)
+        responses = fleet.run(load()[:bucket])
+        problems = log.verify_against_host()
+        sources = sorted({s.source for s in log.samples()})
+        kept = len(log.samples())
+    finally:
+        analytics.uninstall()
+    print(f"phase 29: one config 8 serve bucket ({bucket} requests on "
+          f"{len(snapshot.nodes)} nodes): {kept} pre-bind samples "
+          f"{sources}, {len(problems)} unlike host_reduce")
+    if problems or kept != bucket or not all(r.ok for r in responses):
+        raise AssertionError(f"phase 29: serve samples {problems[:3]}")
+
+    # the reduction alone at the stream's width, under torch.profiler
+    args = record[-1][0]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            scan.analytics_reduce(*args)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(profiled_device_us(e) for e in kernels) / 10
+    print(f"phase 29: analytics_reduce at {params['num_nodes']} nodes "
+          f"under torch.profiler: {sum(e.count for e in kernels) / 10:.0f} "
+          f"kernels and {busy_us:.1f} us of device busy time a call on "
+          f"{card}")
+
+
+def drive_analytics_phases(card):
+    """Phases 28-29 inside ANALYTICS_BUDGET_S."""
+    t0 = time.perf_counter()
+    drive_provenance_kernel(card)
+    drive_explain(card)
+    drive_config12(card)
+    wall = time.perf_counter() - t0
+    print(f"phases 28-29: {wall:.1f}s wall in all, against their "
+          f"{ANALYTICS_BUDGET_S} s budget")
+    if wall > ANALYTICS_BUDGET_S:
+        raise AssertionError(f"phases 28-29: {wall:.1f}s is past their "
+                             f"{ANALYTICS_BUDGET_S} s budget")
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -2627,6 +2959,10 @@ def main():
     # phases 25-27: event-log replay, the recorder and registry, serve's
     # live twins
     drive_obs_phases(card)
+
+    # phases 28-29: decision provenance, the explain lanes and the
+    # analytics plane
+    drive_analytics_phases(card)
 
     kernels = []
     for name, variant, replaces, n_launch, err in (

@@ -66,6 +66,20 @@ EVENT_HYBRID):
 
     JAX_PLATFORMS=cpu python tools/port_golden.py event_replay 100000 5000
     JAX_PLATFORMS=cpu python tools/port_golden.py event_hybrid 20000 1000
+
+`explain NAME` prints the digest (chip_smoke.records_digest: the records
+without their time stamps) of the decision-provenance records the JAX
+package's JaxBackend writes with a ProvenanceLog of chip_smoke.EXPLAIN_TOP_K
+lanes installed, on chip_smoke.EXPLAIN_CELLS[NAME] (config3: config 3's
+first 8,192 pods on its 5,000 nodes; policy: the policy workload's first
+2,048 under the upstream 1.2 policy; ~1-2 min each). `config12` prints
+bench config 12's goldens (chip_smoke.CONFIG12): the placement chain of
+the config 9 stream at 4,000 nodes (40 cycles of 64 arrivals), and at
+bench.py's CPU shape (800 nodes, 24 cycles) the chain and the digest of the
+analytics samples, one a cycle, decoded without their time stamps:
+
+    JAX_PLATFORMS=cpu python tools/port_golden.py explain config3
+    JAX_PLATFORMS=cpu python tools/port_golden.py config12
 """
 
 import hashlib
@@ -221,7 +235,59 @@ def event_digest(name, num_pods, num_nodes):
     return 0
 
 
+def explain_digest(name):
+    from chip_smoke import EXPLAIN_CELLS, EXPLAIN_TOP_K, records_digest
+    from tpusim.obs import provenance
+
+    t0 = time.perf_counter()
+    workload, params, version, _ = EXPLAIN_CELLS[name]
+    snapshot, pods = getattr(workloads, workload)(api=jax_api, **params)
+    policy = workloads.COMPAT_POLICIES[version] if version else None
+    log = provenance.install(provenance.ProvenanceLog(
+        capacity=len(pods), top_k=EXPLAIN_TOP_K))
+    try:
+        JaxBackend(fallback="error", policy=policy and decode_policy(policy)
+                   ).schedule(pods, snapshot)
+        records = log.tail(len(pods))
+    finally:
+        provenance.uninstall()
+    print(f"explain {name}({params}, top_k {EXPLAIN_TOP_K}): digest "
+          f"{records_digest(records)}, {len(records)} records, "
+          f"{sum(1 for r in records if r['placed'])} placed, "
+          f"{time.perf_counter() - t0:.1f} s")
+    return 0
+
+
+def config12_goldens():
+    from chip_smoke import CONFIG12, STREAM_GOLDENS, records_digest
+    from tpusim.obs import analytics
+    from tpusim.simulator import run_stream_simulation
+
+    t0 = time.perf_counter()
+    params, _, _ = CONFIG12
+    out = run_stream_simulation(**params)
+    print(f"config12({params}): placement_chain {out['placement_chain']}, "
+          f"{time.perf_counter() - t0:.1f} s")
+    cpu_params = STREAM_GOLDENS["config9"][0]
+    log = analytics.install(analytics.ClusterAnalytics(
+        sample_interval_s=0.0))
+    try:
+        out = run_stream_simulation(**cpu_params)
+        samples = log.series(limit=len(log.samples()))
+    finally:
+        analytics.uninstall()
+    print(f"config12 CPU shape({cpu_params}): placement_chain "
+          f"{out['placement_chain']}, {len(samples)} analytics samples, "
+          f"digest {records_digest(samples)}, "
+          f"{time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 def main(argv):
+    if argv[0] == "explain":
+        return explain_digest(argv[1])
+    if argv[0] == "config12":
+        return config12_goldens()
     if argv[0] in ("event_replay", "event_hybrid"):
         return event_digest(argv[0], int(argv[1]), int(argv[2]))
     if argv[0] == "gang_feed":

@@ -21,8 +21,9 @@ tpusim or of JAX:
   fastscan    the chunked driver of the fused scan
   scan        the exact sequential scan route (int64 tensor code), whole,
               in chunks of pods, batched over scenarios, or resident with
-              in-place delta commits; the gang lanes and packing solve
-  packing     the gang packer's int64 rank key
+              in-place delta commits; the explain lanes; the gang lanes and
+              packing solve; the analytics reduction
+  packing     the int64 ordering keys (the top-k keys, the gang rank key)
   sharding    node-axis padding with never-feasible nodes
   whatif      run_what_if: many (snapshot, pods) scenarios in one call
   serve/      ScenarioFleet, the what-if service over batched programs
@@ -36,6 +37,8 @@ tpusim or of JAX:
               cluster, the churn load generator
   simulator   ClusterCapacity (the host orchestrator), run_simulation and
               run_stream_simulation, the entry points of a simulation
+  obs/        the flight recorder, decision provenance and the cluster
+              analytics plane
   cli         python -m tpusim_torch.cli
 """
 

@@ -23,6 +23,15 @@ NotImplementedError with the reason. That classification is known before any
 device work, and it is the only reroute: a fault of a kernel build, a launch
 or the scan propagates.
 
+An installed provenance log (obs.provenance) gets every decoded batch,
+source "backend" (or "reference" on the host route). One that asks for
+top-k score breakdowns builds the explain lanes into the scan
+(EngineConfig.explain_k), and an installed analytics plane (obs.analytics)
+reduces the scan's final carry: both read what only the scan writes, so
+route "auto" takes the scan for them, counted in
+tpusim_fast_fallback_total as the JAX package counts it, and route
+"kernel" raises. A failures-only log rides the kernel route.
+
 With a flight recorder installed (obs.recorder), schedule records the JAX
 package's spans: compile_cluster, device_dispatch (a device span, with its
 CUDA-event time on the card), the route instant and decode_placements; the
@@ -48,11 +57,12 @@ from tpusim_torch.backends import (  # noqa: F401 (re-exported)
     mark_unschedulable,
     placement_hash,
 )
-from tpusim_torch.config import config_for
+from tpusim_torch.config import EXPLAIN_SENTINEL, config_for, explain_part_names
 from tpusim_torch.device import resolve_device
 from tpusim_torch.fastplan import plan_fast
 from tpusim_torch.fastscan import fast_scan
 from tpusim_torch.framework.metrics import register, since_in_microseconds
+from tpusim_torch.obs import analytics, provenance
 from tpusim_torch.obs import recorder as flight
 from tpusim_torch.scan import (
     GRAPH_STEPS,
@@ -113,6 +123,27 @@ def note_fast_fallback(why: str) -> None:
     key = fast_fallback_key(why)
     register().fast_fallback.inc(key)
     flight.note_fast_fallback(key, why)
+
+
+# the reasons a batch takes the scan whatever plan_fast would say (the JAX
+# package's texts, so the same fallback keys): the explain lanes and the
+# analytics plane read what only the scan writes, its score parts and its
+# final carry
+EXPLAIN_ON_SCAN = ("explain lanes (top-k score breakdown) route through the "
+                   "XLA scan")
+ANALYTICS_ON_SCAN = "cluster analytics rides the XLA scan's final carry"
+EXPLAIN_WHOLE_SCAN = ("explain lanes (top-k score breakdown) take the whole "
+                      "scan, not the chunked one")
+
+
+def scan_only_reason(config) -> Optional[str]:
+    """Why a batch under `config` must run on the scan route, given the
+    installed provenance log and analytics plane, or None."""
+    if config.explain_k > 0:
+        return EXPLAIN_ON_SCAN
+    if analytics.get() is not None:
+        return ANALYTICS_ON_SCAN
+    return None
 
 
 def plan_signature(plan) -> tuple:
@@ -291,6 +322,9 @@ class TorchBackend:
             extender_transport=self.extender_transport,
             hard_pod_affinity_symmetric_weight=self.hard_pod_affinity_symmetric_weight,
         ).schedule(pods, snapshot)
+        # the host route's decisions carry provenance too: failures and
+        # placements only, as it computes no score parts
+        provenance.capture(placements, "reference")
         index = {n.name: i for i, n in enumerate(snapshot.nodes)}
         self.last_choices = np.array(
             [index.get(p.node_name, -1) for p in placements], np.int32)
@@ -310,9 +344,11 @@ class TorchBackend:
         if not snapshot.nodes:
             msg = "no nodes available to schedule pods"
             self.last_choices = np.full(len(pods), -1, np.int32)
-            return [Placement(pod=mark_unschedulable(p, msg),
-                              reason="Unschedulable", message=msg)
-                    for p in pods]
+            placements = [Placement(pod=mark_unschedulable(p, msg),
+                                    reason="Unschedulable", message=msg)
+                          for p in pods]
+            provenance.capture(placements, "backend")
+            return placements
         metrics = register()
         cp = self._compiled_policy
         ps = cp.spec if cp is not None else None
@@ -327,8 +363,10 @@ class TorchBackend:
                 if csp:
                     csp.set("pods", len(pods))
                     csp.set("nodes", len(snapshot.nodes))
-            metrics.backend_compile_latency.observe(
-                since_in_microseconds(compile_start))
+            compile_us = since_in_microseconds(compile_start)
+            metrics.backend_compile_latency.observe(compile_us)
+            analytics.note_compile(
+                "backend", f"nodes={len(snapshot.nodes)}", compile_us)
         else:
             compiled, cols = precompiled
             detail = unsupported_detail(compiled, cp)
@@ -345,9 +383,18 @@ class TorchBackend:
             most_requested=self.provider in _MOST_REQUESTED_PROVIDERS,
             hard_weight=self.hard_pod_affinity_symmetric_weight,
             compiled_policy=cp)
+        # an installed provenance log that asks for a score breakdown
+        # builds the explain lanes into the scan (explain_k 0 leaves every
+        # program as it is)
+        explain_k = provenance.requested_top_k()
+        if explain_k > 0:
+            config = replace(config, explain_k=min(
+                explain_k, len(compiled.statics.names)))
         plan, why = None, "route='scan' asked for"
         if self.route != "scan":
-            plan, why = plan_fast(config, compiled, cols, ptabs)
+            why = scan_only_reason(config)
+            if why is None:
+                plan, why = plan_fast(config, compiled, cols, ptabs)
             if plan is None:
                 if self.route == "kernel":
                     raise NotImplementedError(f"torch backend: {why}")
@@ -355,15 +402,20 @@ class TorchBackend:
         if plan is None:
             # a batch past TPUSIM_SCAN_CHUNK pods streams its pod columns
             # to the device chunk by chunk (the JAX package's setting and
-            # default)
+            # default); the chunked scan carries no explain lanes, so they
+            # take the whole scan, counted
             scan_chunk = env_int("TPUSIM_SCAN_CHUNK", 131072)
             chunked = 0 < scan_chunk < len(pods)
+            if chunked and config.explain_k > 0:
+                note_fast_fallback(EXPLAIN_WHOLE_SCAN)
+                chunked = False
             carry, statics, xs = scan_inputs(config, compiled, cols, ptabs,
                                              self.device, host_pods=chunked)
         # the dispatch span runs from the plan (or the staged scan inputs)
         # to the choices on the host; its CUDA-event time is read at export
         dispatch_start = perf_counter()
         dsp = flight.span("device_dispatch", "device", self.device)
+        lanes = final_carry = None
         if plan is not None:
             with flight.profiled("tpusim:fast_scan"):
                 choices, counts, _adv = fast_scan(plan, device=self.device)
@@ -371,12 +423,15 @@ class TorchBackend:
         else:
             with flight.profiled("tpusim:schedule_scan"):
                 if chunked:
-                    _, choices, counts, _adv = schedule_scan_chunked(
-                        config, carry, statics, xs, scan_chunk,
-                        graph_steps=GRAPH_STEPS)
+                    final_carry, choices, counts, _adv = \
+                        schedule_scan_chunked(config, carry, statics, xs,
+                                              scan_chunk,
+                                              graph_steps=GRAPH_STEPS)
                 else:
-                    _, choices, counts, _adv = schedule_scan(
-                        config, carry, statics, xs, graph_steps=GRAPH_STEPS)
+                    final_carry, choices, counts, _adv, *rest = \
+                        schedule_scan(config, carry, statics, xs,
+                                      graph_steps=GRAPH_STEPS)
+                    lanes = rest[0] if rest else None
                     choices = choices.cpu().numpy()
                     counts = counts.cpu().numpy()
             self.last_route, self.last_route_reason = "scan", why
@@ -396,6 +451,23 @@ class TorchBackend:
             placements = decode_placements(
                 pods, choices, counts, compiled.statics.names,
                 reason_strings(compiled.scalar_names))
+        prov = provenance.get_log()
+        if prov is not None:
+            topk = None
+            if lanes is not None:
+                topk = {"idx": lanes.top_idx.cpu().numpy(),
+                        "scores": lanes.top_scores.cpu().numpy(),
+                        "parts": lanes.top_parts.cpu().numpy(),
+                        "names": compiled.statics.names,
+                        "part_names": explain_part_names(config),
+                        "sentinel": EXPLAIN_SENTINEL}
+            prov.capture_batch(placements, "backend", topk=topk)
+        if final_carry is not None:
+            # the batch's post-bind carry against its statics; a
+            # None-check without an installed analytics plane
+            analytics.capture(statics, final_carry,
+                              len(compiled.statics.names), "backend",
+                              names=compiled.statics.names)
         # e2e also covers the host's decode of the results
         metrics.e2e_scheduling_latency.observe(
             since_in_microseconds(dispatch_start))

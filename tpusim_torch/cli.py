@@ -30,6 +30,13 @@ verbosity (2: INFO, 5: DEBUG with the host engine's per-node score dump).
 --trace-out writes the flight recorder's timeline (Chrome trace JSON, or
 JSON lines with a .jsonl name) and --metrics-out the metrics registry in
 Prometheus text format after the run; serve and stream take both.
+--explain-out appends a decision-provenance record a pod decision (JSON
+lines; --explain-top-k K adds each placed pod's top K nodes with their
+score parts, on the scan route), --analytics-out the cluster analytics
+plane's samples; serve and stream take both. The explain subcommand
+queries an --explain-out file:
+
+    python -m tpusim_torch.cli explain explain.jsonl [--failed] [--summary]
 
 --what-if runs a manifest of scenarios (a JSON list of {snapshot, podspec}
 file pairs) through whatif.run_what_if and prints a line a scenario. The
@@ -148,6 +155,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def add_obs_flags(parser, timeline: str) -> None:
+    """The observability flags of the main command, serve and stream."""
     parser.add_argument("--trace-out", default="",
                         help=f"Write {timeline} after the run: Chrome "
                              "trace_event JSON (Perfetto-loadable), or a "
@@ -155,6 +163,54 @@ def add_obs_flags(parser, timeline: str) -> None:
     parser.add_argument("--metrics-out", default="",
                         help="Write the metrics registry in Prometheus text "
                              "exposition format after the run")
+    add_explain_flags(parser)
+    parser.add_argument("--analytics-out", default="",
+                        help="Append cluster-analytics samples (one JSON "
+                             "object a sample: per-resource utilization and "
+                             "fragmentation, feasible nodes, the hottest "
+                             "and coldest nodes, reduced on the device) to "
+                             "this JSONL file")
+
+
+def add_explain_flags(parser: argparse.ArgumentParser) -> None:
+    """The decision-provenance flag pair."""
+    parser.add_argument("--explain-out", default="",
+                        help="Append decision-provenance records (one JSON "
+                             "object a pod decision: why placed, or why "
+                             "not, with the failure text byte-identical to "
+                             "the host FitError) to this JSONL file; query "
+                             "it with `explain FILE`")
+    parser.add_argument("--explain-top-k", type=int, default=0,
+                        help="Also record the top K candidate nodes of each "
+                             "placed pod with each one's score by priority "
+                             "(one-shot runs on the torch backend; routes "
+                             "through the scan). 0 records failures and "
+                             "placements only")
+
+
+def _arm_observability(args):
+    """Install the provenance log and the analytics plane the flags ask
+    for; returns the teardown, which flushes their files and folds the last
+    analytics sample into the tpusim_cluster_* gauges, so that a
+    --metrics-out written after it carries them."""
+    from tpusim_torch.obs import analytics, provenance
+
+    explain_top_k = max(0, args.explain_top_k)
+    if args.explain_out or explain_top_k:
+        provenance.install(provenance.ProvenanceLog(
+            top_k=explain_top_k, path=args.explain_out or None))
+    if args.analytics_out:
+        analytics.install(analytics.ClusterAnalytics(
+            path=args.analytics_out))
+
+    def teardown() -> None:
+        if provenance.get_log() is not None:
+            provenance.uninstall()   # close() flushes --explain-out
+        if analytics.get() is not None:
+            analytics.refresh_gauges()
+            analytics.uninstall()    # close() flushes --analytics-out
+
+    return teardown
 
 
 def _write_metrics(path: str) -> None:
@@ -430,6 +486,7 @@ def serve_cli(argv) -> int:
                       cache_key=f"load-{i}-{n}")
         for i, n in enumerate(sizes)]
 
+    obs_teardown = _arm_observability(args)
     fleet.start()
     try:
         passes = []  # (label, elapsed, responses)
@@ -441,6 +498,7 @@ def serve_cli(argv) -> int:
             passes.append((label, time.perf_counter() - start, responses))
     finally:
         fleet.stop()
+        obs_teardown()
 
     stats = fleet.executor.stats
     exit_code = 0
@@ -573,6 +631,7 @@ def stream_cli(argv) -> int:
     from tpusim_torch.simulator import run_stream_simulation
 
     recorder = _start_trace(args, "tpusim-stream")
+    obs_teardown = _arm_observability(args)
     try:
         out = run_stream_simulation(
             snapshot, num_nodes=args.synthetic_nodes, cycles=args.cycles,
@@ -588,6 +647,8 @@ def stream_cli(argv) -> int:
         _drop_trace(recorder)
         print(f"error: {exc}", file=sys.stderr)
         return 2
+    finally:
+        obs_teardown()
     rc = _finish_obs(args, recorder)
     if rc:
         return rc
@@ -644,12 +705,132 @@ def _device_bound(args, pods, snapshot, events) -> bool:
                 len(pods), n_nodes, args.enable_volume_scheduling)))
 
 
+def build_explain_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="tpusim explain",
+        description="Query a decision-provenance file (--explain-out "
+                    "JSONL): why each pod placed where it did, or the "
+                    "exact per-predicate failure text when it didn't")
+    parser.add_argument("file", help="JSONL file written by --explain-out")
+    parser.add_argument("--pod", default="",
+                        help="Only records whose pod name contains this "
+                             "substring ('ns/name' matches exactly)")
+    parser.add_argument("--source", default="",
+                        help="Only records from this capture source "
+                             "(backend, stream, serve, ...)")
+    parser.add_argument("--failed", action="store_true",
+                        help="Only unschedulable decisions")
+    parser.add_argument("--placed", action="store_true",
+                        help="Only placed decisions")
+    parser.add_argument("--limit", type=int, default=0,
+                        help="Print at most the LAST N matching records "
+                             "(0: all)")
+    parser.add_argument("--summary", action="store_true",
+                        help="Aggregate counts instead of per-record lines: "
+                             "placed/failed by source, failure messages by "
+                             "frequency")
+    parser.add_argument("--json", action="store_true",
+                        help="Emit matching records as JSON lines instead "
+                             "of the human-readable rendering")
+    return parser
+
+
+def _format_explain_record(rec: dict) -> str:
+    where = rec.get("source", "?")
+    if rec.get("cycle") is not None:
+        where += f" c{rec['cycle']}"
+    head = f"#{rec.get('seq', '?')} [{where}] {rec.get('pod', '?')}"
+    if rec.get("placed"):
+        line = f"{head} -> {rec.get('node')}"
+        top = rec.get("top_k") or []
+        if top:
+            best = top[0]
+            parts = best.get("parts") or {}
+            breakdown = ", ".join(f"{k}={v}" for k, v in parts.items() if v)
+            line += (f"  (score {best.get('score')}"
+                     + (f": {breakdown}" if breakdown else "") + ")")
+            for alt in top[1:]:
+                line += f"\n    runner-up {alt['node']} score {alt['score']}"
+        return line
+    return (f"{head} UNSCHEDULABLE [{rec.get('reason', '?')}]\n"
+            f"    {rec.get('message', '')}")
+
+
+def explain_cli(argv) -> int:
+    """`explain`: offline queries over an --explain-out file."""
+    import json
+    from collections import Counter
+
+    from tpusim_torch.obs.provenance import read_jsonl
+
+    args = build_explain_parser().parse_args(argv)
+    if args.failed and args.placed:
+        print("error: --failed and --placed are mutually exclusive",
+              file=sys.stderr)
+        return 2
+
+    def matches(rec: dict) -> bool:
+        if args.pod:
+            pod = rec.get("pod", "")
+            if args.pod != pod and args.pod not in pod:
+                return False
+        if args.source and rec.get("source") != args.source:
+            return False
+        if args.failed and rec.get("placed"):
+            return False
+        if args.placed and not rec.get("placed"):
+            return False
+        return True
+
+    try:
+        records = [r for r in read_jsonl(args.file) if matches(r)]
+    except (OSError, ValueError) as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 2
+
+    if args.summary:
+        by_source: Counter = Counter()
+        placed = failed = 0
+        messages: Counter = Counter()
+        nodes: Counter = Counter()
+        for rec in records:
+            by_source[rec.get("source", "?")] += 1
+            if rec.get("placed"):
+                placed += 1
+                nodes[rec.get("node", "?")] += 1
+            else:
+                failed += 1
+                messages[rec.get("message", "")] += 1
+        print(f"{len(records)} decision(s): {placed} placed, "
+              f"{failed} unschedulable")
+        for source, n in by_source.most_common():
+            print(f"  source {source}: {n}")
+        if nodes:
+            print("top nodes:")
+            for node, n in nodes.most_common(10):
+                print(f"  {n:6d}  {node}")
+        if messages:
+            print("failure messages:")
+            for message, n in messages.most_common(10):
+                print(f"  {n:6d}  {message}")
+        return 0
+
+    if args.limit > 0:
+        records = records[-args.limit:]
+    for rec in records:
+        print(json.dumps(rec, sort_keys=True) if args.json
+              else _format_explain_record(rec))
+    return 0
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv and argv[0] == "serve":
         return serve_cli(argv[1:])
     if argv and argv[0] == "stream":
         return stream_cli(argv[1:])
+    if argv and argv[0] == "explain":
+        return explain_cli(argv[1:])
     args = build_parser().parse_args(argv)
     if args.verbosity >= 2:
         # glog -v analog: the tpusim_torch loggers (slow-schedule traces,
@@ -731,6 +912,7 @@ def main(argv=None) -> int:
               "--backend reference to see the dump.", file=sys.stderr)
 
     recorder = _start_trace(args)
+    obs_teardown = _arm_observability(args)
     start = time.perf_counter()
     try:
         status = run_simulation(
@@ -744,6 +926,8 @@ def main(argv=None) -> int:
         _drop_trace(recorder)
         print(f"error: {exc}", file=sys.stderr)
         return 2
+    finally:
+        obs_teardown()
     elapsed = time.perf_counter() - start
     rc = _finish_obs(args, recorder)
     if rc:

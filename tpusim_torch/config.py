@@ -92,6 +92,10 @@ class EngineConfig:
     policy: Optional[PolicySpec] = None
     # ServiceAntiAffinity label domains incl. the label-missing 0 bucket
     n_saa_doms: int = 1
+    # the explain lanes: with k > 0 the scan also writes, a pod, the top k
+    # nodes by final score with each node's score parts
+    # (explain_part_names order); 0 builds the programs without them
+    explain_k: int = 0
 
 
 def config_for(compiled, most_requested: bool,
@@ -126,3 +130,43 @@ def policy_weights(ps: Optional[PolicySpec], most_requested: bool) -> tuple:
         return (w_least, w_most, 1, 1, 1, AVOID_PODS_WEIGHT, 1, 1)
     return (ps.w_least, ps.w_most, ps.w_balanced, ps.w_node_aff,
             ps.w_taint, ps.w_avoid, ps.w_spread, ps.w_interpod)
+
+
+# Any real node score is a small weighted sum of components of 0..10 times
+# their weights. The explain lanes mask an infeasible node to
+# 2 * EXPLAIN_SENTINEL before their top-k, so a row scoring at or below the
+# sentinel is padding (fewer than k nodes feasible), not a candidate.
+EXPLAIN_SENTINEL = -(1 << 61)
+
+
+def explain_part_names(config: EngineConfig) -> list:
+    """The score parts of the explain lanes, named after their priorities,
+    in the order scan._evaluate adds them to the score: the same gating,
+    so the parts of a row sum to its score."""
+    ps = config.policy
+    (w_least, w_most, w_balanced, w_node_aff, w_taint, w_avoid, w_spread,
+     w_interpod) = policy_weights(ps, config.most_requested)
+    names = []
+    if w_least:
+        names.append("LeastRequestedPriority")
+    if w_most:
+        names.append("MostRequestedPriority")
+    if w_balanced:
+        names.append("BalancedResourceAllocation")
+    if w_node_aff:
+        names.append("NodeAffinityPriority")
+    if w_taint:
+        names.append("TaintTolerationPriority")
+    if w_avoid:
+        names.append("NodePreferAvoidPodsPriority")
+    if ps is not None and ps.has_label_prio:
+        names.append("NodeLabelPriority")
+    if ps is not None and ps.w_image:
+        names.append("ImageLocalityPriority")
+    if ps is not None and ps.saa_weights:
+        names.append("ServiceAntiAffinityPriority")
+    if config.has_services and w_spread:
+        names.append("SelectorSpreadPriority")
+    if config.has_interpod and w_interpod:
+        names.append("InterPodAffinityPriority")
+    return names

@@ -34,6 +34,7 @@ from tpusim_torch.framework.store import MODIFIED
 from tpusim_torch.gang.group import PodGroup, gang_fit_message, split_feed
 from tpusim_torch.gang.kernel import gang_choices
 from tpusim_torch.gang.oracle import packing_domains
+from tpusim_torch.obs import provenance
 from tpusim_torch.obs import recorder as flight
 
 log = logging.getLogger(__name__)
@@ -159,13 +160,16 @@ def _sequential_trial(backend, inc, members: List[Pod], compiled, cols
             for pl in trial], names
 
 
-def schedule_with_gangs(backend, inc, pods: List[Pod]) -> List[Placement]:
+def schedule_with_gangs(backend, inc, pods: List[Pod],
+                        source: str = "gang") -> List[Placement]:
     """Schedule a feed that may carry gang annotations: ungrouped runs
     through the backend's per-pod path (backend.schedule with the cluster's
     own compile), each gang by `admit_gang`. Binds are applied to `inc` as
     decisions land, so later segments see earlier placements. Placements
-    come back in feed order."""
+    come back in feed order; the gangs' members go to the provenance log
+    under `source` (the ungrouped runs' under the backend's own)."""
     by_key: Dict[Tuple[str, str], Placement] = {}
+    gang_placements: List[Placement] = []
     for seg in split_feed(pods):
         if seg.pods is not None:
             snapshot = inc.to_snapshot()
@@ -177,6 +181,9 @@ def schedule_with_gangs(backend, inc, pods: List[Pod]) -> List[Placement]:
                     inc.apply(MODIFIED, pl.pod)
         else:
             pls = admit_gang(backend, inc, seg.group)
+            gang_placements.extend(pls)
         for pl in pls:
             by_key[(pl.pod.metadata.namespace, pl.pod.metadata.name)] = pl
+    if gang_placements:
+        provenance.capture(gang_placements, source)
     return [by_key[(p.metadata.namespace, p.metadata.name)] for p in pods]

@@ -29,7 +29,12 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from tpusim_torch.config import EngineConfig, policy_weights
+from tpusim_torch.config import (
+    EXPLAIN_SENTINEL,
+    EngineConfig,
+    explain_part_names,
+    policy_weights,
+)
 from tpusim_torch.engine.predicates import (
     CHECK_NODE_DISK_PRESSURE_PRED,
     CHECK_NODE_LABEL_PRESENCE_PRED,
@@ -51,6 +56,7 @@ from tpusim_torch.engine.predicates import (
     POD_TOLERATES_NODE_NO_EXECUTE_TAINTS_PRED,
     POD_TOLERATES_NODE_TAINTS_PRED,
 )
+from tpusim_torch.packing import encode_gang_rank, encode_topk_keys
 from tpusim_torch.state import (
     BIT_AFFINITY_NOT_MATCH,
     BIT_AFFINITY_RULES,
@@ -485,9 +491,11 @@ class _Const:
 
 
 def _evaluate(config: EngineConfig, carry: Carry, st: Statics, x: PodX,
-              g1, const: _Const):
+              g1, const: _Const, parts: Optional[list] = None):
     """Filter + score one pod against the carried aggregates: (feasible[N],
-    reason_bits[N], score[N], n_feasible, aca_counts).
+    reason_bits[N], score[N], n_feasible, aca_counts). A `parts` list gets
+    each weighted score component ([N]) as it is added, in
+    explain_part_names order: they sum to the score.
 
     x holds one pod's columns (0-d tensors); g1 is its group id as a
     one-element index. With config.policy set, stages and components are
@@ -790,50 +798,59 @@ def _evaluate(config: EngineConfig, carry: Carry, st: Statics, x: PodX,
      w_interpod) = policy_weights(ps, config.most_requested)
 
     score = torch.zeros_like(st.alloc_cpu)
+
+    def add(term):
+        # a weighted component: into the score and, for the explain lanes,
+        # into `parts` in explain_part_names order
+        nonlocal score
+        score = score + term
+        if parts is not None:
+            parts.append(torch.broadcast_to(term, score.shape))
+
     if w_least or w_most or w_balanced:
         total_cpu = x.nz_cpu + carry.nonzero_cpu
         total_mem = x.nz_mem + carry.nonzero_mem
     if w_least:
         # least_requested.go:41-52
-        score = score + w_least * _fdiv(
+        add(w_least * _fdiv(
             _ratio_score(total_cpu, st.alloc_cpu, False)
-            + _ratio_score(total_mem, st.alloc_mem, False), 2)
+            + _ratio_score(total_mem, st.alloc_mem, False), 2))
     if w_most:
         # most_requested.go:44-55
-        score = score + w_most * _fdiv(
+        add(w_most * _fdiv(
             _ratio_score(total_cpu, st.alloc_cpu, True)
-            + _ratio_score(total_mem, st.alloc_mem, True), 2)
+            + _ratio_score(total_mem, st.alloc_mem, True), 2))
     if w_balanced:
-        score = score + w_balanced * _balanced_score(
-            total_cpu, total_mem, st.alloc_cpu, st.alloc_mem)
+        add(w_balanced * _balanced_score(
+            total_cpu, total_mem, st.alloc_cpu, st.alloc_mem))
 
     if w_node_aff:
         # NodeAffinityPriority: NormalizeReduce(10, False) over feasible nodes
         aff = _row(st.affinity_count, one(x.aff_id))
         aff_max = torch.max(torch.where(feasible, aff, 0))
-        score = score + w_node_aff * torch.where(
-            aff_max > 0, _fdiv(MAX_PRIORITY * aff, aff_max.clamp(min=1)), 0)
+        add(w_node_aff * torch.where(
+            aff_max > 0, _fdiv(MAX_PRIORITY * aff, aff_max.clamp(min=1)), 0))
 
     if w_taint:
         # TaintTolerationPriority: NormalizeReduce(10, True) over feasible
         intol = _row(st.intolerable, one(x.tol_id))
         intol_max = torch.max(torch.where(feasible, intol, 0))
-        score = score + w_taint * torch.where(
+        add(w_taint * torch.where(
             intol_max > 0,
             MAX_PRIORITY - _fdiv(MAX_PRIORITY * intol, intol_max.clamp(min=1)),
-            MAX_PRIORITY)
+            MAX_PRIORITY))
 
     if w_avoid:
-        score = score + _row(st.avoid_score, one(x.avoid_id)) * w_avoid
+        add(_row(st.avoid_score, one(x.avoid_id)) * w_avoid)
 
     if ps is not None and ps.has_label_prio:
         # NodeLabel/LabelPreference priorities: static pre-weighted row
-        score = score + st.label_prio
+        add(st.label_prio)
 
     if ps is not None and ps.w_image:
         # ImageLocalityPriority (image_locality.go): static per
         # (pod image set, node)
-        score = score + _row(st.image_score, one(x.img_id)) * ps.w_image
+        add(_row(st.image_score, one(x.img_id)) * ps.w_image)
 
     if ps is not None and ps.saa_weights:
         # ServiceAntiAffinity (selector_spreading.go:176-280): spread the
@@ -857,7 +874,8 @@ def _evaluate(config: EngineConfig, carry: Carry, st: Statics, x: PodX,
                       saa_total.clamp(min=1)),
                 MAX_PRIORITY)
             saa_term = saa_term + torch.where(labeled, f_score, 0) * w_saa
-        score = score + saa_term
+        # the entries add up into one part
+        add(saa_term)
 
     if config.has_services and w_spread:
         # SelectorSpreadPriority (selector_spreading.go:66-175): my
@@ -882,8 +900,7 @@ def _evaluate(config: EngineConfig, carry: Carry, st: Statics, x: PodX,
         blend = _fdiv(MAX_PRIORITY * (node_num * zone_den
                                       + 2 * zone_num * node_den),
                       3 * node_den * zone_den)
-        score = score + torch.where(have_zones & zvalid, blend, plain) \
-            * w_spread
+        add(torch.where(have_zones & zvalid, blend, plain) * w_spread)
 
     if config.has_interpod and w_interpod:
         # InterPodAffinityPriority (interpod_affinity.go:118+): counts from
@@ -915,7 +932,7 @@ def _evaluate(config: EngineConfig, carry: Carry, st: Statics, x: PodX,
         rng = maxc - minc
         ip = torch.where(rng > 0, _fdiv(MAX_PRIORITY * (counts_i - minc),
                                         rng.clamp(min=1)), 0)
-        score = score + ip * w_interpod
+        add(ip * w_interpod)
 
     return feasible, reason_bits, score, n_feasible, aca_counts
 
@@ -1000,13 +1017,55 @@ def _outputs(lead: tuple, num_bits: int, dev) -> ScanOutputs:
         advanced=torch.empty(lead, dtype=torch.bool, device=dev))
 
 
+class ExplainLanes(NamedTuple):
+    """The explain lanes of a scan, a row a pod: the top k nodes by final
+    score, best first (equal scores lower index first, as jax.lax.top_k
+    lists them), with their scores and score parts. An infeasible node
+    scores 2 * EXPLAIN_SENTINEL, so fewer than k feasible nodes leave
+    padding rows at or below the sentinel."""
+    top_idx: torch.Tensor     # [P, k] int32
+    top_scores: torch.Tensor  # [P, k] int64
+    top_parts: torch.Tensor   # [P, k, C] int64, C = len(explain_part_names)
+
+
+def _explain_lanes(config: EngineConfig, num_pods: int, num_nodes: int,
+                   dev) -> Optional[ExplainLanes]:
+    """The lanes' buffers of a scan under `config` (None when explain_k is
+    0): k = min(explain_k, nodes)."""
+    if config.explain_k <= 0:
+        return None
+    k = min(config.explain_k, num_nodes)
+    c = len(explain_part_names(config))
+    return ExplainLanes(
+        top_idx=torch.empty((num_pods, k), dtype=torch.int32, device=dev),
+        top_scores=torch.empty((num_pods, k), dtype=I64, device=dev),
+        top_parts=torch.zeros((num_pods, k, c), dtype=I64, device=dev))
+
+
+_I64_MIN = -(1 << 63)
+
+
+def _top_k_first(values, k: int):
+    """The indices of the k largest values, equal values lower index first:
+    k rounds of a first-occurrence argmax, each pick then set below every
+    value (torch.topk promises no order among ties)."""
+    work = values.clone()
+    picks = []
+    for _ in range(k):
+        i = torch.argmax(work).reshape(1)
+        picks.append(i)
+        work.index_fill_(0, i, _I64_MIN)
+    return torch.cat(picks)
+
+
 def make_step(config: EngineConfig, st: Statics, pods, carry: Carry,
-              out: ScanOutputs, t1):
+              out: ScanOutputs, t1, lanes: Optional[ExplainLanes] = None):
     """The exact sequential step over device-held state: step() takes pod
     t1 (a one-element int64 counter on the device) from `pods`, the packed
     [P, F] columns (_pack_pods), binds it into `carry` in place, writes its
-    row of `out` and advances t1. Nothing in it reads the device from the
-    host, so a block of steps can be captured in a CUDA graph."""
+    row of `out` (and of `lanes`, the explain lanes, where given) and
+    advances t1. Nothing in it reads the device from the host, so a block
+    of steps can be captured in a CUDA graph."""
     const = _Const(config, st)
     unpack = _unpacker(st.alloc_scalar.shape[-1])
     group_bound = (config.has_ports or config.has_services
@@ -1016,8 +1075,9 @@ def make_step(config: EngineConfig, st: Statics, pods, carry: Carry,
     def step():
         x = unpack(pods.index_select(0, t1)[0])
         g1 = x.group_id.reshape(1)
+        parts = [] if lanes is not None else None
         feasible, reason_bits, score, n_feasible, aca_counts = _evaluate(
-            config, carry, st, x, g1, const)
+            config, carry, st, x, g1, const, parts)
         choice, found = _select(feasible, score, n_feasible, carry.rr)
         advanced = n_feasible > 1
 
@@ -1059,9 +1119,27 @@ def make_step(config: EngineConfig, st: Statics, pods, carry: Carry,
         out.counts.index_copy_(
             0, t1, torch.where(found, const.no_counts, hist)[None])
         out.advanced.index_copy_(0, t1, advanced.reshape(1))
+        if lanes is not None:
+            masked = torch.where(feasible, score, 2 * EXPLAIN_SENTINEL)
+            top = _top_k_first(masked, lanes.top_idx.shape[1])
+            lanes.top_idx.index_copy_(0, t1, top.to(torch.int32)[None])
+            lanes.top_scores.index_copy_(0, t1,
+                                         masked.index_select(0, top)[None])
+            if parts:
+                lanes.top_parts.index_copy_(
+                    0, t1, torch.stack(parts).index_select(1, top).T[None])
         t1.add_(1)
 
     return step
+
+
+# CUDA graphs the scans captured this process (_Steps), read by the
+# analytics plane's count of built programs
+_GRAPHS = {"captured": 0}
+
+
+def graphs_captured() -> int:
+    return _GRAPHS["captured"]
 
 
 class _Steps:
@@ -1091,6 +1169,7 @@ class _Steps:
                 with torch.cuda.graph(self.graph):
                     for _ in range(g):
                         step()
+                _GRAPHS["captured"] += 1
             blocks = (count - done) // g
             for _ in range(blocks):
                 self.graph.replay()
@@ -1102,7 +1181,8 @@ class _Steps:
 def schedule_scan(config: EngineConfig, carry: Carry, statics: Statics,
                   xs: PodX, graph_steps: int = 0):
     """Every pod of `xs` in order: (final_carry, choices int32 [P], counts
-    int32 [P, bits], advanced bool [P]), all on the statics' device.
+    int32 [P, bits], advanced bool [P]), all on the statics' device, and
+    with config.explain_k > 0 a fifth element, the ExplainLanes.
     `carry` is left as it was (the scan binds into a copy).
 
     graph_steps > 0 on a CUDA device captures that many steps in one CUDA
@@ -1114,9 +1194,12 @@ def schedule_scan(config: EngineConfig, carry: Carry, statics: Statics,
     dev = statics.alloc_cpu.device
     out = _outputs((num_pods,), NUM_FIXED_BITS + statics.alloc_scalar.shape[-1],
                    dev)
+    lanes = _explain_lanes(config, num_pods, statics.alloc_cpu.shape[0], dev)
     t1 = torch.zeros(1, dtype=I64, device=dev)
-    step = make_step(config, statics, _pack_pods(xs), carry, out, t1)
+    step = make_step(config, statics, _pack_pods(xs), carry, out, t1, lanes)
     _Steps(step, t1, graph_steps).run(num_pods)
+    if lanes is not None:
+        return (carry,) + tuple(out) + (lanes,)
     return (carry,) + tuple(out)
 
 
@@ -1161,6 +1244,9 @@ def schedule_scan_chunked(config: EngineConfig, carry: Carry,
     on a side stream."""
     if chunk < 1:
         raise ValueError(f"chunk={chunk}: need at least 1 pod a chunk")
+    if config.explain_k > 0:
+        raise ValueError("the chunked scan carries no explain lanes; run "
+                         "schedule_scan")
     p = int(np.asarray(xs_host.req_cpu).shape[0])
     pad = (-p) % chunk
     host = _pack_pods(PodX(*(torch.from_numpy(np.asarray(col))
@@ -1660,7 +1746,6 @@ def gang_select(feasible, score, req_cpu, req_mem, req_gpu, req_eph,
     capacity stack. The rank key is packing.encode_gang_rank and the pick
     a first-occurrence argmax, as in gang.oracle.select_oracle. The loop
     reads nothing back from the device: every member's ops queue at once."""
-    from tpusim_torch.packing import encode_gang_rank
 
     m, n = feasible.shape
     dev = feasible.device
@@ -1701,3 +1786,92 @@ def gang_select(feasible, score, req_cpu, req_mem, req_gpu, req_eph,
         choices.index_copy_(0, members[i:i + 1],
                             torch.where(found, idx1, -1).to(torch.int32))
     return choices
+
+
+# ---------------------------------------------------------------------------
+# The analytics plane's reduction (obs.analytics): integer aggregates of a
+# (Statics, Carry) pair, one O(N) pass after a scan over tensors the scan
+# already holds. Ratios are derived at decode on the host; the numpy mirror
+# obs.analytics.host_reduce repeats these integer operations, so the two
+# are compared for equality.
+
+ANALYTICS_RESOURCES = ("cpu", "memory", "gpu", "ephemeral", "pods")
+ANALYTICS_UTIL_SCALE = 1_000_000  # utilization in ppm (floor division)
+
+
+class AnalyticsIn(NamedTuple):
+    """The [N] node columns the reduction folds: allocatables from the
+    statics, requested totals from a carry."""
+    alloc_cpu: torch.Tensor
+    alloc_mem: torch.Tensor
+    alloc_gpu: torch.Tensor
+    alloc_eph: torch.Tensor
+    allowed_pods: torch.Tensor
+    used_cpu: torch.Tensor
+    used_mem: torch.Tensor
+    used_gpu: torch.Tensor
+    used_eph: torch.Tensor
+    pod_count: torch.Tensor
+
+
+class AnalyticsStats(NamedTuple):
+    """Integer aggregates, the resource axis in ANALYTICS_RESOURCES order.
+    hot_keys and cold_keys are packing.encode_topk_keys of the dominant
+    cpu/memory utilization in ppm (clipped to [0, 1e6]) and of its
+    complement, over the node index: unique, so their descending top-k is
+    exact; a node past n_valid keys -1 and is dropped at decode."""
+    alloc: torch.Tensor           # [R] allocatable totals
+    used: torch.Tensor            # [R] requested totals
+    free_sum: torch.Tensor        # [R] sums of per-node free (>= 0)
+    free_max: torch.Tensor        # [R] the largest free slot
+    headroom_nodes: torch.Tensor  # [R] nodes with free > 0
+    feasible_nodes: torch.Tensor  # nodes with free cpu, memory and pods
+    valid_nodes: torch.Tensor     # nodes inside n_valid
+    hot_keys: torch.Tensor        # [k] hottest first
+    cold_keys: torch.Tensor       # [k] coldest first
+
+
+def analytics_in(statics: Statics, carry: Carry) -> AnalyticsIn:
+    """The ten analytics columns of a (Statics, Carry) pair, by reference."""
+    return AnalyticsIn(
+        alloc_cpu=statics.alloc_cpu, alloc_mem=statics.alloc_mem,
+        alloc_gpu=statics.alloc_gpu, alloc_eph=statics.alloc_eph,
+        allowed_pods=statics.allowed_pods,
+        used_cpu=carry.used_cpu, used_mem=carry.used_mem,
+        used_gpu=carry.used_gpu, used_eph=carry.used_eph,
+        pod_count=carry.pod_count)
+
+
+def analytics_reduce(inp: AnalyticsIn, n_valid: int, k: int
+                     ) -> AnalyticsStats:
+    """The aggregates of the first n_valid nodes of `inp` (the rest are
+    padding), on the columns' device, in int64: launched on the current
+    stream, read nothing back. k <= the node count."""
+    n = inp.alloc_cpu.shape[0]
+    idx = torch.arange(n, dtype=I64, device=inp.alloc_cpu.device)
+    mask = idx < n_valid
+    alloc = torch.stack([inp.alloc_cpu, inp.alloc_mem, inp.alloc_gpu,
+                         inp.alloc_eph, inp.allowed_pods]).to(I64)
+    used = torch.stack([inp.used_cpu, inp.used_mem, inp.used_gpu,
+                        inp.used_eph, inp.pod_count]).to(I64)
+    alloc = torch.where(mask[None, :], alloc, 0)                    # [R, N]
+    used = torch.where(mask[None, :], used, 0)
+    free = (alloc - used).clamp(min=0)
+    # dominant-share hotness in ppm; the operands are nonnegative, so the
+    # floor division is exact
+    util = torch.where(alloc[:2] > 0,
+                       (used[:2] * ANALYTICS_UTIL_SCALE)
+                       // alloc[:2].clamp(min=1), 0)
+    score = torch.maximum(util[0], util[1]).clamp(0, ANALYTICS_UTIL_SCALE)
+    hot = encode_topk_keys(score, idx, mask)
+    cold = encode_topk_keys(ANALYTICS_UTIL_SCALE - score, idx, mask)
+    return AnalyticsStats(
+        alloc=alloc.sum(dim=1),
+        used=used.sum(dim=1),
+        free_sum=free.sum(dim=1),
+        free_max=free.max(dim=1).values,
+        headroom_nodes=(free > 0).sum(dim=1),
+        feasible_nodes=((free[0] > 0) & (free[1] > 0) & (free[4] > 0)).sum(),
+        valid_nodes=mask.sum(),
+        hot_keys=torch.topk(hot, k).values,
+        cold_keys=torch.topk(cold, k).values)

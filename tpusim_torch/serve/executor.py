@@ -32,6 +32,7 @@ error inside an overlay raises.
 from __future__ import annotations
 
 import threading
+import time
 from collections import OrderedDict
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -39,8 +40,10 @@ from tpusim_torch.api.snapshot import ClusterSnapshot
 from tpusim_torch.backend import _KNOWN_PROVIDERS
 from tpusim_torch.device import resolve_device
 from tpusim_torch.framework.metrics import register
+from tpusim_torch.obs import analytics, provenance
 from tpusim_torch.obs.recorder import note_serve, span
 from tpusim_torch.serve.batcher import Bucket
+from tpusim_torch.scan import analytics_in
 from tpusim_torch.serve.request import (
     REJECT_INVALID,
     REJECT_UNKNOWN_SNAPSHOT,
@@ -100,6 +103,17 @@ class ServeExecutor:
         self.stats = {"dispatches": 0, "warm_hits": 0, "traces": 0,
                       "staged_hits": 0, "device_batch_hits": 0,
                       "overlay_hits": 0, "overlay_fallbacks": 0}
+        # device residency, polled at snapshot time only; held weakly
+        analytics.register_hbm_source(
+            "serve_staged", self,
+            lambda ex: (sum(analytics.tree_nbytes(
+                (s.statics, s.carry, s.xs))
+                for s, _sc in ex._staged.values()), len(ex._staged)))
+        analytics.register_hbm_source(
+            "serve_device_batches", self,
+            lambda ex: (sum(analytics.tree_nbytes(built[1:])
+                            for built in ex._device_batches.values()),
+                        len(ex._device_batches)))
 
     # -- snapshot registry (the base clusters requests reference) ---------
 
@@ -330,11 +344,19 @@ class ServeExecutor:
                 self._device_batch(bucket)
             seen = program_key in self._warm
             before = compile_count()
+            program_start = time.perf_counter()
             choices_b, counts_b = self._program(
                 bucket, config, carries, statics_b, xs_b).run()
             choices_b = choices_b.cpu().numpy()
             counts_b = counts_b.cpu().numpy()
             built = compile_count() - before
+            if built:
+                # a cold dispatch's wall bounds its build's cost from above
+                analytics.note_compile(
+                    "serve",
+                    f"{program_key[0].describe()}/plan={program_key[1]}",
+                    (time.perf_counter() - program_start) * 1e6,
+                    traces=built)
             warm = seen and built == 0
             self._warm.add(program_key)
             self.stats["traces"] += built
@@ -350,4 +372,19 @@ class ServeExecutor:
             results = [decode_one(e.request.pods, e.staged.compiled,
                                   choices_b[i], counts_b[i])
                        for i, e in enumerate(bucket.entries)]
+        if provenance.get_log() is not None:
+            for r in results:
+                provenance.capture(r.placements, "serve")
+        alog = analytics.get()
+        if alog is not None:
+            # serve samples are pre-bind: the batched program keeps no
+            # scenario's final carry, so each sample reduces the entry's
+            # staged base columns of the device batch (a program loads
+            # them by copy and leaves them as they are); padded nodes past
+            # n_valid are masked in the reduction
+            a_in = analytics_in(statics_b, carries)
+            for i, e in enumerate(bucket.entries):
+                names = e.staged.compiled.statics.names
+                alog.capture_device(type(a_in)(*(leaf[i] for leaf in a_in)),
+                                    len(names), "serve", names=names)
         return results, warm

@@ -63,6 +63,7 @@ from tpusim_torch.gang import (
     gang_name,
     has_gangs,
 )
+from tpusim_torch.obs import analytics
 from tpusim_torch.obs import recorder as flight
 
 DEFAULT_SCHEDULER_NAME = "TD-Scheduler"  # options.go:49
@@ -1043,4 +1044,10 @@ def run_stream_simulation(snapshot: Optional[ClusterSnapshot] = None, *,
     if verify:
         out["verified"] = counts["mismatches"] == 0
         out["mismatched_cycles"] = counts["mismatches"]
+    # with the analytics plane installed, the run's snapshot of it (a
+    # None-check otherwise)
+    alog = analytics.get()
+    if alog is not None:
+        alog.flush()
+        out["analytics"] = alog.snapshot()
     return out

@@ -83,6 +83,7 @@ from tpusim_torch.framework.metrics import register, since_in_microseconds
 from tpusim_torch.framework.store import MODIFIED
 from tpusim_torch.gang.driver import schedule_with_gangs
 from tpusim_torch.gang.group import has_gangs
+from tpusim_torch.obs import analytics, provenance
 from tpusim_torch.obs import recorder as flight
 from tpusim_torch.policyc import (
     build_policy_residency,
@@ -393,6 +394,12 @@ class StreamSession:
         self._pending: Optional[_PendingCycle] = None
         self._gang_torch = None       # TorchBackend of the gang cycles
         self._last_path = ""
+        # device residency, polled at snapshot time only; the weak
+        # reference drops the source with the session
+        analytics.register_hbm_source(
+            "stream_twin", self.device,
+            lambda dev: (analytics.tree_nbytes((dev.statics, dev.carry)),
+                         1 if dev.valid else 0))
 
     def set_policy(self, policy=None, compiled_policy=None) -> None:
         """Swap the session's policy. The next cycle restages once,
@@ -464,7 +471,8 @@ class StreamSession:
         applies its binds to `inc`, so they sit in the journal and the NEXT
         cycle's commit carries them onto the resident carry like any other
         churn: residency holds, nothing restages."""
-        placements = schedule_with_gangs(self._gang_backend(), self.inc, pods)
+        placements = schedule_with_gangs(self._gang_backend(), self.inc, pods,
+                                         source="stream-gang")
         self._note_path("gang", len(pods))
         return placements
 
@@ -614,7 +622,10 @@ class StreamSession:
     def _dispatch(self, pods: List[Pod], xs_host, compiled
                   ) -> List[Placement]:
         """Scan the batch on the resident state and wait for its choices
-        on the host (the device_dispatch span), then decode."""
+        on the host (the device_dispatch span), then decode. The decoded
+        batch goes to the provenance log, and the post-scan state to the
+        analytics plane: one more reduction on the stream before the next
+        commit, outside the scan's graph."""
         metrics = register()
         t0 = perf_counter()
         dsp = flight.span("device_dispatch", "device", self.torch_device)
@@ -628,7 +639,13 @@ class StreamSession:
         metrics.scheduling_algorithm_latency.observe(
             since_in_microseconds(t0))
         with flight.span("decode_placements"):
-            return self._decode(pods, choices, counts, compiled)
+            placements = self._decode(pods, choices, counts, compiled)
+        provenance.capture(placements, "stream", cycle=self.cycles)
+        dev = self.device
+        analytics.capture(dev.statics, dev.carry, len(compiled.statics.names),
+                          "stream", cycle=self.cycles,
+                          names=compiled.statics.names)
+        return placements
 
     def _stream_cycle(self, pods: List[Pod], cols) -> List[Placement]:
         self._commit()
@@ -653,7 +670,11 @@ class StreamSession:
             if csp:
                 csp.set("pods", len(pods))
                 csp.set("nodes", len(inc.nodes))
-        register().backend_compile_latency.observe(since_in_microseconds(t0))
+        compile_us = since_in_microseconds(t0)
+        register().backend_compile_latency.observe(compile_us)
+        analytics.note_compile(
+            "stream_restage",
+            f"plan={self._plan_key}/nodes={len(inc.nodes)}", compile_us)
         detail = unsupported_detail(compiled, cp)
         if detail:
             log.warning("stream runtime falling back to reference for: %s",
@@ -707,6 +728,7 @@ class StreamSession:
             hard_pod_affinity_symmetric_weight=self.hard_weight,
             policy=self.policy,
         ).schedule(pods, self.inc.to_snapshot())
+        provenance.capture(placements, "stream_host", cycle=self.cycles)
         self._note_path("host", len(pods))
         return placements
 
@@ -755,6 +777,13 @@ class StreamSession:
             if dsp:
                 dsp.set("pods", len(pods))
                 dsp.end()
+            # the reduction is launched behind the scan and read nothing
+            # back, so the overlap stays
+            dev = self.device
+            analytics.capture(dev.statics, dev.carry,
+                              len(dev.compiled.statics.names), "stream",
+                              cycle=self.cycles,
+                              names=dev.compiled.statics.names)
             self._pending = _PendingCycle(pods, fetch, self.device.compiled,
                                           t0=t0, dispatched_at=perf_counter())
             register().stream_pipeline_depth.set(1.0)
@@ -818,6 +847,7 @@ class StreamSession:
         with flight.span("stream_decode"):
             p.placements = self._decode(p.pods, p.choices, p.counts,
                                         p.compiled, prebound=p.bound)
+        provenance.capture(p.placements, "stream", cycle=self.cycles)
         self._note_path("pipelined", len(p.pods))
         self._observe_cycle("pipelined", p.t0)
         return p.placements
@@ -931,7 +961,9 @@ class StreamSession:
             raise
         self._overlay_rollback(cols, choices, mark, sa_save, rr_save)
         with flight.span("overlay_decode"):
-            return self._decode(pods, choices, counts, dev.compiled)
+            placements = self._decode(pods, choices, counts, dev.compiled)
+        provenance.capture(placements, "overlay", cycle=self.cycles)
+        return placements
 
     def _overlay_rollback(self, cols, choices: np.ndarray, mark,
                           sa_save, rr_save) -> None:
