@@ -208,7 +208,48 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
      shape's samples digest equal to the JAX package's; one config 8 serve
      bucket's pre-bind samples against host_reduce; the reduction's kernels
      and device time under torch.profiler. Phases 28-29 fail past their
-     90 s budget.
+     90 s budget;
+ 30. the live-cluster snapshot and the watch fabric: (a) a stdlib fake
+     apiserver in this process (127.0.0.1, a port the OS picks) serves the
+     interpod workload's 5,000 nodes and 2,000 Running pods with 500
+     decoys in other phases, as JSON behind a bearer token; a JSON
+     kubeconfig, snapshot_from_cluster (the decoys dropped by the
+     status.phase=Running field selector), then the 100,000 pods through
+     TorchBackend(route="kernel", fallback="error"): phase 10's golden,
+     scheduled count and 196 launches of the interpod variant, with the
+     fetch's wall and bytes beside phase 10's wall; (b) the main command
+     with --kubeconfig against the same apiserver, as child processes on
+     the card: with --scheduler-policy-configmap (upstream's 1.2 policy)
+     and with the default provider, each report's digest the JAX
+     package's, and a ConfigMap without policy.cfg giving the JAX
+     package's error and rc 2; (c) config 9's churn (4,000 nodes, 40
+     cycles of 64 arrivals, 25% evicted, seed 9) fed to a StreamSession
+     only through a FakeRESTClient's node and pod Reflectors, the node
+     watch swapped for a two-slot buffer at cycle 20 and an empty node's
+     cordon flapped three times: the JAX package's chains, one relist,
+     one overflow counted, the cold start and watch_expired the only
+     restages, the cycle p50 and the resident scan's span beside phase
+     21's; and the CPU shape's chains;
+ 31. the live telemetry plane: (a) the config 9 stream at 4,000 nodes
+     unarmed, then synchronous and pipelined with start_server, the
+     recorder, the analytics plane (inputs kept) and the SLO tracker
+     armed, every path scraped each 50 ms from a thread: every scrape 200
+     (404 for an unknown path) and parsed, /healthz "ok" with role
+     "none", every served /analytics sample equal to host_reduce of its
+     inputs (samples read during pipelined cycles among them), `top
+     --once` naming the 4,000 valid nodes, the SLO's verdicts summing to
+     the cycles, the chains the JAX package's (phase 29's), the scrapes'
+     latency and the cycle p50s beside the unarmed run's; (b) the stream
+     unarmed, then traced: one trace id on each cycle's spans (its
+     device_dispatch included), exemplars on
+     tpusim_stream_cycle_latency, tools/trace_lint.py clean, the chain
+     as untraced; then traced again with the SLO target at the traced
+     run's cycle p50: both verdicts and a slo:burn_start instant; phase
+     27's twin behind a fleet answering 8 traced requests by overlays,
+     each one connected trace, the serve SLO path counting 8; (c) `stream --listen 127.0.0.1:0 --slo-target-ms 30
+     --metrics-out` on 4,000 nodes as a child process: the listening line
+     and tpusim_slo_* counting. Phases 30-31 fail past their 120 s
+     budget.
 Phases 4-15 run TorchBackend with fallback="error", and phases 15, 16b and
 17 run run_simulation on the card with the host route made to raise, so a
 workload that started to reroute to the host fails them; phases 4-12 run
@@ -379,6 +420,52 @@ CONFIG12 = (dict(num_nodes=4_000, cycles=40, arrivals=64,
             "65a1a49c73446f2c")
 # phases 28-29 together, seconds
 ANALYTICS_BUDGET_S = 90
+# phases 30a-30b: the live cluster a stdlib fake apiserver serves: the
+# interpod workload's nodes and Running pods, and LIVE_DECOYS pods in other
+# phases that the Running field selector must drop; the bearer token of its
+# kubeconfig; the podspec of the main command run against it, and the
+# ConfigMap holding upstream's 1.2 policy; the digest of the JAX package's
+# reports on them (tools/port_golden.py live_cli)
+LIVE_DECOYS = 500
+LIVE_TOKEN = "chip-smoke-token"
+LIVE_PODSPEC = [
+    {"name": "web", "num": 300, "pod": {
+        "metadata": {"labels": {"app": "a0"}},
+        "spec": {"containers": [{"resources": {"requests": {
+            "cpu": "500m", "memory": "1Gi"}}}]}}},
+    {"name": "batch", "num": 400, "pod": {"spec": {"containers": [
+        {"resources": {"requests": {"cpu": "2", "memory": "4Gi"}}}]}}},
+    {"name": "store", "num": 300, "pod": {
+        "metadata": {"labels": {"app": "a4"}},
+        "spec": {"containers": [{"resources": {"requests": {
+            "cpu": "1", "memory": "2Gi"}}}]}}},
+]
+LIVE_POLICY = ("kube-system", "scheduler-policy", "1.2")
+# the report digests: under that ConfigMap's policy (whose TestLabelsPresence
+# wants a node label "foo" that no node of the workload carries, so every
+# pod fails), and under the default provider, which places them
+LIVE_CLI = {"policy": "6db5fc9c967a56df", "provider": "afb6fee58c0716a3"}
+# phase 30c: config 9 fed only by the watch fabric (watch_stream), at 4,000
+# nodes and at bench.py's CPU shape, with the placement and fold chains of
+# the JAX package's driver (tools/port_golden.py config9_watch)
+WATCH_STREAM = {
+    "card": (dict(num_nodes=4_000, cycles=40, arrivals=64,
+                  evict_fraction=0.25, seed=9, tear_at=20),
+        "e3e2a4d0ec2c469b68c51daed61096da4d95b44be1b5d863714cef5edb9dcb6a",
+        "6c950f0806a6caecc5164e9c79faabd00fc8ed0542a201ba4af17220ffdd7d30"),
+    "cpu": (dict(num_nodes=800, cycles=24, arrivals=64, evict_fraction=0.25,
+                 seed=9, tear_at=12),
+        "8bb3dbd94daae25bca01b645b9dbca5d4561941e0a6c779719a89fe7eb99ac96",
+        "cc28fe9e098d39790ef62930f03d7ea86d473e309cac94a6c447ca42aa380a0f"),
+}
+# phase 31: the telemetry plane's paths (the last one unknown: 404), the
+# scraper's period, and the requests of phase 27's twin behind a fleet
+TELEMETRY_PATHS = ("/metrics", "/healthz", "/debug/provenance",
+                   "/debug/trace", "/analytics", "/no-such-path")
+SCRAPE_PERIOD_S = 0.05
+TRACED_REQUESTS = 8
+# phases 30-31 together, seconds
+LIVE_BUDGET_S = 120
 # phase 14: the pods of config 3 run through both routes
 ROUTES_PODS = 2_048
 # phase 15: the pods of the scan timed eagerly, beside the graph replay
@@ -525,6 +612,253 @@ def stream_arguments(params, api, decode_policy):
     if kw.pop("policy", False):
         kw["policy"] = decode_policy(workloads.STREAM_POLICY)
     return kw
+
+
+class FakeApiServer:
+    """A kube-apiserver stand-in on the standard library, bound to
+    127.0.0.1 on a port the OS picks and served from a thread of this
+    process: GET /api/v1/nodes, /api/v1/pods and /api/v1/namespaces/NS/pods
+    (the fieldSelector status.phase=Running honoured) and
+    /api/v1/namespaces/NS/configmaps/NAME, as JSON bodies serialized once.
+    A request without the bearer token gets 401, an unknown path 404. It
+    counts the requests and the body bytes it served."""
+
+    def __init__(self, nodes, pods, configmaps, token):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        import threading
+        from urllib.parse import parse_qsl, urlparse
+
+        self.requests = 0
+        self.bytes = 0
+        count_lock = threading.Lock()  # handlers run on threads of their own
+        outer = self
+        pod_objs = [p.to_obj() for p in pods]
+
+        def pod_list(items):
+            return json.dumps({"kind": "PodList", "apiVersion": "v1",
+                               "items": items}).encode()
+
+        running = [o for o in pod_objs
+                   if o.get("status", {}).get("phase") == "Running"]
+        bodies = {
+            ("/api/v1/nodes", ""): json.dumps({
+                "kind": "NodeList", "apiVersion": "v1",
+                "items": [n.to_obj() for n in nodes]}).encode(),
+            ("/api/v1/pods", ""): pod_list(pod_objs),
+            ("/api/v1/pods", "status.phase=Running"): pod_list(running),
+        }
+        for (ns, name), obj in configmaps.items():
+            bodies[(f"/api/v1/namespaces/{ns}/configmaps/{name}", "")] = \
+                json.dumps(obj).encode()
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_GET(self):  # noqa: N802 (BaseHTTPRequestHandler API)
+                parsed = urlparse(self.path)
+                selector = dict(parse_qsl(parsed.query)).get(
+                    "fieldSelector", "")
+                with count_lock:
+                    outer.requests += 1
+                if self.headers.get("Authorization") != f"Bearer {token}":
+                    self.send_error(401)
+                    return
+                body = bodies.get((parsed.path, selector))
+                parts = parsed.path.split("/")
+                if body is None and len(parts) == 6 and parts[5] == "pods":
+                    ns = parts[4]
+                    body = pod_list([
+                        o for o in (running if selector else pod_objs)
+                        if o["metadata"].get("namespace") == ns])
+                if body is None:
+                    self.send_error(404)
+                    return
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+                with count_lock:
+                    outer.bytes += len(body)
+
+            def log_message(self, *args):
+                pass
+
+        self._server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self._server.daemon_threads = True
+        self._thread = threading.Thread(target=self._server.serve_forever,
+                                        daemon=True)
+        self._thread.start()
+
+    @property
+    def url(self):
+        host, port = self._server.server_address[:2]
+        return f"http://{host}:{port}"
+
+    def stop(self):
+        self._server.shutdown()
+        self._server.server_close()
+        self._thread.join(timeout=10)
+
+
+def live_cluster(api, num_pods=100_000, num_nodes=5_000):
+    """The live cluster of phases 30a-30b, with either package's
+    api.snapshot: (nodes, pods the apiserver serves, pods to schedule). The
+    served pods are the interpod workload's Running pods with LIVE_DECOYS
+    Pending, Succeeded and Failed pods among them, which a snapshot must
+    not take."""
+    from tpusim_torch import workloads
+
+    snapshot, pods = workloads.interpod_workload(num_pods, num_nodes,
+                                                 api=api)
+    rng = np.random.RandomState(30)
+    served = list(snapshot.pods)
+    for i in range(LIVE_DECOYS):
+        decoy = api.make_pod(
+            f"decoy-{i}", milli_cpu=int(rng.randint(100, 4000)),
+            memory=int(rng.randint(2 ** 20, 2 ** 32)),
+            node_name=f"node-{int(rng.randint(num_nodes))}",
+            phase=("Pending", "Succeeded", "Failed")[i % 3])
+        served.insert(int(rng.randint(len(served) + 1)), decoy)
+    return snapshot.nodes, served, pods
+
+
+def live_configmaps():
+    """The apiserver's ConfigMaps: LIVE_POLICY's, holding an upstream
+    policy under policy.cfg, and one without that key."""
+    from tpusim_torch import workloads
+
+    ns, name, version = LIVE_POLICY
+
+    def configmap(cm_name, data):
+        return {"kind": "ConfigMap", "apiVersion": "v1",
+                "metadata": {"name": cm_name, "namespace": ns},
+                "data": data}
+
+    return {(ns, name): configmap(name, {"policy.cfg": json.dumps(
+                workloads.COMPAT_POLICIES[version])}),
+            (ns, "no-key"): configmap("no-key", {"other": "x"})}
+
+
+def write_live_files(directory, server_url):
+    """A JSON kubeconfig with LIVE_TOKEN for `server_url`, and
+    LIVE_PODSPEC as JSON (PyYAML may be missing): their paths."""
+    kubeconfig = os.path.join(directory, "kubeconfig.json")
+    with open(kubeconfig, "w") as f:
+        json.dump({
+            "apiVersion": "v1", "kind": "Config", "current-context": "sim",
+            "contexts": [{"name": "sim",
+                          "context": {"cluster": "live", "user": "smoke"}}],
+            "clusters": [{"name": "live",
+                          "cluster": {"server": server_url}}],
+            "users": [{"name": "smoke", "user": {"token": LIVE_TOKEN}}]}, f)
+    podspec = os.path.join(directory, "pods.json")
+    with open(podspec, "w") as f:
+        json.dump(LIVE_PODSPEC, f)
+    return kubeconfig, podspec
+
+
+def report_digest(text):
+    """sha256 of the main command's report with the summary line's bracket
+    (the engine and the timing) dropped, first 16 hex digits."""
+    import re
+
+    lines = [re.sub(r" \[[^\]]*\]$", "", line)
+             for line in text.splitlines()]
+    return hashlib.sha256("\n".join(lines).encode()).hexdigest()[:16]
+
+
+def port_watch_modules():
+    """The port's modules the watch-fed stream driver reads (watch_stream's
+    `mods`)."""
+    import types
+
+    import tpusim_torch.api.snapshot as api
+    import tpusim_torch.api.types as api_types
+    import tpusim_torch.backends as backends
+    import tpusim_torch.framework.events as events
+    import tpusim_torch.framework.restclient as restclient
+    import tpusim_torch.framework.store as store
+    import tpusim_torch.stream as stream
+
+    return types.SimpleNamespace(api=api, types=api_types, store=store,
+                                 events=events, restclient=restclient,
+                                 stream=stream, backends=backends)
+
+
+def watch_stream(mods, num_nodes, cycles, arrivals, evict_fraction, seed,
+                 tear_at=None, **session_kw):
+    """Config 9's churn fed to a StreamSession only through the watch
+    fabric, with either package (`mods`: its api.snapshot, api.types,
+    framework store, events and restclient modules, its stream package and
+    its backends; port_watch_modules). The cluster lives in a ResourceStore;
+    the session starts empty and attaches a node and a pod Reflector to a
+    FakeRESTClient over it, so the node watch's replay builds its picture.
+    Each cycle the loadgen's events go into the store, session.sync() drains
+    the reflectors, the batch schedules, and its binds go back into the
+    store as a scheduler's binds reach the apiserver (their echo arrives
+    with the next cycle's events). At cycle `tear_at` the node watch is
+    swapped for a two-slot buffer and an empty node's cordon flaps three
+    times, so the stream overflows (the 410 Gone analog), the next sync
+    relists, and the node stays cordoned.
+    Returns the chains, the counts and each cycle's latency."""
+    import hashlib
+
+    rt = mods.types.ResourceType
+    store_mod = mods.store
+    snapshot = mods.api.synthetic_cluster(num_nodes)
+    store = store_mod.ResourceStore()
+    for node in snapshot.nodes:
+        store.add(rt.NODES, node)
+    client = mods.restclient.FakeRESTClient(store)
+    session = mods.stream.StreamSession(**session_kw)
+    nodes_r = session.watch(client, rt.NODES)
+    session.watch(client, rt.PODS)
+    gen = mods.stream.ChurnLoadGen(snapshot, seed=seed, arrivals=arrivals,
+                                   evict_fraction=evict_fraction)
+    write = {store_mod.ADDED: store.add, store_mod.MODIFIED: store.update,
+             store_mod.DELETED: store.delete}
+    chain, fold = hashlib.sha256(), ""
+    latencies, decisions, scheduled = [], 0, 0
+    for cycle in range(cycles):
+        if cycle == tear_at:
+            key = (rt.NODES.value, "", "")
+            selector, _ = client._watchers[key]
+            small = mods.events.WatchBuffer(maxsize=2,
+                                            resource=rt.NODES.value)
+            client._watchers[key] = (selector, small)
+            nodes_r._buf = small
+            # the first node no pod is bound to: it scores highest, so
+            # its cordon moves the later picks
+            occupied = {p.spec.node_name for p in store.list(rt.PODS)}
+            name = next(n.name for n in snapshot.nodes
+                        if n.name not in occupied)
+            for unschedulable in (True, False, True):
+                node, _ = store.get(rt.NODES, name)
+                node = node.copy()
+                node.spec.unschedulable = unschedulable
+                store.update(rt.NODES, node)
+        for event_type, obj in gen.events(cycle):
+            write[event_type](rt.NODES if obj.kind == "Node" else rt.PODS,
+                              obj)
+        t0 = time.perf_counter()
+        session.sync()
+        placements = session.schedule(gen.batch())
+        latencies.append(time.perf_counter() - t0)
+        for pl in placements:
+            if pl.node_name:
+                store.add(rt.PODS, pl.pod)
+        gen.note_bound(placements)
+        h = mods.backends.placement_hash(placements)
+        chain.update(h.encode())
+        fold = mods.stream.chain_fold(fold, h)
+        decisions += len(placements)
+        scheduled += sum(1 for pl in placements if pl.node_name)
+    client.close()
+    return {"placement_chain": chain.hexdigest(), "fold_chain": fold,
+            "decisions": decisions, "scheduled": scheduled,
+            "relists": nodes_r.relists,
+            "restages": dict(session.restage_counts),
+            "paths": dict(session.path_counts), "latencies": latencies,
+            "nodes": len(session.inc.nodes)}
 
 
 @contextlib.contextmanager
@@ -1953,6 +2287,11 @@ def check_stream_golden(name, phase, card):
                              f"{want_fold[:16]}")
 
 
+# phase 21's config 9 stream arm at 4,000 nodes: its cycle p50 and its
+# resident scan's span p50, which phase 30c prints beside its own
+PHASE21 = {}
+
+
 def drive_stream_churn(card):
     """Phase 21: bench config 9, stream churn: the eviction curve at the
     middle size, the stream and restage arms at every size (equal chains),
@@ -1960,7 +2299,7 @@ def drive_stream_churn(card):
     big_mid = STREAM_SIZES[1]
     stream = {}
     for frac in STREAM_EVICT_CURVE:
-        out, _, launches = run_stream(
+        out, spans, launches = run_stream(
             dict(STREAM_CONFIG9, num_nodes=big_mid, evict_fraction=frac),
             f"config9 stream arm, evict {frac}", 21, card)
         if out["restages"] != {"cold_start": 1} or launches:
@@ -1968,6 +2307,8 @@ def drive_stream_churn(card):
                                  "cold start or launched the fused kernel")
         if frac == STREAM_CONFIG9["evict_fraction"]:
             stream[big_mid] = out
+            PHASE21["config9"] = {"p50": out["p50_cycle_ms"],
+                                  "span": percentile(spans, 0.5)}
     for n in STREAM_SIZES:
         if n not in stream:
             stream[n], _, _ = run_stream(dict(STREAM_CONFIG9, num_nodes=n),
@@ -2867,6 +3208,583 @@ def drive_analytics_phases(card):
                              f"{ANALYTICS_BUDGET_S} s budget")
 
 
+def drive_live_snapshot(card):
+    """Phase 30a: the interpod workload's live cluster fetched over HTTP by
+    snapshot_from_cluster, then its 100,000 pods through the fused
+    kernel."""
+    import tempfile
+
+    import tpusim_torch.api.snapshot as api
+    from tpusim_torch.api.kubeclient import snapshot_from_cluster
+    from tpusim_torch.backend import TorchBackend
+    from tpusim_torch.fastscan import CHUNK
+    from tpusim_torch.kernels.fastscan import fastscan_chunk
+
+    _, params, golden, want_scheduled = GOLDENS["interpod"]
+    nodes, served, pods = live_cluster(api, **params)
+    server = FakeApiServer(nodes, served, live_configmaps(), LIVE_TOKEN)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            kubeconfig, _ = write_live_files(tmp, server.url)
+            t0 = time.perf_counter()
+            snapshot = snapshot_from_cluster(kubeconfig=kubeconfig)
+            fetch_s = time.perf_counter() - t0
+    finally:
+        server.stop()
+    running = sum(1 for p in served if p.status.phase == "Running")
+    backend = TorchBackend(device="cuda", route="kernel", fallback="error")
+    reset_launches()
+    t0 = time.perf_counter()
+    placements = backend.schedule(pods, snapshot)
+    wall = time.perf_counter() - t0
+    got = choices_golden(backend.last_choices)
+    scheduled = sum(1 for p in placements if p.scheduled)
+    launches = fastscan_chunk.launches_by_variant["interpod"]
+    print(f"phase 30a: live snapshot over HTTP: {len(snapshot.nodes)} nodes "
+          f"and {len(snapshot.pods)} Running pods of the {len(served)} "
+          f"served ({len(served) - running} decoys dropped by the field "
+          f"selector), {server.requests} requests, {server.bytes} bytes in "
+          f"{fetch_s:.3f}s; then {len(pods)} pods on route kernel: golden "
+          f"{got} (want {golden}), {scheduled} scheduled (want "
+          f"{want_scheduled}), {launches} launches of the interpod variant "
+          f"(of {fastscan_chunk.launches}); schedule {wall:.3f}s cold "
+          f"against phase 10's {WARM_WALL['interpod']:.3f}s warm on {card}")
+    if (len(snapshot.nodes), len(snapshot.pods)) != (len(nodes), running):
+        raise AssertionError("phase 30a: the snapshot took the wrong objects")
+    if (got, scheduled) != (golden, want_scheduled):
+        raise AssertionError("phase 30a: the live snapshot placed otherwise")
+    if launches != -(-len(pods) // CHUNK) or \
+            launches != fastscan_chunk.launches:
+        raise AssertionError(f"phase 30a: {launches} interpod launches of "
+                             f"{fastscan_chunk.launches}")
+
+
+def run_children(commands, timeout=300):
+    """Run command lines at once as child processes in this checkout:
+    [(rc, stdout, stderr, seconds)] in order. Every child is waited for
+    (killed at the timeout)."""
+    procs = []
+    for cmd in commands:
+        procs.append((subprocess.Popen(
+            cmd, cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True), time.perf_counter()))
+    out = []
+    for proc, t0 in procs:
+        try:
+            stdout, stderr = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, stderr = proc.communicate()
+        out.append((proc.returncode, stdout, stderr,
+                    time.perf_counter() - t0))
+    return out
+
+
+def drive_live_cli(card):
+    """Phase 30b: the main command against the same apiserver, as child
+    processes on the card: with the ConfigMap's policy, with the default
+    provider, and with a ConfigMap that lacks policy.cfg."""
+    import tempfile
+
+    import tpusim_torch.api.snapshot as api
+
+    nodes, served, _ = live_cluster(api, **GOLDENS["interpod"][1])
+    server = FakeApiServer(nodes, served, live_configmaps(), LIVE_TOKEN)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            kubeconfig, podspec = write_live_files(tmp, server.url)
+            base = [sys.executable, "-m", "tpusim_torch.cli", "--kubeconfig",
+                    kubeconfig, "--podspec", podspec]
+            policy, provider, missing = run_children([
+                base + ["--scheduler-policy-configmap", LIVE_POLICY[1]],
+                base,
+                base + ["--scheduler-policy-configmap", "no-key"]])
+    finally:
+        server.stop()
+    for name, (rc, stdout, stderr, secs) in (("policy", policy),
+                                              ("provider", provider)):
+        got = report_digest(stdout)
+        lines = stdout.strip().splitlines()
+        print(f"phase 30b: the CLI with --kubeconfig ({name}): rc {rc}, "
+              f"report digest {got} (want {LIVE_CLI[name]}), "
+              f"{lines[-2] if len(lines) > 1 else 'no report'}; "
+              f"{secs:.1f}s in the child")
+        if rc != 0 or got != LIVE_CLI[name]:
+            raise AssertionError(f"phase 30b: the {name} report differs from "
+                                 f"the JAX package's: {stderr[-2000:]}")
+    rc, _, stderr, secs = missing
+    want = ('error: invalid scheduler policy: missing policy config map '
+            'value at key "policy.cfg"')
+    last = stderr.strip().splitlines()[-1] if stderr.strip() else ""
+    print(f"phase 30b: a ConfigMap without policy.cfg: rc {rc} (want 2), "
+          f"{last!r}; {server.requests} requests served in all")
+    if rc != 2 or last != want:
+        raise AssertionError("phase 30b: the missing key's error differs "
+                             "from the JAX package's")
+
+
+def drive_watch_stream(card):
+    """Phase 30c: config 9 fed only by the watch fabric, the node watch torn
+    at a cycle, at 4,000 nodes and at the CPU shape."""
+    from tpusim_torch import scan
+    from tpusim_torch.framework.metrics import register
+
+    mods = port_watch_modules()
+    for shape, (params, want_chain, want_fold) in WATCH_STREAM.items():
+        register().reset()
+        record = []
+        graphs = scan.graphs_captured()
+        with timed_on_card(scan.ResidentScan, "run", record):
+            out = watch_stream(mods, device="cuda", **params)
+        graphs = scan.graphs_captured() - graphs
+        spans = [start.elapsed_time(end) for _, _, start, end in record]
+        overflow = register().watch_overflow.get("nodes")
+        lat = [1000 * x for x in out["latencies"]]
+        seen = PHASE21.get("config9", {})
+        print(f"phase 30c: config 9 through the watch fabric ({shape}: "
+              f"{out['nodes']} nodes, {params['cycles']} cycles x "
+              f"{params['arrivals']}, the node watch torn at cycle "
+              f"{params['tear_at']}): relists {out['relists']}, "
+              f"tpusim_watch_overflow_total{{resource=\"nodes\"}} "
+              f"{overflow:g}, restages {out['restages']}, paths "
+              f"{out['paths']}, {graphs} graph(s) captured; cycle p50 "
+              f"{percentile(lat, 0.5):.2f} ms, "
+              f"resident scan span p50 {percentile(spans, 0.5):.3f} ms"
+              + (f" (phase 21: {seen['p50']:.2f}, {seen['span']:.3f} ms)"
+                 if shape == "card" and seen else "")
+              + f"; chain {out['placement_chain'][:16]} (want "
+              f"{want_chain[:16]}), fold {out['fold_chain'][:16]} on {card}")
+        if (out["placement_chain"], out["fold_chain"]) != (want_chain,
+                                                           want_fold):
+            raise AssertionError(f"phase 30c: the {shape} chains differ from "
+                                 "the JAX package's")
+        if out["relists"] != 1 or overflow != 1 or out["restages"] != {
+                "cold_start": 1, "watch_expired": 1}:
+            raise AssertionError("phase 30c: the torn watch was not relisted "
+                                 "and restaged exactly once")
+        if graphs != 1:
+            # the relist's restage must copy into the resident tensors the
+            # cold start's graph is bound to, not capture another
+            raise AssertionError(f"phase 30c: {graphs} graphs captured")
+
+
+def _http_get(url, timeout=10):
+    """(status, body bytes, seconds) of a GET, an HTTP error status
+    included."""
+    import urllib.error
+    import urllib.request
+
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as resp:
+            status, body = resp.status, resp.read()
+    except urllib.error.HTTPError as exc:
+        status, body = exc.code, exc.read()
+    return status, body, time.perf_counter() - t0
+
+
+def parse_exposition(text):
+    """{series: value} of a Prometheus text exposition; raises on a line
+    that does not parse (an exemplar after '#' is allowed)."""
+    series = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        sample = line.split(" # ", 1)[0]
+        name, value = sample.rsplit(" ", 1)
+        series[name] = float(value)
+    return series
+
+
+class Scraper:
+    """Polls every path of the telemetry plane each SCRAPE_PERIOD_S on a
+    thread until stopped: [(time, path, status, body, seconds)]."""
+
+    def __init__(self, base):
+        import threading
+
+        self.base = base
+        self.results = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        while not self._stop.is_set():
+            for path in TELEMETRY_PATHS:
+                status, body, secs = _http_get(self.base + path)
+                self.results.append((time.perf_counter(), path, status, body,
+                                     secs))
+            self._stop.wait(SCRAPE_PERIOD_S)
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(timeout=30)
+
+
+def check_scrapes(results, n_nodes):
+    """Every scrape answered and parsed: 200 with a body of its kind, 404
+    for the unknown path. Returns the /analytics records read, with the
+    time of their scrape."""
+    records = []
+    for when, path, status, body, _ in results:
+        want = 404 if path == "/no-such-path" else 200
+        if status != want:
+            raise AssertionError(f"phase 31a: {path} answered {status}")
+        if path == "/metrics":
+            parse_exposition(body.decode())
+        elif path == "/healthz":
+            doc = json.loads(body)
+            if (doc["status"], doc["role"]) != ("ok", "none"):
+                raise AssertionError(f"phase 31a: /healthz {doc}")
+        elif path == "/debug/provenance":
+            if not isinstance(json.loads(body), list):
+                raise AssertionError("phase 31a: /debug/provenance")
+        elif path == "/debug/trace":
+            if not json.loads(body)["enabled"]:
+                raise AssertionError("phase 31a: /debug/trace disabled")
+        elif path == "/analytics":
+            doc = json.loads(body)
+            if not doc["enabled"]:
+                raise AssertionError("phase 31a: /analytics disabled")
+            for rec in doc["series"]:
+                if rec["nodes"]["valid"] != n_nodes:
+                    raise AssertionError("phase 31a: a sample of the wrong "
+                                         "cluster")
+                records.append((when, rec))
+    return records
+
+
+def unlike_host_reduce(log, records):
+    """The served samples unlike host_reduce of their kept inputs, decoded
+    the same way."""
+    from tpusim_torch.obs import analytics
+    from tpusim_torch.scan import AnalyticsStats
+
+    by_seq = {s.seq: s for s in log.samples()}
+    bad = []
+    for _, rec in records:
+        sample = by_seq[rec["seq"]]
+        want = json.loads(json.dumps(analytics.decode_stats(AnalyticsStats(
+            **analytics.host_reduce(sample.inputs, sample.n_valid,
+                                    sample.k)), sample.names)))
+        got = {k: v for k, v in rec.items()
+               if k not in ("seq", "ts", "source", "cycle")}
+        if got != want:
+            bad.append(rec["seq"])
+    return bad
+
+
+def drive_telemetry(card):
+    """Phase 31a: the telemetry plane under the config 9 stream: an unarmed
+    run, then synchronous and pipelined runs with the server, the
+    recorder (with a counting id source), the analytics plane (inputs
+    kept) and the SLO tracker armed and every path scraped each
+    SCRAPE_PERIOD_S; `top` against the endpoint. Returns the unarmed run's
+    summary."""
+    import io
+    import itertools
+
+    from tpusim_torch import cli
+    from tpusim_torch.framework.metrics import register
+    from tpusim_torch.obs import analytics, slo, tracectx
+    from tpusim_torch.obs import recorder as flight
+    from tpusim_torch.obs.server import start_server
+    from tpusim_torch.simulator import run_stream_simulation
+
+    params, want_chain, _ = CONFIG12
+    n_nodes = params["num_nodes"]
+    register().reset()
+    settle()
+    unarmed = run_stream_simulation(device="cuda", **params)
+
+    register().reset()
+    counter = itertools.count(1)
+    tracectx.set_id_source(lambda: f"{next(counter):016x}")
+    flight.install(flight.FlightRecorder(process_name="chip-smoke"))
+    log = analytics.install(analytics.ClusterAnalytics(
+        keep_inputs=True, sample_interval_s=0.0))
+    slo.install(slo.SloTracker(unarmed["p50_cycle_ms"] * 1000.0))
+    server = start_server("127.0.0.1:0")
+    scraper = Scraper(server.url)
+    try:
+        armed, windows = {}, {}
+        for pipeline in (False, True):
+            t0 = time.perf_counter()
+            armed[pipeline] = run_stream_simulation(
+                device="cuda", pipeline=pipeline, **params)
+            windows[pipeline] = (t0, time.perf_counter())
+        time.sleep(2 * SCRAPE_PERIOD_S)  # a scrape after the last cycle
+        scraper.stop()
+        frame = io.StringIO()
+        with contextlib.redirect_stdout(frame):
+            top_rc = cli.main(["top", server.url, "--once"])
+        judged = sum(register().slo_cycles.get(v) for v in ("ok", "breach"))
+        records = check_scrapes(scraper.results, n_nodes)
+        bad = unlike_host_reduce(log, records)
+    finally:
+        scraper.stop()
+        server.stop()
+        slo.uninstall()
+        analytics.uninstall()
+        flight.uninstall()
+        tracectx.set_id_source(None)
+    lo, hi = windows[True]
+    during = sum(1 for when, _ in records if lo <= when <= hi)
+    scrape_ms = sorted(1000 * r[4] for r in scraper.results)
+    chains = {o["placement_chain"] for o in (unarmed, *armed.values())}
+    print(f"phase 31a: the telemetry plane on {server.url} under config 9 "
+          f"({n_nodes} nodes, {params['cycles']} cycles, sync then "
+          f"pipelined): {len(scraper.results)} scrapes of "
+          f"{len(TELEMETRY_PATHS)} paths, all answered and parsed, latency "
+          f"p50/p99 {percentile(scrape_ms, 0.5):.2f}/"
+          f"{percentile(scrape_ms, 0.99):.2f} ms; {len(records)} served "
+          f"samples ({during} read during pipelined cycles), {len(bad)} "
+          f"unlike host_reduce; cycle p50 sync "
+          f"{armed[False]['p50_cycle_ms']:.2f} ms, pipelined "
+          f"{armed[True]['p50_cycle_ms']:.2f} ms, against "
+          f"{unarmed['p50_cycle_ms']:.2f} ms unarmed; SLO verdicts "
+          f"{judged:g} for {2 * params['cycles']} cycles; top rc {top_rc}; "
+          f"chains {len(chains)} distinct (want {want_chain[:16]}) on "
+          f"{card}")
+    if bad or not during:
+        raise AssertionError(f"phase 31a: served samples {bad[:5]} differ "
+                             "from host_reduce (or none read mid-run)")
+    if top_rc != 0 or f"nodes: {n_nodes} valid" not in frame.getvalue():
+        raise AssertionError(f"phase 31a: top's frame {frame.getvalue()!r}")
+    if chains != {want_chain}:
+        raise AssertionError("phase 31a: the chains moved with the "
+                             "telemetry plane armed")
+    if judged != 2 * params["cycles"]:
+        raise AssertionError(f"phase 31a: {judged:g} SLO verdicts for "
+                             f"{2 * params['cycles']} cycles")
+    return unarmed
+
+
+def settle():
+    """Collect the sessions and graphs earlier runs left, and let the card
+    drain, so that back-to-back runs start from the same state."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+
+
+def drive_traces(card, unarmed):
+    """Phase 31b: the config 9 stream unarmed, then traced: one trace id a
+    cycle on its spans, exemplars, trace_lint, the chain as untraced; then
+    traced again with the SLO target at the traced run's cycle p50: both
+    verdicts and a burn_start instant. (Tracing costs the stream cycle
+    3-13% on the card, so every traced cycle can sit above the unarmed p50:
+    the target comes from a run with the same instrumentation.) Then phase
+    27's twin behind a fleet with traced requests."""
+    import itertools
+
+    from tpusim_torch.framework.metrics import register
+    from tpusim_torch.obs import slo, tracectx
+    from tpusim_torch.obs import recorder as flight
+    from tpusim_torch.simulator import run_stream_simulation
+
+    params, want_chain, _ = CONFIG12
+
+    def traced_run(target_ms=None):
+        settle()
+        register().reset()
+        counter = itertools.count(1)
+        tracectx.set_id_source(lambda: f"{next(counter):016x}")
+        rec = flight.install(flight.FlightRecorder(process_name="chip-smoke"))
+        if target_ms is not None:
+            slo.install(slo.SloTracker(target_ms * 1000.0))
+        try:
+            out = run_stream_simulation(device="cuda", **params)
+            verdicts = {v: register().slo_cycles.get(v)
+                        for v in ("ok", "breach")}
+            exposition = register().expose()
+        finally:
+            slo.uninstall()
+            flight.uninstall()
+            tracectx.set_id_source(None)
+        return out, json.loads(rec.to_chrome_json()), verdicts, exposition
+
+    settle()
+    base = run_stream_simulation(device="cuda", **params)
+    out, doc, _, exposition = traced_run()
+    spans = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+    by_trace = {}
+    for e in spans:
+        tid = (e.get("args") or {}).get("trace_id")
+        if tid is not None:
+            by_trace.setdefault(tid, []).append(e["name"])
+    cycle_traces = [names for names in by_trace.values()
+                    if "stream_ingest" in names]
+    whole = all(names.count("stream_ingest") == 1
+                and names.count("device_dispatch") == 1
+                for names in cycle_traces)
+    unstamped = sum(1 for e in spans if e["name"] == "device_dispatch"
+                    and "trace_id" not in (e.get("args") or {}))
+    exemplars = sum(1 for line in exposition.splitlines()
+                    if line.startswith("tpusim_stream_cycle_latency")
+                    and 'trace_id="' in line)
+    lint = load_tool("trace_lint")
+    problems = lint.lint_trace(doc) + lint.lint_exemplars(doc, exposition)
+    print(f"phase 31b: config 9 traced: {len(cycle_traces)} cycle traces, "
+          f"each one stream_ingest and one device_dispatch: {whole}; "
+          f"{unstamped} device_dispatch spans without a trace id; "
+          f"{exemplars} tpusim_stream_cycle_latency series with an "
+          f"exemplar; trace_lint {len(problems)} problems; cycle p50 "
+          f"{out['p50_cycle_ms']:.2f} ms traced against "
+          f"{base['p50_cycle_ms']:.2f} ms unarmed just before (31a's "
+          f"{unarmed['p50_cycle_ms']:.2f}); chain "
+          f"{out['placement_chain'][:16]} (untraced "
+          f"{base['placement_chain'][:16]}) on {card}")
+    if len(cycle_traces) != params["cycles"] or not whole or unstamped:
+        raise AssertionError("phase 31b: a cycle's spans lack one trace id")
+    if not exemplars or problems:
+        raise AssertionError(f"phase 31b: exemplars {exemplars}, trace_lint "
+                             f"{problems[:5]}")
+    if {out["placement_chain"], base["placement_chain"]} != {want_chain}:
+        raise AssertionError("phase 31b: the chain moved with tracing on")
+
+    target_ms = out["p50_cycle_ms"]
+    judged, doc, verdicts, _ = traced_run(target_ms)
+    burns = sum(1 for e in doc["traceEvents"]
+                if e.get("name") == "slo:burn_start")
+    print(f"phase 31b: traced again with the SLO target at that p50, "
+          f"{target_ms:.2f} ms: verdicts {verdicts}, {burns} slo:burn_start "
+          f"instants, cycle p50 {judged['p50_cycle_ms']:.2f} ms; chain "
+          f"{judged['placement_chain'][:16]}")
+    if not (verdicts["ok"] and verdicts["breach"] and burns):
+        raise AssertionError("phase 31b: the SLO did not judge both ways")
+    if judged["placement_chain"] != want_chain:
+        raise AssertionError("phase 31b: the chain moved with the SLO on")
+    drive_traced_fleet(card)
+
+
+def load_tool(name):
+    """A script of tools/ as a module, loaded by its path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(HERE, "tools", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def drive_traced_fleet(card):
+    """Phase 31b, serve: phase 27's 4,000-node twin behind a ScenarioFleet
+    answering TRACED_REQUESTS requests by overlays, traced and judged by the
+    SLO tracker."""
+    import itertools
+
+    from tpusim_torch.api.snapshot import make_pod, synthetic_cluster
+    from tpusim_torch.framework.metrics import register
+    from tpusim_torch.obs import slo, tracectx
+    from tpusim_torch.obs import recorder as flight
+    from tpusim_torch.serve import ScenarioFleet, WhatIfRequest
+    from tpusim_torch.stream import ChurnLoadGen, StreamSession
+
+    p = LIVE_TWIN
+    n = p["nodes"]
+    session = StreamSession(synthetic_cluster(n))
+    gen = ChurnLoadGen(synthetic_cluster(n), seed=16, arrivals=p["arrivals"],
+                       evict_fraction=0.25)
+    for c in range(p["warm_cycles"]):
+        session.apply_events(gen.events(c))
+        gen.note_bound(session.schedule(gen.batch()))
+    fleet = ScenarioFleet(bucket_size=8, flush_after_s=60.0)
+    fleet.attach_stream(session, ref="live")
+    rng = np.random.RandomState(31)
+    register().reset()
+    counter = itertools.count(1)
+    tracectx.set_id_source(lambda: f"{next(counter):016x}")
+    rec = flight.install(flight.FlightRecorder(process_name="chip-smoke"))
+    slo.install(slo.SloTracker(60_000.0))
+    requests = []
+    try:
+        for r in range(TRACED_REQUESTS):
+            request = WhatIfRequest(pods=[
+                make_pod(f"traced-q{r}-{i}",
+                         milli_cpu=int(rng.randint(100, 1500)),
+                         memory=int(rng.randint(2 ** 20, 2 ** 30)))
+                for i in range(p["query_pods"])], snapshot_ref="live")
+            fut = fleet.submit(request)
+            fleet.drain()
+            if not fut.result().ok:
+                raise AssertionError("phase 31b: a traced request failed")
+            requests.append(request)
+        verdicts = {v: register().slo_cycles.get(v) for v in ("ok", "breach")}
+        hits = fleet.executor.stats["overlay_hits"]
+    finally:
+        slo.uninstall()
+        flight.uninstall()
+        tracectx.set_id_source(None)
+    events = list(rec.events)
+    connected = 0
+    for request in requests:
+        tid = request.trace.trace_id
+        mine = [e for e in events
+                if (e.get("args") or {}).get("trace_id") == tid]
+        names = {(e["name"], e["ph"]) for e in mine}
+        flows = {e["ph"] for e in events if e.get("id") == f"{tid}:q"}
+        if {("serve:admit", "X"), ("serve:overlay", "X"),
+                ("serve:overlay_resolve", "i")} <= names \
+                and flows == {"s", "f"}:
+            connected += 1
+    print(f"phase 31b: {TRACED_REQUESTS} requests to phase 27's {n}-node "
+          f"twin, traced: {hits} overlay answers, {connected} of them one "
+          f"connected trace (admit, enqueue flow, overlay, resolve); the "
+          f"serve SLO path counted {sum(verdicts.values()):g} {verdicts} on "
+          f"{card}")
+    if hits != TRACED_REQUESTS or connected != TRACED_REQUESTS or \
+            sum(verdicts.values()) != TRACED_REQUESTS:
+        raise AssertionError("phase 31b: the fleet's traces or SLO counts "
+                             "are incomplete")
+
+
+def drive_telemetry_cli(card):
+    """Phase 31c: `stream --listen --slo-target-ms --metrics-out` once, as a
+    child process."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "m.prom")
+        [(rc, stdout, stderr, secs)] = run_children([[
+            sys.executable, "-m", "tpusim_torch.cli", "stream",
+            "--synthetic-nodes", "4000", "--listen", "127.0.0.1:0",
+            "--slo-target-ms", "30", "--metrics-out", path]])
+        text = open(path).read() if os.path.exists(path) else ""
+    series = parse_exposition(text)
+    judged = sum(v for k, v in series.items()
+                 if k.startswith("tpusim_slo_cycles_total"))
+    listening = [x for x in stderr.splitlines()
+                 if x.startswith("telemetry: listening on http://127.0.0.1:")]
+    print(f"phase 31c: stream --listen --slo-target-ms 30 on 4,000 nodes: rc "
+          f"{rc}, {listening[0] if listening else 'no listening line'}, "
+          f"tpusim_slo_cycles_total {judged:g}; {secs:.1f}s in the child; "
+          f"{stdout.strip().splitlines()[0] if stdout.strip() else ''}")
+    if rc != 0 or not listening or judged <= 0:
+        raise AssertionError(f"phase 31c: {stderr[-2000:]}")
+
+
+def drive_live_phases(card):
+    """Phases 30-31 inside LIVE_BUDGET_S."""
+    t0 = time.perf_counter()
+    drive_live_snapshot(card)
+    drive_live_cli(card)
+    drive_watch_stream(card)
+    drive_traces(card, drive_telemetry(card))
+    drive_telemetry_cli(card)
+    wall = time.perf_counter() - t0
+    print(f"phases 30-31: {wall:.1f}s wall in all, against their "
+          f"{LIVE_BUDGET_S} s budget")
+    if wall > LIVE_BUDGET_S:
+        raise AssertionError(f"phases 30-31: {wall:.1f}s is past their "
+                             f"{LIVE_BUDGET_S} s budget")
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -2963,6 +3881,10 @@ def main():
     # phases 28-29: decision provenance, the explain lanes and the
     # analytics plane
     drive_analytics_phases(card)
+
+    # phases 30-31: the live-cluster snapshot, the watch fabric and the
+    # live telemetry plane
+    drive_live_phases(card)
 
     kernels = []
     for name, variant, replaces, n_launch, err in (

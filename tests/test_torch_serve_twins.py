@@ -200,11 +200,15 @@ class TestLiveTwin:
                          "overlay_decode", "serve:overlay_resolve"):
             assert expected in names, expected
         overlay = [e for e in rec.events if e["name"] == "serve:overlay"]
-        # the instant inside the span, then the span
+        # the instant inside the span, then the span, both stamped with the
+        # request's trace context (the JAX package stamps them too)
         assert [e["ph"] for e in overlay] == ["i", "X"]
-        assert overlay[1]["args"] == {"ref": "live", "path": "resident"}
+        stamp = {"trace_id": overlay[1]["args"]["trace_id"],
+                 "span_id": overlay[1]["args"]["span_id"]}
+        assert overlay[1]["args"] == {"ref": "live", "path": "resident",
+                                      **stamp}
         assert overlay[0]["args"] == {"path": "resident", "ref": "live",
-                                      "pods": 3}
+                                      "pods": 3, **stamp}
 
 
 def torch_equal(a, b) -> bool:

@@ -80,6 +80,18 @@ analytics samples, one a cycle, decoded without their time stamps:
 
     JAX_PLATFORMS=cpu python tools/port_golden.py explain config3
     JAX_PLATFORMS=cpu python tools/port_golden.py config12
+
+`config9_watch` prints the placement and fold chains of config 9's churn
+fed to the JAX package's StreamSession only through its watch fabric, with
+the node watch torn mid-run (chip_smoke.watch_stream), at each shape of
+chip_smoke.WATCH_STREAM (~40 s). `live_cli` prints the digests
+(chip_smoke.report_digest) of the JAX package's main command on
+chip_smoke.LIVE_PODSPEC against chip_smoke.FakeApiServer serving
+chip_smoke.live_cluster, through --kubeconfig, with the ConfigMap policy
+(--scheduler-policy-configmap) and without it (chip_smoke.LIVE_CLI; ~2 min):
+
+    JAX_PLATFORMS=cpu python tools/port_golden.py config9_watch
+    JAX_PLATFORMS=cpu python tools/port_golden.py live_cli
 """
 
 import hashlib
@@ -283,7 +295,80 @@ def config12_goldens():
     return 0
 
 
+def jax_watch_modules():
+    """The JAX package's modules chip_smoke.watch_stream reads."""
+    import types
+
+    import tpusim.api.types as api_types
+    import tpusim.backends as backends
+    import tpusim.framework.events as events
+    import tpusim.framework.restclient as restclient
+    import tpusim.framework.store as store
+    import tpusim.stream as stream
+
+    return types.SimpleNamespace(api=jax_api, types=api_types, store=store,
+                                 events=events, restclient=restclient,
+                                 stream=stream, backends=backends)
+
+
+def config9_watch_chains():
+    from chip_smoke import WATCH_STREAM, watch_stream
+
+    for shape, (params, _, _) in WATCH_STREAM.items():
+        t0 = time.perf_counter()
+        out = watch_stream(jax_watch_modules(), **params)
+        print(f"config9_watch {shape}({params}): placement_chain "
+              f"{out['placement_chain']}, fold_chain {out['fold_chain']}, "
+              f"{out['scheduled']}/{out['decisions']} scheduled, relists "
+              f"{out['relists']}, restages {out['restages']}, "
+              f"{time.perf_counter() - t0:.1f} s")
+    return 0
+
+
+def live_cli_digests():
+    import contextlib
+    import io
+    import tempfile
+
+    from chip_smoke import (
+        LIVE_POLICY,
+        LIVE_TOKEN,
+        FakeApiServer,
+        live_cluster,
+        live_configmaps,
+        report_digest,
+        write_live_files,
+    )
+    from tpusim.cli import main as cli_main
+
+    nodes, served, _ = live_cluster(jax_api)
+    server = FakeApiServer(nodes, served, live_configmaps(), LIVE_TOKEN)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            kubeconfig, podspec = write_live_files(tmp, server.url)
+            for name, extra in (
+                    ("policy", ["--scheduler-policy-configmap",
+                                LIVE_POLICY[1]]),
+                    ("provider", [])):
+                t0 = time.perf_counter()
+                out = io.StringIO()
+                with contextlib.redirect_stdout(out):
+                    rc = cli_main(["--kubeconfig", kubeconfig, "--podspec",
+                                   podspec, "--backend", "jax", *extra])
+                summary = out.getvalue().strip().splitlines()[-2]
+                print(f"live_cli {name}: rc {rc}, digest "
+                      f"{report_digest(out.getvalue())}, {summary}, "
+                      f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        server.stop()
+    return 0
+
+
 def main(argv):
+    if argv[0] == "config9_watch":
+        return config9_watch_chains()
+    if argv[0] == "live_cli":
+        return live_cli_digests()
     if argv[0] == "explain":
         return explain_digest(argv[1])
     if argv[0] == "config12":

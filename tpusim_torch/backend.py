@@ -62,7 +62,7 @@ from tpusim_torch.device import resolve_device
 from tpusim_torch.fastplan import plan_fast
 from tpusim_torch.fastscan import fast_scan
 from tpusim_torch.framework.metrics import register, since_in_microseconds
-from tpusim_torch.obs import analytics, provenance
+from tpusim_torch.obs import analytics, provenance, tracectx
 from tpusim_torch.obs import recorder as flight
 from tpusim_torch.scan import (
     GRAPH_STEPS,
@@ -442,8 +442,12 @@ class TorchBackend:
             if plan is not None:
                 dsp.set("sig", str(plan_signature(plan)))
             dsp.end()
+        # the trace id as an exemplar: a dispatch-latency spike on a
+        # dashboard names the trace of its device dispatch
+        ctx = tracectx.current()
         metrics.backend_dispatch_latency.observe(
-            since_in_microseconds(dispatch_start))
+            since_in_microseconds(dispatch_start),
+            exemplar=ctx.trace_id if ctx is not None else None)
         metrics.scheduling_algorithm_latency.observe(
             since_in_microseconds(dispatch_start))
         self.last_choices = choices

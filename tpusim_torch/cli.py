@@ -10,7 +10,11 @@
         --podspec pods.yaml [--requests 32] [--device cpu] \
         [--attach-stream [--stream-cycles 4 --stream-arrivals 16]]
     python -m tpusim_torch.cli stream --synthetic-nodes 64 --cycles 50 \
-        [--pipeline] [--verify] [--gang-size 3 --gang-count 1] [--device cpu]
+        [--pipeline] [--verify] [--gang-size 3 --gang-count 1] [--device cpu] \
+        [--listen 127.0.0.1:9100] [--slo-target-ms 30]
+    python -m tpusim_torch.cli top 127.0.0.1:9100 [--once]
+    python -m tpusim_torch.cli --kubeconfig kubeconfig.json --podspec pods.json \
+        [--scheduler-policy-configmap NAME]
 
 prints the Successful/Failed pods report of the reference simulator
 (cmd/app/server.go). --backend torch (the default) schedules on
@@ -21,11 +25,14 @@ orchestrator on the CPU, which also carries preemption, delayed volume
 binding (--enable-volume-scheduling) and the feature gates
 (--feature-gates); --backend auto picks the host for small workloads. The
 cluster comes from a saved ClusterSnapshot (--snapshot), from nodes.json and
-pods.json checkpoints (--nodes, --pods) or from synthetic nodes. A scheduler
-Policy from a file (--scheduler-policy-file) or from a ConfigMap object
-saved to a file (--scheduler-policy-configmap-file) replaces the algorithm
-provider. --event-log replays a watch-event log (JSON lines of wire
-frames) on top of the snapshot before scheduling. --v sets the log
+pods.json checkpoints (--nodes, --pods), from synthetic nodes, or from a
+live cluster's apiserver (--kubeconfig, or the in-cluster service account
+under CC_INCLUSTER: its Running pods and all its nodes). A scheduler Policy
+from a file (--scheduler-policy-file), from a ConfigMap object saved to a
+file (--scheduler-policy-configmap-file) or from a live ConfigMap
+(--scheduler-policy-configmap) replaces the algorithm provider.
+--event-log replays a watch-event log (JSON lines of wire frames) on top
+of the snapshot before scheduling. --v sets the log
 verbosity (2: INFO, 5: DEBUG with the host engine's per-node score dump).
 --trace-out writes the flight recorder's timeline (Chrome trace JSON, or
 JSON lines with a .jsonl name) and --metrics-out the metrics registry in
@@ -34,15 +41,19 @@ Prometheus text format after the run; serve and stream take both.
 lines; --explain-top-k K adds each placed pod's top K nodes with their
 score parts, on the scan route), --analytics-out the cluster analytics
 plane's samples; serve and stream take both. The explain subcommand
-queries an --explain-out file:
+queries an --explain-out file. serve and stream take --listen HOST:PORT,
+which serves the live telemetry plane over HTTP (/metrics, /healthz,
+/debug/provenance, /debug/trace, /analytics; obs/server.py), and
+--slo-target-ms, which judges every cycle against a latency target; top
+renders an endpoint's /analytics. explain:
 
     python -m tpusim_torch.cli explain explain.jsonl [--failed] [--summary]
 
 --what-if runs a manifest of scenarios (a JSON list of {snapshot, podspec}
 file pairs) through whatif.run_what_if and prints a line a scenario. The
 serve subcommand stands up a serve.ScenarioFleet over one snapshot and
-drives it with a synthetic load drawn from the podspec's pods (in process,
-no network listener), printing a line a pass; --attach-stream answers the
+drives it with a synthetic load drawn from the podspec's pods (in
+process), printing a line a pass; --attach-stream answers the
 load from a live streaming twin warmed by a few churn cycles. The stream subcommand drives
 the streaming twin (stream.StreamSession) with seeded churn through
 simulator.run_stream_simulation and prints its summary.
@@ -51,6 +62,7 @@ simulator.run_stream_simulation and prints its summary.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -65,6 +77,7 @@ from tpusim_torch.engine.policy import (
     PolicyError,
     load_policy_configmap_file,
     load_policy_file,
+    policy_from_configmap,
 )
 from tpusim_torch.framework.report import (
     cluster_capacity_review_print,
@@ -79,6 +92,13 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="tpusim_torch",
         description="Cluster-capacity schedule simulation on the PyTorch/CUDA engine")
+    # the reference's flags (options.go:67-71)
+    parser.add_argument("--kubeconfig", default="",
+                        help="Path to kubeconfig for a live-cluster snapshot "
+                             "(Running pods across all namespaces + all nodes, "
+                             "server.go:104-118); CC_INCLUSTER=1 uses the "
+                             "in-cluster service-account config instead. "
+                             "JSON, or YAML where PyYAML is installed")
     parser.add_argument("--podspec", default="",
                         help="YAML/JSON file with [{name, pod, num}] entries")
     parser.add_argument("--algorithmprovider", default="DefaultProvider",
@@ -92,6 +112,13 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--scheduler-policy-configmap-file", default="",
                         help="ConfigMap object (JSON/YAML) carrying the policy "
                              "under data['policy.cfg']")
+    parser.add_argument("--scheduler-policy-configmap", default="",
+                        help="Name of a ConfigMap to fetch the policy from the "
+                             "live cluster API (simulator.go:402-415); needs "
+                             "--kubeconfig or CC_INCLUSTER")
+    parser.add_argument("--scheduler-policy-configmap-namespace",
+                        default="kube-system",
+                        help="Namespace of --scheduler-policy-configmap")
     parser.add_argument("--namespace", default="default",
                         help="Namespace stamped onto simulated pods")
     parser.add_argument("--backend", default="torch", choices=BACKENDS,
@@ -154,8 +181,9 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def add_obs_flags(parser, timeline: str) -> None:
-    """The observability flags of the main command, serve and stream."""
+def add_obs_flags(parser, timeline: str, live: bool = False) -> None:
+    """The observability flags of the main command, serve and stream; live
+    adds the telemetry plane's pair (serve and stream)."""
     parser.add_argument("--trace-out", default="",
                         help=f"Write {timeline} after the run: Chrome "
                              "trace_event JSON (Perfetto-loadable), or a "
@@ -170,6 +198,21 @@ def add_obs_flags(parser, timeline: str) -> None:
                              "fragmentation, feasible nodes, the hottest "
                              "and coldest nodes, reduced on the device) to "
                              "this JSONL file")
+    if not live:
+        return
+    parser.add_argument("--listen", default="",
+                        help="Serve the live telemetry plane on HOST:PORT "
+                             "(also ':PORT' or 'PORT'): GET /metrics "
+                             "(Prometheus/OpenMetrics text), /healthz "
+                             "(JSON liveness; 503 while the dispatch "
+                             "breaker is open), /debug/provenance (recent "
+                             "decision records), /debug/trace, /analytics")
+    parser.add_argument("--slo-target-ms", type=float, default=0.0,
+                        help="Arm the per-cycle latency SLO at this target: "
+                             "publishes tpusim_slo_cycles_total{verdict} "
+                             "and tpusim_slo_burn_rate, and drops "
+                             "slo:burn_start/_end instants on the flight "
+                             "recorder at burn-rate crossings (0: off)")
 
 
 def add_explain_flags(parser: argparse.ArgumentParser) -> None:
@@ -189,19 +232,37 @@ def add_explain_flags(parser: argparse.ArgumentParser) -> None:
 
 
 def _arm_observability(args):
-    """Install the provenance log and the analytics plane the flags ask
-    for; returns the teardown, which flushes their files and folds the last
-    analytics sample into the tpusim_cluster_* gauges, so that a
-    --metrics-out written after it carries them."""
-    from tpusim_torch.obs import analytics, provenance
+    """Install the provenance log, the analytics plane, the SLO tracker and
+    the telemetry endpoint the flags ask for; returns the teardown, which
+    stops the endpoint, flushes the files and folds the last analytics
+    sample into the tpusim_cluster_* gauges, so that a --metrics-out
+    written after it carries them."""
+    from tpusim_torch.obs import analytics, provenance, slo
 
+    server = None
+    listen = getattr(args, "listen", "")
+    slo_target_ms = getattr(args, "slo_target_ms", 0.0)
     explain_top_k = max(0, args.explain_top_k)
-    if args.explain_out or explain_top_k:
+    # --listen alone arms an in-memory ring, so /debug/provenance serves
+    # the recent decisions
+    if args.explain_out or explain_top_k or listen:
         provenance.install(provenance.ProvenanceLog(
             top_k=explain_top_k, path=args.explain_out or None))
-    if args.analytics_out:
+    # and the analytics ring, so /analytics (and `top` against this
+    # endpoint) serves live samples
+    if args.analytics_out or listen:
         analytics.install(analytics.ClusterAnalytics(
-            path=args.analytics_out))
+            path=args.analytics_out or None))
+    if slo_target_ms > 0:
+        slo.install(slo.SloTracker(slo_target_ms * 1000.0))
+    if listen:
+        from tpusim_torch.obs.server import start_server
+
+        server = start_server(listen)
+        host, port = server.address
+        print(f"telemetry: listening on http://{host}:{port} "
+              "(/metrics /healthz /debug/provenance /analytics)",
+              file=sys.stderr)
 
     def teardown() -> None:
         if provenance.get_log() is not None:
@@ -209,6 +270,10 @@ def _arm_observability(args):
         if analytics.get() is not None:
             analytics.refresh_gauges()
             analytics.uninstall()    # close() flushes --analytics-out
+        if slo.get_tracker() is not None:
+            slo.uninstall()
+        if server is not None:
+            server.stop()
 
     return teardown
 
@@ -262,6 +327,19 @@ def _finish_obs(args, recorder) -> int:
 
 
 def load_snapshot(args) -> ClusterSnapshot:
+    if args.kubeconfig or os.environ.get("CC_INCLUSTER"):
+        if args.snapshot or args.nodes or args.pods or args.synthetic_nodes:
+            raise ValueError(
+                "--kubeconfig/CC_INCLUSTER conflicts with "
+                "--snapshot/--nodes/--pods/--synthetic-nodes; pick one "
+                "snapshot source")
+        # the reference's only network I/O: the initial checkpoint
+        # (server.go:75-118); its Namespace field is never flag-bound, so
+        # the pod list spans all namespaces, and --namespace only stamps
+        # the simulated pods
+        from tpusim_torch.api.kubeclient import snapshot_from_cluster
+
+        return snapshot_from_cluster(kubeconfig=args.kubeconfig)
     if args.snapshot:
         return ClusterSnapshot.load(args.snapshot)
     snapshot = ClusterSnapshot()
@@ -277,16 +355,43 @@ def load_snapshot(args) -> ClusterSnapshot:
 
 
 def load_policy_from_args(args):
-    """(policy or None, error text or None) from the policy flags."""
+    """(policy or None, error text or None) from the three policy sources:
+    a serialized Policy file, a ConfigMap object's file, or a live
+    ConfigMap fetched from the cluster API (simulator.go:383-424)."""
+    live_name = args.scheduler_policy_configmap
     try:
         if args.scheduler_policy_file:
             return load_policy_file(args.scheduler_policy_file), None
         if args.scheduler_policy_configmap_file:
             return load_policy_configmap_file(
                 args.scheduler_policy_configmap_file), None
+        if not live_name:
+            return None, None
+        # the live source: ConfigMaps(ns).Get(name) through the kube
+        # client (simulator.go:402-406)
+        if not (args.kubeconfig or os.environ.get("CC_INCLUSTER")):
+            return None, ("--scheduler-policy-configmap needs a cluster "
+                          "connection (--kubeconfig or CC_INCLUSTER)")
+        from tpusim_torch.api.kubeclient import (
+            KubeClient,
+            in_cluster_config,
+            load_kubeconfig,
+        )
+        config = (load_kubeconfig(args.kubeconfig) if args.kubeconfig
+                  else in_cluster_config())
+        try:
+            client = KubeClient(config)
+        finally:
+            config.cleanup()
+        ns = args.scheduler_policy_configmap_namespace
+        try:
+            obj = client.get_configmap(ns, live_name)
+        except OSError as exc:
+            return None, (f"couldn't get policy config map "
+                          f"{ns}/{live_name}: {exc}")
+        return policy_from_configmap(obj), None
     except (OSError, PolicyError) as exc:
         return None, f"invalid scheduler policy: {exc}"
-    return None, None
 
 
 def run_what_if_cli(args) -> int:
@@ -387,7 +492,7 @@ def build_serve_parser() -> argparse.ArgumentParser:
                         help="cuda (default) or cpu (the plain versions)")
     parser.add_argument("--quiet", action="store_true",
                         help="Only print the summary lines")
-    add_obs_flags(parser, "the serve: span timeline")
+    add_obs_flags(parser, "the serve: span timeline", live=True)
     return parser
 
 
@@ -605,7 +710,7 @@ def build_stream_parser() -> argparse.ArgumentParser:
                         help="Print the whole summary as JSON")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
-    add_obs_flags(parser, "the stream span timeline")
+    add_obs_flags(parser, "the stream span timeline", live=True)
     return parser
 
 
@@ -823,6 +928,143 @@ def explain_cli(argv) -> int:
     return 0
 
 
+def build_top_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="tpusim_torch top",
+        description="Live cluster view against a running --listen "
+                    "endpoint: per-resource utilization/fragmentation, "
+                    "feasible nodes, hottest/coldest nodes, HBM residency "
+                    "and compile cost (rendered from GET /analytics)")
+    parser.add_argument("endpoint",
+                        help="A --listen endpoint: http://HOST:PORT, "
+                             "HOST:PORT, ':PORT', or 'PORT'")
+    parser.add_argument("--interval", type=float, default=2.0,
+                        help="Seconds between refreshes (default 2)")
+    parser.add_argument("--iterations", type=int, default=0,
+                        help="Render this many frames then exit "
+                             "(0: until interrupted)")
+    parser.add_argument("--once", action="store_true",
+                        help="Render a single frame without clearing the "
+                             "screen and exit")
+    parser.add_argument("--json", action="store_true",
+                        help="Print one raw /analytics JSON body and exit")
+    return parser
+
+
+def _fmt_bytes(n: float) -> str:
+    n = float(n)
+    for unit in ("B", "KiB", "MiB", "GiB"):
+        if n < 1024 or unit == "GiB":
+            return f"{n:.1f}{unit}" if unit != "B" else f"{int(n)}B"
+        n /= 1024
+    return f"{n:.1f}GiB"
+
+
+def _render_top(body: dict, url: str) -> str:
+    """One `top` frame from a /analytics body (the JAX package's frame,
+    byte for byte)."""
+    lines = [f"tpusim top — {url}   samples={body.get('samples', 0)}"]
+    latest = body.get("latest")
+    if not body.get("enabled"):
+        lines.append("analytics plane not armed on this endpoint "
+                     "(start the session with --listen or --analytics-out)")
+    elif latest is None:
+        lines.append("no samples yet (waiting for the first cycle)")
+    else:
+        where = latest.get("source", "?")
+        if latest.get("cycle") is not None:
+            where += f" c{latest['cycle']}"
+        nodes = latest.get("nodes", {})
+        lines.append(f"nodes: {nodes.get('valid', '?')} valid, "
+                     f"{nodes.get('feasible', '?')} feasible "
+                     f"(cpu+mem+pod headroom)   [latest: {where}]")
+        lines.append(f"{'RESOURCE':<10} {'UTIL':>7} {'FRAG':>7} "
+                     f"{'REQUESTED':>14} {'ALLOCATABLE':>14} "
+                     f"{'LARGEST-FREE':>13}")
+        for name, row in latest.get("resources", {}).items():
+            util = row.get("utilization")
+            util_s = f"{util * 100:.1f}%" if util is not None else "-"
+            frag_s = f"{row.get('fragmentation', 0.0) * 100:.1f}%"
+            lines.append(f"{name:<10} {util_s:>7} {frag_s:>7} "
+                         f"{row.get('requested', 0):>14} "
+                         f"{row.get('allocatable', 0):>14} "
+                         f"{row.get('largest_free', 0):>13}")
+        for label, key in (("hottest", "hot_nodes"),
+                           ("coldest", "cold_nodes")):
+            entries = latest.get(key) or []
+            if entries:
+                lines.append(f"{label}: " + "  ".join(
+                    f"{e['node']} {e['utilization_ppm'] / 10_000:.1f}%"
+                    for e in entries[:5]))
+    hbm = body.get("hbm") or {}
+    if hbm:
+        lines.append("hbm: " + "  ".join(
+            f"{comp} {_fmt_bytes(slot.get('bytes', 0))}"
+            f"/{slot.get('entries', 0)} entries"
+            for comp, slot in sorted(hbm.items())))
+    comp = body.get("compile") or {}
+    if comp:
+        lines.append("compile: " + "  ".join(
+            f"{site} {slot.get('traces', 0)} traces "
+            f"{slot.get('total_us', 0.0) / 1e6:.2f}s"
+            for site, slot in sorted(comp.items())))
+    return "\n".join(lines)
+
+
+def top_cli(argv) -> int:
+    """`top`: the live analytics view against a --listen endpoint. An
+    endpoint that cannot be reached returns 2."""
+    import json
+    import time as _time
+    from urllib.error import URLError
+    from urllib.request import urlopen
+
+    args = build_top_parser().parse_args(argv)
+    endpoint = args.endpoint.strip()
+    if endpoint.startswith("http://") or endpoint.startswith("https://"):
+        url = endpoint.rstrip("/")
+    else:
+        from tpusim_torch.obs.server import parse_listen
+
+        try:
+            host, port = parse_listen(endpoint)
+        except ValueError:
+            print(f"error: bad endpoint {endpoint!r}", file=sys.stderr)
+            return 2
+        url = f"http://{host}:{port}"
+
+    def fetch() -> dict:
+        with urlopen(f"{url}/analytics?limit=1", timeout=5) as resp:
+            return json.loads(resp.read().decode())
+
+    frames = 0
+    try:
+        while True:
+            try:
+                body = fetch()
+            except (URLError, OSError, ValueError) as exc:
+                if frames:
+                    print(f"endpoint gone ({exc}); exiting", file=sys.stderr)
+                    return 0
+                print(f"error: cannot reach {url}/analytics: {exc}",
+                      file=sys.stderr)
+                return 2
+            if args.json:
+                print(json.dumps(body, sort_keys=True))
+                return 0
+            frame = _render_top(body, url)
+            if not args.once and sys.stdout.isatty():
+                print("\x1b[2J\x1b[H" + frame, flush=True)
+            else:
+                print(frame, flush=True)
+            frames += 1
+            if args.once or (args.iterations and frames >= args.iterations):
+                return 0
+            _time.sleep(max(0.1, args.interval))
+    except KeyboardInterrupt:
+        return 0
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv and argv[0] == "serve":
@@ -831,6 +1073,8 @@ def main(argv=None) -> int:
         return stream_cli(argv[1:])
     if argv and argv[0] == "explain":
         return explain_cli(argv[1:])
+    if argv and argv[0] == "top":
+        return top_cli(argv[1:])
     args = build_parser().parse_args(argv)
     if args.verbosity >= 2:
         # glog -v analog: the tpusim_torch loggers (slow-schedule traces,

@@ -324,6 +324,16 @@ class IncrementalCluster:
         for event_type, obj in events:
             self.apply(event_type, obj)
 
+    def ingest(self, watch_buffer) -> int:
+        """Drain a framework.events.WatchBuffer (non-blocking); returns the
+        number of events applied. A torn stream raises WatchExpiredError
+        after the frames before the tear are applied."""
+        count = 0
+        for ev in watch_buffer:
+            self.apply(ev.type, ev.object)
+            count += 1
+        return count
+
     def _apply_pod(self, event_type: str, pod: Pod) -> None:
         """A bind (ADDED, or MODIFIED with the node set), an update or a
         deletion."""

@@ -1,10 +1,14 @@
-"""Watch-event frames, the event-log reader and the event recorder.
+"""Watch streams, their wire frames, the event-log reader and the event
+recorder.
 
-Reference: pkg/framework/watch/watch.go (the JSON wire frames a WatchBuffer
-streams) and pkg/framework/record/recorder.go (channel-backed
-EventRecorder, buffer 10, drained one event per Bind/Update). The live watch
-streams of the reference's framework/watch (WatchBuffer, watch_resource) are
-not ported yet; a recorded stream replays through load_event_log.
+Reference: pkg/framework/watch/watch.go (WatchBuffer: an io.ReadCloser JSON
+frame stream fed by EmitWatchEvent) and pkg/framework/record/recorder.go
+(channel-backed EventRecorder, buffer 10, drained one event per Bind/Update).
+
+The WatchBuffer here is a bounded queue of (type, object) frames with
+replay-current-objects-as-Added semantics on subscribe (restclient.go:380-426),
+not the reference's hand-rolled reader/writer lock. A recorded stream
+replays through load_event_log.
 """
 
 from __future__ import annotations
@@ -13,16 +17,22 @@ import io
 import json
 import queue
 from dataclasses import dataclass
-from typing import Optional
+from typing import Iterator, Optional
 
 from tpusim_torch.api.types import (
     Node,
     PersistentVolume,
     PersistentVolumeClaim,
     Pod,
+    ResourceType,
     Service,
 )
-from tpusim_torch.framework.store import ADDED, DELETED, MODIFIED
+from tpusim_torch.framework.store import (
+    ADDED,
+    DELETED,
+    MODIFIED,
+    ResourceStore,
+)
 
 
 @dataclass
@@ -35,6 +45,126 @@ class WatchEvent:
         event types are capitalized on the wire ("Added"/"Modified"/"Deleted")."""
         return json.dumps({"type": self.type.capitalize(),
                            "object": self.object.to_obj()}, sort_keys=True)
+
+
+# A lagging watcher's buffered window is finite, like an apiserver's etcd
+# watch cache: past this many undrained frames the stream dies with the
+# "410 Gone" analog and the consumer must relist (WatchExpiredError).
+DEFAULT_WATCH_BUFFER_SIZE = 4096
+
+
+class WatchExpiredError(Exception):
+    """The watch stream's buffered window is gone: the apiserver's "410
+    Gone" or "too old resource version". The consumer cannot resume from
+    where it was; it must relist and watch again (framework/reflector.py)."""
+
+    code = 410
+
+
+class WatchBuffer:
+    """A bounded FIFO of watch events; close() wakes readers.
+
+    Overflow tears the stream: the queued frames nobody drained are dropped
+    (that window is what the consumer can no longer trust) and every later
+    read() raises WatchExpiredError."""
+
+    _CLOSED = object()
+    _ERROR = object()
+
+    def __init__(self, maxsize: int = DEFAULT_WATCH_BUFFER_SIZE,
+                 resource: str = ""):
+        # one slot more, so the error sentinel always fits after a drain
+        self._q: queue.Queue = queue.Queue(maxsize=maxsize + 1 if maxsize
+                                           else 0)
+        self.maxsize = maxsize
+        self.resource = resource
+        self.closed = False
+        self.error: Optional[Exception] = None
+
+    def emit(self, event_type: str, obj) -> None:
+        if self.closed:
+            return
+        if self.maxsize and self._q.qsize() >= self.maxsize:
+            self._overflow()
+            return
+        self._q.put(WatchEvent(event_type, obj))
+
+    def _overflow(self) -> None:
+        from tpusim_torch.obs.recorder import note_watch_overflow
+
+        note_watch_overflow(self.resource or "unknown")
+        self.close_with_error(WatchExpiredError(
+            f"watch buffer overflow ({self.maxsize} undrained frames) on "
+            f"{self.resource or 'stream'}: too old resource version"),
+            drop_pending=True)
+
+    def close(self) -> None:
+        if not self.closed:
+            self.closed = True
+            self._q.put(self._CLOSED)
+
+    def close_with_error(self, exc: Exception,
+                         drop_pending: bool = False) -> None:
+        """End the stream with a transport error: readers drain the frames
+        that survive, then read() raises `exc` (once a call)."""
+        if self.closed:
+            return
+        self.closed = True
+        self.error = exc
+        if drop_pending:
+            while True:
+                try:
+                    self._q.get_nowait()
+                except queue.Empty:
+                    break
+        self._q.put(self._ERROR)
+
+    def read(self, timeout: Optional[float] = None) -> Optional[WatchEvent]:
+        try:
+            item = self._q.get(timeout=timeout)
+        except queue.Empty:
+            return None
+        if item is self._ERROR:
+            self._q.put(self._ERROR)  # every later read fails too
+            raise self.error
+        if item is self._CLOSED:
+            return None
+        return item
+
+    def __iter__(self) -> Iterator[WatchEvent]:
+        while True:
+            ev = self.read(timeout=0)
+            if ev is None:
+                return
+            yield ev
+
+    def drain(self, limit: Optional[int] = None) -> list:
+        """Non-blocking batch read: every frame queued now (up to `limit`)
+        as a list. An expired stream raises WatchExpiredError as read()
+        does, but never swallows frames: the frames read before the error
+        sentinel are returned, and the NEXT drain() raises."""
+        out: list = []
+        while limit is None or len(out) < limit:
+            try:
+                ev = self.read(timeout=0)
+            except WatchExpiredError:
+                if out:
+                    return out
+                raise
+            if ev is None:
+                break
+            out.append(ev)
+        return out
+
+
+def watch_resource(store: ResourceStore, resource: ResourceType) -> WatchBuffer:
+    """Subscribe to a resource: the current objects replay as ADDED, then
+    the live events stream (restclient.go:380-426 list and watch)."""
+    buf = WatchBuffer(resource=resource.value)
+    for obj in store.list(resource):
+        buf.emit(ADDED, obj)
+    store.register_event_handler(resource, buf.emit)
+    return buf
 
 
 _EVENT_KINDS = {"Pod": Pod, "Node": Node, "Service": Service,

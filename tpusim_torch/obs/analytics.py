@@ -19,6 +19,14 @@ Capture follows provenance: an active instance installed at module level
 behind one None-check at each call site, lazy decode, a bounded ring and an
 append-only JSON-lines file (`--analytics-out`).
 
+A sample is decoded on whichever thread reads it: the telemetry server's
+handlers run on threads of their own, while the stream that produced the
+sample may still be running its reduction (a pipelined cycle launches it
+behind the scan and waits for nothing). On a CUDA device the capture
+therefore copies the integers to pinned host memory on the producing
+stream and records a CUDA event behind the copy; the decode waits on that
+event alone, so no reader touches the device or synchronizes it.
+
 Two accounting registries need no install, as compiles and residency
 changes are cold by nature:
 
@@ -141,12 +149,28 @@ def decode_stats(stats, names=None) -> Dict[str, Any]:
     }
 
 
+def _to_host_behind_event(stats):
+    """On a CUDA device: the stats copied into pinned host memory on the
+    current stream, and the event recorded behind the copies. Elsewhere
+    the stats themselves and None."""
+    if stats.alloc.device.type != "cuda":
+        return stats, None
+    host = []
+    for t in stats:
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h.copy_(t, non_blocking=True)
+        host.append(h)
+    event = torch.cuda.Event()
+    event.record()
+    return type(stats)(*host), event
+
+
 class _Sample:
     __slots__ = ("stats", "source", "cycle", "ts", "seq", "names",
-                 "n_valid", "k", "inputs", "decoded")
+                 "n_valid", "k", "inputs", "decoded", "event")
 
     def __init__(self, stats, source, cycle, ts, seq, names, n_valid, k,
-                 inputs):
+                 inputs, event=None):
         self.stats = stats
         self.source = source
         self.cycle = cycle
@@ -157,10 +181,19 @@ class _Sample:
         self.k = k
         self.inputs = inputs
         self.decoded = None
+        # the CUDA event behind the sample's copies to the host (None off
+        # the card): a reader on any thread waits on it, and on nothing else
+        self.event = event
+
+    def ready(self) -> None:
+        """Wait until the capture's reduction and copies are done."""
+        if self.event is not None:
+            self.event.synchronize()
 
 
 def _decode_sample(sample: _Sample) -> Dict[str, Any]:
     if sample.decoded is None:  # idempotent; racing readers are harmless
+        sample.ready()
         rec = {"seq": sample.seq, "ts": sample.ts, "source": sample.source}
         if sample.cycle is not None:
             rec["cycle"] = sample.cycle
@@ -213,11 +246,12 @@ class ClusterAnalytics:
                        cycle: Optional[int] = None, names=None) -> None:
         """Launch the reduction on the device columns and ring its result.
 
-        The launch is asynchronous and nothing is read back here: the
-        stats stay tensors until a query or a flush decodes them, so a
-        pipelined stream keeps its overlap. With keep_inputs the columns
-        are cloned on their stream now, since the resident carry is
-        overwritten in place by the next commit and scan."""
+        The launch is asynchronous and nothing is read back here: on the
+        card the stats reach pinned host memory behind an event that a
+        query or a flush waits on, so a pipelined stream keeps its
+        overlap. With keep_inputs the columns are cloned on their stream
+        now, since the resident carry is overwritten in place by the next
+        commit and scan."""
         from tpusim_torch.scan import analytics_reduce
 
         if not self.want_sample():
@@ -228,8 +262,9 @@ class ClusterAnalytics:
         stats = analytics_reduce(inp, int(n_valid), k)
         inputs = (type(inp)(*(leaf.clone() for leaf in inp))
                   if self.keep_inputs else None)
+        stats, event = _to_host_behind_event(stats)
         sample = _Sample(stats, source, cycle, round(time.time(), 3), 0,
-                         names, int(n_valid), k, inputs)
+                         names, int(n_valid), k, inputs, event)
         with self._lock:
             sample.seq = self._seq
             self._seq += 1
@@ -269,6 +304,7 @@ class ClusterAnalytics:
                 problems.append(f"seq {sample.seq}: no inputs retained "
                                 "(keep_inputs=False)")
                 continue
+            sample.ready()
             want = host_reduce(sample.inputs, sample.n_valid, sample.k)
             for field, expect in want.items():
                 got = _host(getattr(sample.stats, field))

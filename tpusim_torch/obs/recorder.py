@@ -21,6 +21,9 @@ Design constraints:
   CUDA ``device`` records a CUDA event at each end, on the device's current
   stream, beside its wall. The time between the two events is read when the
   trace is exported (``args.device_us``), never inside the timed region.
+- **Causal ids.** Every event recorded while an obs.tracectx context is
+  active carries its ``trace_id`` and ``span_id`` in its args; flows
+  (``flow_start``/``flow_end``) link a hand-off across threads.
 
 Counters and histograms do not live here: they land in the
 `framework/metrics.py` registry, and the `note_*` helpers below feed both
@@ -181,6 +184,18 @@ class FlightRecorder:
     def _ts(self, t: float) -> float:
         return round((t - self._epoch) * 1e6, 3)
 
+    # -- trace-context stamping -------------------------------------------
+    def _stamp(self, ev: Dict[str, Any]) -> None:
+        """Attach the active TraceContext's ids to an event's args: one
+        contextvar read an event, nothing when no context is active."""
+        ctx = _current_trace()
+        if ctx is not None:
+            args = ev.get("args")
+            if args is None:
+                args = ev["args"] = {}
+            args.setdefault("trace_id", ctx.trace_id)
+            args.setdefault("span_id", ctx.span_id)
+
     # -- recording --------------------------------------------------------
     def span(self, name: str, cat: str = "host", device=None) -> Span:
         """A live span. device: a CUDA device makes a ``"device"`` span
@@ -211,6 +226,7 @@ class FlightRecorder:
         }
         if span.args:
             ev["args"] = span.args
+        self._stamp(ev)
         if end_event is not None:
             with self._lock:
                 self._pending.append((ev, span.cuda[1], end_event))
@@ -254,6 +270,7 @@ class FlightRecorder:
         }
         if args:
             ev["args"] = args
+        self._stamp(ev)
         self._append(ev)
 
     def instant(self, name: str, cat: str = "host",
@@ -269,6 +286,7 @@ class FlightRecorder:
         }
         if args:
             ev["args"] = args
+        self._stamp(ev)
         self._append(ev)
 
     def _flow(self, ph: str, name: str, flow_id: str, cat: str,
@@ -288,6 +306,7 @@ class FlightRecorder:
             ev["bp"] = "e"
         if args:
             ev["args"] = args
+        self._stamp(ev)
         self._append(ev)
 
     def flow_start(self, name: str, flow_id: str, cat: str = "host",
@@ -302,10 +321,15 @@ class FlightRecorder:
         self._flow("f", name, flow_id, cat, args)
 
     def tail(self, limit: int = 100) -> List[Dict[str, Any]]:
-        """The most recent events, oldest first."""
-        self.resolve_device_times()
+        """The most recent events, oldest first: copies, taken under the
+        lock. The telemetry server reads it from a thread of its own, so it
+        waits for no device: a device span gets its ``device_us`` here only
+        if the card has passed its end event already (export reads the
+        rest)."""
         with self._lock:
-            events = list(self.events)
+            self._resolve_locked(wait=False)
+            events = [dict(ev, args=dict(ev["args"])) if "args" in ev
+                      else dict(ev) for ev in self.events]
         _metrics.register().trace_ring_events.set(len(events))
         if limit > 0:
             events = events[-limit:]
@@ -349,6 +373,19 @@ class FlightRecorder:
             f.write(text)
 
 
+# -- trace-context bridge (lazy: tracectx imports this module) -----------
+
+_tracectx: Any = None
+
+
+def _current_trace() -> Any:
+    global _tracectx
+    if _tracectx is None:
+        from tpusim_torch.obs import tracectx
+        _tracectx = tracectx
+    return _tracectx.current()
+
+
 # -- module-level active recorder ----------------------------------------
 
 _active: Optional[FlightRecorder] = None
@@ -387,6 +424,24 @@ def instant(name: str, cat: str = "host",
     rec = _active
     if rec is not None:
         rec.instant(name, cat, args)
+
+
+def flow_start(name: str, flow_id: str, cat: str = "host", site: str = "",
+               args: Optional[Dict[str, Any]] = None) -> None:
+    """Emit a flow start ('s') on the active recorder and count it under
+    tpusim_trace_flows_total{site}; a no-op when tracing is off."""
+    rec = _active
+    if rec is not None:
+        rec.flow_start(name, flow_id, cat, args)
+        if site:
+            _metrics.register().trace_flows.inc(site)
+
+
+def flow_end(name: str, flow_id: str, cat: str = "host",
+             args: Optional[Dict[str, Any]] = None) -> None:
+    rec = _active
+    if rec is not None:
+        rec.flow_end(name, flow_id, cat, args)
 
 
 # -- telemetry bridges (metrics registry + recorder instants) ------------
@@ -464,6 +519,25 @@ def note_stream_cycle(path: str, pods: Optional[int] = None) -> None:
     if rec is not None:
         rec.instant("stream:" + path, "device",
                     {"pods": pods} if pods is not None else None)
+
+
+def note_slo(event: str, args: Optional[Dict[str, Any]] = None) -> None:
+    """An SLO burn-rate threshold crossing (obs.slo): burn_start when the
+    windowed burn rate rises to or above the alerting threshold, burn_end
+    when it falls back under. The live burn rate is the tpusim_slo_burn_rate
+    gauge; these instants put the crossings on the timeline."""
+    rec = _active
+    if rec is not None:
+        rec.instant("slo:" + event, "host", args)
+
+
+def note_watch_overflow(resource: str) -> None:
+    """A watch stream died on buffer overflow (the "410 Gone" analog): the
+    consumer must relist to resync."""
+    _metrics.register().watch_overflow.inc(resource)
+    rec = _active
+    if rec is not None:
+        rec.instant("watch_overflow", "host", {"resource": resource})
 
 
 # -- torch.profiler bridge -----------------------------------------------

@@ -31,7 +31,8 @@ from typing import Callable, List, Optional, Sequence
 
 from tpusim_torch.api.snapshot import ClusterSnapshot
 from tpusim_torch.framework.metrics import register
-from tpusim_torch.obs.recorder import note_serve, span
+from tpusim_torch.obs import slo, tracectx
+from tpusim_torch.obs.recorder import flow_end, flow_start, note_serve, span
 from tpusim_torch.serve.batcher import Bucket, PendingEntry, ShapeClassBatcher
 from tpusim_torch.serve.executor import ServeExecutor
 from tpusim_torch.serve.queue import AdmissionQueue
@@ -76,20 +77,41 @@ class ScenarioFleet:
 
     # -- admission ---------------------------------------------------------
 
-    @staticmethod
-    def _reject(request: WhatIfRequest, reason: str,
+    def _reject(self, request: WhatIfRequest, reason: str,
                 message: str) -> WhatIfResponse:
         register().serve_rejected.inc(reason)
         note_serve("reject", {"id": request.request_id, "reason": reason})
+        self._end_flows(request)
         return WhatIfResponse(request_id=request.request_id, error=message,
                               rejected=reason)
+
+    @staticmethod
+    def _end_flows(request: WhatIfRequest) -> None:
+        """End a request's trace hand-off arrows still open when it
+        resolves off the happy path (shed, deadline, shutdown): a flow
+        start without its finish would dangle in the trace."""
+        ctx = getattr(request, "trace", None)
+        if ctx is None:
+            return
+        if getattr(request, "_queue_flow", False):
+            request._queue_flow = False
+            flow_end("serve:enqueue", f"{ctx.trace_id}:q")
+        if getattr(request, "_bucket_flow", False):
+            request._bucket_flow = False
+            flow_end("serve:bucket", f"{ctx.trace_id}:b")
 
     def submit(self, request: WhatIfRequest) -> "Future[WhatIfResponse]":
         """Admit one request; the future resolves to a WhatIfResponse (a
         rejection resolves it at once: submit never raises for a problem of
         the request)."""
         future: "Future[WhatIfResponse]" = Future()
-        with span("serve:admit") as sp:
+        # one TraceContext a request: it rides the request object across
+        # the worker thread, and the queue hand-off is a flow arrow keyed on
+        # the trace id
+        ctx = tracectx.start()
+        if ctx is not None:
+            request.trace = ctx
+        with tracectx.activate(ctx), span("serve:admit") as sp:
             if sp:
                 sp.set("id", request.request_id)
             admitted, victim = self.queue.offer(
@@ -113,6 +135,10 @@ class ScenarioFleet:
                     else f"admission queue full ({self.queue.maxsize})"))
             else:
                 note_serve("admit", {"id": request.request_id})
+                if ctx is not None:
+                    request._queue_flow = True
+                    flow_start("serve:enqueue", f"{ctx.trace_id}:q",
+                               site="serve")
         return future
 
     # -- pipeline ----------------------------------------------------------
@@ -127,6 +153,17 @@ class ScenarioFleet:
 
     def _process(self, request: WhatIfRequest, future: Future,
                  admitted_at: float) -> None:
+        # the admission's TraceContext again, on this (worker) thread; the
+        # queue hand-off arrow ends before any span opens
+        ctx = getattr(request, "trace", None)
+        with tracectx.activate(ctx):
+            if ctx is not None and getattr(request, "_queue_flow", False):
+                request._queue_flow = False
+                flow_end("serve:enqueue", f"{ctx.trace_id}:q")
+            self._process_in_ctx(request, future, admitted_at, ctx)
+
+    def _process_in_ctx(self, request: WhatIfRequest, future: Future,
+                        admitted_at: float, ctx) -> None:
         if self._expired(request, admitted_at):
             # aged out in the admission queue: reject before staging
             future.set_result(self._reject(
@@ -141,7 +178,10 @@ class ScenarioFleet:
                 # buckets; the resident program ran already)
                 result, warm, path = hit
                 latency = self._clock() - admitted_at
-                register().serve_request_latency.observe(latency * 1e6)
+                register().serve_request_latency.observe(
+                    latency * 1e6,
+                    exemplar=ctx.trace_id if ctx is not None else None)
+                slo.observe_cycle("serve", latency * 1e6)
                 note_serve("overlay_resolve", {"id": request.request_id,
                                                "path": path})
                 future.set_result(WhatIfResponse(
@@ -165,6 +205,12 @@ class ScenarioFleet:
             full = self.batcher.add(entry)
         note_serve("bucket", {"id": request.request_id,
                               "shape": shape_class.describe()})
+        if ctx is not None:
+            # the bucket -> dispatch hand-off: the entry may wait for
+            # siblings; the arrow lands on whichever dispatch (or deadline
+            # rejection) takes it
+            request._bucket_flow = True
+            flow_start("serve:bucket", f"{ctx.trace_id}:b", site="serve")
         if full is not None:
             self._dispatch(full)
 
@@ -188,8 +234,15 @@ class ScenarioFleet:
             bucket = Bucket(key=bucket.key, size=bucket.size, entries=live)
         reg = register()
         reg.serve_batch_occupancy.observe(len(bucket.entries))
+        # every member's bucket arrow lands on this dispatch; the shared
+        # program then runs under the first member's context, so its spans
+        # carry a trace id that resolves
+        for entry in bucket.entries:
+            self._end_flows(entry.request)
+        lead = getattr(bucket.entries[0].request, "trace", None)
         try:
-            results, warm = self.executor.dispatch(bucket)
+            with tracectx.activate(lead):
+                results, warm = self.executor.dispatch(bucket)
         except Exception as exc:  # a bucket failure fails its members only
             for entry in bucket.entries:
                 if not entry.future.done():
@@ -200,7 +253,12 @@ class ScenarioFleet:
         now = self._clock()
         for entry, result in zip(bucket.entries, results):
             latency = now - entry.admitted_at
-            reg.serve_request_latency.observe(latency * 1e6)
+            entry_ctx = getattr(entry.request, "trace", None)
+            reg.serve_request_latency.observe(
+                latency * 1e6,
+                exemplar=entry_ctx.trace_id if entry_ctx is not None
+                else None)
+            slo.observe_cycle("serve", latency * 1e6)
             if not entry.future.done():
                 entry.future.set_result(WhatIfResponse(
                     request_id=entry.request.request_id, result=result,

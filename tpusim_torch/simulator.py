@@ -63,7 +63,7 @@ from tpusim_torch.gang import (
     gang_name,
     has_gangs,
 )
-from tpusim_torch.obs import analytics
+from tpusim_torch.obs import analytics, tracectx
 from tpusim_torch.obs import recorder as flight
 
 DEFAULT_SCHEDULER_NAME = "TD-Scheduler"  # options.go:49
@@ -977,11 +977,20 @@ def run_stream_simulation(snapshot: Optional[ClusterSnapshot] = None, *,
             # fold cycle N-1's binds BEFORE drawing cycle N's events: the
             # host picture evolves in the synchronous order
             gen.note_bound(session.poll_placed())
-        session.apply_events(gen.events(cycle))
-        batch = gen.batch()
-        t0 = perf_counter()
-        prev = (session.schedule_pipelined(batch) if pipeline
-                else session.schedule(batch))
+        evs = gen.events(cycle)
+        # one trace context a driver cycle: the ingest span and the
+        # session's own cycle context (a child, the same trace id) tell one
+        # causal story, ingest -> commit -> scan -> fold. start() is None,
+        # and all of this a no-op, unless a flight recorder is installed
+        with tracectx.activate(tracectx.start()):
+            with flight.span("stream_ingest") as isp:
+                if isp:
+                    isp.set("events", len(evs))
+                session.apply_events(evs)
+            batch = gen.batch()
+            t0 = perf_counter()
+            prev = (session.schedule_pipelined(batch) if pipeline
+                    else session.schedule(batch))
         latencies.append(perf_counter() - t0)
         if verify:
             # the reference picture advances at dispatch time; the

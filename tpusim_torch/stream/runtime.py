@@ -42,12 +42,21 @@ No cycle silently leaves the device: a device error raises, and a cycle
 reaches the host route only when the compile classifies its workload
 unsupported ("reference_fallback", counted in path_counts["host"]).
 
+The session's events may come from a watch fabric instead of the caller:
+watch() attaches a framework.reflector.Reflector to a FakeRESTClient
+stream and sync() drains every attached one; a stream torn by overflow
+relists, and the relist forces a restage classified "watch_expired" (the
+first reason wins), as does a torn stream given to ingest().
+
 With a flight recorder installed the runtime records the JAX package's
 spans (stream_commit, statics_commit, compile_cluster, device_dispatch,
-decode_placements, stream_overlap, stream_decode and the overlay_* spans);
-every cycle counts in tpusim_stream_cycles_total{path} and its latency in
-tpusim_stream_cycle_latency_us{path}, every restage in
-tpusim_stream_restage_total{reason}.
+decode_placements, stream_overlap, stream_decode and the overlay_* spans),
+each cycle under a trace context of its own (obs/tracectx.py; a pipelined
+cycle's decode under its dispatch's context); every cycle counts in
+tpusim_stream_cycles_total{path} and its latency in
+tpusim_stream_cycle_latency_us{path} (with its trace id as an exemplar
+when traced), judged by an armed SLO tracker (obs/slo.py), every restage
+in tpusim_stream_restage_total{reason}.
 """
 
 from __future__ import annotations
@@ -61,7 +70,7 @@ import numpy as np
 import torch
 
 from tpusim_torch.api.snapshot import ClusterSnapshot
-from tpusim_torch.api.types import Pod
+from tpusim_torch.api.types import Pod, ResourceType
 from tpusim_torch.backend import (
     _KNOWN_PROVIDERS,
     _MOST_REQUESTED_PROVIDERS,
@@ -79,11 +88,13 @@ from tpusim_torch.backends import (
 from tpusim_torch.config import config_for
 from tpusim_torch.delta import _SIG_KINDS, IncrementalCluster
 from tpusim_torch.device import resolve_device
+from tpusim_torch.framework.events import WatchExpiredError
 from tpusim_torch.framework.metrics import register, since_in_microseconds
+from tpusim_torch.framework.reflector import Reflector
 from tpusim_torch.framework.store import MODIFIED
 from tpusim_torch.gang.driver import schedule_with_gangs
 from tpusim_torch.gang.group import has_gangs
-from tpusim_torch.obs import analytics, provenance
+from tpusim_torch.obs import analytics, provenance, slo, tracectx
 from tpusim_torch.obs import recorder as flight
 from tpusim_torch.policyc import (
     build_policy_residency,
@@ -337,7 +348,7 @@ class _PendingCycle:
     host), or one run synchronously and buffered for emission order."""
 
     __slots__ = ("pods", "fetch", "compiled", "folded", "choices", "counts",
-                 "bound", "placements", "t0", "dispatched_at")
+                 "bound", "placements", "t0", "dispatched_at", "trace")
 
     def __init__(self, pods, fetch=None, compiled=None, placements=None,
                  t0: float = 0.0, dispatched_at: float = 0.0):
@@ -350,6 +361,9 @@ class _PendingCycle:
         self.choices = self.counts = None
         self.bound: List[Placement] = []
         self.placements = placements
+        # the dispatching cycle's trace context: the deferred decode runs
+        # under THIS cycle's trace, not the overlapping cycle's
+        self.trace = tracectx.current()
 
 
 class StreamSession:
@@ -390,6 +404,7 @@ class StreamSession:
         self.restage_counts: Dict[str, int] = {}
         self.path_counts: Dict[str, int] = {}
         self._forced: Optional[str] = None
+        self._reflectors: List[Reflector] = []
         self._statics_patch = None    # (padded idx, StaticsDelta) or None
         self._pending: Optional[_PendingCycle] = None
         self._gang_torch = None       # TorchBackend of the gang cycles
@@ -419,6 +434,31 @@ class StreamSession:
     def apply_events(self, events) -> None:
         self.inc.apply_events(events)
 
+    def ingest(self, watch_buffer) -> int:
+        """Drain a WatchBuffer into the host picture. A torn stream (the
+        410 Gone analog) forces a restage on the next cycle and raises
+        again, so the caller can relist (or use watch() and sync(), which
+        do)."""
+        try:
+            return self.inc.ingest(watch_buffer)
+        except WatchExpiredError:
+            self.force_restage("watch_expired")
+            raise
+
+    def watch(self, client, resource: ResourceType, **kwargs) -> Reflector:
+        """Attach a Reflector stream feeding this session; its relists
+        after a torn stream force a restage (the synthetic diff they
+        replay may not be expressible as a commit)."""
+        r = Reflector(client, resource, handler=self.inc.apply,
+                      on_relist=lambda _n: self.force_restage("watch_expired"),
+                      **kwargs)
+        self._reflectors.append(r)
+        return r
+
+    def sync(self) -> int:
+        """Drain every attached Reflector; returns the events applied."""
+        return sum(r.sync() for r in self._reflectors)
+
     def force_restage(self, reason: str) -> None:
         """Drop residency before the next cycle (the first reason wins)."""
         if self._forced is None:
@@ -435,6 +475,15 @@ class StreamSession:
         forced latch and the column journal, so it is not repeated."""
         if not pods:
             return []
+        # one trace context a decision cycle: every span the cycle emits
+        # carries its id. A context already active (serve's front door, the
+        # stream driver's cycle) is its parent; start() is None, and
+        # activate a no-op, unless a flight recorder is installed
+        with tracectx.activate(tracectx.start(parent=tracectx.current())):
+            return self._schedule_cycle(pods, _routed)
+
+    def _schedule_cycle(self, pods: List[Pod], _routed=None
+                        ) -> List[Placement]:
         self.cycles += 1
         inc = self.inc
         t0 = perf_counter()
@@ -768,24 +817,9 @@ class StreamSession:
             routed = self._route(pods)
         if routed is not None and routed[0] is None:
             self.cycles += 1
-            t0 = perf_counter()
-            self._commit()
-            xs_host = self._xs_host(pods, routed[1])
-            dsp = flight.span("device_dispatch", "device", self.torch_device)
-            with flight.profiled("tpusim:stream_scan"):
-                fetch = _Fetch(self.device.scan(xs_host), len(pods))
-            if dsp:
-                dsp.set("pods", len(pods))
-                dsp.end()
-            # the reduction is launched behind the scan and read nothing
-            # back, so the overlap stays
-            dev = self.device
-            analytics.capture(dev.statics, dev.carry,
-                              len(dev.compiled.statics.names), "stream",
-                              cycle=self.cycles,
-                              names=dev.compiled.statics.names)
-            self._pending = _PendingCycle(pods, fetch, self.device.compiled,
-                                          t0=t0, dispatched_at=perf_counter())
+            with tracectx.activate(tracectx.start(
+                    parent=tracectx.current())):
+                self._dispatch_async(pods, routed[1])
             register().stream_pipeline_depth.set(1.0)
             osp = flight.span("stream_overlap")
             prev = self._finalize(prev_p)
@@ -799,6 +833,28 @@ class StreamSession:
             pods, _routed=routed))
         register().stream_pipeline_depth.set(0.0)
         return prev
+
+    def _dispatch_async(self, pods: List[Pod], cols) -> None:
+        """Commit the pending churn and launch the batch's scan without
+        waiting for it: its outputs go to pinned memory behind an event,
+        and the cycle waits in _pending for its fold and decode."""
+        t0 = perf_counter()
+        self._commit()
+        xs_host = self._xs_host(pods, cols)
+        dsp = flight.span("device_dispatch", "device", self.torch_device)
+        with flight.profiled("tpusim:stream_scan"):
+            fetch = _Fetch(self.device.scan(xs_host), len(pods))
+        if dsp:
+            dsp.set("pods", len(pods))
+            dsp.end()
+        # the reduction is launched behind the scan and reads nothing
+        # back, so the overlap stays
+        dev = self.device
+        analytics.capture(dev.statics, dev.carry,
+                          len(dev.compiled.statics.names), "stream",
+                          cycle=self.cycles, names=dev.compiled.statics.names)
+        self._pending = _PendingCycle(pods, fetch, dev.compiled, t0=t0,
+                                      dispatched_at=perf_counter())
 
     def flush(self) -> List[Placement]:
         """Drain the in-flight (or buffered) pipelined cycle and return its
@@ -843,13 +899,14 @@ class StreamSession:
             return None
         if p.placements is not None:
             return p.placements
-        self._fold_binds(p)
-        with flight.span("stream_decode"):
-            p.placements = self._decode(p.pods, p.choices, p.counts,
-                                        p.compiled, prebound=p.bound)
-        provenance.capture(p.placements, "stream", cycle=self.cycles)
-        self._note_path("pipelined", len(p.pods))
-        self._observe_cycle("pipelined", p.t0)
+        with tracectx.activate(p.trace):
+            self._fold_binds(p)
+            with flight.span("stream_decode"):
+                p.placements = self._decode(p.pods, p.choices, p.counts,
+                                            p.compiled, prebound=p.bound)
+            provenance.capture(p.placements, "stream", cycle=self.cycles)
+            self._note_path("pipelined", len(p.pods))
+            self._observe_cycle("pipelined", p.t0)
         return p.placements
 
     # -- live what-if overlays --------------------------------------------
@@ -882,7 +939,10 @@ class StreamSession:
         placements = self._overlay_dispatch(pods, routed)
         m = register()
         m.overlay_queries.inc("resident")
-        m.overlay_latency.observe(since_in_microseconds(t0))
+        ctx = tracectx.current()
+        m.overlay_latency.observe(
+            since_in_microseconds(t0),
+            exemplar=ctx.trace_id if ctx is not None else None)
         return placements
 
     def _overlay_route(self, pods: List[Pod]):
@@ -998,8 +1058,13 @@ class StreamSession:
     @staticmethod
     def _observe_cycle(path: str, t0: float) -> None:
         """A cycle's latency, in the e2e histogram and in the per-path
-        stream histogram."""
+        stream histogram, judged by the SLO tracker when one is armed. With
+        a trace context active, the cycle's trace id rides both histograms
+        as an exemplar, so a slow cycle on a dashboard names its trace."""
         us = since_in_microseconds(t0)
+        ctx = tracectx.current()
+        ex = ctx.trace_id if ctx is not None else None
         m = register()
-        m.e2e_scheduling_latency.observe(us)
-        m.stream_cycle_latency.observe(path, us)
+        m.e2e_scheduling_latency.observe(us, exemplar=ex)
+        m.stream_cycle_latency.observe(path, us, exemplar=ex)
+        slo.observe_cycle(path, us)
