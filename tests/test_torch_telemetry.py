@@ -377,6 +377,8 @@ def test_server_endpoints():
     finally:
         srv.stop()
     jax_register().reset()
+    # the same run publishes the same stream chain head on both sides
+    jax_stream(**CELL)
     jax_status, jax_health = jax_server.health_payload()
     assert status == jax_status == 200
     assert sorted(health) == sorted(jax_health)

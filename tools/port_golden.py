@@ -22,7 +22,7 @@ priority-banded feed (build_workload(N, M, affinity=True, priorities=True,
 seed=777)) with PodPriority on, and its preempted count (chip_smoke.py
 HOST_CONFIG3, HOST_CONFIG4, HOST_CONFIG6):
 
-    JAX_PLATFORMS=cpu python tools/port_golden.py config3_host 200 5000
+    JAX_PLATFORMS=cpu python tools/port_golden.py config3_host 100 5000
     JAX_PLATFORMS=cpu python tools/port_golden.py config4_host 300 8
     JAX_PLATFORMS=cpu python tools/port_golden.py config6 3000 150
 
@@ -92,6 +92,17 @@ chip_smoke.live_cluster, through --kubeconfig, with the ConfigMap policy
 
     JAX_PLATFORMS=cpu python tools/port_golden.py config9_watch
     JAX_PLATFORMS=cpu python tools/port_golden.py live_cli
+
+`config11` prints bench config 11's goldens (chip_smoke.CONFIG11_GOLDEN):
+the JAX package's answer to chip_smoke.CHAOS_SCRIPT's dispatch sequence
+(the host's placement hash of every dispatch and the breaker's transitions,
+JaxBackend behind install_chaos), its run_stream_simulation at
+chip_smoke.CONFIG11_STREAM without faults (the fold chain) and under
+chip_smoke.CONFIG11_FAULTS (fold chain, restages, breaker transitions), and
+the digest (chip_smoke.combined_digest) of its ScenarioFleet's answers to
+config 11's serve load without faults (~2-3 min):
+
+    JAX_PLATFORMS=cpu python tools/port_golden.py config11
 """
 
 import hashlib
@@ -364,7 +375,66 @@ def live_cli_digests():
     return 0
 
 
+def config11_goldens():
+    import json
+
+    from chip_smoke import (
+        CHAOS_SCRIPT,
+        CONFIG11_FAULTS,
+        CONFIG11_SERVE,
+        CONFIG11_STREAM,
+        combined_digest,
+    )
+    from tpusim.backends import placement_hash
+    from tpusim.chaos import ChaosClock, DeviceFaultPlan, FaultPlan
+    from tpusim.jaxe.backend import install_chaos, uninstall_chaos
+    from tpusim.serve import ScenarioFleet, WhatIfRequest
+    from tpusim.simulator import run_stream_simulation
+
+    t0 = time.perf_counter()
+    shape, plan, dispatches = CHAOS_SCRIPT
+    snapshot, pods = workloads.uniform_workload(api=jax_api, **shape)
+    breaker = install_chaos(DeviceFaultPlan(**plan))
+    try:
+        backend = JaxBackend()
+        hashes = {placement_hash(backend.schedule(pods, snapshot))
+                  for _ in range(dispatches)}
+    finally:
+        uninstall_chaos()
+    assert len(hashes) == 1, hashes
+    out = {"script": {"hash": hashes.pop(),
+                      "transitions": [list(t) for t in breaker.transitions]}}
+    clean = run_stream_simulation(**CONFIG11_STREAM)
+    faulted = run_stream_simulation(
+        chaos_plan=FaultPlan(seed=11, device=DeviceFaultPlan(
+            **CONFIG11_FAULTS)), **CONFIG11_STREAM)
+    out["stream"] = {"fold_chain": clean["fold_chain"],
+                     "faulted_fold_chain": faulted["fold_chain"],
+                     "restages": faulted["restages"],
+                     "paths": faulted["paths"],
+                     "transitions": [list(t) for t in
+                                     faulted["breaker_transitions"]]}
+    serve_snapshot = jax_api.synthetic_cluster(CONFIG11_SERVE["num_nodes"])
+    pool = workloads.build_workload(8, CONFIG11_SERVE["num_nodes"],
+                                    api=jax_api)[1]
+    fleet = ScenarioFleet(bucket_size=CONFIG11_SERVE["bucket"],
+                          clock=ChaosClock())
+    fleet.register_snapshot("base", serve_snapshot)
+    responses = fleet.run([
+        WhatIfRequest(pods=pool[:1 + i % 4], snapshot_ref="base",
+                      cache_key=f"r{i}")
+        for i in range(CONFIG11_SERVE["requests"])])
+    fleet.stop()
+    out["serve_digest"] = combined_digest(
+        [placement_hash(r.result.placements) for r in responses])
+    print(json.dumps(out, sort_keys=True))
+    print(f"config11: {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 def main(argv):
+    if argv[0] == "config11":
+        return config11_goldens()
     if argv[0] == "config9_watch":
         return config9_watch_chains()
     if argv[0] == "live_cli":

@@ -37,6 +37,14 @@ package's spans: compile_cluster, device_dispatch (a device span, with its
 CUDA-event time on the card), the route instant and decode_placements; the
 metrics registry gets the compile, dispatch, algorithm and e2e latencies and
 the plan_fast refusals by blocker class.
+
+With a chaos plan's device section installed (install_chaos), schedule runs
+behind a circuit breaker: an injected fault or a corrupted output the
+structural checks catch, a divergence from the host pipeline under
+verification, and every dispatch the open breaker denies are answered by the
+host pipeline, each counted (route "breaker_fallback", the breaker's
+transitions). These are the only host answers of the device path, and they
+exist only while a plan is installed.
 """
 
 from __future__ import annotations
@@ -79,6 +87,50 @@ _MOST_REQUESTED_PROVIDERS = {CLUSTER_AUTOSCALER_PROVIDER, TD_PROVIDER}
 _KNOWN_PROVIDERS = {DEFAULT_PROVIDER} | _MOST_REQUESTED_PROVIDERS
 
 # generic_scheduler.go:48 (FitError.Error's header)
+# the process-wide chaos seam: while installed (install_chaos), every
+# TorchBackend dispatch goes through the circuit breaker (closed -> open on
+# repeated device faults -> half-open re-probe -> closed) and the
+# DeviceInjector scripts per-dispatch exceptions and corruptions. A denied
+# or faulted dispatch is answered by the host pipeline, counted in
+# tpusim_backend_route_total{route="breaker_fallback"} and the breaker's
+# transitions; under chaos no placement is emitted unverified
+# (verify="all") or un-re-probed (half-open). Only chaos.engine.DeviceFault
+# reaches the breaker: any other error of a kernel or the scan raises.
+_CHAOS = {"injector": None, "breaker": None, "verify": "all"}
+
+
+def install_chaos(device_plan):
+    """Arm the device-fault layer of a chaos plan
+    (chaos.plan.DeviceFaultPlan). Returns the CircuitBreaker, so callers can
+    read its transition audit trail."""
+    from tpusim_torch.chaos.breaker import CircuitBreaker
+    from tpusim_torch.chaos.engine import DeviceInjector
+
+    device_plan.validate()
+    breaker = CircuitBreaker("device", device_plan.failure_threshold,
+                             device_plan.cooldown)
+    _CHAOS.update(injector=DeviceInjector(device_plan.faults),
+                  breaker=breaker, verify=device_plan.verify)
+    return breaker
+
+
+def uninstall_chaos() -> None:
+    _CHAOS.update(injector=None, breaker=None, verify="all")
+
+
+def check_device_output(choices: np.ndarray, counts, n_nodes: int) -> None:
+    """The structural checks of a dispatch's host outputs under chaos:
+    out-of-range choices and NaN counts raise chaos.engine.DeviceOutputError
+    and never reach decode_placements."""
+    from tpusim_torch.chaos.engine import DeviceOutputError
+
+    if choices.size and (int(choices.max()) >= n_nodes
+                         or int(choices.min()) < -1):
+        raise DeviceOutputError(f"device choice out of range [-1, {n_nodes})")
+    if np.isnan(np.asarray(counts, dtype=np.float64)).any():
+        raise DeviceOutputError("NaN in device reason counts")
+
+
 NO_NODE_AVAILABLE_MSG = "0/{} nodes are available"
 UNSUPPORTED_MSG = "torch backend does not yet carry state for: "
 FALLBACKS = ("reference", "error")
@@ -332,11 +384,49 @@ class TorchBackend:
 
     def schedule(self, pods: List[Pod], snapshot: ClusterSnapshot,
                  precompiled=None) -> List[Placement]:
-        """precompiled: a (CompiledCluster, PodColumns) pair of `pods` on
+        """The device dispatch behind the chaos circuit breaker (armed by
+        install_chaos; without it a plain call). Under chaos a denied or
+        faulted dispatch is answered by the host pipeline (the same
+        placements), counted as route "breaker_fallback"; a half-open probe,
+        and every dispatch under verify="all", is checked against the host
+        pipeline before its placements are emitted. A dispatch the breaker
+        denies launches nothing on the device.
+
+        precompiled: a (CompiledCluster, PodColumns) pair of `pods` on
         `snapshot` made already (delta.IncrementalCluster.compile, the gang
         driver's ungrouped segments), used in place of a compile of its
         own; one built without the NoExecute or ServiceAffinity tables the
         policy reads is compiled afresh."""
+        breaker = _CHAOS["breaker"]
+        if breaker is None:
+            return self._schedule_on_device(pods, snapshot, precompiled)
+        if not pods:
+            return []
+        from tpusim_torch.chaos.engine import DeviceFault
+
+        if not breaker.allow():
+            flight.note_route("breaker_fallback", len(pods))
+            return self._reference(pods, snapshot)
+        probing = breaker.probing
+        try:
+            placements = self._schedule_on_device(pods, snapshot, precompiled)
+        except DeviceFault as exc:
+            breaker.record_failure(f"{type(exc).__name__}: {exc}")
+            flight.note_route("breaker_fallback", len(pods))
+            return self._reference(pods, snapshot)
+        if probing or _CHAOS["verify"] == "all":
+            expected = self._reference(pods, snapshot)
+            if placement_hash(placements) != placement_hash(expected):
+                # silent corruption: in range but wrong; only the host's
+                # placement hash catches it
+                breaker.record_failure("device/host placement divergence")
+                flight.note_route("breaker_fallback", len(pods))
+                return expected
+        breaker.record_success()
+        return placements
+
+    def _schedule_on_device(self, pods: List[Pod], snapshot: ClusterSnapshot,
+                            precompiled=None) -> List[Placement]:
         self.last_choices = np.zeros(0, np.int32)
         self.last_route = self.last_route_reason = ""
         if not pods:
@@ -411,6 +501,11 @@ class TorchBackend:
                 chunked = False
             carry, statics, xs = scan_inputs(config, compiled, cols, ptabs,
                                              self.device, host_pods=chunked)
+        # the chaos seam: a scripted dispatch fault raises here, before any
+        # launch; a scripted corruption applies to the host outputs below
+        injector = _CHAOS["injector"]
+        corrupt_kind = (injector.begin_dispatch() if injector is not None
+                        else None)
         # the dispatch span runs from the plan (or the staged scan inputs)
         # to the choices on the host; its CUDA-event time is read at export
         dispatch_start = perf_counter()
@@ -435,6 +530,16 @@ class TorchBackend:
                     choices = choices.cpu().numpy()
                     counts = counts.cpu().numpy()
             self.last_route, self.last_route_reason = "scan", why
+        if injector is not None:
+            # both routes: the corruption touches the host copies of the
+            # real pods' outputs only, and the structural checks run
+            # whatever the verify mode
+            if corrupt_kind is not None:
+                from tpusim_torch.chaos.engine import DeviceInjector
+
+                choices, counts = DeviceInjector.corrupt(corrupt_kind,
+                                                         choices, counts)
+            check_device_output(choices, counts, len(compiled.statics.names))
         flight.note_route(self.last_route, len(pods))
         if dsp:
             dsp.set("route", self.last_route)

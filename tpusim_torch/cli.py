@@ -4,14 +4,17 @@
         [--scheduler-policy-file policy.json] [--device cpu] \
         [--backend torch|reference|auto] [--enable-pod-priority] \
         [--event-log events.jsonl] [--v 5] \
-        [--trace-out trace.json] [--metrics-out metrics.prom]
+        [--trace-out trace.json] [--metrics-out metrics.prom] \
+        [--chaos-plan plan.json | --chaos-seed N]
     python -m tpusim_torch.cli --what-if manifest.json [--device cpu]
     python -m tpusim_torch.cli serve --synthetic-nodes 16 \
         --podspec pods.yaml [--requests 32] [--device cpu] \
         [--attach-stream [--stream-cycles 4 --stream-arrivals 16]]
     python -m tpusim_torch.cli stream --synthetic-nodes 64 --cycles 50 \
         [--pipeline] [--verify] [--gang-size 3 --gang-count 1] [--device cpu] \
-        [--listen 127.0.0.1:9100] [--slo-target-ms 30]
+        [--listen 127.0.0.1:9100] [--slo-target-ms 30] \
+        [--checkpoint-dir ck [--checkpoint-every 10] [--fsync-every N] \
+         [--chaos-plan crash.json | --recover]]
     python -m tpusim_torch.cli top 127.0.0.1:9100 [--once]
     python -m tpusim_torch.cli --kubeconfig kubeconfig.json --podspec pods.json \
         [--scheduler-policy-configmap NAME]
@@ -57,6 +60,16 @@ process), printing a line a pass; --attach-stream answers the
 load from a live streaming twin warmed by a few churn cycles. The stream subcommand drives
 the streaming twin (stream.StreamSession) with seeded churn through
 simulator.run_stream_simulation and prints its summary.
+
+Chaos: --chaos-plan (a fault-plan JSON) or --chaos-seed (a seeded plan
+against the loaded workload) on the main command injects churn and fabric
+faults into the host orchestrator and device faults behind the breaker,
+prints a Chaos line and exits 1 on an invariant violation; serve
+--chaos-plan arms the device section behind the fleet's retries and host
+answers (a "degraded" count in the pass line); stream --chaos-plan takes
+the device section and process_crash events, which need --checkpoint-dir:
+the stream's WAL and checkpoints (stream.persist), from which --recover
+resumes a crashed run (the crash exits 3 and prints the recover hint).
 """
 
 from __future__ import annotations
@@ -127,6 +140,16 @@ def build_parser() -> argparse.ArgumentParser:
                              "orchestrator on the CPU) or auto (workloads "
                              "under TPUSIM_AUTO_THRESHOLD pods x nodes "
                              "[100k] on the host, larger ones on torch)")
+    parser.add_argument("--chaos-plan", default="",
+                        help="Fault-plan JSON (tpusim_torch.chaos schema: "
+                             "churn/fabric/device sections) injected into "
+                             "the run; the summary line reports invariant "
+                             "violations and a non-empty audit exits 1")
+    parser.add_argument("--chaos-seed", type=int, default=None,
+                        help="Generate a seeded adversarial fault plan "
+                             "against the loaded workload instead of (or "
+                             "overriding the seed of) --chaos-plan; "
+                             "deterministic per seed")
     parser.add_argument("--enable-pod-priority", action="store_true",
                         help="Enable the PodPriority feature gate "
                              "(preemption): the preemption hybrid on "
@@ -471,6 +494,10 @@ def build_serve_parser() -> argparse.ArgumentParser:
                         help="Fleet-wide request deadline: a request older "
                              "than this at staging or bucket time is "
                              "rejected instead of run (0: no deadline)")
+    parser.add_argument("--chaos-plan", default="",
+                        help="Fault-plan JSON, device section only: scripted "
+                             "dispatch faults behind the serve retry + "
+                             "circuit-breaker + host-fallback path")
     parser.add_argument("--max-queue", type=int, default=256,
                         help="Admission queue bound (backpressure)")
     parser.add_argument("--warm-repeats", type=int, default=1,
@@ -506,8 +533,6 @@ def _percentile(sorted_vals, q: float) -> float:
 def serve_cli(argv) -> int:
     """`serve`: stand up a ScenarioFleet and drive it with a synthetic
     load."""
-    import random
-
     args = build_serve_parser().parse_args(argv)
     try:
         if args.snapshot:
@@ -537,6 +562,30 @@ def serve_cli(argv) -> int:
         except (OSError, PolicyError) as exc:
             print(f"error: invalid scheduler policy: {exc}", file=sys.stderr)
             return 2
+
+    breaker = None
+    if args.chaos_plan:
+        from tpusim_torch.backend import install_chaos
+        from tpusim_torch.chaos import load_plan
+        from tpusim_torch.chaos.plan import PlanError
+
+        try:
+            chaos_plan = load_plan(args.chaos_plan)
+        except (OSError, PlanError, ValueError) as exc:
+            print(f"error: --chaos-plan: {exc}", file=sys.stderr)
+            return 2
+        breaker = install_chaos(chaos_plan.device)
+    try:
+        return _serve(args, snapshot, pool, policy)
+    finally:
+        if breaker is not None:
+            from tpusim_torch.backend import uninstall_chaos
+
+            uninstall_chaos()
+
+
+def _serve(args, snapshot, pool, policy) -> int:
+    import random
 
     from tpusim_torch.serve import ScenarioFleet, WhatIfRequest
 
@@ -614,8 +663,10 @@ def serve_cli(argv) -> int:
         lat = sorted(r.latency_s for r in ok)
         rate = len(responses) / elapsed if elapsed > 0 else 0.0
         hits = sum(1 for r in ok if r.compile_cache_hit)
+        degraded = sum(1 for r in ok if r.degraded)
         print(f"{label}: {len(ok)}/{len(responses)} ok "
-              f"({len(rejected)} rejected, {len(errors)} failed), "
+              f"({len(rejected)} rejected, {len(errors)} failed"
+              + (f", {degraded} degraded" if degraded else "") + "), "
               f"{rate:.1f} scenarios/s, latency p50/p90/max "
               f"{_percentile(lat, 0.5) * 1e3:.1f}/"
               f"{_percentile(lat, 0.9) * 1e3:.1f}/"
@@ -706,6 +757,27 @@ def build_stream_parser() -> argparse.ArgumentParser:
                              "after it; the chains are unchanged); 0 = none")
     parser.add_argument("--whatif-pods", type=int, default=4,
                         help="Pods per live what-if query")
+    parser.add_argument("--chaos-plan", default="",
+                        help="Fault-plan JSON: device section plus "
+                             "process_crash churn events (other churn/"
+                             "fabric faults are the load generator's job)")
+    parser.add_argument("--checkpoint-dir", default="",
+                        help="Durability directory: every committed watch "
+                             "delta and placement appends to a WAL here, "
+                             "with periodic device-state checkpoints "
+                             "(stream.persist)")
+    parser.add_argument("--checkpoint-every", type=int, default=10,
+                        help="Cycles between checkpoints (0: genesis "
+                             "checkpoint only, WAL replay covers the rest)")
+    parser.add_argument("--recover", action="store_true",
+                        help="Recover from --checkpoint-dir (checkpoint + "
+                             "WAL tail replay) and resume the interrupted "
+                             "run; the fold chain proves placement parity "
+                             "with the uninterrupted run")
+    parser.add_argument("--fsync-every", type=int, default=0,
+                        help="fsync the WAL every N appends (0: flush-only "
+                             "durability); the mode is stamped into every "
+                             "checkpoint manifest")
     parser.add_argument("--json", action="store_true",
                         help="Print the whole summary as JSON")
     parser.add_argument("--device", default="cuda",
@@ -723,16 +795,26 @@ def stream_cli(argv) -> int:
               "--synthetic-milli-cpu and --synthetic-memory take no other "
               "value (give other nodes with --snapshot)", file=sys.stderr)
         return 2
-    snapshot = policy = None
+    snapshot = policy = chaos_plan = None
     try:
         if args.snapshot:
             snapshot = ClusterSnapshot.load(args.snapshot)
         if args.policy_file:
             policy = load_policy_file(args.policy_file)
+        if args.chaos_plan:
+            from tpusim_torch.chaos import load_plan
+            from tpusim_torch.chaos.plan import PlanError
+
+            try:
+                chaos_plan = load_plan(args.chaos_plan)
+            except PlanError as exc:
+                print(f"error: --chaos-plan: {exc}", file=sys.stderr)
+                return 2
     except (OSError, ValueError) as exc:
         print(f"error: {exc}", file=sys.stderr)
         return 2
 
+    from tpusim_torch.chaos.engine import ProcessCrash
     from tpusim_torch.simulator import run_stream_simulation
 
     recorder = _start_trace(args, "tpusim-stream")
@@ -746,8 +828,20 @@ def stream_cli(argv) -> int:
             gang_size=args.gang_size, gang_count=args.gang_count,
             provider=args.algorithmprovider, policy=policy,
             pipeline=args.pipeline, always_restage=args.always_restage,
-            verify=args.verify, whatif_every=args.whatif_every,
+            verify=args.verify, chaos_plan=chaos_plan,
+            checkpoint_dir=args.checkpoint_dir or None,
+            checkpoint_every=args.checkpoint_every,
+            fsync_every=args.fsync_every, recover=args.recover,
+            whatif_every=args.whatif_every,
             whatif_pods=args.whatif_pods, device=args.device)
+    except ProcessCrash as exc:
+        # the scripted kill: the state up to the crash is durable in the
+        # WAL; run again with --recover to resume from it
+        _drop_trace(recorder)
+        print(f"crashed: {exc}", file=sys.stderr)
+        print(f"recover with: tpusim_torch stream --checkpoint-dir "
+              f"{args.checkpoint_dir} --recover ...", file=sys.stderr)
+        return 3
     except (KeyError, ValueError, RuntimeError) as exc:
         _drop_trace(recorder)
         print(f"error: {exc}", file=sys.stderr)
@@ -782,6 +876,15 @@ def stream_cli(argv) -> int:
                   f"queries answered ({ov['fallbacks']} fell back), query "
                   f"p50/p99 {ov['p50_query_ms']:.1f}/"
                   f"{ov['p99_query_ms']:.1f} ms")
+        if out.get("recovered"):
+            print(f"recovered: resumed at cycle {out['resume_cycle']} "
+                  f"({len(out['recomputed_cycles'])} cycles recomputed, "
+                  f"replay {out['replay_ms']:.1f} ms); fold chain "
+                  f"{out['fold_chain'][:16]}")
+        elif "wal_records" in out:
+            print(f"durability: {out['wal_records']} WAL records, "
+                  f"{out['checkpoints']} checkpoints; fold chain "
+                  f"{out['fold_chain'][:16]}")
     if args.verify:
         if out["verified"]:
             print("verify: every cycle placement_hash-identical to the "
@@ -1155,6 +1258,28 @@ def main(argv=None) -> int:
               "the host engine; this run uses the device routes. Use "
               "--backend reference to see the dump.", file=sys.stderr)
 
+    chaos_plan = None
+    if args.chaos_plan or args.chaos_seed is not None:
+        from tpusim_torch.chaos import load_plan, random_plan
+        from tpusim_torch.chaos.plan import PlanError
+
+        try:
+            if args.chaos_plan:
+                chaos_plan = load_plan(args.chaos_plan)
+                if args.chaos_seed is not None:
+                    chaos_plan.seed = args.chaos_seed
+            else:
+                # seed only: an adversarial plan against the loaded
+                # workload, deterministic per seed
+                chaos_plan = random_plan(
+                    args.chaos_seed,
+                    node_names=[n.name for n in snapshot.nodes],
+                    pod_keys=[p.key() for p in pods],
+                    attempts=max(len(pods), 1))
+        except (OSError, PlanError) as exc:
+            print(f"error: invalid chaos plan: {exc}", file=sys.stderr)
+            return 2
+
     recorder = _start_trace(args)
     obs_teardown = _arm_observability(args)
     start = time.perf_counter()
@@ -1165,7 +1290,7 @@ def main(argv=None) -> int:
             enable_pod_priority=args.enable_pod_priority,
             enable_volume_scheduling=args.enable_volume_scheduling,
             policy=policy, events=events, feature_gates=feature_gates,
-            device=args.device)
+            device=args.device, chaos_plan=chaos_plan)
     except (ValueError, KeyError, RuntimeError, NotImplementedError) as exc:
         _drop_trace(recorder)
         print(f"error: {exc}", file=sys.stderr)
@@ -1192,6 +1317,21 @@ def main(argv=None) -> int:
           f"{len(status.scheduled_pods)} pre-scheduled "
           f"[{engine}, {elapsed:.3f}s, {rate:.0f} pods/s]")
     print(f"StopReason: {status.stop_reason.strip()}")
+    if chaos_plan is not None:
+        summary = getattr(status, "chaos_summary", None) or {}
+        violations = getattr(status, "chaos_violations", None) or []
+        fired = summary.get("churn_fired", 0)
+        fabric = len(summary.get("fabric_injected", []))
+        device = (len(summary.get("device_injected", []))
+                  or len(summary.get("breaker_transitions", [])))
+        print(f"Chaos: {fired} churn event(s), {fabric} fabric fault(s), "
+              f"{device} device fault/transition(s), "
+              f"{len(violations)} invariant violation(s) [seed "
+              f"{chaos_plan.seed}]")
+        if violations:
+            for violation in violations:
+                print(f"chaos violation: {violation}", file=sys.stderr)
+            return 1
     return 0
 
 

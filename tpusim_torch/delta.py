@@ -173,6 +173,11 @@ class IncrementalCluster:
         # the last _batch_columns interning (per-kind key lists): a restage
         # records it as the resident row order
         self.last_batch_key_lists: Optional[Dict[str, List]] = None
+        # committed-delta hook (stream.persist): called as
+        # on_event(event_type, obj) AFTER each apply() dispatches, so a WAL
+        # sees every delta exactly when it commits, whichever way it arrived
+        # (apply, apply_events, ingest, a Reflector)
+        self.on_event = None
 
         self._rebuild_nodes()
         for pod in self._pods.values():
@@ -319,6 +324,8 @@ class IncrementalCluster:
             self._apply_pvc(event_type, obj)
         else:
             raise TypeError(f"unsupported event object: {type(obj).__name__}")
+        if self.on_event is not None:
+            self.on_event(event_type, obj)
 
     def apply_events(self, events: Iterable[Tuple[str, object]]) -> None:
         for event_type, obj in events:

@@ -11,9 +11,8 @@ scrape shape.
 The port keeps the JAX package's registry family for family: the same
 names, help texts, label names and registration order, so one exposition
 reads the same from either package. Families whose modules the port does
-not carry yet (chaos, replication, tenancy, analytics) stay registered and
-unobserved, which is what the JAX package exposes while those modules sit
-idle. On the card the whole filter, score, select and bind step is one
+not carry yet (replication, tenancy) stay registered and unobserved, which
+is what the JAX package exposes while those modules sit idle. On the card the whole filter, score, select and bind step is one
 fused kernel, so the torch backend observes per-batch dispatch walltime
 into the algorithm histograms rather than per-phase host time.
 """

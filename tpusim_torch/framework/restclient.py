@@ -31,7 +31,7 @@ import json
 from typing import Dict, List, Optional, Tuple
 
 from tpusim_torch.api.types import ResourceType
-from tpusim_torch.framework.events import WatchBuffer
+from tpusim_torch.framework.events import WatchBuffer, WatchExpiredError
 from tpusim_torch.framework.store import ADDED, ResourceStore
 
 # resources served by the "core" group client (restclient.go NewRESTClient
@@ -167,6 +167,9 @@ class FakeRESTClient:
         # (restclient.go:380-426 keys watchers per resource+fieldSelector)
         self._watchers: Dict[Tuple[str, str, str],
                              Tuple[FieldSelector, WatchBuffer]] = {}
+        # chaos seam (tpusim_torch.chaos.FabricInjector): classifies each
+        # watcher-frame delivery as deliver/drop/dup/disconnect
+        self.fault_injector = None
         self._handlers = []
         for rt in resources:
             handler = (lambda event, obj, rt=rt:
@@ -194,6 +197,19 @@ class FakeRESTClient:
                     obj_dict = obj.to_obj()
                 if not selector.matches_dict(obj_dict):
                     continue
+            if self.fault_injector is not None:
+                action = self.fault_injector.on_event(res, event)
+                if action == "drop":
+                    continue
+                if action == "disconnect":
+                    # transport error mid-stream: already-queued frames
+                    # survive, this one is lost, and the consumer's next
+                    # read past them raises — a reflector must relist
+                    buf.close_with_error(WatchExpiredError(
+                        f"chaos: watch stream disconnect on {res}"))
+                    continue
+                if action == "dup":
+                    buf.emit(event, obj)
             buf.emit(event, obj)
 
     # --- the Do() dispatch (restclient.go:428-555) ---

@@ -485,6 +485,32 @@ def note_gang(event: str, args: Optional[Dict[str, Any]] = None) -> None:
         rec.instant("gang:" + event, "host", args)
 
 
+def note_fault(kind: str, args: Optional[Dict[str, Any]] = None) -> None:
+    """A chaos-injected fault: node_delete/node_cordon/node_flap/
+    node_restore/pod_evict, watch_drop/watch_dup/watch_disconnect,
+    device_exception/device_corrupt_*, gang_release, process_crash,
+    invariant_violation."""
+    _metrics.register().fault_injected.inc(kind)
+    rec = _active
+    if rec is not None:
+        rec.instant("fault:" + kind, "host", args)
+
+
+def note_breaker(name: str, transition: str, state_value: float,
+                 detail: Optional[str] = None) -> None:
+    """A dispatch circuit-breaker transition: open/half_open/reopen/close.
+    Mirrors the live state into the tpusim_breaker_state gauge."""
+    reg = _metrics.register()
+    reg.breaker_transitions.inc(transition)
+    reg.breaker_state.set(state_value)
+    rec = _active
+    if rec is not None:
+        args: Dict[str, Any] = {"breaker": name}
+        if detail:
+            args["detail"] = detail
+        rec.instant("breaker:" + transition, "device", args)
+
+
 def note_serve(event: str, args: Optional[Dict[str, Any]] = None) -> None:
     """A scenario-fleet lifecycle point: admit/reject/bucket/dispatch/
     overlay/overlay_resolve. Request-scoped phases also open `serve:*`
@@ -493,6 +519,37 @@ def note_serve(event: str, args: Optional[Dict[str, Any]] = None) -> None:
     rec = _active
     if rec is not None:
         rec.instant("serve:" + event, "host", args)
+
+
+def note_recovery(event: str, args: Optional[Dict[str, Any]] = None) -> None:
+    """A crash-recovery point of stream.persist: checkpoint / replay. The
+    latencies land in the tpusim_recovery_* histograms at the call sites;
+    the replay itself also runs under a `recover:replay` span."""
+    rec = _active
+    if rec is not None:
+        rec.instant("recover:" + event, "host", args)
+
+
+def note_serve_retry(reason: str,
+                     args: Optional[Dict[str, Any]] = None) -> None:
+    """The serve fleet retried work after a fault: device_fault (an injected
+    dispatch death), worker_death (the processing thread died mid-request
+    and the request was requeued at most once)."""
+    _metrics.register().serve_retry.inc(reason)
+    rec = _active
+    if rec is not None:
+        rec.instant("serve_retry:" + reason, "host", args)
+
+
+def note_serve_degraded(path: str,
+                        args: Optional[Dict[str, Any]] = None) -> None:
+    """A serve bucket answered through a degraded path: breaker_open /
+    retry_exhausted (the host pipeline answered) or verify_divergence (host
+    results replaced the suspect device output)."""
+    _metrics.register().serve_degraded.inc(path)
+    rec = _active
+    if rec is not None:
+        rec.instant("serve_degraded:" + path, "host", args)
 
 
 def note_stream_restage(reason: str, detail: Optional[str] = None) -> None:

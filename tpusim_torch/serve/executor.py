@@ -17,7 +17,16 @@ Three caches keep repeat traffic off the slow paths, each a bounded LRU:
 One bucket runs as one batched program. Ghost scenarios (replicas of the
 bucket's first entry) fill a partial bucket; decode walks only the real
 entries. A device error propagates to the fleet, which resolves the
-bucket's futures with it: there is no host answer.
+bucket's futures with it: there is no host answer, unless a chaos plan's
+device section is installed (backend.install_chaos). Then dispatch() is the
+chaos-hardened path: a scripted fault retries with exponential backoff under
+the injected clock (tpusim_serve_retry_total{reason}), an open breaker or
+exhausted retries answer the bucket by the host pipeline, and a half-open
+probe, and every dispatch under verify="all", is checked against the host
+pipeline; each host answer is counted (tpusim_serve_degraded_total{path})
+and named in last_path, which the fleet copies into every response's
+`degraded` field. Only chaos.engine.DeviceFault is retried: any other
+error still raises.
 
 Live twins: a StreamSession attached under a snapshot ref (attach_twin)
 answers the requests naming that ref by an overlay query on its resident
@@ -36,12 +45,21 @@ import time
 from collections import OrderedDict
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
+
+from tpusim_torch import backend as _backend
 from tpusim_torch.api.snapshot import ClusterSnapshot
 from tpusim_torch.backend import _KNOWN_PROVIDERS
+from tpusim_torch.backends import ReferenceBackend, placement_hash
 from tpusim_torch.device import resolve_device
 from tpusim_torch.framework.metrics import register
 from tpusim_torch.obs import analytics, provenance
-from tpusim_torch.obs.recorder import note_serve, span
+from tpusim_torch.obs.recorder import (
+    note_serve,
+    note_serve_degraded,
+    note_serve_retry,
+    span,
+)
 from tpusim_torch.serve.batcher import Bucket
 from tpusim_torch.scan import analytics_in
 from tpusim_torch.serve.request import (
@@ -76,11 +94,19 @@ def _twin_session(twin):
 
 class ServeExecutor:
     def __init__(self, provider: str = "DefaultProvider", device="cuda",
-                 max_staged: int = 128, max_device_batches: int = 8):
+                 max_staged: int = 128, max_device_batches: int = 8,
+                 max_retries: int = 2, backoff_base_s: float = 0.05,
+                 clock=None):
         if provider not in _KNOWN_PROVIDERS:
             raise KeyError(f"plugin {provider!r} has not been registered")
         self.provider = provider
         self.device = resolve_device(device)
+        self.max_retries = max_retries
+        self.backoff_base_s = backoff_base_s
+        self.clock = clock  # a ChaosClock makes the backoff deterministic
+        # the degraded path the LAST dispatch took (None: a clean device
+        # answer); the fleet copies it into each response's `degraded`
+        self.last_path: Optional[str] = None
         self._snapshots: Dict[str, ClusterSnapshot] = {}
         # id(policy) -> (policy, prep): the policy ref keeps the id stable
         self._policies: Dict[int, Tuple[Any, tuple]] = {}
@@ -181,6 +207,7 @@ class ServeExecutor:
                 warm = shape in shapes
                 shapes.add(shape)
                 self.stats["overlay_hits"] += 1
+                self.last_path = None
                 register().serve_dispatch.inc("overlay")
                 if osp:
                     osp.set("path", path)
@@ -329,10 +356,17 @@ class ServeExecutor:
             self._programs.popitem(last=False)
         return program
 
-    def dispatch(self, bucket: Bucket) -> Tuple[List[WhatIfResult], bool]:
+    def _dispatch_once(self, bucket: Bucket, injector=None
+                       ) -> Tuple[List[WhatIfResult], bool]:
         """Run one bucket as one batched program: (results aligned with
         bucket.entries, compile_cache_hit). Ghost scenarios and padded pods
-        are dropped here."""
+        are dropped here.
+
+        injector: an armed chaos DeviceInjector. A scripted exception raises
+        before the program runs; a scripted corruption mangles the host
+        copies of the outputs, and the structural checks below (active only
+        under an injector) turn the detectable kind into a
+        DeviceOutputError the breaker absorbs."""
         program_key = bucket.key
         with self._lock, span("serve:dispatch") as sp:
             if sp:
@@ -340,6 +374,8 @@ class ServeExecutor:
                 sp.set("ghosts", bucket.ghosts)
                 sp.set("shape", program_key[0].describe())
             self.stats["dispatches"] += 1
+            corrupt_kind = (injector.begin_dispatch()
+                            if injector is not None else None)
             (config, carries, statics_b, xs_b), resident = \
                 self._device_batch(bucket)
             seen = program_key in self._warm
@@ -349,6 +385,23 @@ class ServeExecutor:
                 bucket, config, carries, statics_b, xs_b).run()
             choices_b = choices_b.cpu().numpy()
             counts_b = counts_b.cpu().numpy()
+            if corrupt_kind is not None:
+                choices_b, counts_b = injector.corrupt(
+                    corrupt_kind, choices_b, counts_b)
+            if injector is not None:
+                # the padded node axis bounds the valid choices; NaN reason
+                # counts are never legitimate
+                from tpusim_torch.chaos.engine import DeviceOutputError
+
+                if choices_b.size and int(choices_b.max()) >= \
+                        program_key[0].n_nodes:
+                    raise DeviceOutputError(
+                        f"device returned node choice {int(choices_b.max())}"
+                        f" >= padded node count {program_key[0].n_nodes}")
+                if counts_b.size and np.isnan(
+                        np.asarray(counts_b, dtype=float)).any():
+                    raise DeviceOutputError(
+                        "device returned NaN unschedulability counts")
             built = compile_count() - before
             if built:
                 # a cold dispatch's wall bounds its build's cost from above
@@ -388,3 +441,90 @@ class ServeExecutor:
                 alog.capture_device(type(a_in)(*(leaf[i] for leaf in a_in)),
                                     len(names), "serve", names=names)
         return results, warm
+
+    # -- the chaos-hardened dispatch ----------------------------------------
+
+    def _host_results(self, bucket: Bucket) -> List[WhatIfResult]:
+        """The host pipeline's answer for every real entry of a bucket: the
+        degraded path (an open breaker, exhausted retries) and the
+        verification oracle. The same placements as the device program."""
+        results = []
+        for e in bucket.entries:
+            snapshot = self._resolve_snapshot(e.request)
+            placements = ReferenceBackend(
+                provider=self.provider,
+                policy=e.request.policy).schedule(e.request.pods, snapshot)
+            scheduled = sum(1 for p in placements if p.node_name)
+            results.append(WhatIfResult(
+                placements=placements, scheduled=scheduled,
+                unschedulable=len(placements) - scheduled))
+            provenance.capture(placements, "serve_host")
+        return results
+
+    def _degraded(self, bucket: Bucket,
+                  path: str) -> Tuple[List[WhatIfResult], bool]:
+        self.last_path = path
+        note_serve_degraded(path, {"real": len(bucket.entries),
+                                   "shape": bucket.key[0].describe()})
+        return self._host_results(bucket), False
+
+    def _backoff(self, attempts: int) -> None:
+        """Exponential backoff between retries: base * 2^(attempt-1). Under
+        an injected clock the delay advances simulated time (deterministic
+        tests); a wall clock sleeps, capped so a chaos run stays fast."""
+        delay = self.backoff_base_s * (2 ** (attempts - 1))
+        if self.clock is not None and hasattr(self.clock, "advance"):
+            self.clock.advance(delay)
+        else:
+            time.sleep(min(delay, 0.2))
+
+    def dispatch(self, bucket: Bucket) -> Tuple[List[WhatIfResult], bool]:
+        """_dispatch_once behind the process-wide chaos seam
+        (backend.install_chaos; a plain call when unarmed). As
+        TorchBackend.schedule: a denied or repeatedly faulted bucket is
+        answered by the host pipeline (an answer, never a hang), a half-open
+        probe, and every dispatch under verify="all", is checked against the
+        host pipeline before its results are emitted, and each retry backs
+        off exponentially under the injected clock."""
+        self.last_path = None
+        injector = _backend._CHAOS["injector"]
+        breaker = _backend._CHAOS["breaker"]
+        if injector is None and breaker is None:
+            return self._dispatch_once(bucket, None)
+        from tpusim_torch.chaos.engine import DeviceFault
+
+        attempts = 0
+        while True:
+            if breaker is not None and not breaker.allow():
+                return self._degraded(bucket, "breaker_open")
+            probing = breaker.probing if breaker is not None else False
+            try:
+                results, warm = self._dispatch_once(bucket, injector)
+            except DeviceFault as exc:
+                if breaker is not None:
+                    breaker.record_failure(f"{type(exc).__name__}: {exc}")
+                attempts += 1
+                if attempts > self.max_retries:
+                    return self._degraded(bucket, "retry_exhausted")
+                note_serve_retry("device_fault",
+                                 {"attempt": attempts,
+                                  "real": len(bucket.entries),
+                                  "error": str(exc)})
+                self._backoff(attempts)
+                continue
+            if breaker is not None and (
+                    probing or _backend._CHAOS["verify"] == "all"):
+                expected = self._host_results(bucket)
+                got = tuple(placement_hash(r.placements) for r in results)
+                want = tuple(placement_hash(r.placements) for r in expected)
+                if got != want:
+                    # silent corruption: in range but wrong; only the host's
+                    # placement hashes catch it
+                    breaker.record_failure("device/host what-if divergence")
+                    self.last_path = "verify_divergence"
+                    note_serve_degraded("verify_divergence",
+                                        {"real": len(bucket.entries)})
+                    return expected, warm
+            if breaker is not None:
+                breaker.record_success()
+            return results, warm

@@ -72,6 +72,10 @@ class WhatIfResponse:
     bucket_ghosts: int = 0  # ghost scenarios the bucket was padded with
     compile_cache_hit: bool = False  # its bucket ran a program built before
     latency_s: float = 0.0  # admission -> decoded result
+    # non-None when the bucket was answered through a degraded path under
+    # chaos: breaker_open / retry_exhausted (the host pipeline answered) or
+    # verify_divergence (host results replaced suspect device output)
+    degraded: Optional[str] = None
 
     @property
     def ok(self) -> bool:

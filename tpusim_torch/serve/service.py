@@ -32,7 +32,13 @@ from typing import Callable, List, Optional, Sequence
 from tpusim_torch.api.snapshot import ClusterSnapshot
 from tpusim_torch.framework.metrics import register
 from tpusim_torch.obs import slo, tracectx
-from tpusim_torch.obs.recorder import flow_end, flow_start, note_serve, span
+from tpusim_torch.obs.recorder import (
+    flow_end,
+    flow_start,
+    note_serve,
+    note_serve_retry,
+    span,
+)
 from tpusim_torch.serve.batcher import Bucket, PendingEntry, ShapeClassBatcher
 from tpusim_torch.serve.executor import ServeExecutor
 from tpusim_torch.serve.queue import AdmissionQueue
@@ -52,10 +58,14 @@ class ScenarioFleet:
                  bucket_size: int = 4, flush_after_s: float = 0.05,
                  max_queue: int = 256,
                  clock: Callable[[], float] = time.monotonic,
-                 deadline_s: Optional[float] = None, device="cuda"):
+                 deadline_s: Optional[float] = None, max_retries: int = 2,
+                 device="cuda"):
         """device: "cuda" (the default: the batched scan on the card) or
-        "cpu" (its plain version)."""
-        self.executor = ServeExecutor(provider=provider, device=device)
+        "cpu" (its plain version). max_retries: the retries of a bucket
+        whose dispatch an installed chaos plan faulted, before the host
+        pipeline answers it; the clock paces their backoff."""
+        self.executor = ServeExecutor(provider=provider, device=device,
+                                      max_retries=max_retries, clock=clock)
         self.queue = AdmissionQueue(max_queue)
         self.batcher = ShapeClassBatcher(bucket_size=bucket_size,
                                          flush_after_s=flush_after_s,
@@ -187,7 +197,7 @@ class ScenarioFleet:
                 future.set_result(WhatIfResponse(
                     request_id=request.request_id, result=result,
                     bucket_real=1, bucket_ghosts=0, compile_cache_hit=warm,
-                    latency_s=latency))
+                    latency_s=latency, degraded=None))
                 return
             with span("serve:stage") as sp:
                 if sp:
@@ -251,6 +261,7 @@ class ScenarioFleet:
                         error=f"{type(exc).__name__}: {exc}"))
             return
         now = self._clock()
+        degraded = self.executor.last_path
         for entry, result in zip(bucket.entries, results):
             latency = now - entry.admitted_at
             entry_ctx = getattr(entry.request, "trace", None)
@@ -264,7 +275,7 @@ class ScenarioFleet:
                     request_id=entry.request.request_id, result=result,
                     bucket_real=len(bucket.entries),
                     bucket_ghosts=bucket.ghosts, compile_cache_hit=warm,
-                    latency_s=latency))
+                    latency_s=latency, degraded=degraded))
 
     def _process_guarded(self, item) -> None:
         """_process with worker-death containment: an unexpected exception
@@ -279,6 +290,9 @@ class ScenarioFleet:
                 return
             if request.request_id not in self._requeued:
                 self._requeued.add(request.request_id)
+                note_serve_retry("worker_death",
+                                 {"id": request.request_id,
+                                  "error": f"{type(exc).__name__}: {exc}"})
                 if self.queue.put(item, priority=request.priority):
                     return
             future.set_result(WhatIfResponse(

@@ -18,7 +18,7 @@ import logging
 import os
 from dataclasses import dataclass
 from time import perf_counter
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 from tpusim_torch.api.snapshot import ClusterSnapshot
 from tpusim_torch.api.types import Node, Pod, PodCondition, ResourceType
@@ -107,9 +107,16 @@ class ClusterCapacity:
                  scheduled_pods: List[Pod], nodes: List[Node],
                  services: Optional[list] = None,
                  pvs: Optional[list] = None, pvcs: Optional[list] = None,
-                 storage_classes: Optional[list] = None):
+                 storage_classes: Optional[list] = None,
+                 chaos: Optional[object] = None,
+                 backoff_clock: Optional[Callable[[], float]] = None):
         self.config = config
         self.status = Status()
+        # chaos engine (chaos.ChaosEngine): fires scripted churn at
+        # pod-attempt boundaries and audits end-state invariants; its
+        # deterministic clock drives the backoff below, so the retry order
+        # is a pure function of the fault plan
+        self.chaos = chaos.attach(self) if chaos is not None else None
         self.report: Optional[GeneralReview] = None
         self.closed = False
 
@@ -180,9 +187,14 @@ class ClusterCapacity:
             and pp.argument.service_affinity is not None
         ] if config.policy is not None else []
         self.scheduling_queue = new_scheduling_queue(config.enable_pod_priority)
-        # MakeDefaultErrorFunc's backoff state: the loop records backoff and
-        # never waits on it
-        self.pod_backoff = PodBackoff()
+        # MakeDefaultErrorFunc's backoff state; the clock is injectable
+        # (chaos > explicit > wall monotonic), so backoff expiry is testable
+        # and a chaos replay is byte-stable. Outside chaos the loop records
+        # backoff and never waits on it
+        if self.chaos is not None:
+            backoff_clock = self.chaos.clock
+        self.pod_backoff = (PodBackoff(clock=backoff_clock)
+                            if backoff_clock is not None else PodBackoff())
         registry = None
         if config.feature_gates:
             # ApplyFeatureGates runs before provider/policy assembly, like
@@ -278,9 +290,21 @@ class ClusterCapacity:
         stored, exists = self.resource_store.get(ResourceType.PODS, pod.key())
         if not exists:
             raise SchedulingError(f"Unable to bind, pod {pod.key()} not found")
+        if self.chaos is not None and node_name in self.chaos.deleted_nodes:
+            # churn fires only at attempt boundaries, so the algorithm can
+            # never rightly pick a node deleted before its snapshot:
+            # reaching here means stale state leaked through a seam
+            self.chaos.record_violation(
+                f"bind of {pod.key()} to deleted node {node_name}")
         updated = stored.copy()
         updated.spec.node_name = node_name
         updated.status.phase = "Running"
+        if self.chaos is not None:
+            # a chaos retry can bind a pod that parked as unschedulable in
+            # an earlier attempt; the terminal buckets must stay disjoint
+            # (the reference never retries, so only the chaos arm hits this)
+            self.status.failed_pods = [
+                p for p in self.status.failed_pods if p.key() != pod.key()]
         self.strategy.add(updated)  # -> store.update -> Modified -> cache AddPod
         self.scheduling_queue.delete(updated)
         self.pod_backoff.clear_pod_backoff(updated.key())
@@ -487,6 +511,11 @@ class ClusterCapacity:
                     ResourceType.PODS, member.key())
                 if not exists:
                     self.resource_store.add(ResourceType.PODS, member)
+                if self.chaos is not None:
+                    # mates pulled forward never went through _next_pod:
+                    # they are fed HERE, so the no-pod-lost audit and the
+                    # eviction re-feed cover them too
+                    self.chaos.note_fed(member)
                 if self._trial_member(member) is not None:
                     bound.append(member)
                 else:
@@ -631,6 +660,8 @@ class ClusterCapacity:
         queue drains; the stop-reason strings match the Go format verbatim.
         With a recorder installed, the time each pod sat in the feed since
         the scheduler last went idle lands as a queue_wait span."""
+        if self.chaos is not None:
+            return self._run_chaos()
         rec = flight.get_recorder()
         idle_since = rec.clock() if rec is not None else 0.0
         outcome = "run"
@@ -644,6 +675,49 @@ class ClusterCapacity:
                 idle_since = rec.clock()
             pod = self._next_pod()
         self.status.stop_reason = self.STOP_REASONS[outcome]
+        self.close()
+
+    def _run_chaos(self) -> None:
+        """The chaos arm of run(): the same seams and scheduling path, but
+        every attempt boundary fires due churn first, and after the LIFO
+        feed drains, churn-reactivated pods (evicted and requeued, or parked
+        pods a returning node released) get bounded re-attempts out of the
+        scheduling queue, gated per pod by the plan's max_retries and by
+        PodBackoff under the chaos clock. A global attempt budget
+        guarantees termination for any plan."""
+        chaos = self.chaos
+        outcome = "run"
+        max_at = max([ev.at for ev in chaos.plan.churn] +
+                     [ev.at + ev.restore_after for ev in chaos.plan.churn],
+                     default=0)
+        budget = ((len(self.pod_queue) + len(self.status.scheduled_pods)
+                   + len(chaos.plan.churn) + 8)
+                  * (chaos.plan.max_retries + 2) + max_at + 64)
+        spent = 0
+        while spent < budget:
+            spent += 1
+            chaos.fire_boundary()
+            pod = self._next_pod()
+            if pod is not None:
+                chaos.note_fed(pod)
+                outcome = self._schedule_or_admit(pod)
+                continue
+            if chaos.has_pending_churn():
+                # churn past the attempt horizon may still evict and
+                # requeue: keep ticking boundaries until it lands
+                continue
+            retry = self.scheduling_queue.pop()
+            if retry is None:
+                break
+            if chaos.allow_retry(retry):
+                outcome = self._schedule_or_admit(retry)
+        if spent >= budget:
+            chaos.record_violation(
+                f"attempt budget exhausted ({budget}): the run did not "
+                "quiesce")
+        chaos.flush()
+        self.status.stop_reason = self.STOP_REASONS.get(
+            outcome, self.STOP_REASONS["run"])
         self.close()
 
     def close(self) -> None:
@@ -698,7 +772,8 @@ def run_simulation(pods: List[Pod], snapshot: ClusterSnapshot,
                    feature_gates: Optional[Dict[str, bool]] = None,
                    device="cuda", route: str = "auto",
                    hard_pod_affinity_symmetric_weight: int = 10,
-                   extender_transport=None) -> Status:
+                   extender_transport=None,
+                   chaos_plan: Optional[object] = None) -> Status:
     """Run `pods` (in podspec order; the LIFO feed reversal happens inside,
     as in the reference) against `snapshot` and return the final Status.
 
@@ -730,7 +805,18 @@ def run_simulation(pods: List[Pod], snapshot: ClusterSnapshot,
     driver its live cluster and the preemption hybrid its incremental
     state, so compiled state is patched, not rebuilt. With a flight
     recorder installed the fold runs under an event_fold span and the
-    replay's compile under compile_cluster."""
+    replay's compile under compile_cluster.
+
+    chaos_plan: an optional chaos.FaultPlan. Churn and fabric sections drive
+    the host orchestrator (a torch request with those sections runs there,
+    with a warning, like the other host-bound features); the device section
+    arms the dispatch circuit breaker and fault injector around the torch
+    backend (backend.install_chaos), whose host answers are counted. The
+    returned Status gains `chaos_summary` (fired faults and retries, or the
+    breaker's transitions) and `chaos_violations` (the end-state invariant
+    audit; empty = degraded gracefully). As in the JAX package, PodPriority
+    on torch runs the preemption hybrid before the device seam is armed, so
+    a device plan does not reach it."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")
     incremental = None
@@ -766,6 +852,16 @@ def run_simulation(pods: List[Pod], snapshot: ClusterSnapshot,
             enable_pod_priority = True
         if feature_gates.pop("VolumeScheduling", False):
             enable_volume_scheduling = True
+    if chaos_plan is not None:
+        chaos_plan.validate()
+        if backend == "torch" and not chaos_plan.host_sections_empty():
+            # churn fires at per-pod attempt boundaries and fabric faults
+            # hit watch streams: both exist only in the host orchestrator;
+            # device faults alone stay on the device path, behind the breaker
+            log.warning(
+                "chaos churn/fabric sections are host-bound: running the "
+                "reference orchestrator instead of the torch backend")
+            backend = "reference"
     if feature_gates and any(feature_gates.get(g) for g in HOST_BOUND_GATES) \
             and backend == "torch":
         log.warning(
@@ -800,6 +896,11 @@ def run_simulation(pods: List[Pod], snapshot: ClusterSnapshot,
                         "backend")
             backend = "reference"
     if backend == "reference":
+        chaos_engine = None
+        if chaos_plan is not None:
+            from tpusim_torch.chaos import ChaosEngine
+
+            chaos_engine = ChaosEngine(chaos_plan)
         cc = ClusterCapacity(
             SchedulerServerConfig(
                 scheduler_name=scheduler_name, algorithm_provider=provider,
@@ -810,8 +911,13 @@ def run_simulation(pods: List[Pod], snapshot: ClusterSnapshot,
                 feature_gates=feature_gates),
             new_pods=pods, scheduled_pods=snapshot.pods, nodes=snapshot.nodes,
             services=snapshot.services, pvs=snapshot.pvs, pvcs=snapshot.pvcs,
-            storage_classes=snapshot.storage_classes)
+            storage_classes=snapshot.storage_classes, chaos=chaos_engine)
         cc.run()
+        if chaos_engine is not None:
+            from tpusim_torch.chaos import check_invariants
+
+            cc.status.chaos_violations = check_invariants(cc, chaos_engine)
+            cc.status.chaos_summary = chaos_engine.summary()
         return cc.status
     if enable_pod_priority:
         # the host-device hybrid: the device scan places, victim selection
@@ -838,22 +944,39 @@ def run_simulation(pods: List[Pod], snapshot: ClusterSnapshot,
             if csp:
                 csp.set("pods", len(feed))
                 csp.set("nodes", len(snapshot.nodes))
-    with flight.span("backend_schedule") as bsp:
-        if bsp:
-            bsp.set("backend", "torch")
-            bsp.set("pods", len(feed))
-        if gangs:
-            # the gang driver: ungrouped runs take the per-pod path against
-            # the live incremental cluster, gangs are admitted all or nothing
-            from tpusim_torch.delta import IncrementalCluster
-            from tpusim_torch.gang.driver import schedule_with_gangs
+    breaker = None
+    if chaos_plan is not None and not chaos_plan.device.empty():
+        from tpusim_torch.backend import install_chaos
 
-            inc = incremental or IncrementalCluster(snapshot)
-            placements = schedule_with_gangs(torch_backend, inc, feed)
-        else:
-            placements = torch_backend.schedule(feed, snapshot,
-                                                precompiled=precompiled)
-    return _status_from_placements(placements, snapshot)
+        breaker = install_chaos(chaos_plan.device)
+    try:
+        with flight.span("backend_schedule") as bsp:
+            if bsp:
+                bsp.set("backend", "torch")
+                bsp.set("pods", len(feed))
+            if gangs:
+                # the gang driver: ungrouped runs take the per-pod path
+                # against the live incremental cluster (behind the same
+                # breaker), gangs are admitted all or nothing
+                from tpusim_torch.delta import IncrementalCluster
+                from tpusim_torch.gang.driver import schedule_with_gangs
+
+                inc = incremental or IncrementalCluster(snapshot)
+                placements = schedule_with_gangs(torch_backend, inc, feed)
+            else:
+                placements = torch_backend.schedule(feed, snapshot,
+                                                    precompiled=precompiled)
+    finally:
+        if breaker is not None:
+            from tpusim_torch.backend import uninstall_chaos
+
+            uninstall_chaos()
+    status = _status_from_placements(placements, snapshot)
+    if breaker is not None:
+        status.chaos_summary = {
+            "breaker_transitions": list(breaker.transitions)}
+        status.chaos_violations = []
+    return status
 
 
 def run_stream_simulation(snapshot: Optional[ClusterSnapshot] = None, *,
@@ -866,6 +989,11 @@ def run_stream_simulation(snapshot: Optional[ClusterSnapshot] = None, *,
                           provider: str = DEFAULT_PROVIDER,
                           policy=None, pipeline: bool = False,
                           always_restage: bool = False, verify: bool = False,
+                          chaos_plan: Optional[object] = None,
+                          checkpoint_dir: Optional[str] = None,
+                          checkpoint_every: int = 0,
+                          fsync_every: int = 0,
+                          recover: bool = False,
                           whatif_every: int = 0, whatif_pods: int = 4,
                           device="cuda") -> dict:
     """Drive a stream.StreamSession through seeded churn
@@ -894,11 +1022,29 @@ def run_stream_simulation(snapshot: Optional[ClusterSnapshot] = None, *,
         whatif_pods pods (from a separate seeded stream) on the resident
         twin (StreamSession.overlay_query); the chains are unchanged by the
         queries. The summary gains an "overlay" block.
+    chaos_plan: device-fault and process_crash sections only (churn and
+        fabric faults are what the load generator makes already, as
+        events). The device section arms the breaker and the injector
+        around every cycle's dispatch (backend.install_chaos); the summary
+        gains "breaker_transitions". A process_crash event arms the WAL
+        writer (it needs checkpoint_dir), and the run dies with
+        chaos.engine.ProcessCrash right after the targeted record; a second
+        call with recover=True and the SAME workload arguments resumes it.
+    checkpoint_dir / checkpoint_every: journal every cycle to a WAL and
+        checkpoint the host and device picture every that-many emitted
+        cycles (stream.persist); 0 = the genesis checkpoint only. The
+        summary gains "wal_records", "checkpoints" and "wal_chain".
+    fsync_every: fsync the WAL every N appends (0: flush only); the mode is
+        stamped into every checkpoint.
+    recover: load checkpoint_dir, replay the WAL tail, fast-forward the
+        load generator over the committed prefix, and run the REMAINING
+        cycles. The summary's fold_chain then equals an uninterrupted
+        run's; it gains "recovered", "resume_cycle", "replay_ms",
+        "recomputed_cycles" and "recovery_violations".
     device: "cuda" (the default) or "cpu".
 
-    The JAX package's chaos_plan, checkpoint_dir, checkpoint_every,
-    fsync_every, replicate_to and recover are not taken: their modules are
-    not ported yet."""
+    The JAX package's replicate_to is not taken: replication is not ported
+    yet."""
     import hashlib
     from time import perf_counter
 
@@ -909,8 +1055,13 @@ def run_stream_simulation(snapshot: Optional[ClusterSnapshot] = None, *,
     from tpusim_torch.backends import placement_hash
     from tpusim_torch.delta import IncrementalCluster
     from tpusim_torch.gang.driver import schedule_with_gangs
+    from tpusim_torch.backends import Placement, bind_pod
     from tpusim_torch.stream import ChurnLoadGen, StreamSession, chain_fold
     from tpusim_torch.stream.loadgen import DEFAULT_LABEL_UNIVERSE
+    from tpusim_torch.stream.persist import (
+        StreamPersistence,
+        recover_stream_session,
+    )
 
     if snapshot is None:
         snapshot = synthetic_cluster(num_nodes)
@@ -919,8 +1070,60 @@ def run_stream_simulation(snapshot: Optional[ClusterSnapshot] = None, *,
                 node.metadata.labels.update(
                     {k: vals[i % len(vals)]
                      for k, vals in DEFAULT_LABEL_UNIVERSE.items()})
-    session = StreamSession(snapshot, provider=provider, policy=policy,
-                            always_restage=always_restage, device=device)
+    crash_events = []
+    if chaos_plan is not None:
+        chaos_plan.validate()
+        if not chaos_plan.host_sections_empty():
+            raise ValueError(
+                "run_stream_simulation takes device fault and process_crash "
+                "sections only: churn/fabric faults arrive through the load "
+                "generator as watch events")
+        crash_events = chaos_plan.crash_events()
+        if crash_events and checkpoint_dir is None:
+            raise ValueError(
+                "process_crash faults fire from the WAL writer: pass "
+                "checkpoint_dir (--checkpoint-dir)")
+    if recover and checkpoint_dir is None:
+        raise ValueError("recover=True needs checkpoint_dir")
+    if recover and verify:
+        raise ValueError(
+            "verify and recover are mutually exclusive: the verify arm "
+            "replays the reference picture from cycle 0")
+    breaker = None
+    if chaos_plan is not None and not chaos_plan.device.empty():
+        from tpusim_torch.backend import install_chaos
+
+        breaker = install_chaos(chaos_plan.device)
+    persist = report = None
+    start_cycle = 0
+    try:
+        if recover:
+            session, report, persist = recover_stream_session(
+                checkpoint_dir, provider=provider, policy=policy,
+                always_restage=always_restage,
+                checkpoint_every=checkpoint_every, device=device)
+            start_cycle = report.resume_cycle
+        else:
+            session = StreamSession(snapshot, provider=provider,
+                                    policy=policy,
+                                    always_restage=always_restage,
+                                    device=device)
+            if checkpoint_dir is not None:
+                persist = StreamPersistence(checkpoint_dir,
+                                            checkpoint_every=checkpoint_every,
+                                            fsync_every=fsync_every)
+                session.attach_persistence(persist)
+    except BaseException:
+        if persist is not None:
+            persist.close()
+        if breaker is not None:
+            from tpusim_torch.backend import uninstall_chaos
+
+            uninstall_chaos()
+        raise
+    if crash_events and persist is not None:
+        ev = crash_events[0]
+        persist.arm_crash(ev.at, ev.target)
 
     def load_gen():
         return ChurnLoadGen(snapshot, seed=seed, arrivals=arrivals,
@@ -930,6 +1133,22 @@ def run_stream_simulation(snapshot: Optional[ClusterSnapshot] = None, *,
                             gang_size=gang_size, gang_count=gang_count)
 
     gen = load_gen()
+    skip_events = 0
+    if recover:
+        # a deterministic fast-forward: the generator draws NO random number
+        # in batch() or note_bound(), so replaying events()/batch() over the
+        # committed prefix, with the binds fed back from the WAL, leaves its
+        # state and the bound population where the crashed run had them
+        for c in range(start_cycle):
+            gen.events(c)
+            by_key = {p.key(): p for p in gen.batch()}
+            gen.note_bound([
+                Placement(pod=bind_pod(by_key[k], node), node_name=node)
+                for k, node in report.bound_by_cycle.get(c, [])
+                if k in by_key])
+        # a crash among a cycle's events left it partly applied: the
+        # replayed picture holds its first events_applied deltas already
+        skip_events = report.events_applied.get(start_cycle, 0)
     ref_inc = ref_backend = ref_gen = None
     if verify:
         ref_inc = IncrementalCluster(snapshot)
@@ -937,7 +1156,10 @@ def run_stream_simulation(snapshot: Optional[ClusterSnapshot] = None, *,
                                    device=device)
         ref_gen = load_gen()
     chain = hashlib.sha256()
-    fold = ""
+    # the resumable fold over the cycles' placement hashes (persist.chain's
+    # twin): seeded from the recovered prefix, so a recovered run's final
+    # fold compares byte for byte with an uninterrupted run's
+    fold = report.chain if recover else ""
     latencies: List[float] = []
     expected: List[str] = []       # the verify arm's hashes, in order
     counts = {"decisions": 0, "scheduled": 0, "mismatches": 0}
@@ -949,6 +1171,11 @@ def run_stream_simulation(snapshot: Optional[ClusterSnapshot] = None, *,
         h = placement_hash(placements)
         chain.update(h.encode())
         fold = chain_fold(fold, h)
+        if persist is None:
+            # with persistence attached log_emit publishes the WAL's chain
+            # head instead
+            register_metrics().stream_chain_head.set_info(
+                head=fold, cycle=str(session.cycles))
         if verify and expected.pop(0) != h:
             counts["mismatches"] += 1
 
@@ -972,53 +1199,66 @@ def run_stream_simulation(snapshot: Optional[ClusterSnapshot] = None, *,
             whatif_lat.append(perf_counter() - tq)
 
     t_start = perf_counter()
-    for cycle in range(cycles):
-        if pipeline:
-            # fold cycle N-1's binds BEFORE drawing cycle N's events: the
-            # host picture evolves in the synchronous order
-            gen.note_bound(session.poll_placed())
-        evs = gen.events(cycle)
-        # one trace context a driver cycle: the ingest span and the
-        # session's own cycle context (a child, the same trace id) tell one
-        # causal story, ingest -> commit -> scan -> fold. start() is None,
-        # and all of this a no-op, unless a flight recorder is installed
-        with tracectx.activate(tracectx.start()):
-            with flight.span("stream_ingest") as isp:
-                if isp:
-                    isp.set("events", len(evs))
-                session.apply_events(evs)
-            batch = gen.batch()
-            t0 = perf_counter()
-            prev = (session.schedule_pipelined(batch) if pipeline
-                    else session.schedule(batch))
-        latencies.append(perf_counter() - t0)
-        if verify:
-            # the reference picture advances at dispatch time; the
-            # comparison happens when the placements emerge
-            ref_inc.apply_events(ref_gen.events(cycle))
-            ref_batch = ref_gen.batch()
-            if has_gangs(ref_batch):
-                # the gang driver applies its binds to ref_inc itself
-                want = schedule_with_gangs(ref_backend, ref_inc, ref_batch)
+    try:
+        for cycle in range(start_cycle, cycles):
+            if pipeline:
+                # fold cycle N-1's binds BEFORE drawing cycle N's events: the
+                # host picture evolves in the synchronous order
+                gen.note_bound(session.poll_placed())
+            evs = gen.events(cycle)
+            if skip_events:
+                evs = evs[skip_events:]
+                skip_events = 0
+            # one trace context a driver cycle: the ingest span and the
+            # session's own cycle context (a child, the same trace id) tell
+            # one causal story, ingest -> commit -> scan -> fold. start() is
+            # None, and all of this a no-op, unless a recorder is installed
+            with tracectx.activate(tracectx.start()):
+                with flight.span("stream_ingest") as isp:
+                    if isp:
+                        isp.set("events", len(evs))
+                    session.apply_events(evs)
+                batch = gen.batch()
+                t0 = perf_counter()
+                prev = (session.schedule_pipelined(batch) if pipeline
+                        else session.schedule(batch))
+            latencies.append(perf_counter() - t0)
+            if verify:
+                # the reference picture advances at dispatch time; the
+                # comparison happens when the placements emerge
+                ref_inc.apply_events(ref_gen.events(cycle))
+                ref_batch = ref_gen.batch()
+                if has_gangs(ref_batch):
+                    # the gang driver applies its binds to ref_inc itself
+                    want = schedule_with_gangs(ref_backend, ref_inc,
+                                               ref_batch)
+                else:
+                    want = ref_backend.schedule(ref_batch,
+                                                ref_inc.to_snapshot())
+                    for pl in want:
+                        if pl.node_name:
+                            ref_inc.apply(MODIFIED, pl.pod)
+                ref_gen.note_bound(want)
+                expected.append(placement_hash(want))
+            if pipeline:
+                if prev is not None:
+                    account(prev)
             else:
-                want = ref_backend.schedule(ref_batch, ref_inc.to_snapshot())
-                for pl in want:
-                    if pl.node_name:
-                        ref_inc.apply(MODIFIED, pl.pod)
-            ref_gen.note_bound(want)
-            expected.append(placement_hash(want))
-        if pipeline:
-            if prev is not None:
+                gen.note_bound(prev)
                 account(prev)
-        else:
-            gen.note_bound(prev)
-            account(prev)
-        if whatif_every and (cycle + 1) % whatif_every == 0:
-            live_query(cycle)
-    if pipeline:
-        tail = session.flush()
-        if tail:
-            account(tail)
+            if whatif_every and (cycle + 1) % whatif_every == 0:
+                live_query(cycle)
+        if pipeline:
+            tail = session.flush()
+            if tail:
+                account(tail)
+    finally:
+        if persist is not None:
+            persist.close()
+        if breaker is not None:
+            from tpusim_torch.backend import uninstall_chaos
+
+            uninstall_chaos()
     elapsed = perf_counter() - t_start
 
     def pct(values: List[float], q: float) -> float:
@@ -1053,6 +1293,18 @@ def run_stream_simulation(snapshot: Optional[ClusterSnapshot] = None, *,
     if verify:
         out["verified"] = counts["mismatches"] == 0
         out["mismatched_cycles"] = counts["mismatches"]
+    if breaker is not None:
+        out["breaker_transitions"] = list(breaker.transitions)
+    if persist is not None:
+        out["wal_records"] = persist.wal_records
+        out["checkpoints"] = persist.checkpoints
+        out["wal_chain"] = persist.chain
+    if recover:
+        out["recovered"] = True
+        out["resume_cycle"] = start_cycle
+        out["replay_ms"] = report.replay_s * 1e3
+        out["recomputed_cycles"] = list(report.recomputed)
+        out["recovery_violations"] = list(report.violations)
     # with the analytics plane installed, the run's snapshot of it (a
     # None-check otherwise)
     alog = analytics.get()

@@ -2,10 +2,20 @@
 scheduling cycles, O(delta) commits of each cycle's watch events, classified
 restages where a commit cannot express them, pipelined cycles and live
 what-if overlays (runtime.StreamSession), driven by seeded churn
-(loadgen.ChurnLoadGen)."""
+(loadgen.ChurnLoadGen), and its durability: the WAL, checkpoints and crash
+recovery (persist)."""
 
 from tpusim_torch.stream.loadgen import ChurnLoadGen
-from tpusim_torch.stream.persist import chain_fold
+from tpusim_torch.stream.persist import (
+    CRASH_POINTS,
+    PersistError,
+    RecoveryReport,
+    StreamPersistence,
+    chain_fold,
+    read_wal,
+    recover_stream_session,
+    tail_wal,
+)
 from tpusim_torch.stream.runtime import (
     MIN_BUCKET,
     DeviceResidentCluster,
@@ -14,10 +24,17 @@ from tpusim_torch.stream.runtime import (
 )
 
 __all__ = [
+    "CRASH_POINTS",
     "MIN_BUCKET",
     "ChurnLoadGen",
     "DeviceResidentCluster",
+    "PersistError",
+    "RecoveryReport",
+    "StreamPersistence",
     "StreamSession",
     "bucket_size",
     "chain_fold",
+    "read_wal",
+    "recover_stream_session",
+    "tail_wal",
 ]

@@ -40,7 +40,19 @@ runs synchronously.
 
 No cycle silently leaves the device: a device error raises, and a cycle
 reaches the host route only when the compile classifies its workload
-unsupported ("reference_fallback", counted in path_counts["host"]).
+unsupported ("reference_fallback", counted in path_counts["host"]), or while
+a chaos plan's device section is installed (backend.install_chaos): then
+every cycle's dispatch runs behind the circuit breaker and the fault
+injector (_run_guarded), a denied or faulted dispatch and a divergence under
+verification are answered by the host pipeline, each classified
+(breaker_open, device_fault, verify_divergence) and counted, and any
+intervention drops residency, so the next cycle restages from host truth by
+copying into the resident tensors. Pipelined cycles run synchronously while
+the seam is armed.
+
+With a stream.persist.StreamPersistence attached (attach_persistence),
+every committed watch delta, batch, bind and emission is journaled to its
+WAL on every emission path (synchronous, host, gang and pipelined cycles).
 
 The session's events may come from a watch fabric instead of the caller:
 watch() attaches a framework.reflector.Reflector to a FakeRESTClient
@@ -62,15 +74,17 @@ in tpusim_stream_restage_total{reason}.
 from __future__ import annotations
 
 import logging
+from contextlib import nullcontext
 from dataclasses import replace
 from time import perf_counter
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from tpusim_torch.api.snapshot import ClusterSnapshot
 from tpusim_torch.api.types import Pod, ResourceType
+from tpusim_torch import backend as _backend
 from tpusim_torch.backend import (
     _KNOWN_PROVIDERS,
     _MOST_REQUESTED_PROVIDERS,
@@ -84,6 +98,7 @@ from tpusim_torch.backends import (
     ReferenceBackend,
     bind_pod,
     mark_unschedulable,
+    placement_hash,
 )
 from tpusim_torch.config import config_for
 from tpusim_torch.delta import _SIG_KINDS, IncrementalCluster
@@ -348,10 +363,12 @@ class _PendingCycle:
     host), or one run synchronously and buffered for emission order."""
 
     __slots__ = ("pods", "fetch", "compiled", "folded", "choices", "counts",
-                 "bound", "placements", "t0", "dispatched_at", "trace")
+                 "bound", "placements", "t0", "dispatched_at", "wal_cycle",
+                 "trace")
 
     def __init__(self, pods, fetch=None, compiled=None, placements=None,
-                 t0: float = 0.0, dispatched_at: float = 0.0):
+                 t0: float = 0.0, dispatched_at: float = 0.0,
+                 wal_cycle: Optional[int] = None):
         self.pods = pods
         self.fetch = fetch
         self.compiled = compiled
@@ -361,6 +378,9 @@ class _PendingCycle:
         self.choices = self.counts = None
         self.bound: List[Placement] = []
         self.placements = placements
+        # the WAL cycle id with a persistence layer attached; None for a
+        # buffered synchronous cycle (schedule() journaled it already)
+        self.wal_cycle = wal_cycle
         # the dispatching cycle's trace context: the deferred decode runs
         # under THIS cycle's trace, not the overlapping cycle's
         self.trace = tracectx.current()
@@ -409,6 +429,7 @@ class StreamSession:
         self._pending: Optional[_PendingCycle] = None
         self._gang_torch = None       # TorchBackend of the gang cycles
         self._last_path = ""
+        self.persist = None           # stream.persist.StreamPersistence
         # device residency, polled at snapshot time only; the weak
         # reference drops the source with the session
         analytics.register_hbm_source(
@@ -464,6 +485,19 @@ class StreamSession:
         if self._forced is None:
             self._forced = reason
 
+    # -- persistence (stream.persist) -------------------------------------
+
+    def attach_persistence(self, persistence) -> None:
+        """Journal this session's committed deltas, batches, binds and
+        emissions through a StreamPersistence (WAL and checkpoints)."""
+        persistence.attach(self)
+
+    def _persist_suppressed(self):
+        """Gate the WAL's watch-delta hook around fold-back binds: binds are
+        journaled as bind records, not as synthetic MODIFIED events."""
+        return (self.persist.suppress_events() if self.persist is not None
+                else nullcontext())
+
     # -- the cycle --------------------------------------------------------
 
     def schedule(self, pods: List[Pod], _routed=None) -> List[Placement]:
@@ -487,15 +521,21 @@ class StreamSession:
         self.cycles += 1
         inc = self.inc
         t0 = perf_counter()
+        cid = (self.persist.begin_cycle(pods)
+               if self.persist is not None else None)
         if not inc.nodes:
             msg = "no nodes available to schedule pods"
+            placements = [Placement(pod=mark_unschedulable(p, msg),
+                                    reason="Unschedulable", message=msg)
+                          for p in pods]
             self._note_path("no_nodes", len(pods))
+            if cid is not None:
+                self.persist.log_bind(cid, [])
+                self.persist.log_emit(cid, placements)
             self._observe_cycle("no_nodes", t0)
-            return [Placement(pod=mark_unschedulable(p, msg),
-                              reason="Unschedulable", message=msg)
-                    for p in pods]
+            return placements
         if has_gangs(pods):
-            placements = self._gang_cycle(pods)
+            placements = self._gang_cycle(pods, cid)
             self._observe_cycle("gang", t0)
             return placements
         reason, cols = _routed if _routed is not None else self._route(pods)
@@ -503,26 +543,36 @@ class StreamSession:
             placements = self._stream_cycle(pods, cols)
         else:
             placements = self._restage_cycle(pods, reason)
-        for pl in placements:
-            if pl.node_name:
+        bound = [pl for pl in placements if pl.node_name]
+        with self._persist_suppressed():
+            for pl in bound:
                 inc.apply(MODIFIED, pl.pod)
         if self.device.valid:
             # the scan applied these binds to the resident carry already,
             # with the same integer arithmetic: committing the fold-back's
             # journal next cycle would set the bytes it holds
             inc.drain_journal()
+        if cid is not None:
+            self.persist.log_bind(cid, bound)
+            self.persist.log_emit(cid, placements)
         self._observe_cycle(self._last_path, t0)
         return placements
 
-    def _gang_cycle(self, pods: List[Pod]) -> List[Placement]:
+    def _gang_cycle(self, pods: List[Pod], cid=None) -> List[Placement]:
         """A batch with gangs: the gang driver against the live host
         picture (member lanes, joint packing, all or nothing). The driver
         applies its binds to `inc`, so they sit in the journal and the NEXT
         cycle's commit carries them onto the resident carry like any other
-        churn: residency holds, nothing restages."""
-        placements = schedule_with_gangs(self._gang_backend(), self.inc, pods,
-                                         source="stream-gang")
+        churn: residency holds, nothing restages. The WAL hook is off
+        around the driver: its binds are journaled as a bind record."""
+        with self._persist_suppressed():
+            placements = schedule_with_gangs(self._gang_backend(), self.inc,
+                                             pods, source="stream-gang")
         self._note_path("gang", len(pods))
+        if cid is not None:
+            self.persist.log_bind(cid, [pl for pl in placements
+                                        if pl.node_name])
+            self.persist.log_emit(cid, placements)
         return placements
 
     def _gang_backend(self) -> TorchBackend:
@@ -669,18 +719,36 @@ class StreamSession:
                                    bucket_size(p) - p)
 
     def _dispatch(self, pods: List[Pod], xs_host, compiled
-                  ) -> List[Placement]:
+                  ) -> Tuple[List[Placement], bool]:
         """Scan the batch on the resident state and wait for its choices
         on the host (the device_dispatch span), then decode. The decoded
         batch goes to the provenance log, and the post-scan state to the
         analytics plane: one more reduction on the stream before the next
-        commit, outside the scan's graph."""
+        commit, outside the scan's graph. Returns (placements, intervened):
+        `intervened` flags a scripted corruption of this dispatch, whose
+        emitted results may not be the device's own decisions, so residency
+        must drop.
+
+        Under an installed chaos seam a scripted exception raises before the
+        scan; a scripted corruption applies to the host copies of the real
+        pods' outputs, and the structural checks run on them."""
         metrics = register()
+        injector = _backend._CHAOS["injector"]
+        corrupt_kind = (injector.begin_dispatch() if injector is not None
+                        else None)
         t0 = perf_counter()
         dsp = flight.span("device_dispatch", "device", self.torch_device)
         with flight.profiled("tpusim:stream_scan"):
             out = self.device.scan(xs_host)
             choices, counts = _Fetch(out, len(pods)).get()
+        if injector is not None:
+            if corrupt_kind is not None:
+                from tpusim_torch.chaos.engine import DeviceInjector
+
+                choices, counts = DeviceInjector.corrupt(corrupt_kind,
+                                                         choices, counts)
+            _backend.check_device_output(choices, counts,
+                                         len(compiled.statics.names))
         if dsp:
             dsp.set("pods", len(pods))
             dsp.end()
@@ -694,14 +762,15 @@ class StreamSession:
         analytics.capture(dev.statics, dev.carry, len(compiled.statics.names),
                           "stream", cycle=self.cycles,
                           names=compiled.statics.names)
-        return placements
+        return placements, corrupt_kind is not None
 
     def _stream_cycle(self, pods: List[Pod], cols) -> List[Placement]:
-        self._commit()
-        placements = self._dispatch(pods, self._xs_host(pods, cols),
-                                    self.device.compiled)
-        self._note_path("stream_scan", len(pods))
-        return placements
+        def dispatch():
+            self._commit()
+            return self._dispatch(pods, self._xs_host(pods, cols),
+                                  self.device.compiled)
+
+        return self._run_guarded(pods, "stream_scan", dispatch)
 
     def _restage_cycle(self, pods: List[Pod], reason: str) -> List[Placement]:
         inc = self.inc
@@ -752,11 +821,76 @@ class StreamSession:
                 sa_lock_init = ptabs.sa_lock_init
         dev.stage(config, statics_to_host(compiled, ptabs),
                   carry_init_host(compiled, sa_lock_init))
-        placements = self._dispatch(pods, self._xs_host(pods, cols), compiled)
-        dev.adopt(inc, compiled, plan_key=self._plan_key, ptabs=ptabs,
-                  pol_res=pol_res)
-        self._classify(reason)
-        self._note_path("restage_scan", len(pods))
+
+        def dispatch():
+            placements, intervened = self._dispatch(
+                pods, self._xs_host(pods, cols), compiled)
+            if not intervened:
+                dev.adopt(inc, compiled, plan_key=self._plan_key,
+                          ptabs=ptabs, pol_res=pol_res)
+            return placements, intervened
+
+        return self._run_guarded(pods, "restage_scan", dispatch, reason)
+
+    def _run_guarded(self, pods: List[Pod], path: str,
+                     dispatch: Callable[[], Tuple[List[Placement], bool]],
+                     restage_reason: Optional[str] = None
+                     ) -> List[Placement]:
+        """The chaos seam, as TorchBackend.schedule's: a dispatch the
+        breaker denies or a fault aborts is answered by the host pipeline,
+        a probe and every dispatch under verify="all" are checked against
+        the host pipeline before their placements are emitted, and ANY
+        intervention drops residency (the next cycle re-arms from host
+        truth). The scan binds into the resident carry in place, so a
+        cycle that leaves here by an exception drops residency too.
+
+        The classification is made here, so each cycle off the resident
+        path carries ONE label, its final disposition: a restage cycle the
+        breaker denies counts as breaker_open, not as its structural reason
+        and breaker_open."""
+        breaker = _backend._CHAOS["breaker"]
+        if breaker is None:
+            try:
+                placements, intervened = dispatch()
+            except BaseException:
+                self.device.invalidate()
+                raise
+            if restage_reason is not None:
+                self._classify(restage_reason)
+            if intervened:
+                self.device.invalidate()
+            self._note_path(path, len(pods))
+            return placements
+        from tpusim_torch.chaos.engine import DeviceFault
+
+        if not breaker.allow():
+            flight.note_route("breaker_fallback", len(pods))
+            return self._host_cycle(pods, "breaker_open")
+        probing = breaker.probing
+        try:
+            placements, intervened = dispatch()
+        except DeviceFault as exc:
+            breaker.record_failure(f"{type(exc).__name__}: {exc}")
+            flight.note_route("breaker_fallback", len(pods))
+            return self._host_cycle(pods, "device_fault")
+        except BaseException:
+            self.device.invalidate()
+            raise
+        if probing or _backend._CHAOS["verify"] == "all":
+            expected = self._reference(pods)
+            if placement_hash(placements) != placement_hash(expected):
+                breaker.record_failure("device/host placement divergence")
+                flight.note_route("breaker_fallback", len(pods))
+                self.device.invalidate()
+                self._classify("verify_divergence")
+                self._note_path("host", len(pods))
+                return expected
+        breaker.record_success()
+        if restage_reason is not None:
+            self._classify(restage_reason)
+        if intervened:
+            self.device.invalidate()
+        self._note_path(path, len(pods))
         return placements
 
     @staticmethod
@@ -767,18 +901,22 @@ class StreamSession:
                                  prebound=prebound)
 
     def _host_cycle(self, pods: List[Pod], reason: str) -> List[Placement]:
-        """A cycle on the host route (the workload the compile classifies
-        unsupported): residency drops, as the device never sees these
-        binds."""
+        """A cycle on the host route (a workload the compile classifies
+        unsupported, or the chaos seam's answer): residency drops, as the
+        device never sees these binds."""
         self._classify(reason)
         self.device.invalidate()
+        placements = self._reference(pods)
+        self._note_path("host", len(pods))
+        return placements
+
+    def _reference(self, pods: List[Pod]) -> List[Placement]:
         placements = ReferenceBackend(
             provider=self.provider,
             hard_pod_affinity_symmetric_weight=self.hard_weight,
             policy=self.policy,
         ).schedule(pods, self.inc.to_snapshot())
         provenance.capture(placements, "stream_host", cycle=self.cycles)
-        self._note_path("host", len(pods))
         return placements
 
     # -- pipelined cycles -------------------------------------------------
@@ -810,8 +948,12 @@ class StreamSession:
         prev_p, self._pending = self._pending, None
         if prev_p is not None and prev_p.placements is None:
             self._fold_binds(prev_p)
+        # the verify mode alone is inert (it gates nothing until a breaker
+        # is installed), so only live seams force the synchronous path
+        chaos = (_backend._CHAOS["breaker"] is not None
+                 or _backend._CHAOS["injector"] is not None)
         routed = None
-        if self.inc.nodes and not has_gangs(pods):
+        if not chaos and self.inc.nodes and not has_gangs(pods):
             # a gang batch runs synchronously: schedule() sends it to the
             # gang driver
             routed = self._route(pods)
@@ -819,7 +961,9 @@ class StreamSession:
             self.cycles += 1
             with tracectx.activate(tracectx.start(
                     parent=tracectx.current())):
-                self._dispatch_async(pods, routed[1])
+                cid = (self.persist.begin_cycle(pods)
+                       if self.persist is not None else None)
+                self._dispatch_async(pods, routed[1], cid)
             register().stream_pipeline_depth.set(1.0)
             osp = flight.span("stream_overlap")
             prev = self._finalize(prev_p)
@@ -834,7 +978,8 @@ class StreamSession:
         register().stream_pipeline_depth.set(0.0)
         return prev
 
-    def _dispatch_async(self, pods: List[Pod], cols) -> None:
+    def _dispatch_async(self, pods: List[Pod], cols,
+                        wal_cycle: Optional[int] = None) -> None:
         """Commit the pending churn and launch the batch's scan without
         waiting for it: its outputs go to pinned memory behind an event,
         and the cycle waits in _pending for its fold and decode."""
@@ -854,7 +999,8 @@ class StreamSession:
                           len(dev.compiled.statics.names), "stream",
                           cycle=self.cycles, names=dev.compiled.statics.names)
         self._pending = _PendingCycle(pods, fetch, dev.compiled, t0=t0,
-                                      dispatched_at=perf_counter())
+                                      dispatched_at=perf_counter(),
+                                      wal_cycle=wal_cycle)
 
     def flush(self) -> List[Placement]:
         """Drain the in-flight (or buffered) pipelined cycle and return its
@@ -881,14 +1027,21 @@ class StreamSession:
             max(0.0, 1.0 - waited / elapsed))
         names = p.compiled.statics.names
         mark = self.inc.journal_mark()
-        for pod, c in zip(p.pods, p.choices):
-            c = int(c)
-            if c >= 0:
-                bound = bind_pod(pod, names[c])
-                self.inc.apply(MODIFIED, bound)
-                p.bound.append(Placement(pod=bound, node_name=names[c]))
+        with self._persist_suppressed():
+            for pod, c in zip(p.pods, p.choices):
+                c = int(c)
+                if c >= 0:
+                    bound = bind_pod(pod, names[c])
+                    self.inc.apply(MODIFIED, bound)
+                    p.bound.append(Placement(pod=bound, node_name=names[c]))
         self.inc.journal_rollback(mark)
         p.folded = True
+        if self.persist is not None and p.wal_cycle is not None:
+            # journaled at fold time: cycle N's binds land BEFORE cycle
+            # N+1's watch events, the order the host picture mutates in,
+            # under cycle N's trace context
+            with tracectx.activate(p.trace):
+                self.persist.log_bind(p.wal_cycle, p.bound)
 
     def _finalize(self, p: Optional[_PendingCycle]
                   ) -> Optional[List[Placement]]:
@@ -904,8 +1057,12 @@ class StreamSession:
             with flight.span("stream_decode"):
                 p.placements = self._decode(p.pods, p.choices, p.counts,
                                             p.compiled, prebound=p.bound)
-            provenance.capture(p.placements, "stream", cycle=self.cycles)
+            provenance.capture(p.placements, "stream",
+                               cycle=p.wal_cycle if p.wal_cycle is not None
+                               else self.cycles)
             self._note_path("pipelined", len(p.pods))
+            if self.persist is not None and p.wal_cycle is not None:
+                self.persist.log_emit(p.wal_cycle, p.placements)
             self._observe_cycle("pipelined", p.t0)
         return p.placements
 
@@ -937,6 +1094,8 @@ class StreamSession:
             flight.note_route("overlay_fallback", len(pods))
             return None
         placements = self._overlay_dispatch(pods, routed)
+        if placements is None:
+            return None
         m = register()
         m.overlay_queries.inc("resident")
         ctx = tracectx.current()
@@ -963,6 +1122,13 @@ class StreamSession:
             return "no_nodes"
         if has_gangs(pods):
             return "gang_semantics"
+        breaker = _backend._CHAOS["breaker"]
+        if breaker is not None and (breaker.probing
+                                    or _backend._CHAOS["verify"] == "all"
+                                    or not breaker.allow()):
+            # a probe or a verified cycle owes a check against the host the
+            # overlay cannot give; an open breaker denies the dispatch
+            return "breaker_open"
         reason = dev.residency_miss(inc, self._plan_key)
         if reason is not None:
             return reason
@@ -1001,25 +1167,53 @@ class StreamSession:
             return reason
         return cols
 
-    def _overlay_dispatch(self, pods: List[Pod], cols) -> List[Placement]:
+    def _overlay_dispatch(self, pods: List[Pod], cols
+                          ) -> Optional[List[Placement]]:
         """Mark -> commit -> scan -> decode -> roll back. A device error
         rolls the journal back, drops residency (the next real cycle
-        restages from host truth) and raises."""
+        restages from host truth) and raises. Under an installed chaos seam
+        an injected fault or a scripted corruption drops the overlay the
+        same way but returns None (counted in
+        tpusim_overlay_fallback_total): the caller takes the staged path."""
         inc = self.inc
         dev = self.device
+        injector = _backend._CHAOS["injector"]
+        breaker = _backend._CHAOS["breaker"]
         mark = inc.journal_mark()
         rr_save = dev.carry.rr.clone()
         sa_save = dev.carry.sa_lock.clone()
         try:
             self._commit()
+            corrupt_kind = (injector.begin_dispatch()
+                            if injector is not None else None)
             xs_host = self._xs_host(pods, cols)
             with flight.span("overlay_scan", "device", self.torch_device):
                 choices, counts = _Fetch(dev.scan(xs_host), len(pods)).get()
-        except Exception:
+        except Exception as exc:
             inc.journal_rollback(mark)
             dev.invalidate()
+            from tpusim_torch.chaos.engine import DeviceFault
+
+            if isinstance(exc, DeviceFault):
+                if breaker is not None:
+                    breaker.record_failure(f"{type(exc).__name__}: {exc}")
+                register().overlay_fallback.inc("device_fault")
+                flight.note_route("overlay_fallback", len(pods))
+                return None
             raise
+        if corrupt_kind is not None:
+            # the reported choices may not be the device's own decisions,
+            # so the row-wise restore below cannot be trusted to cover every
+            # bound node: drop residency instead (the next real cycle
+            # restages from host truth)
+            inc.journal_rollback(mark)
+            dev.invalidate()
+            register().overlay_fallback.inc("corruption")
+            flight.note_route("overlay_fallback", len(pods))
+            return None
         self._overlay_rollback(cols, choices, mark, sa_save, rr_save)
+        if breaker is not None:
+            breaker.record_success()
         with flight.span("overlay_decode"):
             placements = self._decode(pods, choices, counts, dev.compiled)
         provenance.capture(placements, "overlay", cycle=self.cycles)
