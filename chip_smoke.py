@@ -12,7 +12,8 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
      bit-equal (tolerance 0: all values are integers);
   4. the main path at full size, config 3 (100k Zipf pods on 5k
      heterogeneous nodes), through TorchBackend on the card: the placement
-     golden, the scheduled count, and launches > 0 of every kernel;
+     golden, the scheduled count, and launches > 0 of every kernel, cold
+     and warm;
   5. config 4's CPU shape (100k pods on 2k nodes, half the pods zone-pinned)
      the same way;
   6. on the first chunk of each of those two workloads (the main path's
@@ -75,9 +76,9 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
      with the documentation's two-tier hostname terms; 20,000 pods on 5,000
      nodes, a plan the kernel refuses) through TorchBackend(route="auto")
      on the card: it must take the scan, and place by the golden the JAX
-     package records; cold and warm wall; then the scan alone, eagerly on
-     its first 2,000 pods and as the backend runs it (blocks of steps
-     replayed as CUDA graphs) on all of them, each with its device span
+     package records; cold and warm wall; then the scan alone, eagerly on its
+     first 400 pods and as the backend runs it (blocks of steps replayed
+     as CUDA graphs) on its first 4,000, each with its device span
      (CUDA events) and microseconds a pod; then the reference
      quickstart (byte-granular memory) through run_simulation on the card,
      with the host route made to raise, whose split must digest as the JAX
@@ -85,7 +86,7 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
  16. the host route on the card's machine, each part with its wall (host
      time): (a) the quickstart through run_simulation with backend
      "reference" and "auto" (which must pick the host for 20 pods on 4
-     nodes), both with the quickstart's digest; (b) config 3's first 100
+     nodes), both with the quickstart's digest; (b) config 3's first 40
      pods on its 5,000 nodes, and config 4's node-affinity shape cut to
      300 pods on 8 nodes (a third of them fail, with two dozen distinct
      FitError texts), each through backend "reference" and through
@@ -113,21 +114,22 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
      host's share of the wall (1 - the CUDA-event spans of the speculation
      chunks and the victim selections over the wall); (c) preempt_select
      on the card against the same call on the CPU, on every set of lanes
-     (b) produced, equal (tolerance 0), then those calls replayed under
-     torch.profiler for the card's busy time a call;
+     (b) produced, equal (tolerance 0), then the first PROFILED_SELECTS of
+     those calls replayed under torch.profiler for the card's busy time a
+     call;
  18. the chunked scan: config 3's first 8,192 pods on its 5,000 nodes
      through TorchBackend(route="scan") whole and with TPUSIM_SCAN_CHUNK
      2,048: choices, counts, advanced and the final carry bit-equal, with
      the walls and µs a pod of each;
- 19. BASELINE config 5: (a) 8 of its 50 scenarios (a cut of depth for the
+ 19. BASELINE config 5: (a) 2 of its 50 scenarios (a cut of depth for the
      script's time) of 20,000 pods on 1,000 nodes (build_workload, seeds
-     1000-1007) through run_what_if on route
+     1000-1001) through run_what_if on route
      "auto": one fast_scan a scenario on the kernel, with the wall, pods/s,
-     kernel time (CUDA events) and host share; (b) the first 8 again on the
+     kernel time (CUDA events) and host share; (b) the 2 again on the
      batched scan (route "scan"), every scenario's placement hash equal to
      (a)'s, with its µs a step; (c) bench.py's CPU shape (8 x 5,000 x 500)
      on both routes, the JAX package's combined digest; then the batched
-     step's kernels and device busy time at S = 1 and S = 8 under
+     step's kernels and device busy time at S = 1 and S = 2 under
      torch.profiler;
  20. bench.py's config 8 through the serve fleet (ScenarioFleet, buckets of
      8): 64 requests of the first 1,001-2,000 pods of a 2,000-pod pool on
@@ -143,8 +145,9 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
      cycle held against a fresh TorchBackend.schedule); bench.py's CPU
      shape (800 nodes, 24 cycles), the JAX package's placement and fold
      chains;
- 22. bench config 10, its policy at 4,000 nodes with label and taint churn,
-     synchronous and pipelined: equal chains, no restage after the cold
+ 22. bench config 10, its policy with label and taint churn: the churn
+     curve at 4,000 nodes, and synchronous, pipelined and restage arms at
+     1,000, 4,000 and 16,000 nodes: equal chains, no restage after the cold
      start; the CPU shape against the JAX package's chains;
  23. bench config 13, gangs on the stream: 2,000 racked nodes, 30 cycles of
      32 arrivals and 2 gangs of 8, verified, with the host route made to
@@ -250,9 +253,9 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
      to SLO_RUNS runs); phase
      27's twin behind a fleet answering 8 traced requests by overlays,
      each one connected trace, the serve SLO path counting 8; (c) `stream --listen 127.0.0.1:0 --slo-target-ms 30
-     --metrics-out` on 4,000 nodes as a child process: the listening line
-     and tpusim_slo_* counting. Phases 30-31 fail past their 120 s
-     budget;
+     --metrics-out` on 4,000 nodes as a child process (run beside 30b's):
+     the listening line and tpusim_slo_* counting. Phases 30-31 fail past
+     their 120 s budget;
  32. chaos on the card (bench config 11): (a) config 3 through
      run_simulation(backend="torch", chaos_plan=...) with the host route
      made to raise, behind an armed breaker whose faults lie past its one
@@ -277,7 +280,36 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
      pipelined crash after cycle 24's bind record at cadence 5, and the
      `stream` command crashed by --chaos-plan (rc 3) and recovered with
      --recover as child processes: every recovered fold chain the
-     uninterrupted golden. Phases 32-33 fail past their 120 s budget.
+     uninterrupted golden. Phases 32-33 fail past their 120 s budget;
+ 34. the chain audit at config 11's stream shape: the journal written on
+     the card (checkpoint_every=0), a copy with cycle 16's first bind
+     flipped; audit_wal_pair on the card: the identical pair "identical",
+     the flipped pair divergent at cycle 16, kind "bind", the one-row bind
+     diff, the forensic re-run (explain lanes, top 3) agreeing with "a",
+     the report's digest the JAX package's, and the `audit --json` child
+     the same report; the bisect's and the replay's walls;
+ 35. multi-tenant residency: (a) bench config 16's tenancy curve (two
+     tenants of 200 nodes after 4 warm cycles of 32, seed 16), each evicted
+     and restored, evict and restore ms, every chain intact; (b) four
+     tenants of 4,000 nodes under a budget of 2.5 times one twin's bytes,
+     each driven in turn for 8 cycles of 64, twice over: the JAX package's
+     evictions, restores and chains, no touch over the budget, every
+     eviction freeing at least its twin's bytes of memory_allocated, the
+     restores' ms p50 and max;
+ 36. bench config 15 at its accelerator shape (config 11's stream): the
+     RTO curve at checkpoint cadences 1, 5 and 20 with the leader killed
+     after kill_leader_campaign(seed=11)'s emit record, each promoted onto
+     the crash-free golden with a tail-only replay (RTO ms, traced and
+     split into the promotion's spans, replayed and total records, graphs
+     each side captured); the lag curve at 32, 64
+     and 128 arrivals at cadence 5, drained, the follower's chain the
+     leader's and the JAX package's, the same graphs on both sides; a
+     fleet answering 8 requests from a follower's twin
+     (ScenarioFleet.attach_replica) as its staged answers; the CLI pair, a
+     `follow --watch-leader` child promoting itself when a `stream
+     --replicate-to --listen` child dies by a process-crash plan, onto the
+     golden chain at the crash cycle; no fused kernel launch over the
+     phase. Phases 34-36 fail past their 120 s budget.
 Phases 4-15 run TorchBackend with fallback="error", and phases 15, 16b and
 17 run run_simulation on the card with the host route made to raise, so a
 workload that started to reroute to the host fails them; phases 4-12 run
@@ -329,10 +361,11 @@ QUICKSTART_JSON = json.dumps([
 QUICKSTART_DIGEST = "f00595f62c75d722"
 # phase 16: the host route's workloads, and the split digest (and the
 # preempted count) of the JAX package's run_simulation(backend="reference")
-# on each (tools/port_golden.py config3_host 100 5000, config4_host 300 8,
+# on each (tools/port_golden.py config3_host 40 5000, config4_host 300 8,
 # config6 3000 150). Config 3's host slice was 200 pods (3457639aca7e71a8)
-# until phases 32-33 came; at 100 the script's wall stays under 1,000 s
-HOST_CONFIG3 = (dict(num_pods=100, num_nodes=5_000), "1fabcef2c795bc4b")
+# until phases 32-33 came, then 100 (1fabcef2c795bc4b: 15.2-18.8 s of host
+# wall) until phases 34-36 came, for the script's wall
+HOST_CONFIG3 = (dict(num_pods=40, num_nodes=5_000), "28cee1283857cba2")
 HOST_CONFIG4 = (dict(num_pods=300, num_nodes=8, affinity=True),
                 "da38c454da519992")
 HOST_CONFIG6 = (dict(num_pods=3_000, num_nodes=150, affinity=True,
@@ -345,6 +378,9 @@ HOST_BUDGET_S = 150
 HYBRID_CONFIG6 = (dict(num_pods=20_000, num_nodes=1_000, affinity=True,
                        priorities=True, seed=777),
                   "35a42fdde29dd2aa", (19_731, 155, 114))
+# phase 17c: the preempt_select calls replayed under torch.profiler (all 114
+# of them until the warm reruns of phases 5-15 came back)
+PROFILED_SELECTS = 16
 # phase 18: config 3's first pods on its nodes through the scan route,
 # whole and in chunks of TPUSIM_SCAN_CHUNK pods
 CHUNKED_SCAN = (dict(num_pods=8_192, num_nodes=5_000), 2_048)
@@ -352,14 +388,17 @@ CHUNKED_SCAN = (dict(num_pods=8_192, num_nodes=5_000), 2_048)
 # seed=1000 + s): at full shape, the first BATCHED_SCENARIOS of them again on
 # the batched scan, and at bench.py's CPU shape with the combined digest of
 # the JAX package's run_what_if (tools/port_golden.py config5). Config 5 has
-# 50 scenarios; 8 run here, at full width: with all 50, phases 18-20 took
+# 50 scenarios; 2 run here, at full width: with all 50, phases 18-20 took
 # 260-273 s of their 300 s budget on an H100's machine (its host time alone,
 # about 3 s a scenario, varies by 10-30% between runs), with 32 the whole
 # script took 764 s once phases 21-24 came, and with 16 it took 989.5 s once
-# phases 32-33 came, against the 1,000 s it must stay under
+# phases 32-33 came, against the 1,000 s it must stay under; 4 when phases
+# 34-36 came (8 until then: 15.4 s of 19a's wall and 25.0 s of 19b's, the
+# batched scan taking all 8, on an H100's machine), and 2 since the warm
+# reruns of phases 5-15 came back (4: 13.5 s of 19a and 16.3 s of 19b)
 CONFIG5_SCENARIOS = 50
-WHATIF_CONFIG5 = dict(scenarios=8, num_pods=20_000, num_nodes=1_000)
-BATCHED_SCENARIOS = 8
+WHATIF_CONFIG5 = dict(scenarios=2, num_pods=20_000, num_nodes=1_000)
+BATCHED_SCENARIOS = 2
 WHATIF_CPU_SHAPE = (dict(scenarios=8, num_pods=5_000, num_nodes=500),
                     "ea6b76450d7828a9")
 # phase 20: bench.py's config 8 through the serve fleet: the workload the
@@ -547,10 +586,52 @@ CONFIG11_GOLDEN = {
 }
 # phases 32-33 together, seconds
 CHAOS_BUDGET_S = 120
+# phases 34-36: the audit at config 11's stream shape with cycle
+# AUDIT_FLIP_CYCLE's first bind flipped in a copy of the journal; bench
+# config 16's tenancy curve at its accelerator shape (bench.py:2130-2160)
+# and a pressure arm of TENANCY_PRESSURE tenants at config 9's width under
+# a budget of budget_twins twins, driven in turn, `rounds` times; bench
+# config 15 (bench.py:1925-2033) at its accelerator shape (config 11's
+# stream): the RTO curve by checkpoint cadence with the leader killed at
+# kill_leader_campaign(seed=11)'s emit point, the lag curve by arrivals at
+# cadence 5, the CLI pair and REPLICA_REQUESTS fleet requests answered by
+# a follower's twin. Goldens recorded by `tools/port_golden.py config15`
+AUDIT_FLIP_CYCLE = 16
+TENANCY_CURVE = dict(nodes=200, warm_cycles=4, arrivals=32, seed=16)
+TENANCY_PRESSURE = dict(tenants=4, nodes=4_000, cycles=8, arrivals=64,
+                        rounds=2, budget_twins=2.5, seed=9)
+CONFIG15 = dict(cadences=(1, 5, 20), lag_arrivals=(32, 64, 128),
+                lag_cadence=5, seed=11)
+REPLICA_REQUESTS = 8
+CONFIG15_GOLDEN = {
+    "audit": "2582af373b81cc9b",
+    "tenancy": {
+        "evictions": [[t, "pressure"]
+                      for t in ("t0", "t1", "t2", "t3", "t0", "t1")],
+        "restores": ["t0", "t1", "t2", "t3"],
+        "chains": {
+            "t0": "ba084f6e14041da60d9ce7189e0d926ec30e4d5279c27e33e44d6a673f5d8456",
+            "t1": "96ddc85516136ee5edea89d6cd2fea93520f9d56be25fa15ef963984c2644ef0",
+            "t2": "eca6af4850a57233a3c7f9f0f5d83837733901f4ad6a6d45e66ca5a2a9a8dd20",
+            "t3": "fd7731b90541e337c89abd1f147146d13217e00650bb8ecea1e778c7f194554c"}},
+    "replication": {
+        "cli_head": "96f9ab4950370746c2e74703b5fdc084b9e8d347172cae92a4a3662b63f4516f",
+        "rto": {"1": "d95d54674bf369b859cec24a5a4838f9b0ed67133b8c9684948ac7c2aaf0f1b7",
+                "5": "d95d54674bf369b859cec24a5a4838f9b0ed67133b8c9684948ac7c2aaf0f1b7",
+                "20": "d95d54674bf369b859cec24a5a4838f9b0ed67133b8c9684948ac7c2aaf0f1b7"},
+        "lag": {"32": "28ab48e115cb3f9598f0d122dd283c3b22dac406e0752cfb80bdeb8108e87e6d",
+                "64": "d95d54674bf369b859cec24a5a4838f9b0ed67133b8c9684948ac7c2aaf0f1b7",
+                "128": "41ea5fcb3de36521cc169551c0f0bdbade59b4305bd7c27472bfe6fdd00204bb"}},
+}
+# phases 34-36 together, seconds
+REPLICATION_BUDGET_S = 120
 
 ROUTES_PODS = 2_048
-# phase 15: the pods of the scan timed eagerly, beside the graph replay
-SCAN_EAGER_PODS = 2_000
+# phase 15: the pods of the scan timed eagerly, and from its graphs (400 and
+# 4,000 since phases 34-36 came; 2,000 and all 20,000 until then, 11.5 s
+# and 13.4 s of wall on an H100's machine)
+SCAN_EAGER_PODS = 400
+SCAN_GRAPH_PODS = 4_000
 # the phase that drives each main-path workload, the kernel variant it must
 # launch, and the scheduler policy it runs under (workloads.COMPAT_POLICIES)
 PHASE = {"config3": 4, "config4_cpu_shape": 5, "groups": 8, "interpod": 10,
@@ -1732,10 +1813,12 @@ def drive_scan_route(card, cuda):
 
     # the scan alone: eagerly (one launch an operation) on the first
     # SCAN_EAGER_PODS pods, and as the backend runs it (blocks of
-    # GRAPH_STEPS steps replayed as CUDA graphs) on every pod
+    # GRAPH_STEPS steps replayed as CUDA graphs) on the first
+    # SCAN_GRAPH_PODS
     config, compiled, cols, ptabs = compile_inputs(snapshot, pods)
     carry, statics, xs = scan_inputs(config, compiled, cols, ptabs, cuda)
-    for graph_steps, count in ((0, SCAN_EAGER_PODS), (GRAPH_STEPS, n)):
+    for graph_steps, count in ((0, SCAN_EAGER_PODS),
+                               (GRAPH_STEPS, SCAN_GRAPH_PODS)):
         part = type(xs)(*(col[:count] for col in xs))
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
@@ -2057,13 +2140,15 @@ def drive_hybrid(card):
     if not selects or worst:
         raise AssertionError("phase 17c: preempt_select on the card differs "
                              "from the CPU")
-    # the same calls replayed under torch.profiler: the card's busy time,
-    # without the host's launch gaps the CUDA-event spans of (b) include
+    # the first of those calls replayed under torch.profiler: the card's
+    # busy time, without the host's launch gaps the CUDA-event spans of (b)
+    # include
+    profiled = selects[:PROFILED_SELECTS]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for args, _, _, _ in selects:
+        for args, _, _, _ in profiled:
             real_select(*args)
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
@@ -2072,9 +2157,9 @@ def drive_hybrid(card):
     n_kernels = sum(e.count for e in kernels)
     if busy_us > 0:
         print(f"phase 17c: preempt_select replayed under torch.profiler: "
-              f"{busy_us / len(selects):.1f} us of device busy time and "
-              f"{n_kernels / len(selects):.0f} kernels a call, over "
-              f"{len(selects)} calls on {card}")
+              f"{busy_us / len(profiled):.1f} us of device busy time and "
+              f"{n_kernels / len(profiled):.0f} kernels a call, over the "
+              f"first {len(profiled)} of the {len(selects)} calls on {card}")
     else:
         print("phase 17c: preempt_select device busy time not measured "
               "(the profiler recorded no device time)")
@@ -3368,7 +3453,9 @@ def run_children(commands, timeout=300):
 def drive_live_cli(card):
     """Phase 30b: the main command against the same apiserver, as child
     processes on the card: with the ConfigMap's policy, with the default
-    provider, and with a ConfigMap that lacks policy.cfg."""
+    provider, and with a ConfigMap that lacks policy.cfg. Phase 31c's child
+    runs beside them; returns its (rc, stdout, stderr, seconds) and its
+    metrics dump."""
     import tempfile
 
     import tpusim_torch.api.snapshot as api
@@ -3380,10 +3467,16 @@ def drive_live_cli(card):
             kubeconfig, podspec = write_live_files(tmp, server.url)
             base = [sys.executable, "-m", "tpusim_torch.cli", "--kubeconfig",
                     kubeconfig, "--podspec", podspec]
-            policy, provider, missing = run_children([
+            metrics = os.path.join(tmp, "m.prom")
+            policy, provider, missing, telemetry = run_children([
                 base + ["--scheduler-policy-configmap", LIVE_POLICY[1]],
                 base,
-                base + ["--scheduler-policy-configmap", "no-key"]])
+                base + ["--scheduler-policy-configmap", "no-key"],
+                [sys.executable, "-m", "tpusim_torch.cli", "stream",
+                 "--synthetic-nodes", "4000", "--listen", "127.0.0.1:0",
+                 "--slo-target-ms", "30", "--metrics-out", metrics]])
+            text = (open(metrics).read() if os.path.exists(metrics)
+                    else "")
     finally:
         server.stop()
     for name, (rc, stdout, stderr, secs) in (("policy", policy),
@@ -3406,6 +3499,7 @@ def drive_live_cli(card):
     if rc != 2 or last != want:
         raise AssertionError("phase 30b: the missing key's error differs "
                              "from the JAX package's")
+    return telemetry, text
 
 
 def drive_watch_stream(card):
@@ -3860,18 +3954,10 @@ def drive_traced_fleet(card):
                              "are incomplete")
 
 
-def drive_telemetry_cli(card):
+def drive_telemetry_cli(card, child):
     """Phase 31c: `stream --listen --slo-target-ms --metrics-out` once, as a
-    child process."""
-    import tempfile
-
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "m.prom")
-        [(rc, stdout, stderr, secs)] = run_children([[
-            sys.executable, "-m", "tpusim_torch.cli", "stream",
-            "--synthetic-nodes", "4000", "--listen", "127.0.0.1:0",
-            "--slo-target-ms", "30", "--metrics-out", path]])
-        text = open(path).read() if os.path.exists(path) else ""
+    child process (run beside phase 30b's: drive_live_cli's result)."""
+    (rc, stdout, stderr, secs), text = child
     series = parse_exposition(text)
     judged = sum(v for k, v in series.items()
                  if k.startswith("tpusim_slo_cycles_total"))
@@ -3889,10 +3975,10 @@ def drive_live_phases(card):
     """Phases 30-31 inside LIVE_BUDGET_S."""
     t0 = time.perf_counter()
     drive_live_snapshot(card)
-    drive_live_cli(card)
+    telemetry_child = drive_live_cli(card)
     drive_watch_stream(card)
     drive_traces(card, drive_telemetry(card))
-    drive_telemetry_cli(card)
+    drive_telemetry_cli(card, telemetry_child)
     wall = time.perf_counter() - t0
     print(f"phases 30-31: {wall:.1f}s wall in all, against their "
           f"{LIVE_BUDGET_S} s budget")
@@ -4221,6 +4307,610 @@ def drive_chaos_phases(card):
     return launches
 
 
+def audit_digest(report):
+    """sha256 of an audit report without its wall times (the decision
+    records' ts) and with its two directories named "a" and "b" (JSON with
+    sorted keys), first 16 hex digits."""
+    body = json.loads(json.dumps(report))
+    body["a"], body["b"] = "a", "b"
+    for rec in body.get("replay", {}).get("decisions", []):
+        rec.pop("ts", None)
+    return hashlib.sha256(json.dumps(body, sort_keys=True).encode()
+                          ).hexdigest()[:16]
+
+
+def flip_first_bind(directory, cycle):
+    """Bind the first pod of `cycle`'s bind record in a journal to another
+    node the journal binds to (tests/test_audit.py's recipe); returns
+    (pod, node, the other node)."""
+    path = os.path.join(directory, "wal.jsonl")
+    with open(path, encoding="utf-8") as f:
+        records = [json.loads(line) for line in f if line.strip()]
+    nodes = sorted({n for r in records if r["k"] == "bind"
+                    for _, n in r["b"]})
+    target = next(r for r in records
+                  if r["k"] == "bind" and r["c"] == cycle and r["b"])
+    pod, node = target["b"][0]
+    flipped = next(n for n in nodes if n != node)
+    target["b"][0] = [pod, flipped]
+    with open(path, "w", encoding="utf-8") as f:
+        for rec in records:
+            f.write(json.dumps(rec, separators=(",", ":")) + "\n")
+    return pod, node, flipped
+
+
+def journal_heads(directory):
+    """The fold chain after each emit record of a journal, in order."""
+    from tpusim_torch.stream.persist import chain_fold
+
+    heads, chain = [], ""
+    with open(os.path.join(directory, "wal.jsonl"), encoding="utf-8") as f:
+        for line in f:
+            rec = json.loads(line)
+            if rec["k"] == "emit":
+                chain = chain_fold(chain, rec["h"])
+                heads.append(chain)
+    return heads
+
+
+def tenancy_pressure(make_budget, cluster, gen_cls, register, root,
+                     settle=None):
+    """Phase 35b's drive, with either package's ResidencyBudget factory
+    (a byte budget -> a ledger), synthetic_cluster, ChurnLoadGen and
+    metrics register: the TENANCY_PRESSURE tenants admitted in turn, each
+    driven for `cycles` cycles in turn, `rounds` times over; after the
+    first tenant's cycles the budget becomes budget_twins times its twin's
+    bytes. Everything is read from the ledger's own surface: a tenant that
+    is not resident is restored by restore() (timed) before it is touched;
+    the tenants resident before a touch (admit() or session()) and not
+    after it were evicted by it, coldest first, each counted under reason
+    "pressure" in tpusim_tenant_evictions_total. With settle (a callable
+    giving the device's allocated bytes once settled), each touch that
+    finds the ledger over its budget, and so evicts, is measured: (the
+    tenants it evicted, the bytes it took off total_bytes(), the allocated
+    bytes it gave back). Returns (record, ledger): the record holds the
+    evictions ([tenant, reason] in order), the restores (tenants in order)
+    and their ms, those measurements, each tenant's final chain, the first
+    twin's bytes, and the session() touches that left the ledger over its
+    budget."""
+    import itertools
+
+    p = TENANCY_PRESSURE
+    names = [f"t{i}" for i in range(p["tenants"])]
+    budget = make_budget(1 << 40)
+    evictions = register().tenant_evictions
+    out = {"evictions": [], "restores": [], "restore_ms": [], "freed": [],
+           "touches": 0, "over_budget": 0}
+    last_touch, clock = {}, itertools.count()
+
+    def touch(name, call):
+        resident = [n for n in budget.tenants() if budget.resident(n)]
+        held = budget.total_bytes()
+        measured = settle is not None and held > budget.budget_bytes
+        if measured:
+            allocated = settle()
+        counted = evictions.get("pressure")
+        last_touch[name] = next(clock)
+        result = call()
+        gone = sorted((n for n in resident if not budget.resident(n)),
+                      key=last_touch.__getitem__)
+        if evictions.get("pressure") - counted != len(gone):
+            raise AssertionError(f"{name}'s touch evicted {gone}, not all "
+                                 "of them counted under pressure")
+        out["evictions"] += [[n, "pressure"] for n in gone]
+        if measured and gone:
+            out["freed"].append((gone, held - budget.total_bytes(),
+                                 allocated - settle()))
+        return result
+
+    def session(name):
+        if not budget.resident(name):
+            t0 = time.perf_counter()
+            budget.restore(name)
+            out["restore_ms"].append((time.perf_counter() - t0) * 1e3)
+            out["restores"].append(name)
+        live = touch(name, lambda: budget.session(name))
+        out["touches"] += 1
+        if budget.total_bytes() > budget.budget_bytes:
+            out["over_budget"] += 1
+        return live
+
+    gens, done = {}, dict.fromkeys(names, 0)
+    for rnd in range(p["rounds"]):
+        for i, name in enumerate(names):
+            if rnd == 0:
+                touch(name, lambda: budget.admit(
+                    name, cluster(p["nodes"]),
+                    directory=os.path.join(root, name)))
+                gens[name] = gen_cls(cluster(p["nodes"]), seed=p["seed"] + i,
+                                     arrivals=p["arrivals"],
+                                     evict_fraction=0.25)
+            gen = gens[name]
+            for c in range(done[name], done[name] + p["cycles"]):
+                session(name).apply_events(gen.events(c))
+                gen.note_bound(session(name).schedule(gen.batch()))
+            done[name] += p["cycles"]
+            if rnd == 0 and i == 0:
+                out["per_twin"] = budget.total_bytes()
+                budget.budget_bytes = int(p["budget_twins"] * out["per_twin"])
+    out["chains"] = {n: budget.chain(n) for n in names}
+    return out, budget
+
+
+def free_port():
+    """A TCP port on 127.0.0.1 that was free a moment ago."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def drive_audit(card):
+    """Phase 34: the audit at config 11's stream shape on the card: the
+    journal written by run_stream_simulation, a copy with cycle
+    AUDIT_FLIP_CYCLE's first bind flipped, the identical pair, the bisect
+    alone and with the forensic re-run (explain lanes, top 3), and the
+    `audit --json` command as a child; the report's digest the JAX
+    package's."""
+    import shutil
+    import tempfile
+
+    from tpusim_torch.obs.audit import audit_wal_pair
+    from tpusim_torch.simulator import run_stream_simulation
+
+    want = CONFIG15_GOLDEN["audit"]
+    root = tempfile.mkdtemp(prefix="chip-smoke-audit-")
+    try:
+        a, b, same = (os.path.join(root, n) for n in ("a", "b", "same"))
+        t0 = time.perf_counter()
+        out = run_stream_simulation(device="cuda", checkpoint_dir=a,
+                                    checkpoint_every=0, **CONFIG11_STREAM)
+        journal_s = time.perf_counter() - t0
+        if out["fold_chain"] != CONFIG11_GOLDEN["stream"]["fold_chain"]:
+            raise AssertionError("phase 34: the journaled run's chain "
+                                 "differs from config 11's golden")
+        shutil.copytree(a, b)
+        shutil.copytree(a, same)
+        pod, node, flipped = flip_first_bind(b, AUDIT_FLIP_CYCLE)
+        child = subprocess.Popen(
+            [sys.executable, "-m", "tpusim_torch.cli", "audit", a, b,
+             "--json"], cwd=HERE, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        t0 = time.perf_counter()
+        ident = audit_wal_pair(a, same, device="cuda")
+        ident_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        audit_wal_pair(a, b, replay=False, device="cuda")
+        bisect_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        report = audit_wal_pair(a, b, explain_k=3, device="cuda")
+        full_s = time.perf_counter() - t0
+        digest = audit_digest(report)
+        try:
+            cli_out, cli_err = child.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            child.kill()
+            cli_out, cli_err = child.communicate()
+        cli_digest = (audit_digest(json.loads(cli_out))
+                      if child.returncode == 1 else None)
+        decided = {d["pod"]: d for d in report.get("replay", {}).get(
+            "decisions", [])}
+        top = decided.get(pod, {}).get("top_k", [])
+        print(f"phase 34: audit of config 11's journal "
+              f"({CONFIG11_STREAM['num_nodes']} nodes, "
+              f"{CONFIG11_STREAM['cycles']} cycles of "
+              f"{CONFIG11_STREAM['arrivals']}; written in {journal_s:.3f}s): "
+              f"identical pair {ident['verdict']} in {ident_s * 1e3:.1f} ms; "
+              f"cycle {AUDIT_FLIP_CYCLE}'s first bind flipped ({pod}: {node} "
+              f"-> {flipped}): divergent cycle {report['divergent_cycle']}, "
+              f"kind {report.get('kind')}, bind diff "
+              f"{len(report.get('bind_diff', []))} row(s), re-decision "
+              f"agrees with {report.get('replay_agrees_with')}, {len(top)} "
+              f"candidates with parts; bisect {bisect_s * 1e3:.1f} ms, "
+              f"replay {(full_s - bisect_s) * 1e3:.1f} ms "
+              f"(restages {report.get('replay', {}).get('restages')}); "
+              f"digest {digest} (want {want}); `audit --json` child rc "
+              f"{child.returncode}, digest {cli_digest} on {card}")
+        if ident["verdict"] != "identical":
+            raise AssertionError("phase 34: the identical pair diverged")
+        if (report["divergent_cycle"], report.get("kind"),
+                report.get("bind_diff"), report.get("replay_agrees_with")) \
+                != (AUDIT_FLIP_CYCLE, "bind",
+                    [{"pod": pod, "a": node, "b": flipped}], "a"):
+            raise AssertionError(f"phase 34: the audit missed the flip: "
+                                 f"{json.dumps(report)[:800]}")
+        if "violations" in report["replay"] or not top:
+            raise AssertionError("phase 34: the forensic re-run disagrees "
+                                 "or carries no explain lanes")
+        if digest != want:
+            raise AssertionError("phase 34: the report differs from the "
+                                 "JAX package's")
+        if cli_digest != digest:
+            raise AssertionError(f"phase 34: the CLI's report differs: "
+                                 f"{cli_err[-500:]}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def drive_tenancy(card):
+    """Phase 35: (a) config 16's tenancy curve (two tenants of 200 nodes
+    after 4 warm cycles, each evicted and restored), every chain intact;
+    (b) the pressure arm (tenancy_pressure on the card): the JAX package's
+    evictions, restores and chains, no touch over the budget, and each
+    touch that evicts giving back at least the bytes it took off the
+    ledger's total_bytes() in memory_allocated."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from tpusim_torch.api.snapshot import synthetic_cluster
+    from tpusim_torch.framework.metrics import register
+    from tpusim_torch.stream import ChurnLoadGen, ResidencyBudget
+
+    root = tempfile.mkdtemp(prefix="chip-smoke-tenancy-")
+    try:
+        c = TENANCY_CURVE
+        budget = ResidencyBudget(1 << 40, device="cuda")
+        for name in ("a", "b"):
+            session = budget.admit(name, synthetic_cluster(c["nodes"]),
+                                   directory=os.path.join(root, "curve",
+                                                          name))
+            gen = ChurnLoadGen(synthetic_cluster(c["nodes"]), seed=c["seed"],
+                               arrivals=c["arrivals"], evict_fraction=0.25)
+            for cycle in range(c["warm_cycles"]):
+                session.apply_events(gen.events(cycle))
+                gen.note_bound(session.schedule(gen.batch()))
+        for name in ("a", "b"):
+            chain = budget.chain(name)
+            t0 = time.perf_counter()
+            budget.evict(name)
+            evict_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            budget.restore(name)
+            restore_ms = (time.perf_counter() - t0) * 1e3
+            intact = budget.chain(name) == chain
+            print(f"phase 35a: config 16 tenant {name} ({c['nodes']} nodes, "
+                  f"{c['warm_cycles']} warm cycles of {c['arrivals']}): "
+                  f"evict {evict_ms:.1f} ms, restore {restore_ms:.1f} ms, "
+                  f"chain intact {intact} on {card}")
+            if not intact:
+                raise AssertionError(f"phase 35a: tenant {name}'s chain "
+                                     "moved across the round trip")
+
+        def settle():
+            torch.cuda.synchronize()
+            gc.collect()
+            return torch.cuda.memory_allocated()
+
+        p = TENANCY_PRESSURE
+        want = CONFIG15_GOLDEN["tenancy"]
+        t0 = time.perf_counter()
+        out, _ = tenancy_pressure(
+            lambda b: ResidencyBudget(b, device="cuda"), synthetic_cluster,
+            ChurnLoadGen, register, os.path.join(root, "pressure"), settle)
+        wall = time.perf_counter() - t0
+        ms = sorted(out["restore_ms"])
+        freed = out["freed"]
+        print(f"phase 35b: {p['tenants']} tenants of {p['nodes']} nodes, "
+              f"{p['rounds']} rounds of {p['cycles']} cycles of "
+              f"{p['arrivals']} each in turn, budget {p['budget_twins']} x "
+              f"{out['per_twin']} bytes: {wall:.3f}s wall; evictions "
+              f"{out['evictions']}; restores {out['restores']}, ms p50 "
+              f"{percentile(ms, 0.5):.1f} / max {ms[-1]:.1f}; "
+              f"{out['over_budget']} of {out['touches']} touches over the "
+              f"budget; memory_allocated freed per evicting touch "
+              f"{[(g, f) for g, _, f in freed]} against the bytes it took "
+              f"off the ledger {[b for _, b, _ in freed]}; chains equal the "
+              f"JAX package's {out['chains'] == want['chains']} on {card}")
+        if (out["evictions"], out["restores"], out["chains"]) != (
+                want["evictions"], want["restores"], want["chains"]):
+            raise AssertionError("phase 35b: the evictions, restores or "
+                                 "chains differ from the JAX package's")
+        if out["over_budget"]:
+            raise AssertionError("phase 35b: a touch left the ledger over "
+                                 "its budget")
+        if sum(len(g) for g, _, _ in freed) != len(out["evictions"]) or any(
+                nbytes <= 0 or got < nbytes for _, nbytes, got in freed):
+            raise AssertionError("phase 35b: an eviction kept its twin's "
+                                 "device memory")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def start_follow_child(ckdir, bind, listen):
+    """The `follow --watch-leader` child of phase 36's CLI pair."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "tpusim_torch.cli", "follow", "--bind",
+         f"127.0.0.1:{bind}", "--checkpoint-dir", ckdir, "--watch-leader",
+         f"127.0.0.1:{listen}", "--watch-interval", "0.05",
+         "--watch-timeout", "240", "--synthetic-nodes",
+         str(CONFIG11_STREAM["num_nodes"]), "--checkpoint-every", "5",
+         "--json"], cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+
+def wait_for_line(stream, text, timeout):
+    """Read lines of a child's pipe until one holds `text` (True), EOF or
+    the timeout (False)."""
+    import select
+
+    deadline = time.monotonic() + timeout
+    while True:
+        remaining = deadline - time.monotonic()
+        if remaining <= 0:
+            return False
+        ready, _, _ = select.select([stream], [], [], remaining)
+        if not ready:
+            return False
+        line = stream.readline()
+        if not line:
+            return False
+        if text in line:
+            return True
+
+
+def promotion_split(trace):
+    """A traced replicated run's promotion, ms by span: its tail replay,
+    its settle pass, the span around both (replicate:promote) and its
+    closing checkpoint (the first recover:checkpoint after that span)."""
+    spans = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    took = {e["name"]: e["dur"] / 1e3 for e in spans if e["name"] in (
+        "promote:tail_replay", "promote:settle", "replicate:promote")}
+    end = max((e["ts"] + e["dur"] for e in spans
+               if e["name"] == "replicate:promote"), default=None)
+    closing = sorted((e["ts"], e["dur"] / 1e3) for e in spans
+                     if e["name"] == "recover:checkpoint" and end is not None
+                     and e["ts"] >= end)
+    took["recover:checkpoint"] = closing[0][1] if closing else 0.0
+    return took
+
+
+def drive_replication(card):
+    """Phase 36: bench config 15 at its accelerator shape (config 11's
+    stream): the RTO curve by checkpoint cadence, the lag curve by
+    arrivals, the CLI pair (a `follow --watch-leader` child promoting when
+    a `stream --replicate-to --listen` child dies by a process-crash plan),
+    and a fleet answering REPLICA_REQUESTS requests from a follower's
+    twin; the fused kernel's launches over the phase."""
+    import shutil
+    import tempfile
+
+    from tpusim_torch.api.snapshot import make_pod, synthetic_cluster
+    from tpusim_torch.backends import placement_hash
+    from tpusim_torch.chaos.plan import CRASH_POINTS, kill_leader_campaign
+    from tpusim_torch.framework.metrics import register
+    from tpusim_torch.kernels.fastscan import fastscan_chunk
+    from tpusim_torch.serve import ScenarioFleet, WhatIfRequest
+    from tpusim_torch.simulator import run_replicated_stream
+    from tpusim_torch.stream import (
+        ChurnLoadGen,
+        StreamPersistence,
+        StreamSession,
+    )
+    from tpusim_torch.stream.replicate import FollowerTwin, WalShipper
+
+    want = CONFIG11_GOLDEN["stream"]["fold_chain"]
+    gold = CONFIG15_GOLDEN["replication"]
+    plan = kill_leader_campaign(seed=CONFIG15["seed"],
+                                cycles=CONFIG11_STREAM["cycles"])[
+        CRASH_POINTS.index("emit")]
+    at = plan.churn[0].at
+    root = tempfile.mkdtemp(prefix="chip-smoke-repl-")
+    children = []
+    reset_launches()
+    try:
+        # the CLI pair's follower starts first: its start-up overlaps the
+        # in-process arms (8 cores)
+        ckdir = os.path.join(root, "cli")
+        bind, listen = free_port(), free_port()
+        follow = start_follow_child(ckdir, bind, listen)
+        children.append(follow)
+        for every in CONFIG15["cadences"]:
+            # traced, for the promotion's own spans
+            t0 = time.perf_counter()
+            out, trace = traced(lambda: run_replicated_stream(
+                device="cuda", chaos_plan=plan, checkpoint_every=every,
+                checkpoint_dir=os.path.join(root, f"rto-{every}"),
+                **CONFIG11_STREAM))
+            wall = time.perf_counter() - t0
+            took = promotion_split(trace)
+            own = out["promote_s"] * 1e3
+            rest = (own - took.get("replicate:promote", 0.0)
+                    - took["recover:checkpoint"])
+            print(f"phase 36: config 15 RTO, leader killed after cycle "
+                  f"{at}'s emit record, checkpoint every {every}: promoted "
+                  f"{out['promoted']}, RTO {out['rto_s'] * 1e3:.2f} ms = "
+                  f"the promotion's own work {own:.2f} ms (tail replay "
+                  f"{took.get('promote:tail_replay', 0.0):.2f} + settle "
+                  f"{took.get('promote:settle', 0.0):.2f} + the closing "
+                  f"checkpoint {took['recover:checkpoint']:.2f} + the "
+                  f"journal's read and the rest {rest:.2f} ms) + the rest "
+                  f"(lock wait, pump stop, detection) "
+                  f"{(out['rto_s'] - out['promote_s']) * 1e3:.2f} ms, "
+                  f"replayed {out['replayed_records']}/{out['wal_records']} "
+                  f"records (lag at the crash {out['lag_at_crash']}), "
+                  f"recomputed {out['recomputed_cycles']}, settled "
+                  f"{out['settled_live_cycles']}, resumed at cycle "
+                  f"{out['resume_cycle']}; graphs {out['graphs']}; "
+                  f"{wall:.3f}s wall; fold {out['fold_chain'][:16]} (want "
+                  f"{want[:16]}) on {card}")
+            if not (out["crashed"] and out["promoted"]) \
+                    or out["divergence"] is not None \
+                    or out["promotion_violations"]:
+                raise AssertionError(f"phase 36: the cadence {every} "
+                                     "failover did not promote cleanly")
+            if out["fold_chain"] != want \
+                    or out["fold_chain"] != gold["rto"][str(every)]:
+                raise AssertionError(f"phase 36: the cadence {every} chain "
+                                     "differs from the crash-free golden")
+            if out["replayed_records"] >= out["wal_records"]:
+                raise AssertionError("phase 36: the promotion replayed the "
+                                     "whole journal")
+            if min(out["graphs"].values()) < 1:
+                raise AssertionError(f"phase 36: a side captured no graph: "
+                                     f"{out['graphs']}")
+        if not wait_for_line(follow.stderr, "replication listener", 120.0):
+            raise AssertionError("phase 36: the follow child never listened")
+        plan_path = os.path.join(root, "crash.json")
+        with open(plan_path, "w") as f:
+            f.write(plan.to_json())
+        leader = subprocess.Popen(
+            [sys.executable, "-m", "tpusim_torch.cli", "stream",
+             "--synthetic-nodes", str(CONFIG11_STREAM["num_nodes"]),
+             "--cycles", str(CONFIG11_STREAM["cycles"]),
+             "--arrivals", str(CONFIG11_STREAM["arrivals"]),
+             "--evict-fraction", str(CONFIG11_STREAM["evict_fraction"]),
+             "--seed", str(CONFIG11_STREAM["seed"]), "--checkpoint-every",
+             "5", "--checkpoint-dir", ckdir, "--replicate-to",
+             f"127.0.0.1:{bind}", "--listen", f"127.0.0.1:{listen}",
+             "--chaos-plan", plan_path], cwd=HERE, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        children.append(leader)
+        t_cli = time.perf_counter()
+        for arrivals in CONFIG15["lag_arrivals"]:
+            t0 = time.perf_counter()
+            out = run_replicated_stream(
+                device="cuda", checkpoint_every=CONFIG15["lag_cadence"],
+                checkpoint_dir=os.path.join(root, f"lag-{arrivals}"),
+                **dict(CONFIG11_STREAM, arrivals=arrivals))
+            wall = time.perf_counter() - t0
+            print(f"phase 36: config 15 lag, {arrivals} arrivals a cycle, "
+                  f"checkpoint every {CONFIG15['lag_cadence']}: "
+                  f"{out['lag_at_loop_end']} of {out['wal_records']} records "
+                  f"unacked at the loop's end, drained {out['drained']}, "
+                  f"{out['wal_records'] / wall:.1f} records/s shipped, "
+                  f"cycle p50 {out['p50_cycle_ms']:.2f} ms, graphs "
+                  f"{out['graphs']}; follower chain matches "
+                  f"{out['follower_chain_matches']}; {wall:.3f}s wall; fold "
+                  f"{out['fold_chain'][:16]} (want "
+                  f"{gold['lag'][str(arrivals)][:16]}) on {card}")
+            if not (out["drained"] and out["follower_chain_matches"]) \
+                    or out["applied_records"] != out["wal_records"]:
+                raise AssertionError(f"phase 36: the {arrivals}-arrival run "
+                                     "did not drain to one chain")
+            if out["fold_chain"] != gold["lag"][str(arrivals)]:
+                raise AssertionError(f"phase 36: the {arrivals}-arrival "
+                                     "chain differs from the JAX package's")
+            if out["graphs"]["leader"] != out["graphs"]["follower"] \
+                    or out["graphs"]["leader"] < 1:
+                raise AssertionError(f"phase 36: the sides captured "
+                                     f"{out['graphs']} graphs")
+
+        # a fleet reading a follower's twin
+        n = CONFIG11_STREAM["num_nodes"]
+        follower = FollowerTwin(synthetic_cluster(n), device="cuda")
+        session = StreamSession(synthetic_cluster(n), device="cuda")
+        persist = StreamPersistence(os.path.join(root, "replica"),
+                                    checkpoint_every=5)
+        shipper = WalShipper(persist, follower.address)
+        session.attach_persistence(persist)
+        fleets = []
+        try:
+            gen = ChurnLoadGen(synthetic_cluster(n), seed=CONFIG15["seed"],
+                               arrivals=CONFIG11_STREAM["arrivals"],
+                               evict_fraction=0.25)
+            for cycle in range(4):
+                session.apply_events(gen.events(cycle))
+                gen.note_bound(session.schedule(gen.batch()))
+            if not shipper.drain(60.0):
+                raise AssertionError("phase 36: the replica never caught up")
+            rng = np.random.RandomState(36)
+            pods = [make_pod(f"replica-q{i}",
+                             milli_cpu=int(rng.randint(100, 1500)),
+                             memory=int(rng.randint(2 ** 20, 2 ** 30)))
+                    for i in range(REPLICA_REQUESTS)]
+            fleet = ScenarioFleet(bucket_size=4, device="cuda")
+            staged = ScenarioFleet(bucket_size=4, device="cuda")
+            fleets += [fleet, staged]
+            fleet.attach_stream(session)
+            fleet.attach_replica(follower)
+            staged.register_snapshot("base",
+                                     follower.session.inc.to_snapshot())
+            before = register().overlay_queries.values.get("follower", 0)
+            t0 = time.perf_counter()
+            answers = fleet.run([WhatIfRequest(pods=pods[:1 + i],
+                                               snapshot_ref="live")
+                                 for i in range(REPLICA_REQUESTS)])
+            replica_ms = (time.perf_counter() - t0) * 1e3
+            from_replica = int(register().overlay_queries.values.get(
+                "follower", 0) - before)
+            want_hashes = [placement_hash(r.result.placements)
+                           for r in staged.run([
+                               WhatIfRequest(pods=pods[:1 + i],
+                                             snapshot_ref="base")
+                               for i in range(REPLICA_REQUESTS)])]
+            got = [placement_hash(r.result.placements) if r.ok else None
+                   for r in answers]
+            print(f"phase 36: ScenarioFleet.attach_replica: "
+                  f"{from_replica}/{REPLICA_REQUESTS} requests answered from "
+                  f"the follower's twin in {replica_ms:.1f} ms, hashes equal "
+                  f"the staged answers {got == want_hashes} on {card}")
+            if from_replica != REPLICA_REQUESTS or got != want_hashes:
+                raise AssertionError("phase 36: the replica's answers differ "
+                                     "or came from elsewhere")
+        finally:
+            for fl in fleets:
+                fl.stop()
+            shipper.close(drain=False)
+            persist.close()
+            follower.stop()
+
+        # the CLI pair's end
+        _, leader_err = leader.communicate(timeout=300)
+        follow_out, follow_err = follow.communicate(timeout=300)
+        lines = [ln for ln in follow_out.splitlines() if ln.startswith("{")]
+        body = json.loads(lines[-1]) if lines else {}
+        crashed = next((ln for ln in leader_err.splitlines()
+                        if ln.startswith("crashed:")), "")
+        print(f"phase 36: the CLI pair: `stream --replicate-to --listen "
+              f"--chaos-plan` rc {leader.returncode} "
+              f"({crashed[:90]}), "
+              f"`follow --watch-leader` rc {follow.returncode}: promoted "
+              f"{body.get('promoted')}, RTO "
+              f"{body.get('rto_s', 0) * 1e3:.2f} ms, replayed "
+              f"{body.get('replayed_records')} tail records, resumed at "
+              f"cycle {body.get('resume_cycle')}, chain "
+              f"{body.get('chain', '')[:16]} (want "
+              f"{gold['cli_head'][:16]}); "
+              f"{time.perf_counter() - t_cli:.1f}s from the leader's start")
+        if leader.returncode != 3 or follow.returncode != 0 \
+                or not body.get("promoted") \
+                or body.get("promotion_violations") \
+                or body.get("resume_cycle") != at + 1 \
+                or body.get("chain") != gold["cli_head"]:
+            raise AssertionError(f"phase 36: the CLI pair failed: "
+                                 f"{leader_err[-400:]} {follow_err[-400:]}")
+        launches = fastscan_chunk.launches
+        print(f"phase 36: fused kernel launches over the phase: {launches} "
+              f"(stream cycles take the resident scan)")
+        if launches:
+            raise AssertionError("phase 36: a stream cycle launched the "
+                                 "fused kernel")
+    finally:
+        for child in children:
+            if child.poll() is None:
+                child.kill()
+                child.communicate()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def drive_replication_phases(card):
+    """Phases 34-36 inside REPLICATION_BUDGET_S."""
+    t0 = time.perf_counter()
+    drive_audit(card)
+    drive_tenancy(card)
+    drive_replication(card)
+    wall = time.perf_counter() - t0
+    print(f"phases 34-36: {wall:.1f}s wall in all, against their "
+          f"{REPLICATION_BUDGET_S} s budget")
+    if wall > REPLICATION_BUDGET_S:
+        raise AssertionError(f"phases 34-36: {wall:.1f}s is past their "
+                             f"{REPLICATION_BUDGET_S} s budget")
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -4236,6 +4926,13 @@ def main():
     print(f"phase 1: card {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     cuda = torch.device("cuda")
+    t_lap = [t_start]
+
+    def lap(label):
+        # the wall of the phases that print none of their own
+        now = time.perf_counter()
+        print(f"{label}: {now - t_lap[0]:.1f}s wall")
+        t_lap[0] = now
 
     t0 = time.perf_counter()
     build.build_all(verbose=True)
@@ -4244,6 +4941,7 @@ def main():
           f"{time.perf_counter() - t0:.1f}s")
 
     max_err = compare_kernel_with_plain(cuda)
+    lap("phases 1-3")
 
     launches, plan3 = drive_main_path("config3", card, cuda)
     _, plan4 = drive_main_path("config4_cpu_shape", card, cuda)
@@ -4254,12 +4952,14 @@ def main():
     for name, plan in (("config3", plan3), ("config4_cpu_shape", plan4)):
         diff, *timed[name] = time_first_chunk(name, plan, card, cuda, 6)
         max_err = max(max_err, diff)
+    lap("phases 4-6")
 
     # phases 7-8: the pod-group variant (Variants 2 and 4)
     group_err = compare_group_kernel_with_plain(cuda)
     group_launches, plan_g = drive_main_path("groups", card, cuda)
     diff, *timed["groups"] = time_first_chunk("groups", plan_g, card, cuda, 8)
     group_err = max(group_err, diff)
+    lap("phases 7-8")
 
     # phases 9-10: the inter-pod variant (Variant 3)
     ip_err = compare_interpod_kernel_with_plain(cuda)
@@ -4267,6 +4967,7 @@ def main():
     diff, *timed["interpod"] = time_first_chunk("interpod", plan_ip, card,
                                                 cuda, 10)
     ip_err = max(ip_err, diff)
+    lap("phases 9-10")
 
     # phases 11-12: the policy variant (Variant 5)
     pol_err = compare_policy_kernel_with_plain(cuda)
@@ -4274,6 +4975,7 @@ def main():
     diff, *timed["policy"] = time_first_chunk("policy", plan_pol, card, cuda,
                                               12)
     pol_err = max(pol_err, diff)
+    lap("phases 11-12")
 
     # phase 13: the cluster at forced sizes on the hazard plans, folded into
     # each variant's error, then the cluster-size sweep
@@ -4284,16 +4986,20 @@ def main():
     pol_err = max(pol_err, hazard["policy"])
     for name, plan in (("config3", plan3), ("policy", plan_pol)):
         cluster_sweep(name, plan, card, cuda)
+    lap("phase 13")
 
     # phases 14-15: the exact sequential scan, against the kernel and alone
     compare_routes(card, cuda)
     drive_scan_route(card, cuda)
+    lap("phases 14-15")
 
     # phase 16: the host route on this machine
     drive_host_route(card)
+    lap("phase 16")
 
     # phase 17: the preemption hybrid
     drive_hybrid(card)
+    lap("phase 17")
 
     # phases 18-20: the chunked scan, batched what-if and the serve fleet
     t_whatif = time.perf_counter()
@@ -4325,6 +5031,10 @@ def main():
     # phases 32-33: chaos on the card (the breaker in front of the kernel,
     # the stream and serve under faults) and the stream's durability
     drive_chaos_phases(card)
+
+    # phases 34-36: the chain audit, multi-tenant residency and the hot
+    # standby with leader failover
+    drive_replication_phases(card)
 
     kernels = []
     for name, variant, replaces, n_launch, err in (

@@ -103,6 +103,20 @@ the digest (chip_smoke.combined_digest) of its ScenarioFleet's answers to
 config 11's serve load without faults (~2-3 min):
 
     JAX_PLATFORMS=cpu python tools/port_golden.py config11
+
+`config15` prints the goldens of phases 34-36 (chip_smoke.CONFIG15_GOLDEN):
+the digest (chip_smoke.audit_digest) of the JAX package's audit_wal_pair
+(explain_k=3) of config 11's journal (checkpoint_every=0) against a copy
+with cycle chip_smoke.AUDIT_FLIP_CYCLE's first bind flipped
+(chip_smoke.flip_first_bind); chip_smoke.tenancy_pressure's evictions,
+restores and final chains with the JAX package's ResidencyBudget; bench
+config 15's fold chain at each checkpoint cadence of its RTO curve
+(run_replicated_stream with the leader killed at
+kill_leader_campaign(seed=11)'s emit point), the crash-free chain at each
+arrival rate of its lag curve, and the chain head after the CLI pair's
+crash cycle (~4-6 min):
+
+    JAX_PLATFORMS=cpu python tools/port_golden.py config15
 """
 
 import hashlib
@@ -432,7 +446,65 @@ def config11_goldens():
     return 0
 
 
+def config15_goldens():
+    import json
+    import shutil
+    import tempfile
+
+    from chip_smoke import (
+        AUDIT_FLIP_CYCLE,
+        CONFIG11_STREAM,
+        CONFIG15,
+        audit_digest,
+        flip_first_bind,
+        journal_heads,
+        tenancy_pressure,
+    )
+    from tpusim.chaos.plan import CRASH_POINTS, kill_leader_campaign
+    from tpusim.framework.metrics import register
+    from tpusim.obs.audit import audit_wal_pair
+    from tpusim.simulator import run_replicated_stream, run_stream_simulation
+    from tpusim.stream import ChurnLoadGen, ResidencyBudget
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="port-golden-config15-")
+    try:
+        a, b = os.path.join(root, "a"), os.path.join(root, "b")
+        run_stream_simulation(**CONFIG11_STREAM, checkpoint_dir=a,
+                              checkpoint_every=0)
+        shutil.copytree(a, b)
+        flip_first_bind(b, AUDIT_FLIP_CYCLE)
+        out = {"audit": audit_digest(audit_wal_pair(a, b, explain_k=3))}
+        plan = kill_leader_campaign(seed=CONFIG15["seed"],
+                                    cycles=CONFIG11_STREAM["cycles"])[
+            CRASH_POINTS.index("emit")]
+        repl = {"cli_head": journal_heads(a)[plan.churn[0].at],
+                "rto": {}, "lag": {}}
+        tenancy, _ = tenancy_pressure(ResidencyBudget,
+                                      jax_api.synthetic_cluster,
+                                      ChurnLoadGen, register,
+                                      os.path.join(root, "tenancy"))
+        out["tenancy"] = {k: tenancy[k] for k in ("evictions", "restores",
+                                                  "chains")}
+        for every in CONFIG15["cadences"]:
+            repl["rto"][str(every)] = run_replicated_stream(
+                **CONFIG11_STREAM, chaos_plan=plan, checkpoint_every=every,
+                checkpoint_dir=os.path.join(root, f"rto-{every}")
+            )["fold_chain"]
+        for arrivals in CONFIG15["lag_arrivals"]:
+            repl["lag"][str(arrivals)] = run_stream_simulation(
+                **dict(CONFIG11_STREAM, arrivals=arrivals))["fold_chain"]
+        out["replication"] = repl
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(json.dumps(out, sort_keys=True))
+    print(f"config15: {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 def main(argv):
+    if argv[0] == "config15":
+        return config15_goldens()
     if argv[0] == "config11":
         return config11_goldens()
     if argv[0] == "config9_watch":

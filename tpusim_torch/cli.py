@@ -14,7 +14,14 @@
         [--pipeline] [--verify] [--gang-size 3 --gang-count 1] [--device cpu] \
         [--listen 127.0.0.1:9100] [--slo-target-ms 30] \
         [--checkpoint-dir ck [--checkpoint-every 10] [--fsync-every N] \
-         [--chaos-plan crash.json | --recover]]
+         [--chaos-plan crash.json | --recover] [--replicate-to HOST:PORT]]
+    python -m tpusim_torch.cli follow --synthetic-nodes 64 \
+        [--bind 127.0.0.1:0] [--bootstrap] [--device cpu] \
+        [--checkpoint-dir ck --watch-leader http://127.0.0.1:9100]
+    python -m tpusim_torch.cli promote --checkpoint-dir ck \
+        --synthetic-nodes 64 [--device cpu]
+    python -m tpusim_torch.cli audit wal_dir_a wal_dir_b [--explain-k 3] \
+        [--no-replay] [--json] [--out report.json] [--device cpu]
     python -m tpusim_torch.cli top 127.0.0.1:9100 [--once]
     python -m tpusim_torch.cli --kubeconfig kubeconfig.json --podspec pods.json \
         [--scheduler-policy-configmap NAME]
@@ -70,6 +77,14 @@ answers (a "degraded" count in the pass line); stream --chaos-plan takes
 the device section and process_crash events, which need --checkpoint-dir:
 the stream's WAL and checkpoints (stream.persist), from which --recover
 resumes a crashed run (the crash exits 3 and prints the recover hint).
+
+Replication (stream.replicate): stream --replicate-to ships the WAL to a
+`follow` standby, which decides every shipped cycle again on its own twin
+and, with --watch-leader, promotes itself when the leader's /healthz dies
+(resume the run on the promoted directory with stream --recover); promote
+does the promotion from a dead leader's directory alone. audit bisects two
+WAL directories to their first divergent cycle and decides it again with
+explain lanes (obs.audit); it exits 1 on a divergence.
 """
 
 from __future__ import annotations
@@ -778,6 +793,12 @@ def build_stream_parser() -> argparse.ArgumentParser:
                         help="fsync the WAL every N appends (0: flush-only "
                              "durability); the mode is stamped into every "
                              "checkpoint manifest")
+    parser.add_argument("--replicate-to", default="",
+                        help="HOST:PORT of a listening `follow` standby: "
+                             "ship every WAL record and checkpoint manifest "
+                             "over the replication protocol "
+                             "(stream.replicate) and drain the acks before "
+                             "exiting; requires --checkpoint-dir")
     parser.add_argument("--json", action="store_true",
                         help="Print the whole summary as JSON")
     parser.add_argument("--device", default="cuda",
@@ -814,6 +835,21 @@ def stream_cli(argv) -> int:
         print(f"error: {exc}", file=sys.stderr)
         return 2
 
+    replicate_to = None
+    if args.replicate_to:
+        from tpusim_torch.obs.server import parse_listen
+
+        if not args.checkpoint_dir:
+            print("error: --replicate-to ships the WAL; pass "
+                  "--checkpoint-dir", file=sys.stderr)
+            return 2
+        try:
+            replicate_to = parse_listen(args.replicate_to)
+        except ValueError:
+            print(f"error: --replicate-to {args.replicate_to!r}: want "
+                  "HOST:PORT", file=sys.stderr)
+            return 2
+
     from tpusim_torch.chaos.engine import ProcessCrash
     from tpusim_torch.simulator import run_stream_simulation
 
@@ -831,8 +867,8 @@ def stream_cli(argv) -> int:
             verify=args.verify, chaos_plan=chaos_plan,
             checkpoint_dir=args.checkpoint_dir or None,
             checkpoint_every=args.checkpoint_every,
-            fsync_every=args.fsync_every, recover=args.recover,
-            whatif_every=args.whatif_every,
+            fsync_every=args.fsync_every, replicate_to=replicate_to,
+            recover=args.recover, whatif_every=args.whatif_every,
             whatif_pods=args.whatif_pods, device=args.device)
     except ProcessCrash as exc:
         # the scripted kill: the state up to the crash is durable in the
@@ -885,6 +921,13 @@ def stream_cli(argv) -> int:
             print(f"durability: {out['wal_records']} WAL records, "
                   f"{out['checkpoints']} checkpoints; fold chain "
                   f"{out['fold_chain'][:16]}")
+        if "replication_acked_seq" in out:
+            parity = (out["replication_acked_chain"] == out["fold_chain"])
+            print(f"replication: acked through seq "
+                  f"{out['replication_acked_seq']}, lag "
+                  f"{out['replication_lag_at_close']} record(s) at close; "
+                  f"follower chain "
+                  f"{'matches' if parity else 'DIVERGED from'} the leader")
     if args.verify:
         if out["verified"]:
             print("verify: every cycle placement_hash-identical to the "
@@ -894,6 +937,379 @@ def stream_cli(argv) -> int:
                   "diverged from the full-restage backend", file=sys.stderr)
             return 1
     return 0
+
+
+def _add_follow_snapshot_flags(parser: argparse.ArgumentParser) -> None:
+    """The twin's snapshot source: it MUST reproduce the leader's cycle-0
+    picture (the same --snapshot file or the same synthetic parameters),
+    as the shipper replays the journal from its first record."""
+    parser.add_argument("--snapshot", default="",
+                        help="Combined ClusterSnapshot JSON: the leader's "
+                             "cycle-0 snapshot source")
+    parser.add_argument("--synthetic-nodes", type=int, default=64,
+                        help="Generate N homogeneous synthetic nodes "
+                             "(must match the leader's)")
+    parser.add_argument("--synthetic-milli-cpu", type=int, default=4000)
+    parser.add_argument("--synthetic-memory", type=int, default=16 * 1024**3)
+    parser.add_argument("--seed-label-universe", action="store_true",
+                        help="Seed the churn label universe across the "
+                             "synthetic nodes (needed when the leader runs "
+                             "--policy-file or label or taint churn)")
+    parser.add_argument("--algorithmprovider", default="DefaultProvider")
+    parser.add_argument("--policy-file", default="",
+                        help="Scheduler policy JSON: must match the "
+                             "leader's (the twin decides every cycle again)")
+    parser.add_argument("--always-restage", action="store_true")
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (default) or cpu")
+    parser.add_argument("--json", action="store_true",
+                        help="Print the summary as JSON")
+
+
+def _load_follow_snapshot(args):
+    policy = None
+    if args.snapshot:
+        snapshot = ClusterSnapshot.load(args.snapshot)
+    else:
+        snapshot = synthetic_cluster(
+            args.synthetic_nodes, milli_cpu=args.synthetic_milli_cpu,
+            memory=args.synthetic_memory)
+    if args.policy_file:
+        policy = load_policy_file(args.policy_file)
+    if not args.snapshot and (policy is not None
+                              or args.seed_label_universe):
+        from tpusim_torch.stream.loadgen import DEFAULT_LABEL_UNIVERSE
+
+        # the leader's run_stream_simulation seeds synthetic nodes the same
+        # way: both twins' cold starts must intern the same label domains
+        for i, node in enumerate(snapshot.nodes):
+            node.metadata.labels.update(
+                {k: vals[i % len(vals)]
+                 for k, vals in DEFAULT_LABEL_UNIVERSE.items()})
+    return snapshot, policy
+
+
+def build_follow_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="tpusim_torch follow",
+        description="Hot standby: listen for a leader's WAL-shipping stream "
+                    "(stream --replicate-to) and decide every shipped cycle "
+                    "again on a live scheduler twin, checking the placement "
+                    "chain cycle by cycle (stream.replicate). With "
+                    "--watch-leader, promote when the leader's /healthz "
+                    "dies")
+    parser.add_argument("--bind", default="127.0.0.1:0",
+                        help="HOST:PORT the replication listener binds "
+                             "(':0' picks a free port, printed at start)")
+    parser.add_argument("--checkpoint-dir", default="",
+                        help="The LEADER's durability directory (shared "
+                             "storage): promotion replays its WAL tail and "
+                             "journals on into it; required with "
+                             "--watch-leader")
+    parser.add_argument("--watch-leader", default="",
+                        help="The leader's /healthz URL (http://HOST:PORT): "
+                             "probe it and promote this twin when it misses "
+                             "--misses probes in a row")
+    parser.add_argument("--watch-interval", type=float, default=0.25,
+                        help="Seconds between the leader's probes")
+    parser.add_argument("--misses", type=int, default=2,
+                        help="Probe misses in a row that declare death")
+    parser.add_argument("--watch-timeout", type=float, default=0.0,
+                        help="Give up watching after this many seconds "
+                             "(0: watch forever)")
+    parser.add_argument("--checkpoint-every", type=int, default=10,
+                        help="The checkpoint cadence after promotion")
+    parser.add_argument("--fsync-every", type=int, default=0,
+                        help="The WAL's fsync cadence after promotion")
+    parser.add_argument("--bootstrap", action="store_true",
+                        help="Late join: ask for the leader's latest "
+                             "checkpoint manifest and WAL offset in the "
+                             "hello exchange and rebuild the twin from it, "
+                             "instead of replaying from a cycle-0 snapshot "
+                             "(--snapshot/--synthetic-nodes are then "
+                             "ignored)")
+    _add_follow_snapshot_flags(parser)
+    add_obs_flags(parser, "the follower's span timeline (replay spans "
+                          "carry the leader's trace ids)", live=True)
+    return parser
+
+
+def follow_cli(argv) -> int:
+    """`follow`: a live standby twin."""
+    import json
+
+    args = build_follow_parser().parse_args(argv)
+    if args.watch_leader and not args.checkpoint_dir:
+        print("error: --watch-leader promotes from the leader's WAL; pass "
+              "--checkpoint-dir (the shared durability directory)",
+              file=sys.stderr)
+        return 2
+
+    from tpusim_torch.obs.server import parse_listen
+
+    try:
+        bind = parse_listen(args.bind)
+        snapshot, policy = _load_follow_snapshot(args)
+        if args.bootstrap:
+            snapshot = None   # the shipped manifest is the twin's source
+    except (OSError, ValueError) as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 2
+
+    from tpusim_torch.stream.replicate import (
+        FailoverController,
+        FollowerTwin,
+        PromotionRefused,
+        http_probe,
+    )
+
+    recorder = _start_trace(args, "tpusim-follow")
+    obs_teardown = _arm_observability(args)
+    try:
+        try:
+            follower = FollowerTwin(snapshot,
+                                    provider=args.algorithmprovider,
+                                    policy=policy,
+                                    always_restage=args.always_restage,
+                                    listen=bind, bootstrap=args.bootstrap,
+                                    device=args.device)
+        except (KeyError, ValueError, OSError, RuntimeError) as exc:
+            _drop_trace(recorder)
+            recorder = None
+            print(f"error: {exc}", file=sys.stderr)
+            return 2
+        host, port = follower.address
+        print(f"follower: replication listener on {host}:{port} (leader "
+              f"side: tpusim_torch stream --replicate-to {host}:{port})",
+              file=sys.stderr, flush=True)
+
+        def summary(extra=None) -> dict:
+            body = {"applied_records": follower.wal_records_applied,
+                    "cycles_emitted": follower.cycles_emitted,
+                    "chain": follower.chain,
+                    "scheduled": follower.scheduled,
+                    "decisions": follower.decisions,
+                    "divergence": follower.diverged}
+            body.update(extra or {})
+            return body
+
+        if args.watch_leader:
+            url = args.watch_leader.rstrip("/")
+            if "://" not in url:   # a bare HOST:PORT (the --listen form)
+                url = "http://" + url
+            if not url.endswith("/healthz"):
+                url += "/healthz"
+            controller = FailoverController(
+                http_probe(url), [follower], args.checkpoint_dir,
+                interval_s=max(0.01, args.watch_interval),
+                misses=max(1, args.misses),
+                checkpoint_every=args.checkpoint_every,
+                fsync_every=args.fsync_every)
+            timeout = args.watch_timeout if args.watch_timeout > 0 else 1e9
+            try:
+                _, report = controller.run(timeout=timeout)
+            except TimeoutError as exc:
+                print(f"{exc}; exiting without promotion", file=sys.stderr)
+                follower.stop()
+                out = summary({"promoted": False})
+                print(json.dumps(out, sort_keys=True) if args.json
+                      else f"follower: applied {out['applied_records']} "
+                           f"records, chain {out['chain'][:16]}")
+                return 0
+            except PromotionRefused as exc:
+                follower.stop()
+                print(f"error: promotion refused: {exc}", file=sys.stderr)
+                return 1
+            out = summary({
+                "promoted": True, "rto_s": report.rto_s,
+                "resume_cycle": report.resume_cycle,
+                "replayed_records": report.tail_records,
+                "recomputed_cycles": list(report.recomputed),
+                "settled_live_cycles": list(report.settled_live),
+                "promotion_violations": list(report.violations)})
+            follower.persist.close()
+            if args.json:
+                print(json.dumps(out, sort_keys=True))
+            else:
+                print(f"promoted: resumed at cycle {out['resume_cycle']} "
+                      f"(replayed {out['replayed_records']} tail records, "
+                      f"RTO {out['rto_s'] * 1e3:.1f} ms); chain "
+                      f"{out['chain'][:16]}")
+                print(f"resume the churn load with: tpusim_torch stream "
+                      f"--checkpoint-dir {args.checkpoint_dir} --recover "
+                      "...")
+            return 1 if out["promotion_violations"] else 0
+
+        try:
+            while follower.error is None:
+                time.sleep(1.0)
+        except KeyboardInterrupt:
+            pass
+        follower.stop()
+        if follower.error is not None:
+            print(f"error: the follower twin failed: {follower.error}",
+                  file=sys.stderr)
+            return 1
+        out = summary()
+        print(json.dumps(out, sort_keys=True) if args.json
+              else f"follower: applied {out['applied_records']} records "
+                   f"over {out['cycles_emitted']} cycles, chain "
+                   f"{out['chain'][:16]}"
+                   + (f"; DIVERGED: {out['divergence']}"
+                      if out["divergence"] else ""))
+        return 1 if out["divergence"] else 0
+    finally:
+        obs_teardown()
+        _finish_obs(args, recorder)
+
+
+def build_promote_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="tpusim_torch promote",
+        description="Promotion from durable state: replay a dead leader's "
+                    "whole WAL (its checkpoint directory) through a fresh "
+                    "twin by the promotion path: the chain checked against "
+                    "the durable checkpoint manifest, the crash tail's "
+                    "cycles decided again, a fresh checkpoint written. "
+                    "Resume the run afterwards with `stream --recover`")
+    parser.add_argument("--checkpoint-dir", required=True,
+                        help="The dead leader's durability directory")
+    parser.add_argument("--checkpoint-every", type=int, default=10)
+    parser.add_argument("--fsync-every", type=int, default=0)
+    parser.add_argument("--metrics-out", default="",
+                        help="Write the metric families (tpusim_replication_* "
+                             "among them) after the promotion")
+    _add_follow_snapshot_flags(parser)
+    return parser
+
+
+def promote_cli(argv) -> int:
+    """`promote`: a one-shot promotion from durable state."""
+    import json
+
+    args = build_promote_parser().parse_args(argv)
+    try:
+        snapshot, policy = _load_follow_snapshot(args)
+    except (OSError, ValueError) as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 2
+
+    from tpusim_torch.stream.replicate import FollowerTwin, PromotionRefused
+
+    try:
+        follower = FollowerTwin(snapshot, provider=args.algorithmprovider,
+                                policy=policy,
+                                always_restage=args.always_restage,
+                                device=args.device)
+    except (KeyError, ValueError, OSError, RuntimeError) as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 2
+    try:
+        report = follower.promote(args.checkpoint_dir,
+                                  checkpoint_every=args.checkpoint_every,
+                                  fsync_every=args.fsync_every)
+    except PromotionRefused as exc:
+        follower.stop()
+        print(f"error: promotion refused: {exc}", file=sys.stderr)
+        return 1
+    except (OSError, ValueError, KeyError) as exc:
+        follower.stop()
+        print(f"error: {exc}", file=sys.stderr)
+        return 2
+    follower.persist.close()
+    out = {"promoted": True, "chain": report.chain,
+           "resume_cycle": report.resume_cycle,
+           "replayed_records": report.tail_records,
+           "recomputed_cycles": list(report.recomputed),
+           "wal_records": report.wal_records,
+           "replay_s": report.replay_s,
+           "violations": list(report.violations)}
+    if args.json:
+        print(json.dumps(out, sort_keys=True))
+    else:
+        print(f"promoted: {out['replayed_records']} WAL records replayed "
+              f"({len(out['recomputed_cycles'])} cycles re-decided) in "
+              f"{out['replay_s'] * 1e3:.1f} ms; chain {out['chain'][:16]}")
+        print(f"resume with: tpusim_torch stream --checkpoint-dir "
+              f"{args.checkpoint_dir} --recover ...")
+        for violation in out["violations"]:
+            print(f"promotion violation: {violation}", file=sys.stderr)
+    if args.metrics_out:
+        try:
+            _write_metrics(args.metrics_out)
+        except OSError as exc:
+            print(f"error: failed to write metrics: {exc}", file=sys.stderr)
+            return 2
+    return 1 if out["violations"] else 0
+
+
+def build_audit_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="tpusim_torch audit",
+        description="Chain-divergence forensics: bisect two WAL directories "
+                    "(checkpoint.json and wal.jsonl pairs, e.g. a leader's "
+                    "and a follower's, or two same-seed runs) to the FIRST "
+                    "divergent cycle through the sha256 digest chain, then "
+                    "decide that cycle again with explain lanes on and "
+                    "print a per-decision forensic diff: score parts, top-k "
+                    "candidate order, restage classification")
+    parser.add_argument("wal_a", help="First WAL directory")
+    parser.add_argument("wal_b", help="Second WAL directory")
+    parser.add_argument("--algorithmprovider", default="DefaultProvider",
+                        help="The provider the audited runs used (the replay "
+                             "decides under the same policy surface)")
+    parser.add_argument("--explain-k", type=int, default=3,
+                        help="Top-k score-breakdown depth of the forensic "
+                             "re-run (default 3; 0 turns the score-parts "
+                             "lanes off)")
+    parser.add_argument("--no-replay", action="store_true",
+                        help="Record-level diff only: do not rebuild the "
+                             "shared prefix and decide the divergent cycle "
+                             "again")
+    parser.add_argument("--json", action="store_true",
+                        help="Print the whole report as one JSON object")
+    parser.add_argument("--out", default="",
+                        help="Also write the JSON report here")
+    parser.add_argument("--device", default="cuda",
+                        help="Where the replay runs: cuda (default) or cpu")
+    return parser
+
+
+def audit_cli(argv) -> int:
+    """`audit`: first-divergence forensics over two WALs."""
+    import json
+
+    args = build_audit_parser().parse_args(argv)
+    from tpusim_torch.obs.audit import audit_wal_pair, render_report
+    from tpusim_torch.stream.persist import StreamPersistence
+
+    for d in (args.wal_a, args.wal_b):
+        if not os.path.exists(os.path.join(d, StreamPersistence.WAL)):
+            print(f"error: no {StreamPersistence.WAL} in {d}",
+                  file=sys.stderr)
+            return 2
+    try:
+        report = audit_wal_pair(args.wal_a, args.wal_b,
+                                provider=args.algorithmprovider,
+                                explain_k=args.explain_k,
+                                replay=not args.no_replay,
+                                device=args.device)
+    except (OSError, ValueError, KeyError) as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 2
+    if args.out:
+        try:
+            with open(args.out, "w", encoding="utf-8") as f:
+                json.dump(report, f, sort_keys=True, indent=2)
+                f.write("\n")
+        except OSError as exc:
+            print(f"error: failed to write report: {exc}", file=sys.stderr)
+            return 2
+    if args.json:
+        print(json.dumps(report, sort_keys=True))
+    else:
+        print(render_report(report), end="")
+    return 1 if report.get("verdict") == "diverged" else 0
 
 
 def _device_bound(args, pods, snapshot, events) -> bool:
@@ -1174,6 +1590,12 @@ def main(argv=None) -> int:
         return serve_cli(argv[1:])
     if argv and argv[0] == "stream":
         return stream_cli(argv[1:])
+    if argv and argv[0] == "follow":
+        return follow_cli(argv[1:])
+    if argv and argv[0] == "promote":
+        return promote_cli(argv[1:])
+    if argv and argv[0] == "audit":
+        return audit_cli(argv[1:])
     if argv and argv[0] == "explain":
         return explain_cli(argv[1:])
     if argv and argv[0] == "top":

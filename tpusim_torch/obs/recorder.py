@@ -153,7 +153,7 @@ class FlightRecorder:
         self._tids: Dict[str, int] = dict(_TIDS)
         # clock anchors for aligning several processes' traces (name ->
         # recorder-relative microseconds), exported in otherData as the JAX
-        # package's recorder exports them; nothing in the port sets one yet
+        # package's recorder exports them; the replication hello sets them
         self.anchors: Dict[str, float] = {}
         # device spans whose CUDA event pair is not read yet:
         # (event dict, start event, end event)
@@ -183,6 +183,16 @@ class FlightRecorder:
     # -- timestamps -------------------------------------------------------
     def _ts(self, t: float) -> float:
         return round((t - self._epoch) * 1e6, 3)
+
+    def now_us(self) -> float:
+        """Recorder-relative microseconds: the clock a replication hello
+        frame carries, so two processes' traces can be aligned."""
+        return self._ts(self.clock())
+
+    def set_anchor(self, name: str, value: Optional[float] = None) -> None:
+        """Pin a named clock reading (now by default), exported in
+        otherData."""
+        self.anchors[name] = self.now_us() if value is None else value
 
     # -- trace-context stamping -------------------------------------------
     def _stamp(self, ev: Dict[str, Any]) -> None:

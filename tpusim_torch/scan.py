@@ -23,6 +23,7 @@ what-if route).
 
 from __future__ import annotations
 
+import threading
 from types import SimpleNamespace
 from typing import NamedTuple, Optional
 
@@ -1136,6 +1137,13 @@ def make_step(config: EngineConfig, st: Statics, pods, carry: Carry,
 # CUDA graphs the scans captured this process (_Steps), read by the
 # analytics plane's count of built programs
 _GRAPHS = {"captured": 0}
+# one capture at a time in the process: torch.cuda.graph synchronizes the
+# whole device and empties the allocator's cache before it captures, which
+# another thread's capture in flight cannot survive. Captures run in
+# "thread_local" mode, so a thread that is not capturing (a second twin's
+# eager steps, allocations and event waits on the legacy stream, which
+# never syncs with the non-blocking capture stream) goes on meanwhile
+_CAPTURE_LOCK = threading.Lock()
 
 
 def graphs_captured() -> int:
@@ -1164,12 +1172,15 @@ class _Steps:
             if self.graph is None:
                 step()
                 done = 1
-                torch.cuda.synchronize(self.t1.device)
-                self.graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(self.graph):
-                    for _ in range(g):
-                        step()
-                _GRAPHS["captured"] += 1
+                graph = torch.cuda.CUDAGraph()
+                with _CAPTURE_LOCK:
+                    torch.cuda.synchronize(self.t1.device)
+                    with torch.cuda.graph(graph,
+                                          capture_error_mode="thread_local"):
+                        for _ in range(g):
+                            step()
+                    _GRAPHS["captured"] += 1
+                self.graph = graph
             blocks = (count - done) // g
             for _ in range(blocks):
                 self.graph.replay()
@@ -1672,6 +1683,10 @@ class ResidentScan:
         t1 = torch.zeros(1, dtype=I64, device=dev)
         self._steps = _Steps(make_step(config, statics, self.pods, carry,
                                        self.out, t1), t1, graph_steps)
+
+    @property
+    def graph_captured(self) -> bool:
+        return self._steps.graph is not None
 
     def run(self, xs_host: PodX) -> ScanOutputs:
         """Scan a bucket of pods (host numpy columns, exactly the bucket's

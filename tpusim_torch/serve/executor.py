@@ -30,8 +30,10 @@ error still raises.
 
 Live twins: a StreamSession attached under a snapshot ref (attach_twin)
 answers the requests naming that ref by an overlay query on its resident
-carry (try_overlay), O(query) a request with no staging. Where the overlay
-refuses (the request names another plan, or the session's overlay_query
+carry (try_overlay), O(query) a request with no staging. Read replicas
+(attach_replica: a stream.replicate.FollowerTwin) answer first, in the
+order attached; the twin answers where every replica refuses. Where every
+overlay refuses (the request names another plan, or each overlay_query
 returns None), the request goes the staged path against the twin's CURRENT
 host picture (session.inc.to_snapshot()), counted in
 stats["overlay_fallbacks"] and tpusim_overlay_fallback_total{reason}. An
@@ -123,8 +125,10 @@ class ServeExecutor:
         # thread that holds this lock
         self._lock = threading.Lock()
         # live twins: snapshot_ref -> StreamSession answering what-if
-        # requests as overlays on its resident carry
+        # requests as overlays on its resident carry, and the FollowerTwin
+        # read replicas answering the same ref from a standby's twin
         self._twins: Dict[str, Any] = {}
+        self._replicas: Dict[str, List[Any]] = {}
         self._overlay_shapes: Dict[str, set] = {}
         self.stats = {"dispatches": 0, "warm_hits": 0, "traces": 0,
                       "staged_hits": 0, "device_batch_hits": 0,
@@ -164,7 +168,16 @@ class ServeExecutor:
 
     def detach_twin(self, ref: str) -> None:
         self._twins.pop(ref, None)
+        self._replicas.pop(ref, None)
         self._overlay_shapes.pop(ref, None)
+
+    def attach_replica(self, ref: str, follower) -> None:
+        """Route `ref`'s overlay reads through a FollowerTwin replica
+        (stream.replicate): a non-diverged standby's twin answers what-if
+        queries first, the leader's twin only when every replica refuses.
+        A replica's answer trails the leader by the unacked WAL tail:
+        bounded staleness, the read replica's contract."""
+        self._replicas.setdefault(ref, []).append(follower)
 
     def _overlay_plan_ok(self, session, request: WhatIfRequest) -> bool:
         # an overlay answer rides the twin's compiled plan; a request naming
@@ -178,9 +191,10 @@ class ServeExecutor:
     def try_overlay(self, request: WhatIfRequest
                     ) -> Optional[Tuple[WhatIfResult, bool, str]]:
         """Answer a request on the live twin behind its snapshot_ref:
-        (result, compile_cache_hit, path) with path "resident", or None
-        when no twin is installed, the request pins its own plan, or the
-        overlay refuses: the caller falls back to stage()."""
+        (result, compile_cache_hit, path) with path "follower" (a replica)
+        or "resident", or None when no twin is installed, the request pins
+        its own plan, or every overlay refuses: the caller falls back to
+        stage()."""
         ref = request.snapshot_ref
         if request.snapshot is not None or ref is None:
             return None
@@ -190,14 +204,19 @@ class ServeExecutor:
         if not request.pods:
             raise ServeRejected(REJECT_INVALID,
                                 "request carries an empty pod list")
-        path = "resident"
+        candidates = [(f, "follower") for f in self._replicas.get(ref, ())]
+        candidates.append((twin, "resident"))
         with span("serve:overlay") as osp:
             if osp:
                 osp.set("ref", ref)
-            eligible = self._overlay_plan_ok(_twin_session(twin), request)
-            placements = (twin.overlay_query(request.pods) if eligible
-                          else None)
-            if placements is not None:
+            eligible = False
+            for target, path in candidates:
+                if not self._overlay_plan_ok(_twin_session(target), request):
+                    continue
+                eligible = True
+                placements = target.overlay_query(request.pods)
+                if placements is None:
+                    continue
                 scheduled = sum(1 for p in placements if p.node_name)
                 result = WhatIfResult(
                     placements=placements, scheduled=scheduled,

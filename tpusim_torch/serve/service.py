@@ -85,6 +85,12 @@ class ScenarioFleet:
         session's current host picture."""
         return self.executor.attach_twin(ref, session)
 
+    def attach_replica(self, follower, ref: str = "live") -> None:
+        """Serve `ref`'s overlay reads from a FollowerTwin replica first
+        (the standby's twin), the leader's twin only where the replica
+        refuses."""
+        self.executor.attach_replica(ref, follower)
+
     # -- admission ---------------------------------------------------------
 
     def _reject(self, request: WhatIfRequest, reason: str,

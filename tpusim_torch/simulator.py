@@ -993,6 +993,7 @@ def run_stream_simulation(snapshot: Optional[ClusterSnapshot] = None, *,
                           checkpoint_dir: Optional[str] = None,
                           checkpoint_every: int = 0,
                           fsync_every: int = 0,
+                          replicate_to: Optional[tuple] = None,
                           recover: bool = False,
                           whatif_every: int = 0, whatif_pods: int = 4,
                           device="cuda") -> dict:
@@ -1036,15 +1037,18 @@ def run_stream_simulation(snapshot: Optional[ClusterSnapshot] = None, *,
         summary gains "wal_records", "checkpoints" and "wal_chain".
     fsync_every: fsync the WAL every N appends (0: flush only); the mode is
         stamped into every checkpoint.
+    replicate_to: (host, port) of a listening stream.replicate.FollowerTwin
+        (or the `follow` command): a WalShipper ships the journal (it needs
+        checkpoint_dir) and is drained before the return; the summary gains
+        "replication_acked_seq", "replication_acked_chain" and
+        "replication_lag_at_close". A crash does not drain: the unshipped
+        tail lives in the durable WAL only.
     recover: load checkpoint_dir, replay the WAL tail, fast-forward the
         load generator over the committed prefix, and run the REMAINING
         cycles. The summary's fold_chain then equals an uninterrupted
         run's; it gains "recovered", "resume_cycle", "replay_ms",
         "recomputed_cycles" and "recovery_violations".
-    device: "cuda" (the default) or "cpu".
-
-    The JAX package's replicate_to is not taken: replication is not ported
-    yet."""
+    device: "cuda" (the default) or "cpu"."""
     import hashlib
     from time import perf_counter
 
@@ -1085,6 +1089,12 @@ def run_stream_simulation(snapshot: Optional[ClusterSnapshot] = None, *,
                 "checkpoint_dir (--checkpoint-dir)")
     if recover and checkpoint_dir is None:
         raise ValueError("recover=True needs checkpoint_dir")
+    if replicate_to is not None and checkpoint_dir is None:
+        raise ValueError("replicate_to ships the WAL: pass checkpoint_dir "
+                         "(--checkpoint-dir)")
+    if replicate_to is not None and recover:
+        raise ValueError("replicate_to cannot resume a recovery replay; "
+                         "recover first, then re-attach the shipper")
     if recover and verify:
         raise ValueError(
             "verify and recover are mutually exclusive: the verify arm "
@@ -1094,7 +1104,7 @@ def run_stream_simulation(snapshot: Optional[ClusterSnapshot] = None, *,
         from tpusim_torch.backend import install_chaos
 
         breaker = install_chaos(chaos_plan.device)
-    persist = report = None
+    persist = report = shipper = None
     start_cycle = 0
     try:
         if recover:
@@ -1112,8 +1122,16 @@ def run_stream_simulation(snapshot: Optional[ClusterSnapshot] = None, *,
                 persist = StreamPersistence(checkpoint_dir,
                                             checkpoint_every=checkpoint_every,
                                             fsync_every=fsync_every)
+                if replicate_to is not None:
+                    # hooked BEFORE attach, so the genesis checkpoint's
+                    # manifest is the first frame shipped
+                    from tpusim_torch.stream.replicate import WalShipper
+
+                    shipper = WalShipper(persist, tuple(replicate_to))
                 session.attach_persistence(persist)
     except BaseException:
+        if shipper is not None:
+            shipper.close(drain=False)
         if persist is not None:
             persist.close()
         if breaker is not None:
@@ -1199,6 +1217,7 @@ def run_stream_simulation(snapshot: Optional[ClusterSnapshot] = None, *,
             whatif_lat.append(perf_counter() - tq)
 
     t_start = perf_counter()
+    clean_exit = False
     try:
         for cycle in range(start_cycle, cycles):
             if pipeline:
@@ -1252,7 +1271,13 @@ def run_stream_simulation(snapshot: Optional[ClusterSnapshot] = None, *,
             tail = session.flush()
             if tail:
                 account(tail)
+        clean_exit = True
     finally:
+        if shipper is not None:
+            # a clean end waits for the follower's cumulative ack; a crash
+            # passing through here does not (the death model: the unshipped
+            # tail lives only in the durable WAL)
+            shipper.close(drain=clean_exit, timeout=30.0)
         if persist is not None:
             persist.close()
         if breaker is not None:
@@ -1299,6 +1324,10 @@ def run_stream_simulation(snapshot: Optional[ClusterSnapshot] = None, *,
         out["wal_records"] = persist.wal_records
         out["checkpoints"] = persist.checkpoints
         out["wal_chain"] = persist.chain
+    if shipper is not None:
+        out["replication_acked_seq"] = shipper.acked_seq
+        out["replication_acked_chain"] = shipper.acked_chain
+        out["replication_lag_at_close"] = shipper.lag_records()
     if recover:
         out["recovered"] = True
         out["resume_cycle"] = start_cycle
@@ -1311,4 +1340,252 @@ def run_stream_simulation(snapshot: Optional[ClusterSnapshot] = None, *,
     if alog is not None:
         alog.flush()
         out["analytics"] = alog.snapshot()
+    return out
+
+
+def run_replicated_stream(snapshot: Optional[ClusterSnapshot] = None, *,
+                          num_nodes: int = 64, cycles: int = 50,
+                          arrivals: int = 32, evict_fraction: float = 0.25,
+                          node_flap_every: int = 0,
+                          label_churn: int = 0, taint_churn: int = 0,
+                          gang_size: int = 0, gang_count: int = 0,
+                          seed: int = 0,
+                          provider: str = DEFAULT_PROVIDER,
+                          policy=None, pipeline: bool = False,
+                          always_restage: bool = False,
+                          chaos_plan: Optional[object] = None,
+                          checkpoint_dir: Optional[str] = None,
+                          checkpoint_every: int = 1,
+                          fsync_every: int = 0,
+                          drain_timeout: float = 30.0,
+                          device="cuda") -> dict:
+    """Drive a LEADER stream.StreamSession with a live FollowerTwin attached
+    over the WAL-shipping socket protocol (stream.replicate).
+
+    Without a chaos plan this is a replicated steady-state run: the summary
+    gives the follower's chain head beside the leader's (byte-identical
+    after a drain) and the shipping lag the run sustained.
+
+    With a process_crash plan (chaos.plan.kill_leader_campaign) the leader
+    dies at the targeted WAL record; a FailoverController detects the death
+    and promotes the follower (the byte-identical chain head is the
+    promotion's invariant, and it replays ONLY the unshipped WAL tail), and
+    the churn load generator resumes from the WAL position on the promoted
+    twin for the remaining cycles. The summary's fold_chain then equals an
+    uninterrupted run's, and rto_s measures the death's detection to the
+    promotion, end to end; promote_s is the part of it the promotion's own
+    work took under the twin's lock (the tail replay, the cycles settled
+    or decided again and the closing checkpoint).
+
+    The leader runs on the caller's thread and the follower on its pump
+    thread, both on `device` ("cuda" by default, or "cpu"), each capturing
+    its own CUDA graphs (scan._Steps serializes the captures). An error in
+    the follower's twin raises here; only a chaos DeviceFault reaches a
+    breaker. The summary's "graphs" counts the CUDA graphs each side's twin
+    captured (0 on the CPU)."""
+    from time import monotonic
+
+    from tpusim_torch.api.snapshot import synthetic_cluster
+    from tpusim_torch.backends import Placement, bind_pod
+    from tpusim_torch.chaos.engine import ProcessCrash
+    from tpusim_torch.stream import ChurnLoadGen, StreamPersistence, \
+        StreamSession
+    from tpusim_torch.stream.loadgen import DEFAULT_LABEL_UNIVERSE
+    from tpusim_torch.stream.replicate import (
+        FailoverController,
+        FollowerTwin,
+        WalShipper,
+    )
+
+    if checkpoint_dir is None:
+        raise ValueError("run_replicated_stream needs checkpoint_dir: the "
+                         "WAL is the replication substrate")
+
+    def make_snap():
+        # fresh object graphs for each consumer: the leader, the follower
+        # and each load generator never share mutable node or pod objects
+        if snapshot is not None:
+            return snapshot
+        snap = synthetic_cluster(num_nodes)
+        if policy is not None or label_churn or taint_churn:
+            for i, node in enumerate(snap.nodes):
+                node.metadata.labels.update(
+                    {k: vals[i % len(vals)]
+                     for k, vals in DEFAULT_LABEL_UNIVERSE.items()})
+        return snap
+
+    crash_events = []
+    if chaos_plan is not None:
+        chaos_plan.validate()
+        if not chaos_plan.host_sections_empty() \
+                or not chaos_plan.device.empty():
+            raise ValueError(
+                "run_replicated_stream takes process_crash sections only "
+                "(kill-the-leader campaigns); churn arrives through the "
+                "load generator and device faults through the breaker arm")
+        crash_events = chaos_plan.crash_events()
+
+    def load_gen():
+        return ChurnLoadGen(make_snap(), seed=seed, arrivals=arrivals,
+                            evict_fraction=evict_fraction,
+                            node_flap_every=node_flap_every,
+                            label_churn=label_churn, taint_churn=taint_churn,
+                            gang_size=gang_size, gang_count=gang_count)
+
+    follower = FollowerTwin(make_snap(), provider=provider, policy=policy,
+                            always_restage=always_restage, device=device)
+    leader = StreamSession(make_snap(), provider=provider, policy=policy,
+                           always_restage=always_restage, device=device)
+    persist = StreamPersistence(checkpoint_dir,
+                                checkpoint_every=checkpoint_every,
+                                fsync_every=fsync_every)
+    shipper = WalShipper(persist, follower.address)
+    leader.attach_persistence(persist)
+    if crash_events:
+        ev = crash_events[0]
+        persist.arm_crash(ev.at, ev.target)
+    gen = load_gen()
+
+    latencies: List[float] = []
+    crashed: Optional[str] = None
+    lag_at_crash = 0
+    leader_alive = [True]
+
+    def run_cycles(session, g, start: int, skip_events: int) -> None:
+        skip = skip_events
+        for cycle in range(start, cycles):
+            if pipeline:
+                g.note_bound(session.poll_placed())
+            evs = g.events(cycle)
+            if skip:
+                evs = evs[skip:]
+                skip = 0
+            session.apply_events(evs)
+            batch = g.batch()
+            t0 = perf_counter()
+            prev = (session.schedule_pipelined(batch) if pipeline
+                    else session.schedule(batch))
+            latencies.append(perf_counter() - t0)
+            if not pipeline:
+                g.note_bound(prev)
+        if pipeline:
+            session.flush()
+
+    def drain() -> bool:
+        # in short waits, so that a follower whose twin failed raises now
+        # instead of timing the drain out
+        deadline = monotonic() + drain_timeout
+        while True:
+            if follower.error is not None:
+                raise RuntimeError(f"the follower twin failed applying a "
+                                   f"record: {follower.error}"
+                                   ) from follower.error
+            remaining = deadline - monotonic()
+            if remaining <= 0:
+                return False
+            if shipper.drain(min(0.5, remaining)):
+                return True
+
+    t_start = perf_counter()
+    try:
+        try:
+            run_cycles(leader, gen, 0, 0)
+        except ProcessCrash as exc:
+            crashed = str(exc)
+            leader_alive[0] = False
+            lag_at_crash = shipper.lag_records()
+            # the leader's death: nothing drains; the wire keeps only what
+            # it carried already, the durable WAL everything
+            shipper.close(drain=False)
+            persist.close()
+
+        out: dict = {
+            "cycles": cycles, "pipeline": pipeline,
+            "crashed": crashed is not None, "crash_detail": crashed,
+            "promoted": False, "divergence": None,
+        }
+        if crashed is None:
+            # the steady-state shipping backlog: records appended and not
+            # acked the instant the producer stops (a drain clears it)
+            lag_at_loop_end = shipper.lag_records()
+            drained = drain()
+            shipper.close(drain=False)
+            out.update({
+                "drained": drained,
+                "lag_at_loop_end": lag_at_loop_end,
+                "fold_chain": persist.chain,
+                "follower_chain": follower.chain,
+                "follower_chain_matches": follower.chain == persist.chain,
+                "wal_records": persist.wal_records,
+                "checkpoints": persist.checkpoints,
+                "decisions": persist.decisions,
+                "scheduled": persist.scheduled,
+                "applied_records": follower.wal_records_applied,
+                "divergence": follower.diverged,
+                "restages": dict(leader.restage_counts),
+                "follower_restages": dict(follower.session.restage_counts),
+                "graphs": {"leader": leader.device.graphs(),
+                           "follower": follower.session.device.graphs()},
+            })
+            persist.close()
+            follower.stop()
+        else:
+            controller = FailoverController(
+                lambda: leader_alive[0], [follower], checkpoint_dir,
+                interval_s=0.005, misses=2,
+                checkpoint_every=checkpoint_every, fsync_every=fsync_every,
+                leader_was_alive=True)
+            promoted, preport = controller.run(timeout=30.0)
+            resume_cycle = preport.resume_cycle
+            # resume the load generator from the WAL position: batch() and
+            # note_bound() draw no random number, so replaying the
+            # committed prefix with the binds fed back from the replicated
+            # and replayed bind maps leaves it where the dead leader had it
+            gen2 = load_gen()
+            for c in range(resume_cycle):
+                gen2.events(c)
+                by_key = {p.key(): p for p in gen2.batch()}
+                gen2.note_bound([
+                    Placement(pod=bind_pod(by_key[k], node), node_name=node)
+                    for k, node in promoted.bound_by_cycle.get(c, [])
+                    if k in by_key])
+            skip_events = promoted.events_applied.get(resume_cycle, 0)
+            final_persist = promoted.persist
+            try:
+                run_cycles(promoted.session, gen2, resume_cycle, skip_events)
+            finally:
+                final_persist.close()
+            out.update({
+                "promoted": True,
+                "rto_s": preport.rto_s,
+                "promote_s": preport.replay_s,
+                "resume_cycle": resume_cycle,
+                "replayed_records": preport.tail_records,
+                "applied_records": preport.applied_records,
+                "recomputed_cycles": list(preport.recomputed),
+                "settled_live_cycles": list(preport.settled_live),
+                "promotion_violations": list(preport.violations),
+                "lag_at_crash": lag_at_crash,
+                "fold_chain": final_persist.chain,
+                "wal_records": final_persist.wal_records,
+                "checkpoints": final_persist.checkpoints,
+                "decisions": final_persist.decisions,
+                "scheduled": final_persist.scheduled,
+                "divergence": promoted.diverged,
+                "restages": dict(leader.restage_counts),
+                "follower_restages": dict(promoted.session.restage_counts),
+                "graphs": {"leader": leader.device.graphs(),
+                           "follower": promoted.session.device.graphs()},
+            })
+    finally:
+        # nothing of the pair outlives the call, whatever raised
+        shipper.close(drain=False, timeout=0.0)
+        persist.close()
+        follower.stop()
+    elapsed = perf_counter() - t_start
+    latencies.sort()
+    out["elapsed_s"] = elapsed
+    out["nodes"] = num_nodes
+    out["p50_cycle_ms"] = (latencies[len(latencies) // 2] * 1e3
+                           if latencies else 0.0)
     return out

@@ -182,6 +182,11 @@ class StreamPersistence:
         # the record that kills the leader still reaches the wire.
         self.on_append = None      # (rec, kind, cycle, start_ofs, end_ofs)
         self.on_checkpoint = None  # (manifest_dict)
+        # a promotion's crash-tail cycles whose bind record the dead leader
+        # made durable already (cycle id -> its entries): log_bind journals
+        # no second record for them and notes a re-decision that differs
+        self._durable_binds: Dict[int, list] = {}
+        self.bind_mismatches: List[str] = []
 
     # -- wiring ------------------------------------------------------------
 
@@ -281,13 +286,25 @@ class StreamPersistence:
                       "pods": [p.to_obj() for p in pods]}, "batch", cid)
         return cid
 
+    def adopt_bind(self, cid: int, entries: list) -> None:
+        """Cycle ``cid``'s bind record is durable already (a promotion
+        decides the cycle again): its next log_bind writes nothing."""
+        self._durable_binds[int(cid)] = [list(e) for e in entries]
+
     def log_bind(self, cid: int, bound: List[Placement]) -> None:
         """Cycle ``cid``'s binds, at the moment they fold into the host
         picture. Always written (possibly empty) so every cycle exposes
         all four crash boundaries."""
-        self._append({"k": "bind", "c": cid,
-                      "b": [[pl.pod.key(), pl.node_name] for pl in bound]},
-                     "bind", cid)
+        entries = [[pl.pod.key(), pl.node_name] for pl in bound]
+        durable = self._durable_binds.pop(cid, None)
+        if durable is not None:
+            if durable != entries:
+                self.bind_mismatches.append(
+                    f"cycle {cid} decided again binds {len(entries)} pods "
+                    f"otherwise than its durable bind record "
+                    f"({len(durable)})")
+            return
+        self._append({"k": "bind", "c": cid, "b": entries}, "bind", cid)
 
     def log_emit(self, cid: int, placements: List[Placement]) -> None:
         h = placement_hash(placements)

@@ -249,6 +249,19 @@ class DeviceResidentCluster:
         self.compiled = self.sig_rows = None
         self.plan_key = self.ptabs = self.pol_res = None
 
+    def graphs(self) -> int:
+        """The CUDA graphs captured for this twin's scan programs."""
+        return sum(1 for program in self._programs.values()
+                   if program.graph_captured)
+
+    def release(self) -> None:
+        """Drop residency and the device memory behind it: the tensors,
+        and the programs whose graphs are bound to them (each graph's
+        private pool with it). The next cycle restages onto new tensors."""
+        self.invalidate()
+        self.config = self.statics = self.carry = None
+        self._programs = {}
+
     def stage(self, config, statics_host, carry_host) -> None:
         """Load a restage's host trees (scan.Statics and scan.Carry of
         numpy arrays) into the resident tensors: copied into the tensors
@@ -1068,7 +1081,8 @@ class StreamSession:
 
     # -- live what-if overlays --------------------------------------------
 
-    def overlay_query(self, pods: List[Pod]) -> Optional[List[Placement]]:
+    def overlay_query(self, pods: List[Pod],
+                      _path: str = "resident") -> Optional[List[Placement]]:
         """Answer a what-if query on the LIVE resident twin in O(query):
         behind a journal mark, commit the pending churn as the next real
         cycle would (authoritative and idempotent: the restored journal
@@ -1084,7 +1098,8 @@ class StreamSession:
         residency, a change a real cycle would restage for, gang semantics,
         a config whose carry has no rollback path); a restage reason found
         here is latched, so the next real cycle classifies it as _route
-        would have."""
+        would have. _path labels the answer in
+        tpusim_overlay_queries_total ("follower" for a replica's twin)."""
         if not pods:
             return []
         t0 = perf_counter()
@@ -1097,7 +1112,7 @@ class StreamSession:
         if placements is None:
             return None
         m = register()
-        m.overlay_queries.inc("resident")
+        m.overlay_queries.inc(_path)
         ctx = tracectx.current()
         m.overlay_latency.observe(
             since_in_microseconds(t0),
