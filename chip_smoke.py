@@ -77,8 +77,8 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
      nodes, a plan the kernel refuses) through TorchBackend(route="auto")
      on the card: it must take the scan, and place by the golden the JAX
      package records; cold and warm wall; then the scan alone, eagerly on its
-     first 400 pods and as the backend runs it (blocks of steps replayed
-     as CUDA graphs) on its first 4,000, each with its device span
+     first 200 pods and as the backend runs it (blocks of steps replayed
+     as CUDA graphs) on its first 2,000, each with its device span
      (CUDA events) and microseconds a pod; then the reference
      quickstart (byte-granular memory) through run_simulation on the card,
      with the host route made to raise, whose split must digest as the JAX
@@ -117,7 +117,7 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
      (b) produced, equal (tolerance 0), then the first PROFILED_SELECTS of
      those calls replayed under torch.profiler for the card's busy time a
      call;
- 18. the chunked scan: config 3's first 8,192 pods on its 5,000 nodes
+ 18. the chunked scan: config 3's first 4,096 pods on its 5,000 nodes
      through TorchBackend(route="scan") whole and with TPUSIM_SCAN_CHUNK
      2,048: choices, counts, advanced and the final carry bit-equal, with
      the walls and µs a pod of each;
@@ -138,7 +138,7 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
      every response. Phases 18-20 fail past their 300 s budget;
  21. bench config 9 through the streaming twin (run_stream_simulation on
      the card, the resident scan replaying its captured graphs, each run's
-     CUDA-event span): the stream arm at 16,000 nodes (40 cycles of 64
+     CUDA-event span): the stream arm at 16,000 nodes (20 cycles of 64
      arrivals, 25% evicted, seed 9), which must restage only at its cold
      start and launch no fused kernel; the stream and restage arms at 4,000
      nodes, equal chains; a verified run at 4,000 nodes (10 cycles, every
@@ -309,7 +309,21 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
      `follow --watch-leader` child promoting itself when a `stream
      --replicate-to --listen` child dies by a process-crash plan, onto the
      golden chain at the crash cycle; no fused kernel launch over the
-     phase. Phases 34-36 fail past their 120 s budget.
+     phase. Phases 34-36 fail past their 120 s budget;
+ 37. the node-sharded scan route, bench config 14 (bench.py:1848):
+     uniform_workload's first 512 pods on its 8,192 nodes through
+     TorchBackend(route="scan") with an analytics plane and a recorder, at
+     k = 1 (no process group) and at k = 2 and 4 ranks (TPUSIM_SHARDS=k,
+     each rank a spawned process on the one card under a gloo group, every
+     spawn and group bounded by a timeout): on every rank the JAX
+     package's single-device golden and k = 1's placement hash, the
+     shard:stage, shard:scan and shard:topk_collective spans, the
+     tpusim_shard_* gauges, an analytics sample equal to k = 1's and to
+     host_reduce, a gang feed's split equal to k = 1's with its lanes
+     sharded, and a ServiceAffinity policy plan counted as a fallback;
+     pods/s, the stage and scan spans and the all_reduces a pod at each k
+     (no speed claim: the ranks share one card). Phase 37 fails past its
+     90 s budget.
 Phases 4-15 run TorchBackend with fallback="error", and phases 15, 16b and
 17 run run_simulation on the card with the host route made to raise, so a
 workload that started to reroute to the host fails them; phases 4-12 run
@@ -379,11 +393,13 @@ HYBRID_CONFIG6 = (dict(num_pods=20_000, num_nodes=1_000, affinity=True,
                        priorities=True, seed=777),
                   "35a42fdde29dd2aa", (19_731, 155, 114))
 # phase 17c: the preempt_select calls replayed under torch.profiler (all 114
-# of them until the warm reruns of phases 5-15 came back)
-PROFILED_SELECTS = 16
+# of them until the warm reruns of phases 5-15 came back, 16 until phase 37
+# came)
+PROFILED_SELECTS = 8
 # phase 18: config 3's first pods on its nodes through the scan route,
-# whole and in chunks of TPUSIM_SCAN_CHUNK pods
-CHUNKED_SCAN = (dict(num_pods=8_192, num_nodes=5_000), 2_048)
+# whole and in chunks of TPUSIM_SCAN_CHUNK pods (8,192 pods until phase 37
+# came)
+CHUNKED_SCAN = (dict(num_pods=4_096, num_nodes=5_000), 2_048)
 # phase 19: BASELINE config 5, scenarios of build_workload(pods, nodes,
 # seed=1000 + s): at full shape, the first BATCHED_SCENARIOS of them again on
 # the batched scan, and at bench.py's CPU shape with the combined digest of
@@ -431,12 +447,14 @@ STREAM_GOLDENS = {
         "504396bf5653ddbdcdb3cc97bfdee3644105b54d5006684a882d0d79d5675c9c"),
 }
 # bench.py's accelerator shapes of configs 9 and 10: the sizes, the churn
-# curves at the middle size, the cycles of a verified config 9 run
+# curves at the middle size, the cycles of a verified config 9 run. Each
+# arm runs 20 cycles (bench.py's 40 until phase 37 came, a cut of depth
+# for the script's time)
 STREAM_SIZES = (1_000, 4_000, 16_000)
-STREAM_CONFIG9 = dict(cycles=40, arrivals=64, evict_fraction=0.25, seed=9)
+STREAM_CONFIG9 = dict(cycles=20, arrivals=64, evict_fraction=0.25, seed=9)
 STREAM_EVICT_CURVE = (0.05, 0.25, 0.5)
 STREAM_VERIFY_CYCLES = 10
-STREAM_CONFIG10 = dict(cycles=40, arrivals=64, evict_fraction=0.25, seed=9,
+STREAM_CONFIG10 = dict(cycles=20, arrivals=64, evict_fraction=0.25, seed=9,
                        policy=True)
 STREAM_CHURN_CURVE = ((0, 0), (2, 1), (8, 4))
 # config 13, and config 16's twins
@@ -625,13 +643,31 @@ CONFIG15_GOLDEN = {
 }
 # phases 34-36 together, seconds
 REPLICATION_BUDGET_S = 120
+# phase 37: bench config 14 (bench.py:1848, measure_shard_scaling): the
+# node-sharded scan route on uniform_workload at its 8,192 nodes, route
+# "scan", at k = 1 (no process group) and at k = 2 and 4 ranks, each a
+# process on the one card under a gloo group. Config 14 feeds 32,768 pods;
+# the sharded step runs eagerly (gloo's collectives are not captured in
+# CUDA graphs), minutes a shard count at that depth, so the phase runs the
+# first SHARD_CONFIG14's pods. The golden is the JAX package's
+# single-device route on them (tools/port_golden.py config14 512 8192). The
+# gang feed: that prefix's first 24 pods and a gang of 8 on the same nodes
+SHARD_CONFIG14 = dict(num_pods=512, num_nodes=8_192)
+SHARD_GOLDEN = ("9a91f80d92d326c2", 512)
+SHARD_COUNTS = (2, 4)
+SHARD_ANALYTICS_TOP_K = 8
+SHARD_GANG = dict(solo=24, members=8, milli_cpu=3_000)
+# a spawn of k ranks, seconds (every rank and its gloo group bounded by it)
+SHARD_TIMEOUT_S = 240
+SHARD_BUDGET_S = 90
 
 ROUTES_PODS = 2_048
-# phase 15: the pods of the scan timed eagerly, and from its graphs (400 and
-# 4,000 since phases 34-36 came; 2,000 and all 20,000 until then, 11.5 s
-# and 13.4 s of wall on an H100's machine)
-SCAN_EAGER_PODS = 400
-SCAN_GRAPH_PODS = 4_000
+# phase 15: the pods of the scan timed eagerly, and from its graphs (200 and
+# 2,000 since phase 37 came; 400 and 4,000 since phases 34-36 came; 2,000
+# and all 20,000 until then, 11.5 s and 13.4 s of wall on an H100's
+# machine)
+SCAN_EAGER_PODS = 200
+SCAN_GRAPH_PODS = 2_000
 # the phase that drives each main-path workload, the kernel variant it must
 # launch, and the scheduler policy it runs under (workloads.COMPAT_POLICIES)
 PHASE = {"config3": 4, "config4_cpu_shape": 5, "groups": 8, "interpod": 10,
@@ -1499,9 +1535,12 @@ def time_first_chunk(name, plan, card, cuda, phase):
     from tpusim_torch.fastscan import CHUNK
     from tpusim_torch.kernels.fastscan import fastscan_chunk, fastscan_chunk_plain
 
-    ms, got = chunk_run(fastscan_chunk, plan, cuda, repeats=20)
+    # 5 kernel runs and one of the plain version (20 and 2 until phase 37
+    # came: each run stages the plan afresh, and the kernel's device time
+    # stays within 1.5% between runs)
+    ms, got = chunk_run(fastscan_chunk, plan, cuda, repeats=5)
     geom = fastscan_chunk.last_geometry
-    plain_ms, want = chunk_run(fastscan_chunk_plain, plan, cuda, repeats=2)
+    plain_ms, want = chunk_run(fastscan_chunk_plain, plan, cuda, repeats=1)
     diff = max(int(np.abs(a - b).max(initial=0)) for a, b in zip(got, want))
     feasible, reach, spread_reads = feasible_pairs(plan, cuda)
     bound_ms, bound_by = chunk_bound_ms(plan, feasible, reach, spread_reads)
@@ -1722,7 +1761,8 @@ def cluster_sweep(name, plan, card, cuda):
 
     times = {}
     for cluster in sorted(CLUSTER_SIZES):
-        times[cluster], _ = chunk_run(fastscan_chunk, plan, cuda, 5, cluster)
+        # 3 runs a size (5 until phase 37 came)
+        times[cluster], _ = chunk_run(fastscan_chunk, plan, cuda, 3, cluster)
         g = fastscan_chunk.last_geometry
         print(f"phase 13: {name} first chunk at {cluster} CTA(s) "
               f"({g.threads} threads, {g.nodes_per_thread} node(s) a "
@@ -4897,6 +4937,193 @@ def drive_replication(card):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def shard_workload(api, gang=False):
+    """Phase 37's feed on bench config 14's nodes: SHARD_CONFIG14's pods,
+    or with `gang` the gang feed."""
+    from tpusim_torch.gang.group import mark_gang
+    from tpusim_torch.workloads import uniform_workload
+
+    snapshot, pods = uniform_workload(api=api, **SHARD_CONFIG14)
+    if gang:
+        g = SHARD_GANG
+        pods = pods[:g["solo"]] + [
+            mark_gang(api.make_pod(f"g-{j}", milli_cpu=g["milli_cpu"]), "g")
+            for j in range(g["members"])]
+    return snapshot, pods
+
+
+def shard_run(label):
+    """Phase 37's main path on this process (k ranks when TPUSIM_SHARDS
+    and the group say so, else the single-device route): the backend on
+    config 14's prefix with an analytics plane and a recorder installed,
+    then the gang feed through run_simulation, then a policy plan the
+    sharded route declines. Returns the hash, choices golden, walls, spans,
+    the tpusim_shard_* observations, the all_reduce count and time, the
+    analytics sample and the gang split."""
+    import torch
+    import torch.distributed as dist
+
+    import tpusim_torch.api.snapshot as api
+    from tpusim_torch import workloads
+    from tpusim_torch.backend import TorchBackend, placement_hash
+    from tpusim_torch.engine.policy import decode_policy
+    from tpusim_torch.framework.metrics import register
+    from tpusim_torch.obs import analytics
+    from tpusim_torch.obs import recorder as flight
+    from tpusim_torch.simulator import run_simulation
+
+    calls = {"n": 0, "s": 0.0}
+    real = dist.all_reduce
+
+    def counted(*args, **kwargs):
+        t = time.perf_counter()
+        out = real(*args, **kwargs)
+        calls["n"] += 1
+        calls["s"] += time.perf_counter() - t
+        return out
+
+    dist.all_reduce = counted
+    m = register()
+    snapshot, pods = shard_workload(api)
+    rec = flight.install(flight.FlightRecorder())
+    plane = analytics.install(analytics.ClusterAnalytics(
+        keep_inputs=True, sample_interval_s=0.0,
+        top_k=SHARD_ANALYTICS_TOP_K))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        backend = TorchBackend(route="scan", fallback="error")
+        placements = backend.schedule(pods, snapshot)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        sample = plane.latest()
+        problems = plane.verify_against_host()
+        observed = (m.shard_count.value, dict(m.shard_node_occupancy.values),
+                    m.shard_collective_bytes.value)
+    finally:
+        flight.uninstall()
+        analytics.uninstall()
+        dist.all_reduce = real
+    spans = {}
+    for ev in list(rec.events):
+        if ev.get("ph") == "X" and ev["name"].startswith("shard:"):
+            spans[ev["name"]] = spans.get(ev["name"], 0.0) + ev["dur"] / 1e3
+    sample.pop("ts", None)
+    sample.pop("seq", None)
+    choices = backend.last_choices
+    gsnap, gpods = shard_workload(api, gang=True)
+    rec = flight.install(flight.FlightRecorder())
+    try:
+        status = run_simulation(gpods, gsnap, backend="torch", route="scan")
+    finally:
+        flight.uninstall()
+    gang = split_digest(status)
+    gang_spans = sum(ev["name"] == "shard:gang_lanes"
+                     for ev in list(rec.events))
+    fsnap, fpods = workloads.random_policy_workload(42, 24, 11, api=api)
+    before = m.shard_fallback.get("service_affinity")
+    TorchBackend(route="scan", policy=decode_policy(
+        workloads.random_policy(42, sa_entries=1))).schedule(fpods, fsnap)
+    return {
+        "label": label, "hash": placement_hash(placements),
+        "golden": choices_golden(choices),
+        "scheduled": int((choices >= 0).sum()), "wall": wall,
+        "route": backend.last_route, "spans": spans,
+        "shard_count": observed[0], "occupancy": observed[1],
+        "bytes": observed[2], "all_reduces": calls["n"], "all_reduce_s": calls["s"],
+        "sample": sample, "problems": problems,
+        "gang": gang, "gang_spans": gang_spans,
+        "sa_fallback": m.shard_fallback.get("service_affinity") - before,
+    }
+
+
+def shard_rank(rank, world):
+    """A rank of phase 37 (sharding.run_ranks spawns it by name)."""
+    os.environ["TPUSIM_SHARDS"] = str(world)
+    return shard_run(f"k={world} rank {rank}")
+
+
+def drive_sharded(card):
+    """Phase 37: bench config 14's prefix on the node-sharded scan route at
+    k = 1, 2 and 4, every rank on the one card: one placement hash, the
+    JAX package's single-device golden, the tpusim_shard_* observations, a
+    counted ServiceAffinity fallback, and analytics samples and a gang
+    split equal to k = 1's. No speed is claimed: the ranks share a card."""
+    sys.path.insert(0, HERE)
+    from tpusim_torch.sharding import run_ranks
+
+    t0 = time.perf_counter()
+    os.environ.pop("TPUSIM_SHARDS", None)
+    one = shard_run("k=1")
+    golden, scheduled = SHARD_GOLDEN
+    if (one["golden"], one["scheduled"]) != (golden, scheduled):
+        raise AssertionError(f"phase 37: k=1 golden {one['golden']} with "
+                             f"{one['scheduled']} scheduled, want {golden} "
+                             f"with {scheduled}")
+    if one["spans"] or one["all_reduces"] or one["problems"]:
+        raise AssertionError(f"phase 37: the single-device route ran the "
+                             f"sharded path: {one['spans']}, "
+                             f"{one['all_reduces']} all_reduces, "
+                             f"{one['problems']}")
+    pods, nodes = SHARD_CONFIG14["num_pods"], SHARD_CONFIG14["num_nodes"]
+    rows = [(1, [one])]
+    for k in SHARD_COUNTS:
+        t = time.perf_counter()
+        ranks = run_ranks(shard_rank, k, timeout=SHARD_TIMEOUT_S)
+        spawn_s = time.perf_counter() - t
+        per = -(-nodes // k)
+        for got in ranks:
+            want_occ = {str(r): float(min(per, nodes - r * per))
+                        for r in range(k)}
+            checks = {
+                "hash": got["hash"] == one["hash"],
+                "golden": got["golden"] == golden,
+                "route": got["route"] == "scan",
+                "spans": set(got["spans"]) == {
+                    "shard:stage", "shard:scan", "shard:topk_collective"},
+                "shard_count": got["shard_count"] == k,
+                "occupancy": got["occupancy"] == want_occ,
+                "bytes": got["bytes"] == float(pods * (12 + k) * 8 * k),
+                "analytics": got["sample"] == one["sample"]
+                and got["problems"] == [],
+                "gang": got["gang"] == one["gang"] and got["gang_spans"] >= 1,
+                "sa_fallback": got["sa_fallback"] == 1,
+            }
+            bad = [name for name, ok in checks.items() if not ok]
+            if bad:
+                raise AssertionError(f"phase 37: {got['label']} differs "
+                                     f"from k=1 in {bad}")
+        rows.append((k, ranks))
+        print(f"phase 37: k={k}: {k} ranks on the card under gloo, spawned "
+              f"and joined in {spawn_s:.1f}s")
+    for k, ranks in rows:
+        r0 = ranks[0]
+        calls = r0["all_reduces"]
+        per_call = (r0["all_reduce_s"] / calls * 1e6) if calls else 0.0
+        print(f"phase 37: config 14 prefix ({pods} pods x {nodes} nodes, "
+              f"route scan) k={k}: golden {r0['golden']} "
+              f"({r0['scheduled']} scheduled), hash {r0['hash'][:16]}, "
+              f"wall {r0['wall']:.3f}s ({pods / r0['wall']:.1f} pods/s), "
+              f"shard:stage {r0['spans'].get('shard:stage', 0.0):.1f} ms, "
+              f"shard:scan {r0['spans'].get('shard:scan', 0.0):.1f} ms, "
+              f"{calls} all_reduces ({calls / pods:.2f} a pod, "
+              f"{per_call:.1f} us a call, "
+              f"{r0['all_reduce_s'] / pods * 1e6:.1f} us a pod in them), "
+              f"on {card}")
+    print(f"phase 37: every rank at k={', '.join(map(str, SHARD_COUNTS))}: "
+          f"k=1's hash and the JAX golden, the shard:stage, shard:scan and "
+          f"shard:topk_collective spans, the tpusim_shard_* gauges, an "
+          f"analytics sample equal to k=1's and to host_reduce, the gang "
+          f"split {one['gang']} with its lanes sharded, a service_affinity "
+          f"fallback counted")
+    wall = time.perf_counter() - t0
+    print(f"phase 37: {wall:.1f}s wall, against its {SHARD_BUDGET_S} s "
+          f"budget")
+    if wall > SHARD_BUDGET_S:
+        raise AssertionError(f"phase 37: {wall:.1f}s is past its "
+                             f"{SHARD_BUDGET_S} s budget")
+
+
 def drive_replication_phases(card):
     """Phases 34-36 inside REPLICATION_BUDGET_S."""
     t0 = time.perf_counter()
@@ -5035,6 +5262,9 @@ def main():
     # phases 34-36: the chain audit, multi-tenant residency and the hot
     # standby with leader failover
     drive_replication_phases(card)
+
+    # phase 37: the node-sharded scan route, k ranks sharing the card
+    drive_sharded(card)
 
     kernels = []
     for name, variant, replaces, n_launch, err in (

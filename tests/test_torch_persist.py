@@ -34,7 +34,7 @@ from tpusim.stream.persist import read_wal as jax_read_wal
 from tpusim.stream.persist import tail_wal as jax_tail_wal
 
 from tpusim_torch.backend import uninstall_chaos
-from tpusim_torch.chaos.engine import ProcessCrash
+from tpusim_torch.chaos.engine import ProcessCrash, audit_failover
 from tpusim_torch.chaos.plan import ChurnEvent, DeviceFaultPlan, FaultPlan
 from tpusim_torch.cli import main as port_main
 from tpusim_torch.simulator import run_stream_simulation
@@ -163,6 +163,9 @@ def test_crash_recovery_chain(tmp_path, baselines, pipeline, cadence,
     assert out["recovery_violations"] == []
     assert out["restages"].get("recovered") == 1
     assert out["resume_cycle"] <= CYCLES
+    # no cycle's bind is journaled twice (a crash between a cycle's bind
+    # and emit records re-decides it against its durable bind record)
+    assert audit_failover(read_wal(str(tmp_path / "p" / "wal.jsonl"))[0]) == []
 
 
 @pytest.mark.parametrize("pipeline,point,cadence", [
@@ -181,9 +184,25 @@ def test_jax_written_crash_recovers_in_the_port(tmp_path, baselines,
                    checkpoint_every=cadence, recover=True)
     assert out["fold_chain"] == jax_out["fold_chain"] == want["fold_chain"]
     for key in ("resume_cycle", "recomputed_cycles", "recovery_violations",
-                "wal_records", "checkpoints", "restages", "paths"):
+                "checkpoints", "restages", "paths"):
         assert out[key] == jax_out[key], key
-    assert wal_lines(tmp_path / "p") == wal_lines(tmp_path / "j")
+    jax_wal, port_wal = wal_lines(tmp_path / "j"), wal_lines(tmp_path / "p")
+    jax_audit = audit_failover(jax_read_wal(str(tmp_path / "j" / "wal.jsonl"))[0])
+    assert audit_failover(read_wal(str(tmp_path / "p" / "wal.jsonl"))[0]) == []
+    if point == "bind":
+        # a crash after the bind record: the JAX recovery journals that
+        # cycle's bind a second time, the port's adopts the durable one. The
+        # port's WAL is the JAX WAL less exactly that duplicate line
+        dup = [i for i, line in enumerate(jax_wal)
+               if line in jax_wal[:i] and json.loads(line)["k"] == "bind"]
+        assert len(dup) == 1
+        assert port_wal == jax_wal[:dup[0]] + jax_wal[dup[0] + 1:]
+        assert out["wal_records"] == jax_out["wal_records"] - 1
+        assert jax_audit and all("bind entries" in v for v in jax_audit)
+    else:
+        assert port_wal == jax_wal
+        assert out["wal_records"] == jax_out["wal_records"]
+        assert jax_audit == []
 
 
 def test_pipelined_in_flight_cycle_recovers(tmp_path):
@@ -321,8 +340,13 @@ def test_stream_cli_crash_and_recover(tmp_path, capsys):
                      *extra]) == 0
         outs[name + "-clean"] = json.loads(capsys.readouterr().out)
     for key in ("fold_chain", "resume_cycle", "recomputed_cycles",
-                "recovery_violations", "restages", "paths", "wal_records",
-                "checkpoints", "recovered"):
+                "recovery_violations", "restages", "paths", "checkpoints",
+                "recovered"):
         assert outs["port"][key] == outs["jax"][key], key
+    # the crash fell after cycle 6's bind record: the JAX recovery journals
+    # that bind a second time, the port's adopts it
+    assert outs["port"]["wal_records"] == outs["jax"]["wal_records"] - 1
+    assert audit_failover(read_wal(str(tmp_path / "port" / "wal.jsonl"))[0]) \
+        == []
     assert outs["port"]["fold_chain"] == outs["port-clean"]["fold_chain"]
     assert outs["port-clean"]["fold_chain"] == outs["jax-clean"]["fold_chain"]

@@ -356,6 +356,14 @@ def _get(url):
 
 
 def test_server_endpoints():
+    # /healthz reports each package's process-wide replication role: start
+    # both from none, whatever a test before this one in the process left
+    from tpusim.stream import replicate as jax_replicate
+    from tpusim_torch.stream import replicate
+
+    for mod in (replicate, jax_replicate):
+        mod.set_role("none")
+        mod._set_state(replication_lag_records=0, last_shipped_seq=-1)
     register().reset()
     run_stream_simulation(device="cpu", **CELL)
     srv = server.start_server("127.0.0.1:0")

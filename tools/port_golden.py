@@ -104,6 +104,14 @@ config 11's serve load without faults (~2-3 min):
 
     JAX_PLATFORMS=cpu python tools/port_golden.py config11
 
+`config14 N M` records phase 37's golden the same way on bench config 14's
+uniform workload (workloads.uniform_workload(N, M): identical pods on
+identical nodes, so every step's selection is a round-robin over ties
+across the whole node axis) with JaxBackend's single-device XLA scan
+(TPUSIM_FAST=0, TPUSIM_SHARDS unset; chip_smoke.py SHARD_GOLDEN):
+
+    JAX_PLATFORMS=cpu python tools/port_golden.py config14 512 8192
+
 `config15` prints the goldens of phases 34-36 (chip_smoke.CONFIG15_GOLDEN):
 the digest (chip_smoke.audit_digest) of the JAX package's audit_wal_pair
 (explain_k=3) of config 11's journal (checkpoint_every=0) against a copy
@@ -137,7 +145,8 @@ WORKLOADS = {"groups": workloads.groups_workload,
              "interpod": workloads.interpod_workload,
              "config3": workloads.build_workload,
              "policy": workloads.policy_workload,
-             "hostname": workloads.hostname_workload}
+             "hostname": workloads.hostname_workload,
+             "config14": workloads.uniform_workload}
 POLICIES = {"policy": workloads.COMPAT_POLICIES["1.2"]}
 
 
@@ -531,6 +540,10 @@ def main(argv):
                    "config6_hybrid"):
         return host_digest(argv[0], int(argv[1]), int(argv[2]))
     name, num_pods, num_nodes = argv[0], int(argv[1]), int(argv[2])
+    if name == "config14":
+        # the single-device XLA scan: never the fused kernel, never a mesh
+        os.environ["TPUSIM_FAST"] = "0"
+        os.environ.pop("TPUSIM_SHARDS", None)
     t0 = time.perf_counter()
     snapshot, pods = WORKLOADS[name](num_pods, num_nodes, api=jax_api)
     policy = POLICIES.get(name)

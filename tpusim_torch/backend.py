@@ -49,7 +49,9 @@ exist only while a plan is installed.
 
 from __future__ import annotations
 
+import hashlib
 import logging
+import os
 from dataclasses import replace
 from time import perf_counter
 from typing import List, Optional
@@ -74,7 +76,9 @@ from tpusim_torch.obs import analytics, provenance, tracectx
 from tpusim_torch.obs import recorder as flight
 from tpusim_torch.scan import (
     GRAPH_STEPS,
+    PodX,
     scan_inputs,
+    scan_inputs_host,
     schedule_scan,
     schedule_scan_chunked,
 )
@@ -186,6 +190,124 @@ EXPLAIN_ON_SCAN = ("explain lanes (top-k score breakdown) route through the "
 ANALYTICS_ON_SCAN = "cluster analytics rides the XLA scan's final carry"
 EXPLAIN_WHOLE_SCAN = ("explain lanes (top-k score breakdown) take the whole "
                       "scan, not the chunked one")
+
+
+def _shard_count() -> int:
+    """TPUSIM_SHARDS=k (k > 1) puts the scan route on the node-sharded scan
+    over a k-rank mesh. Unset, 1, 0 or garbage mean the single-device
+    route, which builds no mesh and touches no process group."""
+    try:
+        k = int(os.environ.get("TPUSIM_SHARDS", "1"))
+    except ValueError:
+        return 1
+    return k if k > 1 else 1
+
+
+def shard_mesh_for(config, n_shards: int, device):
+    """The node mesh for a TPUSIM_SHARDS=n_shards batch on the scan route,
+    or None where the batch takes the single-device scan: a config the
+    sharded route cannot serve (scan.shard_route_eligible's reason), or no
+    default process group of n_shards ranks ("device_count"). Either is
+    counted in tpusim_shard_fallback_total{reason} with a trace instant."""
+    import torch.distributed as dist
+
+    from tpusim_torch.scan import shard_route_eligible
+    from tpusim_torch.sharding import make_mesh
+
+    ok, why = shard_route_eligible(config)
+    if ok and not (dist.is_available() and dist.is_initialized()
+                   and dist.get_world_size() == n_shards):
+        ok, why = False, "device_count"
+    if not ok:
+        register().shard_fallback.inc(why)
+        flight.note_fast_fallback(
+            "shard_" + why,
+            f"TPUSIM_SHARDS={n_shards} batch routed single-device")
+        log.info("sharded route ineligible (%s); using the single-device "
+                 "scan", why)
+        return None
+    return make_mesh(n_shards, snap=1, device_type=device.type)
+
+
+def host_digest(*trees) -> int:
+    """A 63-bit digest of host numpy trees: every field's dtype, shape and
+    bytes, in field order."""
+    h = hashlib.blake2b(digest_size=8)
+    for tree in trees:
+        for arr in tree:
+            arr = np.ascontiguousarray(arr)
+            h.update(f"{arr.dtype.str}{arr.shape}".encode())
+            h.update(arr.tobytes())
+    return int.from_bytes(h.digest(), "little") & ((1 << 63) - 1)
+
+
+def check_ranks_agree(mesh, device, *trees) -> None:
+    """Raise unless every rank of the mesh's node axis holds the same host
+    picture (host_digest of `trees`): each rank compiles and decodes on
+    its own, and an order that leaked from a process's string hashing
+    would split the ranks' node order or group ids without a sound. One
+    all_reduce (MAX of the digest and of its negation)."""
+    import torch
+    import torch.distributed as dist
+
+    d = host_digest(*trees)
+    t = torch.tensor([d, -d], dtype=torch.int64, device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.get_group("node"))
+    hi, lo = int(t[0]), -int(t[1])
+    if hi != lo:
+        raise RuntimeError(
+            f"sharded route: the ranks' host pictures differ (digest "
+            f"{d:016x} here, from {lo:016x} to {hi:016x} across the "
+            "ranks); every rank must compile the same snapshot and pods")
+
+
+def _dispatch_sharded(config, mesh, n_shards, statics, carry, xs, chunked,
+                      scan_chunk, metrics, device):
+    """One node-sharded dispatch: check that the ranks agree on the host
+    picture, pad the node axis to the shard multiple and stage this rank's
+    block (span shard:stage), run the sharded scan whole or in chunks
+    (span shard:scan), and set the tpusim_shard_* gauges. Returns
+    (final_carry, choices, counts, statics): the carry and statics this
+    rank's padded block, for the analytics reduction to fold."""
+    from tpusim_torch.scan import sharded_scan_fn
+    from tpusim_torch.sharding import shard_device, shard_for_mesh
+
+    dev = shard_device(device)
+    sconfig = replace(config, shard_axis="node")
+    check_ranks_agree(mesh, dev, statics, carry, xs)
+    with flight.span("shard:stage") as ssp:
+        n_real = int(np.asarray(statics.alloc_cpu).shape[0])
+        # a chunked scan uploads the pods' columns chunk by chunk
+        st, ca, xs_d = shard_for_mesh(
+            mesh, statics, carry,
+            PodX(*(np.asarray(c)[:0] for c in xs)) if chunked else xs, dev)
+        if ssp:
+            ssp.set("shards", n_shards)
+            ssp.set("nodes", n_real)
+    per = st.alloc_cpu.shape[0]
+    metrics.shard_count.set(n_shards)
+    for r in range(n_shards):
+        metrics.shard_node_occupancy.set(
+            str(r), max(0, min(n_real - r * per, per)))
+    # the estimated collective payload, the JAX package's formula: about
+    # 12 reduced scalars and an n_shards-wide tie vector a pod step, 8
+    # bytes each, on every shard (analytics and gang lanes are apart)
+    n_pods = int(np.asarray(xs.req_cpu).shape[0])
+    metrics.shard_collective_bytes.set(
+        float(n_pods) * (12 + n_shards) * 8 * n_shards)
+    with flight.span("shard:scan", "device", dev) as sp:
+        if chunked:
+            final_carry, choices, counts, _adv = sharded_scan_fn(
+                sconfig, mesh, chunk=scan_chunk)(ca, st, xs)
+        else:
+            final_carry, choices, counts, _adv = sharded_scan_fn(
+                sconfig, mesh)(ca, st, xs_d)
+            choices = choices.cpu().numpy()
+            counts = counts.cpu().numpy()
+        if sp:
+            sp.set("shards", n_shards)
+            sp.set("pods", n_pods)
+    return final_carry, choices, counts, st
 
 
 def scan_only_reason(config) -> Optional[str]:
@@ -481,6 +603,7 @@ class TorchBackend:
             config = replace(config, explain_k=min(
                 explain_k, len(compiled.statics.names)))
         plan, why = None, "route='scan' asked for"
+        shard_mesh = None
         if self.route != "scan":
             why = scan_only_reason(config)
             if why is None:
@@ -499,8 +622,18 @@ class TorchBackend:
             if chunked and config.explain_k > 0:
                 note_fast_fallback(EXPLAIN_WHOLE_SCAN)
                 chunked = False
-            carry, statics, xs = scan_inputs(config, compiled, cols, ptabs,
-                                             self.device, host_pods=chunked)
+            # TPUSIM_SHARDS=k > 1: the node-sharded scan over k ranks, or
+            # the single-device scan with the reason counted
+            n_shards = _shard_count()
+            if n_shards > 1:
+                shard_mesh = shard_mesh_for(config, n_shards, self.device)
+            if shard_mesh is not None:
+                carry, statics, xs = scan_inputs_host(config, compiled, cols,
+                                                      ptabs)
+            else:
+                carry, statics, xs = scan_inputs(config, compiled, cols,
+                                                 ptabs, self.device,
+                                                 host_pods=chunked)
         # the chaos seam: a scripted dispatch fault raises here, before any
         # launch; a scripted corruption applies to the host outputs below
         injector = _CHAOS["injector"]
@@ -517,7 +650,12 @@ class TorchBackend:
             self.last_route = "kernel"
         else:
             with flight.profiled("tpusim:schedule_scan"):
-                if chunked:
+                if shard_mesh is not None:
+                    final_carry, choices, counts, statics = \
+                        _dispatch_sharded(config, shard_mesh, n_shards,
+                                          statics, carry, xs, chunked,
+                                          scan_chunk, metrics, self.device)
+                elif chunked:
                     final_carry, choices, counts, _adv = \
                         schedule_scan_chunked(config, carry, statics, xs,
                                               scan_chunk,
@@ -540,10 +678,13 @@ class TorchBackend:
                 choices, counts = DeviceInjector.corrupt(corrupt_kind,
                                                          choices, counts)
             check_device_output(choices, counts, len(compiled.statics.names))
-        flight.note_route(self.last_route, len(pods))
+        route = "scan_sharded" if shard_mesh is not None else self.last_route
+        flight.note_route(route, len(pods))
         if dsp:
-            dsp.set("route", self.last_route)
+            dsp.set("route", route)
             dsp.set("pods", len(pods))
+            if shard_mesh is not None:
+                dsp.set("shards", n_shards)
             if plan is not None:
                 dsp.set("sig", str(plan_signature(plan)))
             dsp.end()
@@ -572,11 +713,14 @@ class TorchBackend:
                         "sentinel": EXPLAIN_SENTINEL}
             prov.capture_batch(placements, "backend", topk=topk)
         if final_carry is not None:
-            # the batch's post-bind carry against its statics; a
-            # None-check without an installed analytics plane
+            # the batch's post-bind carry against its statics (on the
+            # sharded route this rank's padded blocks: the reduction merges
+            # across the ranks); a None-check without an installed
+            # analytics plane
             analytics.capture(statics, final_carry,
                               len(compiled.statics.names), "backend",
-                              names=compiled.statics.names)
+                              names=compiled.statics.names,
+                              mesh=shard_mesh)
         # e2e also covers the host's decode of the results
         metrics.e2e_scheduling_latency.observe(
             since_in_microseconds(dispatch_start))

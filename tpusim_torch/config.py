@@ -96,6 +96,11 @@ class EngineConfig:
     # nodes by final score with each node's score parts
     # (explain_part_names order); 0 builds the programs without them
     explain_k: int = 0
+    # node-axis sharding: the name of the mesh axis the node columns are
+    # split over (scan.sharded_scan_fn). The step then takes the shard as
+    # an argument and every cross-node reduction becomes an all_reduce over
+    # that axis's process group; None (the default) adds no collective
+    shard_axis: Optional[str] = None
 
 
 def config_for(compiled, most_requested: bool,

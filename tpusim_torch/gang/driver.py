@@ -25,6 +25,7 @@ then the same all-or-nothing gate.
 from __future__ import annotations
 
 import logging
+from dataclasses import replace
 from typing import Dict, List, Tuple
 
 from tpusim_torch.api.types import Pod
@@ -114,7 +115,11 @@ def _joint_solve(backend, inc, compiled, cols) -> Tuple[List[int], List[str]]:
     them (a backend's policy is not applied to the member lanes)."""
     import torch
 
-    from tpusim_torch.backend import _MOST_REQUESTED_PROVIDERS
+    from tpusim_torch.backend import (
+        _MOST_REQUESTED_PROVIDERS,
+        _shard_count,
+        shard_mesh_for,
+    )
     from tpusim_torch.config import config_for
     from tpusim_torch.scan import (
         carry_init,
@@ -132,7 +137,37 @@ def _joint_solve(backend, inc, compiled, cols) -> Tuple[List[int], List[str]]:
     statics = statics_to(compiled, device)
     carry = carry_init(compiled, device)
     xs = pod_columns_to(cols, device)
-    feasible, score = gang_lanes(config, carry, statics, xs)
+    n_shards = _shard_count()
+    mesh = (shard_mesh_for(config, n_shards, device) if n_shards > 1
+            else None)
+    if mesh is None:
+        feasible, score = gang_lanes(config, carry, statics, xs)
+    else:
+        # the member lanes over the node-sharded columns: each rank's block
+        # with the step's collectives, the (member, node) matrix put back
+        # together on every rank; padded columns are never feasible, so the
+        # real node columns feed the joint solve as the single-device
+        # lanes do
+        from tpusim_torch.scan import (
+            carry_init_host,
+            gang_lanes_sharded,
+            pod_columns_to_host,
+            statics_to_host,
+        )
+        from tpusim_torch.sharding import shard_for_mesh
+
+        st, ca, xs_r = shard_for_mesh(
+            mesh, statics_to_host(compiled), carry_init_host(compiled),
+            pod_columns_to_host(cols), device)
+        with flight.span("shard:gang_lanes", "device", device) as sp:
+            feasible, score = gang_lanes_sharded(
+                replace(config, shard_axis="node"), mesh, ca, st, xs_r)
+            if sp:
+                sp.set("shards", n_shards)
+                sp.set("members", int(xs.req_cpu.shape[0]))
+        n_nodes = len(compiled.statics.names)
+        feasible = feasible[:, :n_nodes].to(device)
+        score = score[:, :n_nodes].to(device)
 
     names = list(compiled.statics.names)
     by_name = {n.metadata.name: n for n in inc.nodes}

@@ -243,7 +243,8 @@ class ClusterAnalytics:
         return time.monotonic() - self._last_capture >= self.sample_interval_s
 
     def capture_device(self, inp, n_valid: int, source: str,
-                       cycle: Optional[int] = None, names=None) -> None:
+                       cycle: Optional[int] = None, names=None,
+                       mesh=None) -> None:
         """Launch the reduction on the device columns and ring its result.
 
         The launch is asynchronous and nothing is read back here: on the
@@ -251,17 +252,44 @@ class ClusterAnalytics:
         query or a flush waits on, so a pipelined stream keeps its
         overlap. With keep_inputs the columns are cloned on their stream
         now, since the resident carry is overwritten in place by the next
-        commit and scan."""
+        commit and scan.
+
+        mesh: the node mesh when `inp` holds this rank's block of padded,
+        node-sharded columns (the TPUSIM_SHARDS route). The reduction then
+        merges across the ranks (scan.analytics_reduce_sharded, span
+        shard:topk_collective), equal to the single-device reduce, and
+        kept inputs are the whole columns, put together the same way."""
         from tpusim_torch.scan import analytics_reduce
 
         if not self.want_sample():
             return
         self._last_capture = time.monotonic()
         n = int(inp.alloc_cpu.shape[0])
+        shard = None
+        if mesh is not None:
+            from tpusim_torch.scan import mesh_shard
+
+            shard = mesh_shard(mesh, n)
+            n *= shard.size
         k = max(1, min(self.top_k, n))
-        stats = analytics_reduce(inp, int(n_valid), k)
-        inputs = (type(inp)(*(leaf.clone() for leaf in inp))
-                  if self.keep_inputs else None)
+        if shard is None:
+            stats = analytics_reduce(inp, int(n_valid), k)
+        else:
+            from tpusim_torch.obs import recorder as flight
+            from tpusim_torch.scan import analytics_reduce_sharded
+
+            with flight.span("shard:topk_collective", "device",
+                             inp.alloc_cpu.device):
+                stats = analytics_reduce_sharded(mesh, inp, int(n_valid), k)
+        inputs = None
+        if self.keep_inputs:
+            if shard is None:
+                inputs = type(inp)(*(leaf.clone() for leaf in inp))
+            else:
+                from tpusim_torch.scan import gather_nodes
+
+                inputs = type(inp)(*(gather_nodes(shard, leaf)
+                                     for leaf in inp))
         stats, event = _to_host_behind_event(stats)
         sample = _Sample(stats, source, cycle, round(time.time(), 3), 0,
                          names, int(n_valid), k, inputs, event)
@@ -354,16 +382,17 @@ def get() -> Optional[ClusterAnalytics]:
 
 
 def capture(statics, carry, n_valid: int, source: str,
-            cycle: Optional[int] = None, names=None) -> None:
+            cycle: Optional[int] = None, names=None, mesh=None) -> None:
     """Reduce one (Statics, Carry) pair; a None-check when no instance is
-    installed."""
+    installed. mesh: the node mesh of a node-sharded pair (this rank's
+    blocks)."""
     log = _active
     if log is None or not log.want_sample():
         return
     from tpusim_torch.scan import analytics_in
 
     log.capture_device(analytics_in(statics, carry), n_valid, source,
-                       cycle=cycle, names=names)
+                       cycle=cycle, names=names, mesh=mesh)
 
 
 # -- device residency (always on, polled at snapshot time) ---------------

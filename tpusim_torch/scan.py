@@ -350,19 +350,26 @@ def pod_columns_to(cols: PodColumns, device) -> PodX:
     return tree_to(pod_columns_to_host(cols), device, index=True)
 
 
-def scan_inputs(config: EngineConfig, compiled: CompiledCluster,
-                cols: PodColumns, ptabs, device, host_pods: bool = False):
-    """(carry, statics, xs) on `device`: under a policy its rows grafted
-    onto the statics and, with ServiceAffinity, its initial locks onto the
-    carry (the same tables plan_fast bakes into the kernel's plan).
-    host_pods leaves xs in host memory (schedule_scan_chunked)."""
+def scan_inputs_host(config: EngineConfig, compiled: CompiledCluster,
+                     cols: PodColumns, ptabs):
+    """(carry, statics, xs) over host numpy arrays: under a policy its rows
+    grafted onto the statics and, with ServiceAffinity, its initial locks
+    onto the carry (the same tables plan_fast bakes into the kernel's
+    plan)."""
     ps = config.policy
     sa_lock_init = (ptabs.sa_lock_init if ps is not None and ps.sa_enabled
                     else None)
-    return (carry_init(compiled, device, sa_lock_init),
-            statics_to(compiled, device, ptabs),
-            pod_columns_to_host(cols) if host_pods
-            else pod_columns_to(cols, device))
+    return (carry_init_host(compiled, sa_lock_init),
+            statics_to_host(compiled, ptabs), pod_columns_to_host(cols))
+
+
+def scan_inputs(config: EngineConfig, compiled: CompiledCluster,
+                cols: PodColumns, ptabs, device, host_pods: bool = False):
+    """scan_inputs_host's (carry, statics, xs) on `device`. host_pods
+    leaves xs in host memory (schedule_scan_chunked)."""
+    carry, statics, xs = scan_inputs_host(config, compiled, cols, ptabs)
+    return (tree_to(carry, device), tree_to(statics, device, index=True),
+            xs if host_pods else tree_to(xs, device, index=True))
 
 
 def _fdiv(a, b):
@@ -465,6 +472,71 @@ def _row(table, i1):
     return table.index_select(0, i1)[0]
 
 
+# ---------------------------------------------------------------------------
+# Node-axis collectives. On the node-sharded route (sharded_scan_fn) each
+# process holds a contiguous block of the node axis, and every cross-node
+# reduction of the step funnels through these four helpers: with no shard
+# they return their operand (the single-device step is untouched), with one
+# they all_reduce it over the shard's process group. Every reduced quantity
+# is an integer or an integer-valued float64 count below 2^53, so the sums,
+# maxima and minima are exact whatever the order the ranks combine in.
+
+
+class Shard(NamedTuple):
+    """This process's block of a node-sharded step: the node axis's
+    process group, this rank's index in it and the group's size, the
+    block's node count, and the global index of its first node."""
+    group: object
+    rank: int
+    size: int
+    n_local: int
+    base: int
+
+
+def _all_reduce(v, shard: Shard, op: str):
+    """v all-reduced over the shard's group with op "sum", "max" or "min",
+    as a new tensor of v's shape and dtype (a bool operand is reduced as
+    int32)."""
+    import torch.distributed as dist
+
+    ops = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+           "min": dist.ReduceOp.MIN}
+    buf = v.reshape(-1).to(torch.int32 if v.dtype == torch.bool
+                           else v.dtype, copy=True)
+    dist.all_reduce(buf, op=ops[op], group=shard.group)
+    buf = buf.reshape(v.shape)
+    return buf != 0 if v.dtype == torch.bool else buf
+
+
+def _ax_sum(v, shard: Optional[Shard]):
+    return v if shard is None else _all_reduce(v, shard, "sum")
+
+
+def _ax_max(v, shard: Optional[Shard]):
+    return v if shard is None else _all_reduce(v, shard, "max")
+
+
+def _ax_min(v, shard: Optional[Shard]):
+    return v if shard is None else _all_reduce(v, shard, "min")
+
+
+def _ax_any(v, shard: Optional[Shard]):
+    return v if shard is None else _all_reduce(v, shard, "max")
+
+
+def gather_nodes(shard: Shard, t, dim: int = 0):
+    """The whole node axis (dim) of a node-sharded tensor on every rank:
+    each rank writes its block into zeros and the blocks are summed (one
+    all_reduce; a bool tensor travels as int32)."""
+    shape = list(t.shape)
+    shape[dim] = shard.n_local * shard.size
+    full = torch.zeros(shape, dtype=torch.int32 if t.dtype == torch.bool
+                       else t.dtype, device=t.device)
+    full.narrow(dim, shard.base, shard.n_local).copy_(t)
+    return _ax_sum(full, shard) != 0 if t.dtype == torch.bool \
+        else _ax_sum(full, shard)
+
+
 class _Const:
     """Per-run constants of the step: bit positions and one-hot key tables
     that depend only on the statics."""
@@ -492,7 +564,8 @@ class _Const:
 
 
 def _evaluate(config: EngineConfig, carry: Carry, st: Statics, x: PodX,
-              g1, const: _Const, parts: Optional[list] = None):
+              g1, const: _Const, parts: Optional[list] = None,
+              shard: Optional[Shard] = None):
     """Filter + score one pod against the carried aggregates: (feasible[N],
     reason_bits[N], score[N], n_feasible, aca_counts). A `parts` list gets
     each weighted score component ([N]) as it is added, in
@@ -502,9 +575,12 @@ def _evaluate(config: EngineConfig, carry: Carry, st: Statics, x: PodX,
     one-element index. With config.policy set, stages and components are
     gated to the policy's predicate set and weights (factory.go
     CreateFromConfig); stages always follow PREDICATES_ORDERING, so the
-    first failing stage gives the host engine's reason."""
+    first failing stage gives the host engine's reason. With `shard` the
+    node columns are this rank's block and every reduction over nodes is
+    an all_reduce over the shard's group (the JAX package's sites)."""
     ps = config.policy
     en = ps.pred_keys if ps is not None else None
+    ax = shard
 
     def on(name):
         # None = the provider's default predicate set (the full pipeline)
@@ -710,8 +786,9 @@ def _evaluate(config: EngineConfig, carry: Carry, st: Statics, x: PodX,
         mcount = st.term_match[aff_term].to(f64) @ presence_f      # [Ta, N]
         dom_rows = st.topo_dom[_row(st.aff_key, g1)]               # [Ta, N]
         valid_dom = dom_rows > 0
-        dc_at = torch.gather(_seg_rows(mcount, dom_rows, config.n_topo_doms),
-                             1, dom_rows)
+        dc_at = torch.gather(
+            _ax_sum(_seg_rows(mcount, dom_rows, config.n_topo_doms), ax),
+            1, dom_rows)
         is_host = _row(st.aff_hostname, g1)[:, None]
         on_node = mcount > 0.5
         term_matches = torch.where(is_host, valid_dom & on_node,
@@ -720,7 +797,7 @@ def _evaluate(config: EngineConfig, carry: Carry, st: Statics, x: PodX,
         # matching pod anywhere (unplaced snapshot pods included)
         exists = torch.where(
             is_host, on_node,
-            ((torch.sum(mcount, dim=1) > 0.5)
+            ((_ax_sum(torch.sum(mcount, dim=1), ax) > 0.5)
              | _row(st.aff_unplaced, g1))[:, None])
         term_ok = term_matches | ((~exists) & _row(st.aff_self, g1)[:, None])
         aff_fail = (torch.any(_row(st.aff_valid, g1)[:, None] & ~term_ok,
@@ -733,7 +810,8 @@ def _evaluate(config: EngineConfig, carry: Carry, st: Statics, x: PodX,
         bdom_rows = st.topo_dom[_row(st.anti_key, g1)]
         bvalid = bdom_rows > 0
         bdc_at = torch.gather(
-            _seg_rows(bmcount, bdom_rows, config.n_topo_doms), 1, bdom_rows)
+            _ax_sum(_seg_rows(bmcount, bdom_rows, config.n_topo_doms), ax),
+            1, bdom_rows)
         b_is_host = _row(st.anti_hostname, g1)[:, None]
         b_matches = torch.where(b_is_host, bvalid & (bmcount > 0.5),
                                 bvalid & (bdc_at > 0.5))
@@ -743,7 +821,7 @@ def _evaluate(config: EngineConfig, carry: Carry, st: Statics, x: PodX,
 
         # existing pods' anti-affinity against me (checked first)
         w = st.anti_valid & tm_col[st.anti_term]                   # [G, Tb]
-        grp_present = torch.sum(carry.presence, dim=1) > 0         # [G]
+        grp_present = _ax_sum(torch.sum(carry.presence, dim=1), ax) > 0  # [G]
         fail_all = torch.any(w & st.anti_empty & grp_present[:, None])
         bad_dom = torch.einsum("gtk,gt,gkd->kd", const.key_oh,
                                (w & ~st.anti_empty).to(f64), pd_f)
@@ -792,7 +870,7 @@ def _evaluate(config: EngineConfig, carry: Carry, st: Statics, x: PodX,
         # short-circuit: the first failing stage gives the reasons
         for fail, bits in reversed(stages):
             reason_bits = torch.where(fail, bits, reason_bits)
-    n_feasible = torch.sum(feasible)
+    n_feasible = _ax_sum(torch.sum(feasible), ax)
 
     # ---- score (weighted sum, generic_scheduler.go:631-639) ----
     (w_least, w_most, w_balanced, w_node_aff, w_taint, w_avoid, w_spread,
@@ -828,14 +906,14 @@ def _evaluate(config: EngineConfig, carry: Carry, st: Statics, x: PodX,
     if w_node_aff:
         # NodeAffinityPriority: NormalizeReduce(10, False) over feasible nodes
         aff = _row(st.affinity_count, one(x.aff_id))
-        aff_max = torch.max(torch.where(feasible, aff, 0))
+        aff_max = _ax_max(torch.max(torch.where(feasible, aff, 0)), ax)
         add(w_node_aff * torch.where(
             aff_max > 0, _fdiv(MAX_PRIORITY * aff, aff_max.clamp(min=1)), 0))
 
     if w_taint:
         # TaintTolerationPriority: NormalizeReduce(10, True) over feasible
         intol = _row(st.intolerable, one(x.tol_id))
-        intol_max = torch.max(torch.where(feasible, intol, 0))
+        intol_max = _ax_max(torch.max(torch.where(feasible, intol, 0)), ax)
         add(w_taint * torch.where(
             intol_max > 0,
             MAX_PRIORITY - _fdiv(MAX_PRIORITY * intol, intol_max.clamp(min=1)),
@@ -861,13 +939,13 @@ def _evaluate(config: EngineConfig, carry: Carry, st: Statics, x: PodX,
         saa_row = _row(st.saa_rows, one(_row(st.saa_sig, g1)))
         saa_cnt = (saa_row.to(f64) @ carry.presence.to(f64)).to(I64)  # [N]
         saa_fcnt = torch.where(feasible, saa_cnt, 0)
-        saa_total = torch.sum(saa_fcnt)
+        saa_total = _ax_sum(torch.sum(saa_fcnt), ax)
         saa_term = torch.zeros_like(score)
         for e, w_saa in enumerate(ps.saa_weights):
             dom = st.saa_dom[e]
             labeled = dom > 0
-            grp = _seg(torch.where(labeled, saa_fcnt, 0), dom,
-                       config.n_saa_doms)
+            grp = _ax_sum(_seg(torch.where(labeled, saa_fcnt, 0), dom,
+                               config.n_saa_doms), ax)
             grp[0].fill_(0)     # a fill, not a host copy
             f_score = torch.where(
                 saa_total > 0,
@@ -886,12 +964,12 @@ def _evaluate(config: EngineConfig, carry: Carry, st: Statics, x: PodX,
         ss_row = _row(st.ss_rows, one(_row(st.ss_sig, g1)))
         cnt = (ss_row.to(f64) @ carry.presence.to(f64)).to(I64)     # [N]
         fcnt = torch.where(feasible, cnt, 0)
-        max_node = torch.max(fcnt)
+        max_node = _ax_max(torch.max(fcnt), ax)
         zdom = st.zone_dom
         zvalid = zdom > 0
-        zcnt = _seg(fcnt, zdom, config.n_zone_doms)
+        zcnt = _ax_sum(_seg(fcnt, zdom, config.n_zone_doms), ax)
         zcnt[0].fill_(0)
-        have_zones = torch.any(feasible & zvalid)
+        have_zones = _ax_any(torch.any(feasible & zvalid), ax)
         max_zone = torch.max(zcnt)
         node_num = torch.where(max_node > 0, max_node - cnt, 1)
         node_den = max_node.clamp(min=1)
@@ -912,8 +990,8 @@ def _evaluate(config: EngineConfig, carry: Carry, st: Statics, x: PodX,
         pcount = (st.term_match[_row(st.pref_term, g1)].to(f64)
                   @ presence_f)                                     # [Tp, N]
         pdom = st.topo_dom[_row(st.pref_key, g1)]                   # [Tp, N]
-        pdc_at = torch.gather(_seg_rows(pcount, pdom, config.n_topo_doms),
-                              1, pdom)
+        pdc_at = torch.gather(
+            _ax_sum(_seg_rows(pcount, pdom, config.n_topo_doms), ax), 1, pdom)
         counts = torch.sum(p_w[:, None] * torch.where(pdom > 0, pdc_at, 0.0),
                            dim=0)
         wb = st.pref_w * tm_col[st.pref_term]                       # [G, Tp]
@@ -928,8 +1006,10 @@ def _evaluate(config: EngineConfig, carry: Carry, st: Statics, x: PodX,
         # the normalize is exact integer arithmetic on the integer counts
         counts_i = counts.to(I64)
         big = 1 << 62
-        maxc = torch.max(torch.where(feasible, counts_i, -big)).clamp(min=0)
-        minc = torch.min(torch.where(feasible, counts_i, big)).clamp(max=0)
+        maxc = _ax_max(torch.max(torch.where(feasible, counts_i, -big)),
+                       ax).clamp(min=0)
+        minc = _ax_min(torch.min(torch.where(feasible, counts_i, big)),
+                       ax).clamp(max=0)
         rng = maxc - minc
         ip = torch.where(rng > 0, _fdiv(MAX_PRIORITY * (counts_i - minc),
                                         rng.clamp(min=1)), 0)
@@ -938,19 +1018,42 @@ def _evaluate(config: EngineConfig, carry: Carry, st: Statics, x: PodX,
     return feasible, reason_bits, score, n_feasible, aca_counts
 
 
-def _select(feasible, score, n_feasible, rr):
+_INT32_MAX = (1 << 31) - 1
+
+
+def _select(feasible, score, n_feasible, rr, shard: Optional[Shard] = None):
     """selectHost (generic_scheduler.go:183-198): stable descending order
     and round-robin over the max-score ties; rr is consumed only when more
     than one node passed the filter (scheduleOne returns a lone feasible
-    node directly, :176-180)."""
+    node directly, :176-180).
+
+    With `shard` the same selection runs over every rank's block: the tie
+    threshold is a max over the group, each rank's tie count lands in its
+    own slot of a zero [S] vector that one sum gathers (the total and the
+    ties of the ranks before this one), each rank ranks its ties from that
+    offset, so `rank == k` fires on one node of the whole axis, and the
+    owner publishes its global index through a min (the others offer
+    int32's largest). The choice is the single-device scan's, on every
+    rank."""
     masked = torch.where(feasible, score, -1)
-    max_score = torch.max(masked)
+    max_score = _ax_max(torch.max(masked), shard)
     tie = feasible & (masked == max_score)
-    ties = torch.sum(tie).clamp(min=1)
+    if shard is None:
+        ties = torch.sum(tie).clamp(min=1)
+    else:
+        slots = torch.arange(shard.size, device=tie.device)
+        per_rank = _ax_sum(torch.where(slots == shard.rank, torch.sum(tie),
+                                       0), shard)                    # [S]
+        ties = torch.sum(per_rank).clamp(min=1)
     k = torch.where(n_feasible > 1, torch.remainder(rr, ties), 0)
     rank = torch.cumsum(tie.to(I64), dim=0) - 1
+    if shard is not None:
+        rank = rank + torch.sum(torch.where(slots < shard.rank, per_rank, 0))
     pick = tie & (rank == k)
     choice = torch.argmax(pick.to(torch.int32)).to(torch.int32)
+    if shard is not None:
+        choice = _ax_min(torch.where(torch.any(pick), shard.base + choice,
+                                     _INT32_MAX).to(torch.int32), shard)
     found = n_feasible > 0
     return torch.where(found, choice, -1), found
 
@@ -1060,13 +1163,21 @@ def _top_k_first(values, k: int):
 
 
 def make_step(config: EngineConfig, st: Statics, pods, carry: Carry,
-              out: ScanOutputs, t1, lanes: Optional[ExplainLanes] = None):
+              out: ScanOutputs, t1, lanes: Optional[ExplainLanes] = None,
+              shard: Optional[Shard] = None):
     """The exact sequential step over device-held state: step() takes pod
     t1 (a one-element int64 counter on the device) from `pods`, the packed
     [P, F] columns (_pack_pods), binds it into `carry` in place, writes its
     row of `out` (and of `lanes`, the explain lanes, where given) and
     advances t1. Nothing in it reads the device from the host, so a block
-    of steps can be captured in a CUDA graph."""
+    of steps can be captured in a CUDA graph.
+
+    With `shard` (the node-sharded route) `st` and the carry's node columns
+    are this rank's block; the reductions are all_reduces over the shard's
+    group, the choice is a global node index on every rank, only its owner
+    binds it into the node columns, and the replicated presence_dom takes
+    the owner's domain column through a sum. The outputs are the same on
+    every rank."""
     const = _Const(config, st)
     unpack = _unpacker(st.alloc_scalar.shape[-1])
     group_bound = (config.has_ports or config.has_services
@@ -1078,27 +1189,38 @@ def make_step(config: EngineConfig, st: Statics, pods, carry: Carry,
         g1 = x.group_id.reshape(1)
         parts = [] if lanes is not None else None
         feasible, reason_bits, score, n_feasible, aca_counts = _evaluate(
-            config, carry, st, x, g1, const, parts)
-        choice, found = _select(feasible, score, n_feasible, carry.rr)
+            config, carry, st, x, g1, const, parts, shard)
+        choice, found = _select(feasible, score, n_feasible, carry.rr, shard)
         advanced = n_feasible > 1
 
-        idx1 = choice.clamp(min=0).to(I64).reshape(1)
-        gate = found.to(I64)
-        gate32 = found.to(torch.int32).reshape(1)
+        if shard is None:
+            bind = found
+            idx1 = choice.clamp(min=0).to(I64).reshape(1)
+        else:
+            local = choice.to(I64) - shard.base
+            bind = found & (local >= 0) & (local < shard.n_local)
+            idx1 = local.clamp(0, shard.n_local - 1).reshape(1)
+        gate = bind.to(I64)
+        gate32 = bind.to(torch.int32).reshape(1)
         if group_bound:
             n = carry.presence.shape[1]
             carry.presence.view(-1).index_add_(0, g1 * n + idx1, gate32)
         if config.has_maxpd:
             cur = carry.used_vols.index_select(0, idx1)
-            row = torch.where(found, cur | st.vol_mask.index_select(0, g1),
+            row = torch.where(bind, cur | st.vol_mask.index_select(0, g1),
                               cur)
             carry.used_vols.index_copy_(0, idx1, row)
         if config.has_interpod:
             _, k_count, d_count = carry.presence_dom.shape
             dom_at = st.topo_dom.index_select(1, idx1)[:, 0]           # [K]
+            add = gate32
+            if shard is not None:
+                # every rank applies the owner's domain column
+                dom_at = _ax_sum(torch.where(bind, dom_at, 0), shard)
+                add = found.to(torch.int32).reshape(1)
             flat = (g1 * k_count + const.keys) * d_count + dom_at
             carry.presence_dom.view(-1).index_add_(
-                0, flat, gate32.expand(k_count))
+                0, flat, add.expand(k_count))
         if sa_on:
             # the first bound pod a selector matches locks its signature to
             # the chosen node (assigned order is bind order here)
@@ -1114,8 +1236,9 @@ def make_step(config: EngineConfig, st: Statics, pods, carry: Carry,
         carry.used_scalar.index_add_(0, idx1, (gate * x.req_scalar)[None])
         carry.rr.add_(advanced.to(I64))
 
-        hist = (_aca_histogram(aca_counts, const) if aca_counts is not None
-                else _reason_histogram(reason_bits, const))
+        hist = _ax_sum(_aca_histogram(aca_counts, const)
+                       if aca_counts is not None
+                       else _reason_histogram(reason_bits, const), shard)
         out.choices.index_copy_(0, t1, choice.reshape(1))
         out.counts.index_copy_(
             0, t1, torch.where(found, const.no_counts, hist)[None])
@@ -1190,7 +1313,8 @@ class _Steps:
 
 
 def schedule_scan(config: EngineConfig, carry: Carry, statics: Statics,
-                  xs: PodX, graph_steps: int = 0):
+                  xs: PodX, graph_steps: int = 0,
+                  shard: Optional[Shard] = None):
     """Every pod of `xs` in order: (final_carry, choices int32 [P], counts
     int32 [P, bits], advanced bool [P]), all on the statics' device, and
     with config.explain_k > 0 a fifth element, the ExplainLanes.
@@ -1199,7 +1323,8 @@ def schedule_scan(config: EngineConfig, carry: Carry, statics: Statics,
     graph_steps > 0 on a CUDA device captures that many steps in one CUDA
     graph and replays it over the batch (the steps left over, and the
     first, run eagerly): one launch a block instead of a few hundred a pod,
-    the same operations in the same order."""
+    the same operations in the same order. `shard` runs the node-sharded
+    step (make_step; the carry and statics are this rank's block)."""
     carry = Carry(*(t.clone() for t in carry))
     num_pods = xs.req_cpu.shape[0]
     dev = statics.alloc_cpu.device
@@ -1207,7 +1332,8 @@ def schedule_scan(config: EngineConfig, carry: Carry, statics: Statics,
                    dev)
     lanes = _explain_lanes(config, num_pods, statics.alloc_cpu.shape[0], dev)
     t1 = torch.zeros(1, dtype=I64, device=dev)
-    step = make_step(config, statics, _pack_pods(xs), carry, out, t1, lanes)
+    step = make_step(config, statics, _pack_pods(xs), carry, out, t1, lanes,
+                     shard)
     _Steps(step, t1, graph_steps).run(num_pods)
     if lanes is not None:
         return (carry,) + tuple(out) + (lanes,)
@@ -1239,7 +1365,8 @@ def pad_infeasible_rows(xs: PodX, pad: int) -> PodX:
 
 def schedule_scan_chunked(config: EngineConfig, carry: Carry,
                           statics: Statics, xs_host: PodX, chunk: int,
-                          graph_steps: int = 0):
+                          graph_steps: int = 0,
+                          shard: Optional[Shard] = None):
     """The exact sequential scan over a pod batch in chunks of `chunk` pods,
     so that only one chunk of the pods' columns lies on the device at a
     time: (final_carry on the statics' device, choices [P], counts [P, bits]
@@ -1252,7 +1379,8 @@ def schedule_scan_chunked(config: EngineConfig, carry: Carry,
     so every chunk runs one step over the same buffers, and on a CUDA
     device one captured graph (graph_steps) serves every chunk. There,
     while chunk t runs, chunk t+1's columns upload from pinned host memory
-    on a side stream."""
+    on a side stream. `shard` runs the node-sharded step, as
+    schedule_scan."""
     if chunk < 1:
         raise ValueError(f"chunk={chunk}: need at least 1 pod a chunk")
     if config.explain_k > 0:
@@ -1271,8 +1399,8 @@ def schedule_scan_chunked(config: EngineConfig, carry: Carry,
     every = _outputs((p + pad,), num_bits, dev)
     pods = torch.empty((chunk, host.shape[1]), dtype=I64, device=dev)
     t1 = torch.zeros(1, dtype=I64, device=dev)
-    steps = _Steps(make_step(config, statics, pods, carry, out, t1), t1,
-                   graph_steps)
+    steps = _Steps(make_step(config, statics, pods, carry, out, t1,
+                             shard=shard), t1, graph_steps)
     if cuda:
         host = host.pin_memory()
         main = torch.cuda.current_stream(dev)
@@ -1305,6 +1433,81 @@ def schedule_scan_chunked(config: EngineConfig, carry: Carry,
             dst[ci * chunk:(ci + 1) * chunk].copy_(src)
     choices, counts, advanced = (t[:p].cpu().numpy() for t in every)
     return carry, choices, counts, advanced
+
+
+# ---------------------------------------------------------------------------
+# The node-sharded route: the same step over a mesh's "node" axis. Each
+# process holds a contiguous block of the node axis (padded to a multiple of
+# the shard count, sharding.pad_node_axis) and every pod's columns; the
+# reductions and the selection merge through the collectives threaded above,
+# so the choices are the single-device scan's on every rank. The collectives
+# are torch.distributed all_reduces, which a CUDA graph cannot capture under
+# gloo (the one backend that runs several ranks on one card), so the sharded
+# step always runs eagerly.
+
+
+def node_partition_specs(axis: str = "node"):
+    """(Statics, Carry, PodX) trees of partition-spec tuples for the
+    node-sharded route, from the axis registries: a "node" axis maps to the
+    mesh axis, every other axis (group tables, presence_dom, the pods'
+    columns) is whole on every rank (None; () for a scalar)."""
+
+    def tree(cls, registry):
+        return cls(*(tuple(axis if a == "node" else None
+                           for a in registry[f]) for f in cls._fields))
+
+    # the pods' columns carry a leading pod axis ahead of their registry
+    # axes; every rank holds them whole
+    return (tree(Statics, STATICS_AXES), tree(Carry, CARRY_AXES),
+            PodX(*(() for _ in PodX._fields)))
+
+
+def shard_route_eligible(config: EngineConfig):
+    """(ok, reason): the features the sharded route cannot serve.
+    ServiceAffinity reads node columns at a global locked index, and the
+    explain lanes take a per-node top-k with no merge across ranks; both
+    take the single-device scan, counted under the reason."""
+    ps = config.policy
+    if ps is not None and (ps.sa_enabled or ps.sa_slots):
+        return False, "service_affinity"
+    if config.explain_k > 0:
+        return False, "explain_lanes"
+    return True, ""
+
+
+def mesh_shard(mesh, n_local: int, axis: str = "node") -> Shard:
+    """This process's Shard of a DeviceMesh's `axis`, whose blocks hold
+    n_local nodes."""
+    rank = mesh.get_local_rank(axis)
+    return Shard(group=mesh.get_group(axis), rank=rank,
+                 size=mesh.size(mesh.mesh_dim_names.index(axis)),
+                 n_local=n_local, base=rank * n_local)
+
+
+def sharded_scan_fn(config: EngineConfig, mesh, chunk: int = 0):
+    """The node-sharded scan over a DeviceMesh's config.shard_axis:
+    fn(carry, statics, xs) -> (final_carry, choices, counts, advanced) as
+    schedule_scan gives them, with the carry and statics this rank's block
+    (sharding.shard_for_mesh) and xs every pod, and the final carry this
+    rank's block; choices, counts and advanced are the same on every rank.
+    chunk > 0 runs schedule_scan_chunked over host columns in chunks of
+    that many pods (its outputs numpy, as there). The step runs eagerly:
+    gloo's collectives cannot be captured in a CUDA graph."""
+    if config.shard_axis is None:
+        raise ValueError("sharded_scan_fn requires config.shard_axis")
+    ok, why = shard_route_eligible(config)
+    if not ok:
+        raise ValueError(f"sharded route cannot serve this config: {why}")
+
+    def fn(carry: Carry, statics: Statics, xs: PodX):
+        shard = mesh_shard(mesh, statics.alloc_cpu.shape[0],
+                           config.shard_axis)
+        if chunk > 0:
+            return schedule_scan_chunked(config, carry, statics, xs, chunk,
+                                         shard=shard)
+        return schedule_scan(config, carry, statics, xs, shard=shard)
+
+    return fn
 
 
 # ---------------------------------------------------------------------------
@@ -1753,6 +1956,32 @@ def gang_lanes(config: EngineConfig, carry: Carry, statics: Statics,
     return torch.func.vmap(lanes)(xs)
 
 
+def gang_lanes_sharded(config: EngineConfig, mesh, carry: Carry,
+                       statics: Statics, xs: PodX):
+    """gang_lanes over a node-sharded carry and statics (this rank's block,
+    sharding.shard_for_mesh): each member's filter and score run over the
+    block with the step's collectives (a loop over the members: a vmap
+    cannot carry an all_reduce), then the (member, node) lanes of every
+    rank are put together by one all_reduce into zeros. Every rank gets
+    the whole padded [M, Npad] feasible and score, equal to gang_lanes on
+    the unsharded columns (a padded node is never feasible)."""
+    if config.shard_axis is None:
+        raise ValueError("gang_lanes_sharded requires config.shard_axis")
+    shard = mesh_shard(mesh, statics.alloc_cpu.shape[0], config.shard_axis)
+    const = _Const(config, statics)
+    feas, scores = [], []
+    for i in range(xs.req_cpu.shape[0]):
+        x = PodX(*(col[i] for col in xs))
+        feasible, _bits, score, _n, _aca = _evaluate(
+            config, carry, statics, x, x.group_id.reshape(1), const,
+            shard=shard)
+        feas.append(feasible)
+        scores.append(score)
+    lanes = torch.stack([torch.stack(feas).to(I64), torch.stack(scores)])
+    lanes = gather_nodes(shard, lanes, dim=2)          # [2, M, Npad]
+    return lanes[0] != 0, lanes[1]
+
+
 def gang_select(feasible, score, req_cpu, req_mem, req_gpu, req_eph,
                 zero_request, gi: GangIn, n_zone: int, n_rack: int):
     """The joint greedy packing over the (member, node) lanes, on their
@@ -1890,3 +2119,52 @@ def analytics_reduce(inp: AnalyticsIn, n_valid: int, k: int
         valid_nodes=mask.sum(),
         hot_keys=torch.topk(hot, k).values,
         cold_keys=torch.topk(cold, k).values)
+
+
+def analytics_reduce_sharded(mesh, inp: AnalyticsIn, n_valid: int, k: int,
+                             axis: str = "node") -> AnalyticsStats:
+    """analytics_reduce over node-sharded columns (this rank's block of a
+    DeviceMesh's `axis`): each rank folds its block, its top-k keys
+    carrying global node indices, then the sums and counts merge in one
+    all_reduce, the maxima in another, and every rank's [k] key slots in a
+    third (into zeros of [S, k]), from which the top k are taken again. The
+    keys are unique (the node index breaks ties), so a key of the global
+    top k is in its own rank's top k: the result equals analytics_reduce on
+    the unsharded columns, on every rank. k <= the whole node count."""
+    n = inp.alloc_cpu.shape[0]
+    shard = mesh_shard(mesh, n, axis)
+    dev = inp.alloc_cpu.device
+    idx = shard.base + torch.arange(n, dtype=I64, device=dev)
+    mask = idx < n_valid
+    alloc = torch.stack([inp.alloc_cpu, inp.alloc_mem, inp.alloc_gpu,
+                         inp.alloc_eph, inp.allowed_pods]).to(I64)
+    used = torch.stack([inp.used_cpu, inp.used_mem, inp.used_gpu,
+                        inp.used_eph, inp.pod_count]).to(I64)
+    alloc = torch.where(mask[None, :], alloc, 0)                    # [R, N]
+    used = torch.where(mask[None, :], used, 0)
+    free = (alloc - used).clamp(min=0)
+    util = torch.where(alloc[:2] > 0,
+                       (used[:2] * ANALYTICS_UTIL_SCALE)
+                       // alloc[:2].clamp(min=1), 0)
+    score = torch.maximum(util[0], util[1]).clamp(0, ANALYTICS_UTIL_SCALE)
+    kl = min(k, n)
+    keys = torch.stack([
+        torch.topk(encode_topk_keys(score, idx, mask), kl).values,
+        torch.topk(encode_topk_keys(ANALYTICS_UTIL_SCALE - score, idx, mask),
+                   kl).values])                                     # [2, kl]
+    slots = torch.zeros((2, shard.size, kl), dtype=I64, device=dev)
+    slots[:, shard.rank].copy_(keys)
+    slots = _ax_sum(slots, shard).reshape(2, -1)
+    r = len(ANALYTICS_RESOURCES)
+    sums = _ax_sum(torch.cat([
+        alloc.sum(dim=1), used.sum(dim=1), free.sum(dim=1),
+        (free > 0).sum(dim=1),
+        ((free[0] > 0) & (free[1] > 0) & (free[4] > 0)).sum().reshape(1),
+        mask.sum().reshape(1)]), shard)
+    return AnalyticsStats(
+        alloc=sums[:r], used=sums[r:2 * r], free_sum=sums[2 * r:3 * r],
+        free_max=_ax_max(free.max(dim=1).values, shard),
+        headroom_nodes=sums[3 * r:4 * r],
+        feasible_nodes=sums[4 * r], valid_nodes=sums[4 * r + 1],
+        hot_keys=torch.topk(slots[0], k).values,
+        cold_keys=torch.topk(slots[1], k).values)

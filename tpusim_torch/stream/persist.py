@@ -497,7 +497,9 @@ def recover_stream_session(directory: str, *,
     host picture equals the crashed process's at its last durable record;
     batches that never emitted (the crash tail) have been re-scheduled —
     deterministically identical to the lost decisions — and their
-    bind/emit records appended, so the WAL ends every cycle committed.
+    emit records appended, with a bind record only where the crashed
+    process left none (a durable one is adopted, never written twice), so
+    the WAL ends every cycle committed.
     The persistence object is re-attached and appends to the same WAL;
     the session's next cycle restages classified ``recovered`` (exactly
     once — re-scheduling the tail consumes the latch when there is one).
@@ -529,6 +531,7 @@ def recover_stream_session(directory: str, *,
     # per-cycle bind maps (the driver's load-generator fast-forward feed)
     batches: Dict[int, List[Pod]] = {}
     batch_ofs: Dict[int, int] = {}
+    binds: Dict[int, list] = {}
     emitted = set()
     max_cid = -1   # over ADMITTED cycles only: ev records labeled with a
     #                never-admitted upcoming cycle must not consume its id
@@ -541,6 +544,7 @@ def recover_stream_session(directory: str, *,
         elif k == "emit":
             emitted.add(c)
         elif k == "bind":
+            binds[c] = rec["b"]
             report.bound_by_cycle[c] = [(key, node)
                                         for key, node in rec["b"]]
         elif k == "ev":
@@ -569,6 +573,10 @@ def recover_stream_session(directory: str, *,
 
     def recompute(cid: int) -> None:
         persist.queue_resume(cid)
+        if cid in binds:
+            # the crashed process's bind record of this cycle is durable:
+            # decide the cycle again without journaling it a second time
+            persist.adopt_bind(cid, binds[cid])
         placements = session.schedule(batches[cid])
         report.recomputed.append(cid)
         report.bound_by_cycle[cid] = [(pl.pod.key(), pl.node_name)
@@ -620,6 +628,7 @@ def recover_stream_session(directory: str, *,
                 persist.scheduled += int(rec["s"])
                 persist.cycles_emitted += 1
         flush_below(persist.next_cycle + 1)
+        report.violations.extend(persist.bind_mismatches)
         if rsp:
             rsp.set("tail_records", report.tail_records)
             rsp.set("recomputed", len(report.recomputed))
