@@ -138,7 +138,7 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
      every response. Phases 18-20 fail past their 300 s budget;
  21. bench config 9 through the streaming twin (run_stream_simulation on
      the card, the resident scan replaying its captured graphs, each run's
-     CUDA-event span): the stream arm at 16,000 nodes (20 cycles of 64
+     CUDA-event span): the stream arm at 16,000 nodes (12 cycles of 64
      arrivals, 25% evicted, seed 9), which must restage only at its cold
      start and launch no fused kernel; the stream and restage arms at 4,000
      nodes, equal chains; a verified run at 4,000 nodes (10 cycles, every
@@ -203,8 +203,9 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
      top-k lanes raising;
  29. bench config 12 (bench.py:1712-1745): the config 9 stream at 4,000
      nodes (40 cycles of 64 arrivals, 25% evicted, seed 9) after a
-     warm-up, with the analytics plane off and on, synchronous and
-     pipelined: chains equal and the JAX package's, the cold start the only
+     warm-up, with the analytics plane off and on (one run each),
+     synchronous and pipelined: chains equal and the JAX package's, the
+     cold start the only
      restage, overhead_fraction printed beside the JAX contract (< 2%, not
      gated); a run sampling every cycle with its inputs kept, every sample
      equal to host_reduce, with the reduction's CUDA-event span; the CPU
@@ -311,7 +312,7 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
      golden chain at the crash cycle; no fused kernel launch over the
      phase. Phases 34-36 fail past their 120 s budget;
  37. the node-sharded scan route, bench config 14 (bench.py:1848):
-     uniform_workload's first 512 pods on its 8,192 nodes through
+     uniform_workload's first 256 pods on its 8,192 nodes through
      TorchBackend(route="scan") with an analytics plane and a recorder, at
      k = 1 (no process group) and at k = 2 and 4 ranks (TPUSIM_SHARDS=k,
      each rank a spawned process on the one card under a gloo group, every
@@ -322,8 +323,22 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
      host_reduce, a gang feed's split equal to k = 1's with its lanes
      sharded, and a ServiceAffinity policy plan counted as a fallback;
      pods/s, the stage and scan spans and the all_reduces a pod at each k
-     (no speed claim: the ranks share one card). Phase 37 fails past its
-     90 s budget.
+     (no speed claim: the ranks share one card);
+ 38. the node-sharded streaming twin, in phase 37's spawns: bench config
+     9's stream at 4,000 nodes cut to 8 cycles of 32 arrivals through
+     run_stream_simulation with a checkpoint and an overlay query of 4
+     pods every 2 cycles, on the single-device twin and on every rank at
+     k = 2 and 4: the JAX package's single-device placement and fold
+     chains, the manifest's shard_layout ({"shards": k, "nodes": 4000,
+     "nodes_per_shard": 4000 // k}), each rank's WAL (<dir>.rank<r>)
+     byte-equal to the single-device twin's, every overlay answered; at
+     k = 2 a crash at cycle 5's bind record recovered onto the golden fold
+     chain, a replicated pair's leader killed at its emit point and the
+     follower promoted onto it (a clean audit_failover for both), and the
+     audit of the WAL against a copy with cycle 4's first bind flipped
+     naming cycle 4 and the pod; each k's cycle p50, shard:scan a cycle,
+     all_reduces a pod and, at k = 2, the replay and the RTO. Phases 37-38
+     fail past their 135 s budget.
 Phases 4-15 run TorchBackend with fallback="error", and phases 15, 16b and
 17 run run_simulation on the card with the host route made to raise, so a
 workload that started to reroute to the host fails them; phases 4-12 run
@@ -448,13 +463,13 @@ STREAM_GOLDENS = {
 }
 # bench.py's accelerator shapes of configs 9 and 10: the sizes, the churn
 # curves at the middle size, the cycles of a verified config 9 run. Each
-# arm runs 20 cycles (bench.py's 40 until phase 37 came, a cut of depth
-# for the script's time)
+# arm runs 12 cycles (bench.py's 40 until phase 37 came, then 20 until
+# phase 38 came: cuts of depth for the script's time)
 STREAM_SIZES = (1_000, 4_000, 16_000)
-STREAM_CONFIG9 = dict(cycles=20, arrivals=64, evict_fraction=0.25, seed=9)
+STREAM_CONFIG9 = dict(cycles=12, arrivals=64, evict_fraction=0.25, seed=9)
 STREAM_EVICT_CURVE = (0.05, 0.25, 0.5)
 STREAM_VERIFY_CYCLES = 10
-STREAM_CONFIG10 = dict(cycles=20, arrivals=64, evict_fraction=0.25, seed=9,
+STREAM_CONFIG10 = dict(cycles=12, arrivals=64, evict_fraction=0.25, seed=9,
                        policy=True)
 STREAM_CHURN_CURVE = ((0, 0), (2, 1), (8, 4))
 # config 13, and config 16's twins
@@ -649,17 +664,39 @@ REPLICATION_BUDGET_S = 120
 # process on the one card under a gloo group. Config 14 feeds 32,768 pods;
 # the sharded step runs eagerly (gloo's collectives are not captured in
 # CUDA graphs), minutes a shard count at that depth, so the phase runs the
-# first SHARD_CONFIG14's pods. The golden is the JAX package's
-# single-device route on them (tools/port_golden.py config14 512 8192). The
-# gang feed: that prefix's first 24 pods and a gang of 8 on the same nodes
-SHARD_CONFIG14 = dict(num_pods=512, num_nodes=8_192)
-SHARD_GOLDEN = ("9a91f80d92d326c2", 512)
+# first SHARD_CONFIG14's pods (512 until phase 38 came). The golden is the
+# JAX package's single-device route on them (tools/port_golden.py config14
+# 256 8192). The gang feed: that prefix's first 24 pods and a gang of 8 on
+# the same nodes
+SHARD_CONFIG14 = dict(num_pods=256, num_nodes=8_192)
+SHARD_GOLDEN = ("6597fdffb2c14159", 256)
 SHARD_COUNTS = (2, 4)
 SHARD_ANALYTICS_TOP_K = 8
 SHARD_GANG = dict(solo=24, members=8, milli_cpu=3_000)
+# phase 38: the node-sharded streaming twin, inside phase 37's spawns of k
+# ranks: bench config 9's stream at 4,000 nodes (the middle of
+# STREAM_SIZES; STREAM_CONFIG9's seed and evict fraction), cut to 8 cycles
+# of 32 arrivals from bench.py's 40 x 64, since the sharded step is eager.
+# The golden is the JAX package's single-device placement_chain and
+# fold_chain (tools/port_golden.py config9_sharded). At k = 2 and 4 the
+# stream checkpoints every SHARD_STREAM_CHECKPOINT cycles and answers an
+# overlay query of SHARD_STREAM_QUERY pods every SHARD_STREAM_CHECKPOINT
+# cycles; at k = 2 it also crashes at SHARD_STREAM_CRASH and recovers, a
+# replicated pair's leader dies at its emit point and the follower is
+# promoted, and the audit reads the WAL against a copy with
+# SHARD_STREAM_FLIP's first bind flipped
+SHARD_STREAM = dict(num_nodes=4_000, cycles=8, arrivals=32,
+                    evict_fraction=0.25, seed=9)
+SHARD_STREAM_GOLDEN = (
+    "13a9af238f60c43061c0a498e64f5330078fee2ac4fd1a0eba86ba814850a4cd",
+    "f13e6246fe2fd08f671fa1c251cc2ffc6c5adf477e8395df3d82d394c650498c")
+SHARD_STREAM_CHECKPOINT = 2
+SHARD_STREAM_QUERY = 4
+SHARD_STREAM_CRASH = (5, "bind")
+SHARD_STREAM_FLIP = 4
 # a spawn of k ranks, seconds (every rank and its gloo group bounded by it)
-SHARD_TIMEOUT_S = 240
-SHARD_BUDGET_S = 90
+SHARD_TIMEOUT_S = 300
+SHARD_BUDGET_S = 135
 
 ROUTES_PODS = 2_048
 # phase 15: the pods of the scan timed eagerly, and from its graphs (200 and
@@ -3213,11 +3250,12 @@ def drive_explain(card):
         n = len(pods)
         policy = (decode_policy(workloads.COMPAT_POLICIES[version])
                   if version else None)
-        # config 3 in turns, without the lanes, with, with, without: the
-        # lanes' cost is the least span with them less the least without
+        # config 3 without the lanes, then with them: the lanes' cost is
+        # the span with them less the span without (each arm ran twice, in
+        # turns, until phase 38 came)
         spans = {}
-        for top_k in ((0, EXPLAIN_TOP_K, EXPLAIN_TOP_K, 0)
-                      if name == "config3" else (EXPLAIN_TOP_K,)):
+        for top_k in ((0, EXPLAIN_TOP_K) if name == "config3"
+                      else (EXPLAIN_TOP_K,)):
             backend = TorchBackend(device="cuda", fallback="error",
                                    route="scan" if top_k == 0 else "auto",
                                    policy=policy)
@@ -3290,10 +3328,10 @@ def drive_config12(card):
     params, want_chain, want_stats = CONFIG12
     run_stream_simulation(device="cuda", **dict(params, cycles=3))  # warm
     for pipeline in (False, True):
-        # the arms in turns, off, on, on, off; each arm's best run, as
-        # bench.py takes it
+        # the arms off, then on, one run each (two in turns, the best of
+        # each as bench.py takes it, until phase 38 came)
         runs = {False: [], True: []}
-        for armed in (False, True, True, False):
+        for armed in (False, True):
             if armed:
                 log = analytics.install(analytics.ClusterAnalytics(
                     capacity=512))
@@ -3311,13 +3349,11 @@ def drive_config12(card):
         chains = {o["placement_chain"] for arm in runs.values() for o in arm}
         print(f"phase 29: config 12 {'pipelined' if pipeline else 'sync'} "
               f"({params['num_nodes']} nodes, {params['cycles']} cycles x "
-              f"{params['arrivals']} arrivals; best of 2 runs an arm, in "
-              f"turns): analytics off {a:.1f} decisions/s (p50 "
-              f"{off['p50_cycle_ms']:.2f} ms; the other run "
-              f"{min(o['decisions_per_s'] for o in runs[False]):.1f}), on "
+              f"{params['arrivals']} arrivals; one run an arm): "
+              f"analytics off {a:.1f} decisions/s (p50 "
+              f"{off['p50_cycle_ms']:.2f} ms), on "
               f"{b:.1f} (p50 {on['p50_cycle_ms']:.2f} ms, {on['samples']} "
-              f"samples at 4 Hz; the other run "
-              f"{min(o['decisions_per_s'] for o in runs[True]):.1f}); "
+              f"samples at 4 Hz); "
               f"overhead_fraction {(a - b) / a:.4f} (the JAX contract: < "
               f"0.02; host walls spread 10-30%, not gated); chain "
               f"{on['placement_chain'][:16]} in all {len(chains)} distinct "
@@ -5037,10 +5073,173 @@ def shard_run(label):
     }
 
 
-def shard_rank(rank, world):
-    """A rank of phase 37 (sharding.run_ranks spawns it by name)."""
+def shard_stream_run(root, world=1):
+    """Phase 38's main path on this process (k ranks when TPUSIM_SHARDS and
+    the group say so, else the single-device twin): SHARD_STREAM through
+    run_stream_simulation with checkpoints and overlay queries under a
+    recorder, then at k = 2 a crash and its recovery, a replicated pair
+    whose leader dies at its emit point, and the audit of the WAL against
+    a copy with one bind flipped. Returns the chains, the manifest's
+    layout, the WAL's digest, the cycle p50, shard:scan's time a cycle,
+    the all_reduces a pod, the RTO and the audit's verdict."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from tpusim_torch.chaos.engine import ProcessCrash, audit_failover
+    from tpusim_torch.chaos.plan import (
+        CRASH_POINTS,
+        ChurnEvent,
+        FaultPlan,
+        kill_leader_campaign,
+    )
+    from tpusim_torch.obs import recorder as flight
+    from tpusim_torch.obs.audit import audit_wal_pair
+    from tpusim_torch.sharding import rank_directory
+    from tpusim_torch.simulator import (
+        run_replicated_stream,
+        run_stream_simulation,
+    )
+    from tpusim_torch.stream.persist import read_wal
+
+    calls = {"n": 0}
+    real = dist.all_reduce
+
+    def counted(*args, **kwargs):
+        calls["n"] += 1
+        return real(*args, **kwargs)
+
+    dist.all_reduce = counted
+    ck = os.path.join(root, f"k{world}", "ck")
+    rec = flight.install(flight.FlightRecorder())
+    try:
+        t0 = time.perf_counter()
+        out = run_stream_simulation(
+            **SHARD_STREAM, checkpoint_dir=ck,
+            checkpoint_every=SHARD_STREAM_CHECKPOINT,
+            whatif_every=SHARD_STREAM_CHECKPOINT,
+            whatif_pods=SHARD_STREAM_QUERY)
+        wall = time.perf_counter() - t0
+    finally:
+        flight.uninstall()
+        dist.all_reduce = real
+    scan_ms = sum(ev["dur"] for ev in list(rec.events)
+                  if ev.get("ph") == "X" and ev["name"] == "shard:scan") / 1e3
+    ck = rank_directory(ck)
+    with open(os.path.join(ck, "checkpoint.json"), encoding="utf-8") as f:
+        layout = json.load(f)["shard_layout"]
+    with open(os.path.join(ck, "wal.jsonl"), "rb") as f:
+        wal = hashlib.sha256(f.read()).hexdigest()
+    cycles = SHARD_STREAM["cycles"]
+    pods = cycles * SHARD_STREAM["arrivals"]
+    got = {"chains": (out["placement_chain"], out["fold_chain"]),
+           "layout": layout, "wal": wal, "wall": wall,
+           "p50_ms": out["p50_cycle_ms"], "scan_ms": scan_ms / cycles,
+           "all_reduces": calls["n"] / pods,
+           "overlay": (out["overlay"]["answered"],
+                       out["overlay"]["queries"])}
+    if world != 2:
+        return got
+    # a crash at SHARD_STREAM_CRASH and the recovery to the end
+    crash = os.path.join(root, f"k{world}", "crash")
+    at, point = SHARD_STREAM_CRASH
+    plan = FaultPlan(seed=0, churn=[ChurnEvent(
+        at=at, action="process_crash", target=point)])
+    kw = dict(SHARD_STREAM, checkpoint_dir=crash,
+              checkpoint_every=SHARD_STREAM_CHECKPOINT)
+    try:
+        run_stream_simulation(**kw, chaos_plan=plan)
+        crashed = False
+    except ProcessCrash:
+        crashed = True
+    rec_out = run_stream_simulation(**kw, recover=True)
+    records, torn = read_wal(os.path.join(rank_directory(crash),
+                                          "wal.jsonl"))
+    got["recovery"] = (crashed, rec_out["fold_chain"],
+                       rec_out["recovery_violations"] + torn
+                       + audit_failover(records), rec_out["replay_ms"])
+    # a replicated pair whose leader dies at its emit point
+    repl = os.path.join(root, f"k{world}", "repl")
+    campaign = kill_leader_campaign(seed=SHARD_STREAM["seed"], cycles=cycles)
+    rep = run_replicated_stream(
+        **SHARD_STREAM, checkpoint_dir=repl,
+        checkpoint_every=SHARD_STREAM_CHECKPOINT,
+        chaos_plan=campaign[CRASH_POINTS.index("emit")])
+    records, torn = read_wal(os.path.join(rank_directory(repl),
+                                          "wal.jsonl"))
+    got["promotion"] = (rep["promoted"], rep["fold_chain"],
+                        rep["promotion_violations"] + torn
+                        + audit_failover(records), rep["rto_s"])
+    # the audit of the WAL against a copy with one bind flipped
+    copy = ck + "-flipped"
+    shutil.copytree(ck, copy)
+    flip = flip_first_bind(copy, SHARD_STREAM_FLIP)
+    report = audit_wal_pair(ck, copy)
+    got["audit"] = (report["verdict"], report["divergent_cycle"],
+                    report.get("bind_diff"), flip)
+    return got
+
+
+def shard_rank(rank, world, root):
+    """A rank of phases 37 and 38 (sharding.run_ranks spawns it by
+    name)."""
     os.environ["TPUSIM_SHARDS"] = str(world)
-    return shard_run(f"k={world} rank {rank}")
+    got = shard_run(f"k={world} rank {rank}")
+    got["stream"] = shard_stream_run(root, world)
+    return got
+
+
+def check_sharded_stream(card, one, rows):
+    """Phase 38: the sharded twin's runs against the JAX package's
+    single-device golden and the single-device twin's WAL, and its
+    lines."""
+    golden, fold = SHARD_STREAM_GOLDEN
+    if one["chains"] != (golden, fold):
+        raise AssertionError(f"phase 38: the single-device twin's chains "
+                             f"{one['chains']}, want the golden")
+    nodes = SHARD_STREAM["num_nodes"]
+    for k, ranks in rows:
+        want_layout = {"shards": k, "nodes": nodes,
+                       "nodes_per_shard": -(-nodes // k)}
+        for rank, got in enumerate(ranks):
+            s = got["stream"]
+            checks = {
+                "chains": s["chains"] == (golden, fold),
+                "layout": s["layout"] == want_layout,
+                "wal": s["wal"] == one["wal"],
+                "overlay": s["overlay"][0] == s["overlay"][1] > 0,
+            }
+            if k == 2:
+                crashed, rfold, bad, _ = s["recovery"]
+                promoted, pfold, pbad, _ = s["promotion"]
+                verdict, cycle, diff, flip = s["audit"]
+                checks.update({
+                    "recovery": crashed and rfold == fold and not bad,
+                    "promotion": promoted and pfold == fold and not pbad,
+                    "audit": verdict == "diverged"
+                    and cycle == SHARD_STREAM_FLIP
+                    and [(r["pod"], r["a"], r["b"]) for r in diff]
+                    == [flip],
+                })
+            bad = [name for name, ok in checks.items() if not ok]
+            if bad:
+                raise AssertionError(f"phase 38: k={k} rank {rank} "
+                                     f"differs in {bad}")
+        s = ranks[0]["stream"]
+        rto = (f", crash recovery replay {s['recovery'][3]:.1f} ms, "
+               f"RTO {s['promotion'][3] * 1e3:.1f} ms, audit: divergent "
+               f"cycle {s['audit'][1]}" if k == 2 else "")
+        print(f"phase 38: config 9 stream at {nodes} nodes "
+              f"({SHARD_STREAM['cycles']} cycles of "
+              f"{SHARD_STREAM['arrivals']}) k={k}: chains "
+              f"{golden[:16]}/{fold[:16]} on every rank, layout "
+              f"{s['layout']}, WAL = the single-device WAL, "
+              f"{s['overlay'][0]}/{s['overlay'][1]} overlays, cycle p50 "
+              f"{s['p50_ms']:.1f} ms, shard:scan {s['scan_ms']:.1f} ms a "
+              f"cycle, {s['all_reduces']:.1f} all_reduces a pod, wall "
+              f"{s['wall']:.1f}s{rto}, on {card}")
+    print(f"phase 38: k=1 (single-device twin) cycle p50 "
+          f"{one['p50_ms']:.1f} ms, wall {one['wall']:.1f}s")
 
 
 def drive_sharded(card):
@@ -5048,13 +5247,36 @@ def drive_sharded(card):
     k = 1, 2 and 4, every rank on the one card: one placement hash, the
     JAX package's single-device golden, the tpusim_shard_* observations, a
     counted ServiceAffinity fallback, and analytics samples and a gang
-    split equal to k = 1's. No speed is claimed: the ranks share a card."""
-    sys.path.insert(0, HERE)
-    from tpusim_torch.sharding import run_ranks
+    split equal to k = 1's. Phase 38, in the same spawns: the node-sharded
+    streaming twin on config 9's stream (check_sharded_stream). No speed
+    is claimed: the ranks share a card."""
+    import shutil
+    import tempfile
 
+    sys.path.insert(0, HERE)
     t0 = time.perf_counter()
     os.environ.pop("TPUSIM_SHARDS", None)
-    one = shard_run("k=1")
+    root = tempfile.mkdtemp(prefix="tpusim-phase38-")
+    try:
+        one = shard_run("k=1")
+        one_stream = shard_stream_run(root)
+        rows = _drive_sharded(card, one, root)
+        check_sharded_stream(card, one_stream, rows)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    print(f"phases 37-38: {wall:.1f}s wall, against their {SHARD_BUDGET_S} "
+          f"s budget")
+    if wall > SHARD_BUDGET_S:
+        raise AssertionError(f"phases 37-38: {wall:.1f}s is past their "
+                             f"{SHARD_BUDGET_S} s budget")
+
+
+def _drive_sharded(card, one, root):
+    """Phase 37's spawns and checks (phase 38 runs inside the spawns);
+    returns [(k, the ranks' results)]."""
+    from tpusim_torch.sharding import run_ranks
+
     golden, scheduled = SHARD_GOLDEN
     if (one["golden"], one["scheduled"]) != (golden, scheduled):
         raise AssertionError(f"phase 37: k=1 golden {one['golden']} with "
@@ -5069,7 +5291,8 @@ def drive_sharded(card):
     rows = [(1, [one])]
     for k in SHARD_COUNTS:
         t = time.perf_counter()
-        ranks = run_ranks(shard_rank, k, timeout=SHARD_TIMEOUT_S)
+        ranks = run_ranks(shard_rank, k, args=(root,),
+                          timeout=SHARD_TIMEOUT_S)
         spawn_s = time.perf_counter() - t
         per = -(-nodes // k)
         for got in ranks:
@@ -5116,12 +5339,7 @@ def drive_sharded(card):
           f"analytics sample equal to k=1's and to host_reduce, the gang "
           f"split {one['gang']} with its lanes sharded, a service_affinity "
           f"fallback counted")
-    wall = time.perf_counter() - t0
-    print(f"phase 37: {wall:.1f}s wall, against its {SHARD_BUDGET_S} s "
-          f"budget")
-    if wall > SHARD_BUDGET_S:
-        raise AssertionError(f"phase 37: {wall:.1f}s is past its "
-                             f"{SHARD_BUDGET_S} s budget")
+    return rows[1:]
 
 
 def drive_replication_phases(card):
@@ -5263,7 +5481,8 @@ def main():
     # standby with leader failover
     drive_replication_phases(card)
 
-    # phase 37: the node-sharded scan route, k ranks sharing the card
+    # phases 37-38: the node-sharded scan route and streaming twin, k ranks
+    # sharing the card
     drive_sharded(card)
 
     kernels = []

@@ -112,6 +112,14 @@ across the whole node axis) with JaxBackend's single-device XLA scan
 
     JAX_PLATFORMS=cpu python tools/port_golden.py config14 512 8192
 
+`config9_sharded` prints the placement_chain and the fold_chain of the JAX
+package's single-device run_stream_simulation on phase 38's feed
+(chip_smoke.SHARD_STREAM: bench config 9's stream at 4,000 nodes, 8 cycles
+of 32 arrivals; TPUSIM_SHARDS unset; chip_smoke.py SHARD_STREAM_GOLDEN,
+~10 s):
+
+    JAX_PLATFORMS=cpu python tools/port_golden.py config9_sharded
+
 `config15` prints the goldens of phases 34-36 (chip_smoke.CONFIG15_GOLDEN):
 the digest (chip_smoke.audit_digest) of the JAX package's audit_wal_pair
 (explain_k=3) of config 11's journal (checkpoint_every=0) against a copy
@@ -511,7 +519,23 @@ def config15_goldens():
     return 0
 
 
+def config9_sharded_chains():
+    from chip_smoke import SHARD_STREAM
+    from tpusim.simulator import run_stream_simulation
+
+    os.environ.pop("TPUSIM_SHARDS", None)
+    t0 = time.perf_counter()
+    out = run_stream_simulation(**SHARD_STREAM)
+    print(f"config9_sharded({SHARD_STREAM}): placement_chain "
+          f"{out['placement_chain']}, fold_chain {out['fold_chain']}, "
+          f"{out['scheduled']}/{out['decisions']} scheduled, "
+          f"{time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 def main(argv):
+    if argv[0] == "config9_sharded":
+        return config9_sharded_chains()
     if argv[0] == "config15":
         return config15_goldens()
     if argv[0] == "config11":

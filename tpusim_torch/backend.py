@@ -203,12 +203,15 @@ def _shard_count() -> int:
     return k if k > 1 else 1
 
 
-def shard_mesh_for(config, n_shards: int, device):
+def shard_mesh_for(config, n_shards: int, device, note: str = "",
+                   tag: str = ""):
     """The node mesh for a TPUSIM_SHARDS=n_shards batch on the scan route,
     or None where the batch takes the single-device scan: a config the
     sharded route cannot serve (scan.shard_route_eligible's reason), or no
     default process group of n_shards ranks ("device_count"). Either is
-    counted in tpusim_shard_fallback_total{reason} with a trace instant."""
+    counted in tpusim_shard_fallback_total{reason} with a trace instant
+    (`note` its text; the batch's by default). `tag` names the mesh's own
+    process groups (sharding.make_mesh)."""
     import torch.distributed as dist
 
     from tpusim_torch.scan import shard_route_eligible
@@ -222,11 +225,11 @@ def shard_mesh_for(config, n_shards: int, device):
         register().shard_fallback.inc(why)
         flight.note_fast_fallback(
             "shard_" + why,
-            f"TPUSIM_SHARDS={n_shards} batch routed single-device")
-        log.info("sharded route ineligible (%s); using the single-device "
-                 "scan", why)
+            note or f"TPUSIM_SHARDS={n_shards} batch routed single-device")
+        log.info("%s (%s)", note or "sharded route ineligible; using the "
+                 "single-device scan", why)
         return None
-    return make_mesh(n_shards, snap=1, device_type=device.type)
+    return make_mesh(n_shards, snap=1, device_type=device.type, tag=tag)
 
 
 def host_digest(*trees) -> int:
@@ -444,7 +447,7 @@ class TorchBackend:
     def __init__(self, provider: str = DEFAULT_PROVIDER, device="cuda",
                  hard_pod_affinity_symmetric_weight: int = 10, policy=None,
                  route: str = "auto", fallback: str = "reference",
-                 extender_transport=None):
+                 extender_transport=None, mesh_tag: str = ""):
         """policy: an engine.policy.Policy, compiled (and validated) here to
         the kernel's stage gating, weights and residue tables; it replaces
         the provider's predicate and priority sets like factory.go
@@ -453,7 +456,9 @@ class TorchBackend:
         "scan". fallback: "reference" runs a workload the compile classifies
         unsupported on the host route, "error" raises. extender_transport:
         the in-process extender seam handed to the host route (a policy's
-        extenders are host-bound)."""
+        extenders are host-bound). mesh_tag: the process groups of a
+        TPUSIM_SHARDS mesh (sharding.make_mesh's tag; a streaming twin's
+        gang cycles use their twin's)."""
         if provider not in _KNOWN_PROVIDERS:
             raise KeyError(f"plugin {provider!r} has not been registered")
         if fallback not in FALLBACKS:
@@ -472,6 +477,7 @@ class TorchBackend:
         self.device = resolve_device(device)
         self.route = route
         self.fallback = fallback
+        self.mesh_tag = mesh_tag
         self.extender_transport = extender_transport
         self.policy = policy
         self._compiled_policy = None
@@ -626,7 +632,8 @@ class TorchBackend:
             # the single-device scan with the reason counted
             n_shards = _shard_count()
             if n_shards > 1:
-                shard_mesh = shard_mesh_for(config, n_shards, self.device)
+                shard_mesh = shard_mesh_for(config, n_shards, self.device,
+                                            tag=self.mesh_tag)
             if shard_mesh is not None:
                 carry, statics, xs = scan_inputs_host(config, compiled, cols,
                                                       ptabs)

@@ -85,6 +85,22 @@ and, with --watch-leader, promotes itself when the leader's /healthz dies
 does the promotion from a dead leader's directory alone. audit bisects two
 WAL directories to their first divergent cycle and decides it again with
 explain lanes (obs.audit); it exits 1 on a divergence.
+
+Node sharding: the main command, stream, follow, promote and audit run as
+k ranks when a launcher starts them so (WORLD_SIZE > 1):
+
+    TPUSIM_SHARDS=2 torchrun --nproc-per-node 2 -m tpusim_torch.cli \
+        stream --synthetic-nodes 4000 --cycles 8
+
+Each rank joins the launcher's process group over gloo (the ranks may
+share one card) and runs the same command; TPUSIM_SHARDS=k shards the
+scan route and the streaming twin's node axis over them. Rank 0 alone
+prints the report, writes --trace-out, --metrics-out, --explain-out,
+--analytics-out and audit's --out, and serves --listen. Rank r journals
+to <dir>.rank<r> where rank 0 journals to the --checkpoint-dir named,
+and its replication link takes the named port + r. Without a launcher
+nothing joins a group, and TPUSIM_SHARDS=k counts the device_count
+fallback.
 """
 
 from __future__ import annotations
@@ -281,19 +297,24 @@ def _arm_observability(args):
     listen = getattr(args, "listen", "")
     slo_target_ms = getattr(args, "slo_target_ms", 0.0)
     explain_top_k = max(0, args.explain_top_k)
+    # on rank r > 0 of a process group the planes are armed as on rank 0
+    # (they choose routes and make collectives), but write no file and
+    # serve no endpoint
+    primary = _primary()
     # --listen alone arms an in-memory ring, so /debug/provenance serves
     # the recent decisions
     if args.explain_out or explain_top_k or listen:
         provenance.install(provenance.ProvenanceLog(
-            top_k=explain_top_k, path=args.explain_out or None))
+            top_k=explain_top_k,
+            path=(args.explain_out or None) if primary else None))
     # and the analytics ring, so /analytics (and `top` against this
     # endpoint) serves live samples
     if args.analytics_out or listen:
         analytics.install(analytics.ClusterAnalytics(
-            path=args.analytics_out or None))
+            path=(args.analytics_out or None) if primary else None))
     if slo_target_ms > 0:
         slo.install(slo.SloTracker(slo_target_ms * 1000.0))
-    if listen:
+    if listen and primary:
         from tpusim_torch.obs.server import start_server
 
         server = start_server(listen)
@@ -324,8 +345,9 @@ def _write_metrics(path: str) -> None:
 
 
 def _start_trace(args, process_name: str = "tpusim"):
-    """Install a flight recorder when --trace-out asks for one."""
-    if not args.trace_out:
+    """Install a flight recorder when --trace-out asks for one (on rank 0
+    of a process group only)."""
+    if not args.trace_out or not _primary():
         return None
     from tpusim_torch.obs import recorder as flight
 
@@ -355,7 +377,7 @@ def _finish_obs(args, recorder) -> int:
         if not getattr(args, "quiet", False):
             print(f"trace: {args.trace_out} "
                   f"({len(recorder.events)} events)", file=sys.stderr)
-    if args.metrics_out:
+    if args.metrics_out and _primary():
         try:
             _write_metrics(args.metrics_out)
         except OSError as exc:
@@ -844,7 +866,7 @@ def stream_cli(argv) -> int:
                   "--checkpoint-dir", file=sys.stderr)
             return 2
         try:
-            replicate_to = parse_listen(args.replicate_to)
+            replicate_to = _rank_address(parse_listen(args.replicate_to))
         except ValueError:
             print(f"error: --replicate-to {args.replicate_to!r}: want "
                   "HOST:PORT", file=sys.stderr)
@@ -1048,7 +1070,7 @@ def follow_cli(argv) -> int:
     from tpusim_torch.obs.server import parse_listen
 
     try:
-        bind = parse_listen(args.bind)
+        bind = _rank_address(parse_listen(args.bind))
         snapshot, policy = _load_follow_snapshot(args)
         if args.bootstrap:
             snapshot = None   # the shipped manifest is the twin's source
@@ -1056,6 +1078,7 @@ def follow_cli(argv) -> int:
         print(f"error: {exc}", file=sys.stderr)
         return 2
 
+    from tpusim_torch.sharding import rank_directory
     from tpusim_torch.stream.replicate import (
         FailoverController,
         FollowerTwin,
@@ -1100,7 +1123,8 @@ def follow_cli(argv) -> int:
             if not url.endswith("/healthz"):
                 url += "/healthz"
             controller = FailoverController(
-                http_probe(url), [follower], args.checkpoint_dir,
+                http_probe(url), [follower],
+                rank_directory(args.checkpoint_dir),
                 interval_s=max(0.01, args.watch_interval),
                 misses=max(1, args.misses),
                 checkpoint_every=args.checkpoint_every,
@@ -1204,8 +1228,10 @@ def promote_cli(argv) -> int:
     except (KeyError, ValueError, OSError, RuntimeError) as exc:
         print(f"error: {exc}", file=sys.stderr)
         return 2
+    from tpusim_torch.sharding import rank_directory
+
     try:
-        report = follower.promote(args.checkpoint_dir,
+        report = follower.promote(rank_directory(args.checkpoint_dir),
                                   checkpoint_every=args.checkpoint_every,
                                   fsync_every=args.fsync_every)
     except PromotionRefused as exc:
@@ -1234,7 +1260,7 @@ def promote_cli(argv) -> int:
               f"{args.checkpoint_dir} --recover ...")
         for violation in out["violations"]:
             print(f"promotion violation: {violation}", file=sys.stderr)
-    if args.metrics_out:
+    if args.metrics_out and _primary():
         try:
             _write_metrics(args.metrics_out)
         except OSError as exc:
@@ -1297,7 +1323,7 @@ def audit_cli(argv) -> int:
     except (OSError, ValueError, KeyError) as exc:
         print(f"error: {exc}", file=sys.stderr)
         return 2
-    if args.out:
+    if args.out and _primary():
         try:
             with open(args.out, "w", encoding="utf-8") as f:
                 json.dump(report, f, sort_keys=True, indent=2)
@@ -1584,8 +1610,84 @@ def top_cli(argv) -> int:
         return 0
 
 
+# the commands that run as one of k ranks when a launcher such as torchrun
+# (python -m torch.distributed.run --nproc-per-node k) starts them with
+# WORLD_SIZE > 1: "" is the main command
+RANKED_COMMANDS = ("", "stream", "follow", "promote", "audit")
+SUBCOMMANDS = ("serve", "stream", "follow", "promote", "audit", "explain",
+               "top")
+# how long a rank waits on the others in a collective, seconds
+RANK_TIMEOUT_S = 600
+
+
+def _world_size() -> int:
+    try:
+        return int(os.environ.get("WORLD_SIZE", "1"))
+    except ValueError:
+        return 1
+
+
+def _primary() -> bool:
+    """Whether this process prints the report and writes the outputs the
+    user named: always, but on rank r > 0 of a process group of several
+    ranks."""
+    import torch.distributed as dist
+
+    return not (dist.is_available() and dist.is_initialized()
+                and dist.get_rank() > 0)
+
+
+def _rank_address(addr):
+    """(host, port) of this rank's replication link: port + rank on rank
+    r of a process group (each rank runs a pair of its own); port 0 (any
+    free port) as it is."""
+    import torch.distributed as dist
+
+    host, port = addr
+    if port and dist.is_available() and dist.is_initialized():
+        port += dist.get_rank()
+    return host, port
+
+
+def _run_ranked(argv) -> int:
+    """Run a command as one of the ranks a launcher started: join the
+    default process group from the launcher's environment (MASTER_ADDR,
+    MASTER_PORT, RANK, WORLD_SIZE) over gloo, which lets k ranks share one
+    card, put this rank on its card (LOCAL_RANK mod the card count), run
+    the command with the standard output of every rank but 0 discarded,
+    and leave the group. TPUSIM_SHARDS=k then shards the scan route and the
+    streaming twin over the k ranks."""
+    import contextlib
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    dist.init_process_group(
+        "gloo", timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+    try:
+        if torch.cuda.is_available():
+            from tpusim_torch.sharding import shard_device
+
+            torch.cuda.set_device(shard_device("cuda"))
+        if dist.get_rank() == 0:
+            return _dispatch(argv)
+        with open(os.devnull, "w") as sink, \
+                contextlib.redirect_stdout(sink):
+            return _dispatch(argv)
+    finally:
+        dist.destroy_process_group()
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
+    command = argv[0] if argv and argv[0] in SUBCOMMANDS else ""
+    if command in RANKED_COMMANDS and _world_size() > 1:
+        return _run_ranked(argv)
+    return _dispatch(argv)
+
+
+def _dispatch(argv) -> int:
     if argv and argv[0] == "serve":
         return serve_cli(argv[1:])
     if argv and argv[0] == "stream":

@@ -138,8 +138,9 @@ def _joint_solve(backend, inc, compiled, cols) -> Tuple[List[int], List[str]]:
     carry = carry_init(compiled, device)
     xs = pod_columns_to(cols, device)
     n_shards = _shard_count()
-    mesh = (shard_mesh_for(config, n_shards, device) if n_shards > 1
-            else None)
+    mesh = (shard_mesh_for(config, n_shards, device,
+                           tag=getattr(backend, "mesh_tag", ""))
+            if n_shards > 1 else None)
     if mesh is None:
         feasible, score = gang_lanes(config, carry, statics, xs)
     else:

@@ -242,6 +242,21 @@ class ClusterAnalytics:
             return True
         return time.monotonic() - self._last_capture >= self.sample_interval_s
 
+    def _want(self, mesh, device) -> bool:
+        """want_sample, agreed by every rank of a node-sharded pair: the
+        ranks reduce together or not at all, and each reads its own clock,
+        so a rank that wants the sample makes every rank take it (one
+        all_reduce of a flag)."""
+        want = self.want_sample()
+        if mesh is None:
+            return want
+        import torch.distributed as dist
+
+        flag = torch.tensor([int(want)], dtype=torch.int64, device=device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX,
+                        group=mesh.get_group("node"))
+        return bool(flag.item())
+
     def capture_device(self, inp, n_valid: int, source: str,
                        cycle: Optional[int] = None, names=None,
                        mesh=None) -> None:
@@ -261,7 +276,7 @@ class ClusterAnalytics:
         kept inputs are the whole columns, put together the same way."""
         from tpusim_torch.scan import analytics_reduce
 
-        if not self.want_sample():
+        if not self._want(mesh, inp.alloc_cpu.device):
             return
         self._last_capture = time.monotonic()
         n = int(inp.alloc_cpu.shape[0])
@@ -387,7 +402,7 @@ def capture(statics, carry, n_valid: int, source: str,
     installed. mesh: the node mesh of a node-sharded pair (this rank's
     blocks)."""
     log = _active
-    if log is None or not log.want_sample():
+    if log is None or (mesh is None and not log.want_sample()):
         return
     from tpusim_torch.scan import analytics_in
 

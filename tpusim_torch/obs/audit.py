@@ -17,10 +17,11 @@ this module answers WHERE and WHY:
    ProvenanceLog asking for ``explain_k`` score-breakdown lanes (route
    "auto" takes the scan for them, counted): the top-k candidate order, the
    score parts by priority, the restage classification, and, where the
-   checkpoint carries a shard layout, the shard that owned the flipped
-   node. The port's checkpoints carry none (its twin is single-device), so
-   no shard fields are added, as for an unsharded directory in the JAX
-   package.
+   checkpoint carries a shard layout (a TPUSIM_SHARDS twin's), each bind
+   row's shard_a and shard_b: the shard that owned each side's node, read
+   from the layout's ``blocks`` or ``owners``. Neither package's
+   checkpoint writes those (its layout is shards, nodes and
+   nodes_per_shard), so both fields are null, as in the JAX package.
 
 The audited directories are only read: the replay session journals nothing,
 and the report is a plain dict (rendered by ``render_report`` for the CLI,

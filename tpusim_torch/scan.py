@@ -1792,40 +1792,66 @@ class DeltaRows(NamedTuple):
     pod_count: object
 
 
+def _in_block(shard: Optional[Shard], node_idx):
+    """(keep, local): which entries of the global node indices `node_idx`
+    (host numpy) fall in this rank's block of the node axis, and those
+    entries shifted by the block's base; with no shard every entry, as it
+    is (keep None)."""
+    idx = np.asarray(node_idx)
+    if shard is None:
+        return None, idx
+    keep = (idx >= shard.base) & (idx < shard.base + shard.n_local)
+    return keep, idx[keep] - shard.base
+
+
+def _kept(a, keep, axis: int = 0):
+    """The `keep` entries of host array `a` along `axis` (all of it for
+    keep None)."""
+    return a if keep is None else np.compress(keep, np.asarray(a), axis=axis)
+
+
 def _set_rows_(carry: Carry, node_idx, rows: DeltaRows, pres_gid, pres_nid,
-               pres_val) -> None:
+               pres_val, shard: Optional[Shard] = None) -> None:
     # "set" semantics, no accumulation: the bucket padding repeats a real
     # row (or cell) with the same authoritative value, so whichever copy of
-    # a duplicate index lands last writes the same bytes
-    idx = _on(node_idx, carry.rr)
+    # a duplicate index lands last writes the same bytes. On a rank of the
+    # node-sharded twin only the rows and cells of its block are set
+    keep, local = _in_block(shard, node_idx)
+    idx = _on(local, carry.rr)
     for name in DeltaRows._fields:
         dst = getattr(carry, name)
-        dst.index_copy_(0, idx, _on(getattr(rows, name), dst))
+        dst.index_copy_(0, idx, _on(_kept(getattr(rows, name), keep), dst))
+    keep, nid = _in_block(shard, pres_nid)
     carry.presence.index_put_(
-        (_on(pres_gid, carry.rr), _on(pres_nid, carry.rr)),
-        _on(pres_val, carry.presence))
+        (_on(_kept(pres_gid, keep), carry.rr), _on(nid, carry.rr)),
+        _on(_kept(pres_val, keep), carry.presence))
 
 
 def apply_delta_(carry: Carry, node_idx, rows: DeltaRows, pres_gid,
-                 pres_nid, pres_val, sa_lock_init) -> None:
+                 pres_nid, pres_val, sa_lock_init,
+                 shard: Optional[Shard] = None) -> None:
     """Commit a cycle's delta into the resident `carry` in place: set the
     rows `node_idx` and the presence cells (pres_gid, pres_nid), then re-arm
     the per-batch lanes as carry_init_host arms a restage's carry (sa_lock to
     `sa_lock_init`: all unlocked for a provider, the live first-matching-pod
     pins under a ServiceAffinity policy; rr to 0), so that a stream cycle
-    and a restage cycle scan from equal carries."""
-    _set_rows_(carry, node_idx, rows, pres_gid, pres_nid, pres_val)
+    and a restage cycle scan from equal carries. The indices are global
+    node indices; with `shard` (a rank of the node-sharded twin, whose
+    carry holds its block) only the rows and cells in the block are set,
+    and the replicated lanes the same way on every rank."""
+    _set_rows_(carry, node_idx, rows, pres_gid, pres_nid, pres_val, shard)
     carry.sa_lock.copy_(_on(sa_lock_init, carry.sa_lock))
     carry.rr.zero_()
 
 
 def overlay_restore_(carry: Carry, node_idx, rows: DeltaRows, pres_gid,
-                     pres_nid, pres_val, sa_lock_save, rr_save) -> None:
+                     pres_nid, pres_val, sa_lock_save, rr_save,
+                     shard: Optional[Shard] = None) -> None:
     """Roll an overlay query back in place: the same authoritative set over
     the nodes the query bound, and the per-batch lanes restored from the
     copies taken before the query (not re-armed), so the carry after it is
-    bit-equal to the carry before."""
-    _set_rows_(carry, node_idx, rows, pres_gid, pres_nid, pres_val)
+    bit-equal to the carry before. `shard` as apply_delta_'s."""
+    _set_rows_(carry, node_idx, rows, pres_gid, pres_nid, pres_val, shard)
     carry.sa_lock.copy_(_on(sa_lock_save, carry.sa_lock))
     carry.rr.copy_(_on(rr_save, carry.rr))
 
@@ -1850,16 +1876,20 @@ class StaticsDelta(NamedTuple):
     sa_val: object
 
 
-def apply_statics_delta_(statics: Statics, node_idx, d: StaticsDelta) -> None:
+def apply_statics_delta_(statics: Statics, node_idx, d: StaticsDelta,
+                         shard: Optional[Shard] = None) -> None:
     """Set the churned nodes' columns of the resident statics in place.
     Label and taint churn moves only per-(signature, node) and per-(policy
     row, node) cells; every other table is node-structural or group-derived
-    and restages instead. Duplicate padded indices carry equal columns."""
-    idx = _on(node_idx, statics.alloc_cpu)
+    and restages instead. Duplicate padded indices carry equal columns.
+    `shard` as apply_delta_'s: only the columns of the block are set."""
+    keep, local = _in_block(shard, node_idx)
+    idx = _on(local, statics.alloc_cpu)
     for name in StaticsDelta._fields:
         dst = getattr(statics, name)
-        dst.index_copy_(0 if name == "label_prio" else 1, idx,
-                        _on(getattr(d, name), dst))
+        axis = 0 if name == "label_prio" else 1
+        dst.index_copy_(axis, idx, _on(_kept(getattr(d, name), keep, axis),
+                                       dst))
 
 
 class ResidentScan:
@@ -1874,18 +1904,26 @@ class ResidentScan:
     graph reads and writes the tensors where they lie, so the commits
     between cycles must patch them in place (apply_delta_,
     apply_statics_delta_, overlay_restore_): a rebinding such as
-    carry = Carry(...) would leave the graph reading stale buffers."""
+    carry = Carry(...) would leave the graph reading stale buffers.
+
+    With `shard` the carry and statics are this rank's block of the
+    node-sharded twin and the step is the sharded one (make_step's, as
+    sharded_scan_fn runs it), always eager."""
 
     def __init__(self, config: EngineConfig, carry: Carry, statics: Statics,
-                 bucket: int, graph_steps: int = 0):
+                 bucket: int, graph_steps: int = 0,
+                 shard: Optional[Shard] = None):
         dev = statics.alloc_cpu.device
         n_scal = statics.alloc_scalar.shape[-1]
         self.pods = torch.empty((bucket, _pod_layout(n_scal)[1]), dtype=I64,
                                 device=dev)
         self.out = _outputs((bucket,), NUM_FIXED_BITS + n_scal, dev)
         t1 = torch.zeros(1, dtype=I64, device=dev)
+        # the node-sharded step (the one sharded_scan_fn runs) is eager:
+        # gloo's collectives cannot be captured in a CUDA graph
         self._steps = _Steps(make_step(config, statics, self.pods, carry,
-                                       self.out, t1), t1, graph_steps)
+                                       self.out, t1, shard=shard), t1,
+                             graph_steps if shard is None else 0)
 
     @property
     def graph_captured(self) -> bool:

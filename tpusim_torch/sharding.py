@@ -126,29 +126,52 @@ def _factoring_error(n: int, first_axis: str, first: int,
         f"{n} devices: {_valid_shard_counts(n)}")
 
 
-# built meshes by (device type, axis names, grid, default group): building
-# one creates a process group an axis, a collective every rank must join,
-# so a batch reuses its mesh instead of creating groups a dispatch
+# built meshes by (device type, axis names, grid, default group, tag):
+# building one creates a process group an axis, a collective every rank
+# must join, so a batch reuses its mesh instead of creating groups a
+# dispatch
 _MESHES: Dict[tuple, object] = {}
 
 
 def _mesh(devices: list, rows: int, names: Tuple[str, str],
-          device_type: str):
+          device_type: str, tag: str = ""):
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
 
     grid = torch.tensor(devices, dtype=torch.int64).reshape(
         rows, len(devices) // rows)
     key = (device_type, names, tuple(grid.shape), tuple(devices),
-           id(dist.distributed_c10d._get_default_group()))
+           id(dist.distributed_c10d._get_default_group()), tag)
     mesh = _MESHES.get(key)
     if mesh is None:
         if device_type == "cuda":
             # the mesh leaves a device that is set as it is
             torch.cuda.set_device(shard_device("cuda"))
-        mesh = DeviceMesh(device_type, grid, mesh_dim_names=names)
+        if not tag:
+            mesh = DeviceMesh(device_type, grid, mesh_dim_names=names)
+        else:
+            mesh = _tagged_mesh(devices, rows, grid, names, device_type)
         _MESHES[key] = mesh
     return mesh
+
+
+def _tagged_mesh(devices: list, rows: int, grid, names, device_type: str):
+    """A one-row mesh on process groups of its own: a DeviceMesh over the
+    same ranks reuses the groups of the first one built, and two threads
+    whose collectives share a group interleave them differently on each
+    rank (a hang, or wrong sums). Every rank of the default group creates
+    the groups, in the same order."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if rows != 1:
+        raise ValueError(f"a tagged mesh has one row of ranks, not {rows}")
+    node = dist.new_group(list(devices))
+    rows_groups = [dist.new_group([d]) for d in devices]
+    me = dist.get_rank()
+    row = rows_groups[devices.index(me)] if me in devices else None
+    return DeviceMesh.from_group([row, node], device_type, mesh=grid,
+                                 mesh_dim_names=names)
 
 
 def _ranks(devices: Optional[list], n_devices: Optional[int]) -> list:
@@ -160,15 +183,20 @@ def _ranks(devices: Optional[list], n_devices: Optional[int]) -> list:
 
 
 def make_mesh(n_devices: Optional[int] = None, snap: int = 1,
-              devices: Optional[list] = None, device_type: str = "cpu"):
+              devices: Optional[list] = None, device_type: str = "cpu",
+              tag: str = ""):
     """A ("snap", "node") DeviceMesh over the first n_devices ranks
     (`devices`, the default group's ranks by default). device_type names
-    the ranks' devices ("cuda" on the card)."""
+    the ranks' devices ("cuda" on the card). A nonempty `tag` (snap=1
+    only) gives the mesh process groups of its own, shared with no mesh of
+    another tag: one for each streaming twin of a process whose twins run
+    on threads of their own. Build a tagged mesh on every rank in the same
+    order, on one thread, before the threads that use it start."""
     devices = _ranks(devices, n_devices)
     n = len(devices)
     if snap < 1 or n % snap != 0:
         raise _factoring_error(n, "snap", snap, "node")
-    return _mesh(devices, snap, ("snap", "node"), device_type)
+    return _mesh(devices, snap, ("snap", "node"), device_type, tag)
 
 
 def make_scenario_mesh(n_devices: Optional[int] = None,
@@ -314,19 +342,28 @@ def node_shardings(mesh) -> Tuple[Statics, Carry]:
             _sharding_tree(Carry, CARRY_AXES, mesh))
 
 
-def shard_for_mesh(mesh, statics: Statics, carry: Carry, xs: PodX,
-                   device="cuda") -> Tuple[Statics, Carry, PodX]:
-    """Stage host trees for the node-sharded scan on this process's device:
-    the node axis padded to the mesh's multiple and cut to this rank's
-    contiguous block, every other axis and every pod's columns whole (each
-    rank sees every pod; its work a pod is the reduction over its
-    block)."""
+def node_blocks(mesh, statics: Statics, carry: Carry
+                ) -> Tuple[Statics, Carry]:
+    """This rank's blocks of host trees: the node axis padded to the mesh's
+    multiple and cut to the rank's contiguous block, every other axis
+    whole."""
     statics, carry, _ = pad_node_axis(statics, carry,
                                       _axis_size(mesh, "node"))
     st_spec, ca_spec = node_shardings(mesh)
-    return (stage_tree(statics, st_spec, device, index=True),
-            stage_tree(carry, ca_spec, device),
-            stage_tree(xs, MeshSharding(mesh, ()), device, index=True))
+    return (Statics(*(sh.block(a) for a, sh in zip(statics, st_spec))),
+            Carry(*(sh.block(a) for a, sh in zip(carry, ca_spec))))
+
+
+def shard_for_mesh(mesh, statics: Statics, carry: Carry, xs: PodX,
+                   device="cuda") -> Tuple[Statics, Carry, PodX]:
+    """Stage host trees for the node-sharded scan on this process's device:
+    this rank's node blocks (node_blocks), every pod's columns whole (each
+    rank sees every pod; its work a pod is the reduction over its
+    block)."""
+    statics, carry = node_blocks(mesh, statics, carry)
+    return (stage_tree(statics, None, device, index=True),
+            stage_tree(carry, None, device),
+            stage_tree(xs, None, device, index=True))
 
 
 def snap_shardings(mesh) -> Tuple[Statics, Carry, MeshSharding]:
@@ -335,6 +372,22 @@ def snap_shardings(mesh) -> Tuple[Statics, Carry, MeshSharding]:
     statics = _sharding_tree(Statics, STATICS_AXES, mesh, leading="snap")
     carry = _sharding_tree(Carry, CARRY_AXES, mesh, leading="snap")
     return statics, carry, MeshSharding(mesh, ("snap",))
+
+
+def rank_directory(directory: Optional[str]) -> Optional[str]:
+    """This process's directory of a per-rank output such as a stream's
+    WAL and checkpoints: `directory` itself outside a process group of
+    several ranks and on its rank 0, `<directory>.rank<r>` on rank r > 0,
+    so that every rank journals on its own and no two ranks append to one
+    file."""
+    if directory is None:
+        return None
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1 and dist.get_rank() > 0:
+        return f"{directory}.rank{dist.get_rank()}"
+    return directory
 
 
 # ---------------------------------------------------------------------------

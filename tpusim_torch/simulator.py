@@ -1048,7 +1048,13 @@ def run_stream_simulation(snapshot: Optional[ClusterSnapshot] = None, *,
         cycles. The summary's fold_chain then equals an uninterrupted
         run's; it gains "recovered", "resume_cycle", "replay_ms",
         "recomputed_cycles" and "recovery_violations".
-    device: "cuda" (the default) or "cpu"."""
+    device: "cuda" (the default) or "cpu".
+
+    Under TPUSIM_SHARDS=k every rank of a default process group of k
+    ranks makes this same call (the twin's node axis sharded over them);
+    each journals to a directory of its own, checkpoint_dir on rank 0 and
+    <checkpoint_dir>.rank<r> on rank r (sharding.rank_directory), and
+    recovers from it."""
     import hashlib
     from time import perf_counter
 
@@ -1062,11 +1068,13 @@ def run_stream_simulation(snapshot: Optional[ClusterSnapshot] = None, *,
     from tpusim_torch.backends import Placement, bind_pod
     from tpusim_torch.stream import ChurnLoadGen, StreamSession, chain_fold
     from tpusim_torch.stream.loadgen import DEFAULT_LABEL_UNIVERSE
+    from tpusim_torch.sharding import rank_directory
     from tpusim_torch.stream.persist import (
         StreamPersistence,
         recover_stream_session,
     )
 
+    checkpoint_dir = rank_directory(checkpoint_dir)
     if snapshot is None:
         snapshot = synthetic_cluster(num_nodes)
         if policy is not None or label_churn or taint_churn:
@@ -1343,6 +1351,31 @@ def run_stream_simulation(snapshot: Optional[ClusterSnapshot] = None, *,
     return out
 
 
+# the mesh tags of an in-process replicated pair's twins (sharding.make_mesh)
+LEADER_MESH = ""
+FOLLOWER_MESH = "follower"
+
+
+def _twin_meshes(device, tags) -> None:
+    """Under TPUSIM_SHARDS=k in a default process group of k ranks, build
+    the node mesh of each tag now, on this thread and in this order on
+    every rank (building one is a collective of the default group); the
+    twins' restages then find them built. Nothing happens otherwise."""
+    import torch.distributed as dist
+
+    from tpusim_torch.backend import _shard_count
+    from tpusim_torch.device import resolve_device
+    from tpusim_torch.sharding import make_mesh
+
+    n_shards = _shard_count()
+    if n_shards <= 1 or not (dist.is_available() and dist.is_initialized()
+                             and dist.get_world_size() == n_shards):
+        return
+    for tag in tags:
+        make_mesh(n_shards, snap=1, device_type=resolve_device(device).type,
+                  tag=tag)
+
+
 def run_replicated_stream(snapshot: Optional[ClusterSnapshot] = None, *,
                           num_nodes: int = 64, cycles: int = 50,
                           arrivals: int = 32, evict_fraction: float = 0.25,
@@ -1382,7 +1415,14 @@ def run_replicated_stream(snapshot: Optional[ClusterSnapshot] = None, *,
     its own CUDA graphs (scan._Steps serializes the captures). An error in
     the follower's twin raises here; only a chaos DeviceFault reaches a
     breaker. The summary's "graphs" counts the CUDA graphs each side's twin
-    captured (0 on the CPU)."""
+    captured (0 on the CPU).
+
+    Under TPUSIM_SHARDS=k every rank of a default process group of k ranks
+    makes this same call and runs a pair of its own, journaling to
+    checkpoint_dir on rank 0 and <checkpoint_dir>.rank<r> on rank r; the
+    leader's twin and the follower's take node meshes on process groups of
+    their own, built here on the caller's thread before the follower's
+    pump starts."""
     from time import monotonic
 
     from tpusim_torch.api.snapshot import synthetic_cluster
@@ -1400,6 +1440,10 @@ def run_replicated_stream(snapshot: Optional[ClusterSnapshot] = None, *,
     if checkpoint_dir is None:
         raise ValueError("run_replicated_stream needs checkpoint_dir: the "
                          "WAL is the replication substrate")
+    from tpusim_torch.sharding import rank_directory
+
+    checkpoint_dir = rank_directory(checkpoint_dir)
+    _twin_meshes(device, (LEADER_MESH, FOLLOWER_MESH))
 
     def make_snap():
         # fresh object graphs for each consumer: the leader, the follower
@@ -1433,9 +1477,11 @@ def run_replicated_stream(snapshot: Optional[ClusterSnapshot] = None, *,
                             gang_size=gang_size, gang_count=gang_count)
 
     follower = FollowerTwin(make_snap(), provider=provider, policy=policy,
-                            always_restage=always_restage, device=device)
+                            always_restage=always_restage, device=device,
+                            mesh_tag=FOLLOWER_MESH)
     leader = StreamSession(make_snap(), provider=provider, policy=policy,
-                           always_restage=always_restage, device=device)
+                           always_restage=always_restage, device=device,
+                           mesh_tag=LEADER_MESH)
     persist = StreamPersistence(checkpoint_dir,
                                 checkpoint_every=checkpoint_every,
                                 fsync_every=fsync_every)

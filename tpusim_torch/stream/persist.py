@@ -116,14 +116,24 @@ def _capture_device(dev) -> Dict[str, object]:
     """Copy the resident tensors to host numpy: the carry (THE resident
     state), the statics tables, and the host PolicyTables arrays. The copy
     runs on the current stream, behind any scan already launched on it (a
-    pipelined cycle in flight), never beside it."""
+    pipelined cycle in flight), never beside it. On the node-sharded twin
+    every node axis is put together from the ranks' blocks
+    (scan.gather_nodes, a collective every rank makes at the same
+    checkpoint), so the image holds the whole padded columns on every
+    rank."""
     import numpy as np
 
+    from tpusim_torch.scan import CARRY_AXES, STATICS_AXES, gather_nodes
+
     out: Dict[str, object] = {}
-    for prefix, tree in (("carry_", dev.carry), ("statics_", dev.statics)):
+    for prefix, tree, axes in (("carry_", dev.carry, CARRY_AXES),
+                               ("statics_", dev.statics, STATICS_AXES)):
         if tree is None:
             continue
         for name, value in tree._asdict().items():
+            if dev.shard is not None and "node" in axes[name]:
+                value = gather_nodes(dev.shard, value,
+                                     axes[name].index("node"))
             out[prefix + name] = value.cpu().numpy()
     if dev.ptabs is not None:
         for name, value in getattr(dev.ptabs, "__dict__", {}).items():
@@ -374,9 +384,8 @@ class StreamPersistence:
                 "device_bound": device_bound,
                 "plan_sig": repr(session._plan_key),
                 "device_npz": device_npz,
-                # the node-sharded residency layout: the port's twin is
-                # single-device, so there is none
-                "shard_layout": None,
+                # the node-sharded residency layout (None single-device)
+                "shard_layout": session._shard_layout,
                 # the WAL's durability promise at the time this manifest
                 # was cut: flush-only survives process crashes, fsync
                 # survives host crashes too

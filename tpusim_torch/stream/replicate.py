@@ -68,6 +68,17 @@ scan._Steps serializes process-wide. Every wait is bounded (``drain``,
 while applying a record (a device error among them) stops the follower and
 is kept in ``FollowerTwin.error``; promote raises it. The twin runs on
 ``device`` ("cuda" by default, or "cpu").
+
+Node sharding: under TPUSIM_SHARDS=k every rank runs its own pair, and
+each twin's collectives run on process groups of its own (``mesh_tag``):
+two threads of one rank issuing collectives on one group would interleave
+them differently on each rank. Each rank's follower lags its leader by its
+own amount, so a promotion decides every emitted cycle of its tail again
+(the live apply's discipline) instead of folding its durable binds: each
+shipped cycle is then decided once on every rank, live or at promotion,
+and the ranks' collectives stay in step. A checkpoint manifest whose
+layout names another shard count than the follower's twin restages it,
+classified ``replicated``.
 """
 
 from __future__ import annotations
@@ -83,6 +94,7 @@ from time import monotonic, perf_counter, sleep
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from tpusim_torch.api.types import Pod
+from tpusim_torch.backend import _shard_count
 from tpusim_torch.backends import Placement, bind_pod, placement_hash
 from tpusim_torch.engine.providers import DEFAULT_PROVIDER
 from tpusim_torch.framework.metrics import register, since_in_microseconds
@@ -489,13 +501,18 @@ class FollowerTwin:
                  provider: str = DEFAULT_PROVIDER, policy=None,
                  always_restage: bool = False,
                  listen: Tuple[str, int] = ("127.0.0.1", 0),
-                 bootstrap: bool = False, device="cuda"):
+                 bootstrap: bool = False, device="cuda",
+                 mesh_tag: str = ""):
         from tpusim_torch.stream.runtime import StreamSession
 
         self._provider = provider
         self._policy = policy
         self._always_restage = always_restage
         self._device = device
+        # the process groups of the twin's TPUSIM_SHARDS mesh: a follower
+        # beside its leader in one process takes a tag of its own, built on
+        # the main thread before this twin's pump starts
+        self._mesh_tag = mesh_tag
         # a late join asks the shipper for the leader's latest checkpoint
         # manifest and WAL offset in the hello exchange instead of needing
         # the leader's cycle-0 snapshot; the session below starts empty and
@@ -505,7 +522,7 @@ class FollowerTwin:
         self.session = StreamSession(snapshot, incremental=incremental,
                                      provider=provider, policy=policy,
                                      always_restage=always_restage,
-                                     device=device)
+                                     device=device, mesh_tag=mesh_tag)
         self.batches: Dict[int, List[Pod]] = {}
         self.bound_by_cycle: Dict[int, List[Tuple[str, str]]] = {}
         self.events_applied: Dict[int, int] = {}
@@ -654,7 +671,8 @@ class FollowerTwin:
         self.session = StreamSession(snapshot, provider=self._provider,
                                      policy=self._policy,
                                      always_restage=self._always_restage,
-                                     device=self._device)
+                                     device=self._device,
+                                     mesh_tag=self._mesh_tag)
         self.chain = str(meta.get("chain", ""))
         ck_cycle = int(meta.get("cycle", 0))
         self.cycles_emitted = ck_cycle
@@ -750,9 +768,14 @@ class FollowerTwin:
     def _apply_ckpt(self, meta: dict) -> None:
         if self.diverged is not None:
             return
-        # the port's twin is single-device: a leader's announced node-mesh
-        # layout is recorded, and never restages it
-        self.shard_layout = meta.get("shard_layout") or self.shard_layout
+        layout = meta.get("shard_layout")
+        ours = self.session._shard_layout
+        if layout and ours and layout.get("shards") != ours.get("shards"):
+            # the leader announced another node-mesh partitioning: the twin
+            # restages before the next replayed cycle, classified like any
+            # restage
+            self.session.force_restage("replicated")
+        self.shard_layout = layout or self.shard_layout
         self.durability = meta.get("durability") or self.durability
         ck_cycle = meta.get("cycle")
         ck_chain = meta.get("chain")
@@ -888,6 +911,13 @@ class FollowerTwin:
                     f"tail-replay chain missed the durable manifest "
                     f"at cycle {ck_cycle}")
 
+        # Under TPUSIM_SHARDS the twin's cycles are collectives of every
+        # rank's follower, and each rank's follower lags its own leader by
+        # its own amount: a shipped cycle one rank decided live must be
+        # decided on every rank, so an emitted cycle of the tail is decided
+        # again (as the live apply decides it), never folded from its
+        # durable binds alone
+        decide_shipped = _shard_count() > 1
         inc = self.session.inc
         rsp = flight.span("replicate:promote")
         # one trace context for the whole promotion: the tail replay, the
@@ -912,6 +942,9 @@ class FollowerTwin:
                         continue   # live-folded already, or the crash
                         #            tail decides it again instead
                     flush_below(c)
+                    if decide_shipped:
+                        self._decide_shipped(c, rec["b"], report)
+                        continue
                     pods_by_key = {p.key(): p
                                    for p in self.batches.get(c, [])}
                     for key, node in rec["b"]:
@@ -988,6 +1021,26 @@ class FollowerTwin:
             "recomputed": len(report.recomputed),
             "chain": report.chain[:16]})
         return report
+
+    def _decide_shipped(self, c: int, entries: list,
+                        report: PromotionReport) -> None:
+        """Decide emitted cycle c of a promotion's tail through our
+        scheduler, journaling nothing (its records are durable): the live
+        apply's discipline, its binds held to the durable record and its
+        placements kept for the emit record's hash."""
+        persist, self.session.persist = self.session.persist, None
+        try:
+            placements = self.session.schedule(self.batches[c])
+        finally:
+            self.session.persist = persist
+        bound = sorted((pl.pod.key(), pl.node_name)
+                       for pl in placements if pl.node_name)
+        if bound != sorted((key, node) for key, node in entries):
+            report.violations.append(
+                f"cycle {c} decided again binds otherwise than its "
+                "durable bind record")
+        self.bound_by_cycle[c] = bound
+        self._live_pending[c] = placements
 
     def stop(self, *, keep_session: bool = True) -> None:
         """Stop taking records: close the listener, hang up the link and

@@ -60,6 +60,18 @@ stream and sync() drains every attached one; a stream torn by overflow
 relists, and the relist forces a restage classified "watch_expired" (the
 first reason wins), as does a torn stream given to ingest().
 
+Node sharding: with TPUSIM_SHARDS=k and a default process group of k
+ranks, every rank runs the same session (SPMD) and each restage decides the
+layout again (_decide_shard_layout): a config the sharded route serves is
+staged node-sharded, each rank holding one contiguous block of the padded
+node axis and every pod's columns (span shard:stage, after the ranks'
+host digests agree), and scans with the sharded step, eagerly (span
+shard:scan); anything else stays single-device, the reason counted in
+tpusim_shard_fallback_total. The host journal holds global node indices:
+commits, label and taint churn and overlay rollbacks set only the rows of
+this rank's block, and the replicated lanes (presence_dom, rr, sa_lock)
+alike on every rank. A twin's mesh_tag gives it process groups of its own.
+
 With a flight recorder installed the runtime records the JAX package's
 spans (stream_commit, statics_commit, compile_cluster, device_dispatch,
 decode_placements, stream_overlap, stream_decode and the overlay_* spans),
@@ -128,6 +140,7 @@ from tpusim_torch.scan import (
     apply_delta_,
     apply_statics_delta_,
     carry_init_host,
+    mesh_shard,
     overlay_restore_,
     pad_infeasible_rows,
     pod_columns_to_host,
@@ -236,6 +249,10 @@ class DeviceResidentCluster:
         self.scalar_width = 0
         self.evictions_mark = 0     # inc.sig_evictions at adopt time
         self.commits = 0            # delta commits since construction
+        # the node-sharded twin: the mesh this rank's block lies on and
+        # the block (scan.Shard); None for the single-device twin
+        self.mesh = None
+        self.shard = None
         self._programs: Dict[int, ResidentScan] = {}
 
     @property
@@ -260,14 +277,26 @@ class DeviceResidentCluster:
         private pool with it). The next cycle restages onto new tensors."""
         self.invalidate()
         self.config = self.statics = self.carry = None
+        self.mesh = self.shard = None
         self._programs = {}
 
-    def stage(self, config, statics_host, carry_host) -> None:
+    def stage(self, config, statics_host, carry_host, mesh=None) -> None:
         """Load a restage's host trees (scan.Statics and scan.Carry of
         numpy arrays) into the resident tensors: copied into the tensors
-        there are when the config and every shape agree, else onto new
-        tensors, which drops the programs bound to the old ones."""
+        there are when the config, the mesh and every shape agree, else
+        onto new tensors, which drops the programs bound to the old ones.
+
+        With `mesh` (a TPUSIM_SHARDS node mesh) the node axis is padded to
+        the shard multiple and this rank keeps its contiguous block of it
+        (sharding.node_blocks); every other axis stays whole on every
+        rank."""
+        if mesh is not None:
+            from tpusim_torch.sharding import node_blocks
+
+            statics_host, carry_host = node_blocks(mesh, statics_host,
+                                                   carry_host)
         same = (self.statics is not None and config == self.config
+                and mesh is self.mesh
                 and all(t.shape == np.shape(h) for t, h in
                         zip(self.statics + self.carry,
                             tuple(statics_host) + tuple(carry_host)))
@@ -283,18 +312,31 @@ class DeviceResidentCluster:
         self.config = config
         self.statics = tree_to(statics_host, self.device, index=True)
         self.carry = tree_to(carry_host, self.device)
+        self.mesh = mesh
+        self.shard = (None if mesh is None else
+                      mesh_shard(mesh, self.statics.alloc_cpu.shape[0]))
         self._programs = {}
 
     def scan(self, xs_host):
         """Scan a bucket of pods (host numpy columns, padded to the bucket)
-        on the resident state in place: the program's output buffers."""
+        on the resident state in place: the program's output buffers. On
+        the node-sharded twin every rank scans every pod over its block,
+        eagerly (span shard:scan); the choices are global node indices."""
         bucket = int(np.asarray(xs_host.req_cpu).shape[0])
         program = self._programs.get(bucket)
         if program is None:
             program = ResidentScan(self.config, self.carry, self.statics,
-                                   bucket, graph_steps=GRAPH_STEPS)
+                                   bucket, graph_steps=GRAPH_STEPS,
+                                   shard=self.shard)
             self._programs[bucket] = program
-        return program.run(xs_host)
+        if self.shard is None:
+            return program.run(xs_host)
+        with flight.span("shard:scan", "device", self.device) as sp:
+            out = program.run(xs_host)
+            if sp:
+                sp.set("shards", self.shard.size)
+                sp.set("pods", bucket)
+        return out
 
     def adopt(self, inc: IncrementalCluster, compiled, plan_key=None,
               ptabs=None, pol_res=None) -> None:
@@ -363,7 +405,7 @@ class DeviceResidentCluster:
         idx, rows = _delta_rows(inc, nodes)
         sp = flight.span("stream_commit", "device", self.device)
         apply_delta_(self.carry, idx, rows, *_presence_cells(inc, cells),
-                     sa_lock_init)
+                     sa_lock_init, shard=self.shard)
         if sp:
             sp.set("rows", int(len(nodes)))
             sp.set("cells", int(len(cells)))
@@ -413,12 +455,16 @@ class StreamSession:
                  provider: str = DEFAULT_PROVIDER,
                  hard_pod_affinity_symmetric_weight: int = 10,
                  always_restage: bool = False,
-                 policy=None, compiled_policy=None, device="cuda"):
+                 policy=None, compiled_policy=None, device="cuda",
+                 mesh_tag: str = ""):
         """always_restage: no resident path, every cycle pays the full
         compile and staging (the comparison arm; placements are identical).
         policy / compiled_policy: a scheduler Policy, compiled here unless
         given compiled; set_policy swaps it (a change of plan restages
-        once). device: "cuda" (the default) or "cpu"."""
+        once). device: "cuda" (the default) or "cpu". mesh_tag: the process
+        groups of the twin's TPUSIM_SHARDS node mesh (sharding.make_mesh;
+        "" the default group's mesh): two twins of one process whose cycles
+        run on two threads need two."""
         if provider not in _KNOWN_PROVIDERS:
             raise KeyError(f"plugin {provider!r} has not been registered")
         if policy is not None and compiled_policy is None:
@@ -443,6 +489,10 @@ class StreamSession:
         self._gang_torch = None       # TorchBackend of the gang cycles
         self._last_path = ""
         self.persist = None           # stream.persist.StreamPersistence
+        # the node-sharded residency (TPUSIM_SHARDS=k, decided at every
+        # restage): its mesh, and the layout a checkpoint records
+        self.mesh_tag = mesh_tag
+        self._shard_layout: Optional[Dict[str, int]] = None
         # device residency, polled at snapshot time only; the weak
         # reference drops the source with the session
         analytics.register_hbm_source(
@@ -596,7 +646,7 @@ class StreamSession:
             self._gang_torch = TorchBackend(
                 provider=self.provider, device=self.torch_device,
                 hard_pod_affinity_symmetric_weight=self.hard_weight,
-                policy=self.policy)
+                policy=self.policy, mesh_tag=self.mesh_tag)
         return self._gang_torch
 
     def _route(self, pods: List[Pod]):
@@ -714,7 +764,8 @@ class StreamSession:
         idx, delta = self._statics_patch
         self._statics_patch = None
         sp = flight.span("statics_commit", "device", self.torch_device)
-        apply_statics_delta_(self.device.statics, idx, delta)
+        apply_statics_delta_(self.device.statics, idx, delta,
+                             shard=self.device.shard)
         if sp:
             sp.set("cols", int(len(idx)))
             sp.end()
@@ -774,7 +825,7 @@ class StreamSession:
         dev = self.device
         analytics.capture(dev.statics, dev.carry, len(compiled.statics.names),
                           "stream", cycle=self.cycles,
-                          names=compiled.statics.names)
+                          names=compiled.statics.names, mesh=dev.mesh)
         return placements, corrupt_kind is not None
 
     def _stream_cycle(self, pods: List[Pod], cols) -> List[Placement]:
@@ -832,18 +883,63 @@ class StreamSession:
                                              ptabs)
             if cp.spec.sa_enabled:
                 sa_lock_init = ptabs.sa_lock_init
-        dev.stage(config, statics_to_host(compiled, ptabs),
-                  carry_init_host(compiled, sa_lock_init))
+        statics_host = statics_to_host(compiled, ptabs)
+        carry_host = carry_init_host(compiled, sa_lock_init)
+        xs_host = self._xs_host(pods, cols)
+        mesh = self._decide_shard_layout(config)
+        self._stage_resident(config, mesh, statics_host, carry_host, xs_host)
 
         def dispatch():
-            placements, intervened = self._dispatch(
-                pods, self._xs_host(pods, cols), compiled)
+            placements, intervened = self._dispatch(pods, xs_host, compiled)
             if not intervened:
                 dev.adopt(inc, compiled, plan_key=self._plan_key,
                           ptabs=ptabs, pol_res=pol_res)
             return placements, intervened
 
         return self._run_guarded(pods, "restage_scan", dispatch, reason)
+
+    def _decide_shard_layout(self, config):
+        """Decide the residency layout again at restage time, the only
+        place it can change (stream cycles inherit what the twin was staged
+        as): the twin's node mesh where TPUSIM_SHARDS=k > 1, the config is
+        one the sharded route serves and the default process group has k
+        ranks; else None, the twin single-device and the reason counted in
+        tpusim_shard_fallback_total{reason} with a trace instant."""
+        self._shard_layout = None
+        n_shards = _backend._shard_count()
+        if n_shards <= 1:
+            return None
+        return _backend.shard_mesh_for(
+            config, n_shards, self.torch_device,
+            note="stream residency staying single-device", tag=self.mesh_tag)
+
+    def _stage_resident(self, config, mesh, statics_host, carry_host,
+                        xs_host) -> None:
+        """Stage the restage's host trees as the resident twin: whole, or
+        on `mesh`'s node-sharded layout (span shard:stage) once every rank
+        has shown the same host picture (backend.check_ranks_agree raises
+        where the ranks differ); the layout and the tpusim_shard_* gauges
+        are set from it."""
+        dev = self.device
+        if mesh is None:
+            dev.stage(config, statics_host, carry_host)
+            return
+        _backend.check_ranks_agree(mesh, dev.device, statics_host,
+                                   carry_host, xs_host)
+        n_real = int(np.asarray(statics_host.alloc_cpu).shape[0])
+        with flight.span("shard:stage") as ssp:
+            dev.stage(config, statics_host, carry_host, mesh=mesh)
+            if ssp:
+                ssp.set("shards", dev.shard.size)
+                ssp.set("nodes", n_real)
+        k, per = dev.shard.size, dev.shard.n_local
+        self._shard_layout = {"shards": k, "nodes": n_real,
+                              "nodes_per_shard": per}
+        m = register()
+        m.shard_count.set(k)
+        for r in range(k):
+            m.shard_node_occupancy.set(str(r),
+                                       max(0, min(n_real - r * per, per)))
 
     def _run_guarded(self, pods: List[Pod], path: str,
                      dispatch: Callable[[], Tuple[List[Placement], bool]],
@@ -1010,7 +1106,8 @@ class StreamSession:
         dev = self.device
         analytics.capture(dev.statics, dev.carry,
                           len(dev.compiled.statics.names), "stream",
-                          cycle=self.cycles, names=dev.compiled.statics.names)
+                          cycle=self.cycles, names=dev.compiled.statics.names,
+                          mesh=dev.mesh)
         self._pending = _PendingCycle(pods, fetch, dev.compiled, t0=t0,
                                       dispatched_at=perf_counter(),
                                       wal_cycle=wal_cycle)
@@ -1247,7 +1344,8 @@ class StreamSession:
                  for j, c in enumerate(choices) if int(c) >= 0}
         sp = flight.span("overlay_rollback", "device", self.torch_device)
         overlay_restore_(self.device.carry, idx, rows,
-                         *_presence_cells(inc, cells), sa_save, rr_save)
+                         *_presence_cells(inc, cells), sa_save, rr_save,
+                         shard=self.device.shard)
         if sp:
             sp.set("rows", int(len(bound)))
             sp.end()
