@@ -117,28 +117,30 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
      (b) produced, equal (tolerance 0), then the first PROFILED_SELECTS of
      those calls replayed under torch.profiler for the card's busy time a
      call;
- 18. the chunked scan: config 3's first 4,096 pods on its 5,000 nodes
+ 18. the chunked scan: config 3's first 2,048 pods on its 5,000 nodes
      through TorchBackend(route="scan") whole and with TPUSIM_SCAN_CHUNK
-     2,048: choices, counts, advanced and the final carry bit-equal, with
+     1,024: choices, counts, advanced and the final carry bit-equal, with
      the walls and µs a pod of each;
  19. BASELINE config 5: (a) 2 of its 50 scenarios (a cut of depth for the
      script's time) of 20,000 pods on 1,000 nodes (build_workload, seeds
      1000-1001) through run_what_if on route
      "auto": one fast_scan a scenario on the kernel, with the wall, pods/s,
-     kernel time (CUDA events) and host share; (b) the 2 again on the
-     batched scan (route "scan"), every scenario's placement hash equal to
-     (a)'s, with its µs a step; (c) bench.py's CPU shape (8 x 5,000 x 500)
+     kernel time (CUDA events) and host share; (b) the first 5,000 pods
+     of the 2 again on the batched scan (route "scan"), every scenario's
+     placement hash equal to that of (a)'s placements of those pods, with
+     its µs a step; (c) bench.py's CPU shape (8 x 5,000 x 500)
      on both routes, the JAX package's combined digest; then the batched
      step's kernels and device busy time at S = 1 and S = 2 under
      torch.profiler;
  20. bench.py's config 8 through the serve fleet (ScenarioFleet, buckets of
-     8): 64 requests of the first 1,001-2,000 pods of a 2,000-pod pool on
-     200 nodes, a cold and a warm pass, each the JAX package's combined
+     8): the first 24 of its 64 requests (three buckets), each the first
+     1,001-2,000 pods of a 2,000-pod pool on 200 nodes, a cold and a warm
+     pass, each the JAX package's combined
      digest; the warm pass builds no program and hits the program cache on
      every response. Phases 18-20 fail past their 300 s budget;
  21. bench config 9 through the streaming twin (run_stream_simulation on
      the card, the resident scan replaying its captured graphs, each run's
-     CUDA-event span): the stream arm at 16,000 nodes (12 cycles of 64
+     CUDA-event span): the stream arm at 16,000 nodes (8 cycles of 64
      arrivals, 25% evicted, seed 9), which must restage only at its cold
      start and launch no fused kernel; the stream and restage arms at 4,000
      nodes, equal chains; a verified run at 4,000 nodes (10 cycles, every
@@ -337,8 +339,28 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
      follower promoted onto it (a clean audit_failover for both), and the
      audit of the WAL against a copy with cycle 4's first bind flipped
      naming cycle 4 and the pod; each k's cycle p50, shard:scan a cycle,
-     all_reduces a pod and, at k = 2, the replay and the RTO. Phases 37-38
-     fail past their 135 s budget.
+     all_reduces a pod and, at k = 2, the replay and the RTO;
+ 39. the scenario mesh, in phase 37's spawns with TPUSIM_SHARDS unset
+     (every rank on the card, the meshes over the spawn's gloo group):
+     (a) phase 19c's config 5 CPU shape (8 scenarios of 5,000 pods on
+     500 nodes) through run_what_if on a ("scenario", "node") mesh of
+     every rank, graphs kept: phase 19c's JAX golden on every rank, one
+     program built, the wall and µs a step; (b) those scenarios cut to
+     256 pods on a ("snap", "node") mesh, 2 x 1 at k = 2 (graphs) and
+     2 x 2 at k = 4 (eager, each reduction one vmapped all_reduce): the
+     JAX golden, the all_reduces a step; (c) at k = 2, config 6's banded
+     feed on its 150 nodes cut to 2,421 pods (the smallest prefix that
+     preempts) through run_with_preemption on a 1 x 2 node mesh, route
+     "auto": the JAX hybrid's digest and preempted count, the scan route
+     taken, the all_reduces a pod; (d) config 8's first 24 requests
+     (three buckets of 8) through a ScenarioFleet on a k x 1 scenario
+     mesh, rank 0 cutting the buckets, cold and warm: the JAX fleet's
+     digest, no program built on any rank in the warm pass, scenarios/s;
+     (e) after the spawns, `--what-if --mesh 2x1` and `serve --mesh 2` as
+     2 ranks of torch.distributed.run (child processes, at once): rank
+     0's report alone, equal to the single-device command's lines.
+     Phases 37-39 fail
+     past their SHARD_BUDGET_S.
 Phases 4-15 run TorchBackend with fallback="error", and phases 15, 16b and
 17 run run_simulation on the card with the host route made to raise, so a
 workload that started to reroute to the host fails them; phases 4-12 run
@@ -413,8 +435,8 @@ HYBRID_CONFIG6 = (dict(num_pods=20_000, num_nodes=1_000, affinity=True,
 PROFILED_SELECTS = 8
 # phase 18: config 3's first pods on its nodes through the scan route,
 # whole and in chunks of TPUSIM_SCAN_CHUNK pods (8,192 pods until phase 37
-# came)
-CHUNKED_SCAN = (dict(num_pods=4_096, num_nodes=5_000), 2_048)
+# came, 4,096 in chunks of 2,048 until phase 39 came)
+CHUNKED_SCAN = (dict(num_pods=2_048, num_nodes=5_000), 1_024)
 # phase 19: BASELINE config 5, scenarios of build_workload(pods, nodes,
 # seed=1000 + s): at full shape, the first BATCHED_SCENARIOS of them again on
 # the batched scan, and at bench.py's CPU shape with the combined digest of
@@ -426,18 +448,26 @@ CHUNKED_SCAN = (dict(num_pods=4_096, num_nodes=5_000), 2_048)
 # phases 32-33 came, against the 1,000 s it must stay under; 4 when phases
 # 34-36 came (8 until then: 15.4 s of 19a's wall and 25.0 s of 19b's, the
 # batched scan taking all 8, on an H100's machine), and 2 since the warm
-# reruns of phases 5-15 came back (4: 13.5 s of 19a and 16.3 s of 19b)
+# reruns of phases 5-15 came back (4: 13.5 s of 19a and 16.3 s of 19b).
+# 19b runs the first BATCHED_PODS pods of each (all 20,000 until phase 39
+# came: 12.3 s of wall), held to 19a's placements of those pods (a pod's
+# placement depends only on the pods before it)
 CONFIG5_SCENARIOS = 50
 WHATIF_CONFIG5 = dict(scenarios=2, num_pods=20_000, num_nodes=1_000)
 BATCHED_SCENARIOS = 2
+BATCHED_PODS = 5_000
 WHATIF_CPU_SHAPE = (dict(scenarios=8, num_pods=5_000, num_nodes=500),
                     "ea6b76450d7828a9")
 # phase 20: bench.py's config 8 through the serve fleet: the workload the
 # requests draw from, the bucket size, and the combined digest of the JAX
-# package's ScenarioFleet (tools/port_golden.py config8)
+# package's ScenarioFleet on the load's first SERVE_REQUESTS requests, three
+# buckets (tools/port_golden.py config8 24; bench.py's whole load of 64,
+# d1c855554bfecaa6 from tools/port_golden.py config8, until phase 39 came:
+# 33.3 s for the two passes on an H100's machine). Phase 39d runs the same
+# load on a scenario mesh
 SERVE_CONFIG8 = (dict(num_pods=2_000, num_nodes=200, seed=4242), 8,
-                 "d1c855554bfecaa6")
-SERVE_REQUESTS = 64
+                 "c6e18da6c51cecf7")
+SERVE_REQUESTS = 24
 # phases 18-20 together, seconds
 WHATIF_BUDGET_S = 300
 # phases 21-24: the streaming twin at bench.py's stream cells. Each golden is
@@ -463,13 +493,14 @@ STREAM_GOLDENS = {
 }
 # bench.py's accelerator shapes of configs 9 and 10: the sizes, the churn
 # curves at the middle size, the cycles of a verified config 9 run. Each
-# arm runs 12 cycles (bench.py's 40 until phase 37 came, then 20 until
-# phase 38 came: cuts of depth for the script's time)
+# arm runs 8 cycles (bench.py's 40 until phase 37 came, then 20 until
+# phase 38 came, then 12 until phase 39 came: cuts of depth for the
+# script's time)
 STREAM_SIZES = (1_000, 4_000, 16_000)
-STREAM_CONFIG9 = dict(cycles=12, arrivals=64, evict_fraction=0.25, seed=9)
+STREAM_CONFIG9 = dict(cycles=8, arrivals=64, evict_fraction=0.25, seed=9)
 STREAM_EVICT_CURVE = (0.05, 0.25, 0.5)
 STREAM_VERIFY_CYCLES = 10
-STREAM_CONFIG10 = dict(cycles=12, arrivals=64, evict_fraction=0.25, seed=9,
+STREAM_CONFIG10 = dict(cycles=8, arrivals=64, evict_fraction=0.25, seed=9,
                        policy=True)
 STREAM_CHURN_CURVE = ((0, 0), (2, 1), (8, 4))
 # config 13, and config 16's twins
@@ -694,9 +725,42 @@ SHARD_STREAM_CHECKPOINT = 2
 SHARD_STREAM_QUERY = 4
 SHARD_STREAM_CRASH = (5, "bind")
 SHARD_STREAM_FLIP = 4
+# phase 39: the scenario mesh, inside phase 37's spawns of k ranks. (a)
+# MESH_SCENARIOS, config 5's CPU shape (phase 19c's 8 scenarios of
+# build_workload, 5,000 pods on 500 nodes, seeds 1000-1007, phase 19c's
+# golden), on a ("scenario", "node") mesh of every rank; (b) MESH_SNAP,
+# the same scenarios cut to their first 256 pods (golden
+# tools/port_golden.py config5 8 256 500), on a ("snap", "node") mesh,
+# 2 x 1 at k = 2 (graphs) and 2 x 2 at k = 4 (eager, node all_reduces);
+# (c) at k = 2, MESH_HYBRID: config 6's banded PodPriority feed
+# (HOST_CONFIG6's) on its 150 nodes cut to the smallest prefix that still
+# preempts a pod, 2,421 pods, through the hybrid on a 1 x 2 node mesh,
+# route "auto" (golden tools/port_golden.py config6_hybrid 2421 150: the
+# digest and the preempted count); (d) config 8's load cut to its first
+# SERVE_REQUESTS requests, three buckets of 8, on a scenario mesh of every
+# rank, cold and warm (phase 20's load and golden: tools/port_golden.py
+# config8 24; all 64 requests took 44-46 s for the two passes at k = 2 and
+# 72 s at k = 4 in the phase's first chip run, where the ranks time-share
+# the card); (e)
+# the CLI as 2 ranks of torch.distributed.run after the spawns: --what-if
+# --mesh 2x1 on MESH_CLI_SCENARIOS and serve --mesh 2 on MESH_CLI_SERVE,
+# equal to the single-device commands (started beside the k = 4 spawn in
+# one chip run: 20 s saved, but the spawn's steps 4-15 times slower)
+MESH_SCENARIOS = WHATIF_CPU_SHAPE
+MESH_SNAP = (dict(scenarios=8, num_pods=256, num_nodes=500),
+             "2f706bbbaa8ac060")
+MESH_SNAP_GRID = {2: (2, 1), 4: (2, 2)}
+MESH_HYBRID = (dict(num_pods=2_421, num_nodes=150, affinity=True,
+                    priorities=True, seed=777), "faa5d80211afc5a8", 1)
+MESH_CLI_SCENARIOS = (dict(num_pods=200, num_nodes=50), (2001, 2002))
+MESH_CLI_SERVE = ["--synthetic-nodes", "16", "--requests", "16",
+                  "--bucket-size", "2", "--flush-after-ms", "0"]
 # a spawn of k ranks, seconds (every rank and its gloo group bounded by it)
 SHARD_TIMEOUT_S = 300
-SHARD_BUDGET_S = 135
+# phases 37-39 together, seconds (135 for phases 37-38 until phase 39 came;
+# 253.1 s in the first chip run of phase 39 at its widths, on an H100's
+# machine)
+SHARD_BUDGET_S = 380
 
 ROUTES_PODS = 2_048
 # phase 15: the pods of the scan timed eagerly, and from its graphs (200 and
@@ -815,16 +879,17 @@ def records_digest(records):
                    sort_keys=True) for r in records).encode()).hexdigest()[:16]
 
 
-def serve_load(workload, request_cls):
+def serve_load(workload, request_cls, num_requests=SERVE_REQUESTS):
     """bench.py's config 8 load over `workload` (snapshot, pod pool): each
     request the pool's first n pods, n in (pool/2, pool] from
     RandomState(8), against the snapshot registered as "base", with a
-    cache key. Returns (snapshot, pool, load), load() making the requests
-    with `request_cls` (either package's WhatIfRequest)."""
+    cache key; `num_requests` of them (fewer are the full load's first).
+    Returns (snapshot, pool, load), load() making the requests with
+    `request_cls` (either package's WhatIfRequest)."""
     snapshot, pool = workload
     rng = np.random.RandomState(8)
     sizes = [int(rng.randint(len(pool) // 2 + 1, len(pool) + 1))
-             for _ in range(SERVE_REQUESTS)]
+             for _ in range(num_requests)]
 
     def load():
         return [request_cls(pods=pool[:n], snapshot_ref="base",
@@ -2344,6 +2409,7 @@ def drive_what_if(card):
 
     import tpusim_torch.fastscan as fastscan_module
     from tpusim_torch import scan, whatif, workloads
+    from tpusim_torch.backends import placement_hash
     from tpusim_torch.kernels.fastscan import fastscan_chunk
 
     p = WHATIF_CONFIG5
@@ -2384,23 +2450,26 @@ def drive_what_if(card):
         raise AssertionError("phase 19a: the fast loop did not run one "
                              "fast_scan a scenario on the kernel")
 
-    # (b) the first scenarios on the batched scan
-    k = BATCHED_SCENARIOS
+    # (b) the first scenarios' first pods on the batched scan
+    k, m = BATCHED_SCENARIOS, BATCHED_PODS
     runs = []
     with timed_on_card(scan.BatchedScan, "run", runs):
         t0 = time.perf_counter()
-        batched = whatif.run_what_if(scenarios[:k], route="scan")
+        batched = whatif.run_what_if(
+            [(snap, pods[:m]) for snap, pods in scenarios[:k]], route="scan")
         torch.cuda.synchronize()
         wall_b = time.perf_counter() - t0
     if len(runs) != 1:
         raise AssertionError(f"phase 19b: {len(runs)} batched runs")
     span_ms = runs[0][2].elapsed_time(runs[0][3])
-    same = placement_hashes(batched) == hashes[:k]
-    print(f"phase 19b: first {k} scenarios on the batched scan (route "
-          f"scan): {wall_b:.3f}s wall, scan span {span_ms:.1f} ms (CUDA "
-          f"events, one eager step and the graph capture included) = "
-          f"{1000 * span_ms / n_pods:.0f} us a step at S = {k}; every "
-          f"scenario's digest equal to 19a's: {same}")
+    same = [placement_hash(r.placements) for r in batched] == \
+        [placement_hash(r.placements[:m]) for r in results[:k]]
+    print(f"phase 19b: first {k} scenarios' first {m} pods on the batched "
+          f"scan (route scan): {wall_b:.3f}s wall, scan span {span_ms:.1f} "
+          f"ms (CUDA events, one eager step and the graph capture "
+          f"included) = {1000 * span_ms / m:.0f} us a step at S = {k}; "
+          f"every scenario's digest equal to 19a's placements of those "
+          f"pods: {same}")
     if not same:
         raise AssertionError("phase 19b: the batched scan differs from the "
                              "fast loop")
@@ -5181,12 +5250,231 @@ def shard_stream_run(root, world=1):
 
 
 def shard_rank(rank, world, root):
-    """A rank of phases 37 and 38 (sharding.run_ranks spawns it by
+    """A rank of phases 37, 38 and 39 (sharding.run_ranks spawns it by
     name)."""
     os.environ["TPUSIM_SHARDS"] = str(world)
     got = shard_run(f"k={world} rank {rank}")
     got["stream"] = shard_stream_run(root, world)
+    os.environ.pop("TPUSIM_SHARDS", None)
+    got["mesh"] = scenario_mesh_run(rank, world)
     return got
+
+
+def scenario_mesh_run(rank, world):
+    """Phase 39 on one rank of a spawn: (a) what-if on a scenario mesh, (b)
+    what-if on a snap mesh, at k = 2 (c) the hybrid on a node mesh, and (d)
+    the serve fleet on a scenario mesh. Each part's digest (rank 0's alone
+    for the fleet, whose responses rank 0 holds), wall and what it ran."""
+    import torch
+
+    from tpusim_torch import preempt, scan, sharding, whatif, workloads
+    from tpusim_torch.serve import ScenarioFleet, WhatIfRequest
+
+    got = {}
+
+    def what_if(label, mesh, params, steps):
+        scenarios = [workloads.build_workload(
+            params["num_pods"], params["num_nodes"], seed=1000 + s)
+            for s in range(params["scenarios"])]
+        runs, c0 = [], scan.collective_count()
+        before = whatif.compile_count()
+        with timed_on_card(scan.BatchedScan, "run", runs):
+            t0 = time.perf_counter()
+            results = whatif.run_what_if(scenarios, mesh=mesh)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        got[label] = {
+            "digest": combined_digest(placement_hashes(results)),
+            "wall": wall, "runs": len(runs),
+            "us_step": sum(a.elapsed_time(b) for _, _, a, b in runs)
+            * 1e3 / steps,
+            "all_reduces": (scan.collective_count() - c0) / steps,
+            "built": whatif.compile_count() - before,
+            "eager": any(r[0][0].shard is not None for r in runs)}
+
+    params, _ = MESH_SCENARIOS
+    what_if("scenario", sharding.make_scenario_mesh(device_type="cuda"),
+            params, params["num_pods"])
+    params, _ = MESH_SNAP
+    rows, nodes = MESH_SNAP_GRID[world]
+    what_if("snap", sharding.make_mesh(rows * nodes, snap=rows,
+                                       device_type="cuda"),
+            params, params["num_pods"])
+    if world == 2:
+        params, _, _ = MESH_HYBRID
+        snapshot, pods = workloads.build_workload(**params)
+        preempt.reset_preempt_stats()
+        c0 = scan.collective_count()
+        t0 = time.perf_counter()
+        status = preempt.run_with_preemption(
+            pods, snapshot, mesh=sharding.make_mesh(device_type="cuda"))
+        wall = time.perf_counter() - t0
+        got["hybrid"] = {
+            "digest": split_digest(status),
+            "preempted": len(status.preempted_pods), "wall": wall,
+            "stats": dict(preempt.HYBRID_STATS),
+            "all_reduces": scan.collective_count() - c0}
+    params, bucket, _ = SERVE_CONFIG8
+    snapshot, _, load = serve_load(workloads.build_workload(**params),
+                                   WhatIfRequest)
+    fleet = ScenarioFleet(bucket_size=bucket, flush_after_s=0.05,
+                          device="cuda",
+                          mesh=sharding.make_scenario_mesh(device_type="cuda"))
+    fleet.register_snapshot("base", snapshot)
+    serve = {}
+    for label in ("cold", "warm"):
+        before = whatif.compile_count()
+        t0 = time.perf_counter()
+        responses = fleet.run(load() if rank == 0 else [])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        serve[label] = {
+            "wall": wall, "builds": whatif.compile_count() - before,
+            "dispatches": fleet.executor.stats["dispatches"],
+            "digest": combined_digest(placement_hashes(
+                [r.result for r in responses])) if responses else None,
+            "ok": sum(1 for r in responses if r.ok),
+            "hits": sum(1 for r in responses if r.compile_cache_hit)}
+    fleet.stop()
+    got["serve"] = serve
+    return got
+
+
+def check_scenario_mesh(card, rows):
+    """Phase 39's checks and lines over the spawns' results."""
+    for k, ranks in rows:
+        rows_n, nodes = MESH_SNAP_GRID[k]
+        for rank, got in enumerate(ranks):
+            m = got["mesh"]
+            checks = {
+                "scenario": m["scenario"]["digest"] == MESH_SCENARIOS[1]
+                and m["scenario"]["built"] == 1
+                and not m["scenario"]["eager"],
+                "snap": m["snap"]["digest"] == MESH_SNAP[1]
+                and m["snap"]["built"] == 1
+                and m["snap"]["eager"] == (nodes > 1)
+                and (m["snap"]["all_reduces"] > 0) == (nodes > 1),
+            }
+            checks["serve"] = (m["serve"]["warm"]["builds"] == 0
+                               and m["serve"]["cold"]["dispatches"] > 0)
+            if rank == 0:
+                n, want = SERVE_REQUESTS, SERVE_CONFIG8[2]
+                checks["serve_golden"] = all(
+                    m["serve"][p]["digest"] == want
+                    and m["serve"][p]["ok"] == n
+                    for p in ("cold", "warm")) \
+                    and m["serve"]["warm"]["hits"] == n
+            if k == 2:
+                h = m["hybrid"]
+                checks["hybrid"] = (
+                    (h["digest"], h["preempted"]) == MESH_HYBRID[1:]
+                    and h["stats"].get("route_scan", 0) >= 1
+                    and h["stats"].get("route_kernel", 0) == 0)
+            bad = [name for name, ok in checks.items() if not ok]
+            if bad:
+                raise AssertionError(f"phase 39: k={k} rank {rank} "
+                                     f"differs in {bad}: {m}")
+        m = ranks[0]["mesh"]
+        a, b = m["scenario"], m["snap"]
+        params = MESH_SCENARIOS[0]
+        print(f"phase 39a: config5 {params['scenarios']} x "
+              f"{params['num_pods']} x {params['num_nodes']} on a scenario "
+              f"mesh {k}x1: digest {a['digest']} on every rank, "
+              f"{a['wall']:.3f}s wall, {a['us_step']:.0f} us a step "
+              f"({params['scenarios'] // k} scenarios a rank, graphs), on "
+              f"{card}")
+        params = MESH_SNAP[0]
+        print(f"phase 39b: config5 {params['scenarios']} x "
+              f"{params['num_pods']} x {params['num_nodes']} on a snap"
+              f" mesh {rows_n}x{nodes}: digest {b['digest']} on every rank, "
+              f"{b['wall']:.3f}s wall, {b['us_step']:.0f} us a step, "
+              f"{b['all_reduces']:.1f} all_reduces a step "
+              f"({'eager' if b['eager'] else 'graphs'}), on {card}")
+        if k == 2:
+            h = m["hybrid"]
+            params = MESH_HYBRID[0]
+            print(f"phase 39c: config6 {params['num_pods']} x "
+                  f"{params['num_nodes']} through the hybrid on a node mesh"
+                  f" 1x2: digest {h['digest']}, {h['preempted']} preempted"
+                  f" on every rank, {h['wall']:.3f}s wall, "
+                  f"{h['stats'].get('scan_calls', 0)} scan calls, "
+                  f"{h['stats'].get('rearms', 0)} re-arms, "
+                  f"{h['all_reduces'] / params['num_pods']:.1f} all_reduces"
+                  f" a pod, on {card}")
+        for label in ("cold", "warm"):
+            sv = m["serve"][label]
+            print(f"phase 39d: config8's first {SERVE_REQUESTS} requests, "
+                  f"{label} pass on a scenario mesh "
+                  f"{k}x1: {sv['ok']} requests, digest {sv['digest']}, "
+                  f"{sv['wall']:.3f}s = {sv['ok'] / sv['wall']:.1f} "
+                  f"scenarios/s, program builds "
+                  f"{[r['mesh']['serve'][label]['builds'] for r in ranks]} "
+                  f"by rank, compile_cache_hit {sv['hits']}/{sv['ok']}, on "
+                  f"{card}")
+
+
+def cli_lines(text):
+    """A report's lines without their wall times and the fleet line's mesh
+    suffix."""
+    import re
+
+    timing = re.compile(r"[\d./]+( ms|s| scenarios/s| pods/s)")
+    return [timing.sub("", line).split(", mesh ")[0]
+            for line in text.splitlines()]
+
+
+def drive_mesh_cli(card, root):
+    """Phase 39e: --what-if --mesh 2x1 and serve --mesh 2 as 2 ranks of
+    torch.distributed.run on the card (child processes, at once, on files
+    written here), each printing rank 0's report alone, equal to the
+    single-device command's lines run here."""
+    import io
+
+    from tpusim_torch import workloads
+    from tpusim_torch.cli import main as cli_main
+
+    params, seeds = MESH_CLI_SCENARIOS
+    spec = os.path.join(root, "mesh-pods.json")
+    with open(spec, "w", encoding="utf-8") as f:
+        f.write(QUICKSTART_JSON)
+    manifest = []
+    for s in seeds:
+        path = os.path.join(root, f"mesh-snap{s}.json")
+        workloads.build_workload(seed=s, **params)[0].save(path)
+        manifest.append({"snapshot": path, "podspec": spec})
+    mpath = os.path.join(root, "mesh-manifest.json")
+    with open(mpath, "w", encoding="utf-8") as f:
+        json.dump(manifest, f)
+    launch = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+              "--nproc-per-node=2", "-m", "tpusim_torch.cli"]
+    argvs = (["--what-if", mpath],
+             ["serve", "--podspec", spec] + MESH_CLI_SERVE)
+    children = run_children([launch + argvs[0] + ["--mesh", "2x1"],
+                             launch + argvs[1] + ["--mesh", "2"]])
+    for (rc, _, err, _), name in zip(children, ("what-if", "serve")):
+        if rc != 0:
+            raise AssertionError(f"phase 39e: the {name} launch exited "
+                                 f"{rc}: {err[-2000:]}")
+    wants = []
+    for argv in argvs:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            if cli_main(argv) != 0:
+                raise AssertionError(f"phase 39e: {argv} failed alone")
+        wants.append(out.getvalue())
+    for (_, got, _, _), want, name, marker in zip(
+            children, wants, ("what-if", "serve"), ("scenario 0:", "fleet:")):
+        if cli_lines(got) != cli_lines(want) or got.count(marker) != 1:
+            raise AssertionError(f"phase 39e: the {name} launch's report "
+                                 f"differs from the single-device one:\n"
+                                 f"{got}\n{want}")
+    print(f"phase 39e: --what-if --mesh 2x1 and serve --mesh 2 as 2 ranks "
+          f"of torch.distributed.run: rank 0's report alone, equal to the "
+          f"single-device commands' ({len(wants[0].splitlines())} and "
+          f"{len(wants[1].splitlines())} lines; fleet line "
+          f"{children[1][1].splitlines()[-1].split(', mesh ')[-1]!r}), "
+          f"{max(c[3] for c in children):.1f}s for both launches at once, "
+          f"on {card}")
 
 
 def check_sharded_stream(card, one, rows):
@@ -5262,19 +5550,21 @@ def drive_sharded(card):
         one_stream = shard_stream_run(root)
         rows = _drive_sharded(card, one, root)
         check_sharded_stream(card, one_stream, rows)
+        check_scenario_mesh(card, rows)
+        drive_mesh_cli(card, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     wall = time.perf_counter() - t0
-    print(f"phases 37-38: {wall:.1f}s wall, against their {SHARD_BUDGET_S} "
+    print(f"phases 37-39: {wall:.1f}s wall, against their {SHARD_BUDGET_S} "
           f"s budget")
     if wall > SHARD_BUDGET_S:
-        raise AssertionError(f"phases 37-38: {wall:.1f}s is past their "
+        raise AssertionError(f"phases 37-39: {wall:.1f}s is past their "
                              f"{SHARD_BUDGET_S} s budget")
 
 
 def _drive_sharded(card, one, root):
-    """Phase 37's spawns and checks (phase 38 runs inside the spawns);
-    returns [(k, the ranks' results)]."""
+    """Phase 37's spawns and checks (phases 38 and 39 run inside the
+    spawns); returns [(k, the ranks' results)]."""
     from tpusim_torch.sharding import run_ranks
 
     golden, scheduled = SHARD_GOLDEN

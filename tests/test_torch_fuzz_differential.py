@@ -11,8 +11,9 @@ read the same cluster. Ten seeds an axis run in tier-1.
 
 The sharded leg: one spawn of 2 gloo ranks runs every provider-axis seed
 on the scan route with TPUSIM_SHARDS=2 (the node-sharded scan), against
-the same reference. The JAX file's own mesh leg drives the preemption
-hybrid over a mesh, which the port's hybrid does not take yet.
+the same reference. The hybrid mesh leg, as the JAX file's: one spawn of
+2 gloo ranks runs preemption-axis seeds through the preemption hybrid on a
+1 x 2 node mesh (run_with_preemption(mesh=)), against the same reference.
 Tolerance: exact.
 """
 
@@ -37,6 +38,7 @@ from test_fuzz_differential import (
     random_volume_pods,
     sig,
 )
+import torch_mesh_workers as MW
 import torch_shard_workers as SW
 
 SEEDS = 10
@@ -128,3 +130,27 @@ def test_fuzz_provider_parity_sharded(sharded, seed):
         placed, failed, preempted, batches = rank[seed]
         assert (placed, failed, preempted) == tuple(want), f"seed {seed}"
         assert batches >= 1
+
+
+# seeds 2, 3 and 6 preempt; 4 fails pods without a victim
+HYBRID_SEEDS = (2, 3, 4, 6)
+
+
+@pytest.fixture(scope="module")
+def hybrid_mesh():
+    """Preemption-axis seeds through the hybrid on a 2-rank node mesh."""
+    feeds = []
+    for seed in HYBRID_SEEDS:
+        snapshot, pods, _ = feed("preemption", seed)
+        feeds.append((snapshot.to_obj(), [p.to_obj() for p in pods]))
+    return run_ranks(MW.hybrid_rank, 2, (feeds,), timeout=180)
+
+
+@pytest.mark.parametrize("seed", HYBRID_SEEDS)
+def test_fuzz_preemption_parity_on_a_node_mesh(hybrid_mesh, seed):
+    snapshot, pods, kw = feed("preemption", seed)
+    want = sig(jax_run(list(pods), snapshot, backend="reference", **kw))
+    for rank in hybrid_mesh:
+        got = rank[HYBRID_SEEDS.index(seed)]
+        assert got == tuple(want), f"seed {seed}"
+    assert want[1] and (want[2] or seed == 4)

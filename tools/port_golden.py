@@ -38,7 +38,8 @@ seed=1000 + s), BASELINE config 5 at bench.py's CPU shape by default (8 x
 5,000 x 500), and `config8` that of its ScenarioFleet over bench.py's config
 8 load (64 requests of the first 1,001-2,000 pods of build_workload(2000,
 200, seed=4242), buckets of 8), one placement hash a request in submission
-order (chip_smoke.py WHATIF_CONFIG5, SERVE_CONFIG8):
+order (chip_smoke.py WHATIF_CONFIG5, SERVE_CONFIG8); `config8 N` that of
+the load's first N requests (chip_smoke.py MESH_SERVE):
 
     JAX_PLATFORMS=cpu python tools/port_golden.py config5
     JAX_PLATFORMS=cpu python tools/port_golden.py config8
@@ -214,15 +215,21 @@ def config5_digest(num_scenarios=8, num_pods=5_000, num_nodes=500):
     return 0
 
 
-def config8_digest():
-    from chip_smoke import SERVE_CONFIG8, combined_digest, serve_load
+def config8_digest(num_requests=None):
+    from chip_smoke import (
+        SERVE_CONFIG8,
+        SERVE_REQUESTS,
+        combined_digest,
+        serve_load,
+    )
     from tpusim.backends import placement_hash
     from tpusim.serve import ScenarioFleet, WhatIfRequest
 
     t0 = time.perf_counter()
     params, bucket, _ = SERVE_CONFIG8
     snapshot, pool, load = serve_load(
-        workloads.build_workload(api=jax_api, **params), WhatIfRequest)
+        workloads.build_workload(api=jax_api, **params), WhatIfRequest,
+        num_requests or SERVE_REQUESTS)
     fleet = ScenarioFleet(bucket_size=bucket, flush_after_s=0.05)
     fleet.register_snapshot("base", snapshot)
     responses = fleet.run(load())
@@ -559,7 +566,7 @@ def main(argv):
     if argv[0] == "config5":
         return config5_digest(*(int(a) for a in argv[1:]))
     if argv[0] == "config8":
-        return config8_digest()
+        return config8_digest(*(int(a) for a in argv[1:]))
     if argv[0] in ("config3_host", "config4_host", "config6",
                    "config6_hybrid"):
         return host_digest(argv[0], int(argv[1]), int(argv[2]))

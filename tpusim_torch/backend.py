@@ -244,22 +244,29 @@ def host_digest(*trees) -> int:
     return int.from_bytes(h.digest(), "little") & ((1 << 63) - 1)
 
 
-def check_ranks_agree(mesh, device, *trees) -> None:
-    """Raise unless every rank of the mesh's node axis holds the same host
+def check_ranks_agree(mesh, device, *trees, axes=("node",),
+                      route: str = "sharded route") -> None:
+    """Raise unless every rank of the mesh's `axes` holds the same host
     picture (host_digest of `trees`): each rank compiles and decodes on
     its own, and an order that leaked from a process's string hashing
     would split the ranks' node order or group ids without a sound. One
-    all_reduce (MAX of the digest and of its negation)."""
+    all_reduce an axis (MAX of the digest and of its negation, carried
+    from one axis to the next, so every rank of a grid sees the whole
+    range); `route` names the caller in the error."""
     import torch
     import torch.distributed as dist
 
     d = host_digest(*trees)
     t = torch.tensor([d, -d], dtype=torch.int64, device=device)
-    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.get_group("node"))
+    names = tuple(mesh.mesh_dim_names)
+    for ax in axes:
+        if mesh.size(names.index(ax)) > 1:
+            dist.all_reduce(t, op=dist.ReduceOp.MAX,
+                            group=mesh.get_group(ax))
     hi, lo = int(t[0]), -int(t[1])
     if hi != lo:
         raise RuntimeError(
-            f"sharded route: the ranks' host pictures differ (digest "
+            f"{route}: the ranks' host pictures differ (digest "
             f"{d:016x} here, from {lo:016x} to {hi:016x} across the "
             "ranks); every rank must compile the same snapshot and pods")
 

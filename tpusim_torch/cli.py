@@ -6,10 +6,12 @@
         [--event-log events.jsonl] [--v 5] \
         [--trace-out trace.json] [--metrics-out metrics.prom] \
         [--chaos-plan plan.json | --chaos-seed N]
-    python -m tpusim_torch.cli --what-if manifest.json [--device cpu]
+    python -m tpusim_torch.cli --what-if manifest.json [--device cpu] \
+        [--mesh SNAPxNODE]
     python -m tpusim_torch.cli serve --synthetic-nodes 16 \
         --podspec pods.yaml [--requests 32] [--device cpu] \
-        [--attach-stream [--stream-cycles 4 --stream-arrivals 16]]
+        [--attach-stream [--stream-cycles 4 --stream-arrivals 16]] \
+        [--mesh SCENARIOxNODE]
     python -m tpusim_torch.cli stream --synthetic-nodes 64 --cycles 50 \
         [--pipeline] [--verify] [--gang-size 3 --gang-count 1] [--device cpu] \
         [--listen 127.0.0.1:9100] [--slo-target-ms 30] \
@@ -86,8 +88,8 @@ does the promotion from a dead leader's directory alone. audit bisects two
 WAL directories to their first divergent cycle and decides it again with
 explain lanes (obs.audit); it exits 1 on a divergence.
 
-Node sharding: the main command, stream, follow, promote and audit run as
-k ranks when a launcher starts them so (WORLD_SIZE > 1):
+Node sharding: the main command, serve, stream, follow, promote and audit
+run as k ranks when a launcher starts them so (WORLD_SIZE > 1):
 
     TPUSIM_SHARDS=2 torchrun --nproc-per-node 2 -m tpusim_torch.cli \
         stream --synthetic-nodes 4000 --cycles 8
@@ -101,11 +103,20 @@ to <dir>.rank<r> where rank 0 journals to the --checkpoint-dir named,
 and its replication link takes the named port + r. Without a launcher
 nothing joins a group, and TPUSIM_SHARDS=k counts the device_count
 fallback.
+
+The scenario mesh: --what-if --mesh SNAPxNODE splits the scenarios over
+SNAP rows of ranks and each scenario's node columns over NODE ranks
+(whatif.run_what_if's mesh); serve --mesh SCENARIOxNODE (or SCENARIO)
+splits each bucket's scenarios over SCENARIO ranks, rank 0 cutting the
+buckets (serve.ScenarioFleet's mesh). The mesh takes SNAP x NODE ranks of
+the launcher's group; without a launcher a mesh of one rank (1x1) runs on
+a group of one rank that the command makes and leaves.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import time
@@ -213,6 +224,12 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Batched multi-snapshot mode: a JSON manifest "
                              "[{snapshot, podspec}, ...], one scenario an "
                              "entry (whatif.run_what_if)")
+    parser.add_argument("--mesh", default="",
+                        help="What-if mesh 'SNAPxNODE' (e.g. 2x2): "
+                             "scenarios split over SNAP rows of ranks, node "
+                             "columns over NODE ranks with all_reduces "
+                             "(sharding.make_mesh). Needs SNAP*NODE ranks "
+                             "of a launcher's group; default single-device")
     parser.add_argument("--event-log", default="",
                         help="Watch-event log (JSON lines, the watch wire "
                              "frames: {type: Added|Modified|Deleted, "
@@ -479,13 +496,28 @@ def run_what_if_cli(args) -> int:
     if policy_err:
         print(f"error: {policy_err}", file=sys.stderr)
         return 2
-    start = time.perf_counter()
-    try:
-        results = run_what_if(scenarios, provider=args.algorithmprovider,
-                              policy=policy, device=args.device)
-    except (KeyError, ValueError, RuntimeError, NotImplementedError) as exc:
-        print(f"error: {exc}", file=sys.stderr)
-        return 2
+    grid = None
+    if args.mesh:
+        grid = _mesh_grid(args.mesh, "SNAPxNODE", "e.g. 2x4",
+                          node_default=None)
+        if grid is None:
+            return 2
+    with _mesh_group(grid is not None):
+        mesh = None
+        if grid is not None:
+            from tpusim_torch.sharding import make_mesh
+
+            mesh = make_mesh(grid[0] * grid[1], snap=grid[0],
+                             device_type=_mesh_device_type(args.device))
+        start = time.perf_counter()
+        try:
+            results = run_what_if(scenarios, provider=args.algorithmprovider,
+                                  policy=policy, device=args.device,
+                                  mesh=mesh)
+        except (KeyError, ValueError, RuntimeError,
+                NotImplementedError) as exc:
+            print(f"error: {exc}", file=sys.stderr)
+            return 2
     elapsed = time.perf_counter() - start
     total = sum(r.total for r in results)
     for i, result in enumerate(results):
@@ -552,12 +584,82 @@ def build_serve_parser() -> argparse.ArgumentParser:
                         help="Churn warm-up cycles for --attach-stream")
     parser.add_argument("--stream-arrivals", type=int, default=16,
                         help="Arrivals per --attach-stream warm-up cycle")
+    parser.add_argument("--mesh", default="",
+                        help="Scenario mesh 'SCENARIOxNODE' (e.g. 2x1) or "
+                             "just 'SCENARIO': split each bucket over the "
+                             "mesh's scenario axis of ranks, rank 0 cutting "
+                             "the buckets (sharding.make_scenario_mesh); "
+                             "the bucket size must divide over it")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu (the plain versions)")
     parser.add_argument("--quiet", action="store_true",
                         help="Only print the summary lines")
     add_obs_flags(parser, "the serve: span timeline", live=True)
     return parser
+
+
+def _ranks_visible() -> int:
+    """The ranks a mesh can take: the default group's, or 1 without one."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
+def _mesh_grid(spec: str, form: str, example: str, node_default):
+    """(rows, nodes) of a --mesh spec, or None once the error is printed: a
+    spec that does not parse, or more ranks than are visible."""
+    try:
+        rows_s, _, node_s = spec.lower().partition("x")
+        rows = int(rows_s)
+        node = int(node_s) if node_s or node_default is None \
+            else node_default
+        if rows < 1 or node < 1:
+            raise ValueError
+    except ValueError:
+        want = (f"want '{form}' ({example}) or 'SCENARIO'"
+                if node_default is not None else f"want '{form}', {example}")
+        print(f"error: --mesh {spec!r}: {want}", file=sys.stderr)
+        return None
+    have = _ranks_visible()
+    if rows * node > have:
+        print(f"error: --mesh {spec} needs {rows * node} ranks, {have} "
+              "visible", file=sys.stderr)
+        return None
+    return rows, node
+
+
+def _mesh_device_type(device: str) -> str:
+    from tpusim_torch.device import resolve_device
+
+    return resolve_device(device).type
+
+
+@contextlib.contextmanager
+def _mesh_group(wanted: bool):
+    """A default process group for a mesh: the launcher's where there is
+    one, else a gloo group of this one rank, made here and left on exit
+    (with the meshes built over it)."""
+    import torch.distributed as dist
+
+    if not wanted or dist.is_initialized():
+        yield
+        return
+    import shutil
+    import tempfile
+
+    from tpusim_torch import sharding
+
+    store = tempfile.mkdtemp(prefix="tpusim-mesh-")
+    dist.init_process_group("gloo", init_method=f"file://{store}/store",
+                            world_size=1, rank=0)
+    try:
+        yield
+    finally:
+        sharding.forget_meshes()
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
 
 
 def _percentile(sorted_vals, q: float) -> float:
@@ -600,6 +702,12 @@ def serve_cli(argv) -> int:
             print(f"error: invalid scheduler policy: {exc}", file=sys.stderr)
             return 2
 
+    grid = None
+    if args.mesh:
+        grid = _mesh_grid(args.mesh, "SCENARIOxNODE", "e.g. 8x1",
+                          node_default=1)
+        if grid is None:
+            return 2
     breaker = None
     if args.chaos_plan:
         from tpusim_torch.backend import install_chaos
@@ -613,7 +721,15 @@ def serve_cli(argv) -> int:
             return 2
         breaker = install_chaos(chaos_plan.device)
     try:
-        return _serve(args, snapshot, pool, policy)
+        with _mesh_group(grid is not None):
+            mesh = None
+            if grid is not None:
+                from tpusim_torch.sharding import make_scenario_mesh
+
+                mesh = make_scenario_mesh(
+                    grid[0] * grid[1], scenario=grid[0],
+                    device_type=_mesh_device_type(args.device))
+            return _serve(args, snapshot, pool, policy, mesh)
     finally:
         if breaker is not None:
             from tpusim_torch.backend import uninstall_chaos
@@ -621,7 +737,7 @@ def serve_cli(argv) -> int:
             uninstall_chaos()
 
 
-def _serve(args, snapshot, pool, policy) -> int:
+def _serve(args, snapshot, pool, policy, mesh=None) -> int:
     import random
 
     from tpusim_torch.serve import ScenarioFleet, WhatIfRequest
@@ -634,7 +750,7 @@ def _serve(args, snapshot, pool, policy) -> int:
                               max_queue=args.max_queue,
                               deadline_s=(args.deadline_ms / 1000.0
                                           if args.deadline_ms > 0 else None),
-                              device=args.device)
+                              device=args.device, mesh=mesh)
     except (KeyError, ValueError, RuntimeError) as exc:
         print(f"error: {exc}", file=sys.stderr)
         return 2
@@ -679,9 +795,12 @@ def _serve(args, snapshot, pool, policy) -> int:
 
     obs_teardown = _arm_observability(args)
     fleet.start()
+    passes = []  # (label, elapsed, responses)
     try:
-        passes = []  # (label, elapsed, responses)
-        for rep in range(1 + max(0, args.warm_repeats)):
+        # on a mesh only rank 0 takes the load; the other ranks dispatch
+        # its buckets until it stops the fleet
+        for rep in range(1 + max(0, args.warm_repeats)
+                         if fleet.controller else 0):
             label = "cold" if rep == 0 else f"warm {rep}"
             start = time.perf_counter()
             futures = [fleet.submit(r) for r in make_load()]
@@ -690,6 +809,8 @@ def _serve(args, snapshot, pool, policy) -> int:
     finally:
         fleet.stop()
         obs_teardown()
+    if not fleet.controller:
+        return 0
 
     stats = fleet.executor.stats
     exit_code = 0
@@ -720,7 +841,9 @@ def _serve(args, snapshot, pool, policy) -> int:
     print(f"fleet: {stats['dispatches']} dispatches "
           f"({stats['warm_hits']} warm, {stats['device_batch_hits']} "
           f"device-resident), {stats['traces']} program builds, "
-          f"{stats['staged_hits']} staged-cache hits")
+          f"{stats['staged_hits']} staged-cache hits"
+          + (f", mesh {mesh.size(0)}x{mesh.size(1)}"
+             if mesh is not None else ""))
     if args.attach_stream:
         print(f"overlay: {stats['overlay_hits']} served from the resident "
               f"twin, {stats['overlay_fallbacks']} staged fallbacks")
@@ -1613,7 +1736,7 @@ def top_cli(argv) -> int:
 # the commands that run as one of k ranks when a launcher such as torchrun
 # (python -m torch.distributed.run --nproc-per-node k) starts them with
 # WORLD_SIZE > 1: "" is the main command
-RANKED_COMMANDS = ("", "stream", "follow", "promote", "audit")
+RANKED_COMMANDS = ("", "serve", "stream", "follow", "promote", "audit")
 SUBCOMMANDS = ("serve", "stream", "follow", "promote", "audit", "explain",
                "top")
 # how long a rank waits on the others in a collective, seconds
@@ -1727,6 +1850,11 @@ def _dispatch(argv) -> int:
         if rc == 0 and args.metrics_out:
             rc = _finish_obs(args, None)
         return rc
+    if args.mesh:
+        print("error: --mesh applies only to --what-if (the single-run scan "
+              "is sequential; scale it via more nodes per snapshot)",
+              file=sys.stderr)
+        return 2
     feature_gates = None
     if args.feature_gates:
         try:

@@ -44,6 +44,7 @@ from __future__ import annotations
 import logging
 import os
 from collections import Counter
+from dataclasses import replace
 from time import perf_counter
 from typing import List, Optional
 
@@ -333,12 +334,46 @@ def _victim_class(cc, config):
     return vclass, why
 
 
+def _mesh_carry(mesh, compiled, device):
+    """A fresh carry of `compiled` on the mesh: its node axis padded to the
+    shard multiple and cut to this rank's block (the post-preemption
+    re-arm against statics placed before)."""
+    from tpusim_torch.sharding import (
+        _axis_size,
+        node_shardings,
+        pad_carry_node_axis,
+        stage_tree,
+    )
+
+    _, ca_spec = node_shardings(mesh)
+    carry = pad_carry_node_axis(scan.carry_init_host(compiled),
+                                _axis_size(mesh, "node"))
+    return stage_tree(carry, ca_spec, device)
+
+
+def _mesh_stage(mesh, config, compiled, cols, device):
+    """A compile's scan state on the mesh, once the ranks agree on its host
+    picture: (statics and carry, this rank's padded node block; every
+    pod's columns; the node-sharded scan)."""
+    from tpusim_torch.backend import check_ranks_agree
+    from tpusim_torch.sharding import shard_for_mesh
+
+    host = (scan.statics_to_host(compiled), scan.carry_init_host(compiled),
+            scan.pod_columns_to_host(cols))
+    check_ranks_agree(mesh, device, *host, axes=tuple(mesh.mesh_dim_names),
+                      route="preemption mesh")
+    statics, carry, xs_all = shard_for_mesh(mesh, *host, device)
+    fn = scan.sharded_scan_fn(replace(config, shard_axis="node"), mesh)
+    return statics, carry, xs_all, fn
+
+
 def run_with_preemption(pods: List[Pod], snapshot: ClusterSnapshot,
                         provider: str = DEFAULT_PROVIDER,
                         hard_pod_affinity_symmetric_weight: int = 10,
                         incremental: Optional[IncrementalCluster] = None,
                         device="cuda", route: str = "auto",
-                        victims: str = "auto") -> Status:
+                        victims: str = "auto",
+                        mesh: Optional[object] = None) -> Status:
     """Run `pods` (podspec order; the LIFO feed reversal happens here, as
     in the reference's store.go:223-233 queue) with PodPriority on, and
     return the final Status: the successful, failed and preempted pods and
@@ -355,14 +390,38 @@ def run_with_preemption(pods: List[Pod], snapshot: ClusterSnapshot,
     pipeline elsewhere); "host" always runs the host pipeline, the
     reference the device arm is held against. A workload the first compile
     classifies unsupported runs on the host orchestrator, as the torch
-    backend reroutes it (HYBRID_STATS["host_orchestrator"])."""
+    backend reroutes it (HYBRID_STATS["host_orchestrator"]).
+
+    mesh: a ("snap", "node") DeviceMesh of ranks (sharding.make_mesh), every
+    rank making this call with the same inputs: the speculation chunks run
+    the node-sharded scan (scan.sharded_scan_fn) on this rank's block of
+    the node axis, padded to the shard multiple, and each re-arm pads a
+    fresh carry and keeps the block; the host arms see every node on every
+    rank. Before the chunks of each compile the ranks check that they agree
+    on the host picture. A mesh takes the scan route: route "kernel"
+    raises ValueError."""
     if route not in ROUTES:
         raise ValueError(f"unknown route {route!r} (expected one of "
                          f"{', '.join(ROUTES)})")
     if victims not in VICTIM_ARMS:
         raise ValueError(f"unknown victims {victims!r} (expected one of "
                          f"{', '.join(VICTIM_ARMS)})")
-    device = resolve_device(device)
+    if mesh is not None:
+        from tpusim_torch.sharding import check_mesh, shard_device
+
+        if check_mesh(mesh, "preemption mesh") != "snap":
+            raise ValueError(
+                "the preemption hybrid shards the node axis: pass a "
+                "('snap', 'node') mesh (sharding.make_mesh); got axes "
+                f"{tuple(mesh.mesh_dim_names)!r}")
+        if route == "kernel":
+            raise ValueError(
+                "route='kernel' cannot run on a preemption mesh: the fused "
+                "kernel is one device's; a mesh takes the scan route "
+                "(route 'auto' or 'scan')")
+        device = shard_device(device)
+    else:
+        device = resolve_device(device)
     host_config = SchedulerServerConfig(
         algorithm_provider=provider,
         hard_pod_affinity_symmetric_weight=hard_pod_affinity_symmetric_weight,
@@ -492,7 +551,9 @@ def run_with_preemption(pods: List[Pod], snapshot: ClusterSnapshot,
 
             # the route, decided once per compile as TorchBackend decides it
             fplan, why = None, "route='scan' asked for"
-            if route != "scan":
+            if mesh is not None:
+                why = "a mesh takes the scan route"
+            elif route != "scan":
                 fplan, why = plan_fast(config, compiled, cols,
                                        placed_pods=placed_for_gcd)
                 if fplan is None and route == "kernel":
@@ -505,9 +566,13 @@ def run_with_preemption(pods: List[Pod], snapshot: ClusterSnapshot,
                 HYBRID_STATS["route_scan"] += 1
                 log.info("preemption on the scan route (%s); victims: %s%s",
                          why, vclass, f" ({vclass_why})" if vclass_why else "")
-                statics = scan.statics_to(compiled, device)
-                xs_all = scan.pod_columns_to(cols, device)
-                carry = scan.carry_init(compiled, device)
+                if mesh is None:
+                    statics = scan.statics_to(compiled, device)
+                    xs_all = scan.pod_columns_to(cols, device)
+                    carry = scan.carry_init(compiled, device)
+                else:
+                    statics, carry, xs_all, scan_fn = _mesh_stage(
+                        mesh, config, compiled, cols, device)
                 carry.rr.fill_(rr_start)
             engine = "kernel" if fplan is not None else "scan"
             flight.note_route(engine, len(feed) - pos)
@@ -530,9 +595,14 @@ def run_with_preemption(pods: List[Pod], snapshot: ClusterSnapshot,
                     HYBRID_STATS["scan_calls"] += 1
                     xs = scan.PodX(*(a[off:off + take] for a in xs_all))
                     with flight.profiled("tpusim:schedule_scan"):
-                        carry_out, choices, counts, advanced = \
-                            scan.schedule_scan(config, carry, statics, xs,
-                                               graph_steps=scan.GRAPH_STEPS)
+                        if mesh is None:
+                            carry_out, choices, counts, advanced = \
+                                scan.schedule_scan(
+                                    config, carry, statics, xs,
+                                    graph_steps=scan.GRAPH_STEPS)
+                        else:
+                            carry_out, choices, counts, advanced = \
+                                scan_fn(carry, statics, xs)
                         choices = choices.cpu().numpy()
                         counts = counts.cpu().numpy()
                         advanced = advanced.cpu().numpy()
@@ -650,8 +720,11 @@ def run_with_preemption(pods: List[Pod], snapshot: ClusterSnapshot,
                         log.info("preemption: the refreshed state does not "
                                  "fit the plan's units; recompiling")
                         break
-                else:
+                elif mesh is None:
                     carry = scan.carry_init(compiled, device)
+                    carry.rr.fill_(rr_start)
+                else:
+                    carry = _mesh_carry(mesh, compiled, device)
                     carry.rr.fill_(rr_start)
                 HYBRID_STATS["rearms"] += 1
                 chunk = chunk0

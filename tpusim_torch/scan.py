@@ -485,27 +485,74 @@ def _row(table, i1):
 class Shard(NamedTuple):
     """This process's block of a node-sharded step: the node axis's
     process group, this rank's index in it and the group's size, the
-    block's node count, and the global index of its first node."""
+    block's node count, and the global index of its first node. `vmapped`
+    marks a step whose reductions run inside torch.func.vmap (the batched
+    scan's evaluate and select): there they go through _NodeAllReduce,
+    whose batching rule reduces every scenario's operand in one
+    collective."""
     group: object
     rank: int
     size: int
     n_local: int
     base: int
+    vmapped: bool = False
 
 
-def _all_reduce(v, shard: Shard, op: str):
-    """v all-reduced over the shard's group with op "sum", "max" or "min",
-    as a new tensor of v's shape and dtype (a bool operand is reduced as
-    int32)."""
+# all_reduces issued by the node-axis helpers this process, one a call of
+# dist.all_reduce (a vmapped reduction over S scenarios counts once)
+_COLLECTIVES = {"all_reduce": 0}
+
+
+def collective_count() -> int:
+    """The node-axis all_reduces issued this process (_COLLECTIVES)."""
+    return _COLLECTIVES["all_reduce"]
+
+
+def _reduced(v, op: str, group):
+    """v all-reduced over `group` with op "sum", "max" or "min", as a new
+    tensor of v's shape and dtype (a bool operand is reduced as int32): the
+    one place the node-axis helpers call dist.all_reduce, counted."""
     import torch.distributed as dist
 
     ops = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
            "min": dist.ReduceOp.MIN}
     buf = v.reshape(-1).to(torch.int32 if v.dtype == torch.bool
                            else v.dtype, copy=True)
-    dist.all_reduce(buf, op=ops[op], group=shard.group)
+    _COLLECTIVES["all_reduce"] += 1
+    dist.all_reduce(buf, op=ops[op], group=group)
     buf = buf.reshape(v.shape)
     return buf != 0 if v.dtype == torch.bool else buf
+
+
+def _all_reduce(v, shard: Shard, op: str):
+    """v all-reduced over the shard's group (_reduced). On a vmapped shard
+    the reduction goes through _NodeAllReduce, which vmap can batch."""
+    if shard.vmapped:
+        return _NodeAllReduce.apply(v, shard.group, op)
+    return _reduced(v, op, shard.group)
+
+
+class _NodeAllReduce(torch.autograd.Function):
+    """_reduced as a function torch.func.vmap batches by one collective
+    over the whole batched operand (every scenario's rows at once), so a
+    vmapped step issues one all_reduce a reduction site whatever the
+    scenario count. (An autograd.Function with a vmap rule, not a
+    torch.library custom op: the latter's first call imports
+    torch._dynamo, about 2 s a process.)"""
+
+    @staticmethod
+    def forward(v, group, op):
+        return _reduced(v, op, group)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, v, group, op):
+        # the batch dimension reduces with the rest: each scenario's slice
+        # is summed (or maxed) with the same scenario's on the other ranks
+        return _NodeAllReduce.apply(v, group, op), in_dims[0]
 
 
 def _ax_sum(v, shard: Optional[Shard]):
@@ -620,7 +667,15 @@ def _evaluate(config: EngineConfig, carry: Carry, st: Statics, x: PodX,
         sa_pin = _row(st.sa_pin, one(x.sa_self_id))                # [La]
         sa_unres = sa_pin == 0
         sa_own_l = sa_unres[:, None] | (st.sa_val == sa_pin[:, None])
-        sa_locked = st.sa_val.index_select(1, one(sa_li))[:, 0]   # [La]
+        if ax is None:
+            sa_locked = st.sa_val.index_select(1, one(sa_li))[:, 0]  # [La]
+        else:
+            # the locked node's labels from the rank that holds it: a
+            # global index, read by one sum over the node group
+            sa_loc = sa_li - ax.base
+            sa_own = (sa_loc >= 0) & (sa_loc < ax.n_local)
+            sa_locked = _ax_sum(torch.where(sa_own, st.sa_val.index_select(
+                1, one(sa_loc.clamp(0, ax.n_local - 1)))[:, 0], 0), ax)
         sa_pinned = sa_unres & (sa_locked > 0)
         sa_lock_l = (~sa_pinned[:, None]
                      | (st.sa_val == sa_locked[:, None]))          # [La, N]
@@ -1546,11 +1601,23 @@ class BatchedScan:
     bound to the buffers' addresses, so loading copies and never rebinds.
 
     rr, the tie pick and the bind are each scenario's own; every scenario
-    gives what schedule_scan gives it alone."""
+    gives what schedule_scan gives it alone.
+
+    With `shard` (the what-if's ("snap", "node") route on a node axis of
+    several ranks) the node columns are this rank's block, every reduction
+    of the vmapped evaluate and select is one all_reduce for all S
+    scenarios (Shard.vmapped), and the bind is make_step's: the owner of a
+    global choice binds it, presence_dom takes the owner's domain through
+    a sum, sa_lock holds the global index. gloo's collectives cannot be
+    captured, so such a step always runs eagerly."""
 
     def __init__(self, config: EngineConfig, carries: Carry,
-                 statics_b: Statics, xs_b: PodX, graph_steps: int = 0):
+                 statics_b: Statics, xs_b: PodX, graph_steps: int = 0,
+                 shard: Optional[Shard] = None):
         self.config = config
+        self.shard = shard
+        if shard is not None:
+            graph_steps = 0
         self.statics = Statics(*(torch.empty_like(t) for t in statics_b))
         self.carry0 = Carry(*(torch.empty_like(t) for t in carries))
         self.carry = Carry(*(torch.empty_like(t) for t in carries))
@@ -1595,15 +1662,19 @@ class BatchedScan:
         unpack = _unpacker(st.alloc_scalar.shape[-1])
         per_names = [n for n in _CONST_PER_SCENARIO if hasattr(const, n)]
         shared = {k: v for k, v in vars(const).items() if k not in per_names}
+        shard = self.shard
+        vshard = shard._replace(vmapped=True) if shard is not None else None
 
         def one(carry_s, st_s, x, per):
             view = SimpleNamespace(**shared, **per)
             g1 = x.group_id.reshape(1)
             feasible, reason_bits, score, n_feasible, aca_counts = _evaluate(
-                config, carry_s, st_s, x, g1, view)
-            choice, found = _select(feasible, score, n_feasible, carry_s.rr)
-            hist = (_aca_histogram(aca_counts, view) if aca_counts is not None
-                    else _reason_histogram(reason_bits, view))
+                config, carry_s, st_s, x, g1, view, shard=vshard)
+            choice, found = _select(feasible, score, n_feasible, carry_s.rr,
+                                    vshard)
+            hist = _ax_sum(_aca_histogram(aca_counts, view)
+                           if aca_counts is not None
+                           else _reason_histogram(reason_bits, view), vshard)
             return (choice, found, n_feasible > 1,
                     torch.where(found, view.no_counts, hist))
 
@@ -1623,10 +1694,17 @@ class BatchedScan:
             per = {name: getattr(const, name) for name in per_names}
             choice, found, advanced, counts = evaluate(carry, st, x, per)
             g = x.group_id
-            idx = choice.clamp(min=0).to(I64)
+            if shard is None:
+                bind = found
+                idx = choice.clamp(min=0).to(I64)
+            else:
+                # a global choice: its owner binds it at its local row
+                local = choice.to(I64) - shard.base
+                bind = found & (local >= 0) & (local < n)
+                idx = local.clamp(0, n - 1)
             node = s_ids * n + idx          # rows of the [S * N, ...] views
-            gate = found.to(I64)
-            gate32 = found.to(torch.int32)
+            gate = bind.to(I64)
+            gate32 = bind.to(torch.int32)
             if group_bound:
                 carry.presence.view(-1).index_add_(
                     0, (s_ids * g_count + g) * n + idx, gate32)
@@ -1636,24 +1714,33 @@ class BatchedScan:
                 cur = used.index_select(0, node)
                 mask = st.vol_mask.view(s * g_count, v).index_select(
                     0, s_ids * g_count + g)
-                used.index_copy_(0, node, torch.where(found[:, None],
+                used.index_copy_(0, node, torch.where(bind[:, None],
                                                       cur | mask, cur))
             if config.has_interpod:
                 _, _, k_count, d_count = carry.presence_dom.shape
                 dom_at = st.topo_dom.gather(
                     2, idx.view(s, 1, 1).expand(s, k_count, 1))[:, :, 0]
+                add = gate32
+                if shard is not None:
+                    # every rank applies the owner's domain column (one
+                    # all_reduce for the S scenarios)
+                    dom_at = _ax_sum(torch.where(bind[:, None], dom_at, 0),
+                                     shard)
+                    add = found.to(torch.int32)
                 flat = (((s_ids * g_count + g)[:, None] * k_count
                          + keys[None, :]) * d_count + dom_at)
                 carry.presence_dom.view(-1).index_add_(
                     0, flat.reshape(-1),
-                    gate32[:, None].expand(s, k_count).reshape(-1))
+                    add[:, None].expand(s, k_count).reshape(-1))
             if sa_on:
                 f_count = st.saa_rows.shape[1]
                 match_f = st.saa_rows.gather(
                     2, g.view(s, 1, 1).expand(s, f_count, 1))[:, :, 0]
+                # the global index, on every rank
                 carry.sa_lock.copy_(torch.where(
                     (carry.sa_lock == -1) & match_f & found[:, None],
-                    idx.to(torch.int32)[:, None], carry.sa_lock))
+                    choice.clamp(min=0).to(torch.int32)[:, None],
+                    carry.sa_lock))
             for name, req in (("used_cpu", x.req_cpu),
                               ("used_mem", x.req_mem),
                               ("used_gpu", x.req_gpu),

@@ -38,6 +38,19 @@ returns None), the request goes the staged path against the twin's CURRENT
 host picture (session.inc.to_snapshot()), counted in
 stats["overlay_fallbacks"] and tpusim_overlay_fallback_total{reason}. An
 error inside an overlay raises.
+
+The scenario mesh (mesh=, a ("scenario", "node") DeviceMesh over every rank
+of the default process group, sharding.make_scenario_mesh): each bucket's
+scenarios split over the "scenario" axis, every rank running a program
+built for its block, the outputs put together over that axis's group. Rank
+0 is the one controller: it alone stages requests, cuts buckets, answers
+overlays and runs the host paths, and before each staged dispatch it sends
+the bucket's key, config and stacked host trees to the other ranks, whose
+follow() loop dispatches exactly those buckets. The ranks' own clocks never
+cut a bucket, so their collectives stay in step. Before a bucket's outputs
+are gathered the ranks agree whether any of them raised (one all_reduce of
+flags): if one did, every rank raises and the bucket fails on rank 0 as a
+bucket does without a mesh, so no rank is left waiting in a collective.
 """
 
 from __future__ import annotations
@@ -48,6 +61,7 @@ from collections import OrderedDict
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from tpusim_torch import backend as _backend
 from tpusim_torch.api.snapshot import ClusterSnapshot
@@ -73,7 +87,12 @@ from tpusim_torch.serve.request import (
     _budget,
     shape_class_for,
 )
-from tpusim_torch.sharding import pad_node_axis
+from tpusim_torch.sharding import (
+    check_mesh,
+    gather_blocks,
+    pad_node_axis,
+    shard_device,
+)
 from tpusim_torch.whatif import (
     WhatIfResult,
     _policy_prep,
@@ -85,6 +104,7 @@ from tpusim_torch.whatif import (
     compile_count,
     decode_one,
     stage_batch,
+    stage_block,
 )
 
 
@@ -94,15 +114,40 @@ def _twin_session(twin):
     return getattr(twin, "session", twin)
 
 
+class PeerDispatchError(RuntimeError):
+    """Another rank of a serve mesh failed the bucket this rank ran."""
+
+
 class ServeExecutor:
     def __init__(self, provider: str = "DefaultProvider", device="cuda",
                  max_staged: int = 128, max_device_batches: int = 8,
                  max_retries: int = 2, backoff_base_s: float = 0.05,
-                 clock=None):
+                 clock=None, mesh: Optional[object] = None):
         if provider not in _KNOWN_PROVIDERS:
             raise KeyError(f"plugin {provider!r} has not been registered")
+        self.mesh = mesh
+        # whether this process stages, buckets and answers (rank 0 of a
+        # mesh; always without one)
+        self.controller = True
+        if mesh is not None:
+            if check_mesh(mesh, "serve mesh") != "scenario":
+                raise ValueError(
+                    "ServeExecutor shards over scenarios: pass a "
+                    "('scenario', 'node') mesh (sharding.make_scenario_mesh);"
+                    f" got axes {tuple(mesh.mesh_dim_names)!r}")
+            import torch.distributed as dist
+
+            world = dist.get_world_size()
+            if sorted(int(r) for r in mesh.mesh.flatten().tolist()) != \
+                    list(range(world)):
+                raise ValueError(
+                    f"a serve mesh spans every rank of the default group "
+                    f"({world}), since rank 0 sends every rank its buckets")
+            self.controller = dist.get_rank() == 0
+            self.device = shard_device(device)
+        else:
+            self.device = resolve_device(device)
         self.provider = provider
-        self.device = resolve_device(device)
         self.max_retries = max_retries
         self.backoff_base_s = backoff_base_s
         self.clock = clock  # a ChaosClock makes the backoff deterministic
@@ -141,7 +186,7 @@ class ServeExecutor:
                 for s, _sc in ex._staged.values()), len(ex._staged)))
         analytics.register_hbm_source(
             "serve_device_batches", self,
-            lambda ex: (sum(analytics.tree_nbytes(built[1:])
+            lambda ex: (sum(analytics.tree_nbytes(built[1:4])
                             for built in ex._device_batches.values()),
                         len(ex._device_batches)))
 
@@ -317,8 +362,10 @@ class ServeExecutor:
     # -- dispatch ----------------------------------------------------------
 
     def _build_device_batch(self, bucket: Bucket):
-        """(config, carries, statics_b, xs_b): the bucket padded to its
-        shape class, ghost-filled to its size, stacked and uploaded."""
+        """(config, carries, statics_b, xs_b, host): the bucket padded to its
+        shape class, ghost-filled to its size, stacked and uploaded (on a
+        mesh this rank's block), and the stacked host trees (the other
+        ranks' copy)."""
         shape_class, _ = bucket.key
         targets = shape_class.targets
         entries = bucket.entries
@@ -337,8 +384,11 @@ class ServeExecutor:
             [e.staged.compiled for e in entries], self.provider,
             entries[0].cp, entries[0].hard_weight,
             n_saa_doms=max(e.staged.n_saa_doms for e in entries))
-        return (config,) + stage_batch(*_stack_host(per_scenario),
-                                       self.device)
+        host = _stack_host(per_scenario)
+        if self.mesh is not None:
+            return (config,) + stage_block(self.mesh, *host,
+                                           self.device) + (host,)
+        return (config,) + stage_batch(*host, self.device) + (host,)
 
     def _device_batch(self, bucket: Bucket):
         """((config, device trees), resident): from the device-batch cache
@@ -360,20 +410,97 @@ class ServeExecutor:
                 self._device_batches.popitem(last=False)
         return built, False
 
-    def _program(self, bucket: Bucket, config, carries, statics_b, xs_b):
-        """The built program of the bucket's key, size and config, loaded
-        with this batch; built (and counted) when the cache lacks it."""
-        pkey = (bucket.key, bucket.size, config)
+    def _program(self, pkey, config, carries, statics_b, xs_b):
+        """The built program of `pkey` (the bucket's key, size and config),
+        loaded with this batch; built (and counted) when the cache lacks
+        it."""
         program = self._programs.get(pkey)
         if program is not None:
             self._programs.move_to_end(pkey)
             program.load(carries, statics_b, xs_b)
             return program
-        program = build_program(config, carries, statics_b, xs_b)
+        program = build_program(config, carries, statics_b, xs_b,
+                                mesh=self.mesh)
         self._programs[pkey] = program
         while len(self._programs) > self._max_device_batches:
             self._programs.popitem(last=False)
         return program
+
+    def _run(self, pkey, config, carries, statics_b, xs_b):
+        """Run the batch on its program: (choices [S, P], counts [S, P,
+        bits]) as numpy, on a mesh put together over the scenario axis."""
+        if self.mesh is not None:
+            return self._mesh_run(pkey, config,
+                                  lambda: (carries, statics_b, xs_b))
+        choices_b, counts_b = self._program(pkey, config, carries,
+                                            statics_b, xs_b).run()
+        return choices_b.cpu().numpy(), counts_b.cpu().numpy()
+
+    def _mesh_run(self, pkey, config, stage):
+        """This rank's block (`stage()` uploads it) on its program, the
+        outputs put together over the scenario axis. Before that gather
+        every rank says whether its part raised, by one all_reduce over the
+        default group, so a rank that fails after rank 0's send leaves no
+        rank waiting in the gather: the failed rank raises its own error,
+        every other rank PeerDispatchError."""
+        import torch.distributed as dist
+
+        error = None
+        try:
+            outputs = self._program(pkey, config, *stage()).run()
+        except Exception as exc:  # noqa: BLE001 (raised below, on every rank)
+            error = exc
+        flags = torch.zeros(dist.get_world_size(), dtype=torch.int32)
+        flags[dist.get_rank()] = int(error is not None)
+        dist.all_reduce(flags)
+        if error is not None:
+            raise error
+        failed = flags.nonzero().flatten().tolist()
+        if failed:
+            raise PeerDispatchError(
+                f"serve mesh: rank(s) {failed} failed this bucket's "
+                "dispatch; no rank answers it")
+        return gather_blocks(self.mesh, "scenario", *outputs)
+
+    # -- the scenario mesh: rank 0 sends, the other ranks follow ------------
+
+    def send(self, message) -> None:
+        """Rank 0's message to every other rank of the mesh: ("dispatch",
+        program key, config, stacked host trees) before a staged dispatch,
+        ("done",) at the end of a fleet run, ("close",) when the fleet
+        stops."""
+        import torch.distributed as dist
+
+        if dist.get_world_size() > 1:
+            dist.broadcast_object_list([message], src=0)
+
+    def follow(self):
+        """A worker rank's loop: dispatch every bucket rank 0 sends, its
+        block of the bucket on this rank's program, until a message that is
+        not a dispatch, which it returns. A bucket that fails on this rank
+        fails on rank 0 too (_mesh_run), and the loop goes on with rank 0's
+        next message; the first such error raises when the loop ends."""
+        import torch.distributed as dist
+
+        error = None
+        while True:
+            box = [None]
+            dist.broadcast_object_list(box, src=0)
+            message = box[0]
+            if message[0] != "dispatch":
+                if error is not None:
+                    raise error
+                return message
+            _, pkey, config, host = message
+            with self._lock:
+                self.stats["dispatches"] += 1
+                try:
+                    self._mesh_run(pkey, config, lambda: stage_block(
+                        self.mesh, *host, self.device))
+                except PeerDispatchError:
+                    pass  # rank 0 raised it, and decides what comes next
+                except Exception as exc:  # noqa: BLE001 (raised at the end)
+                    error = error or exc
 
     def _dispatch_once(self, bucket: Bucket, injector=None
                        ) -> Tuple[List[WhatIfResult], bool]:
@@ -395,15 +522,16 @@ class ServeExecutor:
             self.stats["dispatches"] += 1
             corrupt_kind = (injector.begin_dispatch()
                             if injector is not None else None)
-            (config, carries, statics_b, xs_b), resident = \
+            (config, carries, statics_b, xs_b, host), resident = \
                 self._device_batch(bucket)
             seen = program_key in self._warm
             before = compile_count()
             program_start = time.perf_counter()
-            choices_b, counts_b = self._program(
-                bucket, config, carries, statics_b, xs_b).run()
-            choices_b = choices_b.cpu().numpy()
-            counts_b = counts_b.cpu().numpy()
+            pkey = (bucket.key, bucket.size, config)
+            if self.mesh is not None:
+                self.send(("dispatch", pkey, config, host))
+            choices_b, counts_b = self._run(pkey, config, carries,
+                                            statics_b, xs_b)
             if corrupt_kind is not None:
                 choices_b, counts_b = injector.corrupt(
                     corrupt_kind, choices_b, counts_b)
@@ -454,6 +582,9 @@ class ServeExecutor:
             # staged base columns of the device batch (a program loads
             # them by copy and leaves them as they are); padded nodes past
             # n_valid are masked in the reduction
+            if self.mesh is not None:
+                # a rank holds its block only: the whole batch, here
+                carries, statics_b, _ = stage_batch(*host, self.device)
             a_in = analytics_in(statics_b, carries)
             for i, e in enumerate(bucket.entries):
                 names = e.staged.compiled.statics.names

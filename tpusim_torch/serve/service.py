@@ -20,6 +20,13 @@ The worker thread (`start`/`stop`) gives the service its asynchronous shape;
 tests and the CLI drive the same pipeline synchronously through `pump`,
 `drain` or `run`, which keeps every deadline decision under the injected
 clock.
+
+On a scenario mesh (mesh=) every rank builds the fleet and makes the same
+calls: run() the same number of times, or start() then stop(). Rank 0 is
+the controller (ServeExecutor): its queue, batcher and clock decide every
+bucket, and the other ranks dispatch the buckets it sends. Rank 0's run()
+returns the responses, the other ranks' an empty list; stop() ends the
+other ranks' loops.
 """
 
 from __future__ import annotations
@@ -59,13 +66,27 @@ class ScenarioFleet:
                  max_queue: int = 256,
                  clock: Callable[[], float] = time.monotonic,
                  deadline_s: Optional[float] = None, max_retries: int = 2,
-                 device="cuda"):
+                 device="cuda", mesh: Optional[object] = None):
         """device: "cuda" (the default: the batched scan on the card) or
         "cpu" (its plain version). max_retries: the retries of a bucket
         whose dispatch an installed chaos plan faulted, before the host
-        pipeline answers it; the clock paces their backoff."""
+        pipeline answers it; the clock paces their backoff. mesh: a
+        ("scenario", "node") DeviceMesh over every rank (module
+        docstring); the bucket size must divide over its scenario axis."""
         self.executor = ServeExecutor(provider=provider, device=device,
-                                      max_retries=max_retries, clock=clock)
+                                      max_retries=max_retries, clock=clock,
+                                      mesh=mesh)
+        if mesh is not None:
+            from tpusim_torch.sharding import _axis_size
+
+            n = _axis_size(mesh, "scenario")
+            if bucket_size % n != 0:
+                raise ValueError(
+                    f"bucket_size={bucket_size} does not divide over the "
+                    f"mesh's scenario axis ({n} shards)")
+        self.mesh = mesh
+        self.controller = self.executor.controller
+        self._follow_error: Optional[BaseException] = None
         self.queue = AdmissionQueue(max_queue)
         self.batcher = ShapeClassBatcher(bucket_size=bucket_size,
                                          flush_after_s=flush_after_s,
@@ -120,6 +141,10 @@ class ScenarioFleet:
         """Admit one request; the future resolves to a WhatIfResponse (a
         rejection resolves it at once: submit never raises for a problem of
         the request)."""
+        if not self.controller:
+            raise RuntimeError(
+                "a serve mesh's rank 0 takes the requests; call run() or "
+                "start()/stop() on every other rank")
         future: "Future[WhatIfResponse]" = Future()
         # one TraceContext a request: it rides the request object across
         # the worker thread, and the queue hand-off is a flow arrow keyed on
@@ -329,10 +354,33 @@ class ScenarioFleet:
 
     def run(self, requests: Sequence[WhatIfRequest]) -> List[WhatIfResponse]:
         """Submit all, drain, and return the responses in submission
-        order."""
+        order. On a mesh's other ranks: dispatch rank 0's buckets until its
+        run ends, and return an empty list (`requests` unread: rank 0 holds
+        the responses)."""
+        if not self.controller:
+            self._expect("done")
+            return []
         futures = [self.submit(r) for r in requests]
         self.drain()
-        return [f.result() for f in futures]
+        responses = [f.result() for f in futures]
+        if self.mesh is not None:
+            self.executor.send(("done",))
+        return responses
+
+    def _follow(self) -> None:
+        """A mesh worker's thread: rank 0's buckets until it closes; an
+        error is kept for stop() to raise."""
+        try:
+            self._expect("close")
+        except BaseException as exc:  # noqa: BLE001 (raised by stop)
+            self._follow_error = exc
+
+    def _expect(self, kind: str):
+        message = self.executor.follow()
+        if message[0] != kind:
+            raise RuntimeError(f"serve mesh: rank 0 sent {message[0]!r} "
+                               f"where this rank awaited {kind!r}")
+        return message
 
     # -- worker thread -----------------------------------------------------
 
@@ -340,7 +388,8 @@ class ScenarioFleet:
         if self._thread is not None:
             raise RuntimeError("fleet already started")
         self._stopping.clear()
-        self._thread = threading.Thread(target=self._loop,
+        target = self._loop if self.controller else self._follow
+        self._thread = threading.Thread(target=target,
                                         name="scenario-fleet", daemon=True)
         self._thread.start()
         return self
@@ -360,7 +409,18 @@ class ScenarioFleet:
         """Stop admitting and finish what is queued (partial buckets too);
         then whatever is still pending (a dead worker's leftovers, items a
         join timeout stranded) resolves REJECT_SHUTDOWN, so no submitted
-        future is left unresolved."""
+        future is left unresolved. On a mesh rank 0 then ends the other
+        ranks' loops, which return here."""
+        if not self.controller:
+            if self._thread is not None:
+                self._thread.join()
+                self._thread = None
+            else:
+                self._expect("close")
+            error, self._follow_error = self._follow_error, None
+            if error is not None:
+                raise error
+            return
         self.queue.close()
         self._stopping.set()
         if self._thread is not None:
@@ -382,3 +442,5 @@ class ScenarioFleet:
                 future.set_result(self._reject(
                     request, REJECT_SHUTDOWN,
                     "fleet stopped before this request dispatched"))
+        if self.mesh is not None:
+            self.executor.send(("close",))

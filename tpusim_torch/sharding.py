@@ -155,6 +155,16 @@ def _mesh(devices: list, rows: int, names: Tuple[str, str],
     return mesh
 
 
+def forget_meshes() -> None:
+    """Drop the meshes built over the current default group (before it is
+    destroyed: a later group may reuse its id)."""
+    import torch.distributed as dist
+
+    gid = id(dist.distributed_c10d._get_default_group())
+    for key in [k for k in _MESHES if k[4] == gid]:
+        del _MESHES[key]
+
+
 def _tagged_mesh(devices: list, rows: int, grid, names, device_type: str):
     """A one-row mesh on process groups of its own: a DeviceMesh over the
     same ranks reuses the groups of the first one built, and two threads
@@ -228,6 +238,34 @@ def mesh_kind(mesh) -> str:
         f"what-if mesh has axes {names!r}; want ('snap', 'node') "
         "(make_mesh: GSPMD-sharded vmap) or ('scenario', 'node') "
         "(make_scenario_mesh: manual shard_map over scenarios)")
+
+
+def check_mesh(mesh, what: str = "what-if mesh") -> str:
+    """The mesh's kind (mesh_kind), once its ranks are known to lie in this
+    process's initialized default group with this process among them; a
+    ValueError names what is wrong (`what` names the mesh). Runs before
+    any host work."""
+    import torch.distributed as dist
+
+    kind = mesh_kind(mesh)
+    ranks = [int(r) for r in mesh.mesh.flatten().tolist()]
+    if not (dist.is_available() and dist.is_initialized()):
+        raise ValueError(
+            f"{what} spans {len(ranks)} rank(s), but this process has no "
+            "default process group; initialize torch.distributed on every "
+            "rank and rebuild the mesh")
+    world = dist.get_world_size()
+    missing = [r for r in ranks if r >= world]
+    if missing:
+        raise ValueError(
+            f"{what} spans {len(missing)} rank(s) not in this process's "
+            f"default group of {world} (e.g. rank {missing[0]}); rebuild "
+            "the mesh from the group's ranks")
+    if dist.get_rank() not in ranks:
+        raise ValueError(
+            f"{what} does not hold this process's rank {dist.get_rank()}; "
+            "every rank of the mesh makes the call")
+    return kind
 
 
 def match_partition_rules(rules: Sequence[Tuple[str, tuple]],
@@ -372,6 +410,29 @@ def snap_shardings(mesh) -> Tuple[Statics, Carry, MeshSharding]:
     statics = _sharding_tree(Statics, STATICS_AXES, mesh, leading="snap")
     carry = _sharding_tree(Carry, CARRY_AXES, mesh, leading="snap")
     return statics, carry, MeshSharding(mesh, ("snap",))
+
+
+def gather_blocks(mesh, axis: str, *blocks):
+    """Whole arrays from row blocks split over a mesh axis: each rank writes
+    its block (rows at its coordinate on `axis`) into zeros, and one sum
+    over the axis's process group, the ranks that share this rank's other
+    coordinates, puts the rows together. Never a sum over the whole mesh:
+    the ranks of the other axis hold the same rows and would count each
+    once more. Returns numpy arrays, the same on every rank."""
+    import torch.distributed as dist
+
+    size = _axis_size(mesh, axis)
+    coord = mesh.get_local_rank(axis)
+    out = []
+    for b in blocks:
+        per = b.shape[0]
+        full = torch.zeros((per * size,) + tuple(b.shape[1:]), dtype=b.dtype,
+                           device=b.device)
+        full[coord * per:(coord + 1) * per].copy_(b)
+        if size > 1:
+            dist.all_reduce(full, group=mesh.get_group(axis))
+        out.append(full.cpu().numpy())
+    return out
 
 
 def rank_directory(directory: Optional[str]) -> Optional[str]:

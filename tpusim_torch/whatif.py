@@ -24,11 +24,25 @@ route="auto" takes the fast loop when every scenario is eligible and the
 batched scan otherwise, "kernel" raises NotImplementedError where any
 scenario's plan is refused, "scan" always takes the batched scan. Neither
 route falls back to the other: a kernel error raises.
+
+The scenario mesh (mesh=, a torch.distributed DeviceMesh of ranks, one
+process a rank, every rank making the same call): a ("snap", "node") mesh
+(sharding.make_mesh) splits the stacked scenarios over "snap" and each
+scenario's node columns over "node", every reduction of the batched step
+one all_reduce over the node group for all of a rank's scenarios; a
+("scenario", "node") mesh (sharding.make_scenario_mesh) splits the
+scenarios over "scenario" with the node columns whole, so its step has no
+collective. The scenario axis pads to the mesh's multiple with replicas of
+the first scenario (dropped on decode), the node axis to the node-shard
+multiple; the ranks' outputs are put together over the scenario axis's
+group and every rank decodes the whole batch. A mesh always takes the
+batched scan: route "kernel" raises.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 from dataclasses import dataclass, replace
 from typing import List, Optional, Sequence, Tuple
 
@@ -59,19 +73,32 @@ from tpusim_torch.scan import (
     PodX,
     Statics,
     carry_init_host,
+    mesh_shard,
     pod_columns_to_host,
     statics_to_host,
     tree_to,
 )
-from tpusim_torch.sharding import pad_node_axis
+from tpusim_torch.sharding import (
+    _axis_size,
+    check_mesh,
+    gather_blocks,
+    make_mesh,
+    mesh_kind,
+    pad_node_axis,
+    scenario_shardings,
+    shard_device,
+    snap_shardings,
+    stage_tree,
+)
 from tpusim_torch.state import compile_cluster, reason_strings
 
 log = logging.getLogger(__name__)
 
 # batched programs built in this process (BatchedScan: buffers, the step
-# and, on a CUDA device, its captured graph); the serve executor's warm
-# cache and each response's compile_cache_hit read deltas of it
-_COMPILE_COUNTS = {"batched": 0}
+# and, on a CUDA device, its captured graph), "scenario_sharded" those
+# built for a rank's block of a mesh; the serve executor's warm cache and
+# each response's compile_cache_hit read deltas of it
+_COMPILE_COUNTS = {"batched": 0, "scenario_sharded": 0}
 
 
 def compile_count() -> int:
@@ -79,12 +106,20 @@ def compile_count() -> int:
     return sum(_COMPILE_COUNTS.values())
 
 
-def build_program(config, carries: Carry, statics_b: Statics, xs_b: PodX
-                  ) -> BatchedScan:
-    """A batched program over a stacked device batch, counted."""
-    _COMPILE_COUNTS["batched"] += 1
+def build_program(config, carries: Carry, statics_b: Statics, xs_b: PodX,
+                  mesh=None) -> BatchedScan:
+    """A batched program over a stacked device batch, counted. With a mesh
+    the batch is this rank's block: on a ("snap", "node") mesh whose node
+    axis has several ranks the step is node-sharded (and eager)."""
+    shard = None
+    if mesh is not None:
+        _COMPILE_COUNTS["scenario_sharded"] += 1
+        if mesh_kind(mesh) == "snap" and _axis_size(mesh, "node") > 1:
+            shard = mesh_shard(mesh, statics_b.alloc_cpu.shape[1])
+    else:
+        _COMPILE_COUNTS["batched"] += 1
     return BatchedScan(config, carries, statics_b, xs_b,
-                       graph_steps=GRAPH_STEPS)
+                       graph_steps=GRAPH_STEPS, shard=shard)
 
 
 @dataclass
@@ -268,17 +303,24 @@ def _prepare_host_batch(scenarios, provider: str,
     return config, staged
 
 
-def _unify_batch(host_trees):
+def _unify_batch(host_trees, n_snap_shards: int = 1,
+                 n_node_shards: int = 1):
     """Unify and node-pad the scenarios' host trees: one (carry, statics,
-    xs) a scenario, all of one shape."""
+    xs) a scenario, all of one shape. The node axis pads to the largest
+    scenario's count rounded up to the node-shard multiple, and the
+    scenario axis to the snap-shard (or scenario-shard) multiple with
+    replicas of the first scenario, which decode drops."""
     targets = _axis_targets(host_trees)
     p_max = max(np.asarray(xs.req_cpu).shape[0] for _, _, xs in host_trees)
     n_max = max(np.asarray(s.alloc_cpu).shape[0] for s, _, _ in host_trees)
+    n_target = -(-n_max // n_node_shards) * n_node_shards
     per_scenario = []
     for statics, carry, xs in host_trees:
         statics, carry, xs = _unify(statics, carry, xs, targets, p_max)
-        statics, carry, _ = pad_node_axis(statics, carry, n_max)
+        statics, carry, _ = pad_node_axis(statics, carry, n_target)
         per_scenario.append((carry, statics, xs))
+    while len(per_scenario) % n_snap_shards != 0:
+        per_scenario.append(per_scenario[0])
     return per_scenario
 
 
@@ -300,6 +342,20 @@ def stage_batch(host_carries: Carry, host_statics: Statics, host_xs: PodX,
     return (tree_to(host_carries, device),
             tree_to(host_statics, device, index=True),
             tree_to(host_xs, device, index=True))
+
+
+def stage_block(mesh, host_carries: Carry, host_statics: Statics,
+                host_xs: PodX, device):
+    """This rank's block of the stacked host trees on its device
+    (sharding.shard_device): the scenario rows at its coordinate, and on a
+    ("snap", "node") mesh the node columns at its node coordinate."""
+    if mesh_kind(mesh) == "snap":
+        st_sh, ca_sh, xs_sh = snap_shardings(mesh)
+    else:
+        ca_sh, st_sh, xs_sh = scenario_shardings(mesh)
+    return (stage_tree(host_carries, ca_sh, device),
+            stage_tree(host_statics, st_sh, device, index=True),
+            stage_tree(host_xs, xs_sh, device, index=True))
 
 
 def decode_one(pods: List[Pod], compiled, choices, counts) -> WhatIfResult:
@@ -340,8 +396,31 @@ def _run_batched(config, staged, device):
     return choices.cpu().numpy(), counts.cpu().numpy()
 
 
+def _run_on_mesh(config, staged, device, mesh):
+    """The batched scan over a mesh: every rank pads the whole batch, checks
+    that the ranks agree on it (one digest all_reduce an axis, before any
+    other collective), stages its block, runs its program and puts the
+    outputs together over the scenario axis. (choices [S', P], counts
+    [S', P, bits]) as numpy arrays, S' the padded scenario count, the same
+    on every rank."""
+    from tpusim_torch.backend import check_ranks_agree
+
+    # the axis the scenarios split over
+    rows = "snap" if mesh_kind(mesh) == "snap" else "scenario"
+    nodes = _axis_size(mesh, "node") if rows == "snap" else 1
+    per_scenario = _unify_batch([(s.statics, s.carry, s.xs) for s in staged],
+                                _axis_size(mesh, rows), nodes)
+    host = _stack_host(per_scenario)
+    check_ranks_agree(mesh, device, *host, axes=tuple(mesh.mesh_dim_names),
+                      route="what-if mesh")
+    block = stage_block(mesh, *host, device)
+    choices, counts = build_program(config, *block, mesh=mesh).run()
+    return gather_blocks(mesh, rows, choices, counts)
+
+
 def run_what_if(scenarios: Sequence[Tuple[ClusterSnapshot, List[Pod]]],
                 provider: str = "DefaultProvider",
+                mesh: Optional[object] = None,
                 hard_pod_affinity_symmetric_weight: int = 10,
                 policy=None, device="cuda",
                 route: str = "auto") -> List[WhatIfResult]:
@@ -355,11 +434,30 @@ def run_what_if(scenarios: Sequence[Tuple[ClusterSnapshot, List[Pod]]],
     on the card) or "cpu" (their plain versions). route: "auto", "kernel"
     or "scan" (module docstring).
 
+    mesh: None (one device), or a DeviceMesh of ranks, every rank making
+    this call with the same scenarios (module docstring); each rank works
+    on its device (sharding.shard_device) and returns every scenario's
+    result. A mesh takes the batched scan: route "kernel" raises
+    ValueError.
+
     Raises ValueError for input that cannot batch (an empty scenario list,
-    a zero-node snapshot) before any device work."""
+    a zero-node snapshot, a mesh of unknown axes or of ranks outside this
+    process's group) before any device work."""
     if route not in ROUTES:
         raise ValueError(f"unknown route {route!r} (expected one of "
                          f"{', '.join(ROUTES)})")
+    if mesh is not None:
+        check_mesh(mesh)
+        if route == "kernel":
+            raise ValueError(
+                "route='kernel' cannot run on a what-if mesh: the fast "
+                "loop is one device's; a mesh takes the batched scan "
+                "(route 'auto' or 'scan')")
+        device = shard_device(device)
+        config, staged = _prepare_host_batch(
+            scenarios, provider, hard_pod_affinity_symmetric_weight, policy)
+        choices_b, counts_b = _run_on_mesh(config, staged, device, mesh)
+        return _decode_batch(scenarios, staged, choices_b, counts_b)
     device = resolve_device(device)
     config, staged = _prepare_host_batch(
         scenarios, provider, hard_pod_affinity_symmetric_weight, policy)
@@ -376,3 +474,34 @@ def run_what_if(scenarios: Sequence[Tuple[ClusterSnapshot, List[Pod]]],
                  why)
     choices_b, counts_b = _run_batched(config, staged, device)
     return _decode_batch(scenarios, staged, choices_b, counts_b)
+
+
+def run_what_if_multihost(
+        scenarios: Sequence[Tuple[ClusterSnapshot, List[Pod]]],
+        provider: str = "DefaultProvider",
+        hard_pod_affinity_symmetric_weight: int = 10,
+        policy=None, device="cuda") -> List[WhatIfResult]:
+    """run_what_if over every rank of the default process group, each rank
+    one process making this call with the same scenarios: a ("snap",
+    "node") mesh with one snap row a machine (LOCAL_WORLD_SIZE ranks, as a
+    launcher such as torchrun sets it; the whole group where unset), the
+    scenarios split over the machines and each scenario's node columns over
+    its machine's ranks. Every rank returns every scenario's result."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        raise ValueError(
+            "run_what_if_multihost needs torch.distributed's default "
+            "process group; initialize it on every rank first")
+    world = dist.get_world_size()
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    if local < 1 or world % local != 0:
+        raise ValueError(
+            f"LOCAL_WORLD_SIZE={local} does not divide the {world} ranks "
+            "of the default group into machines")
+    mesh = make_mesh(world, snap=world // local,
+                     device_type=shard_device(device).type)
+    return run_what_if(scenarios, provider=provider, mesh=mesh,
+                       hard_pod_affinity_symmetric_weight=(
+                           hard_pod_affinity_symmetric_weight),
+                       policy=policy, device=device)
