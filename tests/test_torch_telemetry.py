@@ -194,6 +194,10 @@ def test_recorder_stamps_the_active_context():
 # --- a traced stream against the JAX package's -----------------------------
 
 CELL = dict(num_nodes=8, cycles=4, arrivals=6, evict_fraction=0.25, seed=3)
+# the spans the port records around its own host work and the JAX package
+# does not (tests/test_torch_stream_spans.py holds them)
+PORT_ONLY = {"stream_route", "commit_gather", "stream_pack",
+             "stream_foldback"}
 
 
 def _events(rec):
@@ -217,7 +221,11 @@ def test_traced_stream_matches_jax(pipeline):
     with traced(PORT) as rec:
         got = run_stream_simulation(device="cpu", pipeline=pipeline, **CELL)
     text = register().expose()
-    assert _events(rec) == _events(jrec)
+    port, jax = _events(rec), _events(jrec)
+    # every event of the JAX package's, in order, with its trace and span
+    # ids; beside them only the port's own spans
+    assert {e[0] for e in port} - {e[0] for e in jax} == PORT_ONLY
+    assert [e for e in port if e[0] not in PORT_ONLY] == jax
     assert _exemplar_series(text) == _exemplar_series(jax_text)
     assert _exemplar_series(text)
     assert got["placement_chain"] == want["placement_chain"]

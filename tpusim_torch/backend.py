@@ -659,28 +659,26 @@ class TorchBackend:
         dsp = flight.span("device_dispatch", "device", self.device)
         lanes = final_carry = None
         if plan is not None:
-            with flight.profiled("tpusim:fast_scan"):
-                choices, counts, _adv = fast_scan(plan, device=self.device)
+            choices, counts, _adv = fast_scan(plan, device=self.device)
             self.last_route = "kernel"
         else:
-            with flight.profiled("tpusim:schedule_scan"):
-                if shard_mesh is not None:
-                    final_carry, choices, counts, statics = \
-                        _dispatch_sharded(config, shard_mesh, n_shards,
-                                          statics, carry, xs, chunked,
-                                          scan_chunk, metrics, self.device)
-                elif chunked:
-                    final_carry, choices, counts, _adv = \
-                        schedule_scan_chunked(config, carry, statics, xs,
-                                              scan_chunk,
-                                              graph_steps=GRAPH_STEPS)
-                else:
-                    final_carry, choices, counts, _adv, *rest = \
-                        schedule_scan(config, carry, statics, xs,
-                                      graph_steps=GRAPH_STEPS)
-                    lanes = rest[0] if rest else None
-                    choices = choices.cpu().numpy()
-                    counts = counts.cpu().numpy()
+            if shard_mesh is not None:
+                final_carry, choices, counts, statics = \
+                    _dispatch_sharded(config, shard_mesh, n_shards,
+                                      statics, carry, xs, chunked,
+                                      scan_chunk, metrics, self.device)
+            elif chunked:
+                final_carry, choices, counts, _adv = \
+                    schedule_scan_chunked(config, carry, statics, xs,
+                                          scan_chunk,
+                                          graph_steps=GRAPH_STEPS)
+            else:
+                final_carry, choices, counts, _adv, *rest = \
+                    schedule_scan(config, carry, statics, xs,
+                                  graph_steps=GRAPH_STEPS)
+                lanes = rest[0] if rest else None
+                choices = choices.cpu().numpy()
+                counts = counts.cpu().numpy()
             self.last_route, self.last_route_reason = "scan", why
         if injector is not None:
             # both routes: the corruption touches the host copies of the

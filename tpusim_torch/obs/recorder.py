@@ -46,6 +46,10 @@ _TIDS = {"host": 1, "device": 2, "tool": 3}
 # completed CUDA event pairs are resolved without waiting once this many are
 # pending, so an always-on recorder's pending list stays bounded
 _PENDING_SWEEP = 4096
+# the fills a device clock sync launches, one after each reading: a single
+# launch's latency under a profiler strays by tens of µs, the fastest of
+# eight by a few
+CLOCK_FILLS = 8
 
 
 class _NoopSpan:
@@ -153,8 +157,9 @@ class FlightRecorder:
         self._tids: Dict[str, int] = dict(_TIDS)
         # clock anchors for aligning several processes' traces (name ->
         # recorder-relative microseconds), exported in otherData as the JAX
-        # package's recorder exports them; the replication hello sets them
-        self.anchors: Dict[str, float] = {}
+        # package's recorder exports them; the replication hello sets them,
+        # and sync_device_clock a list of readings for a device trace
+        self.anchors: Dict[str, Any] = {}
         # device spans whose CUDA event pair is not read yet:
         # (event dict, start event, end event)
         self._pending: List[Tuple[Dict[str, Any], Any, Any]] = []
@@ -193,6 +198,29 @@ class FlightRecorder:
         """Pin a named clock reading (now by default), exported in
         otherData."""
         self.anchors[name] = self.now_us() if value is None else value
+
+    def sync_device_clock(self, device, name: str = "device_sync_us"
+                          ) -> Any:
+        """Put a device trace on this recorder's clock. Launch a
+        one-element fill and wait for it (the first launch of a profiler
+        session can start half a millisecond late), then CLOCK_FILLS times:
+        wait for the device, read this clock, launch the fill again. The
+        readings are pinned as the anchor `name` (a list of µs, exported in
+        otherData); a profiler's start times of those fills, less the
+        readings, give its clock's offset from this one to within the
+        fastest launch's latency. Returns the fill's tensor."""
+        import torch
+
+        d = torch.device(device)
+        marker = torch.zeros(1, device=d)
+        readings = []
+        for i in range(CLOCK_FILLS):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+            readings.append(self.now_us())
+            marker.fill_(float(i))
+        self.anchors[name] = readings
+        return marker
 
     # -- trace-context stamping -------------------------------------------
     def _stamp(self, ev: Dict[str, Any]) -> None:
@@ -606,12 +634,3 @@ def note_watch_overflow(resource: str) -> None:
     if rec is not None:
         rec.instant("watch_overflow", "host", {"resource": resource})
 
-
-# -- torch.profiler bridge -----------------------------------------------
-
-def profiled(name: str) -> Any:
-    """A `torch.profiler.record_function` range, so profiler traces line up
-    with recorder spans."""
-    import torch
-
-    return torch.profiler.record_function(name)

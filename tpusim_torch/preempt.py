@@ -586,26 +586,24 @@ def run_with_preemption(pods: List[Pod], snapshot: ClusterSnapshot,
                 dsp = flight.span("device_dispatch", "device", device)
                 if fplan is not None:
                     HYBRID_STATS["fast_scan_calls"] += 1
-                    with flight.profiled("tpusim:fast_scan"):
-                        choices, counts, advanced, carry_out = fast_scan(
-                            fplan, start=off, stop=off + take,
-                            carry_in=fcarry, return_carry=True,
-                            staged=staged)
+                    choices, counts, advanced, carry_out = fast_scan(
+                        fplan, start=off, stop=off + take,
+                        carry_in=fcarry, return_carry=True,
+                        staged=staged)
                 else:
                     HYBRID_STATS["scan_calls"] += 1
                     xs = scan.PodX(*(a[off:off + take] for a in xs_all))
-                    with flight.profiled("tpusim:schedule_scan"):
-                        if mesh is None:
-                            carry_out, choices, counts, advanced = \
-                                scan.schedule_scan(
-                                    config, carry, statics, xs,
-                                    graph_steps=scan.GRAPH_STEPS)
-                        else:
-                            carry_out, choices, counts, advanced = \
-                                scan_fn(carry, statics, xs)
-                        choices = choices.cpu().numpy()
-                        counts = counts.cpu().numpy()
-                        advanced = advanced.cpu().numpy()
+                    if mesh is None:
+                        carry_out, choices, counts, advanced = \
+                            scan.schedule_scan(
+                                config, carry, statics, xs,
+                                graph_steps=scan.GRAPH_STEPS)
+                    else:
+                        carry_out, choices, counts, advanced = \
+                            scan_fn(carry, statics, xs)
+                    choices = choices.cpu().numpy()
+                    counts = counts.cpu().numpy()
+                    advanced = advanced.cpu().numpy()
                 if dsp:
                     dsp.set("engine", engine)
                     dsp.set("chunk", chunk)

@@ -1236,15 +1236,12 @@ def run_stream_simulation(snapshot: Optional[ClusterSnapshot] = None, *,
             if skip_events:
                 evs = evs[skip_events:]
                 skip_events = 0
-            # one trace context a driver cycle: the ingest span and the
-            # session's own cycle context (a child, the same trace id) tell
+            # one trace context a driver cycle: the session's ingest span
+            # and its own cycle context (a child, the same trace id) tell
             # one causal story, ingest -> commit -> scan -> fold. start() is
             # None, and all of this a no-op, unless a recorder is installed
             with tracectx.activate(tracectx.start()):
-                with flight.span("stream_ingest") as isp:
-                    if isp:
-                        isp.set("events", len(evs))
-                    session.apply_events(evs)
+                session.apply_events(evs)
                 batch = gen.batch()
                 t0 = perf_counter()
                 prev = (session.schedule_pipelined(batch) if pipeline

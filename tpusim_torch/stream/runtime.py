@@ -73,10 +73,15 @@ this rank's block, and the replicated lanes (presence_dom, rr, sa_lock)
 alike on every rank. A twin's mesh_tag gives it process groups of its own.
 
 With a flight recorder installed the runtime records the JAX package's
-spans (stream_commit, statics_commit, compile_cluster, device_dispatch,
-decode_placements, stream_overlap, stream_decode and the overlay_* spans),
-each cycle under a trace context of its own (obs/tracectx.py; a pipelined
-cycle's decode under its dispatch's context); every cycle counts in
+spans (stream_ingest, stream_commit, statics_commit, compile_cluster,
+device_dispatch, decode_placements, stream_overlap, stream_decode and the
+overlay_* spans) and, around the host's own work, the port's
+stream_route (residency, the batch's columns and their remaps),
+commit_gather (the journal's rows, the lock lanes), stream_pack (the pod
+rows) and stream_foldback (the binds folded back, the journal, the WAL's
+bind and emit records), each cycle under a trace context of its own
+(obs/tracectx.py; a pipelined cycle's decode and fold-back under its
+dispatch's context); every cycle counts in
 tpusim_stream_cycles_total{path} and its latency in
 tpusim_stream_cycle_latency_us{path} (with its trace id as an exemplar
 when traced), judged by an armed SLO tracker (obs/slo.py), every restage
@@ -394,18 +399,26 @@ class DeviceResidentCluster:
             col[:] = lut[col]
         return None
 
-    def commit(self, inc: IncrementalCluster, sa_lock_init) -> None:
+    def commit(self, inc: IncrementalCluster,
+               sa_lock_init: Callable[[], np.ndarray]) -> None:
         """Drain the IncrementalCluster's journal and set the authoritative
         values of every touched node row and presence cell into the
         resident carry, in place. Runs even with an empty journal, as the
         commit also re-arms the per-batch lanes to what a restage would
-        stage (`sa_lock_init`: all unlocked for a provider, the live
-        first-matching-pod pins under ServiceAffinity; rr 0)."""
+        stage (`sa_lock_init()`: all unlocked for a provider, the live
+        first-matching-pod pins under ServiceAffinity; rr 0). The host's
+        gathering runs in span commit_gather, the carry's update in
+        stream_commit."""
+        gsp = flight.span("commit_gather")
+        sa_lock = sa_lock_init()
         nodes, cells = inc.drain_journal()
         idx, rows = _delta_rows(inc, nodes)
+        if gsp:
+            gsp.set("rows", int(len(nodes)))
+            gsp.end()
         sp = flight.span("stream_commit", "device", self.device)
         apply_delta_(self.carry, idx, rows, *_presence_cells(inc, cells),
-                     sa_lock_init, shard=self.shard)
+                     sa_lock, shard=self.shard)
         if sp:
             sp.set("rows", int(len(nodes)))
             sp.set("cells", int(len(cells)))
@@ -516,18 +529,28 @@ class StreamSession:
         self.inc.apply(event_type, obj)
 
     def apply_events(self, events) -> None:
-        self.inc.apply_events(events)
+        """Fold a cycle's watch events into the host picture (span
+        stream_ingest)."""
+        with flight.span("stream_ingest") as sp:
+            if sp:
+                events = list(events)
+                sp.set("events", len(events))
+            self.inc.apply_events(events)
 
     def ingest(self, watch_buffer) -> int:
-        """Drain a WatchBuffer into the host picture. A torn stream (the
-        410 Gone analog) forces a restage on the next cycle and raises
-        again, so the caller can relist (or use watch() and sync(), which
-        do)."""
-        try:
-            return self.inc.ingest(watch_buffer)
-        except WatchExpiredError:
-            self.force_restage("watch_expired")
-            raise
+        """Drain a WatchBuffer into the host picture (span stream_ingest).
+        A torn stream (the 410 Gone analog) forces a restage on the next
+        cycle and raises again, so the caller can relist (or use watch()
+        and sync(), which do)."""
+        with flight.span("stream_ingest") as sp:
+            try:
+                n = self.inc.ingest(watch_buffer)
+            except WatchExpiredError:
+                self.force_restage("watch_expired")
+                raise
+            if sp:
+                sp.set("events", n)
+        return n
 
     def watch(self, client, resource: ResourceType, **kwargs) -> Reflector:
         """Attach a Reflector stream feeding this session; its relists
@@ -606,6 +629,7 @@ class StreamSession:
             placements = self._stream_cycle(pods, cols)
         else:
             placements = self._restage_cycle(pods, reason)
+        sp = flight.span("stream_foldback")
         bound = [pl for pl in placements if pl.node_name]
         with self._persist_suppressed():
             for pl in bound:
@@ -618,6 +642,9 @@ class StreamSession:
         if cid is not None:
             self.persist.log_bind(cid, bound)
             self.persist.log_emit(cid, placements)
+        if sp:
+            sp.set("bound", len(bound))
+            sp.end()
         self._observe_cycle(self._last_path, t0)
         return placements
 
@@ -654,6 +681,7 @@ class StreamSession:
         resident state can serve it, else (reason, cols or None). Consumes
         the forced-restage latch and the column journal (a restage rebuilds
         everything, so a dropped patch is harmless)."""
+        sp = flight.span("stream_route")
         inc = self.inc
         reason = self._forced
         self._forced = None
@@ -683,6 +711,11 @@ class StreamSession:
                                               pods, cols)
             if reason is None:
                 reason = self._prepare_statics_delta()
+        if sp:
+            sp.set("pods", len(pods))
+            if reason is not None:
+                sp.set("reason", reason)
+            sp.end()
         return reason, cols
 
     # -- paths ------------------------------------------------------------
@@ -774,13 +807,18 @@ class StreamSession:
         """Commit the pending churn (label and taint columns, then the
         journal's rows and cells) into the resident state."""
         self._apply_statics_patch()
-        self.device.commit(self.inc, self._commit_sa_lock())
+        self.device.commit(self.inc, self._commit_sa_lock)
 
     @staticmethod
     def _xs_host(pods: List[Pod], cols):
+        """The batch's pod rows on the host, padded to its bucket (span
+        stream_pack)."""
         p = len(pods)
-        return pad_infeasible_rows(pod_columns_to_host(cols),
-                                   bucket_size(p) - p)
+        with flight.span("stream_pack") as sp:
+            if sp:
+                sp.set("pods", p)
+            return pad_infeasible_rows(pod_columns_to_host(cols),
+                                       bucket_size(p) - p)
 
     def _dispatch(self, pods: List[Pod], xs_host, compiled
                   ) -> Tuple[List[Placement], bool]:
@@ -802,9 +840,8 @@ class StreamSession:
                         else None)
         t0 = perf_counter()
         dsp = flight.span("device_dispatch", "device", self.torch_device)
-        with flight.profiled("tpusim:stream_scan"):
-            out = self.device.scan(xs_host)
-            choices, counts = _Fetch(out, len(pods)).get()
+        out = self.device.scan(xs_host)
+        choices, counts = _Fetch(out, len(pods)).get()
         if injector is not None:
             if corrupt_kind is not None:
                 from tpusim_torch.chaos.engine import DeviceInjector
@@ -1096,8 +1133,7 @@ class StreamSession:
         self._commit()
         xs_host = self._xs_host(pods, cols)
         dsp = flight.span("device_dispatch", "device", self.torch_device)
-        with flight.profiled("tpusim:stream_scan"):
-            fetch = _Fetch(self.device.scan(xs_host), len(pods))
+        fetch = _Fetch(self.device.scan(xs_host), len(pods))
         if dsp:
             dsp.set("pods", len(pods))
             dsp.end()
@@ -1136,6 +1172,7 @@ class StreamSession:
         register().stream_overlap_fraction.set(
             max(0.0, 1.0 - waited / elapsed))
         names = p.compiled.statics.names
+        sp = flight.span("stream_foldback")
         mark = self.inc.journal_mark()
         with self._persist_suppressed():
             for pod, c in zip(p.pods, p.choices):
@@ -1146,12 +1183,15 @@ class StreamSession:
                     p.bound.append(Placement(pod=bound, node_name=names[c]))
         self.inc.journal_rollback(mark)
         p.folded = True
-        if self.persist is not None and p.wal_cycle is not None:
-            # journaled at fold time: cycle N's binds land BEFORE cycle
-            # N+1's watch events, the order the host picture mutates in,
-            # under cycle N's trace context
-            with tracectx.activate(p.trace):
+        with tracectx.activate(p.trace):
+            if self.persist is not None and p.wal_cycle is not None:
+                # journaled at fold time: cycle N's binds land BEFORE cycle
+                # N+1's watch events, the order the host picture mutates
+                # in, under cycle N's trace context
                 self.persist.log_bind(p.wal_cycle, p.bound)
+            if sp:
+                sp.set("bound", len(p.bound))
+                sp.end()
 
     def _finalize(self, p: Optional[_PendingCycle]
                   ) -> Optional[List[Placement]]:
