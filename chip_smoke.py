@@ -142,11 +142,21 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
      the card, the resident scan replaying its captured graphs, each run's
      CUDA-event span): the stream arm at 16,000 nodes (8 cycles of 64
      arrivals, 25% evicted, seed 9), which must restage only at its cold
-     start and launch no fused kernel; the stream and restage arms at 4,000
-     nodes, equal chains; a verified run at 4,000 nodes (10 cycles, every
-     cycle held against a fresh TorchBackend.schedule); bench.py's CPU
-     shape (800 nodes, 24 cycles), the JAX package's placement and fold
-     chains;
+     start and launch no fused kernel, and whose every resident step must
+     be one launch of the resident step kernel (config 9 is group-free);
+     the stream and restage arms at 4,000 nodes, equal chains; a verified
+     run at 4,000 nodes (10 cycles, every cycle held against a fresh
+     TorchBackend.schedule); bench.py's CPU shape (800 nodes, 24 cycles),
+     the JAX package's placement and fold chains;
+ 21b. the resident step kernel (csrc/resident_step.cu) against the torch
+     step it replaces (scan.make_step) on two copies of the same resident
+     tensors, 6 buckets of 64 back to back: config 9's cluster at 4,000
+     nodes with its generator's pods and the scheduler-perf-5000n cluster
+     (5,000 nodes, 150,000 Running pods); choices, counts, advanced and
+     every carry field bit-equal after each bucket (tolerance 0); then on
+     the 5,000-node cluster each route's time a step replayed from its
+     graph and the least time a step (portbench/roofline.py's bytes at the
+     card's HBM bandwidth), which the kernels line reports;
  22. bench config 10, its policy with label and taint churn: the churn
      curve at 4,000 nodes, and synchronous, pipelined and restage arms at
      1,000, 4,000 and 16,000 nodes: equal chains, no restage after the cold
@@ -2555,7 +2565,8 @@ def percentile(values, q):
 def run_stream(params, label, phase, card):
     """run_stream_simulation on the card over a STREAM_GOLDENS or
     STREAM_CONFIG* cell, with each resident scan's CUDA-event span; prints
-    a line and returns (summary, spans in ms, fused kernel launches)."""
+    a line and returns (summary, spans in ms, fused kernel launches,
+    (resident step launches, the resident scans' steps))."""
     import torch
 
     import tpusim_torch.api.snapshot as api
@@ -2567,15 +2578,20 @@ def run_stream(params, label, phase, card):
     kw = stream_arguments(params, api, decode_policy)
     record = []
     reset_launches()
+    resident = scan.fused_launches()
     with timed_on_card(scan.ResidentScan, "run", record):
         out = run_stream_simulation(device="cuda", **kw)
         torch.cuda.synchronize()
     spans = [start.elapsed_time(end) for _, _, start, end in record]
     launches = fastscan_chunk.launches
+    # ResidentScan.run's first argument is the program: its bucket's steps
+    resident = (scan.fused_launches() - resident,
+                sum(args[0].pods.shape[0] for args, _, _, _ in record))
     scan_text = (f"resident scan {len(spans)} runs, CUDA-event span p50 "
                  f"{percentile(spans, 0.5):.3f} / p99 "
-                 f"{percentile(spans, 0.99):.3f} / sum {sum(spans):.1f} ms"
-                 if spans else "no resident scan")
+                 f"{percentile(spans, 0.99):.3f} / sum {sum(spans):.1f} ms, "
+                 f"resident step launches {resident[0]} of {resident[1]} "
+                 "steps" if spans else "no resident scan")
     verified = (f"; verified {out['verified']}" if "verified" in out
                 else "")
     print(f"phase {phase}: {label}: {out['cycles']} cycles x "
@@ -2588,19 +2604,191 @@ def run_stream(params, label, phase, card):
           f"{out['restages']}, commits {out['commits']}; chain "
           f"{out['placement_chain'][:16]}, fold {out['fold_chain'][:16]}"
           f"{verified} on {card}")
-    return out, spans, launches
+    return out, spans, launches, resident
 
 
 def check_stream_golden(name, phase, card):
     """A stream cell at bench.py's CPU shape on the card against the JAX
     package's chains."""
     params, want_chain, want_fold = STREAM_GOLDENS[name]
-    out, _, _ = run_stream(params, f"{name} CPU shape", phase, card)
+    out, _, _, _ = run_stream(params, f"{name} CPU shape", phase, card)
     if (out["placement_chain"], out["fold_chain"]) != (want_chain,
                                                        want_fold):
         raise AssertionError(f"phase {phase}: {name} differs from the JAX "
                              f"package's chains {want_chain[:16]}, "
                              f"{want_fold[:16]}")
+
+
+# phase 21b: the resident step kernel against the torch step, in buckets of
+# RESIDENT_BUCKET pods (the twin's), RESIDENT_BUCKETS of them a cluster,
+# timed over RESIDENT_REPS replays of a bucket
+RESIDENT_BUCKET = 64
+RESIDENT_BUCKETS = 6
+RESIDENT_REPS = 20
+# its max |diff| and times, which the kernels line reads
+RESIDENT = {}
+
+
+class StepProgram:
+    """One route of the resident scan's step over buffers of its own (a
+    bucket's packed pod rows, its outputs, the pod counter t1), bound to
+    `statics` and `carry` and replayed as scan.ResidentScan replays it:
+    route "fused_step" (kernels/resident_step.py, at `geometry` or else the
+    largest cluster the card schedules; the bucket one CUDA graph) or
+    "torch_step" (scan.make_step; graphs of GRAPH_STEPS steps), whichever
+    scan.fused_step_eligible would pick."""
+
+    def __init__(self, route, config, statics, carry, bucket, geometry=None):
+        import torch
+
+        from tpusim_torch import scan
+        from tpusim_torch.kernels.resident_step import make_fused_step
+        from tpusim_torch.state import NUM_FIXED_BITS
+
+        dev = statics.alloc_cpu.device
+        n_scal = statics.alloc_scalar.shape[-1]
+        self.statics, self.carry, self.bucket = statics, carry, bucket
+        self.pods = torch.zeros((bucket, scan._pod_layout(n_scal)[1]),
+                                dtype=torch.int64, device=dev)
+        self.out = scan._outputs((bucket,), NUM_FIXED_BITS + n_scal, dev)
+        t1 = torch.zeros(1, dtype=torch.int64, device=dev)
+        if route == "fused_step":
+            self.step = make_fused_step(config, statics, self.pods, carry,
+                                        self.out, t1, geometry)
+            graph_steps = bucket
+        else:
+            self.step = scan.make_step(config, statics, self.pods, carry,
+                                       self.out, t1)
+            graph_steps = scan.GRAPH_STEPS
+        self.steps = scan._Steps(self.step, t1, graph_steps)
+
+    def run(self, rows):
+        """A bucket of pods (scan.PodX of host columns): its outputs."""
+        import torch
+
+        from tpusim_torch import scan
+
+        self.pods.copy_(scan._pack_pods(scan.PodX(*(
+            torch.from_numpy(np.asarray(c)) for c in rows))))
+        self.steps.run(self.bucket)
+        return self.out
+
+
+def step_routes(snapshot, pods, cuda, most_requested=False):
+    """Both routes' StepPrograms on two copies of the resident tensors of
+    the cluster (scan.statics_to, scan.carry_init on the card), and the
+    pods' buckets of host columns, the last padded with ghost rows."""
+    from tpusim_torch import scan
+    from tpusim_torch.config import config_for
+    from tpusim_torch.state import compile_cluster
+
+    compiled, cols = compile_cluster(snapshot, pods)
+    config = config_for(compiled, most_requested=most_requested)
+    statics = scan.statics_to(compiled, cuda)
+    xs = scan.pod_columns_to_host(cols)
+    p = len(np.asarray(xs.req_cpu))
+    xs = scan.pad_infeasible_rows(xs, (-p) % RESIDENT_BUCKET)
+    buckets = [scan.PodX(*(np.asarray(c)[k:k + RESIDENT_BUCKET]
+                           for c in xs))
+               for k in range(0, len(np.asarray(xs.req_cpu)),
+                              RESIDENT_BUCKET)]
+    routes = {route: StepProgram(route, config, statics,
+                                 scan.carry_init(compiled, cuda),
+                                 RESIDENT_BUCKET)
+              for route in ("fused_step", "torch_step")}
+    return config, routes, buckets
+
+
+def routes_diff(routes, rows):
+    """One bucket on both routes: the max |diff| over choices, counts,
+    advanced and every field of the two carries (rr included)."""
+    import torch
+
+    fused, plain = routes["fused_step"], routes["torch_step"]
+    got, want = fused.run(rows), plain.run(rows)
+    torch.cuda.synchronize()
+    diff = 0
+    for a, b in zip(tuple(got) + tuple(fused.carry),
+                    tuple(want) + tuple(plain.carry)):
+        d = (a.to(torch.int64) - b.to(torch.int64)).abs()
+        diff = max(diff, int(d.max()) if d.numel() else 0)
+    return diff
+
+
+def replayed_ms(program, rows, reps):
+    """ms a step of `program` over one bucket replayed from its captured
+    graph: CUDA events around each of `reps` buckets, the median (the
+    first run, which captures, untimed)."""
+    import torch
+
+    program.run(rows)
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        program.run(rows)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / program.bucket)
+    return float(np.median(times))
+
+
+def drive_resident_step(card):
+    """Phase 21b: the resident step kernel (csrc/resident_step.cu) held to
+    the torch step it replaces (scan.make_step) at tolerance 0 on the same
+    resident tensors: config 9's cluster at phase 21's 4,000 nodes with its
+    generator's pods, and the scheduler-perf-5000n cluster (5,000 nodes,
+    150,000 Running pods); RESIDENT_BUCKETS buckets back to back, outputs
+    and carry compared after each. Then on the 5,000-node cluster each
+    route's ms a step replayed, and the least ms a step (its bytes,
+    portbench/roofline.py, at the card's HBM bandwidth)."""
+    import torch
+
+    from portbench import roofline
+    from tpusim_torch import workloads
+    from tpusim_torch.api.snapshot import synthetic_cluster
+    from tpusim_torch.stream import ChurnLoadGen
+
+    cuda = torch.device("cuda")
+    snapshot = synthetic_cluster(STREAM_SIZES[1])
+    gen = ChurnLoadGen(snapshot, seed=STREAM_CONFIG9["seed"],
+                       arrivals=RESIDENT_BUCKET)
+    pods = [pod for _ in range(RESIDENT_BUCKETS) for pod in gen.batch()]
+    err = 0
+    for name, (snapshot, pods) in (
+            ("config9", (snapshot, pods)),
+            ("scheduler-perf-5000n", workloads.scheduler_perf_workload(
+                RESIDENT_BUCKETS * RESIDENT_BUCKET))):
+        _, routes, buckets = step_routes(snapshot, pods, cuda)
+        diffs = [routes_diff(routes, rows) for rows in buckets]
+        fused = routes["fused_step"]
+        g = fused.step.geometry
+        placed = int((fused.out.choices >= 0).sum())
+        print(f"phase 21b: resident step kernel vs torch step, {name} "
+              f"({fused.statics.alloc_cpu.shape[0]} nodes, {len(buckets)} "
+              f"buckets of {RESIDENT_BUCKET}, {g.cluster} CTAs x "
+              f"{g.threads} threads): max |diff| {max(diffs)} over "
+              f"outputs and carry, rr {int(fused.carry.rr)}, {placed} "
+              f"placed in the last bucket, on {card}")
+        if max(diffs) != 0 or placed == 0:
+            raise AssertionError(f"phase 21b: the routes differ on {name}: "
+                                 f"max |diff| {diffs}")
+        err = max(err, max(diffs))
+    ms = replayed_ms(fused, buckets[0], RESIDENT_REPS)
+    plain_ms = replayed_ms(routes["torch_step"], buckets[0], RESIDENT_REPS)
+    out_bytes = sum(int(t[0].numel()) * int(t.element_size())
+                    for t in fused.out)
+    step_bytes = roofline.step_bytes(fused.statics, fused.carry,
+                                     fused.pods[0], out_bytes)
+    peak = roofline.PEAKS[torch.cuda.get_device_name(0)]["hbm_bytes_per_s"]
+    bound_ms = step_bytes / peak * 1e3
+    RESIDENT.update(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+    print(f"phase 21b: resident step on scheduler-perf-5000n, a step "
+          f"replayed from a graph of {RESIDENT_BUCKET} (median of "
+          f"{RESIDENT_REPS}): {ms * 1e3:.2f} us, the torch step "
+          f"{plain_ms * 1e3:.2f} us; bound {bound_ms * 1e3:.3f} us "
+          f"({step_bytes} bytes at {peak / 1e12:.2f} TB/s) on {card}")
 
 
 # phase 21's config 9 stream arm at 4,000 nodes: its cycle p50 and its
@@ -2615,28 +2803,34 @@ def drive_stream_churn(card):
     big_mid = STREAM_SIZES[1]
     stream = {}
     for frac in STREAM_EVICT_CURVE:
-        out, spans, launches = run_stream(
+        out, spans, launches, (resident, steps) = run_stream(
             dict(STREAM_CONFIG9, num_nodes=big_mid, evict_fraction=frac),
             f"config9 stream arm, evict {frac}", 21, card)
         if out["restages"] != {"cold_start": 1} or launches:
             raise AssertionError("phase 21: the stream arm restaged past its "
                                  "cold start or launched the fused kernel")
+        # config 9 is group-free: every step of its twin is one launch of
+        # the resident step kernel
+        if not 0 < resident == steps:
+            raise AssertionError(f"phase 21: {resident} resident step "
+                                 f"launches for {steps} steps")
         if frac == STREAM_CONFIG9["evict_fraction"]:
             stream[big_mid] = out
             PHASE21["config9"] = {"p50": out["p50_cycle_ms"],
                                   "span": percentile(spans, 0.5)}
+            PHASE21["resident_launches"] = resident
     for n in STREAM_SIZES:
         if n not in stream:
-            stream[n], _, _ = run_stream(dict(STREAM_CONFIG9, num_nodes=n),
-                                         "config9 stream arm", 21, card)
-        restage, _, _ = run_stream(dict(STREAM_CONFIG9, num_nodes=n,
-                                        always_restage=True),
-                                   "config9 restage arm", 21, card)
+            stream[n], _, _, _ = run_stream(dict(STREAM_CONFIG9, num_nodes=n),
+                                            "config9 stream arm", 21, card)
+        restage, _, _, _ = run_stream(dict(STREAM_CONFIG9, num_nodes=n,
+                                           always_restage=True),
+                                      "config9 restage arm", 21, card)
         if restage["placement_chain"] != stream[n]["placement_chain"]:
             raise AssertionError(f"phase 21: the arms differ at {n} nodes")
-    got, _, _ = run_stream(dict(STREAM_CONFIG9, num_nodes=big_mid,
-                                cycles=STREAM_VERIFY_CYCLES, verify=True),
-                           "config9 verified", 21, card)
+    got, _, _, _ = run_stream(dict(STREAM_CONFIG9, num_nodes=big_mid,
+                                   cycles=STREAM_VERIFY_CYCLES, verify=True),
+                              "config9 verified", 21, card)
     if not got["verified"]:
         raise AssertionError(f"phase 21: {got['mismatched_cycles']} cycles "
                              "differ from a fresh TorchBackend.schedule")
@@ -2649,7 +2843,7 @@ def drive_policy_stream(card):
     pipelined and restage arms at every size (equal chains) and the CPU
     shape."""
     for label_churn, taint_churn in STREAM_CHURN_CURVE:
-        out, _, _ = run_stream(
+        out, _, _, _ = run_stream(
             dict(STREAM_CONFIG10, num_nodes=STREAM_SIZES[1],
                  label_churn=label_churn, taint_churn=taint_churn),
             f"config10 churn {label_churn}+{taint_churn}", 22, card)
@@ -2660,7 +2854,7 @@ def drive_policy_stream(card):
         for arm, extra in (("synchronous", {}),
                            ("pipelined", {"pipeline": True}),
                            ("restage", {"always_restage": True})):
-            out, _, _ = run_stream(
+            out, _, _, _ = run_stream(
                 dict(STREAM_CONFIG10, num_nodes=n, label_churn=2,
                      taint_churn=1, **extra), f"config10 {arm}", 22, card)
             chains.add((out["placement_chain"], out["fold_chain"]))
@@ -2709,8 +2903,8 @@ def drive_gang_stream(card):
 
     calls = []
     with device_routes_only(), timed_on_card(scan, "gang_select", calls):
-        out, _, launches = run_stream(STREAM_CONFIG13, "config13 gang stream",
-                                      23, card)
+        out, _, launches, _ = run_stream(STREAM_CONFIG13,
+                                         "config13 gang stream", 23, card)
     cycles = STREAM_CONFIG13["cycles"]
     if not out["verified"] or out["paths"] != {"gang": cycles} \
             or launches <= 0:
@@ -2855,6 +3049,7 @@ def drive_stream_phases(card):
     """Phases 21-24 inside STREAM_BUDGET_S."""
     t0 = time.perf_counter()
     drive_stream_churn(card)
+    drive_resident_step(card)
     drive_policy_stream(card)
     drive_gang_stream(card)
     drive_live_whatif(card)
@@ -5793,6 +5988,15 @@ def main():
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None,
         })
+    kernels.append({
+        "name": "resident_step", "route": "cuda",
+        "source": "tpusim_torch/csrc/resident_step.cu",
+        "replaces": "tpusim_torch/scan.py make_step (group-free)",
+        "launches": PHASE21["resident_launches"],
+        "max_abs_err": RESIDENT["err"], "ms": RESIDENT["ms"],
+        "plain_ms": RESIDENT["plain_ms"], "bound_ms": RESIDENT["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+    })
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f}s wall in all")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -45,6 +45,23 @@ SOURCES: Dict[str, Dict[str, list]] = {
         # variant, cluster, threads, dynamic shared bytes
         "tpusim_fastscan_max_clusters": [_I, _I, _I, _I],
     },
+    "resident_step.cu": {
+        "tpusim_resident_step": [
+            # the pods' rows, their width, the pod counter t1
+            _P, _I, _P,
+            # the statics (kernels/resident_step.py STATICS_READ order)
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+            # the carry (CARRY_WRITTEN order), rr last
+            _P, _P, _P, _P, _P, _P, _P, _P, _P,
+            # choices, counts, advanced
+            _P, _P, _P,
+            # nodes, scalar resources, reason bits; the six score weights
+            _I, _I, _I, _I, _I, _I, _I, _I, _I,
+            # the geometry: cluster, threads, dynamic shared bytes; stream
+            _I, _I, _I, _P],
+        # cluster, threads, dynamic shared bytes
+        "tpusim_resident_step_prepare": [_I, _I, _I],
+    },
 }
 
 _LOCK = threading.Lock()
@@ -74,9 +91,15 @@ def _compile_cmd(source: str, out: str) -> List[str]:
 def build_all(verbose: bool = False) -> None:
     """Compile every source that has no library yet, one nvcc per source,
     all started together."""
+    build(SOURCES, verbose)
+
+
+def build(sources, verbose: bool = False) -> None:
+    """Compile each of `sources` that has no library yet, one nvcc per
+    source, all started together."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = []
-    for source in SOURCES:
+    for source in sources:
         out = _library_path(source)
         if os.path.exists(out):
             continue
@@ -100,14 +123,15 @@ def build_all(verbose: bool = False) -> None:
 
 
 def load(source: str) -> ctypes.CDLL:
-    """The loaded library of one source, built first if need be."""
+    """The loaded library of one source, built first if need be (that
+    source alone: a first use compiles only what it loads)."""
     with _LOCK:
         lib = _LOADED.get(source)
         if lib is not None:
             return lib
         path = _library_path(source)
         if not os.path.exists(path):
-            build_all()
+            build([source])
         lib = ctypes.CDLL(path)
         for name, argtypes in SOURCES[source].items():
             fn = getattr(lib, name)

@@ -57,6 +57,11 @@ from tpusim_torch.engine.predicates import (
     POD_TOLERATES_NODE_NO_EXECUTE_TAINTS_PRED,
     POD_TOLERATES_NODE_TAINTS_PRED,
 )
+from tpusim_torch.kernels.resident_step import (
+    MAX_NODES,
+    MAX_SCALARS,
+    make_fused_step,
+)
 from tpusim_torch.packing import encode_gang_rank, encode_topk_keys
 from tpusim_torch.state import (
     BIT_AFFINITY_NOT_MATCH,
@@ -1979,19 +1984,55 @@ def apply_statics_delta_(statics: Statics, node_idx, d: StaticsDelta,
                                        dst))
 
 
+# the buckets the resident scans ran on the fused route this process, and
+# the kernel launches they made: one a step, so the buckets' steps
+# (ResidentScan.run), beside graphs_captured
+_FUSED = {"buckets": 0, "launches": 0}
+
+
+def fused_buckets() -> int:
+    return _FUSED["buckets"]
+
+
+def fused_launches() -> int:
+    return _FUSED["launches"]
+
+
+def fused_step_eligible(config: EngineConfig, shard: Optional[Shard],
+                        device, n_nodes: int, n_scalars: int) -> bool:
+    """Whether a resident scan takes the fused step (one launch of
+    csrc/resident_step.cu a step) in place of make_step: on a CUDA device,
+    unsharded, without a policy and without any pod-group feature (the
+    v1.10 DefaultProvider's group-free step), within the kernel's node axis
+    and scalar resources. Every other configuration runs make_step."""
+    return (torch.device(device).type == "cuda" and shard is None
+            and config.policy is None
+            and not (config.has_ports or config.has_services
+                     or config.has_interpod or config.has_disk_conflict
+                     or config.has_maxpd or config.has_vol_zone)
+            and n_nodes <= MAX_NODES and n_scalars <= MAX_SCALARS)
+
+
 class ResidentScan:
     """The exact scan over the streaming twin's resident tensors, as a
-    built program for one pod bucket: the step (make_step) bound to the
-    resident `carry` and `statics` and to buffers of its own for the
-    bucket's packed pod columns and outputs.
+    built program for one pod bucket: the step bound to the resident
+    `carry` and `statics` and to buffers of its own for the bucket's packed
+    pod columns and outputs.
+
+    The step is one of two routes, chosen when the program is built
+    (`route`): "fused_step", one launch of the hand-written kernel a step
+    (kernels/resident_step.py), where fused_step_eligible admits the
+    configuration; "torch_step", make_step's torch operations, everywhere
+    else. Both decide every pod alike, bit for bit.
 
     run() copies a bucket of pods in and scans them (_Steps: on a CUDA
     device with graph_steps > 0 its graph is captured on the first run and
-    replayed from then on), binding into the resident carry in place. The
-    graph reads and writes the tensors where they lie, so the commits
-    between cycles must patch them in place (apply_delta_,
-    apply_statics_delta_, overlay_restore_): a rebinding such as
-    carry = Carry(...) would leave the graph reading stale buffers.
+    replayed from then on; the fused route captures the whole bucket in
+    one graph), binding into the resident carry in place. The graph reads
+    and writes the tensors where they lie, so the commits between cycles
+    must patch them in place (apply_delta_, apply_statics_delta_,
+    overlay_restore_): a rebinding such as carry = Carry(...) would leave
+    the graph reading stale buffers.
 
     With `shard` the carry and statics are this rank's block of the
     node-sharded twin and the step is the sharded one (make_step's, as
@@ -2006,11 +2047,22 @@ class ResidentScan:
                                 device=dev)
         self.out = _outputs((bucket,), NUM_FIXED_BITS + n_scal, dev)
         t1 = torch.zeros(1, dtype=I64, device=dev)
-        # the node-sharded step (the one sharded_scan_fn runs) is eager:
-        # gloo's collectives cannot be captured in a CUDA graph
-        self._steps = _Steps(make_step(config, statics, self.pods, carry,
-                                       self.out, t1, shard=shard), t1,
-                             graph_steps if shard is None else 0)
+        if fused_step_eligible(config, shard, dev, statics.alloc_cpu.shape[0],
+                               n_scal):
+            self.route = "fused_step"
+            step = make_fused_step(config, statics, self.pods, carry,
+                                   self.out, t1)
+            # one launch a step: the bucket is one graph
+            graph_steps = bucket if graph_steps > 0 else 0
+        else:
+            self.route = "torch_step"
+            step = make_step(config, statics, self.pods, carry, self.out, t1,
+                             shard=shard)
+            # the node-sharded step (the one sharded_scan_fn runs) is
+            # eager: gloo's collectives cannot be captured in a CUDA graph
+            if shard is not None:
+                graph_steps = 0
+        self._steps = _Steps(step, t1, graph_steps)
 
     @property
     def graph_captured(self) -> bool:
@@ -2023,6 +2075,9 @@ class ResidentScan:
         self.pods.copy_(_pack_pods(PodX(*(torch.from_numpy(np.asarray(c))
                                           for c in xs_host))))
         self._steps.run(self.pods.shape[0])
+        if self.route == "fused_step":
+            _FUSED["buckets"] += 1
+            _FUSED["launches"] += self.pods.shape[0]
         return self.out
 
 

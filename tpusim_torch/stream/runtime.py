@@ -259,6 +259,8 @@ class DeviceResidentCluster:
         self.mesh = None
         self.shard = None
         self._programs: Dict[int, ResidentScan] = {}
+        # the route of the last scan's program (ResidentScan.route)
+        self.last_route: Optional[str] = None
 
     @property
     def valid(self) -> bool:
@@ -334,6 +336,7 @@ class DeviceResidentCluster:
                                    bucket, graph_steps=GRAPH_STEPS,
                                    shard=self.shard)
             self._programs[bucket] = program
+        self.last_route = program.route
         if self.shard is None:
             return program.run(xs_host)
         with flight.span("shard:scan", "device", self.device) as sp:
@@ -852,6 +855,7 @@ class StreamSession:
                                          len(compiled.statics.names))
         if dsp:
             dsp.set("pods", len(pods))
+            dsp.set("route", self.device.last_route)
             dsp.end()
         metrics.backend_dispatch_latency.observe(since_in_microseconds(t0))
         metrics.scheduling_algorithm_latency.observe(
@@ -1136,6 +1140,7 @@ class StreamSession:
         fetch = _Fetch(self.device.scan(xs_host), len(pods))
         if dsp:
             dsp.set("pods", len(pods))
+            dsp.set("route", self.device.last_route)
             dsp.end()
         # the reduction is launched behind the scan and reads nothing
         # back, so the overlap stays
@@ -1339,8 +1344,11 @@ class StreamSession:
             corrupt_kind = (injector.begin_dispatch()
                             if injector is not None else None)
             xs_host = self._xs_host(pods, cols)
-            with flight.span("overlay_scan", "device", self.torch_device):
+            with flight.span("overlay_scan", "device",
+                             self.torch_device) as sp:
                 choices, counts = _Fetch(dev.scan(xs_host), len(pods)).get()
+                if sp:
+                    sp.set("route", dev.last_route)
         except Exception as exc:
             inc.journal_rollback(mark)
             dev.invalidate()

@@ -4,7 +4,8 @@ with Services, host ports and pod volumes), the inter-pod workload (config 3
 with pod (anti)affinity on zone and rack keys), the policy workload (the
 groups workload under the upstream 1.2 scheduler Policy), the hostname
 workload (config 3 with the documentation's two-tier hostname terms), the
-streaming cells' cluster and policy (bench configs 10 and 13), plus random
+streaming cells' cluster and policy (bench configs 10 and 13), upstream
+scheduler_perf's templates (the scheduler-perf-5000n cluster), plus random
 workloads and policies for kernel checks.
 
 `api` is the module whose make_node / make_pod / ClusterSnapshot build the
@@ -372,6 +373,25 @@ def uniform_workload(num_pods: int, num_nodes: int, api=None):
     pods = [api.make_pod(f"p-{i}", milli_cpu=1000, memory=1 * 2**30)
             for i in range(num_pods)]
     return api.ClusterSnapshot(nodes=nodes), pods
+
+
+def scheduler_perf_workload(num_pods: int, num_nodes: int = 5_000,
+                            running_per_node: int = 30, api=None):
+    """Upstream scheduler_perf's node template (4 cpu, 32Gi, 110 pods) and
+    pod template (requests 100m, 500Mi): `num_nodes` nodes holding
+    `running_per_node` Running pods each, and `num_pods` pending pods. At
+    the defaults, the cluster of the `scheduler-perf-5000n` configuration
+    (5,000 nodes, 150,000 Running pods)."""
+    api = _api(api)
+    nodes = [api.make_node(f"node-{i}", milli_cpu=4000, memory=32 * 2**30,
+                           pods=110) for i in range(num_nodes)]
+    running = [api.make_pod(f"run-{k}", milli_cpu=100, memory=500 * 2**20,
+                            node_name=f"node-{k % num_nodes}",
+                            phase="Running")
+               for k in range(running_per_node * num_nodes)]
+    pods = [api.make_pod(f"p-{k}", milli_cpu=100, memory=500 * 2**20)
+            for k in range(num_pods)]
+    return api.ClusterSnapshot(nodes=nodes, pods=running), pods
 
 
 SCALAR_NAMES = ("example.com/fpga", "example.com/nic")
